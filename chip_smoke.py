@@ -6,24 +6,42 @@
 Phases; any failure exits non-zero:
 
 1. build every CUDA kernel of the port from the sources in the checkout
-   (``build/cuda/``, keyed by a hash of the sources) and print the card's
-   name and power limit;
-2. hold each kernel against its plain PyTorch version on the card, at the
-   serving slice's shapes, over the KV formats (4,3), (5,2), (8,23),
-   blocked (4,3) with block 32, and (4,3) with NaN-coded bytes past every
-   slot's last live position: digests bitwise, attention within
-   ``ATTN_ATOL``/``ATTN_RTOL``; time the kernel, the plain version and one
-   library call (attention only — not the same function);
-3. serve a 16-request mixed trace end to end at the full width of the
+   (``build/cuda/``, keyed by a hash of the sources, one nvcc per source,
+   all started together) and print the card's name and power limit;
+2. hold the fused attention kernel (K12) against its plain PyTorch
+   version on the card, at the serving slice's shapes, over the KV formats
+   (4,3), (5,2), (8,23), blocked (4,3) with block 32, and (4,3) with
+   NaN-coded bytes past every slot's last live position: digests bitwise,
+   attention within ``ATTN_ATOL``/``ATTN_RTOL``; time the kernel, the
+   plain version and one library call (attention only — not the same
+   function);
+3. hold the quantize kernels (K1 cast, K3 add-and-cast, K6 first ring
+   hop, K5 later ring hop) against their plain versions, BITWISE (fp32
+   outputs, wire bytes, digests), at one ring chunk of the training slice
+   and at an odd length, over the formats (5,2), (4,3), (5,7), (6,17) and,
+   for K1/K3, (8,23) and (5,1); inputs at an APS-like scale plus a block
+   of special values; time each kernel and its plain version over input
+   sets that together hold twice the L2, so the inputs come from HBM;
+4. serve a 16-request mixed trace end to end at the full width of the
    repo's transformer LM (vocab 32000, d_model 512, 4 layers, 8 heads,
    2 kv heads, d_ff 2048; random weights from a seeded generator) with
    ``fused_attn=True``, check every request finished and the kernel ran
    once per layer per decode step, then serve the same trace with the
    plain read path and require the same tokens and logits within
    ``LOGIT_ATOL``;
-4. profile 30 engine steps of a fresh fused engine (device busy share,
+5. profile 30 engine steps of a fresh fused engine (device busy share,
    kernel launches and the heaviest kernels per step);
-5. print one JSON line ``{"kernels": [...]}`` and, last,
+6. train full-width ResNet-18/CIFAR (11.2 M parameters, weights from
+   seed 24) on a `LocalMesh` of 4 data-parallel ranks on the card, batch
+   128 per rank on the synthetic CIFAR-10 with the port's sampler and
+   augmentation: 5 steps of the APS (5,2) RTNE ring reduce through the
+   kernels, then the same 5 steps from the same start through the plain
+   versions — losses, weights and BN stats bitwise equal; one step's
+   gradients through the ring equal `ring_oracle_sum` bitwise, and through
+   the faithful reduce (K3 on the slice's buckets) equal with the kernels
+   and with the plain versions; the kernels' launch counts as designed;
+   then 3 iterations of the trainer CLI in faithful mode (K3);
+7. print one JSON line ``{"kernels": [...]}`` and, last,
    ``{"ok": true, "device": {...}}``.
 
 The script imports neither jax nor the JAX package.
@@ -31,7 +49,9 @@ The script imports neither jax nor the JAX package.
 
 from __future__ import annotations
 
+import itertools
 import json
+import math
 import subprocess
 import sys
 
@@ -59,6 +79,28 @@ TRACE = dict(n_requests=16, prompt_lens=(64, 128, 256), max_new=(64, 128),
 # tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+
+# the training slice: full-width ResNet-18/CIFAR, W ranks on the one card
+TRAIN = dict(world=4, per_rank_batch=128, steps=5, fmt=(5, 2), seed=24,
+             n_train=50000, n_test=10000, peak_lr=1.6, cli_iters=3)
+QUANT_ODD_N = 1_000_003
+WIRE_FORMATS = ((5, 2), (4, 3), (5, 7), (6, 17))
+CAST_FORMATS = WIRE_FORMATS + ((8, 23), (5, 1))
+# K1/K3/K5/K6: the TPU kernel each replaces, and the bytes one element
+# moves (each input read once, each output written once; wb = wire bytes)
+QUANT_KERNELS = {
+    "quantize_cast": ("cpd_tpu/ops/quantize.py:69", lambda wb: 8),
+    "quantize_add": ("cpd_tpu/ops/quantize.py:107", lambda wb: 12),
+    "quantize_pack": ("cpd_tpu/ops/quantize.py:634", lambda wb: 8 + wb),
+    "hop_pack": ("cpd_tpu/ops/quantize.py:512", lambda wb: 2 * (4 + wb)),
+}
+# fp32 operations per element (the cast's exact power-of-two multiplies
+# and the adds; its integer bit arithmetic has no row in the peak table)
+QUANT_FLOPS = {"quantize_cast": 2, "quantize_add": 3, "quantize_pack": 2,
+               "hop_pack": 5}
+NO_LIBRARY = ("no PyTorch call computes the eXmY cast: .to(torch.float8_*) "
+              "rounds and saturates differently, so it is not the same "
+              "function")
 
 KV_CASES = (("e4m3", (4, 3), None, False),
             ("e5m2", (5, 2), None, False),
@@ -97,6 +139,29 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Device time of the kernels one ``fn()`` call launches, summed and
+    averaged over ``iters`` calls under torch.profiler.  Unlike
+    `time_ms`, host dispatch between back-to-back calls does not count."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    if busy_us <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return busy_us / 1e3 / iters
 
 
 def kv_case(cfg, n_slots: int, max_pages: int, nan_tail: bool,
@@ -235,6 +300,181 @@ def kernel_phase(device) -> dict:
     return report
 
 
+def same_bits(a, b) -> bool:
+    """Bitwise equality of two tensors (NaN payloads and -0.0 count)."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dim() == 0:
+        return bool(a == b)
+    return torch.equal(a.contiguous().view(torch.uint8),
+                       b.contiguous().view(torch.uint8))
+
+
+def max_abs_diff(a, b) -> float:
+    """Largest ``|a - b|`` over the elements in float64; elements that are
+    equal, or NaN in both, count 0 (a NaN against a number counts Inf)."""
+    import torch
+
+    a, b = a.to(torch.float64), b.to(torch.float64)
+    d = torch.nan_to_num((a - b).abs(), nan=math.inf)
+    d = torch.where((a == b) | (a.isnan() & b.isnan()), 0.0, d)
+    return float(d.max()) if d.numel() else 0.0
+
+
+def l2_bytes() -> int:
+    """The card's L2 size (50 MB on an H100 SXM where torch does not say)."""
+    import torch
+
+    return int(getattr(torch.cuda.get_device_properties(0),
+                       "L2_cache_size", 50 * 2**20))
+
+
+def quant_inputs(n: int, fmt, generator, device):
+    """Gradients at an APS-like scale (the format's top octaves down to
+    2^-20 below them), with a block of special values at the front: ±0,
+    ±Inf, NaN, fp32 subnormals, values at and just past the format max
+    (which round up and carry)."""
+    import torch
+
+    from cpd_tpu_torch.quant.numerics import max_finite
+
+    mf = max_finite(*fmt)
+    ulp = 2.0 ** (math.floor(math.log2(mf)) - fmt[1])
+    x = torch.randn(n, generator=generator, device=device) * (mf / 8)
+    x = x * torch.exp2(torch.randint(-20, 1, (n,), generator=generator,
+                                     device=device).float())
+    special = torch.tensor(
+        [0.0, -0.0, math.inf, -math.inf, math.nan, 1e-45, -1e-45, 2.0**-127,
+         -(2.0**-130), 2.0**-126, mf, -mf, mf + ulp / 4, mf + ulp / 2,
+         -(mf + ulp / 2), mf + ulp, 1.0, -1.5], dtype=torch.float64)
+    k = min(n, special.numel())
+    x[:k] = special[:k].to(torch.float32).to(device)
+    return x
+
+
+def ring_chunk_of_slice(device) -> int:
+    """Elements of one ring chunk on the training slice's main path: the
+    largest 4 Mi-element bucket of ResNet-18's gradients over W ranks."""
+    from cpd_tpu_torch.models.resnet_cifar import resnet18_cifar
+    from cpd_tpu_torch.parallel.overlap import (DEFAULT_BUCKET_ELEMS,
+                                                bucket_layout)
+    from cpd_tpu_torch.parallel.ring import ring_chunk_size
+
+    sizes = [p.numel() for p in resnet18_cifar(device=device).parameters()]
+    biggest = max(sum(sizes[i] for i in b)
+                  for b in bucket_layout(sizes, DEFAULT_BUCKET_ELEMS))
+    return ring_chunk_size(biggest, TRAIN["world"])
+
+
+def quantize_phase(device) -> dict:
+    """Phase 3: K1, K3, K6 and K5 against their plain versions, bitwise,
+    over every format and size case; timed at (5, 2) on one ring chunk."""
+    import torch
+
+    from cpd_tpu_torch.ops import quantize as tq
+    from cpd_tpu_torch.quant.numerics import wire_bytes
+
+    chunk = ring_chunk_of_slice(device)
+    gen = torch.Generator(device=device).manual_seed(99)
+    cases = 0
+    errs = dict.fromkeys(QUANT_KERNELS, 0.0)
+    for n in (chunk, QUANT_ODD_N):
+        for fmt in CAST_FORMATS:
+            x = quant_inputs(n, fmt, gen, device)
+            y = quant_inputs(n, fmt, gen, device).flip(0)
+            pairs = [("quantize_cast", tq.quantize_cast(x, *fmt),
+                      tq.quantize_cast_ref(x, *fmt)),
+                     ("quantize_add", tq.quantize_add(x, y, *fmt),
+                      tq.quantize_add_ref(x, y, *fmt))]
+            if fmt in WIRE_FORMATS:
+                first = tq.quantize_pack(x, *fmt, want_digest=True)
+                pairs += [("quantize_pack", a, b) for a, b in zip(
+                    first, tq.quantize_pack_ref(x, *fmt, want_digest=True))]
+                pairs += [("quantize_pack", a, b) for a, b in zip(
+                    tq.quantize_pack(x, *fmt),
+                    tq.quantize_pack_ref(x, *fmt))]
+                for dig in (True, False):
+                    pairs += [("hop_pack", a, b) for a, b in zip(
+                        tq.hop_pack(first[1], y, *fmt, want_digest=dig),
+                        tq.hop_pack_ref(first[1], y, *fmt,
+                                        want_digest=dig))]
+            torch.cuda.synchronize()
+            for name, got, want in pairs:
+                if not same_bits(got, want):
+                    raise AssertionError(f"{name} n={n} {fmt}: differs from "
+                                         "its plain version")
+                errs[name] = max(errs[name], max_abs_diff(got, want))
+                cases += 1
+    print(f"kernel quantize: {cases} outputs of K1/K3/K6/K5 bitwise equal "
+          f"to their plain versions (n = {chunk} and {QUANT_ODD_N}; formats "
+          f"{list(CAST_FORMATS)}, wire kernels on {list(WIRE_FORMATS)})",
+          flush=True)
+
+    fmt = TRAIN["fmt"]
+    wb = wire_bytes(*fmt)
+    # Timed launches cycle over input sets that together hold at least
+    # twice the L2, so each launch reads its inputs from HBM, as the
+    # byte bound assumes.
+    set_bytes = (4 + 4 + wb) * chunk
+    n_sets = -(-2 * l2_bytes() // set_bytes) + 1
+    sets = []
+    for _ in range(n_sets):
+        x = quant_inputs(chunk, fmt, gen, device)
+        y = quant_inputs(chunk, fmt, gen, device)
+        sets.append((x, y, tq.quantize_pack(y, *fmt)[1]))
+
+    def rotating(fn):
+        it = itertools.cycle(sets)
+        return lambda: fn(*next(it))
+
+    # (the main path's call, its plain version, the digesting form)
+    calls = {
+        "quantize_cast": (lambda x, y, w: tq.quantize_cast(x, *fmt),
+                          lambda x, y, w: tq.quantize_cast_ref(x, *fmt),
+                          None),
+        "quantize_add": (lambda x, y, w: tq.quantize_add(x, y, *fmt),
+                         lambda x, y, w: tq.quantize_add_ref(x, y, *fmt),
+                         None),
+        "quantize_pack": (
+            lambda x, y, w: tq.quantize_pack(x, *fmt),
+            lambda x, y, w: tq.quantize_pack_ref(x, *fmt),
+            lambda x, y, w: tq.quantize_pack(x, *fmt, want_digest=True)),
+        "hop_pack": (
+            lambda x, y, w: tq.hop_pack(w, x, *fmt),
+            lambda x, y, w: tq.hop_pack_ref(w, x, *fmt),
+            lambda x, y, w: tq.hop_pack(w, x, *fmt, want_digest=True)),
+    }
+    report = {}
+    for name, (kernel, plain, digest) in calls.items():
+        t_bytes = QUANT_KERNELS[name][1](wb) * chunk / PEAK_BYTES_PER_S
+        t_ops = QUANT_FLOPS[name] * chunk / PEAK_FP32_FLOPS
+        # ms: the kernel's device time; call_ms: back-to-back wrapper calls
+        # timed with CUDA events, host dispatch included
+        report[name] = dict(
+            n=chunk, input_sets=n_sets, max_abs_err=errs[name],
+            ms=device_ms(rotating(kernel), iters=100),
+            plain_ms=device_ms(rotating(plain), iters=20),
+            call_ms=time_ms(rotating(kernel), iters=200),
+            plain_call_ms=time_ms(rotating(plain), iters=20),
+            bound_ms=max(t_bytes, t_ops) * 1e3,
+            bound_by="bytes" if t_bytes >= t_ops else "operations")
+        if digest is not None:
+            report[name]["ms_with_digest"] = device_ms(rotating(digest),
+                                                       iters=100)
+        r = report[name]
+        print(f"kernel {name} [{fmt}, n={chunk}, {n_sets} input sets]: "
+              f"kernel_ms {r['ms']:.5f} plain_ms {r['plain_ms']:.5f} "
+              f"(device time) bound_ms {r['bound_ms']:.6f} ({r['bound_by']})"
+              + (f" with digests {r['ms_with_digest']:.5f}"
+                 if "ms_with_digest" in r else "")
+              + f"; per call with host dispatch {r['call_ms']:.5f}, plain "
+              f"{r['plain_call_ms']:.5f}; library_ms null ({NO_LIBRARY})",
+              flush=True)
+    return report
+
+
 def run_engine(model, trace, fused: bool, device):
     import torch
 
@@ -366,6 +606,232 @@ def profile_phase(device, steps: int = 30, warmup: int = 10) -> dict:
     return out
 
 
+def kernel_counters() -> dict:
+    """The launch counters of every kernel wrapper of the port."""
+    from cpd_tpu_torch.ops import quantize as tq
+    from cpd_tpu_torch.ops import serve_attn
+
+    return {"serve_attn": serve_attn.fused_gather_attention,
+            "quantize_cast": tq.quantize_cast, "quantize_add": tq.quantize_add,
+            "quantize_pack": tq.quantize_pack, "hop_pack": tq.hop_pack}
+
+
+def reset_counts() -> None:
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: fn.launches for k, fn in kernel_counters().items()}
+
+
+def train_run(device, batches, mesh, fused):
+    """``TRAIN["steps"]`` ring + APS steps from the seed-24 weights; returns
+    the model, the per-step losses and the per-step host seconds."""
+    import torch
+
+    from cpd_tpu_torch.models.resnet_cifar import resnet18_cifar
+    from cpd_tpu_torch.obs.timing import now
+    from cpd_tpu_torch.train import (create_train_state, make_train_step,
+                                     sgd, warmup_step_decay)
+
+    gen = torch.Generator(device=device).manual_seed(TRAIN["seed"])
+    model = resnet18_cifar(device=device).init_weights(gen)
+    ipe = math.ceil(TRAIN["n_train"]
+                    / (TRAIN["world"] * TRAIN["per_rank_batch"]))
+    peak = TRAIN["peak_lr"]
+    opt = sgd(warmup_step_decay(peak, 5 * ipe, [40 * ipe, 80 * ipe],
+                                warmup_from=peak / 16.0),
+              momentum=0.9, weight_decay=1e-4)
+    state = create_train_state(model, opt)
+    step = make_train_step(model, opt, mesh, mode="ring", use_aps=True,
+                           grad_exp=TRAIN["fmt"][0], grad_man=TRAIN["fmt"][1],
+                           fused=fused)
+    losses, secs = [], []
+    for bx, by in batches:
+        torch.cuda.synchronize()
+        t0 = now()
+        state, metrics = step(state, bx, by)
+        torch.cuda.synchronize()
+        secs.append(now() - t0)
+        losses.append(metrics["loss"].clone())
+    return model, state, step, losses, secs
+
+
+def step_profile(step, state, batch) -> dict:
+    """Device ms per step by kernel, summed kernel launches per step, over
+    one profiled train step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state, *batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    names = {"quantize_cast": "cast_kernel<false>",
+             "quantize_add": "cast_kernel<true>",
+             "quantize_pack": "wire_kernel<true>",
+             "hop_pack": "wire_kernel<false>"}
+    out = {k: sum(e.self_device_time_total for e in kernels if v in e.key)
+           / 1e3 for k, v in names.items()}
+    out["device_busy_ms"] = sum(e.self_device_time_total
+                                for e in kernels) / 1e3
+    out["kernel_launches"] = sum(e.count for e in kernels)
+    return out
+
+
+def train_phase(device) -> dict:
+    """Phase 6: the training slice end to end, kernels vs plain versions,
+    the ring vs its oracle, the launch design, then the trainer CLI."""
+    import torch
+
+    from cpd_tpu_torch.data import (CIFAR10Pipeline,
+                                    DistributedGivenIterationSampler,
+                                    synthetic_cifar10)
+    from cpd_tpu_torch.examples.resnet18_cifar import train as cli
+    from cpd_tpu_torch.obs.timing import now
+    from cpd_tpu_torch.ops import quantize as tq
+    from cpd_tpu_torch.parallel.aps import (aps_max_exponents, aps_scale,
+                                            aps_shift_factors)
+    from cpd_tpu_torch.parallel.dist import sum_gradients
+    from cpd_tpu_torch.parallel.mesh import data_parallel_mesh
+    from cpd_tpu_torch.parallel.overlap import (DEFAULT_BUCKET_ELEMS,
+                                                bucket_layout)
+    from cpd_tpu_torch.parallel.ring import (ring_oracle_sum,
+                                             ring_quantized_sum)
+    from cpd_tpu_torch.quant.numerics import cast_body
+    from cpd_tpu_torch.train import as_batch, fp32_numerics, local_gradients
+
+    w, steps, fmt = TRAIN["world"], TRAIN["steps"], TRAIN["fmt"]
+    global_batch = w * TRAIN["per_rank_batch"]
+    train_x, train_y, _, _ = synthetic_cifar10(TRAIN["n_train"],
+                                               TRAIN["n_test"])
+    pipe = CIFAR10Pipeline(train_x, train_y, global_batch, augment=True,
+                           cutout=0)
+    sampler = DistributedGivenIterationSampler(len(train_y), steps,
+                                               global_batch, seed=0)
+    batches = [pipe.batch(idx, seed=0) for idx in sampler.batches()]
+    mesh = data_parallel_mesh(w, device)
+
+    reset_counts()
+    model, state, step, losses, secs = train_run(device, batches, mesh, None)
+    counts = read_counts()
+    sizes = [p.numel() for p in model.parameters()]
+    n_buckets = len(bucket_layout(sizes, DEFAULT_BUCKET_ELEMS))
+    want = {"serve_attn": 0, "quantize_add": 0,
+            "quantize_cast": steps * w * len(sizes),
+            "quantize_pack": steps * w * n_buckets,
+            "hop_pack": steps * w * (w - 1) * n_buckets}
+    if counts != want:
+        raise AssertionError(f"kernel launches {counts} != the design's "
+                             f"{want} ({steps} steps, W={w}, {n_buckets} "
+                             f"buckets, {len(sizes)} leaves)")
+    loss_f = [float(v) for v in losses]
+    if not all(math.isfinite(v) for v in loss_f):
+        raise AssertionError(f"non-finite training loss: {loss_f}")
+
+    plain_model, _, _, plain_losses, plain_secs = train_run(
+        device, batches, mesh, False)
+    for i, (a, b) in enumerate(zip(losses, plain_losses)):
+        if not same_bits(a, b):
+            raise AssertionError(f"step {i}: loss {float(a)!r} with the "
+                                 f"kernels, {float(b)!r} with the plain "
+                                 "versions")
+    for (name, a), b in zip(model.state_dict().items(),
+                            plain_model.state_dict().values()):
+        if not same_bits(a, b):
+            raise AssertionError(f"after {steps} steps {name} differs "
+                                 "between the kernel and the plain run")
+    print(f"train: {steps} ring+APS {fmt} steps at W={w}: losses, weights "
+          f"and BN stats bitwise equal with the kernels and with the plain "
+          f"versions; losses {loss_f}", flush=True)
+
+    # one step's gradients through the ring (kernels) vs the oracle
+    x, y = as_batch(*batches[0], device)
+    with fp32_numerics():
+        grads = local_gradients(model, x, y, mesh)[0]
+    shifts = mesh.max([aps_max_exponents(g, w) for g in grads])
+    cast = [[cast_body(q, *fmt) for q in aps_scale(g, aps_shift_factors(
+        s, fmt[0]))] for g, s in zip(grads, shifts)]
+    for b in bucket_layout(sizes, DEFAULT_BUCKET_ELEMS):
+        flats = [torch.cat([leaves[i].reshape(-1) for i in b])
+                 for leaves in cast]
+        oracle = ring_oracle_sum(torch.stack(flats), *fmt)
+        for got in ring_quantized_sum(flats, mesh, *fmt):
+            if not same_bits(got, oracle):
+                raise AssertionError(f"bucket {b[0]}..{b[-1]}: the ring "
+                                     "differs from ring_oracle_sum")
+    print(f"train: one step's APS-cast gradients, {n_buckets} buckets: "
+          "ring_quantized_sum on the card == ring_oracle_sum bitwise",
+          flush=True)
+
+    # K3 at the shapes its own path gives it: the same gradients through
+    # the faithful reduce (W partials per bucket, one launch each) with
+    # the kernels and with the plain versions
+    kw = dict(use_aps=True, grad_exp=fmt[0], grad_man=fmt[1],
+              mode="faithful")
+    k3_before = tq.quantize_add.launches
+    got = sum_gradients(grads, mesh, fused=None, **kw)[0]
+    k3_launches = tq.quantize_add.launches - k3_before
+    if k3_launches != w * n_buckets:
+        raise AssertionError(f"faithful reduce launched K3 {k3_launches} "
+                             f"times, not W x buckets = {w * n_buckets}")
+    want_red = sum_gradients(grads, mesh, fused=False, **kw)[0]
+    k3_err = 0.0
+    for (name, _), a, b in zip(model.named_parameters(), got, want_red):
+        if not same_bits(a, b):
+            raise AssertionError(f"faithful reduce of {name}: the kernels "
+                                 "differ from the plain versions")
+        k3_err = max(k3_err, max_abs_diff(a, b))
+    print(f"train: the same gradients through the faithful reduce, "
+          f"{n_buckets} buckets x W={w} K3 launches: bitwise equal with "
+          "the kernels and with the plain versions", flush=True)
+
+    # the split of one step (host clock, synchronised between parts)
+    with fp32_numerics():
+        torch.cuda.synchronize()
+        t0 = now()
+        grads = local_gradients(model, x, y, mesh)[0]
+        torch.cuda.synchronize()
+        t1 = now()
+        sum_gradients(grads, mesh, use_aps=True, grad_exp=fmt[0],
+                      grad_man=fmt[1], mode="ring")
+        torch.cuda.synchronize()
+        t2 = now()
+    split = dict(fwd_bwd_ms=(t1 - t0) * 1e3, reduce_ms=(t2 - t1) * 1e3)
+    prof = step_profile(step, state, batches[0])
+    step_s = sum(secs[1:]) / (len(secs) - 1)
+    out = dict(
+        world=w, global_batch=global_batch, steps=steps, losses=loss_f,
+        step_ms=step_s * 1e3, images_per_s=global_batch / step_s,
+        plain_step_ms=sum(plain_secs[1:]) / (len(plain_secs) - 1) * 1e3,
+        n_buckets=n_buckets, n_leaves=len(sizes),
+        launches=counts, launches_per_step={k: v // steps
+                                            for k, v in counts.items()},
+        faithful_k3=dict(launches=k3_launches, max_abs_err=k3_err),
+        **split, profile=prof)
+    print("train: " + json.dumps(out), flush=True)
+
+    reset_counts()
+    t0 = now()
+    rc = cli.main(["--mode", "faithful", "--use_APS", "--grad_exp",
+                   str(fmt[0]), "--grad_man", str(fmt[1]), "--max-iter",
+                   str(TRAIN["cli_iters"])])
+    cli_counts = read_counts()
+    if rc != 0 or cli_counts["quantize_add"] == 0:
+        raise AssertionError(f"trainer CLI returned {rc}, launches "
+                             f"{cli_counts}")
+    out["cli"] = dict(rc=rc, seconds=now() - t0, launches=cli_counts,
+                      quantize_add_per_iter=cli_counts["quantize_add"]
+                      // TRAIN["cli_iters"])
+    print("train cli: " + json.dumps(out["cli"]), flush=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -391,13 +857,16 @@ def main() -> int:
     t0 = now()
     build_all()
     print(f"build: all kernels in {now() - t0:.1f} s", flush=True)
-    for line in build_log("serve_attn").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}", flush=True)
+    for name in ("serve_attn", "quantize"):
+        for line in build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}", flush=True)
 
     kern = kernel_phase(device)
+    quant = quantize_phase(device)
     serve = serve_phase(device)
     profile_phase(device)
+    train = train_phase(device)
 
     main_case = kern["cases"]["e4m3"]
     kernels = [dict(
@@ -413,6 +882,30 @@ def main() -> int:
                f"{ATTN_ATOL} rtol {ATTN_RTOL} in every case",
         cases={k: {"max_abs_err": c["max_abs_err"], "ms": c["ms"]}
                for k, c in kern["cases"].items()})]
+    for name, (replaces, _) in QUANT_KERNELS.items():
+        q = quant[name]
+        # K3 runs on the faithful path: its launches are the trainer CLI's
+        launches = (train["cli"]["launches"][name] if name == "quantize_add"
+                    else train["launches"][name])
+        per_step = (train["cli"]["quantize_add_per_iter"]
+                    if name == "quantize_add"
+                    else train["launches_per_step"][name])
+        err = q["max_abs_err"]
+        parity = ("bitwise (fp32 outputs, wire bytes, digests) in every "
+                  "format and size case")
+        if name == "quantize_add":
+            err = max(err, train["faithful_k3"]["max_abs_err"])
+            parity += ", and on the faithful reduce's buckets at W=4"
+        kernels.append(dict(
+            name=name, route="cuda", source="cpd_tpu_torch/csrc/quantize.cu",
+            replaces=replaces, launches=launches,
+            launches_per_step=per_step, max_abs_err=err, ms=q["ms"],
+            plain_ms=q["plain_ms"], call_ms=q["call_ms"],
+            plain_call_ms=q["plain_call_ms"], bound_ms=q["bound_ms"],
+            bound_by=q["bound_by"], library_ms=None, library_note=NO_LIBRARY,
+            parity=parity,
+            **({"ms_with_digest": q["ms_with_digest"]}
+               if "ms_with_digest" in q else {})))
     print(card, flush=True)      # exactly as nvidia-smi gives it
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,153 @@
+"""Low-precision gradient all-reduce (port of `cpd_tpu/parallel/dist.py`:
+modes ``faithful`` and ``ring``, APS, RTNE).
+
+`sum_gradients` takes each local rank's gradient leaves — a list per
+rank of fp32 tensors, in one fixed leaf order — and returns each rank's
+reduced leaves: the SUM over the mesh's ranks (trainers divide the loss
+by the world size, so the sum is the mean).  The pipeline:
+
+    [APS: rank-MAX'd per-leaf max exponent -> shift by 2^k -> cast]
+    -> ordered requantizing reduction -> [APS: divide by 2^k]
+
+* ``faithful`` — all-gather the fp32 gradients, then the rank-ordered
+  requantizing scan (`reduction.quantized_sum`), one per bucket;
+* ``ring`` — the bit-packed reduce-scatter + all-gather ring
+  (`ring.ring_quantized_sum`), one per bucket.
+
+Both modes bucket the leaves (concatenated in leaf order) at
+`overlap.DEFAULT_BUCKET_ELEMS` with `overlap.bucket_layout`.  The ring's
+chunk boundaries follow that flat layout, so the bucket cap is part of
+the ring's documented accumulation order; the faithful scan is
+elementwise, so its buckets change no bit (the JAX package buckets it on
+the TPU only).  Its gather ships fp32: packing APS-cast values is
+lossless, so the sum is the same.
+
+On CUDA tensors (``fused=None``) every cast is a hand-written kernel:
+the APS pre-quantize is K1 (one launch per leaf per rank), a faithful
+scan step K3, a ring hop K6/K5 (K3 for a format the codec cannot
+pack).  ``fused=False`` runs the plain torch version of each, on any
+device — the reference the kernels are held against.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Optional, Sequence
+
+import torch
+
+from ..ops.quantize import quantize_cast
+from ..quant.numerics import cast_body
+from .aps import (aps_max_exponents, aps_scale, aps_shift_factors_checked,
+                  aps_unscale)
+from .mesh import per_distinct
+from .overlap import DEFAULT_BUCKET_ELEMS, bucket_layout
+from .reduction import _use_kernel, quantized_sum
+from .ring import check_unported, hierarchical_ring_sum
+
+__all__ = ["sum_gradients", "make_sum_gradients_fn"]
+
+
+def _split(flat: torch.Tensor, leaves: Sequence[torch.Tensor]) -> list:
+    out, off = [], 0
+    for leaf in leaves:
+        out.append(flat[off:off + leaf.numel()].reshape(leaf.shape))
+        off += leaf.numel()
+    return out
+
+
+def _concat(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
+    if len(leaves) == 1:
+        return leaves[0].reshape(-1).to(torch.float32)
+    return torch.cat([g.reshape(-1).to(torch.float32) for g in leaves])
+
+
+def sum_gradients(grads: Sequence[Sequence[torch.Tensor]], mesh,
+                  use_aps: bool = False, grad_exp: int = 5,
+                  grad_man: int = 2, use_kahan: bool = False,
+                  mode: str = "faithful",
+                  bucket_elems: Optional[int] = None,
+                  rounding: str = "nearest", key=None, verify: bool = False,
+                  wire_fault=None, stats: bool = False,
+                  block_scale: bool = False,
+                  fused: Optional[bool] = None) -> list:
+    """Low-precision gradient all-reduce (SUM) over ``mesh``'s ranks.
+
+    ``grads[i]`` is local rank ``mesh.ranks[i]``'s list of gradient
+    leaves; returns the reduced leaves for each local rank (equal on
+    every rank).  use_aps shifts each leaf's exponent range to the top
+    of the format around the reduction (aps.py).  Stochastic rounding,
+    Kahan, verify, wire faults, stats, the block-scaled wire and
+    ``mode="fast"`` are not ported yet and raise."""
+    if mode not in ("faithful", "ring", "fast"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if mode == "fast":
+        raise NotImplementedError("mode='fast' is not ported yet (ROADMAP "
+                                  "Queue A, A3)")
+    if rounding not in ("nearest", "stochastic"):
+        raise ValueError(f"unknown rounding {rounding!r}")
+    if rounding == "stochastic":
+        raise NotImplementedError("stochastic rounding is not ported yet "
+                                  "(ROADMAP Queue A, A1: sr_bits_at)")
+    check_unported(use_kahan=use_kahan, key=key, block_scale=block_scale,
+                   verify=verify, fault=wire_fault)
+    if stats:
+        raise NotImplementedError("stats=True (reduce-wire telemetry) is "
+                                  "not ported yet (ROADMAP Queue A, A3)")
+    if len(grads) != len(mesh.ranks):
+        raise ValueError(f"expected one leaf list per local rank "
+                         f"({len(mesh.ranks)}), got {len(grads)}")
+    template = list(grads[0])
+    if not template:
+        return [list(g) for g in grads]
+    kernel = _use_kernel(template[0], fused)
+    grads = [[g.to(torch.float32) for g in leaves] for leaves in grads]
+
+    shifts = [None] * len(grads)
+    if use_aps:
+        cast = quantize_cast if kernel else cast_body
+        max_exp = mesh.max([aps_max_exponents(leaves, mesh.world)
+                            for leaves in grads])
+        shifts = per_distinct(
+            lambda m: aps_shift_factors_checked(m, grad_exp)[0], max_exp)
+        grads = [[cast(g, grad_exp, grad_man) for g in aps_scale(leaves, s)]
+                 for leaves, s in zip(grads, shifts)]
+
+    buckets = bucket_layout([g.numel() for g in template],
+                            bucket_elems if bucket_elems is not None
+                            else DEFAULT_BUCKET_ELEMS)
+    reduced = [[None] * len(template) for _ in grads]
+    for idxs in buckets:
+        flats = [_concat([leaves[i] for i in idxs]) for leaves in grads]
+        if mode == "ring":
+            red = hierarchical_ring_sum(flats, mesh, grad_exp, grad_man,
+                                        fused=kernel)
+        else:
+            red = per_distinct(lambda st: quantized_sum(
+                st, grad_exp, grad_man, fused=kernel), mesh.all_gather(flats))
+        lo, hi = idxs[0], idxs[-1] + 1       # a bucket is a leaf range
+
+        def unscaled(flat, s, lo=lo, hi=hi):
+            pieces = _split(flat, template[lo:hi])
+            return pieces if s is None else aps_unscale(pieces, s[lo:hi])
+
+        for out, pieces in zip(reduced, per_distinct(unscaled, red, shifts)):
+            out[lo:hi] = pieces
+    return reduced
+
+
+def make_sum_gradients_fn(mesh, **kwargs):
+    """``stacked_grads -> reduced`` over ``mesh``: the leaves hold every
+    rank's gradient stacked, ``(W, *shape)``; the result holds the
+    reduced ``(*shape)`` leaves.  A dict keeps its keys (leaf order is
+    its insertion order), a sequence becomes a list."""
+
+    def reduced(stacked):
+        if isinstance(stacked, Mapping):
+            keys, leaves = list(stacked), list(stacked.values())
+        else:
+            keys, leaves = None, list(stacked)
+        per_rank = [[leaf[r] for leaf in leaves] for r in mesh.ranks]
+        out = sum_gradients(per_rank, mesh, **kwargs)[0]
+        return dict(zip(keys, out)) if keys is not None else out
+
+    return reduced

@@ -2,8 +2,9 @@
 
 Port of `cpd_tpu/quant/numerics.py` (the reference for every rule below;
 tests/test_torch_numerics.py holds this module to it bitwise).  Only the
-pieces the serving slice needs are here: the RTNE cast, the packed
-eXmY code words the KV pages store, and the block-scaled codec.
+pieces the ported slices need are here: the RTNE cast (`cast_to_format`
+runs it as a CUDA kernel on the card), the packed eXmY code words the KV
+pages and the ring wire carry, and the block-scaled codec.
 
 Semantics, in short (the JAX module's docstring has the full account):
 
@@ -126,7 +127,14 @@ def cast_body(x: torch.Tensor, exp_bits: int, man_bits: int) -> torch.Tensor:
     return torch.where(passthrough, x, val)
 
 
-cast_to_format = cast_body
+def cast_to_format(x: torch.Tensor, exp_bits: int,
+                   man_bits: int) -> torch.Tensor:
+    """The public RTNE cast: on a CUDA tensor one launch of the
+    hand-written kernel (K1, `ops.quantize.quantize_cast`), on a CPU
+    tensor `cast_body`.  Bitwise the same function either way."""
+    from ..ops.quantize import quantize_cast   # ops imports this module
+
+    return quantize_cast(x, exp_bits, man_bits)
 
 
 # --------------------------------------------------------------------------

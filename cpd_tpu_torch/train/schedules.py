@@ -1,0 +1,37 @@
+"""LR schedules (port of `warmup_step_decay` from
+`cpd_tpu/train/schedules.py`).
+
+A schedule maps the step to the learning rate as a Python float holding
+an fp32 value, computed in fp32 with the JAX schedule's operations in
+its order, so an optimizer multiplies by the same number."""
+
+from __future__ import annotations
+
+from typing import Callable, Sequence
+
+import numpy as np
+
+__all__ = ["warmup_step_decay", "Schedule"]
+
+Schedule = Callable[[int], float]
+
+
+def warmup_step_decay(base_lr: float, warmup_iters: int,
+                      decay_iters: Sequence[int], warmup_from: float = 0.1,
+                      decay_factor: float = 0.1) -> Schedule:
+    """Linear warmup from `warmup_from` to `base_lr` over `warmup_iters`,
+    then multiply by `decay_factor` after each boundary in
+    `decay_iters` (reference mix.py:181-198).  After two or more decays
+    the fp32 power may differ from XLA's ``pow`` in the last bit."""
+    f32 = np.float32
+    boundaries = np.asarray(list(decay_iters), np.float32)
+
+    def schedule(step: int) -> float:
+        s = f32(step)
+        warm = f32(warmup_from) + f32(base_lr - warmup_from) * (
+            s / f32(max(warmup_iters, 1)))
+        decays = int(np.sum(s > boundaries))
+        decayed = f32(base_lr) * f32(decay_factor) ** f32(decays)
+        return float(warm if s <= warmup_iters else decayed)
+
+    return schedule

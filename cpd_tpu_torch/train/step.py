@@ -1,0 +1,146 @@
+"""The data-parallel train and eval steps (port of `make_train_step` /
+`make_eval_step` from `cpd_tpu/train/step.py`).
+
+One train step over a mesh of W ranks, as the JAX step runs it under
+`shard_map`:
+
+1. rank r takes rows ``[r*B, (r+1)*B)`` of the global batch, runs the
+   forward and backward from the step's starting BN stats, and takes the
+   gradients of ``loss / W`` (so the reduced SUM is the mean);
+2. the per-rank gradients are reduced by `parallel.dist.sum_gradients`
+   (APS, eXmY casts, the faithful scan or the ring);
+3. the optimizer updates the fp32 master weights with the reduced
+   gradients;
+4. the BN running stats become the mean of the ranks' stats.
+
+The step runs with TF32 off and cuDNN deterministic (restored after), as
+the reference computes in fp32 and the reduce is bitwise.  The weights,
+BN stats and optimizer buffers are updated in place.
+
+The gradient leaves are the module's parameters in ``parameters()``
+order, in torch layouts (OIHW convs).  The ring's chunks follow that
+flat layout; the JAX step flattens its (sorted, HWIO) tree instead, so
+the two rings fold the same gradients in the same documented rotation
+over different chunk boundaries.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..parallel.dist import sum_gradients
+from .state import TrainState
+
+__all__ = ["make_train_step", "make_eval_step", "fp32_numerics",
+           "local_gradients", "as_batch"]
+
+
+@contextlib.contextmanager
+def fp32_numerics():
+    """TF32 off for matmuls and convolutions, cuDNN deterministic and
+    without autotuning; the previous settings are restored after."""
+    matmul = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(
+                enabled=torch.backends.cudnn.enabled, benchmark=False,
+                deterministic=True, allow_tf32=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+
+
+def as_batch(images, labels, device) -> tuple:
+    """NHWC images and labels (numpy or tensors) -> NCHW fp32 images and
+    int64 labels on ``device``."""
+    x = torch.as_tensor(images).to(device, torch.float32)
+    y = torch.as_tensor(labels).to(device, torch.int64)
+    return x.permute(0, 3, 1, 2).contiguous(), y
+
+
+def local_gradients(model, x: torch.Tensor, y: torch.Tensor, mesh) -> tuple:
+    """Step 1 for every local rank of ``mesh``: rank r's forward and
+    backward on rows ``[r*B, (r+1)*B)`` of the global batch ``x``/``y``
+    (NCHW on the mesh's device), each from the same starting BN stats.
+    Returns ``(grads, stats, losses, hits)``, one entry per local rank:
+    the gradients of ``loss / W`` in ``parameters()`` order, the BN
+    running stats the rank's forward left, its loss / W and its count of
+    top-1 hits.  The module's BN stats are left at the last rank's."""
+    world = mesh.world
+    if x.shape[0] % world:
+        raise ValueError(f"global batch {x.shape[0]} is not a multiple of "
+                         f"the {world} ranks")
+    b = x.shape[0] // world
+    params = list(model.parameters())
+    stats = list(model.buffers())
+    start = [s.clone() for s in stats]
+    model.train()
+    grads, new_stats, losses, hits = [], [], [], []
+    for r in mesh.ranks:
+        for s, s0 in zip(stats, start):
+            s.copy_(s0)
+        xr, yr = x[r * b:(r + 1) * b], y[r * b:(r + 1) * b]
+        logits = model(xr)
+        loss = F.cross_entropy(logits, yr) / world
+        grads.append(list(torch.autograd.grad(loss, params)))
+        new_stats.append([s.clone() for s in stats])
+        losses.append(loss.detach())
+        hits.append((logits.detach().argmax(-1) == yr).sum())
+    return grads, new_stats, losses, hits
+
+
+def make_train_step(model, opt, mesh, *, mode: str = "faithful",
+                    use_aps: bool = False, grad_exp: int = 8,
+                    grad_man: int = 23, fused: Optional[bool] = None):
+    """``step(state, images, labels) -> (state, metrics)`` over ``mesh``.
+
+    ``images``: the global batch, (W * B, 32, 32, 3) NHWC fp32; each rank
+    takes its contiguous B rows.  ``metrics``: ``loss`` (the rank-summed
+    loss / W, i.e. the global mean) and ``accuracy`` (top-1 over the
+    global batch), as 0-d tensors on the device.  ``fused`` goes to
+    `sum_gradients` (None: the kernels on CUDA)."""
+
+    def step(state: TrainState, images, labels):
+        x, y = as_batch(images, labels, mesh.device)
+        with fp32_numerics():
+            grads, new_stats, losses, hits = local_gradients(model, x, y,
+                                                             mesh)
+            reduced = sum_gradients(grads, mesh, use_aps=use_aps,
+                                    grad_exp=grad_exp, grad_man=grad_man,
+                                    mode=mode, fused=fused)[0]
+            state.opt_state = opt.apply(reduced, state.opt_state,
+                                        state.params)
+            with torch.no_grad():
+                for j, s in enumerate(state.batch_stats):
+                    s.copy_(mesh.mean([ns[j] for ns in new_stats])[0])
+        state.step += 1
+        metrics = {"loss": mesh.sum(losses)[0],
+                   "accuracy": mesh.sum(hits)[0].to(torch.float32)
+                   / x.shape[0]}
+        return state, metrics
+
+    return step
+
+
+def make_eval_step(model, mesh):
+    """``eval_step(state, images, labels) -> metrics``: ``loss`` (mean
+    cross-entropy), ``top1`` and ``top5`` over the batch, with the BN
+    running stats."""
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, images, labels):
+        x, y = as_batch(images, labels, mesh.device)
+        model.eval()
+        with fp32_numerics():
+            logits = model(x)
+        k = min(5, logits.shape[-1])
+        top = logits.topk(k, dim=-1).indices
+        return {"loss": F.cross_entropy(logits, y),
+                "top1": (top[:, 0] == y).to(torch.float32).mean(),
+                "top5": (top == y[:, None]).any(-1).to(torch.float32).mean()}
+
+    return eval_step
