@@ -41,7 +41,22 @@ Phases; any failure exits non-zero:
    the faithful reduce (K3 on the slice's buckets) equal with the kernels
    and with the plain versions; the kernels' launch counts as designed;
    then 3 iterations of the trainer CLI in faithful mode (K3);
-7. print one JSON line ``{"kernels": [...]}`` and, last,
+7. hold the stochastic-rounding kernels (the `sr_bits` helper, K2, K4
+   and the SR arms of K6/K5) against their plain versions, BITWISE, over
+   the formats (5,2), (4,3), (5,7), (6,17) and, for K2/K4, (8,23), (5,1)
+   and (2,1), at the ring chunk and an odd length, bits drawn from
+   offsets that wrap past 2^32; time each as in phase 3 (``sr_bits``
+   against the time its integer instructions take on their pipes, counted
+   in the SASS of the build);
+8. train the same slice with the SR ring: 3 steps of APS (5,2) with
+   ``grad_rounding="stochastic"``, ``grad_seed=0`` through the kernels
+   and through the plain versions — bitwise equal; one step's gradients
+   through the SR ring equal `ring_oracle_sum(key=)`; the launch counts
+   as designed; then the reduce matrix {faithful, ring} x {nearest,
+   stochastic} x {Kahan off, on} on one step's gradients, kernels vs
+   plain versions, bitwise; then 3 iterations of the trainer CLI with
+   ``--mode faithful --use_APS --use_kahan --grad-rounding stochastic``;
+9. print one JSON line ``{"kernels": [...]}`` and, last,
    ``{"ok": true, "device": {...}}``.
 
 The script imports neither jax nor the JAX package.
@@ -67,6 +82,9 @@ ATTN_RTOL = 1e-4
 # above, carried through 4 layers and the tied 32000-way head.
 LOGIT_ATOL = 2e-3
 
+# the entry points' default device, as a user calls them
+DEVICE = "cuda"
+
 # the serving slice (the JAX engine's defaults at the LM's full width)
 MODEL = dict(vocab_size=32000, d_model=512, n_layers=4, n_heads=8,
              n_kv_heads=2, d_ff=2048)
@@ -79,28 +97,71 @@ TRACE = dict(n_requests=16, prompt_lens=(64, 128, 256), max_new=(64, 128),
 # tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+# 132 SMs at the 1.98 GHz at which 128 fp32 lanes per SM give the sheet's
+# 67 TFLOP/s.  Per SM and clock (CUDA programming guide, throughput of
+# compute capability 9.0): 64 results of 32-bit integer shift, compare
+# and logic instructions (the ALU pipe), 64 of 32-bit integer
+# multiply-add (IMAD, on the FMA pipe), 128 integer adds and moves, which
+# either pipe executes, and 4 schedulers issuing one warp instruction
+# each, 128 thread instructions of any kind
+SMS, CLOCK_HZ = 132, 1.98e9
+PIPE_LANES = {"alu": 64, "imad": 64, "alu+imad": 128, "issue": 128}
+# SASS opcodes by the pipe that executes them; "either" goes to the ALU
+# or the FMA pipe, as the compiler places it
+SASS_ALU = {"SHF", "LOP3", "ISETP", "LEA", "SEL", "PRMT", "IMNMX", "IABS",
+            "PLOP3", "FSEL", "FSETP", "FMNMX", "BMSK", "SGXT", "VIMNMX"}
+SASS_IMAD = {"IMAD", "IMUL", "IDP"}
+SASS_EITHER = {"IADD3", "VIADD", "MOV", "IMAD.IADD", "IMAD.MOV"}
 
 # the training slice: full-width ResNet-18/CIFAR, W ranks on the one card
 TRAIN = dict(world=4, per_rank_batch=128, steps=5, fmt=(5, 2), seed=24,
              n_train=50000, n_test=10000, peak_lr=1.6, cli_iters=3)
+# the SR slice: the same model and mesh, the SR ring for SR_STEPS steps
+SR_STEPS = 3
+SR_SEED = 0
 QUANT_ODD_N = 1_000_003
 WIRE_FORMATS = ((5, 2), (4, 3), (5, 7), (6, 17))
 CAST_FORMATS = WIRE_FORMATS + ((8, 23), (5, 1))
-# K1/K3/K5/K6: the TPU kernel each replaces, and the bytes one element
-# moves (each input read once, each output written once; wb = wire bytes)
+SR_CAST_FORMATS = CAST_FORMATS + ((2, 1),)
+# K1-K6 and the SR helper: the TPU kernel each replaces, and the bytes one
+# element moves (each input read once, each output written once; wb =
+# wire bytes; SR round bits are 4 bytes)
 QUANT_KERNELS = {
     "quantize_cast": ("cpd_tpu/ops/quantize.py:69", lambda wb: 8),
+    "quantize_cast_sr": ("cpd_tpu/ops/quantize.py:170", lambda wb: 12),
     "quantize_add": ("cpd_tpu/ops/quantize.py:107", lambda wb: 12),
+    "quantize_add_sr": ("cpd_tpu/ops/quantize.py:137", lambda wb: 16),
     "quantize_pack": ("cpd_tpu/ops/quantize.py:634", lambda wb: 8 + wb),
+    "quantize_pack_sr": ("cpd_tpu/ops/quantize.py:634 (rbits arm)",
+                         lambda wb: 12 + wb),
     "hop_pack": ("cpd_tpu/ops/quantize.py:512", lambda wb: 2 * (4 + wb)),
+    "hop_pack_sr": ("cpd_tpu/ops/quantize.py:512 (rbits arm)",
+                    lambda wb: 12 + 2 * wb),
+    "sr_bits": ("cpd_tpu/quant/numerics.py:240 (sr_bits_at; XLA, no TPU "
+                "kernel)", lambda wb: 4),
 }
-# fp32 operations per element (the cast's exact power-of-two multiplies
-# and the adds; its integer bit arithmetic has no row in the peak table)
-QUANT_FLOPS = {"quantize_cast": 2, "quantize_add": 3, "quantize_pack": 2,
-               "hop_pack": 5}
+# fp32 operations per element of the casts (the exact power-of-two
+# multiplies and the adds); sr_bits is integer work, bounded by
+# `sass_per_element` instead
+QUANT_OPS = {"quantize_cast": 2, "quantize_cast_sr": 2, "quantize_add": 3,
+             "quantize_add_sr": 3, "quantize_pack": 2,
+             "quantize_pack_sr": 2, "hop_pack": 5, "hop_pack_sr": 5}
+# profiler names of the kernels (template instantiations of quantize.cu)
+KERNEL_NAMES = {"quantize_cast": "cast_kernel<false, false>",
+                "quantize_cast_sr": "cast_kernel<false, true>",
+                "quantize_add": "cast_kernel<true, false>",
+                "quantize_add_sr": "cast_kernel<true, true>",
+                "quantize_pack": "wire_kernel<true, false>",
+                "quantize_pack_sr": "wire_kernel<true, true>",
+                "hop_pack": "wire_kernel<false, false>",
+                "hop_pack_sr": "wire_kernel<false, true>",
+                "sr_bits": "sr_bits_kernel"}
 NO_LIBRARY = ("no PyTorch call computes the eXmY cast: .to(torch.float8_*) "
               "rounds and saturates differently, so it is not the same "
               "function")
+NO_LIBRARY_BITS = ("no PyTorch call computes jax.random's threefry2x32 "
+                   "bits: torch's generators are Philox and give other "
+                   "numbers")
 
 KV_CASES = (("e4m3", (4, 3), None, False),
             ("e5m2", (5, 2), None, False),
@@ -331,6 +392,72 @@ def l2_bytes() -> int:
                        "L2_cache_size", 50 * 2**20))
 
 
+def sass_per_element(library: str, kernel: str) -> dict:
+    """Instructions one element of ``kernel`` issues, by pipe: the body
+    of its grid-stride loop (from the target of its backward branch to
+    the branch) in the SASS of ``library``'s build, divided by the global
+    stores in it (one per element)."""
+    import re
+
+    from cpd_tpu_torch.ops.build import sass
+
+    insns, labels, body, found = [], {}, None, False
+    for line in sass(library).splitlines():
+        if "Function :" in line:
+            if found:
+                break
+            found = kernel in line
+            continue
+        label = re.match(r"\s*(\.L_x_\d+):", line)
+        if found and label:
+            labels[label.group(1)] = len(insns)
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                     r"([A-Z][A-Z0-9_.]*)(.*)", line)
+        if not (found and m):
+            continue
+        addr = int(m.group(1), 16)
+        insns.append((addr, m.group(3)))
+        if m.group(3) != "BRA":
+            continue
+        to = re.match(r"\s*`?\(?(\.L_x_\d+|0x[0-9a-f]+)", m.group(4))
+        if to is None:
+            continue
+        start = (labels.get(to.group(1)) if to.group(1).startswith(".")
+                 else next((i for i, (a, _) in enumerate(insns)
+                            if a == int(to.group(1), 16)), None))
+        if start is not None and start < len(insns) - 1 and (
+                body is None or len(insns) - start > len(body)):
+            body = insns[start:]
+    if not insns:
+        raise AssertionError(f"no SASS of {kernel} in the {library} build")
+    ops = [op for _, op in (body or insns)]
+    stores = max(1, sum(op.split(".")[0] in ("STG", "ST") for op in ops))
+
+    def pipe(op):
+        if op.startswith(("IMAD.IADD", "IMAD.MOV")) or op in SASS_EITHER:
+            return "either"
+        base = op.split(".")[0]
+        return ("either" if base in SASS_EITHER else "alu" if base in
+                SASS_ALU else "imad" if base in SASS_IMAD else "other")
+
+    count = {k: sum(pipe(op) == k for op in ops) / stores
+             for k in ("alu", "imad", "either")}
+    out = {"alu": count["alu"], "imad": count["imad"],
+           "alu+imad": sum(count.values()), "issue": len(ops) / stores}
+    out["opcodes"] = {op: ops.count(op) for op in sorted(set(ops))}
+    return out
+
+
+def pipe_bound_s(per_element: dict, n: int) -> tuple:
+    """(seconds, pipe): the least time ``n`` elements' instructions take
+    on the busiest pipe of the card, the adds and moves placed on the
+    ALU or the FMA pipe as best suits."""
+    times = {pipe: per_element[pipe] * n / (lanes * SMS * CLOCK_HZ)
+             for pipe, lanes in PIPE_LANES.items()}
+    pipe = max(times, key=times.get)
+    return times[pipe], pipe
+
+
 def quant_inputs(n: int, fmt, generator, device):
     """Gradients at an APS-like scale (the format's top octaves down to
     2^-20 below them), with a block of special values at the front: ±0,
@@ -414,21 +541,8 @@ def quantize_phase(device) -> dict:
 
     fmt = TRAIN["fmt"]
     wb = wire_bytes(*fmt)
-    # Timed launches cycle over input sets that together hold at least
-    # twice the L2, so each launch reads its inputs from HBM, as the
-    # byte bound assumes.
-    set_bytes = (4 + 4 + wb) * chunk
-    n_sets = -(-2 * l2_bytes() // set_bytes) + 1
-    sets = []
-    for _ in range(n_sets):
-        x = quant_inputs(chunk, fmt, gen, device)
-        y = quant_inputs(chunk, fmt, gen, device)
-        sets.append((x, y, tq.quantize_pack(y, *fmt)[1]))
-
-    def rotating(fn):
-        it = itertools.cycle(sets)
-        return lambda: fn(*next(it))
-
+    sets = input_sets(chunk, fmt, 4 + 4 + wb, gen, device,
+                      lambda x, y: (x, y, tq.quantize_pack(y, *fmt)[1]))
     # (the main path's call, its plain version, the digesting form)
     calls = {
         "quantize_cast": (lambda x, y, w: tq.quantize_cast(x, *fmt),
@@ -446,33 +560,156 @@ def quantize_phase(device) -> dict:
             lambda x, y, w: tq.hop_pack_ref(w, x, *fmt),
             lambda x, y, w: tq.hop_pack(w, x, *fmt, want_digest=True)),
     }
-    report = {}
-    for name, (kernel, plain, digest) in calls.items():
-        t_bytes = QUANT_KERNELS[name][1](wb) * chunk / PEAK_BYTES_PER_S
-        t_ops = QUANT_FLOPS[name] * chunk / PEAK_FP32_FLOPS
-        # ms: the kernel's device time; call_ms: back-to-back wrapper calls
-        # timed with CUDA events, host dispatch included
-        report[name] = dict(
-            n=chunk, input_sets=n_sets, max_abs_err=errs[name],
-            ms=device_ms(rotating(kernel), iters=100),
-            plain_ms=device_ms(rotating(plain), iters=20),
-            call_ms=time_ms(rotating(kernel), iters=200),
-            plain_call_ms=time_ms(rotating(plain), iters=20),
-            bound_ms=max(t_bytes, t_ops) * 1e3,
-            bound_by="bytes" if t_bytes >= t_ops else "operations")
-        if digest is not None:
-            report[name]["ms_with_digest"] = device_ms(rotating(digest),
-                                                       iters=100)
-        r = report[name]
-        print(f"kernel {name} [{fmt}, n={chunk}, {n_sets} input sets]: "
-              f"kernel_ms {r['ms']:.5f} plain_ms {r['plain_ms']:.5f} "
-              f"(device time) bound_ms {r['bound_ms']:.6f} ({r['bound_by']})"
-              + (f" with digests {r['ms_with_digest']:.5f}"
-                 if "ms_with_digest" in r else "")
-              + f"; per call with host dispatch {r['call_ms']:.5f}, plain "
-              f"{r['plain_call_ms']:.5f}; library_ms null ({NO_LIBRARY})",
-              flush=True)
-    return report
+    return {name: time_kernel(name, fmt, chunk, sets, *fns, errs[name])
+            for name, fns in calls.items()}
+
+
+def input_sets(n: int, fmt, set_bytes: int, generator, device,
+               make) -> list:
+    """Input sets ``make(x, y)`` of n elements that together hold at
+    least twice the L2, so that timed launches cycling over them read
+    their inputs from HBM, as the byte bound assumes."""
+    n_sets = -(-2 * l2_bytes() // (set_bytes * n)) + 1
+    return [make(quant_inputs(n, fmt, generator, device),
+                 quant_inputs(n, fmt, generator, device))
+            for _ in range(n_sets)]
+
+
+def rotating(sets, fn):
+    """``fn`` called on the next input set at every call."""
+    it = itertools.cycle(sets)
+    return lambda: fn(*next(it))
+
+
+def time_kernel(name: str, fmt, n: int, sets, kernel, plain, digest,
+                err: float) -> dict:
+    """One kernel's card numbers: its device time (torch.profiler) and
+    its plain version's, each timed launch on the next input set; the
+    per-call time of back-to-back wrapper calls with host dispatch (CUDA
+    events); the bound from its bytes and operations per element."""
+    from cpd_tpu_torch.quant.numerics import wire_bytes
+
+    t_bytes = QUANT_KERNELS[name][1](wire_bytes(*fmt)) * n / PEAK_BYTES_PER_S
+    extra = {}
+    if name == "sr_bits":
+        per = sass_per_element("quantize", "sr_bits_kernel")
+        t_ops, pipe = pipe_bound_s(per, n)
+        extra = dict(sass_per_element=per, bound_pipe=pipe)
+    else:
+        t_ops = QUANT_OPS[name] * n / PEAK_FP32_FLOPS
+    r = dict(n=n, input_sets=len(sets), max_abs_err=err,
+             ms=device_ms(rotating(sets, kernel), iters=100),
+             plain_ms=device_ms(rotating(sets, plain), iters=20),
+             call_ms=time_ms(rotating(sets, kernel), iters=200),
+             plain_call_ms=time_ms(rotating(sets, plain), iters=20),
+             bound_ms=max(t_bytes, t_ops) * 1e3,
+             bound_by="bytes" if t_bytes >= t_ops else "operations",
+             **extra)
+    if digest is not None:
+        r["ms_with_digest"] = device_ms(rotating(sets, digest), iters=100)
+    lib = NO_LIBRARY_BITS if name == "sr_bits" else NO_LIBRARY
+    print(f"kernel {name} [{fmt}, n={n}, {len(sets)} input sets]: "
+          f"kernel_ms {r['ms']:.5f} plain_ms {r['plain_ms']:.5f} "
+          f"(device time) bound_ms {r['bound_ms']:.6f} ({r['bound_by']})"
+          + (f" with digests {r['ms_with_digest']:.5f}"
+             if "ms_with_digest" in r else "")
+          + f"; per call with host dispatch {r['call_ms']:.5f}, plain "
+          f"{r['plain_call_ms']:.5f}; library_ms null ({lib})"
+          + (f"; per element {json.dumps(extra)}" if extra else ""),
+          flush=True)
+    return r
+
+
+def sr_quantize_phase(device) -> dict:
+    """Phase 7: the SR bit helper, K2, K4 and the SR arms of K6/K5
+    against their plain versions, bitwise, over every format and size
+    case; timed at (5, 2) on one ring chunk."""
+    import torch
+
+    from cpd_tpu_torch.ops import quantize as tq
+    from cpd_tpu_torch.quant.numerics import wire_bytes
+
+    chunk = ring_chunk_of_slice(device)
+    gen = torch.Generator(device=device).manual_seed(98)
+    names = ("sr_bits", "quantize_cast_sr", "quantize_add_sr",
+             "quantize_pack_sr", "hop_pack_sr")
+    errs = dict.fromkeys(names, 0.0)
+    cases = 0
+    for n in (chunk, QUANT_ODD_N):
+        for fmt in SR_CAST_FORMATS:
+            key = (fmt[0] * 1000 + fmt[1], n)
+            start = 2**32 - n // 2           # offsets wrap past 2^32
+            x = quant_inputs(n, fmt, gen, device)
+            y = quant_inputs(n, fmt, gen, device).flip(0)
+            rb = tq.sr_bits(key, x, offset_start=start)
+            rb2 = tq.sr_bits(key[::-1], x, offset_start=7 * n)
+            pairs = [("sr_bits", rb,
+                      tq.sr_bits_ref(key, x, offset_start=start)),
+                     ("sr_bits", rb2,
+                      tq.sr_bits_ref(key[::-1], x, offset_start=7 * n)),
+                     ("quantize_cast_sr", tq.quantize_cast_sr(x, *fmt, rb),
+                      tq.quantize_cast_sr_ref(x, *fmt, rb)),
+                     ("quantize_add_sr", tq.quantize_add_sr(x, y, *fmt, rb2),
+                      tq.quantize_add_sr_ref(x, y, *fmt, rb2))]
+            if fmt in WIRE_FORMATS:
+                first = tq.quantize_pack_sr(x, *fmt, rb, want_digest=True)
+                pairs += [("quantize_pack_sr", a, b) for a, b in zip(
+                    first, tq.quantize_pack_ref(x, *fmt, rbits=rb,
+                                                want_digest=True))]
+                pairs += [("quantize_pack_sr", a, b) for a, b in zip(
+                    tq.quantize_pack_sr(x, *fmt, rb),
+                    tq.quantize_pack_ref(x, *fmt, rbits=rb))]
+                for dig in (True, False):
+                    pairs += [("hop_pack_sr", a, b) for a, b in zip(
+                        tq.hop_pack_sr(first[1], y, *fmt, rb2,
+                                       want_digest=dig),
+                        tq.hop_pack_ref(first[1], y, *fmt, rbits=rb2,
+                                        want_digest=dig))]
+            torch.cuda.synchronize()
+            for name, got, want in pairs:
+                if not same_bits(got, want):
+                    raise AssertionError(f"{name} n={n} {fmt}: differs from "
+                                         "its plain version")
+                errs[name] = max(errs[name], max_abs_diff(got, want))
+                cases += 1
+    print(f"kernel quantize SR: {cases} outputs of sr_bits/K2/K4/K6-SR/"
+          f"K5-SR bitwise equal to their plain versions (n = {chunk} and "
+          f"{QUANT_ODD_N}; formats {list(SR_CAST_FORMATS)}, wire kernels on "
+          f"{list(WIRE_FORMATS)})", flush=True)
+
+    fmt = TRAIN["fmt"]
+    wb = wire_bytes(*fmt)
+    key = (7, 11)
+
+    def make(x, y):
+        return (x, y, tq.quantize_pack(y, *fmt)[1],
+                tq.sr_bits(key, x, offset_start=12345))
+
+    sets = input_sets(chunk, fmt, 4 + 4 + 4 + wb, gen, device, make)
+    calls = {
+        "sr_bits": (
+            lambda x, y, w, r: tq.sr_bits(key, x, offset_start=12345),
+            lambda x, y, w, r: tq.sr_bits_ref(key, x, offset_start=12345),
+            None),
+        "quantize_cast_sr": (
+            lambda x, y, w, r: tq.quantize_cast_sr(x, *fmt, r),
+            lambda x, y, w, r: tq.quantize_cast_sr_ref(x, *fmt, r), None),
+        "quantize_add_sr": (
+            lambda x, y, w, r: tq.quantize_add_sr(x, y, *fmt, r),
+            lambda x, y, w, r: tq.quantize_add_sr_ref(x, y, *fmt, r), None),
+        "quantize_pack_sr": (
+            lambda x, y, w, r: tq.quantize_pack_sr(x, *fmt, r),
+            lambda x, y, w, r: tq.quantize_pack_ref(x, *fmt, rbits=r),
+            lambda x, y, w, r: tq.quantize_pack_sr(x, *fmt, r,
+                                                   want_digest=True)),
+        "hop_pack_sr": (
+            lambda x, y, w, r: tq.hop_pack_sr(w, x, *fmt, r),
+            lambda x, y, w, r: tq.hop_pack_ref(w, x, *fmt, rbits=r),
+            lambda x, y, w, r: tq.hop_pack_sr(w, x, *fmt, r,
+                                              want_digest=True)),
+    }
+    return {name: time_kernel(name, fmt, chunk, sets, *fns, errs[name])
+            for name, fns in calls.items()}
 
 
 def run_engine(model, trace, fused: bool, device):
@@ -612,8 +849,14 @@ def kernel_counters() -> dict:
     from cpd_tpu_torch.ops import serve_attn
 
     return {"serve_attn": serve_attn.fused_gather_attention,
-            "quantize_cast": tq.quantize_cast, "quantize_add": tq.quantize_add,
-            "quantize_pack": tq.quantize_pack, "hop_pack": tq.hop_pack}
+            "quantize_cast": tq.quantize_cast,
+            "quantize_cast_sr": tq.quantize_cast_sr,
+            "quantize_add": tq.quantize_add,
+            "quantize_add_sr": tq.quantize_add_sr,
+            "quantize_pack": tq.quantize_pack,
+            "quantize_pack_sr": tq.quantize_pack_sr,
+            "hop_pack": tq.hop_pack, "hop_pack_sr": tq.hop_pack_sr,
+            "sr_bits": tq.sr_bits}
 
 
 def reset_counts() -> None:
@@ -622,12 +865,35 @@ def reset_counts() -> None:
 
 
 def read_counts() -> dict:
+    """Launches since the last reset."""
     return {k: fn.launches for k, fn in kernel_counters().items()}
 
 
-def train_run(device, batches, mesh, fused):
-    """``TRAIN["steps"]`` ring + APS steps from the seed-24 weights; returns
-    the model, the per-step losses and the per-step host seconds."""
+def reduce_design(mode: str, sr: bool, kahan: bool, w: int, leaves: int,
+                  buckets: int) -> dict:
+    """The launches one APS `sum_gradients` makes over a LocalMesh of w
+    ranks: the pre-quantize casts one leaf per rank; a cast site runs W
+    times per bucket in the faithful scan (once for all ranks, on the
+    shared gathered stack) and W x W times in the ring (every rank at
+    every hop), four times over with Kahan."""
+    want = dict.fromkeys(read_counts(), 0)
+    calls = (w * w if mode == "ring" else w) * buckets * (4 if kahan else 1)
+    want["quantize_cast_sr" if sr else "quantize_cast"] = w * leaves
+    if mode == "ring" and not kahan:
+        sfx = "_sr" if sr else ""
+        want["quantize_pack" + sfx] = w * buckets
+        want["hop_pack" + sfx] = w * (w - 1) * buckets
+    else:
+        want["quantize_add_sr" if sr else "quantize_add"] = calls
+    if sr:
+        want["sr_bits"] = w * leaves + calls
+    return want
+
+
+def train_run(device, batches, mesh, fused, **step_kw):
+    """Ring + APS steps, one per batch, from the seed-24 weights; returns
+    the model, the state, the step, the per-step losses and the per-step
+    host seconds."""
     import torch
 
     from cpd_tpu_torch.models.resnet_cifar import resnet18_cifar
@@ -646,7 +912,7 @@ def train_run(device, batches, mesh, fused):
     state = create_train_state(model, opt)
     step = make_train_step(model, opt, mesh, mode="ring", use_aps=True,
                            grad_exp=TRAIN["fmt"][0], grad_man=TRAIN["fmt"][1],
-                           fused=fused)
+                           fused=fused, **step_kw)
     losses, secs = [], []
     for bx, by in batches:
         torch.cuda.synchronize()
@@ -672,16 +938,52 @@ def step_profile(step, state, batch) -> dict:
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
-    names = {"quantize_cast": "cast_kernel<false>",
-             "quantize_add": "cast_kernel<true>",
-             "quantize_pack": "wire_kernel<true>",
-             "hop_pack": "wire_kernel<false>"}
     out = {k: sum(e.self_device_time_total for e in kernels if v in e.key)
-           / 1e3 for k, v in names.items()}
+           / 1e3 for k, v in KERNEL_NAMES.items()}
     out["device_busy_ms"] = sum(e.self_device_time_total
                                 for e in kernels) / 1e3
     out["kernel_launches"] = sum(e.count for e in kernels)
     return out
+
+
+def slice_batches(steps: int) -> list:
+    """The training slice's first ``steps`` global batches: synthetic
+    CIFAR-10, the port's sampler (seed 0) and augmentation."""
+    from cpd_tpu_torch.data import (CIFAR10Pipeline,
+                                    DistributedGivenIterationSampler,
+                                    synthetic_cifar10)
+
+    global_batch = TRAIN["world"] * TRAIN["per_rank_batch"]
+    train_x, train_y, _, _ = synthetic_cifar10(TRAIN["n_train"],
+                                               TRAIN["n_test"])
+    pipe = CIFAR10Pipeline(train_x, train_y, global_batch, augment=True,
+                           cutout=0)
+    sampler = DistributedGivenIterationSampler(len(train_y), steps,
+                                               global_batch, seed=0)
+    return [pipe.batch(idx, seed=0) for idx in sampler.batches()]
+
+
+def reduce_split(mesh, model, x, y, **reduce_kw) -> dict:
+    """One step's forward + backward and its reduce, each timed on the
+    host clock between synchronisations."""
+    import torch
+
+    from cpd_tpu_torch.obs.timing import now
+    from cpd_tpu_torch.parallel.dist import sum_gradients
+    from cpd_tpu_torch.train import fp32_numerics, local_gradients
+
+    fmt = TRAIN["fmt"]
+    with fp32_numerics():
+        torch.cuda.synchronize()
+        t0 = now()
+        grads = local_gradients(model, x, y, mesh)[0]
+        torch.cuda.synchronize()
+        t1 = now()
+        sum_gradients(grads, mesh, use_aps=True, grad_exp=fmt[0],
+                      grad_man=fmt[1], mode="ring", **reduce_kw)
+        torch.cuda.synchronize()
+        t2 = now()
+    return dict(fwd_bwd_ms=(t1 - t0) * 1e3, reduce_ms=(t2 - t1) * 1e3)
 
 
 def train_phase(device) -> dict:
@@ -689,9 +991,6 @@ def train_phase(device) -> dict:
     the ring vs its oracle, the launch design, then the trainer CLI."""
     import torch
 
-    from cpd_tpu_torch.data import (CIFAR10Pipeline,
-                                    DistributedGivenIterationSampler,
-                                    synthetic_cifar10)
     from cpd_tpu_torch.examples.resnet18_cifar import train as cli
     from cpd_tpu_torch.obs.timing import now
     from cpd_tpu_torch.ops import quantize as tq
@@ -708,13 +1007,7 @@ def train_phase(device) -> dict:
 
     w, steps, fmt = TRAIN["world"], TRAIN["steps"], TRAIN["fmt"]
     global_batch = w * TRAIN["per_rank_batch"]
-    train_x, train_y, _, _ = synthetic_cifar10(TRAIN["n_train"],
-                                               TRAIN["n_test"])
-    pipe = CIFAR10Pipeline(train_x, train_y, global_batch, augment=True,
-                           cutout=0)
-    sampler = DistributedGivenIterationSampler(len(train_y), steps,
-                                               global_batch, seed=0)
-    batches = [pipe.batch(idx, seed=0) for idx in sampler.batches()]
+    batches = slice_batches(steps)
     mesh = data_parallel_mesh(w, device)
 
     reset_counts()
@@ -722,10 +1015,8 @@ def train_phase(device) -> dict:
     counts = read_counts()
     sizes = [p.numel() for p in model.parameters()]
     n_buckets = len(bucket_layout(sizes, DEFAULT_BUCKET_ELEMS))
-    want = {"serve_attn": 0, "quantize_add": 0,
-            "quantize_cast": steps * w * len(sizes),
-            "quantize_pack": steps * w * n_buckets,
-            "hop_pack": steps * w * (w - 1) * n_buckets}
+    want = {k: steps * v for k, v in reduce_design(
+        "ring", False, False, w, len(sizes), n_buckets).items()}
     if counts != want:
         raise AssertionError(f"kernel launches {counts} != the design's "
                              f"{want} ({steps} steps, W={w}, {n_buckets} "
@@ -792,17 +1083,7 @@ def train_phase(device) -> dict:
           "the kernels and with the plain versions", flush=True)
 
     # the split of one step (host clock, synchronised between parts)
-    with fp32_numerics():
-        torch.cuda.synchronize()
-        t0 = now()
-        grads = local_gradients(model, x, y, mesh)[0]
-        torch.cuda.synchronize()
-        t1 = now()
-        sum_gradients(grads, mesh, use_aps=True, grad_exp=fmt[0],
-                      grad_man=fmt[1], mode="ring")
-        torch.cuda.synchronize()
-        t2 = now()
-    split = dict(fwd_bwd_ms=(t1 - t0) * 1e3, reduce_ms=(t2 - t1) * 1e3)
+    split = reduce_split(mesh, model, x, y)
     prof = step_profile(step, state, batches[0])
     step_s = sum(secs[1:]) / (len(secs) - 1)
     out = dict(
@@ -832,6 +1113,154 @@ def train_phase(device) -> dict:
     return out
 
 
+def sr_train_phase(device, rtne: dict) -> dict:
+    """Phase 8: the SR slice end to end, kernels vs plain versions, the
+    SR ring vs its oracle, the launch design, the reduce matrix, then
+    the trainer CLI with SR and Kahan."""
+    import torch
+
+    from cpd_tpu_torch.examples.resnet18_cifar import train as cli
+    from cpd_tpu_torch.obs.timing import now
+    from cpd_tpu_torch.parallel.aps import (aps_max_exponents, aps_scale,
+                                            aps_shift_factors)
+    from cpd_tpu_torch.parallel.dist import (_leaf_starts, grad_sr_key,
+                                             quantize_tree_sr, sum_gradients)
+    from cpd_tpu_torch.parallel.mesh import data_parallel_mesh
+    from cpd_tpu_torch.parallel.overlap import (DEFAULT_BUCKET_ELEMS,
+                                                bucket_layout)
+    from cpd_tpu_torch.parallel.ring import (ring_oracle_sum,
+                                             ring_quantized_sum)
+    from cpd_tpu_torch.quant.prng import fold_in, split
+    from cpd_tpu_torch.train import as_batch, fp32_numerics, local_gradients
+
+    w, fmt = TRAIN["world"], TRAIN["fmt"]
+    global_batch = w * TRAIN["per_rank_batch"]
+    batches = slice_batches(SR_STEPS)
+    mesh = data_parallel_mesh(w, device)
+    sr_kw = dict(grad_rounding="stochastic", grad_seed=SR_SEED)
+
+    reset_counts()
+    model, state, step, losses, secs = train_run(device, batches, mesh, None,
+                                                 **sr_kw)
+    counts = read_counts()
+    sizes = [p.numel() for p in model.parameters()]
+    n_buckets = len(bucket_layout(sizes, DEFAULT_BUCKET_ELEMS))
+    want = {k: SR_STEPS * v for k, v in reduce_design(
+        "ring", True, False, w, len(sizes), n_buckets).items()}
+    if counts != want:
+        raise AssertionError(f"SR launches {counts} != the design's {want}")
+    loss_f = [float(v) for v in losses]
+    if not all(math.isfinite(v) for v in loss_f):
+        raise AssertionError(f"non-finite training loss: {loss_f}")
+    plain_model, _, _, plain_losses, plain_secs = train_run(
+        device, batches, mesh, False, **sr_kw)
+    for i, (a, b) in enumerate(zip(losses, plain_losses)):
+        if not same_bits(a, b):
+            raise AssertionError(f"SR step {i}: loss {float(a)!r} with the "
+                                 f"kernels, {float(b)!r} with the plain "
+                                 "versions")
+    for (name, a), b in zip(model.state_dict().items(),
+                            plain_model.state_dict().values()):
+        if not same_bits(a, b):
+            raise AssertionError(f"after {SR_STEPS} SR steps {name} differs "
+                                 "between the kernel and the plain run")
+    print(f"train sr: {SR_STEPS} SR ring+APS {fmt} steps at W={w}, "
+          f"grad_seed {SR_SEED}: losses, weights and BN stats bitwise equal "
+          f"with the kernels and with the plain versions; losses {loss_f}",
+          flush=True)
+
+    # one step's gradients through the SR ring (kernels) vs the oracle,
+    # with the keys the next step would draw
+    x, y = as_batch(*batches[0], device)
+    with fp32_numerics():
+        grads = local_gradients(model, x, y, mesh)[0]
+    key = grad_sr_key(SR_SEED, state.step, 1)
+    k_pre, k_sum, _ = split(key, 3)
+    starts = _leaf_starts(grads[0])
+    shifts = mesh.max([aps_max_exponents(g, w) for g in grads])
+    cast = [quantize_tree_sr(aps_scale(g, aps_shift_factors(s, fmt[0])),
+                             *fmt, fold_in(k_pre, r), starts, fused=False)
+            for r, (g, s) in enumerate(zip(grads, shifts))]
+    for b in bucket_layout(sizes, DEFAULT_BUCKET_ELEMS):
+        flats = [torch.cat([leaves[i].reshape(-1) for i in b])
+                 for leaves in cast]
+        kw = dict(key=k_sum, offset_start=starts[b[0]])
+        oracle = ring_oracle_sum(torch.stack(flats), *fmt, **kw)
+        for got in ring_quantized_sum(flats, mesh, *fmt, **kw):
+            if not same_bits(got, oracle):
+                raise AssertionError(f"bucket {b[0]}..{b[-1]}: the SR ring "
+                                     "differs from ring_oracle_sum(key=)")
+    print(f"train sr: one step's SR-cast gradients, {n_buckets} buckets: "
+          "the SR ring on the card == ring_oracle_sum(key=) bitwise",
+          flush=True)
+
+    # the reduce matrix on the same gradients: kernels vs plain versions
+    matrix, errs = {}, {}
+    for mode, sr, kahan in itertools.product(("faithful", "ring"),
+                                             (False, True), (False, True)):
+        kw = dict(use_aps=True, grad_exp=fmt[0], grad_man=fmt[1], mode=mode,
+                  use_kahan=kahan,
+                  rounding="stochastic" if sr else "nearest",
+                  key=key if sr else None)
+        cell = (f"{mode}/{'stochastic' if sr else 'nearest'}/"
+                f"{'kahan' if kahan else 'plain'}")
+        reset_counts()
+        got = sum_gradients(grads, mesh, fused=None, **kw)[0]
+        launched = read_counts()
+        design = reduce_design(mode, sr, kahan, w, len(sizes), n_buckets)
+        if launched != design:
+            raise AssertionError(f"{cell}: launches {launched} != the "
+                                 f"design's {design}")
+        plain = sum_gradients(grads, mesh, fused=False, **kw)[0]
+        err = 0.0
+        for (name, _), a, b in zip(model.named_parameters(), got, plain):
+            if not same_bits(a, b):
+                raise AssertionError(f"{cell} reduce of {name}: the kernels "
+                                     "differ from the plain versions")
+            err = max(err, max_abs_diff(a, b))
+        matrix[cell] = {k: v for k, v in launched.items() if v}
+        for k in matrix[cell]:
+            errs[k] = max(errs.get(k, 0.0), err)
+    print("train sr: reduce matrix {faithful, ring} x {nearest, stochastic} "
+          "x {Kahan off, on}, APS: kernels == plain versions bitwise, "
+          "launches as designed: " + json.dumps(matrix), flush=True)
+
+    split_ms = reduce_split(mesh, model, x, y, rounding="stochastic",
+                            key=key)
+    prof = step_profile(step, state, batches[0])
+    step_s = sum(secs[1:]) / (len(secs) - 1)
+    out = dict(
+        world=w, global_batch=global_batch, steps=SR_STEPS, losses=loss_f,
+        step_ms=step_s * 1e3, images_per_s=global_batch / step_s,
+        plain_step_ms=sum(plain_secs[1:]) / (len(plain_secs) - 1) * 1e3,
+        launches=counts, launches_per_step={k: v // SR_STEPS
+                                            for k, v in counts.items()},
+        **split_ms, profile=prof, matrix=matrix, matrix_max_abs_err=errs,
+        rtne=dict(images_per_s=rtne["images_per_s"],
+                  step_ms=rtne["step_ms"], reduce_ms=rtne["reduce_ms"],
+                  launches_per_step=rtne["launches_per_step"]))
+    print("train sr: " + json.dumps(out), flush=True)
+
+    iters = TRAIN["cli_iters"]
+    reset_counts()
+    t0 = now()
+    rc = cli.main(["--mode", "faithful", "--use_APS", "--use_kahan",
+                   "--grad-rounding", "stochastic", "--grad-seed",
+                   str(SR_SEED), "--grad_exp", str(fmt[0]), "--grad_man",
+                   str(fmt[1]), "--max-iter", str(iters)])
+    cli_counts = read_counts()
+    design = {k: iters * v for k, v in reduce_design(
+        "faithful", True, True, 1, len(sizes), n_buckets).items()}
+    if rc != 0 or cli_counts != design:
+        raise AssertionError(f"SR Kahan trainer CLI returned {rc}, "
+                             f"launches {cli_counts} (design {design})")
+    out["cli"] = dict(rc=rc, seconds=now() - t0, launches=cli_counts,
+                      launches_per_iter={k: v // iters
+                                         for k, v in cli_counts.items()})
+    print("train sr cli: " + json.dumps(out["cli"]), flush=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -849,7 +1278,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    device = "cuda"             # the entry points' default, as a user calls them
+    device = DEVICE
     card = card_line()
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
@@ -864,9 +1293,11 @@ def main() -> int:
 
     kern = kernel_phase(device)
     quant = quantize_phase(device)
+    quant.update(sr_quantize_phase(device))
     serve = serve_phase(device)
     profile_phase(device)
     train = train_phase(device)
+    sr_train = sr_train_phase(device, train)
 
     main_case = kern["cases"]["e4m3"]
     kernels = [dict(
@@ -882,30 +1313,45 @@ def main() -> int:
                f"{ATTN_ATOL} rtol {ATTN_RTOL} in every case",
         cases={k: {"max_abs_err": c["max_abs_err"], "ms": c["ms"]}
                for k, c in kern["cases"].items()})]
+    # each kernel's launches from the main path that runs it, counted from
+    # 0 around that run: the RTNE ring training (K1, K6, K5), the faithful
+    # CLI (K3), the SR ring training (sr_bits, K2, K6-SR, K5-SR) and the
+    # SR Kahan faithful CLI (K4)
+    runs = {"quantize_cast": (train, "launches_per_step"),
+            "quantize_pack": (train, "launches_per_step"),
+            "hop_pack": (train, "launches_per_step"),
+            "quantize_add": (train["cli"], None),
+            "sr_bits": (sr_train, "launches_per_step"),
+            "quantize_cast_sr": (sr_train, "launches_per_step"),
+            "quantize_pack_sr": (sr_train, "launches_per_step"),
+            "hop_pack_sr": (sr_train, "launches_per_step"),
+            "quantize_add_sr": (sr_train["cli"], "launches_per_iter")}
     for name, (replaces, _) in QUANT_KERNELS.items():
         q = quant[name]
-        # K3 runs on the faithful path: its launches are the trainer CLI's
-        launches = (train["cli"]["launches"][name] if name == "quantize_add"
-                    else train["launches"][name])
-        per_step = (train["cli"]["quantize_add_per_iter"]
-                    if name == "quantize_add"
-                    else train["launches_per_step"][name])
+        run, per_key = runs[name]
+        launches = run["launches"][name]
+        per_step = (run["quantize_add_per_iter"] if per_key is None
+                    else run[per_key][name])
         err = q["max_abs_err"]
         parity = ("bitwise (fp32 outputs, wire bytes, digests) in every "
                   "format and size case")
         if name == "quantize_add":
             err = max(err, train["faithful_k3"]["max_abs_err"])
             parity += ", and on the faithful reduce's buckets at W=4"
+        if name in sr_train["matrix_max_abs_err"]:
+            err = max(err, sr_train["matrix_max_abs_err"][name])
+            parity += "; and in the reduce matrix on one step's gradients"
         kernels.append(dict(
             name=name, route="cuda", source="cpd_tpu_torch/csrc/quantize.cu",
             replaces=replaces, launches=launches,
             launches_per_step=per_step, max_abs_err=err, ms=q["ms"],
             plain_ms=q["plain_ms"], call_ms=q["call_ms"],
             plain_call_ms=q["plain_call_ms"], bound_ms=q["bound_ms"],
-            bound_by=q["bound_by"], library_ms=None, library_note=NO_LIBRARY,
+            bound_by=q["bound_by"], library_ms=None,
+            library_note=NO_LIBRARY_BITS if name == "sr_bits" else NO_LIBRARY,
             parity=parity,
-            **({"ms_with_digest": q["ms_with_digest"]}
-               if "ms_with_digest" in q else {})))
+            **{k: q[k] for k in ("ms_with_digest", "bound_pipe",
+                                 "sass_per_element") if k in q}))
     print(card, flush=True)      # exactly as nvidia-smi gives it
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

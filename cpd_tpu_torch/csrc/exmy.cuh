@@ -9,6 +9,10 @@
 //                      only rounds past the max carries to 2^(emax+1),
 //                      subnormal targets take a truncating pre-shift
 //                      and then the same rounding;
+//   * cast_sr       -- cast_body_sr: the same cast with the SR step
+//                      (both are cast_with, templated on the rounding,
+//                      as numerics._cast_core takes a round_fn);
+//   * sr_bits_at    -- prng.sr_bits_at: two threefry2x32 evaluations;
 //   * pack_code     -- pack_code: a cast output -> its code word;
 //   * unpack_code   -- unpack_code: a code word -> the cast's fp32 bits;
 //   * fletcher_mod65521 -- x mod 65521, the digests' modulus.
@@ -46,8 +50,33 @@ __device__ __forceinline__ int rtne(int man, int shift) {
   return man & ~((1 << shift) - 1);
 }
 
-// numerics.cast_body: RTNE cast of x into the (eb, mb) value set
-__device__ __forceinline__ float cast(float x, int eb, int mb) {
+// stochastic rounding at bit `shift` (numerics._sr): add the low `shift`
+// bits of r and truncate; man + r < 2^24 + 2^23, still an int
+__device__ __forceinline__ int sr(int man, int shift, uint32_t r) {
+  if (shift <= 0) return man;
+  const int mask = (1 << shift) - 1;
+  return (man + int(r & uint32_t(mask))) & ~mask;
+}
+
+// the rounding step of a cast, as numerics._cast_core's round_fn
+struct Rtne {
+  __device__ __forceinline__ int operator()(int man, int shift) const {
+    return rtne(man, shift);
+  }
+};
+struct Sr {
+  uint32_t r;
+  __device__ __forceinline__ int operator()(int man, int shift) const {
+    return sr(man, shift, r);
+  }
+};
+
+// numerics._cast_core: the cast of x into the (eb, mb) value set with the
+// rounding step `round`, which both significands (normal and subnormal
+// target) go through
+template <class Round>
+__device__ __forceinline__ float cast_with(float x, int eb, int mb,
+                                           Round round) {
   const uint32_t bits = __float_as_uint(x);
   const int exp_f = int((bits >> 23) & 0xFFu);
   const int man_f = int(bits & 0x007FFFFFu);
@@ -64,10 +93,10 @@ __device__ __forceinline__ float cast(float x, int eb, int mb) {
   if (new_e <= 0) {
     // subnormal target: truncating pre-shift (>= 24 wipes the
     // significand; the clamp keeps the C++ shift defined), then round
-    man_out = rtne(man24 >> clampi(1 - new_e, 0, 24), shift);
+    man_out = round(man24 >> clampi(1 - new_e, 0, 24), shift);
     e_out = 1 - bias;
   } else {
-    man_out = rtne(man24, shift);
+    man_out = round(man24, shift);
     e_out = exp_f - 127;
   }
   // man * 2^(e - 23) as two exact power-of-two factors: a in [-126, 127]
@@ -78,6 +107,53 @@ __device__ __forceinline__ float cast(float x, int eb, int mb) {
   const float mag = __fmul_rn(__fmul_rn(__int2float_rn(man_out), pow2i(a)),
                               pow2i(e - a));
   return neg ? -mag : mag;
+}
+
+// numerics.cast_body: RTNE cast of x into the (eb, mb) value set
+__device__ __forceinline__ float cast(float x, int eb, int mb) {
+  return cast_with(x, eb, mb, Rtne{});
+}
+
+// numerics.cast_body_sr: the SR cast with round bits r
+__device__ __forceinline__ float cast_sr(float x, int eb, int mb,
+                                         uint32_t r) {
+  return cast_with(x, eb, mb, Sr{r});
+}
+
+// threefry2x32 with 20 rounds (quant/prng.py, bitwise jax.random's):
+// (x0, x1) <- TF((k0, k1), (x0, x1)); uint32 arithmetic wraps as the
+// plain version's masks do, and a rotate is one funnel shift
+__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
+  return __funnelshift_l(x, x, r);
+}
+
+__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
+                                             uint32_t& x0, uint32_t& x1) {
+  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
+  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  x0 += ks[0];
+  x1 += ks[1];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      x0 += x1;
+      x1 = rotl32(x1, rot[i % 2][j]);
+      x1 ^= x0;
+    }
+    x0 += ks[(i + 1) % 3];
+    x1 += ks[(i + 2) % 3] + uint32_t(i + 1);
+  }
+}
+
+// prng.sr_bits_at: x0 ^ x1 of TF(TF(key, (0, offset)), (0, 0))
+__device__ __forceinline__ uint32_t sr_bits_at(uint32_t k0, uint32_t k1,
+                                               uint32_t offset) {
+  uint32_t a = 0u, b = offset;
+  threefry2x32(k0, k1, a, b);
+  uint32_t x0 = 0u, x1 = 0u;
+  threefry2x32(a, b, x0, x1);
+  return x0 ^ x1;
 }
 
 // numerics.pack_code: a value of the (eb, mb) set -> its code word

@@ -1,21 +1,30 @@
 // The eXmY quantize kernels of the ring reduce: the elementwise cast, the
-// fused add-and-cast, and the fused hop that unpacks, adds, casts, re-packs
-// and digests the packed wire.
+// fused add-and-cast, the fused hop that unpacks, adds, casts, re-packs
+// and digests the packed wire, each with round-to-nearest-even or
+// stochastic rounding, and the SR bit generator they are fed from.
 //
-// Replaces four TPU kernels of cpd_tpu/ops/quantize.py:
+// Replaces six TPU kernels of cpd_tpu/ops/quantize.py:
 //   K1 quantize_pallas (:69, body _quantize_kernel :42)   cast(x)
+//   K2 quantize_pallas_sr (:170, body :46)                cast_sr(x, r)
 //   K3 quantize_add_pallas (:107, body :95)               cast(x + y)
-//   K6 quantize_pack_pallas (:634)    hop 0: cast(g), pack (+ out digest)
-//   K5 hop_pack_pallas (:512)         hop t: cast(unpack(wire) + g), pack
-//                                     (+ digests of both wires)
+//   K4 quantize_add_pallas_bits (:137, body :100)         cast_sr(x + y, r)
+//   K6 quantize_pack_pallas (:634)    hop 0: cast[_sr](g), pack (+ digest)
+//   K5 hop_pack_pallas (:512)         hop t: cast[_sr](unpack(wire) + g),
+//                                     pack (+ digests of both wires)
 // K5 and K6 share their body (_make_wire_kernel :271 / _wire_call :409),
-// and so do their ports here: one kernel templated on kFirst (as K1/K3
-// share one templated on kAdd).  The per-element arithmetic is exmy.cuh,
-// bitwise the plain version's.
+// and so do their ports here: one kernel templated on kFirst and kSR (as
+// K1-K4 share one templated on kAdd and kSR).  The per-element arithmetic
+// is exmy.cuh, bitwise the plain version's.  Like the TPU kernels, the SR
+// arms take their uint32 round bits as an operand.  Those bits come from
+// sr_bits_kernel, the port of what the JAX package computes in XLA
+// (numerics.sr_bits_at: two threefry2x32 per element); it is bound by
+// the integer instructions it issues per element (about two on the
+// 64-lane ALU pipe per threefry round), not by its 4 written bytes.
 //
 // What bounds them.  Each is a streaming pass of a few integer ops per
 // element: 8 bytes per element for the cast (read 4, write 4), 12 for the
-// add, 8 + wb for hop 0 and 2 (4 + wb) for a later hop, at 3.35 TB/s.
+// add, 8 + wb for hop 0 and 2 (4 + wb) for a later hop, at 3.35 TB/s;
+// the SR arms read 4 more bytes of round bits.
 // At the ring chunk of ResNet-18/CIFAR (988,944 elements at W = 4) a
 // (5, 2) hop moves ~9.9 MB: a ~3 us bound, so launch latency and the
 // byte loads are what the design has to keep small.
@@ -47,11 +56,20 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// K1 (kAdd = false) and K3 (kAdd = true): out = cast(x [+ y]).  Two
-// instantiations, so a profile tells the two kernels apart by name.
-template <bool kAdd>
+// out = cast[_sr](x [+ y] [, r]): K1 <false, false>, K3 <true, false>,
+// K2 <false, true>, K4 <true, true>.  Four instantiations, so a profile
+// tells the kernels apart by name.
+template <bool kAdd, bool kSR>
+__device__ __forceinline__ float cast_one(float x, float y, uint32_t r,
+                                          int eb, int mb) {
+  const float v = kAdd ? __fadd_rn(x, y) : x;
+  return kSR ? exmy::cast_sr(v, eb, mb, r) : exmy::cast(v, eb, mb);
+}
+
+template <bool kAdd, bool kSR>
 __global__ void cast_kernel(const float* __restrict__ x,
                             const float* __restrict__ y,
+                            const uint32_t* __restrict__ rbits,
                             float* __restrict__ out, int64_t n, int eb,
                             int mb, int vec) {
   const int64_t stride = int64_t(gridDim.x) * blockDim.x;
@@ -61,27 +79,24 @@ __global__ void cast_kernel(const float* __restrict__ x,
     const int64_t n4 = n / 4;
     const float4* x4 = reinterpret_cast<const float4*>(x);
     const float4* y4 = reinterpret_cast<const float4*>(y);
+    const uint4* r4 = reinterpret_cast<const uint4*>(rbits);
     float4* o4 = reinterpret_cast<float4*>(out);
     for (int64_t i = tid; i < n4; i += stride) {
-      float4 a = x4[i];
-      if (kAdd) {
-        const float4 b = y4[i];
-        a.x = __fadd_rn(a.x, b.x);
-        a.y = __fadd_rn(a.y, b.y);
-        a.z = __fadd_rn(a.z, b.z);
-        a.w = __fadd_rn(a.w, b.w);
-      }
-      float4 r;
-      r.x = exmy::cast(a.x, eb, mb);
-      r.y = exmy::cast(a.y, eb, mb);
-      r.z = exmy::cast(a.z, eb, mb);
-      r.w = exmy::cast(a.w, eb, mb);
-      o4[i] = r;
+      const float4 a = x4[i];
+      const float4 b = kAdd ? y4[i] : make_float4(0.f, 0.f, 0.f, 0.f);
+      const uint4 r = kSR ? r4[i] : make_uint4(0u, 0u, 0u, 0u);
+      float4 o;
+      o.x = cast_one<kAdd, kSR>(a.x, b.x, r.x, eb, mb);
+      o.y = cast_one<kAdd, kSR>(a.y, b.y, r.y, eb, mb);
+      o.z = cast_one<kAdd, kSR>(a.z, b.z, r.z, eb, mb);
+      o.w = cast_one<kAdd, kSR>(a.w, b.w, r.w, eb, mb);
+      o4[i] = o;
     }
     done = n4 * 4;
   }
   for (int64_t i = done + tid; i < n; i += stride)
-    out[i] = exmy::cast(kAdd ? __fadd_rn(x[i], y[i]) : x[i], eb, mb);
+    out[i] = cast_one<kAdd, kSR>(x[i], kAdd ? y[i] : 0.f,
+                                 kSR ? rbits[i] : 0u, eb, mb);
 }
 
 template <typename T>
@@ -90,12 +105,13 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
-// K6 (kFirst, no wire_in) and K5: res = cast([unpack(wire_in) +] g),
-// wire_out = pack(res); partials (4 per block: in s1, in s2, out s1,
-// out s2, each mod 65521) when partials != nullptr
-template <bool kFirst>
+// K6 (kFirst, no wire_in) and K5: res = cast[_sr]([unpack(wire_in) +] g
+// [, rbits]), wire_out = pack(res); partials (4 per block: in s1, in s2,
+// out s1, out s2, each mod 65521) when partials != nullptr
+template <bool kFirst, bool kSR>
 __global__ void wire_kernel(const uint8_t* __restrict__ wire_in,
                             const float* __restrict__ g,
+                            const uint32_t* __restrict__ rbits,
                             float* __restrict__ res,
                             uint8_t* __restrict__ wire_out,
                             unsigned long long* __restrict__ partials,
@@ -111,7 +127,8 @@ __global__ void wire_kernel(const uint8_t* __restrict__ wire_in,
       for (int k = 0; k < wb; ++k) code_in |= uint32_t(w[k]) << (8 * k);
       v = __fadd_rn(exmy::unpack_code(code_in, eb, mb), v);
     }
-    const float q = exmy::cast(v, eb, mb);
+    const float q = kSR ? exmy::cast_sr(v, eb, mb, rbits[i])
+                        : exmy::cast(v, eb, mb);
     res[i] = q;
     const uint32_t code = exmy::pack_code(q, eb, mb);
     uint8_t* o = wire_out + i * wb;
@@ -149,6 +166,16 @@ __global__ void wire_kernel(const uint8_t* __restrict__ wire_in,
   }
 }
 
+// out[i] = sr_bits_at((k0, k1), start + i), the offset wrapping mod 2^32
+// as the JAX package's uint32 offsets do
+__global__ void sr_bits_kernel(uint32_t* __restrict__ out, int64_t n,
+                               uint32_t start, uint32_t k0, uint32_t k1) {
+  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
+  for (int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+       i += stride)
+    out[i] = exmy::sr_bits_at(k0, k1, start + uint32_t(i));
+}
+
 // one block: digest[0] = received wire, digest[1] = emitted wire
 __global__ void fold_kernel(const unsigned long long* __restrict__ partials,
                             int blocks, uint32_t* __restrict__ digest) {
@@ -183,23 +210,51 @@ int grid_for(int64_t work, int max_blocks) {
 
 }  // namespace
 
-// K1 (y == NULL) / K3.  Returns the CUDA error code of the launch.
-extern "C" int quantize_cast_launch(const void* x, const void* y, void* out,
+template <bool kAdd, bool kSR>
+void launch_cast(int blocks, cudaStream_t s, const float* x, const float* y,
+                 const uint32_t* r, float* out, long long n, int eb, int mb,
+                 int vec) {
+  cast_kernel<kAdd, kSR><<<blocks, kThreads, 0, s>>>(x, y, r, out, n, eb,
+                                                      mb, vec);
+}
+
+// K1 (y == NULL, rbits == NULL) / K3 (rbits == NULL) / K2 (y == NULL) /
+// K4.  Returns the CUDA error code of the launch.
+extern "C" int quantize_cast_launch(const void* x, const void* y,
+                                    const void* rbits, void* out,
                                     long long n, int exp_bits, int man_bits,
                                     void* stream) {
-  const uintptr_t mask = uintptr_t(x) | uintptr_t(y) | uintptr_t(out);
+  const uintptr_t mask = uintptr_t(x) | uintptr_t(y) | uintptr_t(rbits) |
+                         uintptr_t(out);
   const int vec = (mask & 15u) == 0;
   const int blocks = grid_for(vec ? n / 4 + (n % 4) : n, 4096);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
   const float* yf = static_cast<const float*>(y);
+  const uint32_t* r = static_cast<const uint32_t*>(rbits);
   float* of = static_cast<float*>(out);
-  if (y == nullptr)
-    cast_kernel<false><<<blocks, kThreads, 0, s>>>(xf, yf, of, n, exp_bits,
-                                                   man_bits, vec);
+  if (y == nullptr && r == nullptr)
+    launch_cast<false, false>(blocks, s, xf, yf, r, of, n, exp_bits,
+                              man_bits, vec);
+  else if (r == nullptr)
+    launch_cast<true, false>(blocks, s, xf, yf, r, of, n, exp_bits,
+                             man_bits, vec);
+  else if (y == nullptr)
+    launch_cast<false, true>(blocks, s, xf, yf, r, of, n, exp_bits,
+                             man_bits, vec);
   else
-    cast_kernel<true><<<blocks, kThreads, 0, s>>>(xf, yf, of, n, exp_bits,
-                                                  man_bits, vec);
+    launch_cast<true, true>(blocks, s, xf, yf, r, of, n, exp_bits, man_bits,
+                            vec);
+  return int(cudaGetLastError());
+}
+
+// The SR bits of n elements at the offsets start + i.
+extern "C" int quantize_sr_bits_launch(void* out, long long n,
+                                       unsigned int start, unsigned int k0,
+                                       unsigned int k1, void* stream) {
+  sr_bits_kernel<<<grid_for(n, 4096), kThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint32_t*>(out), n, start, k0, k1);
   return int(cudaGetLastError());
 }
 
@@ -209,26 +264,44 @@ extern "C" int quantize_wire_blocks(long long n) {
   return grid_for(n, 4096);
 }
 
-// K6 (wire_in == NULL) / K5.  With partials != NULL also writes
-// digest[0] (received wire; 0 for K6) and digest[1] (emitted wire).
+template <bool kFirst, bool kSR>
+void launch_wire(int blocks, cudaStream_t s, const uint8_t* in,
+                 const float* g, const uint32_t* r, float* res, uint8_t* out,
+                 unsigned long long* part, long long n, int wb, int eb,
+                 int mb) {
+  wire_kernel<kFirst, kSR><<<blocks, kThreads, 0, s>>>(in, g, r, res, out,
+                                                        part, n, wb, eb, mb);
+}
+
+// K6 (wire_in == NULL) / K5, RTNE (rbits == NULL) or SR.  With partials
+// != NULL also writes digest[0] (received wire; 0 for K6) and digest[1]
+// (emitted wire).
 extern "C" int quantize_wire_launch(const void* wire_in, const void* g,
-                                    void* res, void* wire_out,
-                                    void* partials, void* digest,
-                                    long long n, int wb, int exp_bits,
-                                    int man_bits, void* stream) {
+                                    const void* rbits, void* res,
+                                    void* wire_out, void* partials,
+                                    void* digest, long long n, int wb,
+                                    int exp_bits, int man_bits,
+                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int blocks = grid_for(n, 4096);
   const uint8_t* in = static_cast<const uint8_t*>(wire_in);
   const float* gf = static_cast<const float*>(g);
+  const uint32_t* r = static_cast<const uint32_t*>(rbits);
   float* rf = static_cast<float*>(res);
   uint8_t* out = static_cast<uint8_t*>(wire_out);
   unsigned long long* part = static_cast<unsigned long long*>(partials);
-  if (wire_in == nullptr)
-    wire_kernel<true><<<blocks, kThreads, 0, s>>>(in, gf, rf, out, part, n,
-                                                  wb, exp_bits, man_bits);
+  if (wire_in == nullptr && r == nullptr)
+    launch_wire<true, false>(blocks, s, in, gf, r, rf, out, part, n, wb,
+                             exp_bits, man_bits);
+  else if (wire_in == nullptr)
+    launch_wire<true, true>(blocks, s, in, gf, r, rf, out, part, n, wb,
+                            exp_bits, man_bits);
+  else if (r == nullptr)
+    launch_wire<false, false>(blocks, s, in, gf, r, rf, out, part, n, wb,
+                              exp_bits, man_bits);
   else
-    wire_kernel<false><<<blocks, kThreads, 0, s>>>(in, gf, rf, out, part, n,
-                                                   wb, exp_bits, man_bits);
+    launch_wire<false, true>(blocks, s, in, gf, r, rf, out, part, n, wb,
+                             exp_bits, man_bits);
   int err = int(cudaGetLastError());
   if (err != 0 || partials == nullptr) return err;
   fold_kernel<<<1, kThreads, 0, s>>>(

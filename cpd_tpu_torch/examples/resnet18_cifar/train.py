@@ -9,8 +9,9 @@ iteration sampler, pad-4 reflect / random crop / flip augmentation
 re-drawn each epoch, SGD (momentum and weight decay from
 ``configs/res18_cifar.yaml``) under the warmup -> peak -> x0.1 at epochs
 40 and 80 schedule, the APS low-precision gradient reduce in ``--mode``
-faithful or ring, validation every ``--val_freq`` iterations and at the
-end.  Without CIFAR-10 under ``--data-root`` (or ``./data``) it trains
+faithful or ring (``--grad-rounding stochastic --grad-seed N`` rounds it
+stochastically, ``--use_kahan`` compensates it), validation every
+``--val_freq`` iterations and at the end.  Without CIFAR-10 under ``--data-root`` (or ``./data``) it trains
 on the deterministic synthetic stand-in.  Checkpoints and the other
 flags of the JAX trainer are not ported yet: passing one raises.
 """
@@ -31,8 +32,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 # flags of the JAX trainer that the port does not have yet
 _NOT_PORTED = (
     "--dist", "--load-path", "--init-from-torch", "--export-torch",
-    "--grad-rounding", "--grad-seed", "--resume-opt", "--use_lars",
-    "--use_kahan", "--opt_exp", "--opt_man", "--opt_kahan",
+    "--resume-opt", "--use_lars", "--opt_exp", "--opt_man", "--opt_kahan",
     "--opt-rounding", "--opt-seed", "--optimizer", "--shampoo-stat-exp",
     "--shampoo-stat-man", "--shampoo-stat-mode", "-e", "--evaluate",
     "--emulate_node", "--arch", "--max_epoch", "--save_path", "--clip-grad",
@@ -55,7 +55,14 @@ def build_parser() -> argparse.ArgumentParser:
                    default=os.path.join(_HERE, "configs", "res18_cifar.yaml"))
     p.add_argument("--grad_exp", default=5, type=int)
     p.add_argument("--grad_man", default=2, type=int)
+    p.add_argument("--grad-rounding", default="nearest",
+                   choices=["nearest", "stochastic"],
+                   help="rounding of every cast of the gradient reduce: "
+                        "stochastic = unbiased SR")
+    p.add_argument("--grad-seed", default=0, type=int,
+                   help="PRNG seed for --grad-rounding stochastic")
     p.add_argument("--use_APS", action="store_true")
+    p.add_argument("--use_kahan", action="store_true")
     p.add_argument("--mode", default="faithful",
                    choices=["faithful", "fast", "ring"])
     p.add_argument("--batch_size", default=None, type=int)
@@ -152,7 +159,10 @@ def run(args: argparse.Namespace, device="cuda") -> dict:
     train_step = make_train_step(model, opt, mesh, mode=args.mode,
                                  use_aps=args.use_APS,
                                  grad_exp=args.grad_exp,
-                                 grad_man=args.grad_man)
+                                 grad_man=args.grad_man,
+                                 use_kahan=args.use_kahan,
+                                 grad_rounding=args.grad_rounding,
+                                 grad_seed=args.grad_seed)
     eval_step = make_eval_step(model, mesh)
 
     global_batch = args.batch_size * mesh.world

@@ -19,7 +19,7 @@ import shutil
 import subprocess
 
 __all__ = ["KERNEL_SOURCES", "NVCC_FLAGS", "build_all", "load_library",
-           "build_dir", "build_log"]
+           "build_dir", "build_log", "sass"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -69,6 +69,15 @@ def build_log(name: str) -> str:
         return ""
     with open(path) as fh:
         return fh.read()
+
+
+def sass(name: str) -> str:
+    """The SASS of ``name``'s library (``cuobjdump -sass``, the tool beside
+    nvcc), built first if it is not yet."""
+    lib = build_all([name])[name]
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    return subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
 
 
 def build_all(names=None) -> dict:

@@ -1,5 +1,6 @@
 """Low-precision gradient all-reduce (port of `cpd_tpu/parallel/dist.py`:
-modes ``faithful`` and ``ring``, APS, RTNE).
+modes ``faithful`` and ``ring``, APS, RTNE or stochastic rounding, plain
+or Kahan-compensated accumulation).
 
 `sum_gradients` takes each local rank's gradient leaves — a list per
 rank of fp32 tensors, in one fixed leaf order — and returns each rank's
@@ -22,11 +23,21 @@ elementwise, so its buckets change no bit (the JAX package buckets it on
 the TPU only).  Its gather ships fp32: packing APS-cast values is
 lossless, so the sum is the same.
 
+Stochastic rounding (``rounding="stochastic"`` with a `prng` key) draws
+every cast's bits by GLOBAL flat offset: leaf i's elements sit at
+``_leaf_starts(leaves)[i] + j``, so bucketing changes no bit.  The key
+splits three ways as in the JAX package: the APS pre-quantize takes
+``k_pre`` with the rank folded in (each rank rounds its own gradients
+with its own bits), the reduction takes the shared ``k_sum`` (``k_post``
+belongs to ``mode="fast"``, not ported).
+
 On CUDA tensors (``fused=None``) every cast is a hand-written kernel:
-the APS pre-quantize is K1 (one launch per leaf per rank), a faithful
-scan step K3, a ring hop K6/K5 (K3 for a format the codec cannot
-pack).  ``fused=False`` runs the plain torch version of each, on any
-device — the reference the kernels are held against.
+the APS pre-quantize is K1, or `sr_bits` + K2 (one launch each per leaf
+per rank), a faithful scan step K3 or `sr_bits` + K4 (four of each per
+step with Kahan), a ring hop K6/K5 with their SR arms (K3/K4 for a
+format the codec cannot pack, and for every Kahan site).
+``fused=False`` runs the plain torch version of each, on any device —
+the reference the kernels are held against.
 """
 
 from __future__ import annotations
@@ -35,16 +46,48 @@ from typing import Mapping, Optional, Sequence
 
 import torch
 
-from ..ops.quantize import quantize_cast
-from ..quant.numerics import cast_body
+from ..quant.prng import PRNGKey, fold_in, split
 from .aps import (aps_max_exponents, aps_scale, aps_shift_factors_checked,
                   aps_unscale)
 from .mesh import per_distinct
 from .overlap import DEFAULT_BUCKET_ELEMS, bucket_layout
-from .reduction import _use_kernel, quantized_sum
+from .reduction import _use_kernel, cast_site, quantized_sum
 from .ring import check_unported, hierarchical_ring_sum
 
-__all__ = ["sum_gradients", "make_sum_gradients_fn"]
+__all__ = ["sum_gradients", "make_sum_gradients_fn", "grad_sr_key",
+           "quantize_tree_sr"]
+
+
+def _leaf_starts(leaves: Sequence[torch.Tensor]) -> list:
+    """Global flat offset of each leaf in leaf order: the index space the
+    SR bitstream is defined on."""
+    starts, off = [], 0
+    for leaf in leaves:
+        starts.append(off)
+        off += leaf.numel()
+    return starts
+
+
+def quantize_tree_sr(leaves: Sequence[torch.Tensor], grad_exp: int,
+                     grad_man: int, key, starts=None, *,
+                     fused: Optional[bool] = None) -> list:
+    """Per-leaf eXmY cast: RTNE when ``key`` is None, else stochastic
+    rounding with global-offset bits (leaf i's elements at ``starts[i] +
+    j``; default `_leaf_starts`).  One K1, or `sr_bits` + K2, per leaf
+    on CUDA."""
+    if not leaves:
+        return []
+    kernel = _use_kernel(leaves[0], fused)
+    starts = _leaf_starts(leaves) if starts is None else list(starts)
+    return [cast_site(g, None, grad_exp, grad_man, kernel=kernel, key=key,
+                      offset_start=st) for st, g in zip(starts, leaves)]
+
+
+def grad_sr_key(grad_seed: int, step: int, site: int) -> tuple:
+    """The gradient pipeline's SR key: ``fold_in(fold_in(PRNGKey(seed),
+    step), site)``, no rank folded in.  Site 0 is the rank-local
+    pre-reduce cast, site 1 the `sum_gradients` reduction."""
+    return fold_in(fold_in(PRNGKey(grad_seed), step), site)
 
 
 def _split(flat: torch.Tensor, leaves: Sequence[torch.Tensor]) -> list:
@@ -75,9 +118,11 @@ def sum_gradients(grads: Sequence[Sequence[torch.Tensor]], mesh,
     ``grads[i]`` is local rank ``mesh.ranks[i]``'s list of gradient
     leaves; returns the reduced leaves for each local rank (equal on
     every rank).  use_aps shifts each leaf's exponent range to the top
-    of the format around the reduction (aps.py).  Stochastic rounding,
-    Kahan, verify, wire faults, stats, the block-scaled wire and
-    ``mode="fast"`` are not ported yet and raise."""
+    of the format around the reduction (aps.py); use_kahan compensates
+    the ordered accumulation; ``rounding="stochastic"`` with ``key`` (a
+    `prng` key, e.g. `grad_sr_key`) rounds every cast stochastically
+    (module docstring).  Verify, wire faults, stats, the block-scaled
+    wire and ``mode="fast"`` are not ported yet and raise."""
     if mode not in ("faithful", "ring", "fast"):
         raise ValueError(f"unknown mode {mode!r}")
     if mode == "fast":
@@ -85,11 +130,14 @@ def sum_gradients(grads: Sequence[Sequence[torch.Tensor]], mesh,
                                   "Queue A, A3)")
     if rounding not in ("nearest", "stochastic"):
         raise ValueError(f"unknown rounding {rounding!r}")
-    if rounding == "stochastic":
-        raise NotImplementedError("stochastic rounding is not ported yet "
-                                  "(ROADMAP Queue A, A1: sr_bits_at)")
-    check_unported(use_kahan=use_kahan, key=key, block_scale=block_scale,
-                   verify=verify, fault=wire_fault)
+    if rounding == "stochastic" and key is None:
+        raise ValueError("rounding='stochastic' requires a PRNG key "
+                         "(fold in the step counter for fresh per-step "
+                         "bits)")
+    if rounding == "nearest" and key is not None:
+        raise ValueError("a PRNG key was passed but rounding='nearest' "
+                         "would ignore it; pass rounding='stochastic'")
+    check_unported(block_scale=block_scale, verify=verify, fault=wire_fault)
     if stats:
         raise NotImplementedError("stats=True (reduce-wire telemetry) is "
                                   "not ported yet (ROADMAP Queue A, A3)")
@@ -101,30 +149,40 @@ def sum_gradients(grads: Sequence[Sequence[torch.Tensor]], mesh,
         return [list(g) for g in grads]
     kernel = _use_kernel(template[0], fused)
     grads = [[g.to(torch.float32) for g in leaves] for leaves in grads]
+    starts = _leaf_starts(template)
+
+    k_sum = None
+    k_pre = [None] * len(grads)
+    if key is not None:
+        k_pre_all, k_sum, _ = split(key, 3)
+        # each rank rounds its own gradients with its own bits
+        k_pre = [fold_in(k_pre_all, r) for r in mesh.ranks]
 
     shifts = [None] * len(grads)
     if use_aps:
-        cast = quantize_cast if kernel else cast_body
         max_exp = mesh.max([aps_max_exponents(leaves, mesh.world)
                             for leaves in grads])
         shifts = per_distinct(
             lambda m: aps_shift_factors_checked(m, grad_exp)[0], max_exp)
-        grads = [[cast(g, grad_exp, grad_man) for g in aps_scale(leaves, s)]
-                 for leaves, s in zip(grads, shifts)]
+        grads = [quantize_tree_sr(aps_scale(leaves, s), grad_exp, grad_man,
+                                  k, starts, fused=kernel)
+                 for leaves, s, k in zip(grads, shifts, k_pre)]
 
     buckets = bucket_layout([g.numel() for g in template],
                             bucket_elems if bucket_elems is not None
                             else DEFAULT_BUCKET_ELEMS)
     reduced = [[None] * len(template) for _ in grads]
     for idxs in buckets:
+        lo, hi = idxs[0], idxs[-1] + 1       # a bucket is a leaf range
         flats = [_concat([leaves[i] for i in idxs]) for leaves in grads]
+        kw = dict(use_kahan=use_kahan, key=k_sum, offset_start=starts[lo],
+                  fused=kernel)
         if mode == "ring":
             red = hierarchical_ring_sum(flats, mesh, grad_exp, grad_man,
-                                        fused=kernel)
+                                        **kw)
         else:
             red = per_distinct(lambda st: quantized_sum(
-                st, grad_exp, grad_man, fused=kernel), mesh.all_gather(flats))
-        lo, hi = idxs[0], idxs[-1] + 1       # a bucket is a leaf range
+                st, grad_exp, grad_man, **kw), mesh.all_gather(flats))
 
         def unscaled(flat, s, lo=lo, hi=hi):
             pieces = _split(flat, template[lo:hi])

@@ -2,9 +2,10 @@
 
 Port of `cpd_tpu/quant/numerics.py` (the reference for every rule below;
 tests/test_torch_numerics.py holds this module to it bitwise).  Only the
-pieces the ported slices need are here: the RTNE cast (`cast_to_format`
-runs it as a CUDA kernel on the card), the packed eXmY code words the KV
-pages and the ring wire carry, and the block-scaled codec.
+pieces the ported slices need are here: the RTNE and the stochastically
+rounded cast (`cast_to_format`, `cast_to_format_sr_at` run them as CUDA
+kernels on the card), the packed eXmY code words the KV pages and the
+ring wire carry, and the block-scaled codec.
 
 Semantics, in short (the JAX module's docstring has the full account):
 
@@ -12,8 +13,9 @@ Semantics, in short (the JAX module's docstring has the full account):
 * Inf / NaN / ±0 pass through; FP32 subnormal inputs flush to +0.0.
 * Exponent overflow is checked BEFORE rounding and saturates to ±Inf;
   a value that only rounds past the max carries into ``2^(emax+1)``.
-* Round-to-nearest-even at bit ``23 - man_bits``; subnormal targets
-  take a truncating pre-shift, then the same rounding.
+* Round-to-nearest-even at bit ``23 - man_bits`` (or, in the SR cast,
+  add the low ``23 - man_bits`` random bits and truncate); subnormal
+  targets take a truncating pre-shift, then the same rounding.
 
 Bit arithmetic runs in int64 on the fp32 bit pattern (``view(int32)``
 masked to 32 bits), so no shift is arithmetic on a sign bit and no
@@ -26,7 +28,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["cast_body", "cast_to_format", "max_finite", "wire_bytes",
+__all__ = ["cast_body", "cast_body_sr", "cast_to_format",
+           "cast_to_format_sr", "cast_to_format_sr_at", "max_finite", "wire_bytes",
            "kv_page_bytes", "pack_code", "pack_exmy", "unpack_code",
            "unpack_exmy", "format_max_exponent", "sidecar_bytes",
            "block_shifts", "cast_body_blocked", "pack_exmy_blocked",
@@ -88,8 +91,21 @@ def _pow2(e: torch.Tensor) -> torch.Tensor:
     return ((e + 127) << 23).to(torch.int32).view(torch.float32)
 
 
-def cast_body(x: torch.Tensor, exp_bits: int, man_bits: int) -> torch.Tensor:
-    """RTNE cast of fp32 ``x`` into the (exp_bits, man_bits) value set."""
+def _sr(man: torch.Tensor, shift: int, rbits: torch.Tensor) -> torch.Tensor:
+    """Stochastic rounding of an integer significand at bit `shift`: add
+    the low `shift` bits of ``rbits`` and truncate (the identity when
+    ``shift <= 0``)."""
+    if shift <= 0:
+        return man
+    r = rbits.to(torch.int64) & ((1 << shift) - 1)
+    return (man + r) & ~((1 << shift) - 1)
+
+
+def _cast_core(x: torch.Tensor, exp_bits: int, man_bits: int,
+               round_fn) -> torch.Tensor:
+    """The cast without its rounding step: ``round_fn(man)`` rounds an
+    integer significand at bit ``23 - man_bits``.  Both the normal and
+    the subnormal-target significand go through the same ``round_fn``."""
     _validate(exp_bits, man_bits)
     x = x.to(torch.float32)
     bits = _bits(x)
@@ -105,11 +121,10 @@ def cast_body(x: torch.Tensor, exp_bits: int, man_bits: int) -> torch.Tensor:
     new_e = exp_f - 127 + bias
     overflow = new_e >= ((1 << exp_bits) - 1)
 
-    shift = 23 - man_bits
-    man_norm = _rtne(man24, shift)
+    man_norm = round_fn(man24)
     e_norm = exp_f - 127
     # subnormal targets: truncating pre-shift, THEN round
-    man_sub = _rtne(man24 >> torch.clamp(1 - new_e, 0, 24), shift)
+    man_sub = round_fn(man24 >> torch.clamp(1 - new_e, 0, 24))
 
     is_sub = new_e <= 0
     man_out = torch.where(is_sub, man_sub, man_norm)
@@ -127,6 +142,26 @@ def cast_body(x: torch.Tensor, exp_bits: int, man_bits: int) -> torch.Tensor:
     return torch.where(passthrough, x, val)
 
 
+def cast_body(x: torch.Tensor, exp_bits: int, man_bits: int) -> torch.Tensor:
+    """RTNE cast of fp32 ``x`` into the (exp_bits, man_bits) value set."""
+    shift = 23 - man_bits
+    return _cast_core(x, exp_bits, man_bits, lambda m: _rtne(m, shift))
+
+
+def cast_body_sr(x: torch.Tensor, exp_bits: int, man_bits: int,
+                 rbits: torch.Tensor) -> torch.Tensor:
+    """Stochastically rounded cast: ``rbits`` (an integer tensor of
+    uint32 values or their int32 patterns, ``x``'s size) decides each
+    element's round direction by its low ``23 - man_bits`` bits.  Every
+    other rule is the RTNE cast's."""
+    shift = 23 - man_bits
+    if rbits.numel() == x.numel():
+        rbits = rbits.reshape(x.shape)
+    else:
+        rbits = rbits.expand(x.shape)
+    return _cast_core(x, exp_bits, man_bits, lambda m: _sr(m, shift, rbits))
+
+
 def cast_to_format(x: torch.Tensor, exp_bits: int,
                    man_bits: int) -> torch.Tensor:
     """The public RTNE cast: on a CUDA tensor one launch of the
@@ -135,6 +170,33 @@ def cast_to_format(x: torch.Tensor, exp_bits: int,
     from ..ops.quantize import quantize_cast   # ops imports this module
 
     return quantize_cast(x, exp_bits, man_bits)
+
+
+def cast_to_format_sr(x: torch.Tensor, exp_bits: int, man_bits: int,
+                      key: tuple) -> torch.Tensor:
+    """Stochastically rounded cast with the bits of
+    ``jax.random.bits(key, x.shape)`` (`prng.random_bits`, torch ops on
+    ``x``'s device); the cast itself is K2 (`ops.quantize.
+    quantize_cast_sr`) on a CUDA tensor, `cast_body_sr` on a CPU one."""
+    from ..ops.quantize import quantize_cast_sr
+    from .prng import random_bits, to_int32_bits
+
+    return quantize_cast_sr(x, exp_bits, man_bits, to_int32_bits(
+        random_bits(key, x.shape, x.device)))
+
+
+def cast_to_format_sr_at(x: torch.Tensor, exp_bits: int, man_bits: int,
+                         key: tuple, offsets: torch.Tensor) -> torch.Tensor:
+    """Stochastically rounded cast with offset-indexed bits
+    (`prng.sr_bits_at(key, offsets)`, ``offsets`` of x's size, torch ops
+    on ``x``'s device: the `sr_bits` kernel draws runs of contiguous
+    offsets only); the cast is K2 on a CUDA tensor, `cast_body_sr` on a
+    CPU one."""
+    from ..ops.quantize import quantize_cast_sr
+    from .prng import sr_bits_at, to_int32_bits
+
+    bits = sr_bits_at(key, offsets.to(x.device).reshape(x.shape))
+    return quantize_cast_sr(x, exp_bits, man_bits, to_int32_bits(bits))
 
 
 # --------------------------------------------------------------------------

@@ -8,7 +8,8 @@ One train step over a mesh of W ranks, as the JAX step runs it under
    forward and backward from the step's starting BN stats, and takes the
    gradients of ``loss / W`` (so the reduced SUM is the mean);
 2. the per-rank gradients are reduced by `parallel.dist.sum_gradients`
-   (APS, eXmY casts, the faithful scan or the ring);
+   (APS, eXmY casts rounded to nearest or stochastically, the faithful
+   scan or the ring, optionally Kahan-compensated);
 3. the optimizer updates the fp32 master weights with the reduced
    gradients;
 4. the BN running stats become the mean of the ranks' stats.
@@ -32,7 +33,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..parallel.dist import sum_gradients
+from ..parallel.dist import grad_sr_key, sum_gradients
 from .state import TrainState
 
 __all__ = ["make_train_step", "make_eval_step", "fp32_numerics",
@@ -95,23 +96,33 @@ def local_gradients(model, x: torch.Tensor, y: torch.Tensor, mesh) -> tuple:
 
 def make_train_step(model, opt, mesh, *, mode: str = "faithful",
                     use_aps: bool = False, grad_exp: int = 8,
-                    grad_man: int = 23, fused: Optional[bool] = None):
+                    grad_man: int = 23, use_kahan: bool = False,
+                    grad_rounding: str = "nearest", grad_seed: int = 0,
+                    fused: Optional[bool] = None):
     """``step(state, images, labels) -> (state, metrics)`` over ``mesh``.
 
     ``images``: the global batch, (W * B, 32, 32, 3) NHWC fp32; each rank
     takes its contiguous B rows.  ``metrics``: ``loss`` (the rank-summed
     loss / W, i.e. the global mean) and ``accuracy`` (top-1 over the
-    global batch), as 0-d tensors on the device.  ``fused`` goes to
-    `sum_gradients` (None: the kernels on CUDA)."""
+    global batch), as 0-d tensors on the device.  With
+    ``grad_rounding="stochastic"`` step s reduces with the key
+    ``grad_sr_key(grad_seed, s, 1)``.  ``fused`` goes to `sum_gradients`
+    (None: the kernels on CUDA)."""
+    if grad_rounding not in ("nearest", "stochastic"):
+        raise ValueError(f"unknown grad_rounding {grad_rounding!r}")
 
     def step(state: TrainState, images, labels):
         x, y = as_batch(images, labels, mesh.device)
+        sum_key = (grad_sr_key(grad_seed, state.step, 1)
+                   if grad_rounding == "stochastic" else None)
         with fp32_numerics():
             grads, new_stats, losses, hits = local_gradients(model, x, y,
                                                              mesh)
             reduced = sum_gradients(grads, mesh, use_aps=use_aps,
                                     grad_exp=grad_exp, grad_man=grad_man,
-                                    mode=mode, fused=fused)[0]
+                                    use_kahan=use_kahan, mode=mode,
+                                    rounding=grad_rounding, key=sum_key,
+                                    fused=fused)[0]
             state.opt_state = opt.apply(reduced, state.opt_state,
                                         state.params)
             with torch.no_grad():

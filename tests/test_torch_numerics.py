@@ -2,13 +2,15 @@
 
 The same inputs (numpy, seeded) go through `cpd_tpu.quant.numerics` and
 `cpd_tpu_torch.quant.numerics`; every output must match bit for bit —
-the cast, the packed code words, their decode, and the block-scaled
-codec — over the probe families of tests/test_numerics.py: random bit
-patterns (NaN payloads, subnormals, both infinities), ties at every
-e5m2/e4m3 point, subnormal targets, and values that carry past the
-format max.
+the RTNE and the stochastically rounded cast, the packed code words,
+their decode, and the block-scaled codec — over the probe families of
+tests/test_numerics.py and tests/test_stochastic.py: random bit patterns
+(NaN payloads, subnormals, both infinities), ties at every e5m2/e4m3
+point, subnormal targets, values that carry past the format max, and
+random round bits with garbage above the bits the cast reads.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,8 +20,11 @@ from cpd_tpu.parallel import integrity as jint
 from cpd_tpu.quant import numerics as jnum
 from cpd_tpu_torch.parallel import integrity as tint
 from cpd_tpu_torch.quant import numerics as tnum
+from cpd_tpu_torch.quant import prng
 
 FORMATS = [(8, 23), (5, 2), (4, 3), (5, 7)]
+# tests/test_stochastic.py's formats, a 3-byte one and the identity
+SR_FORMATS = [(5, 2), (4, 3), (3, 4), (8, 7), (2, 1), (6, 17), (8, 23)]
 SUB_FP32 = [f for f in FORMATS if f != (8, 23)]
 
 
@@ -53,6 +58,40 @@ def test_cast_body_bitwise(fmt):
     x = _probes(seed=fmt[0] * 31 + fmt[1])
     _bitwise(jnum.cast_body(jnp.asarray(x), *fmt),
              tnum.cast_body(torch.from_numpy(x), *fmt))
+
+
+@pytest.mark.parametrize("fmt", SR_FORMATS)
+def test_cast_body_sr_bitwise(fmt):
+    """cast_body_sr with explicit bits, given as uint32 values (int64)
+    and as their int32 patterns: all-zero and all-one bits (truncation
+    and full round-up) at the front, random bits after."""
+    x = _probes(seed=fmt[0] * 7 + fmt[1])
+    r = np.random.default_rng(fmt[1]).integers(
+        0, 2**32, x.size, dtype=np.uint64).astype(np.uint32)
+    r[:64] = np.tile(np.uint32([0, 0xFFFFFFFF]), 32)
+    want = jnum.cast_body_sr(jnp.asarray(x), *fmt, jnp.asarray(r))
+    tr = torch.from_numpy(r.astype(np.int64))
+    _bitwise(want, tnum.cast_body_sr(torch.from_numpy(x), *fmt, tr))
+    _bitwise(want, tnum.cast_body_sr(torch.from_numpy(x), *fmt,
+                                     prng.to_int32_bits(tr)))
+
+
+@pytest.mark.parametrize("fmt", [(5, 2), (4, 3), (2, 1)])
+def test_public_sr_casts_bitwise(fmt):
+    """cast_to_format_sr (shape-indexed bits) and cast_to_format_sr_at
+    (offset-indexed bits, offsets past 2^31) on CPU tensors."""
+    x = _probes(seed=fmt[1] + 40)[:3000].reshape(30, 100)
+    key = jax.random.PRNGKey(fmt[0])
+    tkey = prng.PRNGKey(fmt[0])
+    _bitwise(jnum.cast_to_format_sr(jnp.asarray(x), *fmt, key),
+             tnum.cast_to_format_sr(torch.from_numpy(x), *fmt, tkey))
+    offs = (np.arange(x.size, dtype=np.uint64) + 2**31 - 1500).astype(
+        np.uint32).reshape(x.shape)
+    _bitwise(jnum.cast_to_format_sr_at(jnp.asarray(x), *fmt, key,
+                                       jnp.asarray(offs)),
+             tnum.cast_to_format_sr_at(torch.from_numpy(x), *fmt, tkey,
+                                       torch.from_numpy(
+                                           offs.astype(np.int64))))
 
 
 @pytest.mark.parametrize("fmt", FORMATS)

@@ -4,7 +4,9 @@ Seeded numpy inputs go through both packages: the bucket layout, the
 ordered requantizing sum, the ring on a `LocalMesh` of W ranks against
 the JAX ring under `shard_map` on W of the 8 virtual CPU devices (and
 against both oracles), and `sum_gradients` in ring and faithful mode
-with APS on a ResNet-shaped leaf list.  The JAX ring runs its plain arm,
+with APS on a ResNet-shaped leaf list — each with round-to-nearest-even
+and with stochastic rounding (the port's `prng` keys against the same
+`jax.random` keys), plain and Kahan-compensated.  The JAX ring runs its plain arm,
 as it does on the CPU; the port's fused arms need the card, where
 `test_fused_ring_matches_oracle_on_card` holds them to the oracle.
 No input is an fp32 subnormal: XLA:CPU flushes those to zero in its
@@ -33,6 +35,7 @@ from cpd_tpu_torch.parallel import overlap as tover
 from cpd_tpu_torch.parallel import reduction as tred
 from cpd_tpu_torch.parallel import ring as tring
 from cpd_tpu_torch.parallel.mesh import LocalMesh
+from cpd_tpu_torch.quant import prng
 
 # a ResNet-shaped leaf list (tiny widths): conv kernels, BN scale/bias
 # pairs, the head; odd sizes so buckets and ring chunks have ragged ends
@@ -54,10 +57,14 @@ def _stack(world, n, seed):
     return x
 
 
-def _jax_ring(world, stacked, exp, man):
+def _tkey(k) -> tuple:
+    return tuple(int(v) for v in np.asarray(jax.random.key_data(k)))
+
+
+def _jax_ring(world, stacked, exp, man, **kw):
     mesh = make_mesh(dp=world, devices=jax.devices()[:world])
     fn = jax.jit(shard_map(
-        lambda st: jring.ring_quantized_sum(st[0], "dp", exp, man),
+        lambda st: jring.ring_quantized_sum(st[0], "dp", exp, man, **kw),
         mesh=mesh, in_specs=(P("dp"),), out_specs=P(), check_vma=False))
     return np.asarray(fn(jax.device_put(jnp.asarray(stacked),
                                         NamedSharding(mesh, P("dp")))))
@@ -108,6 +115,97 @@ def test_ring_matches_jax_ring_and_oracles(world, fmt):
     _bitwise(want, unpacked[0])
 
 
+@pytest.mark.parametrize("kahan,sr", [(True, False), (False, True),
+                                      (True, True)])
+@pytest.mark.parametrize("fmt", [(5, 2), (4, 3), (8, 23)])
+def test_ordered_and_kahan_sums_sr_match_jax(fmt, kahan, sr):
+    """Bitwise: the ordered scan with SR and the Kahan scan with RTNE and
+    SR, with default (leaf-local) offsets, an offset start past 2^31 and
+    one whose offsets wrap past 2^32.  (8, 23) with Kahan has no fp32
+    shortcut."""
+    st = _stack(5, 777, seed=sum(fmt) + 3)
+    key = jax.random.PRNGKey(sum(fmt)) if sr else None
+    tkey = _tkey(key) if sr else None
+    for start in (None, 2**31 + 9, 2**32 - 300):
+        joffs = None if start is None else jnp.asarray(
+            (np.arange(777, dtype=np.uint64) + start).astype(np.uint32))
+        tkw = {} if start is None else dict(offset_start=start)
+        want = jred.quantized_sum(jnp.asarray(st), *fmt, kahan, key=key,
+                                  offsets=joffs if sr else None)
+        got = tred.quantized_sum(torch.from_numpy(st), *fmt, kahan,
+                                 key=tkey, **(tkw if sr else {}))
+        if fmt == (8, 23) and not kahan:
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       rtol=1e-6, atol=1e-7)
+        else:
+            _bitwise(want, got, f"{fmt} kahan={kahan} sr={sr} {tkw}")
+        if not sr:
+            break
+
+
+def test_kahan_subtraction_as_negated_addition_is_exact():
+    """x - y == x + (-y) bitwise in fp32 round-to-nearest, signed zeros
+    included: what lets each Kahan site run as one K3/K4 launch."""
+    rng = np.random.default_rng(4)
+    bits = rng.integers(0, 2**32, (2, 20000), dtype=np.uint64)
+    x, y = bits.astype(np.uint32).view(np.float32)
+    keep = ~(np.isnan(x) | np.isnan(y))
+    x, y = torch.from_numpy(x[keep]), torch.from_numpy(y[keep])
+    z = torch.tensor([0.0, -0.0, 0.0, -0.0, 1.5, -1.5])
+    w = torch.tensor([0.0, 0.0, -0.0, -0.0, 1.5, -1.5])
+    for a, b in [(x, y), (z, w), (w, z)]:
+        _bitwise((a - b).numpy(), a + (-b))
+    for fmt in [(5, 2), (8, 23)]:
+        _bitwise(tq.quantize_add_ref(x, -y, *fmt).numpy(),
+                 tq.quantize_add_ref(x - y, torch.zeros_like(x), *fmt))
+
+
+@pytest.mark.parametrize("world", [2, 4, 8])
+@pytest.mark.parametrize("kahan,sr", [(True, False), (False, True),
+                                      (True, True)])
+def test_ring_kahan_sr_matches_jax_ring_and_oracles(world, kahan, sr):
+    """Bitwise at W in {2, 4, 8}, odd lengths (ragged last chunk): the
+    port's ring on a LocalMesh (packed wire at (5, 2), unpacked at
+    (5, 1)) == the JAX ring under shard_map == both oracles, with Kahan,
+    SR and both; the SR bits indexed from an offset start past 2^31."""
+    n = 1001 + world
+    for fmt in [(5, 2), (5, 1)]:
+        st = _stack(world, n, seed=world * 3 + fmt[1] + 2 * kahan)
+        key = jax.random.PRNGKey(world + fmt[1]) if sr else None
+        kw = dict(use_kahan=kahan, key=key, offset_start=2**31 + 17)
+        want = _jax_ring(world, st, *fmt, **kw)
+        _bitwise(want, jring.ring_oracle_sum(jnp.asarray(st), *fmt, **kw))
+        kw["key"] = _tkey(key) if sr else None
+        mesh = LocalMesh(world, "cpu")
+        got = tring.ring_quantized_sum(list(torch.from_numpy(st)), mesh,
+                                       *fmt, **kw)
+        assert len(got) == world
+        for g in got:
+            _bitwise(want, g, f"W={world} {fmt} kahan={kahan} sr={sr}")
+        _bitwise(want, tring.ring_oracle_sum(torch.from_numpy(st), *fmt,
+                                             **kw))
+
+
+def test_ring_sr_offsets_wrap_past_2_32_match_jax():
+    """Bitwise: the SR ring whose chunk offsets wrap past 2^32 (the
+    offset start of a bucket near the top of the uint32 index space),
+    plain and Kahan, against the JAX ring and both oracles."""
+    world, n = 4, 203
+    st = _stack(world, n, seed=11)
+    key = jax.random.PRNGKey(8)
+    for kahan in (False, True):
+        kw = dict(key=key, use_kahan=kahan, offset_start=2**32 - 100)
+        want = _jax_ring(world, st, 5, 2, **kw)
+        _bitwise(want, jring.ring_oracle_sum(jnp.asarray(st), 5, 2, **kw))
+        kw["key"] = _tkey(key)
+        got = tring.ring_quantized_sum(list(torch.from_numpy(st)),
+                                       LocalMesh(world, "cpu"), 5, 2, **kw)
+        for g in got:
+            _bitwise(want, g, f"kahan={kahan}")
+        _bitwise(want, tring.ring_oracle_sum(torch.from_numpy(st), 5, 2,
+                                             **kw))
+
+
 def test_ring_layout_helpers_match_jax():
     for n, w in [(0, 4), (1, 4), (1001, 8), (4096, 4)]:
         assert tring.ring_chunk_size(n, w) == jring.ring_chunk_size(n, w)
@@ -148,12 +246,40 @@ def test_sum_gradients_matches_jax(mode, bucket_elems):
         _bitwise(w, g, f"leaf {i}")
 
 
+@pytest.mark.parametrize("mode,kahan,sr", [
+    ("ring", False, True), ("ring", True, False), ("ring", True, True),
+    ("faithful", False, True), ("faithful", True, False),
+    ("faithful", True, True)])
+def test_sum_gradients_sr_kahan_matches_jax(mode, kahan, sr):
+    """Bitwise: APS + (5, 2) sum_gradients over W=4 ranks with SR (the
+    three-way key split, the rank folded into the pre-quantize key,
+    global leaf offsets), Kahan, and both, over several ragged buckets
+    (the JAX faithful path reduces per leaf: the offsets make the bits
+    the same)."""
+    world = 4
+    leaves = _leaves(world, seed=13)
+    mesh = make_mesh(dp=world, devices=jax.devices()[:world])
+    key = jdist.grad_sr_key(3, 7, 1) if sr else None
+    kw = dict(use_aps=True, grad_exp=5, grad_man=2, mode=mode,
+              use_kahan=kahan, rounding="stochastic" if sr else "nearest")
+    jfn = jdist.make_sum_gradients_fn(
+        mesh, axis_name="dp", key=key,
+        bucket_elems=600 if mode == "ring" else None, **kw)
+    want = jfn([jax.device_put(jnp.asarray(g), NamedSharding(mesh, P("dp")))
+                for g in leaves])
+    tfn = tdist.make_sum_gradients_fn(
+        LocalMesh(world, "cpu"), key=_tkey(key) if sr else None,
+        bucket_elems=600, **kw)
+    got = tfn([torch.from_numpy(g) for g in leaves])
+    for i, (w, g) in enumerate(zip(want, got)):
+        assert tuple(g.shape) == LEAF_SHAPES[i]
+        _bitwise(w, g, f"leaf {i}")
+
+
 def test_unported_and_misplaced_options_raise():
     mesh = LocalMesh(2, "cpu")
     flats = [torch.zeros(10), torch.zeros(10)]
-    for kw, match in [(dict(use_kahan=True), "Kahan"),
-                      (dict(key=0), "stochastic"),
-                      (dict(block_scale=True), "block-scaled"),
+    for kw, match in [(dict(block_scale=True), "block-scaled"),
                       (dict(verify=True), "verified"),
                       (dict(fault=(1, 0)), "fault")]:
         with pytest.raises(NotImplementedError, match=match):
@@ -162,9 +288,11 @@ def test_unported_and_misplaced_options_raise():
         tring.ring_quantized_sum(flats, mesh, 5, 2, fused=True)
     with pytest.raises(NotImplementedError, match="fast"):
         tdist.sum_gradients([[f] for f in flats], mesh, mode="fast")
-    with pytest.raises(NotImplementedError, match="stochastic"):
+    with pytest.raises(ValueError, match="requires a PRNG key"):
         tdist.sum_gradients([[f] for f in flats], mesh,
                             rounding="stochastic")
+    with pytest.raises(ValueError, match="rounding='nearest'"):
+        tdist.sum_gradients([[f] for f in flats], mesh, key=(0, 1))
 
 
 @pytest.mark.cuda

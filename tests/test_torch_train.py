@@ -46,6 +46,7 @@ from cpd_tpu_torch.parallel import dist as tdist
 from cpd_tpu_torch.parallel.mesh import LocalMesh
 from cpd_tpu_torch.train import (create_train_state, make_eval_step,
                                  make_train_step, sgd, warmup_step_decay)
+from cpd_tpu_torch.train import step as tstep_mod
 
 TINY = dict(stage_sizes=(1, 1, 1, 1), stage_channels=(8, 16, 32, 64))
 FWD_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -227,15 +228,12 @@ def test_full_width_model_matches_jax_parameter_count():
     assert float(model.fc.bias.abs().max()) == 0.0
 
 
-@pytest.mark.parametrize("fmt", [(5, 2), (6, 17)])
-def test_two_step_losses_match_jax(fmt):
-    """Two APS ring train steps over W=2 ranks, batch 4 per rank, from
-    carried-over weights; the JAX step runs under shard_map on 2 CPU
-    devices (its ring in the plain arm).  The losses to LOSS_RTOL; the
-    BN running stats (the mean over ranks) to STATE_TOL; at (6, 17) the
-    weights and momentum buffers to STATE_TOL too.  The faithful reduce
-    is held bitwise in tests/test_torch_ring.py."""
-    world, per_rank, mode = 2, 4, "ring"
+def _two_steps_match_jax(fmt, mode="ring", **reduce_kw):
+    """Two APS train steps over W=2 ranks, batch 4 per rank, from
+    carried-over weights, in both packages with the same reduce options;
+    the losses, accuracies and the state the steps left, as stated in
+    the callers."""
+    world, per_rank = 2, 4
     jmodel, variables, tmodel = _carried_model(seed=3)
     sched_j = jsched.warmup_step_decay(0.4, 5, [100], warmup_from=0.1)
     sched_t = warmup_step_decay(0.4, 5, [100], warmup_from=0.1)
@@ -244,12 +242,13 @@ def test_two_step_losses_match_jax(fmt):
     jstate = j_create_state(jmodel, tx, jnp.zeros((2, 32, 32, 3)),
                             jax.random.PRNGKey(3))
     jstep = j_make_step(jmodel, tx, mesh, use_aps=True, grad_exp=fmt[0],
-                        grad_man=fmt[1], mode=mode, donate=False)
+                        grad_man=fmt[1], mode=mode, donate=False,
+                        **reduce_kw)
     opt = sgd(sched_t, momentum=0.9, weight_decay=1e-4)
     tstate = create_train_state(tmodel, opt)
     tmesh = LocalMesh(world, "cpu")
     tstep = make_train_step(tmodel, opt, tmesh, mode=mode, use_aps=True,
-                            grad_exp=fmt[0], grad_man=fmt[1])
+                            grad_exp=fmt[0], grad_man=fmt[1], **reduce_kw)
     x, y, _, _ = jcifar.synthetic_cifar10(2 * world * per_rank, 8, seed=2)
     pipe = jcifar.CIFAR10Pipeline(x, y, world * per_rank)
     sharding = NamedSharding(mesh, P("dp"))
@@ -286,6 +285,44 @@ def test_two_step_losses_match_jax(fmt):
     assert math.isfinite(float(ev["loss"])) and 0 <= float(ev["top1"]) <= 1
 
 
+@pytest.mark.parametrize("fmt", [(5, 2), (6, 17)])
+def test_two_step_losses_match_jax(fmt):
+    """Two APS ring train steps over W=2 ranks, batch 4 per rank, from
+    carried-over weights; the JAX step runs under shard_map on 2 CPU
+    devices (its ring in the plain arm).  The losses to LOSS_RTOL; the
+    BN running stats (the mean over ranks) to STATE_TOL; at (6, 17) the
+    weights and momentum buffers to STATE_TOL too.  The faithful reduce
+    is held bitwise in tests/test_torch_ring.py."""
+    _two_steps_match_jax(fmt)
+
+
+@pytest.mark.parametrize("mode,rounding", [("ring", "stochastic"),
+                                           ("faithful", "nearest")])
+def test_two_step_sr_and_kahan_losses_match_jax(mode, rounding,
+                                                monkeypatch):
+    """As `test_two_step_losses_match_jax` at (6, 17), with the reduce
+    Kahan-compensated, and in the ring case stochastically rounded
+    (seed 5), to the same tolerances: the SR bits are the same in both
+    packages, so only the fp32 order differences of the gradients
+    remain.  A wrong key would move a gradient by 2^-17 relative, inside
+    that tolerance, so the key each step hands `sum_gradients` is held
+    to the JAX step's ``grad_sr_key(5, step, 1)`` exactly.  (At (5, 2) a
+    one-ulp gradient difference that flips a rounding moves the step-2
+    BN statistics past the tolerance, with SR as with RTNE.)"""
+    keys = []
+
+    def spy(*args, **kw):
+        keys.append(kw["key"])
+        return tdist.sum_gradients(*args, **kw)
+
+    monkeypatch.setattr(tstep_mod, "sum_gradients", spy)
+    _two_steps_match_jax((6, 17), mode=mode, grad_rounding=rounding,
+                         grad_seed=5, use_kahan=True)
+    sr = rounding == "stochastic"
+    assert keys == [tuple(int(v) for v in np.asarray(jax.random.key_data(
+        jdist.grad_sr_key(5, s, 1)))) if sr else None for s in (0, 1)]
+
+
 def test_cli_trains_on_cpu_and_rejects_unported_flags(tiny_cifar_factory,
                                                       tmp_path, capsys):
     root = tiny_cifar_factory(tmp_path, n_train=40, n_test=8)
@@ -298,10 +335,33 @@ def test_cli_trains_on_cpu_and_rejects_unported_flags(tiny_cifar_factory,
     cfg = tcli.read_config(tcli.build_parser().get_default("config"))
     assert cfg["weight_decay"] == 0.0001 and cfg["lr_steps"] == [3000, 6000,
                                                                   9000]
-    for bad in (["--use_kahan"], ["--zero2"], ["--opt_exp", "5"],
+    for bad in (["--use_lars"], ["--zero2"], ["--opt_exp", "5"],
                 ["--mode", "fast"]):
         with pytest.raises(SystemExit, match="not yet ported"):
             tcli.main(argv + bad, device="cpu")
+
+
+def test_cli_trains_with_sr_and_kahan_on_cpu(tiny_cifar_factory, tmp_path,
+                                             capsys, monkeypatch):
+    """The ported reduce flags parse with the JAX trainer's choices and
+    defaults, and two iterations train with them on the CPU (at the tiny
+    width: the plain threefry over full-width leaves is slow on a CPU)."""
+    import cpd_tpu_torch.models.resnet_cifar as tres
+
+    monkeypatch.setattr(tres, "resnet18_cifar",
+                        lambda device: ResNetCIFAR(device=device, **TINY))
+    args = tcli.parse_args(["--max-iter", "1"])
+    assert (args.grad_rounding, args.grad_seed, args.use_kahan) == \
+        ("nearest", 0, False)
+    with pytest.raises(SystemExit):
+        tcli.parse_args(["--grad-rounding", "up"])
+    root = tiny_cifar_factory(tmp_path, n_train=40, n_test=8)
+    argv = ["--mode", "faithful", "--use_APS", "--use_kahan",
+            "--grad-rounding", "stochastic", "--grad-seed", "3",
+            "--max-iter", "2", "--batch_size", "4", "--data-root", root,
+            "--print_freq", "1", "--val_freq", "2"]
+    assert tcli.main(argv, device="cpu") == 0
+    assert "done: 2 iters" in capsys.readouterr().out
 
 
 def test_entry_points_default_to_cuda():
