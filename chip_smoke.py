@@ -56,7 +56,26 @@ Phases; any failure exits non-zero:
    stochastic} x {Kahan off, on} on one step's gradients, kernels vs
    plain versions, bitwise; then 3 iterations of the trainer CLI with
    ``--mode faithful --use_APS --use_kahan --grad-rounding stochastic``;
-9. print one JSON line ``{"kernels": [...]}`` and, last,
+9. the block-scaled, verified ring: (a) hold the blocked arms of K6 and
+   K5 (RTNE and SR, with and without digests) against their plain
+   versions, BITWISE (fp32 partials, every wire byte with the sidecar,
+   digests), over the formats (4,3), (5,2), (5,7) and blocks 128, 1024
+   and 65536, at the ring chunk and at an odd length whose last block is
+   short, and K7 (`digest_rows`) at the gathered wire of the largest
+   bucket (4 rows) and at W = 2 and 8 with an odd byte count; time them
+   as in phase 3; (b) train 3 steps of APS (4,3) with ``block_scale``,
+   block 128, ``verify_reduce`` through the kernels and through the
+   plain versions — bitwise equal, ``reduce_ok`` 1 on every step — with
+   the launches as designed, and hold one step's buckets through the
+   blocked ring to ``ring_oracle_sum(block_scale=True)``; (c) one step
+   each with a flip, stale and drop wire fault on rank 2: the metrics
+   ``hop_bad 1, gather_bad 1, agree 0, ok 0`` through the kernels and the
+   plain versions, and fault code 0 bitwise the clean step; (d) one SR
+   step (seed 0), kernels == plain, the SR blocked ring == the oracle
+   with the key; (e) 3 iterations of the trainer CLI with
+   ``--mode ring --use_APS --grad_exp 4 --grad_man 3 --block-scale
+   --block-size 128``;
+10. print one JSON line ``{"kernels": [...]}`` and, last,
    ``{"ok": true, "device": {...}}``.
 
 The script imports neither jax nor the JAX package.
@@ -123,6 +142,31 @@ QUANT_ODD_N = 1_000_003
 WIRE_FORMATS = ((5, 2), (4, 3), (5, 7), (6, 17))
 CAST_FORMATS = WIRE_FORMATS + ((8, 23), (5, 1))
 SR_CAST_FORMATS = CAST_FORMATS + ((2, 1),)
+# the blocked, verified slice: e4m3 with 128-element blocks (the JAX
+# package's headline point for the blocked wire, its default block)
+BLOCKED = dict(fmt=(4, 3), block=128, steps=3, fault_rank=2)
+BLOCKED_FORMATS = ((4, 3), (5, 2), (5, 7))
+BLOCK_SIZES = (128, 1024, 65536)
+# K6/K5 blocked and K7: the TPU kernel each replaces, and the bytes one
+# call moves for n elements, wb wire bytes, nb blocks (each input read
+# once, each output written once; SR round bits are 4 bytes), and the
+# fp32 operations per element (the exact power-of-two multiplies: the
+# received unscale, the block scale, the cast, the unscale; the add)
+BLOCKED_KERNELS = {
+    "quantize_pack_blocked": ("cpd_tpu/ops/quantize.py:634 (block_size arm)",
+                              lambda n, wb, nb: n * (8 + wb) + nb, 6),
+    "quantize_pack_blocked_sr": (
+        "cpd_tpu/ops/quantize.py:634 (block_size + rbits arm)",
+        lambda n, wb, nb: n * (12 + wb) + nb, 6),
+    "hop_pack_blocked": ("cpd_tpu/ops/quantize.py:512 (block_size arm)",
+                         lambda n, wb, nb: 2 * (n * (4 + wb) + nb), 9),
+    "hop_pack_blocked_sr": (
+        "cpd_tpu/ops/quantize.py:512 (block_size + rbits arm)",
+        lambda n, wb, nb: 2 * (n * (4 + wb) + nb) + 4 * n, 9),
+}
+# K7 at W rows of B bytes reads W * B bytes; its integer work is a
+# multiply-add and a modulo per byte, below its bytes at 3.35 TB/s
+DIGEST_ROWS = ("cpd_tpu/ops/quantize.py:582", "digest_rows_pallas")
 # K1-K6 and the SR helper: the TPU kernel each replaces, and the bytes one
 # element moves (each input read once, each output written once; wb =
 # wire bytes; SR round bits are 4 bytes)
@@ -155,10 +199,17 @@ KERNEL_NAMES = {"quantize_cast": "cast_kernel<false, false>",
                 "quantize_pack_sr": "wire_kernel<true, true>",
                 "hop_pack": "wire_kernel<false, false>",
                 "hop_pack_sr": "wire_kernel<false, true>",
+                "quantize_pack_blocked": "blocked_wire_kernel<true, false",
+                "quantize_pack_blocked_sr": "blocked_wire_kernel<true, true",
+                "hop_pack_blocked": "blocked_wire_kernel<false, false",
+                "hop_pack_blocked_sr": "blocked_wire_kernel<false, true",
+                "digest_rows": "digest_rows_kernel",
                 "sr_bits": "sr_bits_kernel"}
 NO_LIBRARY = ("no PyTorch call computes the eXmY cast: .to(torch.float8_*) "
               "rounds and saturates differently, so it is not the same "
               "function")
+NO_LIBRARY_DIGEST = ("no PyTorch call computes a position-weighted "
+                     "Fletcher digest mod 65521")
 NO_LIBRARY_BITS = ("no PyTorch call computes jax.random's threefry2x32 "
                    "bits: torch's generators are Philox and give other "
                    "numbers")
@@ -856,6 +907,11 @@ def kernel_counters() -> dict:
             "quantize_pack": tq.quantize_pack,
             "quantize_pack_sr": tq.quantize_pack_sr,
             "hop_pack": tq.hop_pack, "hop_pack_sr": tq.hop_pack_sr,
+            "quantize_pack_blocked": tq.quantize_pack_blocked,
+            "quantize_pack_blocked_sr": tq.quantize_pack_blocked_sr,
+            "hop_pack_blocked": tq.hop_pack_blocked,
+            "hop_pack_blocked_sr": tq.hop_pack_blocked_sr,
+            "digest_rows": tq.digest_rows,
             "sr_bits": tq.sr_bits}
 
 
@@ -890,10 +946,12 @@ def reduce_design(mode: str, sr: bool, kahan: bool, w: int, leaves: int,
     return want
 
 
-def train_run(device, batches, mesh, fused, **step_kw):
-    """Ring + APS steps, one per batch, from the seed-24 weights; returns
-    the model, the state, the step, the per-step losses and the per-step
-    host seconds."""
+def train_run(device, batches, mesh, fused, fmt=None, metrics_out=None,
+              **step_kw):
+    """Ring + APS steps, one per batch, from the seed-24 weights, in the
+    format ``fmt`` (default the slice's); returns the model, the state,
+    the step, the per-step losses and the per-step host seconds, and
+    appends each step's metrics to ``metrics_out``."""
     import torch
 
     from cpd_tpu_torch.models.resnet_cifar import resnet18_cifar
@@ -910,9 +968,10 @@ def train_run(device, batches, mesh, fused, **step_kw):
                                 warmup_from=peak / 16.0),
               momentum=0.9, weight_decay=1e-4)
     state = create_train_state(model, opt)
+    fmt = TRAIN["fmt"] if fmt is None else fmt
     step = make_train_step(model, opt, mesh, mode="ring", use_aps=True,
-                           grad_exp=TRAIN["fmt"][0], grad_man=TRAIN["fmt"][1],
-                           fused=fused, **step_kw)
+                           grad_exp=fmt[0], grad_man=fmt[1], fused=fused,
+                           **step_kw)
     losses, secs = [], []
     for bx, by in batches:
         torch.cuda.synchronize()
@@ -921,6 +980,8 @@ def train_run(device, batches, mesh, fused, **step_kw):
         torch.cuda.synchronize()
         secs.append(now() - t0)
         losses.append(metrics["loss"].clone())
+        if metrics_out is not None:
+            metrics_out.append({k: float(v) for k, v in metrics.items()})
     return model, state, step, losses, secs
 
 
@@ -963,7 +1024,7 @@ def slice_batches(steps: int) -> list:
     return [pipe.batch(idx, seed=0) for idx in sampler.batches()]
 
 
-def reduce_split(mesh, model, x, y, **reduce_kw) -> dict:
+def reduce_split(mesh, model, x, y, fmt=None, **reduce_kw) -> dict:
     """One step's forward + backward and its reduce, each timed on the
     host clock between synchronisations."""
     import torch
@@ -972,7 +1033,7 @@ def reduce_split(mesh, model, x, y, **reduce_kw) -> dict:
     from cpd_tpu_torch.parallel.dist import sum_gradients
     from cpd_tpu_torch.train import fp32_numerics, local_gradients
 
-    fmt = TRAIN["fmt"]
+    fmt = TRAIN["fmt"] if fmt is None else fmt
     with fp32_numerics():
         torch.cuda.synchronize()
         t0 = now()
@@ -1261,6 +1322,397 @@ def sr_train_phase(device, rtne: dict) -> dict:
     return out
 
 
+def blocked_inputs(n: int, fmt, generator, device):
+    """`quant_inputs` (APS-like values and the special values) times a
+    per-16-element scale of 2^-30..2^30: block-structured magnitudes, the
+    data per-block scaling exists for."""
+    import torch
+
+    x = quant_inputs(n, fmt, generator, device)
+    regions = -(-n // 16)
+    e = torch.randint(-30, 31, (regions,), generator=generator,
+                      device=device).float()
+    return x * torch.exp2(e).repeat_interleave(16)[:n]
+
+
+def blocked_quantize_phase(device) -> dict:
+    """Phase 9a: the blocked arms of K6/K5 (RTNE and SR, with and without
+    digests) and K7 against their plain versions, bitwise; timed at the
+    slice's shapes: (4, 3), block 128, one ring chunk; K7 on the largest
+    bucket's gathered wire."""
+    import torch
+
+    from cpd_tpu_torch.ops import quantize as tq
+    from cpd_tpu_torch.quant.numerics import sidecar_bytes, wire_bytes
+
+    chunk = ring_chunk_of_slice(device)
+    gen = torch.Generator(device=device).manual_seed(97)
+    names = tuple(BLOCKED_KERNELS) + ("digest_rows",)
+    errs = dict.fromkeys(names, 0.0)
+    cases = 0
+    for n in (chunk, QUANT_ODD_N):
+        for fmt in BLOCKED_FORMATS:
+            x = blocked_inputs(n, fmt, gen, device)
+            y = blocked_inputs(n, fmt, gen, device).flip(0)
+            rb = tq.sr_bits((fmt[0], n), x, offset_start=2**32 - n // 3)
+            for b in BLOCK_SIZES:
+                pairs = []
+                for sr in (False, True):
+                    r = rb if sr else None
+                    k6 = "quantize_pack_blocked" + ("_sr" if sr else "")
+                    k5 = "hop_pack_blocked" + ("_sr" if sr else "")
+                    first = tq.quantize_pack(x, *fmt, rbits=r, block_size=b,
+                                             want_digest=True)
+                    pairs += [(k6, u, v) for u, v in zip(
+                        first, tq.quantize_pack_ref(
+                            x, *fmt, rbits=r, block_size=b,
+                            want_digest=True))]
+                    pairs += [(k6, u, v) for u, v in zip(
+                        tq.quantize_pack(x, *fmt, rbits=r, block_size=b),
+                        tq.quantize_pack_ref(x, *fmt, rbits=r,
+                                             block_size=b))]
+                    for dig in (True, False):
+                        pairs += [(k5, u, v) for u, v in zip(
+                            tq.hop_pack(first[1], y, *fmt, rbits=r,
+                                        block_size=b, want_digest=dig),
+                            tq.hop_pack_ref(first[1], y, *fmt, rbits=r,
+                                            block_size=b, want_digest=dig))]
+                torch.cuda.synchronize()
+                for name, got, want in pairs:
+                    if not same_bits(got, want):
+                        raise AssertionError(
+                            f"{name} n={n} {fmt} block {b}: differs from "
+                            "its plain version")
+                    errs[name] = max(errs[name], max_abs_diff(got, want))
+                    cases += 1
+    # K7 on the largest bucket's gathered wire and on odd rows
+    fmt, block = BLOCKED["fmt"], BLOCKED["block"]
+    wb = wire_bytes(*fmt)
+    row_bytes = chunk * wb + sidecar_bytes(chunk, block)
+    for w, nb in ((TRAIN["world"], row_bytes), (2, 100_001), (8, 333_333)):
+        rows = torch.randint(0, 256, (w, nb), generator=gen, device=device,
+                             dtype=torch.uint8)
+        got, want = tq.digest_rows(rows), tq.digest_rows_ref(rows)
+        if not same_bits(got, want):
+            raise AssertionError(f"digest_rows ({w}, {nb}): differs from "
+                                 "its plain version")
+        cases += 1
+    print(f"kernel blocked: {cases} outputs of K6/K5 blocked (RTNE, SR; "
+          f"with and without digests) and K7 bitwise equal to their plain "
+          f"versions (n = {chunk} and {QUANT_ODD_N}; formats "
+          f"{list(BLOCKED_FORMATS)}; blocks {list(BLOCK_SIZES)}; K7 at "
+          f"(4, {row_bytes}), (2, 100001), (8, 333333))", flush=True)
+
+    nb_chunk = sidecar_bytes(chunk, block)
+    key = (5, 9)
+
+    def make(x, y):
+        w0 = tq.quantize_pack(y, *fmt, block_size=block)[1]
+        return (x, y, w0, tq.sr_bits(key, x, offset_start=777))
+
+    sets = input_sets(chunk, fmt, 12 + 2 * wb, gen, device, make)
+    calls = {
+        "quantize_pack_blocked": (
+            lambda x, y, w, r: tq.quantize_pack(x, *fmt, block_size=block),
+            lambda x, y, w, r: tq.quantize_pack_ref(x, *fmt,
+                                                    block_size=block),
+            lambda x, y, w, r: tq.quantize_pack(x, *fmt, block_size=block,
+                                                want_digest=True)),
+        "quantize_pack_blocked_sr": (
+            lambda x, y, w, r: tq.quantize_pack(x, *fmt, rbits=r,
+                                                block_size=block),
+            lambda x, y, w, r: tq.quantize_pack_ref(x, *fmt, rbits=r,
+                                                    block_size=block),
+            lambda x, y, w, r: tq.quantize_pack(x, *fmt, rbits=r,
+                                                block_size=block,
+                                                want_digest=True)),
+        "hop_pack_blocked": (
+            lambda x, y, w, r: tq.hop_pack(w, x, *fmt, block_size=block),
+            lambda x, y, w, r: tq.hop_pack_ref(w, x, *fmt,
+                                               block_size=block),
+            lambda x, y, w, r: tq.hop_pack(w, x, *fmt, block_size=block,
+                                           want_digest=True)),
+        "hop_pack_blocked_sr": (
+            lambda x, y, w, r: tq.hop_pack(w, x, *fmt, rbits=r,
+                                           block_size=block),
+            lambda x, y, w, r: tq.hop_pack_ref(w, x, *fmt, rbits=r,
+                                               block_size=block),
+            lambda x, y, w, r: tq.hop_pack(w, x, *fmt, rbits=r,
+                                           block_size=block,
+                                           want_digest=True)),
+    }
+    out = {}
+    for name, (kernel, plain, digest) in calls.items():
+        t_bytes = BLOCKED_KERNELS[name][1](chunk, wb, nb_chunk) \
+            / PEAK_BYTES_PER_S
+        t_ops = BLOCKED_KERNELS[name][2] * chunk / PEAK_FP32_FLOPS
+        out[name] = blocked_timing(name, f"{fmt} block {block}, n={chunk}",
+                                   sets, kernel, plain, digest, t_bytes,
+                                   t_ops, errs[name])
+    # K7: the gathered wire of the largest bucket, W rows
+    row_sets = [(torch.randint(0, 256, (TRAIN["world"], row_bytes),
+                               generator=gen, device=device,
+                               dtype=torch.uint8),)
+                for _ in range(-(-2 * l2_bytes()
+                                 // (TRAIN["world"] * row_bytes)) + 1)]
+    out["digest_rows"] = blocked_timing(
+        "digest_rows", f"({TRAIN['world']}, {row_bytes}) u8", row_sets,
+        tq.digest_rows, tq.digest_rows_ref, None,
+        TRAIN["world"] * row_bytes / PEAK_BYTES_PER_S, 0.0,
+        errs["digest_rows"])
+    return out
+
+
+def blocked_timing(name: str, shape: str, sets, kernel, plain, digest,
+                   t_bytes: float, t_ops: float, err: float) -> dict:
+    """`time_kernel` for the blocked kernels and K7, whose bytes are not
+    a multiple of the element count: device ms of the kernel and its
+    plain version (each timed launch on the next input set), per-call ms
+    with host dispatch, and the bound."""
+    r = dict(shape=shape, input_sets=len(sets), max_abs_err=err,
+             ms=device_ms(rotating(sets, kernel), iters=100),
+             plain_ms=device_ms(rotating(sets, plain), iters=20),
+             call_ms=time_ms(rotating(sets, kernel), iters=200),
+             plain_call_ms=time_ms(rotating(sets, plain), iters=20),
+             bound_ms=max(t_bytes, t_ops) * 1e3,
+             bound_by="bytes" if t_bytes >= t_ops else "operations")
+    if digest is not None:
+        r["ms_with_digest"] = device_ms(rotating(sets, digest), iters=100)
+    lib = NO_LIBRARY_DIGEST if name == "digest_rows" else NO_LIBRARY
+    print(f"kernel {name} [{shape}, {len(sets)} input sets]: kernel_ms "
+          f"{r['ms']:.5f} plain_ms {r['plain_ms']:.5f} (device time) "
+          f"bound_ms {r['bound_ms']:.6f} ({r['bound_by']})"
+          + (f" with digests {r['ms_with_digest']:.5f}"
+             if "ms_with_digest" in r else "")
+          + f"; per call with host dispatch {r['call_ms']:.5f}, plain "
+          f"{r['plain_call_ms']:.5f}; library_ms null ({lib})", flush=True)
+    return r
+
+
+def blocked_design(w: int, leaves: int, buckets: int, sr: bool,
+                   distinct_gathers: int) -> dict:
+    """The launches of one APS `sum_gradients` over the blocked, verified
+    ring at block 128 on a LocalMesh of w ranks: K1 (or sr_bits + K2)
+    per leaf per rank, K6-blocked once and K5-blocked W - 1 times per
+    rank per bucket, sr_bits once per hop with SR, K7 once per distinct
+    gathered stack (one per bucket, two in a bucket whose gather a fault
+    hit)."""
+    want = dict.fromkeys(read_counts(), 0)
+    sfx = "_sr" if sr else ""
+    want["quantize_cast_sr" if sr else "quantize_cast"] = w * leaves
+    want["quantize_pack_blocked" + sfx] = w * buckets
+    want["hop_pack_blocked" + sfx] = w * (w - 1) * buckets
+    want["digest_rows"] = distinct_gathers
+    if sr:
+        want["sr_bits"] = w * leaves + w * w * buckets
+    return want
+
+
+def blocked_train_phase(device) -> dict:
+    """Phase 9b-e: the blocked, verified ring training slice end to end,
+    kernels vs plain versions, the ring vs its oracle, the faults, SR,
+    the launch design, then the trainer CLI."""
+    import torch
+
+    from cpd_tpu_torch.examples.resnet18_cifar import train as cli
+    from cpd_tpu_torch.obs.timing import now
+    from cpd_tpu_torch.parallel.aps import (aps_max_exponents, aps_scale,
+                                            aps_shift_factors)
+    from cpd_tpu_torch.parallel.dist import (_leaf_starts, grad_sr_key,
+                                             quantize_tree_sr)
+    from cpd_tpu_torch.parallel.mesh import data_parallel_mesh
+    from cpd_tpu_torch.parallel.overlap import (DEFAULT_BUCKET_ELEMS,
+                                                bucket_layout)
+    from cpd_tpu_torch.parallel.ring import (ring_oracle_sum,
+                                             ring_quantized_sum)
+    from cpd_tpu_torch.quant.prng import fold_in, split
+    from cpd_tpu_torch.train import as_batch, fp32_numerics, local_gradients
+
+    w, fmt, block = TRAIN["world"], BLOCKED["fmt"], BLOCKED["block"]
+    steps = BLOCKED["steps"]
+    global_batch = w * TRAIN["per_rank_batch"]
+    batches = slice_batches(steps)
+    mesh = data_parallel_mesh(w, device)
+    kw = dict(fmt=fmt, block_scale=True, block_size=block,
+              verify_reduce=True)
+
+    # (b) 3 clean steps, kernels vs plain versions
+    reset_counts()
+    metrics = []
+    model, state, step, losses, secs = train_run(
+        device, batches, mesh, None, metrics_out=metrics, **kw)
+    counts = read_counts()
+    sizes = [p.numel() for p in model.parameters()]
+    layout = bucket_layout(sizes, DEFAULT_BUCKET_ELEMS)
+    n_buckets = len(layout)
+    want = {k: steps * v for k, v in blocked_design(
+        w, len(sizes), n_buckets, False, n_buckets).items()}
+    if counts != want:
+        raise AssertionError(f"blocked launches {counts} != the design's "
+                             f"{want} ({steps} steps, W={w}, {n_buckets} "
+                             f"buckets)")
+    clean = {"reduce_ok": 1.0, "reduce_hop_bad": 0.0,
+             "reduce_gather_bad": 0.0, "reduce_agree": 1.0}
+    for i, m in enumerate(metrics):
+        if {k: m[k] for k in clean} != clean:
+            raise AssertionError(f"blocked step {i}: verify report {m}")
+    loss_f = [float(v) for v in losses]
+    if not all(math.isfinite(v) for v in loss_f):
+        raise AssertionError(f"non-finite training loss: {loss_f}")
+    plain_metrics = []
+    plain_model, _, _, plain_losses, plain_secs = train_run(
+        device, batches, mesh, False, metrics_out=plain_metrics, **kw)
+    if plain_metrics != metrics:
+        raise AssertionError(f"blocked metrics {metrics} with the kernels, "
+                             f"{plain_metrics} with the plain versions")
+    for (name, a), b in zip(model.state_dict().items(),
+                            plain_model.state_dict().values()):
+        if not same_bits(a, b):
+            raise AssertionError(f"after {steps} blocked steps {name} "
+                                 "differs between the kernel and the plain "
+                                 "run")
+    print(f"train blocked: {steps} blocked verified ring+APS {fmt} block "
+          f"{block} steps at W={w}: losses, weights and BN stats bitwise "
+          f"equal with the kernels and with the plain versions, reduce_ok 1 "
+          f"on every step; losses {loss_f}", flush=True)
+
+    # one step's buckets through the blocked ring (kernels) vs the oracle
+    x, y = as_batch(*batches[0], device)
+    with fp32_numerics():
+        grads = local_gradients(model, x, y, mesh)[0]
+    shifts = mesh.max([aps_max_exponents(g, w) for g in grads])
+    starts = _leaf_starts(grads[0])
+    cast = [quantize_tree_sr(aps_scale(g, aps_shift_factors(s, fmt[0])),
+                             *fmt, None, starts, fused=False)
+            for g, s in zip(grads, shifts)]
+    key = grad_sr_key(SR_SEED, 0, 1)
+    k_pre, k_sum, _ = split(key, 3)
+    sr_cast = [quantize_tree_sr(aps_scale(g, aps_shift_factors(s, fmt[0])),
+                                *fmt, fold_in(k_pre, r), starts, fused=False)
+               for r, (g, s) in enumerate(zip(grads, shifts))]
+    bkw = dict(block_scale=True, block_size=block)
+    for leaves_of, skw in ((cast, {}), (sr_cast, {"key": k_sum})):
+        for b in layout:
+            flats = [torch.cat([leaves[i].reshape(-1) for i in b])
+                     for leaves in leaves_of]
+            okw = dict(offset_start=starts[b[0]], **skw, **bkw)
+            oracle = ring_oracle_sum(torch.stack(flats), *fmt, **okw)
+            vecs, rep = ring_quantized_sum(flats, mesh, *fmt, verify=True,
+                                           **okw)
+            if int(rep["ok"]) != 1:
+                raise AssertionError(f"bucket {b[0]}..{b[-1]}: verify "
+                                     f"report {rep}")
+            for got in vecs:
+                if not same_bits(got, oracle):
+                    raise AssertionError(
+                        f"bucket {b[0]}..{b[-1]} ({'SR' if skw else 'RTNE'})"
+                        ": the blocked ring differs from ring_oracle_sum")
+    print(f"train blocked: one step's APS-cast gradients, {n_buckets} "
+          f"buckets: the verified blocked ring on the card == "
+          f"ring_oracle_sum(block_scale=True) bitwise, RTNE and SR (key=)",
+          flush=True)
+
+    # (c) faults on rank 2 at step 0, and code 0, kernels and plain
+    faults = {}
+    rank = BLOCKED["fault_rank"]
+    for code, name in ((1, "flip"), (2, "stale"), (3, "drop"), (0, "none")):
+        runs = []
+        for fused in (None, False):
+            reset_counts()
+            m = []
+            f_model, _, _, f_losses, _ = train_run(
+                device, batches[:1], mesh, fused, metrics_out=m,
+                wire_fault_plan=([code], [rank]), **kw)
+            runs.append((m[0], read_counts(), f_model))
+        (m, launched, f_model), (pm, _, p_model) = runs
+        want_rep = clean if code == 0 else {
+            "reduce_ok": 0.0, "reduce_hop_bad": 1.0,
+            "reduce_gather_bad": 1.0, "reduce_agree": 0.0}
+        for label, got in (("kernels", m), ("plain", pm)):
+            if {k: got[k] for k in want_rep} != want_rep:
+                raise AssertionError(f"fault {name} ({label}): report "
+                                     f"{got}, expected {want_rep}")
+        design = blocked_design(w, len(sizes), n_buckets, False,
+                                n_buckets + (code != 0))
+        if launched != design:
+            raise AssertionError(f"fault {name}: launches {launched} != "
+                                 f"{design}")
+        # a fault: the kernel run == the plain run; code 0: == a clean
+        # step through the kernels
+        ref_model = p_model if code else train_run(
+            device, batches[:1], mesh, None, **kw)[0]
+        for (pname, a), b in zip(f_model.state_dict().items(),
+                                 ref_model.state_dict().values()):
+            if not same_bits(a, b):
+                raise AssertionError(f"fault {name}: {pname} differs "
+                                     "between the kernel run and "
+                                     + ("the plain run" if code
+                                        else "the clean step"))
+        faults[name] = dict(metrics={k: m[k] for k in want_rep},
+                            digest_rows=launched["digest_rows"])
+    print("train blocked faults (rank 2, step 0; kernels == plain): "
+          + json.dumps(faults), flush=True)
+
+    # (d) one SR step, kernels vs plain
+    reset_counts()
+    sr_m = []
+    sr_model, _, _, sr_losses, _ = train_run(
+        device, batches[:1], mesh, None, metrics_out=sr_m,
+        grad_rounding="stochastic", grad_seed=SR_SEED, **kw)
+    sr_counts = read_counts()
+    design = blocked_design(w, len(sizes), n_buckets, True, n_buckets)
+    if sr_counts != design:
+        raise AssertionError(f"blocked SR launches {sr_counts} != {design}")
+    psr_m = []
+    psr_model = train_run(device, batches[:1], mesh, False,
+                          metrics_out=psr_m, grad_rounding="stochastic",
+                          grad_seed=SR_SEED, **kw)[0]
+    if sr_m != psr_m or sr_m[0]["reduce_ok"] != 1.0:
+        raise AssertionError(f"blocked SR step: {sr_m} with the kernels, "
+                             f"{psr_m} with the plain versions")
+    for (pname, a), b in zip(sr_model.state_dict().items(),
+                             psr_model.state_dict().values()):
+        if not same_bits(a, b):
+            raise AssertionError(f"blocked SR step: {pname} differs between "
+                                 "the kernel and the plain run")
+    print(f"train blocked sr: one SR step (seed {SR_SEED}) bitwise equal "
+          "with the kernels and with the plain versions, reduce_ok 1",
+          flush=True)
+
+    split_ms = reduce_split(mesh, model, x, y, fmt=fmt, verify=True, **bkw)
+    prof = step_profile(step, state, batches[0])
+    step_s = sum(secs[1:]) / (len(secs) - 1)
+    out = dict(
+        world=w, global_batch=global_batch, steps=steps, fmt=list(fmt),
+        block=block, losses=loss_f, step_ms=step_s * 1e3,
+        images_per_s=global_batch / step_s,
+        plain_step_ms=sum(plain_secs[1:]) / (len(plain_secs) - 1) * 1e3,
+        n_buckets=n_buckets, launches=counts,
+        launches_per_step={k: v // steps for k, v in counts.items()},
+        sr_launches_per_step=sr_counts, faults=faults, **split_ms,
+        profile=prof)
+    print("train blocked: " + json.dumps(out), flush=True)
+
+    iters = TRAIN["cli_iters"]
+    reset_counts()
+    t0 = now()
+    rc = cli.main(["--mode", "ring", "--use_APS", "--grad_exp", str(fmt[0]),
+                   "--grad_man", str(fmt[1]), "--block-scale",
+                   "--block-size", str(block), "--max-iter", str(iters)])
+    cli_counts = read_counts()
+    # the CLI's mesh is one rank: hop 0 only, one K6-blocked per bucket
+    design = {k: iters * v for k, v in blocked_design(
+        1, len(sizes), n_buckets, False, 0).items()}
+    if rc != 0 or cli_counts != design:
+        raise AssertionError(f"blocked trainer CLI returned {rc}, launches "
+                             f"{cli_counts} (design {design})")
+    out["cli"] = dict(rc=rc, seconds=now() - t0, launches=cli_counts,
+                      launches_per_iter={k: v // iters
+                                         for k, v in cli_counts.items()})
+    print("train blocked cli: " + json.dumps(out["cli"]), flush=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1298,6 +1750,8 @@ def main() -> int:
     profile_phase(device)
     train = train_phase(device)
     sr_train = sr_train_phase(device, train)
+    blocked = blocked_quantize_phase(device)
+    blocked_train = blocked_train_phase(device)
 
     main_case = kern["cases"]["e4m3"]
     kernels = [dict(
@@ -1352,6 +1806,30 @@ def main() -> int:
             parity=parity,
             **{k: q[k] for k in ("ms_with_digest", "bound_pipe",
                                  "sass_per_element") if k in q}))
+    # the blocked arms and K7: launches from the blocked verified training
+    # run (RTNE, 3 steps) and its SR step
+    for name in tuple(BLOCKED_KERNELS) + ("digest_rows",):
+        q = blocked[name]
+        sr = name.endswith("_sr")
+        launches = (blocked_train["sr_launches_per_step"][name] if sr
+                    else blocked_train["launches"][name])
+        per_step = (launches if sr
+                    else blocked_train["launches_per_step"][name])
+        kernels.append(dict(
+            name=name, route="cuda", source="cpd_tpu_torch/csrc/quantize.cu",
+            replaces=(DIGEST_ROWS[0] if name == "digest_rows"
+                      else BLOCKED_KERNELS[name][0]),
+            launches=launches, launches_per_step=per_step,
+            max_abs_err=q["max_abs_err"], ms=q["ms"], plain_ms=q["plain_ms"],
+            call_ms=q["call_ms"], plain_call_ms=q["plain_call_ms"],
+            bound_ms=q["bound_ms"], bound_by=q["bound_by"], library_ms=None,
+            library_note=(NO_LIBRARY_DIGEST if name == "digest_rows"
+                          else NO_LIBRARY),
+            parity="bitwise (fp32 partials, wire bytes with the sidecar, "
+                   "digests) in every format, block and size case; and "
+                   "the blocked verified training kernels == plain",
+            shape=q["shape"],
+            **{k: q[k] for k in ("ms_with_digest",) if k in q}))
     print(card, flush=True)      # exactly as nvidia-smi gives it
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,9 @@
 //   * sr_bits_at    -- prng.sr_bits_at: two threefry2x32 evaluations;
 //   * pack_code     -- pack_code: a cast output -> its code word;
 //   * unpack_code   -- unpack_code: a code word -> the cast's fp32 bits;
+//   * flush_low, frexp_exp, scale_pow2, max_finite, format_max_exponent
+//                   -- the block-scaled codec's helpers (_flush_low, the
+//                      exponent torch.frexp returns, _scale_pow2, ...);
 //   * fletcher_mod65521 -- x mod 65521, the digests' modulus.
 // Every float operation is __fmul_rn/__fadd_rn (no FMA contraction) and
 // every power of two is assembled from bits, so the card computes the
@@ -211,6 +214,46 @@ __device__ __forceinline__ float unpack_code(uint32_t code, int eb, int mb) {
   const float mag = __fmul_rn(__fmul_rn(__int2float_rn(mant), pow2i(a)),
                               pow2i(b));
   return neg ? -mag : mag;
+}
+
+// numerics.format_max_exponent: the exponent of the format's max finite
+__device__ __forceinline__ int format_max_exponent(int eb) {
+  return ((1 << eb) - 2) - ((1 << (eb - 1)) - 1);
+}
+
+// numerics.max_finite: (2 - 2^-mb) * 2^emax, from its bits
+__device__ __forceinline__ float max_finite(int eb, int mb) {
+  const uint32_t man = mb == 0 ? 0u : (0x7FFFFFu & ~((1u << (23 - mb)) - 1u));
+  return __uint_as_float((uint32_t(format_max_exponent(eb) + 127) << 23) |
+                         man);
+}
+
+__device__ __forceinline__ int exp_field(float x) {
+  return int((__float_as_uint(x) >> 23) & 0xFFu);
+}
+
+__device__ __forceinline__ bool is_finite(float x) {
+  return exp_field(x) != 0xFF;
+}
+
+// numerics._flush_low: every pattern with a zero exponent field (±0, fp32
+// subnormals) -> +0.0
+__device__ __forceinline__ float flush_low(float x) {
+  return exp_field(x) == 0 ? 0.0f : x;
+}
+
+// the exponent e of torch.frexp (x = f * 2^e, f in [0.5, 1)) of a finite
+// nonzero x, subnormals included
+__device__ __forceinline__ int frexp_exp(float x) {
+  const uint32_t b = __float_as_uint(x) & 0x7FFFFFFFu;
+  const int ef = int(b >> 23);
+  return ef != 0 ? ef - 126 : (32 - __clz(b)) - 149;
+}
+
+// numerics._scale_pow2: x * 2^e for e in [-252, 253] as two exact factors
+__device__ __forceinline__ float scale_pow2(float x, int e) {
+  const int a = clampi(e, -126, 127);
+  return __fmul_rn(__fmul_rn(x, pow2i(a)), pow2i(clampi(e - a, -126, 126)));
 }
 
 constexpr uint32_t kDigestMod = 65521;

@@ -11,10 +11,17 @@
 //   K6 quantize_pack_pallas (:634)    hop 0: cast[_sr](g), pack (+ digest)
 //   K5 hop_pack_pallas (:512)         hop t: cast[_sr](unpack(wire) + g),
 //                                     pack (+ digests of both wires)
+//   K6/K5 blocked arm (block_size; _make_wire_kernel :314-362)
+//                                     the same hops over the block-scaled
+//                                     wire: per-block power-of-2 shift,
+//                                     cast, clamp, sidecar (+ digests)
+//   K7 digest_rows_pallas (:582, body :541)
+//                                     per-row Fletcher digest of (W, B) u8
 // K5 and K6 share their body (_make_wire_kernel :271 / _wire_call :409),
 // and so do their ports here: one kernel templated on kFirst and kSR (as
-// K1-K4 share one templated on kAdd and kSR).  The per-element arithmetic
-// is exmy.cuh, bitwise the plain version's.  Like the TPU kernels, the SR
+// K1-K4 share one templated on kAdd and kSR); their blocked arm is a
+// second kernel, blocked_wire_kernel, templated the same way.  The
+// per-element arithmetic is exmy.cuh, bitwise the plain version's.  Like the TPU kernels, the SR
 // arms take their uint32 round bits as an operand.  Those bits come from
 // sr_bits_kernel, the port of what the JAX package computes in XLA
 // (numerics.sr_bits_at: two threefry2x32 per element); it is bound by
@@ -46,9 +53,36 @@
 // ceil(n / (blocks * threads)) * wb terms, so a 64-bit sum cannot wrap
 // below 2^40 elements; block partials are < 65521 and at most 4096 of
 // them are folded.
+//
+// The blocked arm needs each scale block's max before any element of the
+// block can be cast, so it works over whole blocks, not a grid stride of
+// elements.  Block 128 (the ring's default): one warp per block, each
+// lane holding 4 elements (lane + 32 j, coalesced) in registers, the max
+// by __shfl_xor; one pass.  Larger blocks (a multiple of 128 dividing
+// 65536, the JAX fused rule): one CTA per block, which walks the block
+// twice, the max first and then the cast, the second read (at most
+// 256 KB of g and wb/4 of that of wire) served by the L2.  Per element it
+// follows _make_wire_kernel step for step: unpack, unscale by the
+// received sidecar shift (flushing what would land below 2^-126), add g,
+// flush the sub-normal class, block max over finite magnitudes,
+// k = exp(bmax) - 127 - emax clipped to [-128, 127], flush what scales
+// below 2^-126, scale by 2^-k, cast (RTNE or SR), clamp the carry to
+// ±max_finite, unscale with the same flush, and emit the canonical code
+// (flushed and ±0 values as code 0, so the bytes equal pack_exmy_blocked
+// of the partial); the sidecar byte k + 128 of block b goes after the
+// n * wb code bytes.  The digests cover the whole buffer: a sidecar byte
+// sits at position n * wb + b.  A short tail block's pad never enters
+// the max (the loops stop at n).
+//
+// K7 spreads each row of the (W, B) gathered wire over several CTAs
+// (blockIdx.y = row); each CTA stores its row's (s1, s2) partials mod
+// 65521, and the same fold kernel, with one CTA per row, sums them.  The byte
+// weight is (pos mod 65521) + 1 of the position in the row, so any split
+// is exact, and 64-bit sums cannot wrap.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "exmy.cuh"
 
@@ -105,6 +139,40 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
+// each of a CTA's kS sums over its threads; the totals land in thread 0's
+// s.  Every thread of the CTA must call it.
+template <int kS>
+__device__ __forceinline__ void cta_sum(unsigned long long (&s)[kS]) {
+  __shared__ unsigned long long red[kS][kThreads / 32];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int j = 0; j < kS; ++j) {
+    s[j] = warp_sum(s[j]);
+    if (lane == 0) red[j][warp] = s[j];
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int nw = blockDim.x / 32;
+#pragma unroll
+    for (int j = 0; j < kS; ++j)
+      s[j] = warp_sum(lane < nw ? red[j][lane] : 0ull);
+  }
+}
+
+// the kS digest sums of a CTA -> partials[slot * kS + j], mod 65521;
+// every thread of the CTA must call it
+template <int kS>
+__device__ __forceinline__ void store_partials(unsigned long long (&s)[kS],
+                                               unsigned long long* partials,
+                                               size_t slot) {
+  cta_sum(s);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int j = 0; j < kS; ++j)
+      partials[slot * kS + j] = s[j] % exmy::kDigestMod;
+  }
+}
+
 // K6 (kFirst, no wire_in) and K5: res = cast[_sr]([unpack(wire_in) +] g
 // [, rbits]), wire_out = pack(res); partials (4 per block: in s1, in s2,
 // out s1, out s2, each mod 65521) when partials != nullptr
@@ -146,24 +214,174 @@ __global__ void wire_kernel(const uint8_t* __restrict__ wire_in,
       }
     }
   }
-  if (!partials) return;
-  __shared__ unsigned long long red[4][kThreads / 32];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    s[j] = warp_sum(s[j]);
-    if (lane == 0) red[j][warp] = s[j];
+  if (partials) store_partials(s, partials, blockIdx.x);
+}
+
+// the Fletcher terms of byte b at position pos into (s1, s2)
+__device__ __forceinline__ void digest_byte(unsigned long long& s1,
+                                            unsigned long long& s2,
+                                            uint32_t b, long long pos) {
+  s1 += b;
+  s2 += (unsigned long long)b *
+        ((unsigned long long)pos % exmy::kDigestMod + 1ull);
+}
+
+// one blocked hop's arithmetic; the shape (warp or CTA per scale block) is
+// blocked_wire_kernel's
+struct BlockedHop {
+  const uint8_t* wire_in;     // codes then sidecar; null for hop 0
+  const float* g;
+  const uint32_t* rbits;      // null for RTNE
+  float* res;
+  uint8_t* wire_out;          // codes then sidecar
+  long long n;
+  int wb, eb, mb, emax;
+  float mf;
+
+  // s of element i: [unpack, unscale by k_in, +] g, then the flush;
+  // code_in gets the received code word
+  template <bool kFirst>
+  __device__ __forceinline__ float sum(long long i, int k_in,
+                                       uint32_t& code_in) const {
+    float v = g[i];
+    if (!kFirst) {
+      code_in = 0u;
+      const uint8_t* w = wire_in + i * wb;
+      for (int k = 0; k < wb; ++k) code_in |= uint32_t(w[k]) << (8 * k);
+      const float prev = exmy::unpack_code(code_in, eb, mb);
+      const bool flush = exmy::is_finite(prev) && prev != 0.0f &&
+                         exmy::frexp_exp(prev) + k_in <= -126;
+      v = __fadd_rn(
+          exmy::flush_low(flush ? 0.0f : exmy::scale_pow2(prev, k_in)), v);
+    }
+    return exmy::flush_low(v);
   }
-  __syncthreads();
-  if (warp == 0) {
-    const int nw = blockDim.x / 32;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      unsigned long long v = lane < nw ? red[j][lane] : 0ull;
-      v = warp_sum(v);
-      if (lane == 0) partials[size_t(blockIdx.x) * 4 + j] = v % exmy::kDigestMod;
+
+  // the block shift from the block's max finite magnitude
+  __device__ __forceinline__ int shift(float bmax) const {
+    const int k = bmax > 0.0f ? exmy::exp_field(bmax) - 127 - emax : 0;
+    return exmy::clampi(k, -128, 127);
+  }
+
+  // cast element i of a block with shift k, store res and its code bytes,
+  // add both wires' bytes to the digest sums
+  template <bool kFirst, bool kSR>
+  __device__ __forceinline__ void emit(long long i, float s, int k,
+                                       uint32_t code_in,
+                                       unsigned long long* d) const {
+    if (exmy::is_finite(s) && s != 0.0f && exmy::frexp_exp(s) - 1 - k <= -127)
+      s = 0.0f;
+    const float y = exmy::scale_pow2(s, -k);
+    float q = kSR ? exmy::cast_sr(y, eb, mb, rbits[i]) : exmy::cast(y, eb, mb);
+    if (exmy::is_finite(y) && fabsf(q) > mf) q = q > 0.0f ? mf : -mf;
+    const bool out_flush = exmy::is_finite(q) && q != 0.0f &&
+                           exmy::frexp_exp(q) + k <= -126;
+    res[i] = exmy::flush_low(out_flush ? 0.0f : exmy::scale_pow2(q, k));
+    const uint32_t code =
+        exmy::pack_code(out_flush || q == 0.0f ? 0.0f : q, eb, mb);
+    uint8_t* o = wire_out + i * wb;
+    for (int k2 = 0; k2 < wb; ++k2) o[k2] = uint8_t(code >> (8 * k2));
+    if (d) {
+      for (int k2 = 0; k2 < wb; ++k2) {
+        const long long pos = i * wb + k2;
+        if (!kFirst) digest_byte(d[0], d[1], (code_in >> (8 * k2)) & 0xFFu, pos);
+        digest_byte(d[2], d[3], (code >> (8 * k2)) & 0xFFu, pos);
+      }
     }
   }
+
+  // the sidecar byte of block b, and both sidecars' digest terms
+  template <bool kFirst>
+  __device__ __forceinline__ void sidecar(long long b, int k, int k_in,
+                                          unsigned long long* d) const {
+    wire_out[n * wb + b] = uint8_t(k + 128);
+    if (d) {
+      if (!kFirst) digest_byte(d[0], d[1], uint32_t(k_in + 128), n * wb + b);
+      digest_byte(d[2], d[3], uint32_t(k + 128), n * wb + b);
+    }
+  }
+};
+
+// K6 (kFirst) / K5 over the block-scaled wire, RTNE or SR (kSR).  kWarp:
+// one warp per 128-element block (bs == 128); else one CTA per block of
+// bs elements.  digest partials as wire_kernel's when want_digest.
+template <bool kFirst, bool kSR, bool kWarp>
+__global__ void blocked_wire_kernel(BlockedHop h, int bs, long long nb,
+                                    unsigned long long* __restrict__ partials) {
+  unsigned long long s[4] = {0ull, 0ull, 0ull, 0ull};
+  unsigned long long* d = partials ? s : nullptr;
+  const int lane = threadIdx.x % 32;
+  if (kWarp) {
+    const long long warps = (long long)gridDim.x * (blockDim.x / 32);
+    for (long long b = (long long)blockIdx.x * (blockDim.x / 32) +
+                       threadIdx.x / 32;
+         b < nb; b += warps) {
+      const int k_in = kFirst ? 0 : int(h.wire_in[h.n * h.wb + b]) - 128;
+      float v[4];
+      uint32_t cin[4] = {0u, 0u, 0u, 0u};
+      float m = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const long long i = b * 128 + lane + 32 * j;
+        v[j] = 0.0f;
+        if (i < h.n) {
+          v[j] = h.sum<kFirst>(i, k_in, cin[j]);
+          if (exmy::is_finite(v[j])) m = fmaxf(m, fabsf(v[j]));
+        }
+      }
+      for (int o = 16; o > 0; o >>= 1)
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      const int k = h.shift(m);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const long long i = b * 128 + lane + 32 * j;
+        if (i < h.n) h.emit<kFirst, kSR>(i, v[j], k, cin[j], d);
+      }
+      if (lane == 0) h.sidecar<kFirst>(b, k, k_in, d);
+    }
+  } else {
+    __shared__ float red[kThreads / 32];
+    const int warp = threadIdx.x / 32;
+    for (long long b = blockIdx.x; b < nb; b += gridDim.x) {
+      const long long lo = b * bs;
+      const long long hi = lo + bs < h.n ? lo + bs : h.n;
+      const int k_in = kFirst ? 0 : int(h.wire_in[h.n * h.wb + b]) - 128;
+      float m = 0.0f;
+      uint32_t cin = 0u;
+      for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x) {
+        const float v = h.sum<kFirst>(i, k_in, cin);
+        if (exmy::is_finite(v)) m = fmaxf(m, fabsf(v));
+      }
+      for (int o = 16; o > 0; o >>= 1)
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      if (lane == 0) red[warp] = m;
+      __syncthreads();
+      m = 0.0f;
+      for (int w = 0; w < int(blockDim.x / 32); ++w) m = fmaxf(m, red[w]);
+      const int k = h.shift(m);
+      for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x) {
+        const float v = h.sum<kFirst>(i, k_in, cin);
+        h.emit<kFirst, kSR>(i, v, k, cin, d);
+      }
+      if (threadIdx.x == 0) h.sidecar<kFirst>(b, k, k_in, d);
+      __syncthreads();   // red is rewritten by the next block
+    }
+  }
+  if (partials) store_partials(s, partials, blockIdx.x);
+}
+
+// K7: per-(row, CTA) Fletcher partials of a (w, nbytes) u8 buffer, row
+// blockIdx.y
+__global__ void digest_rows_kernel(const uint8_t* __restrict__ rows,
+                                   long long nbytes,
+                                   unsigned long long* __restrict__ partials) {
+  const uint8_t* r = rows + (long long)blockIdx.y * nbytes;
+  unsigned long long s[2] = {0ull, 0ull};
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < nbytes; i += stride)
+    digest_byte(s[0], s[1], r[i], i);
+  store_partials(s, partials, (size_t)blockIdx.y * gridDim.x + blockIdx.x);
 }
 
 // out[i] = sr_bits_at((k0, k1), start + i), the offset wrapping mod 2^32
@@ -176,30 +394,25 @@ __global__ void sr_bits_kernel(uint32_t* __restrict__ out, int64_t n,
     out[i] = exmy::sr_bits_at(k0, k1, start + uint32_t(i));
 }
 
-// one block: digest[0] = received wire, digest[1] = emitted wire
+// one CTA per row of `count` partials of kS sums each: the row's kS / 2
+// digests (s2 << 16) | s1 at digest[row * kS / 2].  K5/K6: one row, kS 4
+// (digest[0] the received wire, digest[1] the emitted one); K7: a row per
+// gathered row, kS 2.
+template <int kS>
 __global__ void fold_kernel(const unsigned long long* __restrict__ partials,
-                            int blocks, uint32_t* __restrict__ digest) {
-  __shared__ unsigned long long red[4][kThreads / 32];
-  unsigned long long s[4] = {0ull, 0ull, 0ull, 0ull};
-  for (int b = threadIdx.x; b < blocks; b += blockDim.x)
+                            int count, uint32_t* __restrict__ digest) {
+  const unsigned long long* p = partials + size_t(blockIdx.x) * count * kS;
+  unsigned long long s[kS] = {};
+  for (int c = threadIdx.x; c < count; c += blockDim.x)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[j] += partials[size_t(b) * 4 + j];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    s[j] = warp_sum(s[j]);
-    if (lane == 0) red[j][warp] = s[j];
-  }
-  __syncthreads();
+    for (int j = 0; j < kS; ++j) s[j] += p[size_t(c) * kS + j];
+  cta_sum(s);
   if (threadIdx.x == 0) {
-    uint32_t m[4];
-    for (int j = 0; j < 4; ++j) {
-      unsigned long long v = 0ull;
-      for (int w = 0; w < int(blockDim.x / 32); ++w) v += red[j][w];
-      m[j] = uint32_t(v % exmy::kDigestMod);
-    }
-    digest[0] = (m[1] << 16) | m[0];
-    digest[1] = (m[3] << 16) | m[2];
+#pragma unroll
+    for (int d = 0; d < kS / 2; ++d)
+      digest[blockIdx.x * (kS / 2) + d] =
+          (uint32_t(s[2 * d + 1] % exmy::kDigestMod) << 16) |
+          uint32_t(s[2 * d] % exmy::kDigestMod);
   }
 }
 
@@ -304,9 +517,102 @@ extern "C" int quantize_wire_launch(const void* wire_in, const void* g,
                              exp_bits, man_bits);
   int err = int(cudaGetLastError());
   if (err != 0 || partials == nullptr) return err;
-  fold_kernel<<<1, kThreads, 0, s>>>(
+  fold_kernel<4><<<1, kThreads, 0, s>>>(
       static_cast<const unsigned long long*>(partials), blocks,
       static_cast<uint32_t*>(digest));
+  return int(cudaGetLastError());
+}
+
+// CTAs the blocked wire kernel launches for n elements in blocks of bs:
+// the size (in groups of 4 uint64 words) of its `partials` scratch.
+extern "C" int quantize_blocked_blocks(long long n, int bs) {
+  const long long nb = (n + bs - 1) / bs;
+  const long long per_cta = bs == 128 ? kThreads / 32 : 1;
+  const long long c = (nb + per_cta - 1) / per_cta;
+  return int(c < 1 ? 1 : (c > 4096 ? 4096 : c));
+}
+
+template <bool kFirst, bool kSR>
+void launch_blocked(int blocks, cudaStream_t s, const BlockedHop& h, int bs,
+                    long long nb, unsigned long long* part) {
+  if (bs == 128)
+    blocked_wire_kernel<kFirst, kSR, true><<<blocks, kThreads, 0, s>>>(
+        h, bs, nb, part);
+  else
+    blocked_wire_kernel<kFirst, kSR, false><<<blocks, kThreads, 0, s>>>(
+        h, bs, nb, part);
+}
+
+// The blocked arm of K6 (wire_in == NULL) / K5, RTNE (rbits == NULL) or
+// SR: wire_in and wire_out hold n * wb code bytes then ceil(n / bs)
+// sidecar bytes.  bs is 128, or a multiple of 128 dividing 65536.  With
+// partials != NULL also writes digest[0] (received wire; 0 for K6) and
+// digest[1] (emitted wire), each over the whole buffer.
+extern "C" int quantize_blocked_launch(const void* wire_in, const void* g,
+                                       const void* rbits, void* res,
+                                       void* wire_out, void* partials,
+                                       void* digest, long long n, int bs,
+                                       int wb, int exp_bits, int man_bits,
+                                       void* stream) {
+  if (bs < 128 || bs % 128 != 0 || 65536 % bs != 0 || n < 1)
+    return int(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  BlockedHop h;
+  h.wire_in = static_cast<const uint8_t*>(wire_in);
+  h.g = static_cast<const float*>(g);
+  h.rbits = static_cast<const uint32_t*>(rbits);
+  h.res = static_cast<float*>(res);
+  h.wire_out = static_cast<uint8_t*>(wire_out);
+  h.n = n;
+  h.wb = wb;
+  h.eb = exp_bits;
+  h.mb = man_bits;
+  h.emax = ((1 << exp_bits) - 2) - ((1 << (exp_bits - 1)) - 1);
+  const uint32_t man = man_bits == 0
+      ? 0u : (0x7FFFFFu & ~((1u << (23 - man_bits)) - 1u));
+  uint32_t mf_bits = (uint32_t(h.emax + 127) << 23) | man;
+  memcpy(&h.mf, &mf_bits, sizeof(float));
+  const long long nb = (n + bs - 1) / bs;
+  const int blocks = quantize_blocked_blocks(n, bs);
+  unsigned long long* part = static_cast<unsigned long long*>(partials);
+  if (wire_in == nullptr && rbits == nullptr)
+    launch_blocked<true, false>(blocks, s, h, bs, nb, part);
+  else if (wire_in == nullptr)
+    launch_blocked<true, true>(blocks, s, h, bs, nb, part);
+  else if (rbits == nullptr)
+    launch_blocked<false, false>(blocks, s, h, bs, nb, part);
+  else
+    launch_blocked<false, true>(blocks, s, h, bs, nb, part);
+  int err = int(cudaGetLastError());
+  if (err != 0 || partials == nullptr) return err;
+  fold_kernel<4><<<1, kThreads, 0, s>>>(part, blocks,
+                                        static_cast<uint32_t*>(digest));
+  return int(cudaGetLastError());
+}
+
+// CTAs per row K7 launches for (w, nbytes): its `partials` scratch holds
+// w * ctas * 2 uint64 words.
+extern "C" int digest_rows_ctas(int w, long long nbytes) {
+  const long long per = (nbytes + kThreads * 16 - 1) / (kThreads * 16);
+  long long cap = 4096 / (w < 1 ? 1 : w);
+  if (cap < 1) cap = 1;
+  return int(per < 1 ? 1 : (per > cap ? cap : per));
+}
+
+// K7: digest[r] = wire_digest(rows[r]) for the w rows of nbytes bytes.
+extern "C" int digest_rows_launch(const void* rows, int w, long long nbytes,
+                                  void* partials, void* digest,
+                                  void* stream) {
+  if (w < 1 || w > 65535 || nbytes < 1) return int(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int ctas = digest_rows_ctas(w, nbytes);
+  unsigned long long* part = static_cast<unsigned long long*>(partials);
+  digest_rows_kernel<<<dim3(ctas, w), kThreads, 0, s>>>(
+      static_cast<const uint8_t*>(rows), nbytes, part);
+  int err = int(cudaGetLastError());
+  if (err != 0) return err;
+  fold_kernel<2><<<w, kThreads, 0, s>>>(part, ctas,
+                                        static_cast<uint32_t*>(digest));
   return int(cudaGetLastError());
 }
 

@@ -10,7 +10,8 @@ re-drawn each epoch, SGD (momentum and weight decay from
 ``configs/res18_cifar.yaml``) under the warmup -> peak -> x0.1 at epochs
 40 and 80 schedule, the APS low-precision gradient reduce in ``--mode``
 faithful or ring (``--grad-rounding stochastic --grad-seed N`` rounds it
-stochastically, ``--use_kahan`` compensates it), validation every
+stochastically, ``--use_kahan`` compensates it, ``--block-scale
+--block-size B`` ships the ring block-scaled), validation every
 ``--val_freq`` iterations and at the end.  Without CIFAR-10 under ``--data-root`` (or ``./data``) it trains
 on the deterministic synthetic stand-in.  Checkpoints and the other
 flags of the JAX trainer are not ported yet: passing one raises.
@@ -37,8 +38,7 @@ _NOT_PORTED = (
     "--shampoo-stat-man", "--shampoo-stat-mode", "-e", "--evaluate",
     "--emulate_node", "--arch", "--max_epoch", "--save_path", "--clip-grad",
     "--profile-dir", "--tensorboard", "--zero1", "--zero2",
-    "--overlap-reduce", "--bucket-elems", "--block-scale", "--block-size",
-    "--obs-dir", "--obs-flight", "--fault-plan", "--guard-grads",
+    "--overlap-reduce", "--bucket-elems", "--obs-dir", "--obs-flight", "--fault-plan", "--guard-grads",
     "--spike-factor", "--watchdog-timeout", "--divergence-window",
     "--divergence-factor", "--divergence-mode", "--max-rollbacks",
     "--rollback-backoff", "--no-ckpt-integrity", "--verify-reduce",
@@ -65,6 +65,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--use_kahan", action="store_true")
     p.add_argument("--mode", default="faithful",
                    choices=["faithful", "fast", "ring"])
+    p.add_argument("--block-scale", action="store_true",
+                   help="block-scaled ring wire (EQuARX-style): every hop "
+                        "cast shares one power-of-2 scale per --block-size "
+                        "consecutive elements; the 1-byte-per-block shift "
+                        "sidecar rides the packed wire.  Requires --mode "
+                        "ring and a packable gradient format (man >= 2)")
+    p.add_argument("--block-size", default=128, type=int,
+                   help="elements per shared-scale block for --block-scale "
+                        "(default 128; multiples of 128 dividing 65536 "
+                        "keep the fused CUDA wire kernel eligible — other "
+                        "sizes take the plain torch hop)")
     p.add_argument("--batch_size", default=None, type=int)
     p.add_argument("--val_freq", default=None, type=int)
     p.add_argument("--print_freq", default=None, type=int)
@@ -108,6 +119,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     args, rest = build_parser().parse_known_args(argv)
     if rest:
         flag = rest[0].split("=", 1)[0]
+        if flag == "--verify-reduce":
+            raise SystemExit(
+                "--verify-reduce: not yet ported to cpd_tpu_torch: in the "
+                "JAX trainer it arms the ring -> faithful -> fp32 "
+                "TransportSupervisor ladder, whose last rung is --mode "
+                "fast; both come in a later slice (ROADMAP Queue A, A3 "
+                "and A10).  The verified ring itself is ported: "
+                "make_train_step(verify_reduce=True)")
         if flag in _NOT_PORTED:
             raise SystemExit(f"{flag}: not yet ported to cpd_tpu_torch "
                              f"(ROADMAP Queue A)")
@@ -115,6 +134,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.mode == "fast":
         raise SystemExit("--mode fast: not yet ported to cpd_tpu_torch "
                          "(ROADMAP Queue A, A3)")
+    if args.block_scale and args.mode != "ring":
+        raise SystemExit("--block-scale needs --mode ring: the per-block "
+                         "scale sidecar rides a packed wire")
+    if args.block_scale and args.grad_man < 2:
+        raise SystemExit(f"--block-scale needs a packable gradient format "
+                         f"(man_bits >= 2 for the codec's special codes), "
+                         f"got e{args.grad_exp}m{args.grad_man}")
     cfg = read_config(args.config)
     if cfg.get("arch", "res_cifar") != "res_cifar":
         raise SystemExit(f"arch {cfg['arch']!r}: not yet ported to "
@@ -162,7 +188,9 @@ def run(args: argparse.Namespace, device="cuda") -> dict:
                                  grad_man=args.grad_man,
                                  use_kahan=args.use_kahan,
                                  grad_rounding=args.grad_rounding,
-                                 grad_seed=args.grad_seed)
+                                 grad_seed=args.grad_seed,
+                                 block_scale=args.block_scale,
+                                 block_size=args.block_size)
     eval_step = make_eval_step(model, mesh)
 
     global_batch = args.batch_size * mesh.world

@@ -18,7 +18,14 @@ data-parallel training path runs (per-tensor, clean transport):
   pack it into the ``(n, wb)`` wire (+ its digest);
 * `hop_pack` (K5, `hop_pack_pallas`) — every later hop: unpack the
   received wire, add the local chunk, cast (SR with ``rbits``:
-  `hop_pack_sr`), re-pack (+ the digests of both wires).
+  `hop_pack_sr`), re-pack (+ the digests of both wires);
+* the blocked arm of K6/K5 (``block_size`` of `quantize_pack` and
+  `hop_pack`) — the same hops over the
+  block-scaled wire: one power-of-two shift per block of ``block_size``
+  elements, the cast clamped to ±max_finite, the sidecar of shift bytes
+  after the code bytes, the digests over both lanes;
+* `digest_rows` (K7, `digest_rows_pallas`) — the Fletcher digest of each
+  row of a (W, B) uint8 buffer: the verified ring's all-gather check.
 
 and of one helper that is no TPU kernel (JAX computes it in XLA):
 `sr_bits`, the offset-indexed SR round bits ``prng.sr_bits_at(key, o)``
@@ -31,32 +38,42 @@ kernel in ``csrc/quantize.cu`` (built at first use, `ops.build`) for CUDA
 tensors, or raises.  There is no fallback from the card to the plain
 version.  Each wrapper counts its launches in ``<wrapper>.launches``;
 the SR arms of K6 and K5 count theirs in ``quantize_pack_sr.launches``
-and ``hop_pack_sr.launches`` only, whichever name the caller used.
+and ``hop_pack_sr.launches`` only, whichever name the caller used, and
+the blocked arms in the counters ``quantize_pack_blocked[_sr].launches``
+and ``hop_pack_blocked[_sr].launches``.
+
+The blocked kernel takes the JAX kernel's block sizes only: a multiple
+of 128 that divides 65536 (the ring's default, 128, qualifies).  Other
+sizes raise here, as `_wire_call` raises; the ring casts them with the
+plain torch ops (`parallel/ring.py`).
 
 Digests come back as int64 scalars holding the JAX package's uint32
-values, as everywhere in the port.  The block-scaled wire
-(``block_size``) of K5/K6 is not ported yet (ROADMAP Queue B, B3) and
-raises.
+values, as everywhere in the port.
 """
 
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 
 import torch
 
-from ..parallel.integrity import wire_digest
+from ..parallel.integrity import row_digests, wire_digest
 from ..quant.numerics import (_validate, _validate_wire, cast_body,
-                              cast_body_sr, pack_exmy, unpack_exmy,
-                              wire_bytes)
+                              cast_body_blocked, cast_body_sr, pack_exmy,
+                              pack_exmy_blocked, sidecar_bytes, unpack_exmy,
+                              unpack_exmy_blocked, wire_bytes,
+                              wire_bytes_blocked)
 from ..quant.prng import sr_bits_at, to_int32_bits
 
 __all__ = ["quantize_cast", "quantize_cast_sr", "quantize_add",
            "quantize_add_sr", "quantize_pack", "quantize_pack_sr",
-           "hop_pack", "hop_pack_sr", "sr_bits",
-           "quantize_cast_ref", "quantize_cast_sr_ref", "quantize_add_ref",
-           "quantize_add_sr_ref", "quantize_pack_ref", "hop_pack_ref",
-           "sr_bits_ref"]
+           "hop_pack", "hop_pack_sr", "quantize_pack_blocked",
+           "quantize_pack_blocked_sr", "hop_pack_blocked",
+           "hop_pack_blocked_sr", "digest_rows", "sr_bits",
+           "fused_block_ok", "quantize_cast_ref", "quantize_cast_sr_ref",
+           "quantize_add_ref", "quantize_add_sr_ref", "quantize_pack_ref",
+           "hop_pack_ref", "digest_rows_ref", "sr_bits_ref"]
 
 
 # -- plain versions --------------------------------------------------------
@@ -90,29 +107,55 @@ def _cast_flat(s: torch.Tensor, exp_bits: int, man_bits: int, rbits):
             else cast_body_sr(s, exp_bits, man_bits, rbits.reshape(-1)))
 
 
+def _cast_pack(s: torch.Tensor, exp_bits: int, man_bits: int, rbits,
+               block_size) -> tuple:
+    """``res = cast(s)`` and ``wire = pack(res)``: per tensor, or
+    block-scaled with ``block_size`` (the wire then flat, codes and
+    sidecar)."""
+    if block_size is None:
+        res = _cast_flat(s, exp_bits, man_bits, rbits)
+        return res, pack_exmy(res, exp_bits, man_bits)
+    if rbits is not None:
+        rbits = rbits.reshape(-1)
+    res = cast_body_blocked(s, exp_bits, man_bits, block_size, rbits)
+    return res, pack_exmy_blocked(res, exp_bits, man_bits, block_size)
+
+
 def quantize_pack_ref(g: torch.Tensor, exp_bits: int, man_bits: int, *,
-                      rbits=None, want_digest: bool = False) -> tuple:
-    """Plain version of K6: ``res = cast(g)`` (SR with ``rbits``),
-    ``wire = pack(res)`` [, ``wire_digest(wire)``]."""
-    res = _cast_flat(g.reshape(-1), exp_bits, man_bits, rbits)
-    wire = pack_exmy(res, exp_bits, man_bits)
+                      rbits=None, block_size=None,
+                      want_digest: bool = False) -> tuple:
+    """Plain version of K6: ``res = cast(g)`` (SR with ``rbits``; block-
+    scaled with ``block_size``), ``wire = pack(res)`` [,
+    ``wire_digest(wire)``]."""
+    res, wire = _cast_pack(g.reshape(-1), exp_bits, man_bits, rbits,
+                           block_size)
     return (res, wire, wire_digest(wire)) if want_digest else (res, wire)
 
 
 def hop_pack_ref(wire_in: torch.Tensor, g: torch.Tensor, exp_bits: int,
-                 man_bits: int, *, rbits=None,
+                 man_bits: int, *, rbits=None, block_size=None,
                  want_digest: bool = False) -> tuple:
     """Plain version of K5: ``res = cast(unpack(wire_in) + g)`` (SR with
-    ``rbits``), ``wire = pack(res)`` [, digests of ``wire_in`` and
-    ``wire``]."""
+    ``rbits``; block-scaled with ``block_size``), ``wire = pack(res)`` [,
+    digests of ``wire_in`` and ``wire``]."""
     n = g.numel()
-    prev = unpack_exmy(wire_in.reshape(n, wire_bytes(exp_bits, man_bits)),
-                       exp_bits, man_bits)
-    res = _cast_flat(prev + g.reshape(-1), exp_bits, man_bits, rbits)
-    wire = pack_exmy(res, exp_bits, man_bits)
+    if block_size is None:
+        prev = unpack_exmy(wire_in.reshape(n, wire_bytes(exp_bits, man_bits)),
+                           exp_bits, man_bits)
+    else:
+        prev = unpack_exmy_blocked(wire_in.reshape(-1), exp_bits, man_bits,
+                                   n, block_size)
+    res, wire = _cast_pack(prev + g.reshape(-1), exp_bits, man_bits, rbits,
+                           block_size)
     if want_digest:
         return res, wire, wire_digest(wire_in), wire_digest(wire)
     return res, wire
+
+
+def digest_rows_ref(rows: torch.Tensor) -> torch.Tensor:
+    """Plain version of K7: the (W,) int64 `wire_digest` of each row of a
+    (W, B) uint8 buffer."""
+    return row_digests(rows)
 
 
 def sr_bits_ref(key: tuple, like: torch.Tensor, *,
@@ -145,11 +188,18 @@ def _check(name: str, x: torch.Tensor, dtype) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _unported(block_size) -> None:
-    if block_size is not None:
-        raise NotImplementedError(
-            "the block-scaled wire (block_size) is not ported yet (ROADMAP "
-            "Queue B, B3: the blocked arm of K5/K6)")
+def fused_block_ok(block_size: int) -> bool:
+    """Does the blocked wire kernel take ``block_size``?  A multiple of
+    128 dividing 65536, as the JAX kernel's whole-row blocks must be."""
+    return block_size % 128 == 0 and 65536 % block_size == 0
+
+
+def _check_block(block_size: int) -> None:
+    if not fused_block_ok(block_size):
+        raise ValueError(
+            f"fused blocked hop needs block_size a multiple of 128 dividing "
+            f"65536, got {block_size} — the plain torch hop "
+            f"(parallel/ring.py) handles other sizes")
 
 
 def _library():
@@ -170,6 +220,19 @@ def _library():
         lib.quantize_sr_bits_launch.restype = ctypes.c_int
         lib.quantize_wire_blocks.argtypes = [ctypes.c_longlong]
         lib.quantize_wire_blocks.restype = ctypes.c_int
+        lib.quantize_blocked_launch.argtypes = [ctypes.c_void_p] * 7 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p]
+        lib.quantize_blocked_launch.restype = ctypes.c_int
+        lib.quantize_blocked_blocks.argtypes = [ctypes.c_longlong,
+                                                ctypes.c_int]
+        lib.quantize_blocked_blocks.restype = ctypes.c_int
+        lib.digest_rows_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        lib.digest_rows_launch.restype = ctypes.c_int
+        lib.digest_rows_ctas.argtypes = [ctypes.c_int, ctypes.c_longlong]
+        lib.digest_rows_ctas.restype = ctypes.c_int
         lib.quantize_error_string.argtypes = [ctypes.c_int]
         lib.quantize_error_string.restype = ctypes.c_char_p
         lib._cpd_typed = True
@@ -313,23 +376,36 @@ def sr_bits(key: tuple, like: torch.Tensor, *,
 
 
 def _launch_wire(wire_in, g: torch.Tensor, rbits, exp_bits: int,
-                 man_bits: int, want_digest: bool, what: str) -> tuple:
+                 man_bits: int, block_size, want_digest: bool,
+                 what: str) -> tuple:
     n = g.numel()
     wb = wire_bytes(exp_bits, man_bits)
     dev = g.device
     res = torch.empty((n,), dtype=torch.float32, device=dev)
-    wire = torch.empty((n, wb), dtype=torch.uint8, device=dev)
     lib = _library()
+    if block_size is None:
+        wire = torch.empty((n, wb), dtype=torch.uint8, device=dev)
+        blocks = lib.quantize_wire_blocks(n)
+    else:
+        wire = torch.empty((wire_bytes_blocked(exp_bits, man_bits, n,
+                                               block_size),),
+                           dtype=torch.uint8, device=dev)
+        blocks = lib.quantize_blocked_blocks(n, block_size)
     partials = digest = None
     if want_digest:
-        partials = torch.empty((lib.quantize_wire_blocks(n) * 4,),
-                               dtype=torch.int64, device=dev)
+        partials = torch.empty((blocks * 4,), dtype=torch.int64, device=dev)
         digest = torch.zeros((2,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        rc = lib.quantize_wire_launch(
-            _ptr(wire_in), g.data_ptr(), _ptr(rbits), res.data_ptr(),
-            wire.data_ptr(), _ptr(partials), _ptr(digest), n, wb, exp_bits,
-            man_bits, _stream(dev))
+        if block_size is None:
+            rc = lib.quantize_wire_launch(
+                _ptr(wire_in), g.data_ptr(), _ptr(rbits), res.data_ptr(),
+                wire.data_ptr(), _ptr(partials), _ptr(digest), n, wb,
+                exp_bits, man_bits, _stream(dev))
+        else:
+            rc = lib.quantize_blocked_launch(
+                _ptr(wire_in), g.data_ptr(), _ptr(rbits), res.data_ptr(),
+                wire.data_ptr(), _ptr(partials), _ptr(digest), n,
+                block_size, wb, exp_bits, man_bits, _stream(dev))
     _raise_on(lib, rc, what)
     if not want_digest:
         return res, wire
@@ -339,33 +415,49 @@ def _launch_wire(wire_in, g: torch.Tensor, rbits, exp_bits: int,
 
 def _wire(wire_in, g: torch.Tensor, exp_bits: int, man_bits: int, rbits,
           block_size, want_digest: bool, counted) -> tuple:
-    """The body of the K6 (``wire_in`` None) and K5 wrappers: the plain
-    version for CPU tensors, else one launch, counted in
-    ``counted.launches``."""
-    _unported(block_size)
+    """The body of the K6 (``wire_in`` None) and K5 wrappers, per-tensor
+    or blocked: the plain version for CPU tensors, else one launch,
+    counted in ``counted.launches``."""
     _validate_wire(exp_bits, man_bits)
     n = g.numel()
     first = wire_in is None
-    if not first and wire_in.numel() != n * wire_bytes(exp_bits, man_bits):
+    if block_size is None:
+        expected = n * wire_bytes(exp_bits, man_bits)
+        layout = f"{n} elements x {wire_bytes(exp_bits, man_bits)} bytes"
+    else:
+        if exp_bits == 8 and man_bits == 23:
+            raise ValueError("block_size at (8, 23): the fp32 wire has "
+                             "nothing to scale")
+        _check_block(block_size)
+        expected = wire_bytes_blocked(exp_bits, man_bits, n, block_size)
+        layout = (f"{n} elements x {wire_bytes(exp_bits, man_bits)} bytes "
+                  f"+ {sidecar_bytes(n, block_size)} sidecar bytes")
+    if not first and wire_in.numel() != expected:
         raise ValueError(f"wire_in holds {wire_in.numel()} bytes, expected "
-                         f"{n} elements x {wire_bytes(exp_bits, man_bits)} "
-                         "bytes")
+                         f"{layout}")
     operands = [t for t in (wire_in, g, rbits) if t is not None]
     if _device(*operands).type == "cpu" or n == 0:
+        kw = dict(rbits=rbits, block_size=block_size,
+                  want_digest=want_digest)
         if first:
-            return quantize_pack_ref(g, exp_bits, man_bits, rbits=rbits,
-                                     want_digest=want_digest)
-        return hop_pack_ref(wire_in, g, exp_bits, man_bits, rbits=rbits,
-                            want_digest=want_digest)
+            return quantize_pack_ref(g, exp_bits, man_bits, **kw)
+        return hop_pack_ref(wire_in, g, exp_bits, man_bits, **kw)
     if not first:
         _check("wire_in", wire_in, torch.uint8)
     _check("g", g, torch.float32)
     if rbits is not None:
         _check_rbits(rbits, n)
-    out = _launch_wire(wire_in, g, rbits, exp_bits, man_bits, want_digest,
-                       counted.__name__)
+    out = _launch_wire(wire_in, g, rbits, exp_bits, man_bits, block_size,
+                       want_digest, "quantize_pack" if first else "hop_pack")
     counted.launches += 1
     return out[:2] + (out[3],) if first and want_digest else out
+
+
+def _counter(first: bool, sr: bool, blocked: bool):
+    """The object whose ``launches`` counts a K6/K5 launch of this arm."""
+    name = (("quantize_pack" if first else "hop_pack")
+            + ("_blocked" if blocked else "") + ("_sr" if sr else ""))
+    return globals()[name]
 
 
 def quantize_pack(g: torch.Tensor, exp_bits: int, man_bits: int, *,
@@ -375,12 +467,15 @@ def quantize_pack(g: torch.Tensor, exp_bits: int, man_bits: int, *,
     the round bits ``rbits``) and pack it.  Returns ``(res, wire)`` or
     ``(res, wire, digest)``: ``res`` the (n,) fp32 partial, ``wire`` the
     (n, wb) uint8 code words in `pack_exmy`'s layout, ``digest``
-    `wire_digest(wire)`.  CPU tensors take `quantize_pack_ref`; CUDA
-    tensors launch the kernel, counted in ``quantize_pack.launches``, or
-    with ``rbits`` in ``quantize_pack_sr.launches``."""
+    `wire_digest(wire)`.  With ``block_size`` the wire is the flat
+    block-scaled buffer (`pack_exmy_blocked`'s layout: code bytes, then
+    one sidecar byte per block).  CPU tensors take `quantize_pack_ref`;
+    CUDA tensors launch the kernel, counted in ``quantize_pack.launches``
+    (``_sr`` with ``rbits``, ``_blocked`` with ``block_size``: e.g.
+    ``quantize_pack_blocked_sr.launches``)."""
     return _wire(None, g, exp_bits, man_bits, rbits, block_size,
                  want_digest,
-                 quantize_pack if rbits is None else quantize_pack_sr)
+                 _counter(True, rbits is not None, block_size is not None))
 
 
 def quantize_pack_sr(g: torch.Tensor, exp_bits: int, man_bits: int,
@@ -397,11 +492,14 @@ def hop_pack(wire_in: torch.Tensor, g: torch.Tensor, exp_bits: int,
     """One fused ring hop over the packed wire (K5): unpack ``wire_in``
     ((n, wb) uint8), add the local chunk ``g`` ((n,) fp32), cast (SR with
     the round bits ``rbits``), re-pack.  Returns ``(res, wire)`` or
-    ``(res, wire, digest_in, digest_out)``.  CPU tensors take
-    `hop_pack_ref`; CUDA tensors launch the kernel, counted in
-    ``hop_pack.launches``, or with ``rbits`` in ``hop_pack_sr.launches``."""
+    ``(res, wire, digest_in, digest_out)``.  With ``block_size`` both
+    wires are flat block-scaled buffers (`quantize_pack`).  CPU tensors
+    take `hop_pack_ref`; CUDA tensors launch the kernel, counted in
+    ``hop_pack.launches`` (``_sr`` with ``rbits``, ``_blocked`` with
+    ``block_size``)."""
     return _wire(wire_in, g, exp_bits, man_bits, rbits, block_size,
-                 want_digest, hop_pack if rbits is None else hop_pack_sr)
+                 want_digest,
+                 _counter(False, rbits is not None, block_size is not None))
 
 
 def hop_pack_sr(wire_in: torch.Tensor, g: torch.Tensor, exp_bits: int,
@@ -412,7 +510,40 @@ def hop_pack_sr(wire_in: torch.Tensor, g: torch.Tensor, exp_bits: int,
                     block_size=block_size, want_digest=want_digest)
 
 
+def digest_rows(rows: torch.Tensor) -> torch.Tensor:
+    """The (W,) int64 `wire_digest` of each row of a (W, B) uint8 buffer
+    (K7).  CPU tensors take `digest_rows_ref`; CUDA tensors launch the
+    kernel, counted in ``digest_rows.launches``."""
+    if rows.dim() != 2:
+        raise ValueError(f"digest_rows wants (W, n_bytes) uint8, got shape "
+                         f"{tuple(rows.shape)}")
+    dev = _device(rows)
+    w, nb = rows.shape
+    if dev.type == "cpu" or w == 0 or nb == 0:
+        return digest_rows_ref(rows)
+    _check("rows", rows, torch.uint8)
+    lib = _library()
+    partials = torch.empty((w * lib.digest_rows_ctas(w, nb) * 2,),
+                           dtype=torch.int64, device=dev)
+    out = torch.empty((w,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.digest_rows_launch(rows.data_ptr(), w, nb,
+                                    partials.data_ptr(), out.data_ptr(),
+                                    _stream(dev))
+    _raise_on(lib, rc, "digest_rows")
+    digest_rows.launches += 1
+    return out.to(torch.int64) & 0xFFFFFFFF
+
+
 for _fn in (quantize_cast, quantize_cast_sr, quantize_add, quantize_add_sr,
-            quantize_pack, quantize_pack_sr, hop_pack, hop_pack_sr, sr_bits):
+            quantize_pack, quantize_pack_sr, hop_pack, hop_pack_sr,
+            digest_rows, sr_bits):
     _fn.launches = 0
 del _fn
+
+# The blocked arms of K6 and K5 launch through `quantize_pack` and
+# `hop_pack`; their launches are counted here.
+quantize_pack_blocked = SimpleNamespace(launches=0)
+quantize_pack_blocked_sr = SimpleNamespace(launches=0)
+hop_pack_blocked = SimpleNamespace(launches=0)
+hop_pack_blocked_sr = SimpleNamespace(launches=0)

@@ -1,6 +1,7 @@
 """Low-precision gradient all-reduce (port of `cpd_tpu/parallel/dist.py`:
 modes ``faithful`` and ``ring``, APS, RTNE or stochastic rounding, plain
-or Kahan-compensated accumulation).
+or Kahan-compensated accumulation, the block-scaled ring wire, the
+verified transport and wire-fault injection).
 
 `sum_gradients` takes each local rank's gradient leaves — a list per
 rank of fp32 tensors, in one fixed leaf order — and returns each rank's
@@ -13,7 +14,8 @@ by the world size, so the sum is the mean).  The pipeline:
 * ``faithful`` — all-gather the fp32 gradients, then the rank-ordered
   requantizing scan (`reduction.quantized_sum`), one per bucket;
 * ``ring`` — the bit-packed reduce-scatter + all-gather ring
-  (`ring.ring_quantized_sum`), one per bucket.
+  (`ring.ring_quantized_sum`), one per bucket; ``block_scale`` ships it
+  block-scaled (ring mode only).
 
 Both modes bucket the leaves (concatenated in leaf order) at
 `overlap.DEFAULT_BUCKET_ELEMS` with `overlap.bucket_layout`.  The ring's
@@ -30,6 +32,14 @@ splits three ways as in the JAX package: the APS pre-quantize takes
 ``k_pre`` with the rank folded in (each rank rounds its own gradients
 with its own bits), the reduction takes the shared ``k_sum`` (``k_post``
 belongs to ``mode="fast"``, not ported).
+
+``verify=True`` returns ``(reduced, report)``: in ring mode each
+bucket's ring reports {hop_bad, gather_bad, agree, ok} and the reports
+merge (counts add, agreement ANDs, ``ok`` recomputed); in faithful mode
+the report is the cross-rank agreement of `integrity.tree_digest` of the
+reduced leaves alone.  ``wire_fault=(code, rank)`` hits the ring of
+bucket 0 only (`ring.ring_quantized_sum`'s ``fault``), so one fault
+gives the same counters whatever the bucket count.
 
 On CUDA tensors (``fused=None``) every cast is a hand-written kernel:
 the APS pre-quantize is K1, or `sr_bits` + K2 (one launch each per leaf
@@ -49,10 +59,11 @@ import torch
 from ..quant.prng import PRNGKey, fold_in, split
 from .aps import (aps_max_exponents, aps_scale, aps_shift_factors_checked,
                   aps_unscale)
+from .integrity import digest_agree, tree_digest
 from .mesh import per_distinct
 from .overlap import DEFAULT_BUCKET_ELEMS, bucket_layout
 from .reduction import _use_kernel, cast_site, quantized_sum
-from .ring import check_unported, hierarchical_ring_sum
+from .ring import clean_report, hierarchical_ring_sum, report_ok
 
 __all__ = ["sum_gradients", "make_sum_gradients_fn", "grad_sr_key",
            "quantize_tree_sr"]
@@ -111,8 +122,8 @@ def sum_gradients(grads: Sequence[Sequence[torch.Tensor]], mesh,
                   bucket_elems: Optional[int] = None,
                   rounding: str = "nearest", key=None, verify: bool = False,
                   wire_fault=None, stats: bool = False,
-                  block_scale: bool = False,
-                  fused: Optional[bool] = None) -> list:
+                  block_scale: bool = False, block_size: int = 128,
+                  fused: Optional[bool] = None):
     """Low-precision gradient all-reduce (SUM) over ``mesh``'s ranks.
 
     ``grads[i]`` is local rank ``mesh.ranks[i]``'s list of gradient
@@ -121,8 +132,10 @@ def sum_gradients(grads: Sequence[Sequence[torch.Tensor]], mesh,
     of the format around the reduction (aps.py); use_kahan compensates
     the ordered accumulation; ``rounding="stochastic"`` with ``key`` (a
     `prng` key, e.g. `grad_sr_key`) rounds every cast stochastically
-    (module docstring).  Verify, wire faults, stats, the block-scaled
-    wire and ``mode="fast"`` are not ported yet and raise."""
+    (module docstring).  ``block_scale`` ships the ring block-scaled
+    (blocks of ``block_size``); ``verify`` returns ``(reduced, report)``
+    and ``wire_fault`` corrupts bucket 0's ring (module docstring).
+    Stats and ``mode="fast"`` are not ported yet and raise."""
     if mode not in ("faithful", "ring", "fast"):
         raise ValueError(f"unknown mode {mode!r}")
     if mode == "fast":
@@ -137,7 +150,11 @@ def sum_gradients(grads: Sequence[Sequence[torch.Tensor]], mesh,
     if rounding == "nearest" and key is not None:
         raise ValueError("a PRNG key was passed but rounding='nearest' "
                          "would ignore it; pass rounding='stochastic'")
-    check_unported(block_scale=block_scale, verify=verify, fault=wire_fault)
+    if block_scale and mode != "ring":
+        raise ValueError(
+            f"block_scale=True needs mode='ring' (got {mode!r}): the "
+            f"per-block shift sidecar rides the ring's packed wire — "
+            f"faithful's gather and fast's psum have no lane to carry it")
     if stats:
         raise NotImplementedError("stats=True (reduce-wire telemetry) is "
                                   "not ported yet (ROADMAP Queue A, A3)")
@@ -146,7 +163,8 @@ def sum_gradients(grads: Sequence[Sequence[torch.Tensor]], mesh,
                          f"({len(mesh.ranks)}), got {len(grads)}")
     template = list(grads[0])
     if not template:
-        return [list(g) for g in grads]
+        out = [list(g) for g in grads]
+        return (out, clean_report()) if verify else out
     kernel = _use_kernel(template[0], fused)
     grads = [[g.to(torch.float32) for g in leaves] for leaves in grads]
     starts = _leaf_starts(template)
@@ -172,14 +190,20 @@ def sum_gradients(grads: Sequence[Sequence[torch.Tensor]], mesh,
                             bucket_elems if bucket_elems is not None
                             else DEFAULT_BUCKET_ELEMS)
     reduced = [[None] * len(template) for _ in grads]
-    for idxs in buckets:
+    reports = []
+    for b, idxs in enumerate(buckets):
         lo, hi = idxs[0], idxs[-1] + 1       # a bucket is a leaf range
         flats = [_concat([leaves[i] for i in idxs]) for leaves in grads]
         kw = dict(use_kahan=use_kahan, key=k_sum, offset_start=starts[lo],
                   fused=kernel)
         if mode == "ring":
-            red = hierarchical_ring_sum(flats, mesh, grad_exp, grad_man,
-                                        **kw)
+            red = hierarchical_ring_sum(
+                flats, mesh, grad_exp, grad_man, block_scale=block_scale,
+                block_size=block_size, verify=verify,
+                fault=wire_fault if b == 0 else None, **kw)
+            if verify:
+                red, rep = red
+                reports.append(rep)
         else:
             red = per_distinct(lambda st: quantized_sum(
                 st, grad_exp, grad_man, **kw), mesh.all_gather(flats))
@@ -190,14 +214,40 @@ def sum_gradients(grads: Sequence[Sequence[torch.Tensor]], mesh,
 
         for out, pieces in zip(reduced, per_distinct(unscaled, red, shifts)):
             out[lo:hi] = pieces
-    return reduced
+    if not verify:
+        return reduced
+    if mode == "ring":
+        return reduced, _merge_verify_reports(reports)
+    # the gather has no wire of its own to checksum: the agreement of
+    # the reduced trees is the whole verdict
+    agree = digest_agree(per_distinct(tree_digest, reduced), mesh)[0]
+    report = clean_report(agree.device)
+    report["agree"] = report["ok"] = agree
+    return reduced, report
+
+
+def _merge_verify_reports(reports: list) -> dict:
+    """Per-bucket ring reports merged into one verdict: the mismatch
+    counts add, the agreement ANDs, ``ok`` is recomputed."""
+    if not reports:
+        return clean_report()
+    agree = reports[0]["agree"]
+    for r in reports[1:]:
+        agree = torch.minimum(agree, r["agree"])
+    merged = {"hop_bad": sum(r["hop_bad"] for r in reports),
+              "gather_bad": sum(r["gather_bad"] for r in reports),
+              "agree": agree}
+    merged["ok"] = report_ok(merged)
+    return merged
 
 
 def make_sum_gradients_fn(mesh, **kwargs):
     """``stacked_grads -> reduced`` over ``mesh``: the leaves hold every
-    rank's gradient stacked, ``(W, *shape)``; the result holds the
-    reduced ``(*shape)`` leaves.  A dict keeps its keys (leaf order is
-    its insertion order), a sequence becomes a list."""
+    rank's gradient stacked, ``(W, *shape)``; the result holds rank 0's
+    reduced ``(*shape)`` leaves (with ``verify=True``, ``(reduced,
+    report)``).  A dict keeps its keys (leaf order is its insertion
+    order), a sequence becomes a list.  Every keyword goes to
+    `sum_gradients`."""
 
     def reduced(stacked):
         if isinstance(stacked, Mapping):
@@ -205,7 +255,9 @@ def make_sum_gradients_fn(mesh, **kwargs):
         else:
             keys, leaves = None, list(stacked)
         per_rank = [[leaf[r] for leaf in leaves] for r in mesh.ranks]
-        out = sum_gradients(per_rank, mesh, **kwargs)[0]
-        return dict(zip(keys, out)) if keys is not None else out
+        res = sum_gradients(per_rank, mesh, **kwargs)
+        out, report = res if kwargs.get("verify") else (res, None)
+        out = dict(zip(keys, out[0])) if keys is not None else out[0]
+        return out if report is None else (out, report)
 
     return reduced

@@ -1,4 +1,5 @@
-"""Fletcher-style payload digests (port of `cpd_tpu/parallel/integrity.py`).
+"""Fletcher-style payload digests and the ring's tag algebra (port of
+`cpd_tpu/parallel/integrity.py`, without the consensus check).
 
 ``digest = (s2 << 16) | s1`` with ``s1 = Σ w_i`` and
 ``s2 = Σ ((i mod 65521) + 1) · w_i``, both mod 65521 (`DIGEST_MOD`),
@@ -7,15 +8,24 @@ the bit patterns of a float payload.  Bitwise the JAX digest; the JAX
 module reduces in chunked uint32 sums to stay overflow-free, this one
 sums in int64, where no partial sum of a realistic payload can
 overflow (each term is below 2^32, so 2^31 terms fit).
+
+Digests, tags and tree digests are int64 tensors holding the JAX
+package's uint32 values.  The tag products and the FNV fold are masked
+to 32 bits after every multiply and xor, as uint32 arithmetic wraps.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["wire_digest", "row_digests", "DIGEST_MOD"]
+__all__ = ["wire_digest", "row_digests", "tree_digest", "tag_from_digest",
+           "hop_tag", "digest_concat", "digest_agree", "DIGEST_MOD"]
 
 DIGEST_MOD = 65521
+_U32 = 0xFFFFFFFF
+# the odd multipliers that mix the hop index and the sender rank into a tag
+_GOLD_HOP = 0x9E3779B9
+_GOLD_SRC = 0x85EBCA6B
 
 
 def _mod65521(x: torch.Tensor) -> torch.Tensor:
@@ -63,3 +73,49 @@ def wire_digest(x: torch.Tensor) -> torch.Tensor:
     """Fletcher-style digest of any payload tensor: an int64 scalar
     holding the JAX function's uint32 value."""
     return row_digests(x.reshape(1, -1))[0]
+
+
+def tree_digest(leaves) -> torch.Tensor:
+    """One digest over a list of tensors: the FNV-style fold
+    ``d = (d * 0x01000193) ^ wire_digest(leaf)`` from ``0x811C9DC5``, in
+    list order (the JAX function folds in tree-flatten order)."""
+    d = None
+    for leaf in leaves:
+        w = wire_digest(leaf)
+        d = ((0x811C9DC5 if d is None else d) * 0x01000193 & _U32) ^ w
+    if d is None:
+        return torch.tensor(0x811C9DC5, dtype=torch.int64)
+    return d
+
+
+def tag_from_digest(digest, hop, src_rank):
+    """A payload digest mixed with its (hop, sender) provenance:
+    ``digest ^ (hop * GOLD_HOP) ^ (src * GOLD_SRC)`` in uint32."""
+    return (digest ^ ((hop & _U32) * _GOLD_HOP & _U32)
+            ^ ((src_rank & _U32) * _GOLD_SRC & _U32))
+
+
+def hop_tag(payload: torch.Tensor, hop, src_rank):
+    """The per-hop wire checksum: `tag_from_digest` of the payload's
+    `wire_digest`."""
+    return tag_from_digest(wire_digest(payload), hop, src_rank)
+
+
+def digest_concat(d_a, len_a: int, d_b):
+    """The digest of the concatenation of two payloads from theirs:
+    ``s1 = s1a + s1b``, ``s2 = s2a + s2b + len_a * s1b`` (mod 65521;
+    the second payload's position weights shift by ``len_a``)."""
+    s1a, s2a = d_a & 0xFFFF, d_a >> 16
+    s1b, s2b = d_b & 0xFFFF, d_b >> 16
+    s1 = (s1a + s1b) % DIGEST_MOD
+    s2 = (s2a + s2b + (len_a % DIGEST_MOD) * s1b % DIGEST_MOD) % DIGEST_MOD
+    return (s2 << 16) | s1
+
+
+def digest_agree(digests, mesh) -> list:
+    """int32 1/0 for each local rank of ``mesh``: do all ranks hold the
+    same digest (the JAX function's pmin == pmax)?  ``digests`` holds
+    one int64 digest per local rank."""
+    lo = mesh.min(digests)
+    hi = mesh.max(digests)
+    return [(a == b).to(torch.int32) for a, b in zip(lo, hi)]

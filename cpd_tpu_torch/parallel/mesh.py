@@ -68,6 +68,12 @@ class LocalMesh:
         m = torch.stack(list(xs)).amax(dim=0)
         return [m for _ in self.ranks]
 
+    def min(self, xs: Sequence[torch.Tensor]) -> list:
+        """Elementwise MIN over the ranks (NaN propagates)."""
+        self._check(xs)
+        m = torch.stack(list(xs)).amin(dim=0)
+        return [m for _ in self.ranks]
+
     def sum(self, xs: Sequence[torch.Tensor]) -> list:
         """Elementwise SUM over the ranks, in rank order."""
         self._check(xs)

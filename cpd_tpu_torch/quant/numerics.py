@@ -33,7 +33,7 @@ __all__ = ["cast_body", "cast_body_sr", "cast_to_format",
            "kv_page_bytes", "pack_code", "pack_exmy", "unpack_code",
            "unpack_exmy", "format_max_exponent", "sidecar_bytes",
            "block_shifts", "cast_body_blocked", "pack_exmy_blocked",
-           "unpack_exmy_blocked"]
+           "unpack_exmy_blocked", "wire_bytes_blocked"]
 
 _U32 = 0xFFFFFFFF
 
@@ -358,6 +358,14 @@ def sidecar_bytes(n: int, block_size: int) -> int:
     return -(-n // block_size) if n else 0
 
 
+def wire_bytes_blocked(exp_bits: int, man_bits: int, n: int,
+                       block_size: int) -> int:
+    """Bytes of one block-scaled payload of n elements: the code words
+    plus the sidecar lane (`pack_exmy_blocked`'s output size)."""
+    _validate_wire(exp_bits, man_bits)
+    return n * wire_bytes(exp_bits, man_bits) + sidecar_bytes(n, block_size)
+
+
 def _flush_low(x: torch.Tensor) -> torch.Tensor:
     """Every pattern with a zero exponent field (±0, fp32 subnormals)
     -> +0.0."""
@@ -401,9 +409,10 @@ def _unscale_flush(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 
 
 def _block_quantize(x: torch.Tensor, exp_bits: int, man_bits: int,
-                    block_size: int) -> tuple:
+                    block_size: int, rbits=None) -> tuple:
     """Shift-scale-cast-clamp core shared by the blocked cast and the
-    blocked packer: ``(q_scaled, shifts, k_elem)``."""
+    blocked packer: ``(q_scaled, shifts, k_elem)``.  The cast rounds to
+    nearest even, or stochastically with ``rbits`` (`cast_body_sr`)."""
     _validate(exp_bits, man_bits)
     x = _flush_low(x.to(torch.float32))
     shifts = block_shifts(x, exp_bits, man_bits, block_size)
@@ -413,7 +422,8 @@ def _block_quantize(x: torch.Tensor, exp_bits: int, man_bits: int,
             & (ex.to(torch.int64) - 1 - k <= -127))
     x = torch.where(tiny, 0.0, x)
     y = _scale_pow2(x, -k)
-    q = cast_body(y, exp_bits, man_bits)
+    q = (cast_body(y, exp_bits, man_bits) if rbits is None
+         else cast_body_sr(y, exp_bits, man_bits, rbits))
     mf = max_finite(exp_bits, man_bits)
     carry = torch.isfinite(y) & (q.abs() > mf)
     q = torch.where(carry, torch.where(q > 0, mf, -mf), q)
@@ -421,9 +431,11 @@ def _block_quantize(x: torch.Tensor, exp_bits: int, man_bits: int,
 
 
 def cast_body_blocked(x: torch.Tensor, exp_bits: int, man_bits: int,
-                      block_size: int) -> torch.Tensor:
-    """Block-scaled RTNE cast (blocks along the last axis)."""
-    q, _, k = _block_quantize(x, exp_bits, man_bits, block_size)
+                      block_size: int, rbits=None) -> torch.Tensor:
+    """Block-scaled cast (blocks along the last axis): RTNE, or SR with
+    the round bits ``rbits`` (x's size), the carry clamped to
+    ±max_finite either way."""
+    q, _, k = _block_quantize(x, exp_bits, man_bits, block_size, rbits)
     return _unscale_flush(q, k)
 
 

@@ -9,7 +9,8 @@ One train step over a mesh of W ranks, as the JAX step runs it under
    gradients of ``loss / W`` (so the reduced SUM is the mean);
 2. the per-rank gradients are reduced by `parallel.dist.sum_gradients`
    (APS, eXmY casts rounded to nearest or stochastically, the faithful
-   scan or the ring, optionally Kahan-compensated);
+   scan or the ring, optionally Kahan-compensated, block-scaled and
+   verified);
 3. the optimizer updates the fp32 master weights with the reduced
    gradients;
 4. the BN running stats become the mean of the ranks' stats.
@@ -94,10 +95,22 @@ def local_gradients(model, x: torch.Tensor, y: torch.Tensor, mesh) -> tuple:
     return grads, new_stats, losses, hits
 
 
+def _wire_fault(plan, step: int):
+    """The ``(code, rank)`` of ``plan = (codes, ranks)`` at ``step``:
+    code 0 past the plan's end, as the JAX step clips and masks."""
+    codes, ranks = plan
+    if not len(codes):
+        return None
+    i = min(max(step, 0), len(codes) - 1)
+    return (int(codes[i]) if step < len(codes) else 0, int(ranks[i]))
+
+
 def make_train_step(model, opt, mesh, *, mode: str = "faithful",
                     use_aps: bool = False, grad_exp: int = 8,
                     grad_man: int = 23, use_kahan: bool = False,
                     grad_rounding: str = "nearest", grad_seed: int = 0,
+                    verify_reduce: bool = False, wire_fault_plan=None,
+                    block_scale: bool = False, block_size: int = 128,
                     fused: Optional[bool] = None):
     """``step(state, images, labels) -> (state, metrics)`` over ``mesh``.
 
@@ -106,23 +119,39 @@ def make_train_step(model, opt, mesh, *, mode: str = "faithful",
     loss / W, i.e. the global mean) and ``accuracy`` (top-1 over the
     global batch), as 0-d tensors on the device.  With
     ``grad_rounding="stochastic"`` step s reduces with the key
-    ``grad_sr_key(grad_seed, s, 1)``.  ``fused`` goes to `sum_gradients`
-    (None: the kernels on CUDA)."""
+    ``grad_sr_key(grad_seed, s, 1)``.  ``block_scale``/``block_size``
+    ship the ring block-scaled.  ``verify_reduce`` adds the reduce's
+    verdict as float32 metrics ``reduce_ok``, ``reduce_hop_bad``,
+    ``reduce_gather_bad`` and ``reduce_agree``.  ``wire_fault_plan =
+    (codes, ranks)``: in ring mode, step s injects the wire fault
+    ``(codes[s], ranks[s])`` (none past the plan's end).  The update
+    applies rank 0's reduced gradients.  ``fused`` goes to
+    `sum_gradients` (None: the kernels on CUDA)."""
     if grad_rounding not in ("nearest", "stochastic"):
         raise ValueError(f"unknown grad_rounding {grad_rounding!r}")
+    if block_scale and mode != "ring":
+        raise ValueError(
+            f"block_scale=True needs mode='ring' (got {mode!r}): the "
+            f"per-block scale sidecar rides the ring's packed wire")
 
     def step(state: TrainState, images, labels):
         x, y = as_batch(images, labels, mesh.device)
         sum_key = (grad_sr_key(grad_seed, state.step, 1)
                    if grad_rounding == "stochastic" else None)
+        fault = (_wire_fault(wire_fault_plan, state.step)
+                 if wire_fault_plan is not None and mode == "ring" else None)
         with fp32_numerics():
             grads, new_stats, losses, hits = local_gradients(model, x, y,
                                                              mesh)
-            reduced = sum_gradients(grads, mesh, use_aps=use_aps,
-                                    grad_exp=grad_exp, grad_man=grad_man,
-                                    use_kahan=use_kahan, mode=mode,
-                                    rounding=grad_rounding, key=sum_key,
-                                    fused=fused)[0]
+            out = sum_gradients(grads, mesh, use_aps=use_aps,
+                                grad_exp=grad_exp, grad_man=grad_man,
+                                use_kahan=use_kahan, mode=mode,
+                                rounding=grad_rounding, key=sum_key,
+                                verify=verify_reduce, wire_fault=fault,
+                                block_scale=block_scale,
+                                block_size=block_size, fused=fused)
+            reduced, report = out if verify_reduce else (out, None)
+            reduced = reduced[0]
             state.opt_state = opt.apply(reduced, state.opt_state,
                                         state.params)
             with torch.no_grad():
@@ -132,6 +161,10 @@ def make_train_step(model, opt, mesh, *, mode: str = "faithful",
         metrics = {"loss": mesh.sum(losses)[0],
                    "accuracy": mesh.sum(hits)[0].to(torch.float32)
                    / x.shape[0]}
+        if report is not None:
+            metrics.update({f"reduce_{k}": report[k].to(torch.float32)
+                            for k in ("ok", "hop_bad", "gather_bad",
+                                      "agree")})
         return state, metrics
 
     return step

@@ -208,16 +208,27 @@ def test_sr_bits_helper_matches_jax():
 
 
 def test_unported_wire_arms_raise():
+    """What the wire wrappers still refuse: a block size the blocked
+    kernel does not take (the JAX kernel's rule; the ring casts such
+    blocks with torch ops), a block-scaled (8, 23) wire, a wire of the
+    wrong size, an unpackable format, operands on several devices."""
     g = torch.zeros(8)
-    with pytest.raises(NotImplementedError, match="B3"):
-        tq.quantize_pack(g, 5, 2, block_size=32)
-    with pytest.raises(NotImplementedError, match="B3"):
+    with pytest.raises(ValueError, match="multiple of 128"):
+        tq.quantize_pack(g, 5, 2, block_size=96)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        tq.hop_pack(torch.zeros((9,), dtype=torch.uint8), g, 5, 2,
+                    block_size=33)
+    with pytest.raises(ValueError, match="nothing to scale"):
+        tq.quantize_pack(g, 8, 23, block_size=128)
+    with pytest.raises(ValueError, match="sidecar"):
         tq.hop_pack(torch.zeros((8, 1), dtype=torch.uint8), g, 5, 2,
                     block_size=128)
     with pytest.raises(ValueError, match="man_bits >= 2"):
         tq.quantize_pack(g, 5, 1)
     with pytest.raises(ValueError, match="several devices"):
         tq.quantize_add(g, g.to("meta"), 5, 2)
+    with pytest.raises(ValueError, match="W, n_bytes"):
+        tq.digest_rows(torch.zeros(8, dtype=torch.uint8))
 
 
 def test_aps_helpers_match_jax():
