@@ -75,7 +75,34 @@ Phases; any failure exits non-zero:
    with the key; (e) 3 iterations of the trainer CLI with
    ``--mode ring --use_APS --grad_exp 4 --grad_man 3 --block-scale
    --block-size 128``;
-10. print one JSON line ``{"kernels": [...]}`` and, last,
+10. the GQA transformer LM: (a) hold K8 (`qgemm_faithful`) against its
+   plain scan, BITWISE, over the formats (4,3), (5,2), (5,10), (8,23) and
+   (2,1) at odd shapes and a K past two 32-step chunks, and at e4m3 at
+   the slice's four FFN GEMM shapes whole, with rows that saturate, land
+   on the format's subnormals and carry past the max; time it at those
+   four shapes against the bound of the SASS instructions its Kahan step
+   issues on the busiest pipe along the paths the timed data takes, its
+   plain version at a small shape; (b) hold K9 and K10 against their
+   plain versions within ``FLASH_ATOL`` / ``FLASH_GRAD_ATOL`` at the
+   slice's shape (B=4, T=1024, H=8, H_kv=2, D=64, causal), with pad keys
+   (T=1000), at rep 1 and 2, non-causal and at head_dim 32; time them
+   beside their plain versions, their fp32 and TF32 bounds, and
+   `scaled_dot_product_attention` forward, backward and forward +
+   backward; (c) train the LM at full width (vocab 32000, d_model 512, 4
+   layers, 8 heads, 2 kv heads, d_ff 2048; seeded random weights) on a
+   `LocalMesh` of 2 ranks, 4 sequences of 1024 random tokens each, 3
+   steps of ``--attn-impl flash --flash-bwd pallas``, the e4m3 faithful
+   FFN and the APS (5,2) faithful reduce: finite losses, step 0 within
+   ``LM_LOSS_BAND`` of ln 32000, launches as designed (per rank-step 24
+   K8, 4 K9, 4 K10), tokens/s, the step's split and each kernel's device
+   ms; then 2 steps with the fast FFN; (d) one full-width step at ffn
+   (8,23) through K9/K10 and through their plain versions: loss and
+   weights within ``LM_LOSS_RTOL`` / ``LM_WEIGHT_ATOL``; (e) a small
+   faithful LM, 2 steps through every kernel and through every plain
+   version: losses within ``LM_SMALL_LOSS_RTOL``, and its FFN GEMMs on
+   the run's own inputs bitwise; (f) 2 iterations of the LM trainer CLI
+   at the slice's flags;
+11. print one JSON line ``{"kernels": [...]}`` and, last,
    ``{"ok": true, "device": {...}}``.
 
 The script imports neither jax nor the JAX package.
@@ -83,6 +110,7 @@ The script imports neither jax nor the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
@@ -121,16 +149,21 @@ PEAK_FP32_FLOPS = 67e12
 # compute capability 9.0): 64 results of 32-bit integer shift, compare
 # and logic instructions (the ALU pipe), 64 of 32-bit integer
 # multiply-add (IMAD, on the FMA pipe), 128 integer adds and moves, which
-# either pipe executes, and 4 schedulers issuing one warp instruction
-# each, 128 thread instructions of any kind
+# either pipe executes, 128 fp32 adds and multiplies, 16 conversions
+# between 32-bit integer and float, and 4 schedulers issuing one warp
+# instruction each, 128 thread instructions of any kind
 SMS, CLOCK_HZ = 132, 1.98e9
-PIPE_LANES = {"alu": 64, "imad": 64, "alu+imad": 128, "issue": 128}
+PIPE_LANES = {"alu": 64, "imad": 64, "alu+imad": 128, "fp32": 128,
+              "cvt": 16, "issue": 128}
 # SASS opcodes by the pipe that executes them; "either" goes to the ALU
 # or the FMA pipe, as the compiler places it
 SASS_ALU = {"SHF", "LOP3", "ISETP", "LEA", "SEL", "PRMT", "IMNMX", "IABS",
             "PLOP3", "FSEL", "FSETP", "FMNMX", "BMSK", "SGXT", "VIMNMX"}
 SASS_IMAD = {"IMAD", "IMUL", "IDP"}
 SASS_EITHER = {"IADD3", "VIADD", "MOV", "IMAD.IADD", "IMAD.MOV"}
+# fp32 add/multiply (128 per SM and clock) and 32-bit conversions (16)
+SASS_FP32 = {"FADD", "FMUL", "FFMA"}
+SASS_CVT = {"I2F", "F2I", "F2F", "I2FP", "F2IP", "FRND"}
 
 # the training slice: full-width ResNet-18/CIFAR, W ranks on the one card
 TRAIN = dict(world=4, per_rank_batch=128, steps=5, fmt=(5, 2), seed=24,
@@ -147,6 +180,54 @@ SR_CAST_FORMATS = CAST_FORMATS + ((2, 1),)
 BLOCKED = dict(fmt=(4, 3), block=128, steps=3, fault_rank=2)
 BLOCKED_FORMATS = ((4, 3), (5, 2), (5, 7))
 BLOCK_SIZES = (128, 1024, 65536)
+# the LM slice: transformer_lm()'s full width with 2 kv heads (as served),
+# the GQA flash kernels for attention (K9 forward, K10 backward) and the
+# e4m3 faithful eXmY-accumulator FFN (K8), 2 dp ranks of 4 sequences of
+# 1024 tokens on the one card, the APS (5,2) faithful reduce, SGD at the
+# trainer CLI's constant schedule (--base-lr 0.01, --warmup-iters 20)
+LM_MODEL = dict(vocab_size=32000, d_model=512, n_layers=4, n_heads=8,
+                n_kv_heads=2, d_ff=2048)
+LM_PATH = dict(attn_impl="flash", flash_bwd="pallas", ffn_exp=4, ffn_man=3,
+               ffn_mode="faithful")
+LM_TRAIN = dict(world=2, per_rank_batch=4, seq=1024, steps=3, fmt=(5, 2),
+                seed=0, base_lr=0.01, warmup=20, cli_iters=2)
+# (e): the whole faithful path kernels vs plain, small: the plain qgemm
+# launches ~150 kernels per k step
+LM_SMALL = dict(vocab_size=1024, d_model=128, n_layers=1, n_heads=4,
+                n_kv_heads=2, d_ff=512)
+LM_SMALL_TRAIN = dict(world=2, per_rank_batch=2, seq=128, steps=2)
+QGEMM_FORMATS = ((4, 3), (5, 2), (5, 10), (8, 23), (2, 1))
+# step 0's loss lies within this of ln(vocab): at init the tied head's
+# logits are ~N(0, 1) (unit-variance LayerNorm output against N(0, 1/d)
+# embeddings), so the expected CE is ~ln V + 1/2
+LM_LOSS_BAND = 1.0
+# K9/K10 against their plain versions on the card, fp32 both: the kernels
+# sum the 64-term dots in another order and fold the softmax over 64-key
+# blocks (plain: one max and sum over up to 1024 keys), ~1e-7 relative
+# per term; outputs and LSE are O(1), gradients sum up to 4 heads x 1024
+# queries of such terms
+FLASH_ATOL = 1e-5
+FLASH_GRAD_ATOL = 1e-4
+# (d) one full-width step, ffn (8, 23), fp32 reduce at a constant lr:
+# kernels vs plain versions differ by the attention's round-off only
+LM_LOSS_RTOL = 1e-5
+LM_WEIGHT_ATOL = 1e-6
+# (e) the e4m3 FFN: an FFN input within round-off of an e4m3 rounding
+# boundary casts to the neighbouring code (1/16) on one side, which moves
+# a step's loss by up to ~2e-3 relative (tests/test_torch_lm.py)
+LM_SMALL_LOSS_RTOL = 5e-3
+# the TPU kernels K8-K10 replace
+LM_KERNELS = {"qgemm_faithful": ("cpd_tpu/ops/qgemm.py:64",
+                                 "cpd_tpu_torch/csrc/qgemm.cu"),
+              "flash_gqa_fwd": ("cpd_tpu/ops/flash_gqa.py:151",
+                                "cpd_tpu_torch/csrc/flash_gqa.cu"),
+              "flash_gqa_bwd": ("cpd_tpu/ops/flash_gqa.py:298",
+                                "cpd_tpu_torch/csrc/flash_gqa.cu")}
+PEAK_TF32_FLOPS = 495e12
+NO_LIBRARY_QGEMM = ("no PyTorch call computes a product whose every "
+                    "step is re-cast to eXmY: torch.matmul is printed "
+                    "beside it and is not the same function")
+
 # K6/K5 blocked and K7: the TPU kernel each replaces, and the bytes one
 # call moves for n elements, wb wire bytes, nb blocks (each input read
 # once, each output written once; SR round bits are 4 bytes), and the
@@ -204,7 +285,10 @@ KERNEL_NAMES = {"quantize_cast": "cast_kernel<false, false>",
                 "hop_pack_blocked": "blocked_wire_kernel<false, false",
                 "hop_pack_blocked_sr": "blocked_wire_kernel<false, true",
                 "digest_rows": "digest_rows_kernel",
-                "sr_bits": "sr_bits_kernel"}
+                "sr_bits": "sr_bits_kernel",
+                "qgemm_faithful": "::qgemm_kernel(",
+                "flash_gqa_fwd": "::fwd_kernel<",
+                "flash_gqa_bwd": ("::dq_kernel<", "::dkv_kernel<")}
 NO_LIBRARY = ("no PyTorch call computes the eXmY cast: .to(torch.float8_*) "
               "rounds and saturates differently, so it is not the same "
               "function")
@@ -256,7 +340,11 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
 def device_ms(fn, iters: int, warmup: int = 3) -> float:
     """Device time of the kernels one ``fn()`` call launches, summed and
     averaged over ``iters`` calls under torch.profiler.  Unlike
-    `time_ms`, host dispatch between back-to-back calls does not count."""
+    `time_ms`, host dispatch between back-to-back calls does not count.
+    Every call launches at least one kernel; where the profiler records
+    fewer kernels than calls (seen on the card late in a long run, when
+    it kept one launch in twenty), the time comes from CUDA events
+    (`time_ms`) and a line says so."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -269,11 +357,14 @@ def device_ms(fn, iters: int, warmup: int = 3) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA)
-    if busy_us <= 0:
-        raise AssertionError("the profiler saw no device time")
-    return busy_us / 1e3 / iters
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    if sum(e.count for e in kernels) < iters:
+        print(f"  (torch.profiler recorded {sum(e.count for e in kernels)} "
+              f"kernels for {iters} calls: timed with CUDA events instead)",
+              flush=True)
+        return time_ms(fn, iters, warmup=0)
+    return sum(e.self_device_time_total for e in kernels) / 1e3 / iters
 
 
 def kv_case(cfg, n_slots: int, max_pages: int, nan_tail: bool,
@@ -443,17 +534,22 @@ def l2_bytes() -> int:
                        "L2_cache_size", 50 * 2**20))
 
 
-def sass_per_element(library: str, kernel: str) -> dict:
-    """Instructions one element of ``kernel`` issues, by pipe: the body
-    of its grid-stride loop (from the target of its backward branch to
-    the branch) in the SASS of ``library``'s build, divided by the global
-    stores in it (one per element)."""
-    import re
-
+def _sass_loops(library: str, kernel: str) -> tuple:
+    """``kernel``'s SASS in ``library``'s build (`cuobjdump`): its
+    opcodes in order; for each backward branch, the loop body it closes
+    as (first index, branch index); and each branch's index -> (target
+    index or None, whether it is guarded by a predicate)."""
     from cpd_tpu_torch.ops.build import sass
 
-    insns, labels, body, found = [], {}, None, False
-    for line in sass(library).splitlines():
+    return _parse_sass(sass(library), kernel)
+
+
+def _parse_sass(text: str, kernel: str) -> tuple:
+    """`_sass_loops` on ``cuobjdump -sass`` output ``text``."""
+    import re
+
+    insns, labels, raw, found = [], {}, {}, False
+    for line in text.splitlines():
         if "Function :" in line:
             if found:
                 break
@@ -466,37 +562,108 @@ def sass_per_element(library: str, kernel: str) -> dict:
                      r"([A-Z][A-Z0-9_.]*)(.*)", line)
         if not (found and m):
             continue
-        addr = int(m.group(1), 16)
-        insns.append((addr, m.group(3)))
-        if m.group(3) != "BRA":
-            continue
-        to = re.match(r"\s*`?\(?(\.L_x_\d+|0x[0-9a-f]+)", m.group(4))
-        if to is None:
-            continue
-        start = (labels.get(to.group(1)) if to.group(1).startswith(".")
-                 else next((i for i, (a, _) in enumerate(insns)
-                            if a == int(to.group(1), 16)), None))
-        if start is not None and start < len(insns) - 1 and (
-                body is None or len(insns) - start > len(body)):
-            body = insns[start:]
+        insns.append((int(m.group(1), 16), m.group(3)))
+        if m.group(3).split(".")[0] == "BRA":
+            to = re.search(r"(\.L_x_\d+|0x[0-9a-f]+)", m.group(4))
+            # guarded: a predicate before it or among its operands
+            # (``BRA.DIV UR4, target``, ``BRA.U !UP0, target``)
+            raw[len(insns) - 1] = (to and to.group(1), bool(
+                m.group(2)) or "," in m.group(4))
     if not insns:
-        raise AssertionError(f"no SASS of {kernel} in the {library} build")
-    ops = [op for _, op in (body or insns)]
-    stores = max(1, sum(op.split(".")[0] in ("STG", "ST") for op in ops))
+        raise AssertionError(f"no SASS of {kernel} in the SASS given")
+    at = {a: i for i, (a, _) in enumerate(insns)}
+    branches, loops = {}, []
+    for i, (to, guarded) in raw.items():
+        target = (labels.get(to) if to and to.startswith(".")
+                  else at.get(int(to, 16)) if to else None)
+        branches[i] = (target, guarded)
+        if target is not None and target < i:
+            loops.append((target, i))
+    return [op for _, op in insns], loops, branches
 
-    def pipe(op):
-        if op.startswith(("IMAD.IADD", "IMAD.MOV")) or op in SASS_EITHER:
-            return "either"
-        base = op.split(".")[0]
-        return ("either" if base in SASS_EITHER else "alu" if base in
-                SASS_ALU else "imad" if base in SASS_IMAD else "other")
 
-    count = {k: sum(pipe(op) == k for op in ops) / stores
-             for k in ("alu", "imad", "either")}
+def _sass_pipe(op: str) -> str:
+    if op.startswith(("IMAD.IADD", "IMAD.MOV")) or op in SASS_EITHER:
+        return "either"
+    base = op.split(".")[0]
+    if base in SASS_EITHER:
+        return "either"
+    if base in SASS_ALU:
+        return "alu"
+    if base in SASS_IMAD:
+        return "imad"
+    if base in SASS_FP32:
+        return "fp32"
+    return "cvt" if base in SASS_CVT else "other"
+
+
+def _by_pipe(ops: list, per: float) -> dict:
+    """Instructions of ``ops`` by pipe, divided by ``per``."""
+    count = {k: sum(_sass_pipe(op) == k for op in ops) / per
+             for k in ("alu", "imad", "either", "fp32", "cvt")}
     out = {"alu": count["alu"], "imad": count["imad"],
-           "alu+imad": sum(count.values()), "issue": len(ops) / stores}
+           "alu+imad": count["alu"] + count["imad"] + count["either"],
+           "fp32": count["fp32"], "cvt": count["cvt"],
+           "issue": len(ops) / per}
     out["opcodes"] = {op: ops.count(op) for op in sorted(set(ops))}
     return out
+
+
+def sass_per_element(library: str, kernel: str) -> dict:
+    """Instructions one element of ``kernel`` issues, by pipe: the body
+    of its grid-stride loop (its largest loop: from the target of a
+    backward branch to the branch) in the SASS of ``library``'s build,
+    divided by the global stores in it (one per element)."""
+    insns, loops, _ = _sass_loops(library, kernel)
+    start, end = max(loops, key=lambda se: se[1] - se[0], default=(0, -1))
+    ops = insns[start:end + 1] if loops else insns
+    stores = max(1, sum(op.split(".")[0] in ("STG", "ST") for op in ops))
+    return _by_pipe(ops, stores)
+
+
+def _inner_loop(loops: list) -> tuple:
+    """The largest loop body that holds no other loop."""
+    inner = [(s, e) for s, e in loops
+             if not any(s < s2 <= e and (s2, e2) != (s, e)
+                        for s2, e2 in loops)]
+    if not inner:
+        raise AssertionError("no loop in the SASS")
+    return max(inner, key=lambda se: se[1] - se[0])
+
+
+def sass_inner_loop(library: str, kernel: str, steps: int = 1) -> dict:
+    """Instructions of one pass of ``kernel``'s innermost loop (its whole
+    body, every branch arm included), by pipe, divided by the ``steps``
+    that one pass computes."""
+    insns, loops, _ = _sass_loops(library, kernel)
+    start, end = _inner_loop(loops)
+    return _by_pipe(insns[start:end + 1], steps)
+
+
+def loop_paths(insns: list, loops: list, branches: dict) -> dict:
+    """The shortest and the longest path of instructions one pass of the
+    innermost loop issues, from its first instruction to its closing
+    branch, through the forward branches of its body (a guarded branch
+    may fall through, an unguarded one may not), by pipe: ``short`` and
+    ``long``."""
+    start, end = _inner_loop(loops)
+    best = {}
+    for i in range(end, start - 1, -1):
+        if i == end:
+            best[i] = ((1, [i]), (1, [i]))
+            continue
+        target, guarded = branches.get(i, (None, True))
+        nxt = [j for j in ((i + 1) if guarded else None,
+                           target if i in branches else None)
+               if j is not None and i < j <= end]
+        if not nxt:
+            raise AssertionError(f"SASS {i}: a branch out of the loop body")
+        lo = min((best[j][0] for j in nxt), key=lambda c: c[0])
+        hi = max((best[j][1] for j in nxt), key=lambda c: c[0])
+        best[i] = ((lo[0] + 1, [i] + lo[1]), (hi[0] + 1, [i] + hi[1]))
+    (_, short), (_, long) = best[start]
+    return {"short": _by_pipe([insns[i] for i in short], 1),
+            "long": _by_pipe([insns[i] for i in long], 1)}
 
 
 def pipe_bound_s(per_element: dict, n: int) -> tuple:
@@ -896,10 +1063,15 @@ def profile_phase(device, steps: int = 30, warmup: int = 10) -> dict:
 
 def kernel_counters() -> dict:
     """The launch counters of every kernel wrapper of the port."""
+    from cpd_tpu_torch.ops import flash_gqa as fl
+    from cpd_tpu_torch.ops import qgemm as qg
     from cpd_tpu_torch.ops import quantize as tq
     from cpd_tpu_torch.ops import serve_attn
 
     return {"serve_attn": serve_attn.fused_gather_attention,
+            "qgemm_faithful": qg.qgemm_faithful,
+            "flash_gqa_fwd": fl.flash_gqa_fwd,
+            "flash_gqa_bwd": fl.flash_gqa_bwd,
             "quantize_cast": tq.quantize_cast,
             "quantize_cast_sr": tq.quantize_cast_sr,
             "quantize_add": tq.quantize_add,
@@ -999,8 +1171,15 @@ def step_profile(step, state, batch) -> dict:
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
-    out = {k: sum(e.self_device_time_total for e in kernels if v in e.key)
-           / 1e3 for k, v in KERNEL_NAMES.items()}
+    if not kernels:
+        print("  (torch.profiler recorded no device time for this step: its "
+              "per-kernel device ms are not measured)", flush=True)
+        return dict(dict.fromkeys(KERNEL_NAMES), device_busy_ms=None,
+                    kernel_launches=None)
+    out = {k: sum(e.self_device_time_total for e in kernels
+                  if any(n in e.key for n in
+                         ((v,) if isinstance(v, str) else v))) / 1e3
+           for k, v in KERNEL_NAMES.items()}
     out["device_busy_ms"] = sum(e.self_device_time_total
                                 for e in kernels) / 1e3
     out["kernel_launches"] = sum(e.count for e in kernels)
@@ -1713,6 +1892,638 @@ def blocked_train_phase(device) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def plain_kernels():
+    """K8, K9 and K10 replaced by their plain versions, on CUDA tensors
+    too, for a comparison run through the same code (their counters are
+    the kernels' and do not move)."""
+    from cpd_tpu_torch.ops import flash_gqa as fl
+    from cpd_tpu_torch.ops import qgemm as qg
+
+    saved = qg.qgemm_faithful, fl.flash_gqa_fwd, fl.flash_gqa_bwd
+    qg.qgemm_faithful = qg.qgemm_faithful_ref
+    fl.flash_gqa_fwd, fl.flash_gqa_bwd = (fl.flash_gqa_fwd_ref,
+                                          fl.flash_gqa_bwd_ref)
+    try:
+        yield
+    finally:
+        qg.qgemm_faithful, fl.flash_gqa_fwd, fl.flash_gqa_bwd = saved
+
+
+def qgemm_cases(fmt, shapes, generator, device) -> list:
+    """K8's check inputs at one format and each (M, K, N) of ``shapes``,
+    each with rows that saturate (x 2^10 the format's max), land on or
+    below the format's subnormals (x 2^-12) and sit at the max (the
+    carry)."""
+    import torch
+
+    from cpd_tpu_torch.quant.numerics import max_finite
+
+    mf = max_finite(*fmt)
+    out = []
+    for m, k, n in shapes:
+        a = torch.randn((m, k), generator=generator, device=device)
+        b = torch.randn((k, n), generator=generator, device=device) / k**0.5
+        a[0] *= 1024.0 * mf
+        a[1] *= 2.0 ** -12
+        a[2] = mf * (0.9 + 0.2 * torch.rand(
+            (k,), generator=generator, device=device))
+        b[:, 0] = 1.0
+        out.append((f"{m}x{k}x{n}", a, b))
+    return out
+
+
+def lm_gemm_shapes() -> list:
+    """(M, K, N) of the slice's FFN GEMMs at one rank's 4096 tokens: wi
+    and wo_mlp forward, and the backward's grad_x and grad_W."""
+    t = LM_TRAIN["per_rank_batch"] * LM_TRAIN["seq"]
+    d, ff = LM_MODEL["d_model"], LM_MODEL["d_ff"]
+    return [(t, d, ff), (t, ff, d), (d, t, ff), (ff, t, d)]
+
+
+def cast_census(pairs, exp_bits: int, man_bits: int) -> list:
+    """For each (a, b) of ``pairs`` (equal M, equal N, any K), over the
+    cast inputs of the quantized Kahan scan of a @ b (five per step):
+    the share that reaches the cast's rounding arm (not ±0, Inf, NaN, an
+    fp32 subnormal or past the format's range: the values that take its
+    early exits, `csrc/exmy.cuh` cast_with), and the share of those whose
+    target is subnormal.  One scan runs the pairs batched, each counted
+    up to its own K."""
+    import torch
+
+    from cpd_tpu_torch.quant.numerics import cast_body
+
+    dev = pairs[0][0].device
+    ks = [a.shape[1] for a, _ in pairs]
+    m, n, kmax = pairs[0][0].shape[0], pairs[0][1].shape[1], max(ks)
+    a_all = torch.zeros((len(pairs), m, kmax), device=dev)
+    b_all = torch.zeros((len(pairs), kmax, n), device=dev)
+    for i, (a, b) in enumerate(pairs):
+        a_all[i, :, :ks[i]], b_all[i, :ks[i]] = a, b
+    live = torch.tensor([[k < ki for ki in ks] for k in range(kmax)],
+                        device=dev)
+    bias, top = (1 << (exp_bits - 1)) - 1, (1 << exp_bits) - 1
+    rounds = torch.zeros(len(pairs), dtype=torch.int64, device=dev)
+    subnormal = torch.zeros_like(rounds)
+
+    def q(x, on):
+        e = (x.view(torch.int32) >> 23) & 0xFF
+        new_e = e - 127 + bias
+        r = (e != 0) & (e != 0xFF) & (new_e < top)
+        rounds.add_(r.sum((1, 2)) * on)
+        subnormal.add_((r & (new_e <= 0)).sum((1, 2)) * on)
+        return cast_body(x, exp_bits, man_bits)
+
+    s = torch.zeros((len(pairs), m, n), device=dev)
+    c = torch.zeros_like(s)
+    for k in range(kmax):
+        on = live[k]
+        tmp = q(a_all[:, :, k, None] * b_all[:, None, k, :], on)
+        y = q(tmp - c, on)
+        t = q(s + y, on)
+        c = q(q(t - s, on) - y, on)
+        s = t
+    return [(r / (5 * m * n * ki), sub / max(r, 1)) for r, sub, ki in
+            zip(rounds.tolist(), subnormal.tolist(), ks)]
+
+
+def qgemm_phase(device) -> dict:
+    """Phase 10a: K8 against its plain version, bitwise, over the formats
+    at odd shapes, and at e4m3 at the slice's four FFN GEMM shapes
+    whole; timed at those shapes over input sets that together hold
+    twice the L2.  Its bound counts the SASS instructions of one Kahan
+    step on the busiest pipe along the paths this data takes: between
+    the shortest path through the loop body (every cast takes an early
+    exit) and the longest (every cast rounds), in the share of cast
+    inputs that round (`cast_census` on 64 x 64 outputs of the timed
+    inputs; a rounding cast is counted along the longest arm).  The
+    whole body's count, special-value arms included, is printed beside
+    it as an upper figure."""
+    import time
+
+    import torch
+
+    from cpd_tpu_torch.ops import qgemm as qg
+
+    gen = torch.Generator(device=device).manual_seed(96)
+    fmt = LM_PATH["ffn_exp"], LM_PATH["ffn_man"]
+    checks = [(f, [(37, 29, 23), (300, 129, 200)]) for f in QGEMM_FORMATS]
+    checks.append((fmt, lm_gemm_shapes()))
+    cases, t0 = 0, time.perf_counter()
+    for f, shapes in checks:
+        for name, a, b in qgemm_cases(f, shapes, gen, device):
+            got = qg.qgemm_faithful(a, b, *f)
+            torch.cuda.synchronize()
+            want = qg.qgemm_faithful_ref(a, b, *f)
+            if not same_bits(got, want):
+                raise AssertionError(f"qgemm {f} {name}: the kernel "
+                                     "differs from its plain version")
+            cases += 1
+    print(f"kernel qgemm: {cases} products bitwise equal to the plain "
+          f"scan (formats {list(QGEMM_FORMATS)} at odd shapes; {fmt} at "
+          f"the slice's GEMMs {lm_gemm_shapes()}; saturating, subnormal "
+          f"and carrying rows) in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    whole = sass_inner_loop("qgemm", "qgemm_kernel")
+    paths = loop_paths(*_sass_loops("qgemm", "qgemm_kernel"))
+    lo, hi = paths["short"], paths["long"]
+    shapes, samples = {}, []
+    rows = min([64] + [m for m, _, _ in lm_gemm_shapes()])
+    cols = min([64] + [n for _, _, n in lm_gemm_shapes()])
+    for m, k, n in lm_gemm_shapes():
+        set_bytes = 4 * (m * k + k * n)
+        sets = [(torch.randn((m, k), generator=gen, device=device),
+                 torch.randn((k, n), generator=gen, device=device) / k**0.5)
+                for _ in range(-(-2 * l2_bytes() // set_bytes) + 1)]
+        # ~50 ms a launch: CUDA events around back-to-back launches give
+        # the device time, host dispatch hidden behind the kernels
+        ms = time_ms(rotating(sets, lambda x, y: qg.qgemm_faithful(
+            x, y, *fmt)), iters=len(sets), warmup=1)
+        a, b = sets[0]
+        samples.append((a[:rows], b[:, :cols]))
+        shapes[f"{m}x{k}x{n}"] = dict(
+            ms=ms, input_sets=len(sets),
+            upper_bound_ms=pipe_bound_s(whole, m * n * k)[0] * 1e3,
+            longest_path_bound_ms=pipe_bound_s(hi, m * n * k)[0] * 1e3,
+            matmul_ms=time_ms(lambda: a @ b, iters=20))
+        del sets
+    t0 = time.perf_counter()
+    census = cast_census(samples, *fmt)
+    census_s = time.perf_counter() - t0
+    for (m, k, n), (share, sub) in zip(lm_gemm_shapes(), census):
+        per = {p: lo[p] + share * (hi[p] - lo[p])
+               for p in ("alu", "imad", "alu+imad", "fp32", "cvt", "issue")}
+        t_ops, pipe = pipe_bound_s(per, m * n * k)
+        t_bytes = 4 * (m * k + k * n + m * n) / PEAK_BYTES_PER_S
+        shapes[f"{m}x{k}x{n}"].update(
+            rounding_share=share, subnormal_share=sub,
+            per_step={p: round(v, 3) for p, v in per.items()},
+            bound_ms=max(t_ops, t_bytes) * 1e3,
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            bound_pipe=pipe)
+    small = (256, 64, 256)
+    a = torch.randn(small[:2], generator=gen, device=device)
+    b = torch.randn(small[1:], generator=gen, device=device)
+    out = dict(cases=cases, shapes=shapes, sass_loop_body=whole,
+               sass_paths=paths, census_s=census_s, plain_shape=small,
+               plain_ms=time_ms(lambda: qg.qgemm_faithful_ref(a, b, *fmt),
+                                iters=2, warmup=1),
+               small_ms=time_ms(lambda: qg.qgemm_faithful(a, b, *fmt),
+                                iters=20))
+    main = shapes["x".join(map(str, lm_gemm_shapes()[0]))]
+    out.update(ms=main["ms"], bound_ms=main["bound_ms"],
+               bound_by=main["bound_by"],
+               upper_bound_ms=main["upper_bound_ms"])
+    for shape, r in shapes.items():
+        print(f"kernel qgemm_faithful [{fmt}, {shape}, {r['input_sets']} "
+              f"input sets]: kernel_ms {r['ms']:.3f} bound_ms "
+              f"{r['bound_ms']:.3f} ({r['bound_by']}, {r['bound_pipe']} "
+              f"pipe; {r['rounding_share']:.4f} of cast inputs round, "
+              f"{r['subnormal_share']:.4f} of those to a subnormal; per "
+              f"step {json.dumps(r['per_step'])}; longest path "
+              f"{r['longest_path_bound_ms']:.3f}, whole loop body "
+              f"{r['upper_bound_ms']:.3f}); library_ms null "
+              f"({NO_LIBRARY_QGEMM}: torch.matmul fp32 "
+              f"{r['matmul_ms']:.4f})", flush=True)
+    brief = {k: {p: v for p, v in d.items() if p != "opcodes"}
+             for k, d in dict(paths, whole=whole).items()}
+    print(f"kernel qgemm_faithful [{fmt}, {small}]: kernel_ms "
+          f"{out['small_ms']:.4f} plain_ms {out['plain_ms']:.3f}; census "
+          f"{census_s:.1f} s; SASS "
+          f"instructions per Kahan step {json.dumps(brief)}; longest path "
+          f"opcodes {json.dumps(paths['long']['opcodes'])}", flush=True)
+    return out
+
+
+def flash_flops(b, tq, tk, h, d, causal, products) -> int:
+    """2 * products * B * H * (visible (query, key) pairs) * D."""
+    pairs = (sum(min(i + 1, tk) for i in range(tq)) if causal
+             else tq * tk)
+    return 2 * products * b * h * pairs * d
+
+
+def flash_phase(device) -> dict:
+    """Phase 10b: K9 and K10 against their plain versions at the slice's
+    shape, with pad keys (T = 1000), at rep 1 and 2, non-causal, and at
+    head_dim 32 (the small model's); timed at the slice's shape beside
+    their plain versions and SDPA (forward, forward + backward)."""
+    import torch
+    import torch.nn.functional as F
+
+    from cpd_tpu_torch.ops import flash_gqa as fl
+
+    gen = torch.Generator(device=device).manual_seed(95)
+    b0, t0 = LM_TRAIN["per_rank_batch"], LM_TRAIN["seq"]
+    h0, hkv0 = LM_MODEL["n_heads"], LM_MODEL["n_kv_heads"]
+    d0 = LM_MODEL["d_model"] // h0
+    cases = [(b0, t0, h0, hkv0, d0, True), (2, 1000, h0, hkv0, d0, True),
+             (2, 256, 4, 4, d0, True), (2, 256, 4, 2, d0, True),
+             (2, 512, h0, hkv0, d0, False), (2, 128, 4, 2, 32, True)]
+    err_f = err_b = 0.0
+    for bb, t, h, hkv, d, causal in cases:
+        q = torch.randn((bb, t, h, d), generator=gen, device=device)
+        k = torch.randn((bb, t, hkv, d), generator=gen, device=device)
+        v = torch.randn((bb, t, hkv, d), generator=gen, device=device)
+        out, lse = fl.flash_gqa_fwd(q, k, v, causal)
+        g = torch.randn(out.shape, generator=gen, device=device)
+        grads = fl.flash_gqa_bwd(q, k, v, out, lse, g, causal)
+        torch.cuda.synchronize()
+        r_out, r_lse = fl.flash_gqa_fwd_ref(q, k, v, causal)
+        r_grads = fl.flash_gqa_bwd_ref(q, k, v, r_out, r_lse, g, causal)
+        ef = max(max_abs_diff(out, r_out), max_abs_diff(lse, r_lse))
+        eb = max(max_abs_diff(x, y) for x, y in zip(grads, r_grads))
+        if not (ef <= FLASH_ATOL and eb <= FLASH_GRAD_ATOL):
+            raise AssertionError(
+                f"flash {(bb, t, h, hkv, d, causal)}: forward/LSE err {ef} "
+                f"(atol {FLASH_ATOL}), gradient err {eb} (atol "
+                f"{FLASH_GRAD_ATOL})")
+        err_f, err_b = max(err_f, ef), max(err_b, eb)
+    print(f"kernel flash_gqa: K9 out/LSE within {err_f:.3e} (atol "
+          f"{FLASH_ATOL}) and K10 dq/dk/dv within {err_b:.3e} (atol "
+          f"{FLASH_GRAD_ATOL}) of their plain versions over {len(cases)} "
+          "cases", flush=True)
+
+    shape = cases[0]
+    bb, t, h, hkv, d, causal = shape
+    q = torch.randn((bb, t, h, d), generator=gen, device=device)
+    k = torch.randn((bb, t, hkv, d), generator=gen, device=device)
+    v = torch.randn((bb, t, hkv, d), generator=gen, device=device)
+    out, lse = fl.flash_gqa_fwd(q, k, v, causal)
+    g = torch.randn(out.shape, generator=gen, device=device)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    kw = dict(is_causal=True, enable_gqa=True)
+    sdpa_kv, lib_note = (kt, vt), "enable_gqa=True"
+    try:
+        F.scaled_dot_product_attention(qt, kt, vt, **kw)
+    except TypeError:       # torch before 2.5: expand the kv heads
+        kw = dict(is_causal=True)
+        sdpa_kv = tuple(x.repeat_interleave(h // hkv, dim=1)
+                        for x in (kt, vt))
+        lib_note = "K/V expanded to the query heads (no enable_gqa)"
+    gt = g.transpose(1, 2).contiguous()
+    leaves = (qt.detach().requires_grad_(),
+              *(x.detach().requires_grad_() for x in sdpa_kv))
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(*leaves, **kw)
+        torch.autograd.grad(o, leaves, gt)
+
+    # the backward alone: one stored forward, its graph kept for each call
+    o_lib = F.scaled_dot_product_attention(*leaves, **kw)
+
+    n_bytes_f = 4 * (2 * q.numel() + k.numel() + v.numel() + lse.numel())
+    n_bytes_b = 4 * (5 * q.numel() + 4 * k.numel() + 2 * lse.numel())
+    res = {}
+    for name, fn, plain, products, n_bytes in (
+            ("flash_gqa_fwd", lambda: fl.flash_gqa_fwd(q, k, v, causal),
+             lambda: fl.flash_gqa_fwd_ref(q, k, v, causal), 2, n_bytes_f),
+            ("flash_gqa_bwd",
+             lambda: fl.flash_gqa_bwd(q, k, v, out, lse, g, causal),
+             lambda: fl.flash_gqa_bwd_ref(q, k, v, out, lse, g, causal), 5,
+             n_bytes_b)):
+        flops = flash_flops(bb, t, t, h, d, causal, products)
+        t_ops, t_bytes = flops / PEAK_FP32_FLOPS, n_bytes / PEAK_BYTES_PER_S
+        # CUDA events around back-to-back calls: a kernel outlasts its
+        # call's host dispatch, so the queue never drains (the profiler
+        # dropped launches here late in a long run)
+        res[name] = dict(
+            ms=time_ms(fn, iters=20), plain_ms=time_ms(plain, iters=3),
+            bound_ms=max(t_ops, t_bytes) * 1e3,
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            tf32_bound_ms=max(flops / PEAK_TF32_FLOPS, t_bytes) * 1e3,
+            gflop=flops / 1e9, max_abs_err=err_f if products == 2
+            else err_b, shape=list(shape))
+    res["flash_gqa_fwd"]["library_ms"] = time_ms(
+        lambda: F.scaled_dot_product_attention(qt, *sdpa_kv, **kw), iters=20)
+    res["flash_gqa_bwd"]["library_ms"] = time_ms(
+        lambda: torch.autograd.grad(o_lib, leaves, gt, retain_graph=True),
+        iters=20)
+    res["flash_gqa_bwd"]["library_fwd_bwd_ms"] = time_ms(sdpa_fwd_bwd,
+                                                         iters=20)
+    del o_lib
+    for name, r in res.items():
+        what = ("forward" if name == "flash_gqa_fwd" else
+                "backward (autograd.grad of a stored forward); forward + "
+                f"backward {r['library_fwd_bwd_ms']:.4f}")
+        print(f"kernel {name} [{shape}]: kernel_ms {r['ms']:.4f} plain_ms "
+              f"{r['plain_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
+              f"({r['bound_by']}, fp32 67 TFLOP/s; TF32 tensor cores "
+              f"{r['tf32_bound_ms']:.4f}) {r['gflop']:.3f} GFLOP; "
+              f"library_ms {r['library_ms']:.4f} (scaled_dot_product_"
+              f"attention {what}, fp32, {lib_note})", flush=True)
+    return res
+
+
+def lm_model(device, seed: int, cfg=None, **path):
+    """A port LM at ``cfg`` (default the slice's width) with ``path``'s
+    options, weights from a seeded generator."""
+    import torch
+
+    from cpd_tpu_torch.models import transformer_lm
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return transformer_lm(**(cfg or LM_MODEL), **path,
+                          device=device).init_weights(gen)
+
+
+def lm_batches(vocab: int, steps: int, rows: int, seq: int, seed: int):
+    """``steps`` global (rows, seq) token batches and their next-token
+    targets, uniform over the vocabulary from a seeded numpy generator
+    (bench.py's LM arm draws its tokens so)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(steps):
+        x = rng.randint(0, vocab, (rows, seq + 1)).astype(np.int64)
+        out.append((x[:, :-1], x[:, 1:]))
+    return out
+
+
+def lm_design(n_layers: int, world: int, leaves: int, buckets: int) -> dict:
+    """Launches of one faithful APS LM step over W ranks: per rank and
+    layer, three K8 GEMMs for each of wi and wo_mlp (forward, grad_x,
+    grad_W), one K9 and one K10; the reduce's K1 per leaf and rank and
+    K3 per bucket and rank."""
+    want = reduce_design("faithful", False, False, world, leaves, buckets)
+    want.update(qgemm_faithful=6 * n_layers * world,
+                flash_gqa_fwd=n_layers * world,
+                flash_gqa_bwd=n_layers * world)
+    return want
+
+
+def lm_train(device, model, batches, world, opt=None, fmt=None, fused=None,
+             seconds=None) -> tuple:
+    """Steps of the LM slice's train step, one per batch; returns the
+    state, the step and the per-step metrics (host floats)."""
+    import torch
+
+    from cpd_tpu_torch.obs.timing import now
+    from cpd_tpu_torch.parallel.mesh import data_parallel_mesh
+    from cpd_tpu_torch.train import (create_train_state, sgd,
+                                     warmup_step_decay)
+    from cpd_tpu_torch.train.lm import make_lm_train_step
+
+    if opt is None:
+        opt = sgd(warmup_step_decay(LM_TRAIN["base_lr"], LM_TRAIN["warmup"],
+                                    [2 * len(batches)], warmup_from=0.0),
+                  momentum=0.9)
+    fmt = LM_TRAIN["fmt"] if fmt is None else fmt
+    state = create_train_state(model, opt)
+    step = make_lm_train_step(model, opt, data_parallel_mesh(world, device),
+                              use_aps=fmt != (8, 23), grad_exp=fmt[0],
+                              grad_man=fmt[1], fused=fused)
+    metrics = []
+    for toks, tgts in batches:
+        torch.cuda.synchronize()
+        t0 = now()
+        state, m = step(state, toks, tgts)
+        metrics.append({k: float(v) for k, v in m.items()})
+        torch.cuda.synchronize()
+        if seconds is not None:
+            seconds.append(now() - t0)
+    return state, step, metrics
+
+
+def lm_split(model, batch, world, device) -> dict:
+    """One step's per-rank forwards and backwards and its reduce, each
+    timed on the host clock between synchronisations."""
+    import torch
+
+    from cpd_tpu_torch.obs.timing import now
+    from cpd_tpu_torch.parallel.dist import sum_gradients
+    from cpd_tpu_torch.parallel.mesh import data_parallel_mesh
+    from cpd_tpu_torch.train import fp32_numerics
+    from cpd_tpu_torch.train.lm import as_tokens, lm_local_gradients
+
+    mesh = data_parallel_mesh(world, device)
+    fmt = LM_TRAIN["fmt"]
+    toks, tgts = as_tokens(*batch, device)
+    with fp32_numerics():
+        torch.cuda.synchronize()
+        t0 = now()
+        grads = lm_local_gradients(model, toks, tgts, mesh)[0]
+        torch.cuda.synchronize()
+        t1 = now()
+        sum_gradients(grads, mesh, use_aps=True, grad_exp=fmt[0],
+                      grad_man=fmt[1], mode="faithful")
+        torch.cuda.synchronize()
+        t2 = now()
+    return dict(fwd_bwd_ms=(t1 - t0) * 1e3, reduce_ms=(t2 - t1) * 1e3)
+
+
+def lm_phase(device) -> dict:
+    """Phase 10c-f: the LM slice end to end at full width through K8, K9
+    and K10 (and a fast-FFN step), kernels vs plain versions at full
+    width without K8 and on a small model with it, then the trainer
+    CLI."""
+    import torch
+
+    from cpd_tpu_torch.examples.lm import train as cli
+    from cpd_tpu_torch.obs.timing import now
+    from cpd_tpu_torch.ops import qgemm as qg
+    from cpd_tpu_torch.parallel.overlap import (DEFAULT_BUCKET_ELEMS,
+                                                bucket_layout)
+    from cpd_tpu_torch.train import sgd
+
+    w, steps = LM_TRAIN["world"], LM_TRAIN["steps"]
+    rows, seq = w * LM_TRAIN["per_rank_batch"], LM_TRAIN["seq"]
+    vocab, layers = LM_MODEL["vocab_size"], LM_MODEL["n_layers"]
+    batches = lm_batches(vocab, steps, rows, seq, LM_TRAIN["seed"])
+
+    # (c) the slice: 3 steps through K8, K9 and K10
+    marks = [now()]
+    model = lm_model(device, LM_TRAIN["seed"], **LM_PATH)
+    sizes = [p.numel() for p in model.parameters()]
+    n_buckets = len(bucket_layout(sizes, DEFAULT_BUCKET_ELEMS))
+    secs = []
+    reset_counts()
+    state, step, metrics = lm_train(device, model, batches, w, seconds=secs)
+    counts = read_counts()
+    want = {k: steps * v for k, v in lm_design(layers, w, len(sizes),
+                                               n_buckets).items()}
+    if counts != want:
+        raise AssertionError(f"LM launches {counts} != the design's {want}")
+    losses = [m["loss"] for m in metrics]
+    if not all(math.isfinite(v) for v in losses) or not (
+            abs(losses[0] - math.log(vocab)) <= LM_LOSS_BAND):
+        raise AssertionError(f"LM losses {losses}: not finite, or step 0 "
+                             f"not within {LM_LOSS_BAND} of ln {vocab}")
+    split = lm_split(model, batches[0], w, device)
+    prof = step_profile(step, state, batches[0])
+    step_s = sum(secs[1:]) / (len(secs) - 1)
+    tokens = rows * seq
+    out = dict(
+        world=w, tokens_per_step=tokens, steps=steps, losses=losses,
+        accuracies=[m["accuracy"] for m in metrics], step_ms=step_s * 1e3,
+        tokens_per_s=tokens / step_s, n_leaves=len(sizes),
+        n_buckets=n_buckets, launches=counts,
+        launches_per_step={k: v // steps for k, v in counts.items() if v},
+        **split,
+        kernel_ms_per_step={k: prof[k] for k in LM_KERNELS},
+        device_busy_ms=prof["device_busy_ms"],
+        kernel_launches_profiled=prof["kernel_launches"])
+    print("train lm: " + json.dumps(out), flush=True)
+
+    # the same step with the fast FFN: fp32 product and one K1 cast
+    fast = lm_model(device, LM_TRAIN["seed"], **dict(LM_PATH,
+                                                     ffn_mode="fast"))
+    f_secs = []
+    reset_counts()
+    _, _, f_metrics = lm_train(device, fast, batches[:2], w, seconds=f_secs)
+    f_counts = read_counts()
+    if f_counts["qgemm_faithful"] or not all(math.isfinite(m["loss"])
+                                             for m in f_metrics):
+        raise AssertionError(f"fast-FFN steps: launches {f_counts}, "
+                             f"metrics {f_metrics}")
+    out["fast"] = dict(step_ms=f_secs[1] * 1e3,
+                       tokens_per_s=tokens / f_secs[1],
+                       losses=[m["loss"] for m in f_metrics],
+                       launches_per_step={k: v // 2 for k, v in
+                                          f_counts.items() if v})
+    print("train lm fast-ffn: " + json.dumps(out["fast"]), flush=True)
+    del fast
+
+    # (d) full width without K8: one step, ffn (8, 23), fp32 reduce at a
+    # constant lr, through K9/K10 and then through their plain versions
+    marks.append(now())
+    path = dict(LM_PATH, ffn_exp=8, ffn_man=23)
+    runs = []
+    for plain in (False, True):
+        m = lm_model(device, 1, **path)
+        with contextlib.ExitStack() as stack:
+            if plain:
+                stack.enter_context(plain_kernels())
+            _, _, met = lm_train(device, m, batches[:1], w,
+                                 opt=sgd(lambda s: 0.01, momentum=0.9),
+                                 fmt=(8, 23))
+        runs.append((met[0]["loss"], m))
+    (la, ma), (lb, mb) = runs
+    w_err = max(max_abs_diff(a.detach(), b.detach())
+                for a, b in zip(ma.parameters(), mb.parameters()))
+    if abs(la - lb) > LM_LOSS_RTOL * abs(lb) or w_err > LM_WEIGHT_ATOL:
+        raise AssertionError(f"full-width step: loss {la} (kernels) vs {lb} "
+                             f"(plain), weights differ by {w_err}")
+    out["full_width_vs_plain"] = dict(loss_kernels=la, loss_plain=lb,
+                                      weight_max_abs_err=w_err)
+    print(f"train lm: one full-width step at ffn (8, 23) through K9/K10 and "
+          f"through their plain versions: loss {la} vs {lb} (rtol "
+          f"{LM_LOSS_RTOL}), weights within {w_err:.3e} (atol "
+          f"{LM_WEIGHT_ATOL})", flush=True)
+    del runs, ma, mb
+
+    # (e) the whole faithful path, small: all kernels vs all plain versions
+    marks.append(now())
+    sw = LM_SMALL_TRAIN["world"]
+    s_batches = lm_batches(LM_SMALL["vocab_size"], LM_SMALL_TRAIN["steps"],
+                           sw * LM_SMALL_TRAIN["per_rank_batch"],
+                           LM_SMALL_TRAIN["seq"], 1)
+    small = []
+    for plain in (False, True):
+        m = lm_model(device, 2, LM_SMALL, **LM_PATH)
+        with contextlib.ExitStack() as stack:
+            if plain:
+                stack.enter_context(plain_kernels())
+            _, _, met = lm_train(device, m, s_batches, sw,
+                                 opt=sgd(lambda s: 0.01, momentum=0.9),
+                                 fused=False if plain else None)
+        small.append([x["loss"] for x in met])
+    for a, b in zip(*small):
+        if abs(a - b) > LM_SMALL_LOSS_RTOL * abs(b):
+            raise AssertionError(f"small faithful LM: losses {small[0]} "
+                                 f"(kernels) vs {small[1]} (plain)")
+    # the FFN's own GEMMs on the inputs the kernel run gave them: bitwise
+    fmt = LM_PATH["ffn_exp"], LM_PATH["ffn_man"]
+    seen = []
+    hook = m.blocks[0].wi.register_forward_hook(
+        lambda mod, args, res: seen.append(args[0].detach()))
+    with torch.no_grad():
+        m(torch.as_tensor(s_batches[0][0], device=device))
+    hook.remove()
+    x2 = seen[0].reshape(-1, seen[0].shape[-1])
+    g = torch.randn((x2.shape[0], LM_SMALL["d_ff"]), device=device)
+    kern = m.blocks[0].wi.kernel.detach()
+    for name, a, b in (("forward", x2, kern), ("grad_x", g, kern.t()),
+                       ("grad_W", g.t(), x2)):
+        if not same_bits(qg.qgemm_faithful(a, b, *fmt),
+                         qg.qgemm_faithful_ref(a, b, *fmt)):
+            raise AssertionError(f"small LM FFN {name} GEMM: K8 differs "
+                                 "from its plain version")
+    out["small_vs_plain"] = dict(losses_kernels=small[0],
+                                 losses_plain=small[1])
+    print(f"train lm small: {LM_SMALL_TRAIN['steps']} faithful e4m3 steps "
+          f"at W={sw} through K8/K9/K10 and the kernels of the reduce vs all "
+          f"plain versions: losses {small[0]} vs {small[1]} (rtol "
+          f"{LM_SMALL_LOSS_RTOL}); the FFN's forward, grad_x and grad_W "
+          "GEMMs on the run's own inputs bitwise", flush=True)
+
+    # (f) the trainer CLI
+    marks.append(now())
+    iters = LM_TRAIN["cli_iters"]
+    argv = ["--vocab-size", str(vocab), "--d-model",
+            str(LM_MODEL["d_model"]), "--n-layers", str(layers),
+            "--n-heads", str(LM_MODEL["n_heads"]), "--n-kv-heads",
+            str(LM_MODEL["n_kv_heads"]), "--seq-len", str(seq),
+            "--batch-size", str(LM_TRAIN["per_rank_batch"]), "--dp", str(w),
+            "--attn-impl", "flash", "--flash-bwd", "pallas", "--ffn-exp",
+            str(fmt[0]), "--ffn-man", str(fmt[1]), "--ffn-mode", "faithful",
+            "--use_APS", "--grad_exp", str(LM_TRAIN["fmt"][0]),
+            "--grad_man", str(LM_TRAIN["fmt"][1]), "--max-iter", str(iters),
+            "--print-freq", "1"]
+    reset_counts()
+    t0 = now()
+    rc = cli.main(argv)
+    cli_counts = read_counts()
+    # the steps, then one validation forward: 2 K8 and 1 K9 per layer and
+    # rank
+    design = {k: iters * v for k, v in lm_design(
+        layers, w, len(sizes), n_buckets).items()}
+    design["qgemm_faithful"] += 2 * layers * w
+    design["flash_gqa_fwd"] += layers * w
+    if rc != 0 or cli_counts != design:
+        raise AssertionError(f"LM trainer CLI returned {rc}, launches "
+                             f"{cli_counts} (design {design})")
+    out["cli"] = dict(rc=rc, seconds=now() - t0, argv=" ".join(argv),
+                      launches={k: v for k, v in cli_counts.items() if v})
+    print("train lm cli: " + json.dumps(out["cli"]), flush=True)
+    marks.append(now())
+    out["seconds"] = dict(zip(("slice", "full_width_vs_plain",
+                               "small_vs_plain", "cli"),
+                              (b - a for a, b in zip(marks, marks[1:]))))
+    print("train lm seconds: " + json.dumps(out["seconds"]), flush=True)
+    return out
+
+
+def lm_kernel_entries(qgemm: dict, flash: dict, lm: dict) -> list:
+    """The ``kernels`` line's entries of K8-K10: their launches from the
+    LM slice's faithful steps at W = 2 (counted from 0 around that run),
+    their times and bounds from phases 10a-b."""
+    timed = {"qgemm_faithful": dict(
+        qgemm, max_abs_err=0.0, library_ms=None,
+        library_note=NO_LIBRARY_QGEMM,
+        parity="bitwise in every format and shape case, and on the small "
+               "LM's FFN GEMMs"), **flash}
+    out = []
+    for name, (replaces, source) in LM_KERNELS.items():
+        k = timed[name]
+        out.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=lm["launches"][name],
+            launches_per_step=lm["launches_per_step"][name],
+            max_abs_err=k["max_abs_err"], ms=k["ms"],
+            plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+            bound_by=k["bound_by"], library_ms=k["library_ms"],
+            **{f: k[f] for f in ("library_note", "shapes", "plain_shape",
+                                 "small_ms", "tf32_bound_ms", "shape",
+                                 "upper_bound_ms", "library_fwd_bwd_ms")
+               if f in k},
+            parity=k.get("parity", f"within atol {FLASH_ATOL} (out, LSE) "
+                                   f"and {FLASH_GRAD_ATOL} (gradients) of "
+                                   "the plain version in every case")))
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1738,7 +2549,7 @@ def main() -> int:
     t0 = now()
     build_all()
     print(f"build: all kernels in {now() - t0:.1f} s", flush=True)
-    for name in ("serve_attn", "quantize"):
+    for name in ("serve_attn", "quantize", "qgemm", "flash_gqa"):
         for line in build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
@@ -1752,6 +2563,9 @@ def main() -> int:
     sr_train = sr_train_phase(device, train)
     blocked = blocked_quantize_phase(device)
     blocked_train = blocked_train_phase(device)
+    qgemm = qgemm_phase(device)
+    flash = flash_phase(device)
+    lm = lm_phase(device)
 
     main_case = kern["cases"]["e4m3"]
     kernels = [dict(
@@ -1830,6 +2644,7 @@ def main() -> int:
                    "the blocked verified training kernels == plain",
             shape=q["shape"],
             **{k: q[k] for k in ("ms_with_digest",) if k in q}))
+    kernels += lm_kernel_entries(qgemm, flash, lm)
     print(card, flush=True)      # exactly as nvidia-smi gives it
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,12 +9,17 @@ never jax, flax or any module of `cpd_tpu`.
 
 Ported so far: continuous-batching serving of the transformer LM at
 tp=1, whose decode attention runs through a hand-written CUDA kernel
-(`ops/serve_attn.py`, `csrc/serve_attn.cu`); and data-parallel training
+(`ops/serve_attn.py`, `csrc/serve_attn.cu`); data-parallel training
 of ResNet-18/CIFAR with the APS low-precision gradient reduce, whose
 casts, ring hops and ordered-scan steps run through hand-written CUDA
-kernels (`ops/quantize.py`, `csrc/quantize.cu`).  Entry points run on
-``cuda`` unless the caller passes ``device="cpu"``; asking for ``cuda``
-on a host without it raises (`device.resolve_device`).
+kernels (`ops/quantize.py`, `csrc/quantize.cu`); and data-parallel
+training of the GQA transformer LM, whose attention runs through
+hand-written flash kernels (`ops/flash_gqa.py`, `csrc/flash_gqa.cu`) and
+whose MLP GEMMs accumulate in eXmY through a hand-written
+quantized-Kahan GEMM kernel (`quant/quant_module.py`, `ops/qgemm.py`,
+`csrc/qgemm.cu`).  Entry points run on ``cuda`` unless the caller
+passes ``device="cpu"``; asking for ``cuda`` on a host without it raises
+(`device.resolve_device`).
 """
 
 from .device import resolve_device

@@ -9,6 +9,15 @@ LayerNorm has ``scale``/``bias`` and the fast variance E[x²] − E[x]²
 with eps 1e-6; GELU is the tanh approximation (flax ``nn.gelu``); the
 head is tied to the embedding (``x @ embedding.T``).  The block math
 started as a copy of `cpd_tpu/interop/torch_lm.py`'s torch mirror.
+
+The full-sequence forward is causal self-attention through
+`ops.attention.grouped_query_attention` with the model's ``attn_impl``
+("xla", "chunked", or "flash": the K9/K10 kernels for GQA) and
+``flash_bwd``.  With ``(ffn_exp, ffn_man) != (8, 23)`` the MLP pair
+``wi``/``wo_mlp`` are `QuantDense` layers: their forward and both
+backward GEMMs run with the eXmY accumulator (``ffn_mode`` "faithful",
+the K8 kernel, or "fast"); the parameter tree does not change.  Dropout,
+remat and scanned layers are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -20,7 +29,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from ..ops.serve_attn import paged_attention
+from ..ops.attention import grouped_query_attention
+from ..quant.quant_module import QuantDense
 
 __all__ = ["TransformerLM", "transformer_lm", "layer_norm", "rope"]
 
@@ -96,11 +106,15 @@ class Block(nn.Module):
     """One pre-LN decoder block (attention + GELU MLP)."""
 
     def __init__(self, d_model: int, n_heads: int, n_kv_heads: Optional[int],
-                 d_ff: int, device=None):
+                 d_ff: int, device=None, *, attn_impl: str = "xla",
+                 flash_bwd: str = "chunked", ffn_exp: int = 8,
+                 ffn_man: int = 23, ffn_mode: str = "faithful"):
         super().__init__()
         self.n_heads = n_heads
         self.n_kv_heads = n_kv_heads
         self.head_dim = d_model // n_heads
+        self.attn_impl = attn_impl
+        self.flash_bwd = flash_bwd
         self.ln1 = LayerNorm(d_model, device)
         self.ln2 = LayerNorm(d_model, device)
         if n_kv_heads is None:
@@ -109,8 +123,13 @@ class Block(nn.Module):
             self.wq = Dense(d_model, d_model, device)
             self.wkv = Dense(d_model, 2 * n_kv_heads * self.head_dim, device)
         self.wo = Dense(d_model, d_model, device)
-        self.wi = Dense(d_model, d_ff, device)
-        self.wo_mlp = Dense(d_ff, d_model, device)
+        if (ffn_exp, ffn_man) != (8, 23):
+            kw = dict(exp=ffn_exp, man=ffn_man, mode=ffn_mode, device=device)
+            self.wi = QuantDense(d_model, d_ff, **kw)
+            self.wo_mlp = QuantDense(d_ff, d_model, **kw)
+        else:
+            self.wi = Dense(d_model, d_ff, device)
+            self.wo_mlp = Dense(d_ff, d_model, device)
 
     def qkv(self, h: torch.Tensor) -> tuple:
         """Head-major projections: q (B, T, H, D), k/v (B, T, H_kv, D)."""
@@ -128,14 +147,15 @@ class Block(nn.Module):
         return x + self.wo_mlp(h)
 
     def forward(self, x, positions):
-        """x: (B, T, d_model); positions: (B, T) — causal attention over
-        the sequence itself (the paged decode attention with every key
-        live)."""
+        """x: (B, T, d_model); positions: (B, T) RoPE positions — causal
+        attention over the sequence itself."""
         q, k, v = self.qkv(self.ln1(x))
         q = rope(q, positions)
         k = rope(k, positions)
         b, t, h, d = q.shape
-        attn = paged_attention(q, k, v, positions, positions[:, -1])
+        attn = grouped_query_attention(q, k, v, causal=True,
+                                       impl=self.attn_impl,
+                                       flash_bwd=self.flash_bwd)
         x = x + self.wo(attn.reshape(b, t, h * d))
         return self.mlp(x)
 
@@ -150,7 +170,11 @@ class TransformerLM(nn.Module):
     def __init__(self, vocab_size: int = 32000, d_model: int = 512,
                  n_layers: int = 4, n_heads: int = 8,
                  n_kv_heads: Optional[int] = None, d_ff: int = 2048,
-                 device="cuda"):
+                 device="cuda", *, attn_impl: str = "xla",
+                 flash_bwd: str = "chunked", ffn_exp: int = 8,
+                 ffn_man: int = 23, ffn_mode: str = "faithful",
+                 dropout_rate: float = 0.0, remat: bool = False,
+                 scan_layers: bool = False):
         super().__init__()
         dev = resolve_device(device)
         if d_model % n_heads:
@@ -158,6 +182,20 @@ class TransformerLM(nn.Module):
         if n_kv_heads is not None and n_heads % n_kv_heads:
             raise ValueError(f"n_heads {n_heads} must be a multiple of "
                              f"n_kv_heads {n_kv_heads}")
+        if attn_impl not in ("xla", "flash", "chunked"):
+            raise ValueError(f"unknown attn_impl {attn_impl!r}; expected "
+                             "'xla', 'flash' or 'chunked'")
+        if flash_bwd not in ("chunked", "pallas"):
+            raise ValueError(f"unknown flash_bwd {flash_bwd!r}; expected "
+                             "'chunked' or 'pallas'")
+        if ffn_mode not in ("faithful", "fast"):
+            raise ValueError(f"unknown ffn_mode {ffn_mode!r}")
+        for name, value in (("dropout_rate", dropout_rate), ("remat", remat),
+                            ("scan_layers", scan_layers)):
+            if value:
+                raise NotImplementedError(
+                    f"{name}: not yet ported to cpd_tpu_torch (ROADMAP "
+                    "Queue A, A8)")
         self.vocab_size = vocab_size
         self.d_model = d_model
         self.n_layers = n_layers
@@ -166,7 +204,9 @@ class TransformerLM(nn.Module):
         self.d_ff = d_ff
         self.embed = Embed(vocab_size, d_model, dev)
         self.blocks = nn.ModuleList(
-            Block(d_model, n_heads, n_kv_heads, d_ff, dev)
+            Block(d_model, n_heads, n_kv_heads, d_ff, dev,
+                  attn_impl=attn_impl, flash_bwd=flash_bwd, ffn_exp=ffn_exp,
+                  ffn_man=ffn_man, ffn_mode=ffn_mode)
             for _ in range(n_layers))
         self.ln_f = LayerNorm(d_model, dev)
 

@@ -25,7 +25,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 
 # kernel name -> source file under csrc/
-KERNEL_SOURCES = {"serve_attn": "serve_attn.cu", "quantize": "quantize.cu"}
+KERNEL_SOURCES = {"serve_attn": "serve_attn.cu", "quantize": "quantize.cu",
+                  "qgemm": "qgemm.cu", "flash_gqa": "flash_gqa.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

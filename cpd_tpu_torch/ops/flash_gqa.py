@@ -1,0 +1,259 @@
+"""GQA-native flash attention (K9 forward, K10 backward) and their plain
+versions.
+
+Port of `cpd_tpu/ops/flash_gqa.py`: grouped queries q (B, Tq, H, D)
+against unexpanded k/v (B, Tk, H_kv, D), kv head g serving query heads
+[g·rep, (g+1)·rep), fp32 softmax.  Masked probabilities are zeroed by the
+mask, pad keys and fully masked rows give 0, and the forward emits the
+per-row log-sum-exp the backward re-exponentiates.
+
+* `flash_gqa_fwd_ref` / `flash_gqa_bwd_ref` — the plain versions: the
+  same recipe in torch ops over the whole score matrix (logits, mask,
+  max, LSE; then p = exp(s − lse), dp, ds = p·(dp − delta)·scale and the
+  products), for CPU tensors and the kernels' checks;
+* `flash_gqa_fwd` (K9) / `flash_gqa_bwd` (K10) — the wrappers.  CPU
+  tensors take the plain versions; CUDA tensors launch the hand-written
+  kernels in ``csrc/flash_gqa.cu`` (built at first use, `ops.build`) or
+  raise.  ``flash_gqa_fwd.launches`` counts forward launches and
+  ``flash_gqa_bwd.launches`` backward calls (each launches the dq and the
+  dk/dv kernel);
+* `flash_gqa(q, k, v, causal, bwd)` — the differentiable function.
+  ``bwd="pallas"`` (the JAX name of the flash-backward kernels) saves
+  (q, k, v, out, lse) and runs K10; ``bwd="chunked"`` recomputes through
+  `attention._chunked_attention` under torch autograd.
+
+``lse`` is (B, H, Tq): the JAX kernel's (B, H_kv, rep, Tq_p) without the
+TPU's row padding.  The kernels take head_dim 32 or 64.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from .attention import _NEG_INF, _gqa_rep
+
+__all__ = ["flash_gqa", "flash_gqa_fwd", "flash_gqa_bwd",
+           "flash_gqa_fwd_ref", "flash_gqa_bwd_ref", "KERNEL_HEAD_DIMS"]
+
+KERNEL_HEAD_DIMS = (32, 64)
+
+
+def _scale(d: int) -> float:
+    """``1.0 / float(d) ** 0.5`` in fp32, the JAX kernel's scale."""
+    return float(np.float32(1.0 / float(d) ** 0.5))
+
+
+def _valid(tq: int, tk: int, causal: bool, device) -> torch.Tensor:
+    qi = torch.arange(tq, device=device)[:, None]
+    ki = torch.arange(tk, device=device)[None, :]
+    return (qi >= ki) if causal else torch.ones((tq, tk), dtype=torch.bool,
+                                                device=device)
+
+
+def _grouped_logits(q, k, scale):
+    """(B, H_kv, rep, Tq, Tk) fp32 logits * scale."""
+    b, tq, h, d = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, tq, hkv, h // hkv, d)
+    return torch.einsum("bqgrd,bkgd->bgrqk", qg, k) * scale
+
+
+def flash_gqa_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = True) -> tuple:
+    """Plain version of K9: ``(out (B, Tq, H, D), lse (B, H, Tq))``."""
+    b, tq, h, d = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    _gqa_rep(q, k)
+    valid = _valid(tq, tk, causal, q.device)
+    s = torch.where(valid, _grouped_logits(q, k, _scale(d)), _NEG_INF)
+    m = s.amax(dim=-1, keepdim=True) if tk else torch.full(
+        s.shape[:-1] + (1,), _NEG_INF, device=q.device)
+    p = torch.where(valid, torch.exp(s - m), 0.0)
+    den = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    out = torch.einsum("bgrqk,bkgd->bqgrd", p, v) / den.permute(
+        0, 3, 1, 2, 4)
+    lse = (m + torch.log(den))[..., 0]
+    return out.reshape(b, tq, h, d), lse.reshape(b, h, tq)
+
+
+def flash_gqa_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      out: torch.Tensor, lse: torch.Tensor,
+                      dout: torch.Tensor, causal: bool = True) -> tuple:
+    """Plain version of K10: ``(dq, dk, dv)`` in the input shapes."""
+    b, tq, h, d = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    rep = _gqa_rep(q, k)
+    scale = _scale(d)
+    valid = _valid(tq, tk, causal, q.device)
+    delta = (dout * out).sum(-1).permute(0, 2, 1).reshape(b, hkv, rep, tq)
+    lse = lse.reshape(b, hkv, rep, tq)
+    s = _grouped_logits(q, k, scale)
+    p = torch.where(valid, torch.exp(s - lse[..., None]), 0.0)
+    dg = dout.reshape(b, tq, hkv, rep, d)
+    dp = torch.einsum("bqgrd,bkgd->bgrqk", dg, v)
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.einsum("bgrqk,bkgd->bqgrd", ds, k).reshape(b, tq, h, d)
+    dk = torch.einsum("bgrqk,bqgrd->bkgd", ds, q.reshape(b, tq, hkv, rep, d))
+    dv = torch.einsum("bgrqk,bqgrd->bkgd", p, dg)
+    return dq, dk, dv
+
+
+def _library():
+    from .build import load_library
+
+    lib = load_library("flash_gqa")
+    if not getattr(lib, "_cpd_typed", False):
+        lib.flash_fwd_launch.argtypes = [ctypes.c_void_p] * 5 + [
+            ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+        lib.flash_fwd_launch.restype = ctypes.c_int
+        lib.flash_bwd_launch.argtypes = [ctypes.c_void_p] * 9 + [
+            ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+        lib.flash_bwd_launch.restype = ctypes.c_int
+        lib.flash_error_string.argtypes = [ctypes.c_int]
+        lib.flash_error_string.restype = ctypes.c_char_p
+        lib._cpd_typed = True
+    return lib
+
+
+def _on_card(what: str, *xs: torch.Tensor) -> bool:
+    """False for CPU tensors; for CUDA tensors check what the kernels
+    take (fp32, one device, head_dim 32 or 64) and return True."""
+    devices = {x.device for x in xs}
+    if len(devices) != 1:
+        raise ValueError(f"{what}: inputs on several devices: "
+                         f"{sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    for x in xs:
+        if x.dtype != torch.float32:
+            raise TypeError(f"{what}: dtype {x.dtype}, expected float32")
+    d = xs[0].shape[-1]
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{what}: the kernel takes head_dim in "
+                         f"{KERNEL_HEAD_DIMS}, got {d}")
+    return True
+
+
+def _raise_on(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           f"{lib.flash_error_string(rc).decode()} "
+                           f"(cudaError {rc})")
+
+
+def _dims(q, k):
+    b, tq, h, d = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
+                         "match")
+    _gqa_rep(q, k)
+    if b * h > 65535:
+        raise ValueError(f"B*H = {b * h} exceeds the kernel's grid")
+    return b, tq, tk, h, hkv, d
+
+
+def flash_gqa_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True) -> tuple:
+    """``(out (B, Tq, H, D), lse (B, H, Tq))`` of GQA flash attention
+    (K9).  CPU tensors take `flash_gqa_fwd_ref`; CUDA tensors launch the
+    kernel, counted in ``flash_gqa_fwd.launches``."""
+    b, tq, tk, h, hkv, d = _dims(q, k)
+    if v.shape != k.shape:
+        raise ValueError(f"v {tuple(v.shape)} != k {tuple(k.shape)}")
+    if not _on_card("flash_gqa_fwd", q, k, v):
+        return flash_gqa_fwd_ref(q, k, v, causal)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out.zero_(), lse.fill_(_NEG_INF)
+    lib = _library()
+    with torch.cuda.device(q.device):
+        rc = lib.flash_fwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), b, tq, tk, h, hkv, d, int(causal), _scale(d),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(lib, rc, "flash_gqa_fwd")
+    flash_gqa_fwd.launches += 1
+    return out, lse
+
+
+def flash_gqa_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                  causal: bool = True) -> tuple:
+    """``(dq, dk, dv)`` of GQA flash attention from the forward's inputs,
+    output and lse (K10; delta = Σ dout·out is one torch op).  CPU
+    tensors take `flash_gqa_bwd_ref`; CUDA tensors launch the dq and the
+    dk/dv kernel, counted once per call in ``flash_gqa_bwd.launches``."""
+    b, tq, tk, h, hkv, d = _dims(q, k)
+    if not _on_card("flash_gqa_bwd", q, k, v, out, lse, dout):
+        return flash_gqa_bwd_ref(q, k, v, out, lse, dout, causal)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    dout, lse = dout.contiguous(), lse.contiguous()
+    delta = (dout * out).sum(-1).permute(0, 2, 1).contiguous()
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    if tq == 0 or tk == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    lib = _library()
+    with torch.cuda.device(q.device):
+        rc = lib.flash_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, tq, tk, h, hkv, d, int(causal), _scale(d),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(lib, rc, "flash_gqa_bwd")
+    flash_gqa_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_gqa_fwd.launches = 0
+flash_gqa_bwd.launches = 0
+
+
+class _FlashGQA(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, bwd):
+        out, lse = flash_gqa_fwd(q, k, v, causal)
+        ctx.cfg = (causal, bwd)
+        if bwd == "pallas":
+            ctx.save_for_backward(q, k, v, out, lse)
+        else:
+            ctx.save_for_backward(q, k, v)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        causal, bwd = ctx.cfg
+        if bwd == "pallas":
+            q, k, v, out, lse = ctx.saved_tensors
+            dq, dk, dv = flash_gqa_bwd(q, k, v, out, lse, g, causal)
+            return dq, dk, dv, None, None
+        from .attention import _chunked_attention
+
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            o = _chunked_attention(q, k, v, causal, 0, 0)
+        dq, dk, dv = torch.autograd.grad(o, (q, k, v), g)
+        return dq, dk, dv, None, None
+
+
+def flash_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True, bwd: str = "chunked") -> torch.Tensor:
+    """Flash attention with GQA-native unexpanded K/V: q (B, Tq, H, D),
+    k/v (B, Tk, H_kv, D), H_kv | H; returns (B, Tq, H, D).  The forward
+    is K9; ``bwd`` picks the gradient: "pallas" (K10 against the saved
+    lse) or "chunked" (the online-softmax scan's autograd)."""
+    _gqa_rep(q, k)
+    if bwd not in ("chunked", "pallas"):
+        raise ValueError(f"unknown bwd {bwd!r}; 'chunked' or 'pallas'")
+    return _FlashGQA.apply(q, k, v, causal, bwd)
