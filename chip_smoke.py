@@ -102,7 +102,27 @@ Phases; any failure exits non-zero:
    version: losses within ``LM_SMALL_LOSS_RTOL``, and its FFN GEMMs on
    the run's own inputs bitwise; (f) 2 iterations of the LM trainer CLI
    at the slice's flags;
-11. print one JSON line ``{"kernels": [...]}`` and, last,
+11. bench.py's bf16 MHA transformer LM: (a) hold K11 (`flash_mha_fwd`,
+   `flash_mha_bwd`: the MHA flash kernel, forward with its LSE and its own
+   backward) against its plain version at head_dim 32, 64 and 128, fp32
+   and bf16, causal and not, at Tq != Tk and at the LM's shapes (fp32
+   within ``FLASH_ATOL`` / ``FLASH_GRAD_ATOL``, bf16 within ``BF16_RTOL`` /
+   ``BF16_ATOL``), and the bf16 and head_dim-128 arms of K9/K10; time K11
+   at (4, 1024, 8, 64) in bf16 and fp32 and at (4, 1024, 4, 128) in bf16
+   beside its plain version, its bound and SDPA's forward and backward;
+   (b) train bench.py's LM arm (vocab 32000, d_model 512, 8 layers, 8
+   heads, d_ff 2048, bf16 compute over fp32 weights, seeded random
+   weights) through K11 on a `LocalMesh` of 2 ranks, 4 sequences of 1024
+   random tokens each, 3 steps of the APS e5m2 faithful reduce and SGD
+   momentum 0.9 at a constant rate: finite losses, step 0 within
+   ``LM_LOSS_BAND`` of ln 32000, launches as designed (8 K11 forwards and
+   8 backwards per rank-step), tokens/s, the step's split, peak memory
+   and K11's device ms per step; the same steps through the plain K11
+   (losses within ``BENCH_LOSS_RTOL``); one ``remat`` step (16 K11
+   forwards per rank-step, the same loss); tokens/s of the xla and
+   chunked arms; (c) 2 iterations of the LM CLI with ``--bf16 --attn-impl
+   flash --remat`` at 2 layers;
+12. print one JSON line ``{"kernels": [...]}`` and, last,
    ``{"ok": true, "device": {...}}``.
 
 The script imports neither jax nor the JAX package.
@@ -224,6 +244,28 @@ LM_KERNELS = {"qgemm_faithful": ("cpd_tpu/ops/qgemm.py:64",
               "flash_gqa_bwd": ("cpd_tpu/ops/flash_gqa.py:298",
                                 "cpd_tpu_torch/csrc/flash_gqa.cu")}
 PEAK_TF32_FLOPS = 495e12
+# the bf16 MHA LM slice: bench.py's LM arm (bench.py:505-540: vocab 32000,
+# d_model 512, 8 layers, 8 heads, d_ff 2048, bf16 compute over fp32
+# masters, seq 1024, 8 sequences per chip, SGD momentum 0.9, e5m2 APS)
+# through the MHA flash kernel K11, 2 dp ranks of 4 sequences on the
+# card, at a constant rate; the CLI at 2 layers
+BENCH_LM = dict(vocab_size=32000, d_model=512, n_layers=8, n_heads=8,
+                d_ff=2048)
+BENCH_TRAIN = dict(world=2, per_rank_batch=4, seq=1024, steps=3, fmt=(5, 2),
+                   seed=0, lr=0.01, arm_steps=2, cli_iters=2, cli_layers=2)
+# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
+PEAK_BF16_FLOPS = 989e12
+# K11 against its plain version: fp32 as K9/K10 (FLASH_ATOL,
+# FLASH_GRAD_ATOL); bf16 within the JAX package's flash-vs-xla
+# tolerance, rtol = atol = 2e-2 (tests/test_attention_lm.py): p, ds and
+# each output are rounded to bf16 at values that the kernel's blocked sums
+# and the plain whole-row sums leave one fp32 round-off apart
+BF16_RTOL = BF16_ATOL = 2e-2
+# the plain K11 steps against the kernel's: a bf16 rounding flipped by
+# round-off moves the loss well inside this
+BENCH_LOSS_RTOL = 1e-2
+MHA_KERNELS = {"flash_mha_fwd": "cpd_tpu/ops/attention.py:116",
+               "flash_mha_bwd": "cpd_tpu/ops/attention.py:116"}
 NO_LIBRARY_QGEMM = ("no PyTorch call computes a product whose every "
                     "step is re-cast to eXmY: torch.matmul is printed "
                     "beside it and is not the same function")
@@ -288,7 +330,11 @@ KERNEL_NAMES = {"quantize_cast": "cast_kernel<false, false>",
                 "sr_bits": "sr_bits_kernel",
                 "qgemm_faithful": "::qgemm_kernel(",
                 "flash_gqa_fwd": "::fwd_kernel<",
-                "flash_gqa_bwd": ("::dq_kernel<", "::dkv_kernel<")}
+                "flash_gqa_bwd": ("::dq_kernel<", "::dkv_kernel<"),
+                # K11 launches the same templates at rep = 1: a profile
+                # tells it from K9/K10 only in a run of one of them
+                "flash_mha_fwd": "::fwd_kernel<",
+                "flash_mha_bwd": ("::dq_kernel<", "::dkv_kernel<")}
 NO_LIBRARY = ("no PyTorch call computes the eXmY cast: .to(torch.float8_*) "
               "rounds and saturates differently, so it is not the same "
               "function")
@@ -1064,6 +1110,7 @@ def profile_phase(device, steps: int = 30, warmup: int = 10) -> dict:
 def kernel_counters() -> dict:
     """The launch counters of every kernel wrapper of the port."""
     from cpd_tpu_torch.ops import flash_gqa as fl
+    from cpd_tpu_torch.ops import flash_mha as fm
     from cpd_tpu_torch.ops import qgemm as qg
     from cpd_tpu_torch.ops import quantize as tq
     from cpd_tpu_torch.ops import serve_attn
@@ -1072,6 +1119,8 @@ def kernel_counters() -> dict:
             "qgemm_faithful": qg.qgemm_faithful,
             "flash_gqa_fwd": fl.flash_gqa_fwd,
             "flash_gqa_bwd": fl.flash_gqa_bwd,
+            "flash_mha_fwd": fm.flash_mha_fwd,
+            "flash_mha_bwd": fm.flash_mha_bwd,
             "quantize_cast": tq.quantize_cast,
             "quantize_cast_sr": tq.quantize_cast_sr,
             "quantize_add": tq.quantize_add,
@@ -1894,20 +1943,25 @@ def blocked_train_phase(device) -> dict:
 
 @contextlib.contextmanager
 def plain_kernels():
-    """K8, K9 and K10 replaced by their plain versions, on CUDA tensors
-    too, for a comparison run through the same code (their counters are
-    the kernels' and do not move)."""
+    """K8-K11 replaced by their plain versions, on CUDA tensors too, for
+    a comparison run through the same code (their counters are the
+    kernels' and do not move)."""
     from cpd_tpu_torch.ops import flash_gqa as fl
+    from cpd_tpu_torch.ops import flash_mha as fm
     from cpd_tpu_torch.ops import qgemm as qg
 
-    saved = qg.qgemm_faithful, fl.flash_gqa_fwd, fl.flash_gqa_bwd
+    saved = (qg.qgemm_faithful, fl.flash_gqa_fwd, fl.flash_gqa_bwd,
+             fm.flash_mha_fwd, fm.flash_mha_bwd)
     qg.qgemm_faithful = qg.qgemm_faithful_ref
     fl.flash_gqa_fwd, fl.flash_gqa_bwd = (fl.flash_gqa_fwd_ref,
                                           fl.flash_gqa_bwd_ref)
+    fm.flash_mha_fwd, fm.flash_mha_bwd = (fm.flash_mha_fwd_ref,
+                                          fm.flash_mha_bwd_ref)
     try:
         yield
     finally:
-        qg.qgemm_faithful, fl.flash_gqa_fwd, fl.flash_gqa_bwd = saved
+        (qg.qgemm_faithful, fl.flash_gqa_fwd, fl.flash_gqa_bwd,
+         fm.flash_mha_fwd, fm.flash_mha_bwd) = saved
 
 
 def qgemm_cases(fmt, shapes, generator, device) -> list:
@@ -2103,6 +2157,61 @@ def flash_flops(b, tq, tk, h, d, causal, products) -> int:
     return 2 * products * b * h * pairs * d
 
 
+def within(x, want, rtol: float, atol: float) -> float:
+    """The largest ``|x - want| / (atol + rtol |want|)`` over the
+    elements, in float64: at most 1 where every element is within
+    tolerance."""
+    import torch
+
+    x, want = x.to(torch.float64), want.to(torch.float64)
+    ratio = (x - want).abs() / (atol + rtol * want.abs())
+    return float(torch.nan_to_num(ratio, nan=math.inf).max())
+
+
+def attention_inputs(shape, dtype, generator, device) -> tuple:
+    """Seeded q, k, v and an output gradient for (B, Tq, Tk, H, H_kv, D)
+    in ``dtype``."""
+    import torch
+
+    b, tq, tk, h, hkv, d = shape
+
+    def rand(*s):
+        return torch.randn(s, generator=generator, device=device).to(dtype)
+
+    return rand(b, tq, h, d), rand(b, tk, hkv, d), rand(b, tk, hkv, d), \
+        rand(b, tq, h, d)
+
+
+def attention_check(fwd, bwd, fwd_ref, bwd_ref, shape, dtype, causal,
+                    generator, device) -> dict:
+    """One kernel pair against its plain pair on the same inputs: the
+    largest error of (out, lse) and of (dq, dk, dv), absolute and as a
+    share of the case's tolerance (fp32: FLASH_ATOL / FLASH_GRAD_ATOL;
+    bf16: BF16_RTOL / BF16_ATOL)."""
+    import torch
+
+    q, k, v, g = attention_inputs(shape, dtype, generator, device)
+    out, lse = fwd(q, k, v, causal)
+    grads = bwd(q, k, v, out, lse, g, causal)
+    torch.cuda.synchronize()
+    r_out, r_lse = fwd_ref(q, k, v, causal)
+    r_grads = bwd_ref(q, k, v, r_out, r_lse, g, causal)
+    fp32 = dtype == torch.float32
+    res = {}
+    for part, pairs, atol in (("fwd", ((out, r_out), (lse, r_lse)),
+                               FLASH_ATOL),
+                              ("bwd", tuple(zip(grads, r_grads)),
+                               FLASH_GRAD_ATOL)):
+        if any(x.dtype != w.dtype or x.shape != w.shape for x, w in pairs):
+            raise AssertionError(f"{part} {shape} {dtype}: kernel and plain "
+                                 "outputs differ in dtype or shape")
+        res[f"{part}_err"] = max(max_abs_diff(x, w) for x, w in pairs)
+        res[f"{part}_share"] = max(
+            within(x, w, 0.0, atol) if fp32
+            else within(x, w, BF16_RTOL, BF16_ATOL) for x, w in pairs)
+    return res
+
+
 def flash_phase(device) -> dict:
     """Phase 10b: K9 and K10 against their plain versions at the slice's
     shape, with pad keys (T = 1000), at rep 1 and 2, non-causal, and at
@@ -2122,23 +2231,16 @@ def flash_phase(device) -> dict:
              (2, 512, h0, hkv0, d0, False), (2, 128, 4, 2, 32, True)]
     err_f = err_b = 0.0
     for bb, t, h, hkv, d, causal in cases:
-        q = torch.randn((bb, t, h, d), generator=gen, device=device)
-        k = torch.randn((bb, t, hkv, d), generator=gen, device=device)
-        v = torch.randn((bb, t, hkv, d), generator=gen, device=device)
-        out, lse = fl.flash_gqa_fwd(q, k, v, causal)
-        g = torch.randn(out.shape, generator=gen, device=device)
-        grads = fl.flash_gqa_bwd(q, k, v, out, lse, g, causal)
-        torch.cuda.synchronize()
-        r_out, r_lse = fl.flash_gqa_fwd_ref(q, k, v, causal)
-        r_grads = fl.flash_gqa_bwd_ref(q, k, v, r_out, r_lse, g, causal)
-        ef = max(max_abs_diff(out, r_out), max_abs_diff(lse, r_lse))
-        eb = max(max_abs_diff(x, y) for x, y in zip(grads, r_grads))
-        if not (ef <= FLASH_ATOL and eb <= FLASH_GRAD_ATOL):
+        r = attention_check(fl.flash_gqa_fwd, fl.flash_gqa_bwd,
+                            fl.flash_gqa_fwd_ref, fl.flash_gqa_bwd_ref,
+                            (bb, t, t, h, hkv, d), torch.float32, causal,
+                            gen, device)
+        if max(r["fwd_share"], r["bwd_share"]) > 1.0:
             raise AssertionError(
-                f"flash {(bb, t, h, hkv, d, causal)}: forward/LSE err {ef} "
-                f"(atol {FLASH_ATOL}), gradient err {eb} (atol "
-                f"{FLASH_GRAD_ATOL})")
-        err_f, err_b = max(err_f, ef), max(err_b, eb)
+                f"flash {(bb, t, h, hkv, d, causal)}: forward/LSE err "
+                f"{r['fwd_err']} (atol {FLASH_ATOL}), gradient err "
+                f"{r['bwd_err']} (atol {FLASH_GRAD_ATOL})")
+        err_f, err_b = max(err_f, r["fwd_err"]), max(err_b, r["bwd_err"])
     print(f"kernel flash_gqa: K9 out/LSE within {err_f:.3e} (atol "
           f"{FLASH_ATOL}) and K10 dq/dk/dv within {err_b:.3e} (atol "
           f"{FLASH_GRAD_ATOL}) of their plain versions over {len(cases)} "
@@ -2524,6 +2626,311 @@ def lm_kernel_entries(qgemm: dict, flash: dict, lm: dict) -> list:
     return out
 
 
+def mha_phase(device) -> dict:
+    """Phase 11a: K11 (and the bf16 and head_dim 128 arms of K9/K10)
+    against the plain versions over the cases, then K11 timed at the bf16
+    LM's shape and at head_dim 128 beside its plain version, its bound and
+    SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from cpd_tpu_torch.ops import flash_gqa as fl
+    from cpd_tpu_torch.ops import flash_mha as fm
+
+    gen = torch.Generator(device=device).manual_seed(110)
+    f32, b16 = torch.float32, torch.bfloat16
+    b0, t0 = BENCH_TRAIN["per_rank_batch"], BENCH_TRAIN["seq"]
+    h0 = BENCH_LM["n_heads"]
+    d0 = BENCH_LM["d_model"] // h0
+    # (B, Tq, Tk, H, H_kv, D)
+    mha = [((2, 256, 256, 4, 4, d), dt, c) for d in (32, 64, 128)
+           for dt in (f32, b16) for c in (True, False)]
+    mha += [((2, 128, 384, 4, 4, 64), dt, True) for dt in (f32, b16)]
+    mha += [(shape, dt, True) for shape in ((b0, t0, t0, h0, h0, d0),
+                                            (b0, t0, t0, 4, 4, 128))
+            for dt in (f32, b16)]
+    gqa = [((b0, t0, t0, h0, 2, d0), b16, True),
+           ((2, 256, 256, 4, 2, 128), b16, True),
+           ((2, 256, 256, 4, 2, 128), f32, False)]
+    worst = {}
+    for label, kernels, cases in (
+            ("flash_mha", (fm.flash_mha_fwd, fm.flash_mha_bwd,
+                           fm.flash_mha_fwd_ref, fm.flash_mha_bwd_ref), mha),
+            ("flash_gqa", (fl.flash_gqa_fwd, fl.flash_gqa_bwd,
+                           fl.flash_gqa_fwd_ref, fl.flash_gqa_bwd_ref), gqa)):
+        for shape, dt, causal in cases:
+            r = attention_check(*kernels, shape, dt, causal, gen, device)
+            if max(r["fwd_share"], r["bwd_share"]) > 1.0:
+                raise AssertionError(
+                    f"{label} {shape} {dt} causal={causal}: kernel vs plain "
+                    f"{r} (shares of the tolerance above 1)")
+            key = (label, str(dt).split(".")[-1])
+            w = worst.setdefault(key, dict.fromkeys(r, 0.0))
+            for k2, v2 in r.items():
+                w[k2] = max(w[k2], v2)
+        print(f"kernel {label}: {len(cases)} cases kernel vs plain, worst "
+              + "; ".join(f"{dt}: out/lse {w['fwd_err']:.3e} ("
+                          f"{w['fwd_share']:.3f} of tol), grads "
+                          f"{w['bwd_err']:.3e} ({w['bwd_share']:.3f} of tol)"
+                          for (lab, dt), w in worst.items() if lab == label)
+              + f" (fp32 atol {FLASH_ATOL} / {FLASH_GRAD_ATOL}; bf16 rtol "
+              f"{BF16_RTOL} atol {BF16_ATOL})", flush=True)
+
+    res = {}
+    for shape, dt in (((b0, t0, t0, h0, h0, d0), b16),
+                      ((b0, t0, t0, h0, h0, d0), f32),
+                      ((b0, t0, t0, 4, 4, 128), b16)):
+        b, tq, tk, h, _, d = shape
+        q, k, v, g = attention_inputs(shape, dt, gen, device)
+        out, lse = fm.flash_mha_fwd(q, k, v, True)
+        qt, kt, vt, gt = (x.transpose(1, 2).contiguous()
+                          for x in (q, k, v, g))
+        kw = dict(is_causal=True, scale=1.0 / math.sqrt(d))
+        leaves = tuple(x.detach().requires_grad_() for x in (qt, kt, vt))
+        o_lib = F.scaled_dot_product_attention(*leaves, **kw)
+        es = q.element_size()
+        n_elem = q.numel()
+        peak, rate = ((PEAK_FP32_FLOPS, "fp32 67 TFLOP/s")
+                      if dt == f32 else
+                      (PEAK_BF16_FLOPS, "bf16 tensor cores 989 TFLOP/s"))
+        tag = f"{str(dt).split('.')[-1]} D={d}"
+        for name, fn, plain, lib, products, n_bytes in (
+                ("flash_mha_fwd", lambda: fm.flash_mha_fwd(q, k, v, True),
+                 lambda: fm.flash_mha_fwd_ref(q, k, v, True),
+                 lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw),
+                 2, es * 4 * n_elem + 4 * lse.numel()),
+                ("flash_mha_bwd",
+                 lambda: fm.flash_mha_bwd(q, k, v, out, lse, g, True),
+                 lambda: fm.flash_mha_bwd_ref(q, k, v, out, lse, g, True),
+                 lambda: torch.autograd.grad(o_lib, leaves, gt,
+                                             retain_graph=True),
+                 5, es * 8 * n_elem + 4 * lse.numel())):
+            flops = flash_flops(b, tq, tk, h, d, True, products)
+            t_ops, t_bytes = flops / peak, n_bytes / PEAK_BYTES_PER_S
+            r = dict(ms=time_ms(fn, iters=20),
+                     plain_ms=time_ms(plain, iters=3),
+                     library_ms=time_ms(lib, iters=20),
+                     bound_ms=max(t_ops, t_bytes) * 1e3,
+                     bound_by="operations" if t_ops >= t_bytes else "bytes",
+                     rate=rate, gflop=flops / 1e9, shape=list(shape),
+                     dtype=str(dt).split(".")[-1])
+            res.setdefault(name, {})[tag] = r
+            what = ("forward" if name == "flash_mha_fwd" else
+                    "backward alone: autograd.grad of a stored forward")
+            print(f"kernel {name} [{tag}, {list(shape)} causal]: kernel_ms "
+                  f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
+                  f"{r['bound_ms']:.4f} ({r['bound_by']}, {rate}; bytes at "
+                  f"3.35 TB/s) {r['gflop']:.3f} GFLOP; library_ms "
+                  f"{r['library_ms']:.4f} (scaled_dot_product_attention "
+                  f"{what}, {r['dtype']}, is_causal, scale 1/sqrt(D))",
+                  flush=True)
+        del o_lib, leaves
+    for name in res:
+        res[name]["max_abs_err"] = worst[("flash_mha", "float32")][
+            "fwd_err" if name == "flash_mha_fwd" else "bwd_err"]
+        res[name]["bf16_max_abs_err"] = worst[("flash_mha", "bfloat16")][
+            "fwd_err" if name == "flash_mha_fwd" else "bwd_err"]
+    res["gqa_bf16"] = worst[("flash_gqa", "bfloat16")]
+    return res
+
+
+def bench_lm_model(device, seed: int, cfg=None, **kw):
+    """bench.py's LM model in the port (``cfg``: its width by default),
+    bf16 compute, seeded random weights."""
+    import torch
+
+    return lm_model(device, seed, cfg or BENCH_LM,
+                    **dict(dict(attn_impl="flash", dtype=torch.bfloat16),
+                           **kw))
+
+
+def bench_train(device, model, batches, world, seconds=None) -> tuple:
+    """bench.py's LM step on ``batches``: APS e5m2 faithful reduce, SGD
+    momentum 0.9 at BENCH_TRAIN's constant rate."""
+    from cpd_tpu_torch.train import sgd
+
+    return lm_train(device, model, batches, world,
+                    opt=sgd(lambda s: BENCH_TRAIN["lr"], momentum=0.9),
+                    fmt=BENCH_TRAIN["fmt"], seconds=seconds)
+
+
+def bench_lm_phase(device) -> dict:
+    """Phase 11b-c: bench.py's bf16 MHA LM through K11, the same steps
+    through the plain K11, one remat step, the xla and chunked arms, then
+    the CLI with ``--bf16 --attn-impl flash --remat``."""
+    import torch
+
+    from cpd_tpu_torch.examples.lm import train as cli
+    from cpd_tpu_torch.obs.timing import now
+    from cpd_tpu_torch.parallel.overlap import (DEFAULT_BUCKET_ELEMS,
+                                                bucket_layout)
+
+    w, steps = BENCH_TRAIN["world"], BENCH_TRAIN["steps"]
+    rows, seq = w * BENCH_TRAIN["per_rank_batch"], BENCH_TRAIN["seq"]
+    vocab, layers = BENCH_LM["vocab_size"], BENCH_LM["n_layers"]
+    batches = lm_batches(vocab, steps, rows, seq, BENCH_TRAIN["seed"])
+    tokens = rows * seq
+    marks = [now()]
+
+    # (b) the slice: 3 steps through K11, counted from 0 around them
+    model = bench_lm_model(device, BENCH_TRAIN["seed"])
+    sizes = [p.numel() for p in model.parameters()]
+    n_buckets = len(bucket_layout(sizes, DEFAULT_BUCKET_ELEMS))
+    secs = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    state, step, metrics = bench_train(device, model, batches, w, secs)
+    counts = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = reduce_design("faithful", False, False, w, len(sizes), n_buckets)
+    want.update(flash_mha_fwd=layers * w, flash_mha_bwd=layers * w)
+    want = {k: steps * v for k, v in want.items()}
+    if counts != want:
+        raise AssertionError(f"bf16 LM launches {counts} != the design's "
+                             f"{want}")
+    losses = [m["loss"] for m in metrics]
+    if not all(math.isfinite(v) for v in losses) or not (
+            abs(losses[0] - math.log(vocab)) <= LM_LOSS_BAND):
+        raise AssertionError(f"bf16 LM losses {losses}: not finite, or step "
+                             f"0 not within {LM_LOSS_BAND} of ln {vocab}")
+    split = lm_split(model, batches[0], w, device)
+    prof = step_profile(step, state, batches[0])
+    step_s = sum(secs[1:]) / (len(secs) - 1)
+    out = dict(
+        model=dict(BENCH_LM, dtype="bfloat16", attn_impl="flash"),
+        world=w, tokens_per_step=tokens, steps=steps, losses=losses,
+        accuracies=[m["accuracy"] for m in metrics], step_ms=step_s * 1e3,
+        tokens_per_s=tokens / step_s, peak_memory_gib=peak_gib,
+        n_leaves=len(sizes), n_buckets=n_buckets,
+        launches={k: v for k, v in counts.items() if v},
+        launches_per_step={k: v // steps for k, v in counts.items() if v},
+        launches_per_rank_step={k: counts[k] // (steps * w)
+                                for k in MHA_KERNELS},
+        **split,
+        kernel_ms_per_step={k: prof[k] for k in MHA_KERNELS},
+        device_busy_ms=prof["device_busy_ms"],
+        kernel_launches_profiled=prof["kernel_launches"])
+    print("train bench lm: " + json.dumps(out), flush=True)
+    del state, step
+
+    # the same steps from the same weights through the plain K11
+    marks.append(now())
+    plain = bench_lm_model(device, BENCH_TRAIN["seed"])
+    with plain_kernels():
+        _, _, p_metrics = bench_train(device, plain, batches, w)
+    p_losses = [m["loss"] for m in p_metrics]
+    for a, b in zip(losses, p_losses):
+        if abs(a - b) > BENCH_LOSS_RTOL * abs(b):
+            raise AssertionError(f"bf16 LM losses {losses} (K11) vs "
+                                 f"{p_losses} (plain K11)")
+    out["vs_plain"] = dict(losses_plain=p_losses, max_rel_diff=max(
+        abs(a - b) / abs(b) for a, b in zip(losses, p_losses)))
+    print(f"train bench lm: the same {steps} steps through the plain K11: "
+          f"losses {p_losses} (rtol {BENCH_LOSS_RTOL}: "
+          f"{out['vs_plain']['max_rel_diff']:.3e})", flush=True)
+    del plain
+
+    # one remat step: the forward kernels twice per layer, the same loss
+    marks.append(now())
+    remat = bench_lm_model(device, BENCH_TRAIN["seed"], remat=True)
+    reset_counts()
+    _, _, r_metrics = bench_train(device, remat, batches[:1], w)
+    r_counts = read_counts()
+    r_want = {"flash_mha_fwd": 2 * layers * w, "flash_mha_bwd": layers * w}
+    if ({k: r_counts[k] for k in r_want} != r_want
+            or abs(r_metrics[0]["loss"] - losses[0]) > 1e-6 * losses[0]):
+        raise AssertionError(f"remat step: launches {r_counts} (want "
+                             f"{r_want}), loss {r_metrics[0]['loss']} vs "
+                             f"{losses[0]}")
+    out["remat"] = dict(loss=r_metrics[0]["loss"], launches_per_step=r_want)
+    print(f"train bench lm remat: one step, K11 {r_want} launches, loss "
+          f"{r_metrics[0]['loss']} (without remat {losses[0]})", flush=True)
+    del remat
+
+    # bench.py's xla and chunked arms of the same model
+    marks.append(now())
+    arms = {}
+    for impl in ("xla", "chunked"):
+        m = bench_lm_model(device, BENCH_TRAIN["seed"], attn_impl=impl)
+        a_secs = []
+        _, _, a_metrics = bench_train(
+            device, m, batches[:BENCH_TRAIN["arm_steps"]], w, a_secs)
+        arms[impl] = dict(step_ms=a_secs[-1] * 1e3,
+                          tokens_per_s=tokens / a_secs[-1],
+                          losses=[x["loss"] for x in a_metrics])
+        del m
+    out["arms"] = arms
+    print("train bench lm arms: " + json.dumps(arms), flush=True)
+
+    # (c) the CLI at a cut depth
+    marks.append(now())
+    iters = BENCH_TRAIN["cli_iters"]
+    argv = ["--vocab-size", str(vocab), "--d-model", str(BENCH_LM["d_model"]),
+            "--n-layers", str(BENCH_TRAIN["cli_layers"]), "--n-heads",
+            str(BENCH_LM["n_heads"]), "--seq-len", str(seq), "--batch-size",
+            str(BENCH_TRAIN["per_rank_batch"]), "--dp", str(w), "--bf16",
+            "--attn-impl", "flash", "--remat", "--use_APS", "--grad_exp",
+            str(BENCH_TRAIN["fmt"][0]), "--grad_man",
+            str(BENCH_TRAIN["fmt"][1]), "--max-iter", str(iters),
+            "--print-freq", "1"]
+    reset_counts()
+    t0 = now()
+    rc = cli.main(argv)
+    cli_counts = read_counts()
+    # remat: 2 forwards per layer and rank in a step, then one validation
+    # forward
+    n = BENCH_TRAIN["cli_layers"] * w
+    design = {"flash_mha_fwd": 2 * n * iters + n,
+              "flash_mha_bwd": n * iters}
+    if rc != 0 or {k: cli_counts[k] for k in design} != design:
+        raise AssertionError(f"bf16 LM CLI returned {rc}, launches "
+                             f"{cli_counts} (design {design})")
+    out["cli"] = dict(rc=rc, seconds=now() - t0, argv=" ".join(argv),
+                      launches={k: v for k, v in cli_counts.items() if v})
+    print("train bench lm cli: " + json.dumps(out["cli"]), flush=True)
+    marks.append(now())
+    out["seconds"] = dict(zip(("slice", "vs_plain", "remat", "arms", "cli"),
+                              (b - a for a, b in zip(marks, marks[1:]))))
+    print("train bench lm seconds: " + json.dumps(out["seconds"]),
+          flush=True)
+    return out
+
+
+def mha_kernel_entries(mha: dict, lm: dict) -> list:
+    """The ``kernels`` line's entries of K11: launches from the bf16 LM's
+    steps (counted from 0 around them), times and bounds from phase 11a
+    at the main path's shape and dtype, the other arms beside them."""
+    main = f"bfloat16 D={BENCH_LM['d_model'] // BENCH_LM['n_heads']}"
+    out = []
+    for name, replaces in MHA_KERNELS.items():
+        k = mha[name][main]
+        out.append(dict(
+            name=name, route="cuda",
+            source="cpd_tpu_torch/csrc/flash_gqa.cu", replaces=replaces,
+            launches=lm["launches"][name],
+            launches_per_rank_step=lm["launches_per_rank_step"][name],
+            max_abs_err=mha[name]["max_abs_err"],
+            bf16_max_abs_err=mha[name]["bf16_max_abs_err"],
+            ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+            bound_by=k["bound_by"], library_ms=k["library_ms"],
+            rate=k["rate"], shape=k["shape"], dtype=k["dtype"],
+            library_note="torch.nn.functional.scaled_dot_product_attention"
+                         + (" forward" if name == "flash_mha_fwd" else
+                            " backward alone (autograd.grad of a stored "
+                            "forward)") + ", is_causal, scale 1/sqrt(D)",
+            arms={tag: {f: r[f] for f in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")}
+                  for tag, r in mha[name].items()
+                  if isinstance(r, dict) and tag != main},
+            parity=f"fp32 within atol {FLASH_ATOL} (out, lse) and "
+                   f"{FLASH_GRAD_ATOL} (gradients), bf16 within rtol "
+                   f"{BF16_RTOL} atol {BF16_ATOL}, of the plain version in "
+                   f"every case; the bf16 LM's losses within "
+                   f"{BENCH_LOSS_RTOL} of the plain K11's"))
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2566,6 +2973,8 @@ def main() -> int:
     qgemm = qgemm_phase(device)
     flash = flash_phase(device)
     lm = lm_phase(device)
+    mha = mha_phase(device)
+    bench_lm = bench_lm_phase(device)
 
     main_case = kern["cases"]["e4m3"]
     kernels = [dict(
@@ -2645,6 +3054,7 @@ def main() -> int:
             shape=q["shape"],
             **{k: q[k] for k in ("ms_with_digest",) if k in q}))
     kernels += lm_kernel_entries(qgemm, flash, lm)
+    kernels += mha_kernel_entries(mha, bench_lm)
     print(card, flush=True)      # exactly as nvidia-smi gives it
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,10 @@ training of the GQA transformer LM, whose attention runs through
 hand-written flash kernels (`ops/flash_gqa.py`, `csrc/flash_gqa.cu`) and
 whose MLP GEMMs accumulate in eXmY through a hand-written
 quantized-Kahan GEMM kernel (`quant/quant_module.py`, `ops/qgemm.py`,
-`csrc/qgemm.cu`).  Entry points run on ``cuda`` unless the caller
+`csrc/qgemm.cu`); and bench.py's MHA LM in bf16 compute over fp32
+weights, whose attention runs through the MHA flash kernel
+(`ops/flash_mha.py`, the same `csrc/flash_gqa.cu` kernels at rep = 1).
+Entry points run on ``cuda`` unless the caller
 passes ``device="cpu"``; asking for ``cuda`` on a host without it raises
 (`device.resolve_device`).
 """

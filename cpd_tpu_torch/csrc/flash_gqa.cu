@@ -1,41 +1,61 @@
-// GQA-native flash attention on the CUDA cores, fp32: the forward with its
-// per-row log-sum-exp, and the backward as a dq kernel and a dk/dv kernel.
+// Flash attention on the CUDA cores: the forward with its per-row
+// log-sum-exp, and the backward as a dq kernel and a dk/dv kernel, for
+// fp32 or bf16 elements and head_dim 32, 64 or 128, accumulating in fp32.
 //
-// Replaces two TPU kernels of cpd_tpu/ops/flash_gqa.py:
-//   K9  _flash_gqa_fwd_call (:151; body _flash_gqa_kernel :64)
+// Replaces three TPU kernels:
+//   K9  cpd_tpu/ops/flash_gqa.py _flash_gqa_fwd_call (:151; body
+//       _flash_gqa_kernel :64)
 //         out = softmax(mask(q k^T * scale)) v, lse = m + log(l)
-//   K10 _flash_gqa_bwd_call (:298; bodies _flash_gqa_bwd_dq_kernel :231
-//       and _flash_gqa_bwd_dkv_kernel :259, shared recompute
-//       _bwd_p_ds :203)
+//   K10 cpd_tpu/ops/flash_gqa.py _flash_gqa_bwd_call (:298; bodies
+//       _flash_gqa_bwd_dq_kernel :231 and _flash_gqa_bwd_dkv_kernel :259,
+//       shared recompute _bwd_p_ds :203)
 //         p = exp(s - lse), dp = do v^T, ds = p (dp - delta) scale,
 //         dq = ds k, dk = sum_rep ds^T q, dv = sum_rep p^T do
+//   K11 cpd_tpu/ops/attention.py:116 _flash_attention, the stock Pallas
+//       TPU kernel jax.experimental.pallas.ops.tpu.flash_attention (its
+//       forward :388-477 and its own backward, dkv :796-938, dq
+//       :1146-1261): the same function at rep = 1 (MHA), launched by
+//       ops/flash_mha.py
 // with q (B, Tq, H, D), k/v (B, Tk, H_kv, D) unexpanded (kv head g serves
-// query heads g*rep .. g*rep + rep - 1), fp32 throughout.  The JAX
-// contract kept: a masked p is zeroed by the mask, not by exp(-1e30);
-// causal key blocks wholly above the diagonal are skipped; out =
-// acc / max(l, 1e-30) and lse = m + log(max(l, 1e-30)), so a fully
-// masked row gives 0; pad keys past Tk are masked by position.  delta =
-// sum_d do*out is one torch op outside the kernels, as in JAX (:310).
+// query heads g*rep .. g*rep + rep - 1).  Logits, softmax and every
+// product accumulate in fp32; with bf16 elements the TPU kernels' roundings
+// are kept: p is rounded to the element type before p v (its fp32 value
+// feeds l), p and ds before the backward's products, and each output once
+// at its store.  In fp32 every rounding is the identity.  The GQA
+// contract: a masked p is zeroed by the mask, not by exp(-1e30); causal
+// key blocks wholly above the diagonal are skipped; out = acc /
+// max(l, 1e-30) and lse = m + log(max(l, 1e-30)), so a fully masked row
+// gives 0; pad keys past Tk are masked by position.  K11's callers have
+// no fully masked row (zero offsets, Tk a multiple of 128), where the
+// stock kernel's additive mask (-0.7 FLT_MAX) gives the same p = 0.
+// delta = sum_d do*out is one torch op outside the kernels, as in JAX.
 //
 // What bounds them.  fp32 multiply-adds outside the tensor cores (67
 // TFLOP/s on an H100 SXM): the forward does 2 products of (Tq, D) x
 // (D, Tk) per head (half under the causal mask), the backward 5.  At
 // B=4, T=1024, H=8, D=64 causal that is ~4.3 / ~10.7 GFLOP, 0.064 /
-// 0.160 ms at that rate; the bytes (~21 MB) take 0.006 ms.  (TF32 tensor
-// cores would bound them 7.4x lower; a later kernel's work.)
+// 0.160 ms at that rate; the bytes (~21 MB in fp32) take 0.006 ms.  bf16
+// elements are widened to fp32 in shared memory and take the same
+// fp32 arithmetic, so they move half the bytes at the same bound; the
+// bf16 tensor cores (989 TFLOP/s) would bound them 15x lower, a later
+// kernel's work.
 //
 // Design.  A CTA of 256 threads (16 x 16) owns a 64-row tile: the
 // forward and dq a (b, head, 64 queries) tile walking the key blocks,
 // dk/dv a (b, kv head, 64 keys) tile walking the query blocks of all rep
 // heads of its kv head (the GQA group sum inside the kernel: no atomics,
 // nothing rep-sized in memory).  Every product is C[i][c] += sum_t
-// X[t][i] Y[t][c] over tiles in shared memory (`mma`): a thread holds
-// rows ty*4 .. ty*4+3 (one float4 of X, broadcast over its row's 16
-// lanes) and columns tx + 16 c (conflict-free words of Y), so tiles are
-// staged transposed where the reduction runs over D.  The 16 lanes of a
-// row reduce the online softmax's max and sum with shuffles.  Shared
-// memory: 70 KB (forward), 104 KB (dq), 140 KB (dk/dv) at D = 64.
+// X[t][i] Y[t][c] over fp32 tiles in shared memory (`mma`): a thread
+// holds rows ty*4 .. ty*4+3 (one float4 of X, broadcast over its row's
+// 16 lanes) and columns tx + 16 c (conflict-free words of Y), so tiles
+// are staged transposed where the reduction runs over D.  The 16 lanes
+// of a row reduce the online softmax's max and sum with shuffles.  The
+// dk/dv kernel writes p and ds over the transposed query tiles once the
+// logits are taken, which keeps it within a block's 227 KB at D = 128.
+// Shared memory at D = 64 / 128: 70 / 118 KB (forward), 104 / 186 KB
+// (dq), 103 / 203 KB (dk/dv).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -47,18 +67,43 @@ constexpr int kPad = 4;             // keeps rows 16-byte aligned
 constexpr int kLd = kB + kPad;      // row stride of a [t][64] tile
 constexpr float kNegInf = -1e30f;   // the JAX package's _NEG_INF
 
+// the element types: fp32 (dtype code 0) and bf16 (1), read into and
+// rounded from fp32
+template <class T>
+struct Elem;
+template <>
+struct Elem<float> {
+  static __device__ __forceinline__ float load(const float* p) { return *p; }
+  static __device__ __forceinline__ float round(float x) { return x; }
+  static __device__ __forceinline__ void store(float* p, float x) { *p = x; }
+};
+template <>
+struct Elem<__nv_bfloat16> {
+  static __device__ __forceinline__ float load(const __nv_bfloat16* p) {
+    return __bfloat162float(*p);
+  }
+  static __device__ __forceinline__ float round(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+    *p = __float2bfloat16_rn(x);
+  }
+};
+
 __device__ __forceinline__ int lane_x() { return threadIdx.x % 16; }
 __device__ __forceinline__ int lane_y() { return threadIdx.x / 16; }
 
 // rows [r0, r0 + 64) of one head of a (B, T, heads, D) tensor (row
-// stride `stride` elements from `src`), zero past `t_len`: transposed
-// into dst[d][r] (row stride kLd) or as they lie into dst[r][d] (D+kPad)
-template <int D, bool kTrans>
-__device__ void load_tile(float* dst, const float* src, long long stride,
+// stride `stride` elements from `src`), zero past `t_len`, widened to
+// fp32: transposed into dst[d][r] (row stride kLd) or as they lie into
+// dst[r][d] (D+kPad)
+template <class T, int D, bool kTrans>
+__device__ void load_tile(float* dst, const T* src, long long stride,
                           int r0, int t_len) {
   for (int i = threadIdx.x; i < kB * D; i += kThreads) {
     const int r = i / D, d = i % D;
-    const float x = r0 + r < t_len ? src[(r0 + r) * stride + d] : 0.0f;
+    const float x =
+        r0 + r < t_len ? Elem<T>::load(src + (r0 + r) * stride + d) : 0.0f;
     if (kTrans)
       dst[d * kLd + r] = x;
     else
@@ -114,11 +159,11 @@ __device__ __forceinline__ bool valid_at(int qpos, int kpos, int tq, int tk,
   return qpos < tq && kpos < tk && (!causal || qpos >= kpos);
 }
 
-// K9: grid (ceil(Tq/64), B*H)
-template <int D>
+// forward: grid (ceil(Tq/64), B*H)
+template <class T, int D>
 __global__ void __launch_bounds__(kThreads)
-    fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, float* __restrict__ out,
+    fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, T* __restrict__ out,
                float* __restrict__ lse, int tq, int tk, int h, int hkv,
                int causal, float scale) {
   constexpr int NC = D / 16, LdD = D + kPad;
@@ -132,10 +177,10 @@ __global__ void __launch_bounds__(kThreads)
   const int q0 = blockIdx.x * kB;
   const long long qs = static_cast<long long>(h) * D;
   const long long ks = static_cast<long long>(hkv) * D;
-  const float* kb = k + (static_cast<long long>(b) * tk * hkv + g) * D;
-  const float* vb = v + (static_cast<long long>(b) * tk * hkv + g) * D;
-  load_tile<D, true>(qt, q + (static_cast<long long>(b) * tq * h + hh) * D,
-                     qs, q0, tq);
+  const T* kb = k + (static_cast<long long>(b) * tk * hkv + g) * D;
+  const T* vb = v + (static_cast<long long>(b) * tk * hkv + g) * D;
+  load_tile<T, D, true>(qt, q + (static_cast<long long>(b) * tq * h + hh) * D,
+                        qs, q0, tq);
   float m[4], l[4], acc[4][NC];
 #pragma unroll
   for (int i = 0; i < 4; ++i) m[i] = kNegInf, l[i] = 0.0f;
@@ -145,8 +190,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int j = 0; j < n_j; ++j) {
     const int k0 = j * kB;
     __syncthreads();
-    load_tile<D, true>(kt, kb, ks, k0, tk);
-    load_tile<D, false>(vs, vb, ks, k0, tk);
+    load_tile<T, D, true>(kt, kb, ks, k0, tk);
+    load_tile<T, D, false>(vs, vb, ks, k0, tk);
     __syncthreads();
     float s[4][4];
     zero(s);
@@ -167,7 +212,8 @@ __global__ void __launch_bounds__(kThreads)
       for (int c = 0; c < 4; ++c) {
         const bool ok = valid_at(qpos, k0 + tx + 16 * c, tq, tk, causal);
         const float p = ok ? expf(s[i][c] - m_new) : 0.0f;
-        pt[(tx + 16 * c) * kLd + ty * 4 + i] = p;
+        // l sums p in fp32; p v takes p rounded to the element type
+        pt[(tx + 16 * c) * kLd + ty * 4 + i] = Elem<T>::round(p);
         sum += p;
       }
       const float alpha = expf(m[i] - m_new);
@@ -184,9 +230,9 @@ __global__ void __launch_bounds__(kThreads)
     const int qpos = q0 + ty * 4 + i;
     if (qpos >= tq) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    float* o = out + ((static_cast<long long>(b) * tq + qpos) * h + hh) * D;
+    T* o = out + ((static_cast<long long>(b) * tq + qpos) * h + hh) * D;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) o[tx + 16 * c] = acc[i][c] / den;
+    for (int c = 0; c < NC; ++c) Elem<T>::store(o + tx + 16 * c, acc[i][c] / den);
     if (tx == 0)
       lse[(static_cast<long long>(b) * h + hh) * tq + qpos] =
           m[i] + logf(den);
@@ -194,7 +240,8 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // p and ds of one (query rows ty*4+i, keys tx+16c) tile from the logits
-// s = q k^T and dp = do v^T (the shared recompute, _bwd_p_ds)
+// s = q k^T and dp = do v^T (the shared recompute, _bwd_p_ds), both in
+// fp32 (ds from the unrounded p)
 __device__ __forceinline__ void p_ds(float (&s)[4][4], float (&dp)[4][4],
                                      const float (&lse)[4],
                                      const float (&delta)[4], int q0, int k0,
@@ -213,13 +260,13 @@ __device__ __forceinline__ void p_ds(float (&s)[4][4], float (&dp)[4][4],
     }
 }
 
-// K10, dq: grid (ceil(Tq/64), B*H); keys innermost
-template <int D>
+// backward, dq: grid (ceil(Tq/64), B*H); keys innermost
+template <class T, int D>
 __global__ void __launch_bounds__(kThreads)
-    dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const float* __restrict__ dout,
+    dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const T* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
-              float* __restrict__ dq, int tq, int tk, int h, int hkv,
+              T* __restrict__ dq, int tq, int tk, int h, int hkv,
               int causal, float scale) {
   constexpr int NC = D / 16, LdD = D + kPad;
   extern __shared__ __align__(16) float smem[];
@@ -235,10 +282,10 @@ __global__ void __launch_bounds__(kThreads)
   const long long qs = static_cast<long long>(h) * D;
   const long long ks = static_cast<long long>(hkv) * D;
   const long long qoff = (static_cast<long long>(b) * tq * h + hh) * D;
-  const float* kb = k + (static_cast<long long>(b) * tk * hkv + g) * D;
-  const float* vb = v + (static_cast<long long>(b) * tk * hkv + g) * D;
-  load_tile<D, true>(qt, q + qoff, qs, q0, tq);
-  load_tile<D, true>(dot, dout + qoff, qs, q0, tq);
+  const T* kb = k + (static_cast<long long>(b) * tk * hkv + g) * D;
+  const T* vb = v + (static_cast<long long>(b) * tk * hkv + g) * D;
+  load_tile<T, D, true>(qt, q + qoff, qs, q0, tq);
+  load_tile<T, D, true>(dot, dout + qoff, qs, q0, tq);
   float rl[4], rd[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -254,9 +301,9 @@ __global__ void __launch_bounds__(kThreads)
   for (int j = 0; j < n_j; ++j) {
     const int k0 = j * kB;
     __syncthreads();
-    load_tile<D, true>(kt, kb, ks, k0, tk);
-    load_tile<D, true>(vt, vb, ks, k0, tk);
-    load_tile<D, false>(ksm, kb, ks, k0, tk);
+    load_tile<T, D, true>(kt, kb, ks, k0, tk);
+    load_tile<T, D, true>(vt, vb, ks, k0, tk);
+    load_tile<T, D, false>(ksm, kb, ks, k0, tk);
     __syncthreads();
     float s[4][4], dp[4][4];
     zero(s);
@@ -268,7 +315,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int c = 0; c < 4; ++c) dst[(tx + 16 * c) * kLd + ty * 4 + i] =
-          dp[i][c];
+          Elem<T>::round(dp[i][c]);
     __syncthreads();
     mma<NC, kB>(acc, dst, kLd, ksm, LdD);
   }
@@ -276,41 +323,46 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < 4; ++i) {
     const int qpos = q0 + ty * 4 + i;
     if (qpos >= tq) continue;
-    float* o = dq + ((static_cast<long long>(b) * tq + qpos) * h + hh) * D;
+    T* o = dq + ((static_cast<long long>(b) * tq + qpos) * h + hh) * D;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) o[tx + 16 * c] = acc[i][c];
+    for (int c = 0; c < NC; ++c) Elem<T>::store(o + tx + 16 * c, acc[i][c]);
   }
 }
 
-// K10, dk/dv: grid (ceil(Tk/64), B*H_kv); queries of the rep heads
+// a [D][64] query tile, later the [64][64] p or ds tile written over it
+__host__ __device__ constexpr int qtile(int d) {
+  return (d > kB ? d : kB) * kLd;
+}
+
+// backward, dk/dv: grid (ceil(Tk/64), B*H_kv); queries of the rep heads
 // innermost, their sums in registers
-template <int D>
+template <class T, int D>
 __global__ void __launch_bounds__(kThreads)
-    dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, const float* __restrict__ dout,
+    dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, const T* __restrict__ dout,
                const float* __restrict__ lse,
-               const float* __restrict__ delta, float* __restrict__ dk,
-               float* __restrict__ dv, int tq, int tk, int h, int hkv,
+               const float* __restrict__ delta, T* __restrict__ dk,
+               T* __restrict__ dv, int tq, int tk, int h, int hkv,
                int causal, float scale) {
   constexpr int NC = D / 16, LdD = D + kPad;
   extern __shared__ __align__(16) float smem[];
   float* kt = smem;                 // [D][64] keys
   float* vt = kt + D * kLd;         // [D][64]
-  float* qt = vt + D * kLd;         // [D][64] queries
-  float* dot = qt + D * kLd;        // [D][64]
-  float* qsm = dot + D * kLd;       // [64][D]
+  float* qt = vt + D * kLd;         // [D][64] queries, then p [64 q][64 k]
+  float* dot = qt + qtile(D);       // [D][64], then ds [64 q][64 k]
+  float* qsm = dot + qtile(D);      // [64][D]
   float* dos = qsm + kB * LdD;      // [64][D]
-  float* ps = dos + kB * LdD;       // [64 queries][64 keys] p
-  float* dss = ps + kB * kLd;       // [64 queries][64 keys] ds
-  float* rows = dss + kB * kLd;     // lse[64], delta[64]
+  float* rows = dos + kB * LdD;     // lse[64], delta[64]
+  float* ps = qt;
+  float* dss = dot;
   const int tx = lane_x(), ty = lane_y();
   const int b = blockIdx.y / hkv, g = blockIdx.y % hkv, rep = h / hkv;
   const int k0 = blockIdx.x * kB;
   const long long qs = static_cast<long long>(h) * D;
   const long long ks = static_cast<long long>(hkv) * D;
   const long long kvoff = (static_cast<long long>(b) * tk * hkv + g) * D;
-  load_tile<D, true>(kt, k + kvoff, ks, k0, tk);
-  load_tile<D, true>(vt, v + kvoff, ks, k0, tk);
+  load_tile<T, D, true>(kt, k + kvoff, ks, k0, tk);
+  load_tile<T, D, true>(vt, v + kvoff, ks, k0, tk);
   float dk_acc[4][NC], dv_acc[4][NC];
   zero(dk_acc);
   zero(dv_acc);
@@ -324,10 +376,10 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = i0; i < n_q; ++i) {
       const int q0 = i * kB;
       __syncthreads();
-      load_tile<D, true>(qt, q + qoff, qs, q0, tq);
-      load_tile<D, true>(dot, dout + qoff, qs, q0, tq);
-      load_tile<D, false>(qsm, q + qoff, qs, q0, tq);
-      load_tile<D, false>(dos, dout + qoff, qs, q0, tq);
+      load_tile<T, D, true>(qt, q + qoff, qs, q0, tq);
+      load_tile<T, D, true>(dot, dout + qoff, qs, q0, tq);
+      load_tile<T, D, false>(qsm, q + qoff, qs, q0, tq);
+      load_tile<T, D, false>(dos, dout + qoff, qs, q0, tq);
       if (threadIdx.x < kB) {
         const int qpos = q0 + threadIdx.x;
         rows[threadIdx.x] = qpos < tq ? lse[roff + qpos] : 0.0f;
@@ -345,12 +397,13 @@ __global__ void __launch_bounds__(kThreads)
       mma<4, D>(s, qt, kLd, kt, kLd);
       mma<4, D>(dp, dot, kLd, vt, kLd);
       p_ds(s, dp, rl, rd, q0, k0, tq, tk, causal, scale);
+      __syncthreads();              // every lane is done with qt and dot
 #pragma unroll
       for (int ii = 0; ii < 4; ++ii)
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          ps[(ty * 4 + ii) * kLd + tx + 16 * c] = s[ii][c];
-          dss[(ty * 4 + ii) * kLd + tx + 16 * c] = dp[ii][c];
+          ps[(ty * 4 + ii) * kLd + tx + 16 * c] = Elem<T>::round(s[ii][c]);
+          dss[(ty * 4 + ii) * kLd + tx + 16 * c] = Elem<T>::round(dp[ii][c]);
         }
       __syncthreads();
       mma<NC, kB>(dv_acc, ps, kLd, dos, LdD);
@@ -364,8 +417,8 @@ __global__ void __launch_bounds__(kThreads)
     const long long at = kvoff + static_cast<long long>(kpos) * ks;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      dk[at + tx + 16 * c] = dk_acc[ii][c];
-      dv[at + tx + 16 * c] = dv_acc[ii][c];
+      Elem<T>::store(dk + at + tx + 16 * c, dk_acc[ii][c]);
+      Elem<T>::store(dv + at + tx + 16 * c, dv_acc[ii][c]);
     }
   }
 }
@@ -373,8 +426,10 @@ __global__ void __launch_bounds__(kThreads)
 constexpr int fwd_smem(int d) { return (2 * d * kLd + kB * (d + kPad) + kB * kLd) * 4; }
 constexpr int dq_smem(int d) { return (4 * d * kLd + kB * (d + kPad) + kB * kLd) * 4; }
 constexpr int dkv_smem(int d) {
-  return (4 * d * kLd + 2 * kB * (d + kPad) + 2 * kB * kLd + 2 * kB) * 4;
+  return (2 * d * kLd + 2 * qtile(d) + 2 * kB * (d + kPad) + 2 * kB) * 4;
 }
+static_assert(dkv_smem(128) <= 232448, "dk/dv tiles exceed 227 KB");
+static_assert(dq_smem(128) <= 232448, "dq tiles exceed 227 KB");
 
 template <class K>
 cudaError_t allow_smem(K kernel, int bytes) {
@@ -383,84 +438,104 @@ cudaError_t allow_smem(K kernel, int bytes) {
                               bytes);
 }
 
-template <int D>
-int fwd(const float* q, const float* k, const float* v, float* out,
-        float* lse, int b, int tq, int tk, int h, int hkv, int causal,
-        float scale, cudaStream_t s) {
-  cudaError_t e = allow_smem(fwd_kernel<D>, fwd_smem(D));
+struct Shape {
+  int b, tq, tk, h, hkv, causal;
+  float scale;
+};
+
+template <class T, int D>
+int fwd(const void* q, const void* k, const void* v, void* out, float* lse,
+        Shape n, cudaStream_t s) {
+  cudaError_t e = allow_smem(fwd_kernel<T, D>, fwd_smem(D));
   if (e != cudaSuccess) return int(e);
-  const dim3 grid((tq + kB - 1) / kB, b * h);
-  fwd_kernel<D><<<grid, kThreads, fwd_smem(D), s>>>(q, k, v, out, lse, tq,
-                                                    tk, h, hkv, causal,
-                                                    scale);
+  const dim3 grid((n.tq + kB - 1) / kB, n.b * n.h);
+  fwd_kernel<T, D><<<grid, kThreads, fwd_smem(D), s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), lse, n.tq, n.tk, n.h,
+      n.hkv, n.causal, n.scale);
   return int(cudaGetLastError());
 }
 
-template <int D>
-int bwd(const float* q, const float* k, const float* v, const float* dout,
-        const float* lse, const float* delta, float* dq, float* dk,
-        float* dv, int b, int tq, int tk, int h, int hkv, int causal,
-        float scale, cudaStream_t s) {
-  cudaError_t e = allow_smem(dq_kernel<D>, dq_smem(D));
-  if (e == cudaSuccess) e = allow_smem(dkv_kernel<D>, dkv_smem(D));
+template <class T, int D>
+int bwd(const void* q, const void* k, const void* v, const void* dout,
+        const float* lse, const float* delta, void* dq, void* dk, void* dv,
+        Shape n, cudaStream_t s) {
+  cudaError_t e = allow_smem(dq_kernel<T, D>, dq_smem(D));
+  if (e == cudaSuccess) e = allow_smem(dkv_kernel<T, D>, dkv_smem(D));
   if (e != cudaSuccess) return int(e);
-  dq_kernel<D><<<dim3((tq + kB - 1) / kB, b * h), kThreads, dq_smem(D), s>>>(
-      q, k, v, dout, lse, delta, dq, tq, tk, h, hkv, causal, scale);
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* dt = static_cast<const T*>(dout);
+  dq_kernel<T, D><<<dim3((n.tq + kB - 1) / kB, n.b * n.h), kThreads,
+                    dq_smem(D), s>>>(qt, kt, vt, dt, lse, delta,
+                                     static_cast<T*>(dq), n.tq, n.tk, n.h,
+                                     n.hkv, n.causal, n.scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return int(e);
-  dkv_kernel<D><<<dim3((tk + kB - 1) / kB, b * hkv), kThreads, dkv_smem(D),
-                  s>>>(q, k, v, dout, lse, delta, dk, dv, tq, tk, h, hkv,
-                       causal, scale);
+  dkv_kernel<T, D><<<dim3((n.tk + kB - 1) / kB, n.b * n.hkv), kThreads,
+                     dkv_smem(D), s>>>(qt, kt, vt, dt, lse, delta,
+                                       static_cast<T*>(dk),
+                                       static_cast<T*>(dv), n.tq, n.tk, n.h,
+                                       n.hkv, n.causal, n.scale);
   return int(cudaGetLastError());
 }
 
-}  // namespace
-
-// K9: out (B, Tq, H, D) and lse (B, H, Tq) from q (B, Tq, H, D), k and v
-// (B, Tk, H_kv, D), all fp32 contiguous; head_dim 32 or 64.  Returns the
-// cudaError of the launch (cudaErrorInvalidValue for another head_dim).
-extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
-                                void* out, void* lse, int b, int tq, int tk,
-                                int h, int hkv, int d, int causal,
-                                float scale, void* stream) {
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
-  float* of = static_cast<float*>(out);
-  float* lf = static_cast<float*>(lse);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64)
-    return fwd<64>(qf, kf, vf, of, lf, b, tq, tk, h, hkv, causal, scale, s);
-  if (d == 32)
-    return fwd<32>(qf, kf, vf, of, lf, b, tq, tk, h, hkv, causal, scale, s);
+// the instantiation for (element type code, head_dim): 0 fp32, 1 bf16
+template <template <class, int> class F, class... A>
+int dispatch(int dtype, int d, A... args) {
+  if (dtype == 0) {
+    if (d == 32) return F<float, 32>::run(args...);
+    if (d == 64) return F<float, 64>::run(args...);
+    if (d == 128) return F<float, 128>::run(args...);
+  } else if (dtype == 1) {
+    if (d == 32) return F<__nv_bfloat16, 32>::run(args...);
+    if (d == 64) return F<__nv_bfloat16, 64>::run(args...);
+    if (d == 128) return F<__nv_bfloat16, 128>::run(args...);
+  }
   return int(cudaErrorInvalidValue);
 }
 
-// K10: dq (B, Tq, H, D), dk and dv (B, Tk, H_kv, D) from the forward's
-// inputs, the output gradient dout, lse and delta (B, H, Tq).
+template <class T, int D>
+struct Fwd {
+  template <class... A>
+  static int run(A... args) { return fwd<T, D>(args...); }
+};
+template <class T, int D>
+struct Bwd {
+  template <class... A>
+  static int run(A... args) { return bwd<T, D>(args...); }
+};
+
+}  // namespace
+
+// forward: out (B, Tq, H, D) and lse (B, H, Tq) fp32 from q (B, Tq, H, D),
+// k and v (B, Tk, H_kv, D), all contiguous, of element type `dtype` (0
+// fp32, 1 bf16); head_dim 32, 64 or 128.  Returns the cudaError of the
+// launch (cudaErrorInvalidValue for another dtype or head_dim).
+extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
+                                void* out, void* lse, int b, int tq, int tk,
+                                int h, int hkv, int d, int dtype, int causal,
+                                float scale, void* stream) {
+  const Shape n{b, tq, tk, h, hkv, causal, scale};
+  return dispatch<Fwd>(dtype, d, q, k, v, out, static_cast<float*>(lse), n,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// backward: dq (B, Tq, H, D), dk and dv (B, Tk, H_kv, D) from the
+// forward's inputs, the output gradient dout, lse and delta (B, H, Tq)
+// fp32; the element type of q, k, v, dout and the gradients is `dtype`.
 extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* delta, void* dq, void* dk,
                                 void* dv, int b, int tq, int tk, int h,
-                                int hkv, int d, int causal, float scale,
-                                void* stream) {
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
-  const float* df = static_cast<const float*>(dout);
-  const float* lf = static_cast<const float*>(lse);
-  const float* ef = static_cast<const float*>(delta);
-  float* dqf = static_cast<float*>(dq);
-  float* dkf = static_cast<float*>(dk);
-  float* dvf = static_cast<float*>(dv);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64)
-    return bwd<64>(qf, kf, vf, df, lf, ef, dqf, dkf, dvf, b, tq, tk, h, hkv,
-                   causal, scale, s);
-  if (d == 32)
-    return bwd<32>(qf, kf, vf, df, lf, ef, dqf, dkf, dvf, b, tq, tk, h, hkv,
-                   causal, scale, s);
-  return int(cudaErrorInvalidValue);
+                                int hkv, int d, int dtype, int causal,
+                                float scale, void* stream) {
+  const Shape n{b, tq, tk, h, hkv, causal, scale};
+  return dispatch<Bwd>(dtype, d, q, k, v, dout,
+                       static_cast<const float*>(lse),
+                       static_cast<const float*>(delta), dq, dk, dv, n,
+                       static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* flash_error_string(int code) {

@@ -7,6 +7,11 @@ path of `examples/lm/train.py`).
         --flash-bwd pallas --ffn-exp 4 --ffn-man 3 --ffn-mode faithful \\
         --use_APS --grad_exp 5 --grad_man 2 --max-iter 20
 
+    python -m cpd_tpu_torch.examples.lm.train --vocab-size 32000 \\
+        --d-model 512 --n-layers 8 --n-heads 8 --seq-len 1024 \\
+        --batch-size 4 --dp 2 --bf16 --attn-impl flash --remat \\
+        --use_APS --grad_exp 5 --grad_man 2 --max-iter 20
+
 ``--dp N`` data-parallel ranks on a `LocalMesh` on the one card (default
 1), ``--batch-size`` sequences each, from the synthetic Markov-chain
 corpus (`data.lm_data.SyntheticText`, 4096 sequences, the last global
@@ -16,11 +21,15 @@ not the JAX trainer's flax init); SGD with momentum 0.9 under the
 constant (warmup, then ``--base-lr``) or ``--lr-schedule cosine``
 schedule; the APS low-precision gradient reduce as the ResNet
 trainer has it; validation every ``--val-freq`` iterations and at the
-end.  Flags of the JAX trainer whose subsystem is not ported yet —
-sequence, tensor and pipeline parallelism, MoE, bf16, remat, scanned
-layers, dropout, sampling, emulated nodes, other optimizers, checkpoints
-and ``--save-path``, the torch export, the resilience, observability and
-overlap flags — raise "not yet ported".
+end.  ``--bf16`` computes in bf16 over fp32 master weights (the JAX
+trainer's ``dtype=bfloat16``), ``--remat`` recomputes each block in the
+backward pass, and ``--attn-impl flash`` runs the GQA flash kernels with
+``--n-kv-heads`` and the MHA flash kernel (K11) without.  Flags of the
+JAX trainer whose subsystem is not ported yet — sequence, tensor and
+pipeline parallelism, MoE, scanned layers, dropout, sampling, emulated
+nodes, other optimizers, checkpoints and ``--save-path``, the torch
+export, the resilience, observability and overlap flags — raise "not yet
+ported".
 """
 
 from __future__ import annotations
@@ -37,8 +46,8 @@ from ...obs.timing import now
 # alone selects their subsystem)
 _NOT_PORTED = (
     "--sp-mode", "--vocab-pp", "--moe", "--n-experts", "--n-microbatches",
-    "--remat", "--scan-layers", "--save-path", "--ckpt-freq", "--dist",
-    "--tensorboard", "--bf16", "--sample-temperature", "--sample-top-k",
+    "--scan-layers", "--save-path", "--ckpt-freq", "--dist",
+    "--tensorboard", "--sample-temperature", "--sample-top-k",
     "--sample-top-p", "--sample-seed", "--profile-dir", "--export-torch",
     "--overlap-reduce", "--bucket-elems", "--obs-dir", "--obs-flight",
     "--fault-plan", "--guard-grads", "--spike-factor", "--watchdog-timeout",
@@ -106,7 +115,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="GQA flash backward: the chunked recompute or the "
                         "flash-backward kernels (with --attn-impl flash)")
     p.add_argument("--attn-impl", default="xla",
-                   choices=["xla", "flash", "chunked"])
+                   choices=["xla", "flash", "chunked"],
+                   help="flash: the GQA flash kernels with --n-kv-heads, "
+                        "the MHA flash kernel (K11) without")
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16 compute dtype (fp32 master params; the "
+                        "gradients stay fp32)")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each block's forward in the backward "
+                        "pass (activation memory for compute)")
     p.add_argument("--label-smoothing", default=0.0, type=float)
     p.add_argument("--dropout", default=0.0, type=float,
                    help="not yet ported > 0")
@@ -156,11 +173,8 @@ def parse_args(argv=None) -> argparse.Namespace:
             args.attn_impl == "flash" and args.n_kv_heads is not None):
         raise SystemExit(
             "--flash-bwd pallas selects the GQA flash-backward kernels, "
-            "which only run with --attn-impl flash AND --n-kv-heads")
-    if args.attn_impl == "flash" and (args.n_kv_heads is None
-                                      or args.n_kv_heads == args.n_heads):
-        raise _not_ported("--attn-impl flash without GQA (the stock MHA "
-                          "flash kernel, K11)")
+            "which only run with --attn-impl flash AND --n-kv-heads (the "
+            "MHA flash path uses the stock kernel's own backward)")
     if args.block_scale and args.mode != "ring":
         raise SystemExit("--block-scale needs --mode ring: the per-block "
                          "scale sidecar rides the ring's packed wire")
@@ -187,7 +201,8 @@ def run(args: argparse.Namespace, device="cuda") -> dict:
     model_kw = dict(vocab_size=args.vocab_size, d_model=args.d_model,
                     n_layers=args.n_layers, n_heads=args.n_heads,
                     n_kv_heads=args.n_kv_heads, attn_impl=args.attn_impl,
-                    flash_bwd=args.flash_bwd)
+                    flash_bwd=args.flash_bwd, remat=args.remat,
+                    dtype=torch.bfloat16 if args.bf16 else torch.float32)
     if (args.ffn_exp, args.ffn_man) != (8, 23):
         model_kw.update(ffn_exp=args.ffn_exp, ffn_man=args.ffn_man,
                         ffn_mode=args.ffn_mode)

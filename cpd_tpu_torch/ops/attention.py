@@ -2,13 +2,13 @@
 sequence-parallel size 1).
 
 * `local_attention` — softmax attention on (B, T, H, D) tensors with an
-  fp32 softmax, ``impl="xla"`` (one-shot) or ``"chunked"`` (the online
-  softmax over K/V blocks);
+  fp32 softmax, ``impl="xla"`` (one-shot), ``"chunked"`` (the online
+  softmax over K/V blocks) or ``"flash"`` (the MHA flash kernel K11,
+  `ops.flash_mha`, forward and backward);
 * `grouped_query_attention` — GQA on unexpanded (B, T, H_kv, D) K/V:
   the query heads are grouped (H_kv, rep) and contracted against the
   small K/V directly.  ``impl="flash"`` routes GQA (H > H_kv) to the
-  flash kernels (`ops.flash_gqa`, K9/K10); MHA flash is the stock TPU
-  kernel K11, not ported yet;
+  flash kernels (`ops.flash_gqa`, K9/K10) and MHA (H == H_kv) to K11;
 * `_chunked_attention` — the online-softmax scan, also the gradient of
   the flash path's ``bwd="chunked"``.
 
@@ -54,12 +54,15 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     k_offset: int = 0, impl: str = "xla") -> torch.Tensor:
     """Softmax attention for (B, T, H, D) tensors on one device: fp32
     logits and softmax, q's dtype out.  Offsets are the tokens' global
-    positions.  ``impl="flash"`` (the stock MHA kernel, K11) is not
-    ported yet."""
+    positions.  ``impl="flash"`` runs the MHA flash kernel (K11,
+    `ops.flash_mha.flash_mha`) with its contract (Tq >= 128, Tk a
+    multiple of 128, zero offsets)."""
     if impl == "flash":
-        raise NotImplementedError(
-            "impl='flash' for MHA (H == H_kv) is the stock TPU flash kernel "
-            "(K11), not yet ported to cpd_tpu_torch (ROADMAP Queue B, B6)")
+        if q_offset != 0 or k_offset != 0:
+            raise ValueError("impl='flash' does not support q/k offsets; "
+                             "use the default impl inside ring steps")
+        from .flash_mha import flash_mha
+        return flash_mha(q, k, v, causal)
     if impl == "chunked":
         return _chunked_attention(q, k, v, causal, q_offset, k_offset)
     if impl != "xla":
@@ -82,12 +85,14 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _fold_segment(o, m, l, qg, k_cur, v_cur, valid, scale):
     """Merge one K/V segment into the online-softmax accumulator
     (o (B, Tq, H, D), m and l (B, H, Tq)); qg: (B, Tq, H_kv, rep, D)
-    grouped queries; valid: (Tq, S) bool or None."""
+    grouped queries; valid: (Tq, S) bool or None.  Logits and p·v
+    accumulate in fp32 whatever the input dtype (p rounded to v's dtype
+    first), as the JAX fold's ``preferred_element_type`` does."""
     b, tq, hkv, rep, d = qg.shape
     h = hkv * rep
     s = k_cur.shape[1]
-    logits = torch.einsum("bqgrd,bkgd->bgrqk", qg, k_cur).reshape(
-        b, h, tq, s) * scale
+    logits = torch.einsum("bqgrd,bkgd->bgrqk", qg.float(),
+                          k_cur.float()).reshape(b, h, tq, s) * scale
     if valid is not None:
         logits = torch.where(valid[None, None], logits, _NEG_INF)
     m_new = torch.maximum(m, logits.amax(dim=-1))
@@ -99,8 +104,8 @@ def _fold_segment(o, m, l, qg, k_cur, v_cur, valid, scale):
         p = torch.where(valid[None, None], p, 0.0)
     l_new = l * alpha + p.sum(dim=-1)
     pv = torch.einsum("bgrqk,bkgd->bqgrd",
-                      p.to(v_cur.dtype).reshape(b, hkv, rep, tq, s),
-                      v_cur).reshape(b, tq, h, v_cur.shape[-1])
+                      p.to(v_cur.dtype).float().reshape(b, hkv, rep, tq, s),
+                      v_cur.float()).reshape(b, tq, h, v_cur.shape[-1])
     return o * alpha.transpose(1, 2)[..., None] + pv, m_new, l_new
 
 
@@ -157,7 +162,8 @@ def grouped_query_attention(q: torch.Tensor, k: torch.Tensor,
     g serves query heads [g·rep, (g+1)·rep).  ``impl="flash"`` with
     H > H_kv runs the flash kernels (`ops.flash_gqa.flash_gqa`, backward
     ``flash_bwd``); ``"chunked"`` the online-softmax scan; ``"xla"`` the
-    one-shot grouped softmax (MHA goes to `local_attention`)."""
+    one-shot grouped softmax.  MHA goes to `local_attention`, whose
+    ``"flash"`` is K11 with its own backward."""
     b, tq, h, d = q.shape
     hkv = k.shape[2]
     if impl == "flash" and h != hkv:

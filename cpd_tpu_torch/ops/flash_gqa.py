@@ -23,7 +23,12 @@ per-row log-sum-exp the backward re-exponentiates.
   `attention._chunked_attention` under torch autograd.
 
 ``lse`` is (B, H, Tq): the JAX kernel's (B, H_kv, rep, Tq_p) without the
-TPU's row padding.  The kernels take head_dim 32 or 64.
+TPU's row padding.  Elements are fp32 or bf16, as the JAX kernel takes
+q's dtype: logits, softmax and products accumulate in fp32, p is rounded
+to the element type before p·v (its fp32 value feeds the sum), p and ds
+before the backward's products, and each output once.  The kernels take
+head_dim 32, 64 or 128.  The same kernels at rep = 1 are K11, the stock
+MHA kernel (`ops.flash_mha`).
 """
 
 from __future__ import annotations
@@ -36,9 +41,12 @@ import torch
 from .attention import _NEG_INF, _gqa_rep
 
 __all__ = ["flash_gqa", "flash_gqa_fwd", "flash_gqa_bwd",
-           "flash_gqa_fwd_ref", "flash_gqa_bwd_ref", "KERNEL_HEAD_DIMS"]
+           "flash_gqa_fwd_ref", "flash_gqa_bwd_ref", "KERNEL_HEAD_DIMS",
+           "KERNEL_DTYPES"]
 
-KERNEL_HEAD_DIMS = (32, 64)
+KERNEL_HEAD_DIMS = (32, 64, 128)
+# element type -> the kernels' dtype code
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _scale(d: int) -> float:
@@ -53,12 +61,17 @@ def _valid(tq: int, tk: int, causal: bool, device) -> torch.Tensor:
                                                 device=device)
 
 
+def _rounded(x: torch.Tensor, dtype) -> torch.Tensor:
+    """fp32 ``x`` rounded to ``dtype`` (the element type), in fp32."""
+    return x.to(dtype).float()
+
+
 def _grouped_logits(q, k, scale):
     """(B, H_kv, rep, Tq, Tk) fp32 logits * scale."""
     b, tq, h, d = q.shape
     hkv = k.shape[2]
-    qg = q.reshape(b, tq, hkv, h // hkv, d)
-    return torch.einsum("bqgrd,bkgd->bgrqk", qg, k) * scale
+    qg = q.float().reshape(b, tq, hkv, h // hkv, d)
+    return torch.einsum("bqgrd,bkgd->bgrqk", qg, k.float()) * scale
 
 
 def flash_gqa_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -73,10 +86,10 @@ def flash_gqa_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s.shape[:-1] + (1,), _NEG_INF, device=q.device)
     p = torch.where(valid, torch.exp(s - m), 0.0)
     den = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
-    out = torch.einsum("bgrqk,bkgd->bqgrd", p, v) / den.permute(
-        0, 3, 1, 2, 4)
+    out = torch.einsum("bgrqk,bkgd->bqgrd", _rounded(p, v.dtype),
+                       v.float()) / den.permute(0, 3, 1, 2, 4)
     lse = (m + torch.log(den))[..., 0]
-    return out.reshape(b, tq, h, d), lse.reshape(b, h, tq)
+    return out.reshape(b, tq, h, d).to(q.dtype), lse.reshape(b, h, tq)
 
 
 def flash_gqa_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -88,17 +101,24 @@ def flash_gqa_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rep = _gqa_rep(q, k)
     scale = _scale(d)
     valid = _valid(tq, tk, causal, q.device)
-    delta = (dout * out).sum(-1).permute(0, 2, 1).reshape(b, hkv, rep, tq)
+    delta = _delta(out, dout).reshape(b, hkv, rep, tq)
     lse = lse.reshape(b, hkv, rep, tq)
     s = _grouped_logits(q, k, scale)
     p = torch.where(valid, torch.exp(s - lse[..., None]), 0.0)
-    dg = dout.reshape(b, tq, hkv, rep, d)
-    dp = torch.einsum("bqgrd,bkgd->bgrqk", dg, v)
+    dg = dout.float().reshape(b, tq, hkv, rep, d)
+    dp = torch.einsum("bqgrd,bkgd->bgrqk", dg, v.float())
     ds = p * (dp - delta[..., None]) * scale
-    dq = torch.einsum("bgrqk,bkgd->bqgrd", ds, k).reshape(b, tq, h, d)
-    dk = torch.einsum("bgrqk,bqgrd->bkgd", ds, q.reshape(b, tq, hkv, rep, d))
-    dv = torch.einsum("bgrqk,bqgrd->bkgd", p, dg)
-    return dq, dk, dv
+    dq = torch.einsum("bgrqk,bkgd->bqgrd", _rounded(ds, k.dtype),
+                      k.float()).reshape(b, tq, h, d)
+    dk = torch.einsum("bgrqk,bqgrd->bkgd", _rounded(ds, q.dtype),
+                      q.float().reshape(b, tq, hkv, rep, d))
+    dv = torch.einsum("bgrqk,bqgrd->bkgd", _rounded(p, dout.dtype), dg)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """(B, H, Tq) fp32 Σ_d dout·out, the backward's row constant."""
+    return (dout.float() * out.float()).sum(-1).permute(0, 2, 1)
 
 
 def _library():
@@ -107,10 +127,10 @@ def _library():
     lib = load_library("flash_gqa")
     if not getattr(lib, "_cpd_typed", False):
         lib.flash_fwd_launch.argtypes = [ctypes.c_void_p] * 5 + [
-            ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+            ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
         lib.flash_fwd_launch.restype = ctypes.c_int
         lib.flash_bwd_launch.argtypes = [ctypes.c_void_p] * 9 + [
-            ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+            ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
         lib.flash_bwd_launch.restype = ctypes.c_int
         lib.flash_error_string.argtypes = [ctypes.c_int]
         lib.flash_error_string.restype = ctypes.c_char_p
@@ -118,10 +138,11 @@ def _library():
     return lib
 
 
-def _on_card(what: str, *xs: torch.Tensor) -> bool:
+def _on_card(what: str, elems: tuple, rows: tuple = ()) -> bool:
     """False for CPU tensors; for CUDA tensors check what the kernels
-    take (fp32, one device, head_dim 32 or 64) and return True."""
-    devices = {x.device for x in xs}
+    take (one device; ``elems`` of one element type, fp32 or bf16, and
+    ``rows`` fp32; head_dim 32, 64 or 128) and return True."""
+    devices = {x.device for x in elems + rows}
     if len(devices) != 1:
         raise ValueError(f"{what}: inputs on several devices: "
                          f"{sorted(map(str, devices))}")
@@ -130,10 +151,14 @@ def _on_card(what: str, *xs: torch.Tensor) -> bool:
         return False
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    for x in xs:
+    dtypes = {x.dtype for x in elems}
+    if len(dtypes) != 1 or elems[0].dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{what}: element types {sorted(map(str, dtypes))}; "
+                        "the kernels take one of float32 and bfloat16")
+    for x in rows:
         if x.dtype != torch.float32:
-            raise TypeError(f"{what}: dtype {x.dtype}, expected float32")
-    d = xs[0].shape[-1]
+            raise TypeError(f"{what}: lse dtype {x.dtype}, expected float32")
+    d = elems[0].shape[-1]
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{what}: the kernel takes head_dim in "
                          f"{KERNEL_HEAD_DIMS}, got {d}")
@@ -167,8 +192,17 @@ def flash_gqa_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, tq, tk, h, hkv, d = _dims(q, k)
     if v.shape != k.shape:
         raise ValueError(f"v {tuple(v.shape)} != k {tuple(k.shape)}")
-    if not _on_card("flash_gqa_fwd", q, k, v):
+    if not _on_card("flash_gqa_fwd", (q, k, v)):
         return flash_gqa_fwd_ref(q, k, v, causal)
+    out, lse = _launch_fwd(q, k, v, causal, "flash_gqa_fwd")
+    flash_gqa_fwd.launches += 1
+    return out, lse
+
+
+def _launch_fwd(q, k, v, causal, what) -> tuple:
+    """The forward kernel on checked CUDA tensors (K9, and K11 at
+    rep = 1): ``(out, lse)``."""
+    b, tq, tk, h, hkv, d = _dims(q, k)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
@@ -178,10 +212,10 @@ def flash_gqa_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         rc = lib.flash_fwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, tq, tk, h, hkv, d, int(causal), _scale(d),
+            lse.data_ptr(), b, tq, tk, h, hkv, d, KERNEL_DTYPES[q.dtype],
+            int(causal), _scale(d),
             torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(lib, rc, "flash_gqa_fwd")
-    flash_gqa_fwd.launches += 1
+    _raise_on(lib, rc, what)
     return out, lse
 
 
@@ -192,12 +226,21 @@ def flash_gqa_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     output and lse (K10; delta = Σ dout·out is one torch op).  CPU
     tensors take `flash_gqa_bwd_ref`; CUDA tensors launch the dq and the
     dk/dv kernel, counted once per call in ``flash_gqa_bwd.launches``."""
-    b, tq, tk, h, hkv, d = _dims(q, k)
-    if not _on_card("flash_gqa_bwd", q, k, v, out, lse, dout):
+    _dims(q, k)
+    if not _on_card("flash_gqa_bwd", (q, k, v, out, dout), (lse,)):
         return flash_gqa_bwd_ref(q, k, v, out, lse, dout, causal)
+    grads = _launch_bwd(q, k, v, out, lse, dout, causal, "flash_gqa_bwd")
+    flash_gqa_bwd.launches += 1
+    return grads
+
+
+def _launch_bwd(q, k, v, out, lse, dout, causal, what) -> tuple:
+    """The dq and the dk/dv kernel on checked CUDA tensors (K10, and
+    K11's backward at rep = 1): ``(dq, dk, dv)``."""
+    b, tq, tk, h, hkv, d = _dims(q, k)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     dout, lse = dout.contiguous(), lse.contiguous()
-    delta = (dout * out).sum(-1).permute(0, 2, 1).contiguous()
+    delta = _delta(out, dout).contiguous()
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -208,10 +251,10 @@ def flash_gqa_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         rc = lib.flash_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b, tq, tk, h, hkv, d, int(causal), _scale(d),
+            dv.data_ptr(), b, tq, tk, h, hkv, d, KERNEL_DTYPES[q.dtype],
+            int(causal), _scale(d),
             torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(lib, rc, "flash_gqa_bwd")
-    flash_gqa_bwd.launches += 1
+    _raise_on(lib, rc, what)
     return dq, dk, dv
 
 

@@ -17,7 +17,9 @@ One train step over a mesh of W ranks, as the JAX step runs it under
 
 Metrics: ``loss`` and ``accuracy`` (argmax hits) over the global token
 count, plus ``reduce_*`` with ``verify_reduce``.  The step runs with TF32
-off (`fp32_numerics`).  Each rank's logits and their gradient are freed
+off and bf16 matmuls reducing in fp32 (`fp32_numerics`).  A model with a
+bf16 compute dtype returns fp32 logits and holds fp32 parameters, so the
+loss, the gradients and the reduce stay fp32.  Each rank's logits and their gradient are freed
 before the next rank runs, so one (B, T, vocab) fp32 tensor pair is live
 at a time.
 """

@@ -43,17 +43,20 @@ __all__ = ["make_train_step", "make_eval_step", "fp32_numerics",
 
 @contextlib.contextmanager
 def fp32_numerics():
-    """TF32 off for matmuls and convolutions, cuDNN deterministic and
-    without autotuning; the previous settings are restored after."""
-    matmul = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    """TF32 off for matmuls and convolutions, bf16 matmuls reducing in
+    fp32 (as XLA's bf16 dot accumulates), cuDNN deterministic and without
+    autotuning; the previous settings are restored after."""
+    mm = torch.backends.cuda.matmul
+    saved = mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction
+    mm.allow_tf32 = False
+    mm.allow_bf16_reduced_precision_reduction = False
     try:
         with torch.backends.cudnn.flags(
                 enabled=torch.backends.cudnn.enabled, benchmark=False,
                 deterministic=True, allow_tf32=False):
             yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = matmul
+        mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction = saved
 
 
 def as_batch(images, labels, device) -> tuple:

@@ -7,7 +7,8 @@ The plain flash forward and LSE (K9's plain version) against JAX's
 JAX package holds `flash_gqa` to (tests/test_ops_pallas.py): the same
 softmax summed in another order, fp32.  `grouped_query_attention` and
 `local_attention` in their XLA and chunked forms to FWD_ATOL.  Shapes:
-rep 1, 2 and 4, causal and not, T not a multiple of 128.  The kernels
+rep 1, 2 and 4, causal and not, T not a multiple of 128; the bf16 arm
+(K9/K10 take q's dtype, as JAX's kernels do) to BF16_TOL.  The kernels
 need the card: the ``cuda``-marked test holds them to their plain
 versions there.
 """
@@ -25,6 +26,7 @@ from cpd_tpu_torch.ops import flash_gqa as tfl
 
 FWD_ATOL = 2e-6
 GRAD_ATOL = 2e-5
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 # (B, T, H, H_kv, D, causal)
 CASES = [(2, 100, 4, 2, 16, True), (1, 130, 4, 1, 8, False),
          (2, 37, 4, 4, 16, True), (1, 72, 8, 2, 8, False)]
@@ -72,6 +74,35 @@ def test_flash_gradients_vs_jax(case, bwd):
     out.backward(torch.from_numpy(g))
     for name, w, x in zip(("dq", "dk", "dv"), want, ts):
         _close(w, x.grad, GRAD_ATOL, f"{bwd} {name}")
+
+
+def test_flash_bf16_forward_and_gradients_vs_jax():
+    """The bf16 arm (q's dtype, as JAX `flash_gqa` takes it): K9's and
+    K10's plain versions against JAX's kernels in interpret mode at bf16,
+    within BF16_TOL (one bf16 rounding of p, ds or an output apart where
+    the sums' order flips it; measured <= 2e-3 at gradients of ~4)."""
+    b, t, h, hkv, d, causal = CASES[0]
+    q, k, v = _qkv(b, t, h, hkv, d, seed=7)
+    g = np.random.default_rng(8).standard_normal(q.shape).astype(np.float32)
+    jx = [jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v)]
+    tx = [torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)]
+    jo, jl = _flash_gqa_fwd_call(*jx, causal, True)
+    to, tl = tfl.flash_gqa_fwd(*tx, causal)
+    assert to.dtype == torch.bfloat16
+    np.testing.assert_allclose(to.float().numpy(), np.asarray(jo, np.float32),
+                               **BF16_TOL)
+    _close(np.asarray(jl)[..., :t].reshape(b, h, t), tl, FWD_ATOL, "lse")
+    want = jax.grad(lambda q_, k_, v_: (jflash(q_, k_, v_, causal, "pallas")
+                                        .astype(jnp.float32) * g).sum(),
+                    argnums=(0, 1, 2))(*jx)
+    leaves = [x.requires_grad_() for x in tx]
+    got = torch.autograd.grad(tfl.flash_gqa(*leaves, causal, "pallas"),
+                              leaves, torch.from_numpy(g).to(torch.bfloat16))
+    for name, w, x in zip(("dq", "dk", "dv"), want, got):
+        assert x.dtype == torch.bfloat16
+        np.testing.assert_allclose(x.float().numpy(),
+                                   np.asarray(w, np.float32), err_msg=name,
+                                   **BF16_TOL)
 
 
 def test_flash_backward_plain_matches_autograd_of_forward():
@@ -134,8 +165,10 @@ def test_chunked_gradient_vs_xla_gradient():
 
 
 def test_unported_and_invalid_attention_options_raise():
+    """MHA flash (K11, tests/test_torch_flash_mha.py) keeps the stock
+    kernel's contract: 8 keys are not a multiple of its 128-key block."""
     q, k, v = map(torch.from_numpy, _qkv(1, 8, 4, 4, 8))
-    with pytest.raises(NotImplementedError, match="K11"):
+    with pytest.raises(ValueError, match="block_q=128"):
         tatt.grouped_query_attention(q, k, v, impl="flash")
     with pytest.raises(ValueError, match="impl"):
         tatt.local_attention(q, k, v, impl="ring")

@@ -16,6 +16,20 @@ boundary casts to the neighbouring code in one package and not the
 other: the FFN is bitwise given equal inputs (tests/test_torch_qgemm.py),
 but such a flip moves the step's loss by up to ~2e-3 relative (measured
 1.4e-3 at this seed; 0 with an fp32 FFN).
+
+bench.py's LM model — MHA, bf16 compute over fp32 parameters, flash
+attention, remat — at a tiny width (MHA: vocab 64, d_model 32, 2 layers,
+4 heads, d_ff 64, seq 128 for K11's 128-wide blocks): the stock flash
+kernel does not run off a TPU, so the port's MHA flash model (the plain
+K11) is held against JAX's ``attn_impl="xla"`` model.  In fp32 every
+parameter's gradient and the loss to MHA_TOL, the logits to LOGIT_ATOL
+(measured 2.8e-6 at logits of ~1, and 3.6e-6 through the port's xla
+path: the sums of two layers in another order than XLA's).  In bf16 (xla, flash and chunked) the
+logits to BF16_LOGIT_ATOL and the loss to BF16_LOSS_RTOL: the logits are
+a bf16 product of magnitude ~4, whose ulp is 2^-6, and a sum taken in
+another order flips a rounding somewhere upstream (measured 2 ulps,
+0.031); two bf16 APS e5m2 steps to BF16_LOSS_RTOL.  ``remat`` changes no
+bit of the gradients.
 """
 
 import jax
@@ -46,17 +60,23 @@ TINY = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=4, n_kv_heads=2,
 LOGIT_ATOL = 2e-5
 LOSS_RTOL = 5e-3
 WEIGHT_ATOL = 1e-7
+# bench.py's LM model at a tiny width: MHA (no kv heads), the fp32 FFN
+MHA = dict(TINY, n_kv_heads=None, ffn_exp=8, ffn_man=23)
+MHA_SEQ = 128
+MHA_TOL = dict(rtol=2e-5, atol=1e-6)
+BF16_LOGIT_ATOL = 5e-2
+BF16_LOSS_RTOL = 1e-2
 
 
-def _jax_params(seed=0, **kw):
-    model = jax_lm(**dict(TINY, **kw))
+def _jax_params(seed=0, base=TINY, **kw):
+    model = jax_lm(**dict(base, **kw))
     params = jax.jit(lambda k: model.init(k, jnp.zeros((1, 8), jnp.int32))
                      )(jax.random.PRNGKey(seed))["params"]
     return model, jax.device_get(params)
 
 
-def _torch_model(params, **kw):
-    model = torch_lm(**dict(TINY, **kw), device="cpu")
+def _torch_model(params, base=TINY, **kw):
+    model = torch_lm(**dict(base, **kw), device="cpu")
     return load_jax_params(model, params)
 
 
@@ -215,6 +235,132 @@ def test_label_smoothing_is_the_dense_target_loss():
         make_lm_train_step(tm, opt, LocalMesh(1, "cpu"), emulate_node=2)
 
 
+def _mha_batch(seed=0, rows=2):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.integers(0, 64, (rows, MHA_SEQ)).astype(np.int32)
+                 for _ in range(2))
+
+
+def _jax_ce(jm, params, toks, tgts):
+    """JAX's mean next-token CE, its fp32 logits and its gradients."""
+    def loss(p):
+        logits = jm.apply({"params": p}, toks, train=False)
+        logp = jax.nn.log_softmax(logits, axis=-1)
+        ce = -jnp.take_along_axis(logp, tgts[..., None], axis=-1).mean()
+        return ce, logits
+    (ce, logits), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+        params)
+    return float(ce), np.asarray(logits), _leaves(grads)
+
+
+def _torch_ce(tm, toks, tgts):
+    logits = tm(torch.from_numpy(toks).long())
+    ce = torch.nn.functional.cross_entropy(
+        logits.reshape(-1, logits.shape[-1]),
+        torch.from_numpy(tgts).long().reshape(-1))
+    params = dict(tm.named_parameters())
+    grads = torch.autograd.grad(ce, list(params.values()))
+    return ce.detach(), logits.detach(), dict(zip(params, grads))
+
+
+def test_mha_flash_lm_logits_and_gradients_match_jax_xla():
+    """bench.py's attention path in fp32: the MHA model through the plain
+    K11 (forward and its own backward) against JAX's xla model from the
+    same flax weights: every parameter's gradient of the mean CE and the
+    CE to MHA_TOL, the logits to LOGIT_ATOL."""
+    jm, params = _jax_params(base=MHA, attn_impl="xla")
+    toks, tgts = _mha_batch()
+    want_ce, want_logits, want = _jax_ce(jm, params, jnp.asarray(toks),
+                                         jnp.asarray(tgts))
+    tm = _torch_model(params, base=MHA)
+    assert tm.blocks[0].attn_impl == "flash" and hasattr(tm.blocks[0],
+                                                         "wqkv")
+    ce, logits, got = _torch_ce(tm, toks, tgts)
+    np.testing.assert_allclose(logits.detach().numpy(), want_logits,
+                               rtol=0, atol=LOGIT_ATOL)
+    np.testing.assert_allclose(float(ce), want_ce, **MHA_TOL)
+    assert set(got) == set(want)
+    for name, g in got.items():
+        np.testing.assert_allclose(g.numpy(), want[name], err_msg=name,
+                                   **MHA_TOL)
+
+
+@pytest.mark.parametrize("impl", ["xla", "flash", "chunked"])
+def test_bf16_lm_logits_and_loss_match_jax_bf16(impl):
+    """The bf16 model (fp32 parameters loaded unchanged from the flax
+    tree) against JAX's bf16 xla model: logits within BF16_LOGIT_ATOL,
+    the mean CE within BF16_LOSS_RTOL; the parameters stay fp32 and the
+    logits come back fp32."""
+    jm, params = _jax_params(base=MHA, attn_impl="xla", dtype=jnp.bfloat16)
+    toks, tgts = _mha_batch(seed=1)
+    want_ce, want_logits, _ = _jax_ce(jm, params, jnp.asarray(toks),
+                                      jnp.asarray(tgts))
+    tm = _torch_model(params, base=MHA, attn_impl=impl,
+                      dtype=torch.bfloat16)
+    assert all(p.dtype == torch.float32 for p in tm.parameters())
+    ce, logits, grads = _torch_ce(tm, toks, tgts)
+    assert logits.dtype == torch.float32
+    assert all(g.dtype == torch.float32 for g in grads.values())
+    np.testing.assert_allclose(logits.detach().numpy(), want_logits,
+                               rtol=0, atol=BF16_LOGIT_ATOL)
+    np.testing.assert_allclose(float(ce), want_ce, rtol=BF16_LOSS_RTOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_remat_gradients_bitwise_equal(dtype):
+    """``remat=True`` recomputes each block in the backward: on the CPU
+    every gradient is bitwise the one without it, and the bf16 remat
+    model loads the same flax tree unchanged."""
+    _, params = _jax_params(base=MHA, attn_impl="xla")
+    toks, tgts = _mha_batch(seed=2)
+    runs = [_torch_ce(_torch_model(params, base=MHA, dtype=dtype,
+                                   remat=remat), toks, tgts)
+            for remat in (False, True)]
+    (ce_a, _, ga), (ce_b, _, gb) = runs
+    assert torch.equal(ce_a, ce_b)
+    for name in ga:
+        assert torch.equal(ga[name], gb[name]), name
+    tm = _torch_model(params, base=MHA, dtype=dtype, remat=True)
+    for name, p in tm.named_parameters():
+        assert p.dtype == torch.float32
+        np.testing.assert_array_equal(p.detach().numpy(),
+                                      _leaves(params)[name])
+
+
+def test_two_bf16_aps_steps_match_jax():
+    """bench.py's LM step at a tiny width: two steps of the bf16 MHA
+    model (the port's flash + remat, JAX's xla) under the faithful APS
+    e5m2 reduce at W = 2, SGD momentum 0.9 at a nonzero rate from step 0:
+    losses within BF16_LOSS_RTOL, accuracies within one token in 32 of
+    the 256 per rank."""
+    world = 2
+    jm, params = _jax_params(seed=3, base=MHA, attn_impl="xla", n_layers=1,
+                             dtype=jnp.bfloat16)
+    schedule = jsched.warmup_step_decay(0.05, 2, [8], warmup_from=0.02)
+    tx = joptim.make_optimizer("sgd", schedule, momentum=0.9)
+    mesh = make_mesh(dp=world, devices=jax.devices()[:world])
+    jstate = JState(step=jnp.zeros([], jnp.int32), params=params,
+                    batch_stats={}, opt_state=tx.init(params))
+    jstep = j_train_step(jm, tx, mesh, use_aps=True, grad_exp=5, grad_man=2,
+                         donate=False)
+    tm = _torch_model(params, base=MHA, n_layers=1, dtype=torch.bfloat16,
+                      remat=True)
+    opt = sgd(warmup_step_decay(0.05, 2, [8], warmup_from=0.02),
+              momentum=0.9)
+    tstate = create_train_state(tm, opt)
+    tstep = make_lm_train_step(tm, opt, LocalMesh(world, "cpu"),
+                               use_aps=True, grad_exp=5, grad_man=2)
+    for i in range(2):
+        toks, tgts = _mha_batch(seed=10 + i, rows=2 * world)
+        jstate, jm_ = jstep(jstate, jnp.asarray(toks), jnp.asarray(tgts))
+        tstate, tm_ = tstep(tstate, toks, tgts)
+        np.testing.assert_allclose(float(tm_["loss"]), float(jm_["loss"]),
+                                   rtol=BF16_LOSS_RTOL, err_msg=f"step {i}")
+        np.testing.assert_allclose(float(tm_["accuracy"]),
+                                   float(jm_["accuracy"]), atol=1 / 32)
+    assert tstate.step == 2
+
+
 TINY_ARGV = ["--vocab-size", "64", "--d-model", "32", "--n-layers", "1",
              "--n-heads", "4", "--n-kv-heads", "2", "--seq-len", "16",
              "--batch-size", "2", "--dp", "2", "--attn-impl", "flash",
@@ -233,9 +379,26 @@ def test_cli_trains_two_tiny_iterations(capsys):
     assert res["step"] == 1 and np.isfinite(res["loss"])
 
 
+def test_cli_trains_bf16_mha_flash_remat(capsys):
+    """bench.py's LM flags on the CLI at a tiny width: ``--bf16
+    --attn-impl flash --remat`` without ``--n-kv-heads`` (K11), seq 128,
+    two iterations; ``--flash-bwd pallas`` stays refused there, as the
+    JAX CLI refuses it."""
+    argv = ["--vocab-size", "64", "--d-model", "32", "--n-layers", "1",
+            "--n-heads", "4", "--seq-len", str(MHA_SEQ), "--batch-size",
+            "2", "--dp", "2", "--bf16", "--attn-impl", "flash", "--remat",
+            "--use_APS", "--grad_exp", "5", "--grad_man", "2",
+            "--max-iter", "2", "--print-freq", "1"]
+    assert tcli.main(argv, device="cpu") == 0
+    out = capsys.readouterr().out
+    assert "Iter: [2/2]" in out and "Val [2]" in out and "done: 2" in out
+    with pytest.raises(SystemExit, match="MHA flash path"):
+        tcli.parse_args(argv + ["--flash-bwd", "pallas"])
+
+
 @pytest.mark.parametrize("extra", [
-    ["--sp", "2"], ["--tp", "2"], ["--pp", "2"], ["--moe"], ["--bf16"],
-    ["--remat"], ["--scan-layers"], ["--dropout", "0.1"], ["--sample", "4"],
+    ["--sp", "2"], ["--tp", "2"], ["--pp", "2"], ["--moe"],
+    ["--scan-layers"], ["--dropout", "0.1"], ["--sample", "4"],
     ["--emulate_node", "2"], ["--optimizer", "adamw"], ["--save-path", "x"],
     ["--export-torch", "x.pth"], ["--verify-reduce"], ["--obs-dir", "d"],
     ["--overlap-reduce"], ["--mode", "fast"]])
@@ -250,5 +413,3 @@ def test_cli_refuses_what_the_jax_cli_refuses():
                          (["--block-scale"], "--mode ring")):
         with pytest.raises(SystemExit, match=match):
             tcli.parse_args(TINY_ARGV + extra)
-    with pytest.raises(SystemExit, match="K11"):
-        tcli.parse_args(["--attn-impl", "flash"])

@@ -25,7 +25,8 @@ import chip_smoke
 for helper in ("kv_case", "bound_ms", "time_ms", "kernel_phase",
                "serve_phase", "card_line", "quantize_phase", "train_phase",
                "sr_quantize_phase", "sr_train_phase", "qgemm_phase",
-               "flash_phase", "lm_phase", "main"):
+               "flash_phase", "lm_phase", "mha_phase", "bench_lm_phase",
+               "main"):
     assert callable(getattr(chip_smoke, helper)), helper
 leaked = sorted(k for k, v in sys.modules.items() if v is not None and (
     k.split(".")[0] in ("jax", "jaxlib", "flax", "cpd_tpu")))
