@@ -104,12 +104,19 @@ Phases; any failure exits non-zero:
    at the slice's flags;
 11. bench.py's bf16 MHA transformer LM: (a) hold K11 (`flash_mha_fwd`,
    `flash_mha_bwd`: the MHA flash kernel, forward with its LSE and its own
-   backward) against its plain version at head_dim 32, 64 and 128, fp32
-   and bf16, causal and not, at Tq != Tk and at the LM's shapes (fp32
-   within ``FLASH_ATOL`` / ``FLASH_GRAD_ATOL``, bf16 within ``BF16_RTOL`` /
-   ``BF16_ATOL``), and the bf16 and head_dim-128 arms of K9/K10; time K11
-   at (4, 1024, 8, 64) in bf16 and fp32 and at (4, 1024, 4, 128) in bf16
-   beside its plain version, its bound and SDPA's forward and backward;
+   backward; bf16 on the tensor-core kernels of ``flash_mha_tc.cu``, fp32
+   on the CUDA-core templates of ``flash_gqa.cu``) against its plain
+   version at head_dim 32, 64 and 128, fp32 and bf16, causal and not, at
+   Tq != Tk either way and at the LM's shapes (fp32 within ``FLASH_ATOL``
+   / ``FLASH_GRAD_ATOL``, bf16 within ``BF16_RTOL`` / ``BF16_ATOL``), the
+   bf16 forward at a Tq that is not a multiple of its 64-row tile, two
+   launches bitwise equal in every case, and the bf16 and head_dim-128
+   arms of K9/K10; print the tensor-core library's registers, spills and
+   shared memory; time K11 at (4, 1024, 8, 64) in bf16 and fp32 and at
+   (4, 1024, 4, 128) in bf16 beside its plain version, its bound, SDPA's
+   forward and backward and, in bf16, the CUDA-core template it replaces
+   (``flash_gqa_fwd/_bwd`` at H_kv = H), which it must beat
+   ``TC_SPEEDUP_FLOOR``-fold at the LM's shape;
    (b) train bench.py's LM arm (vocab 32000, d_model 512, 8 layers, 8
    heads, d_ff 2048, bf16 compute over fp32 weights, seeded random
    weights) through K11 on a `LocalMesh` of 2 ranks, 4 sequences of 1024
@@ -264,6 +271,11 @@ BF16_RTOL = BF16_ATOL = 2e-2
 # the plain K11 steps against the kernel's: a bf16 rounding flipped by
 # round-off moves the loss well inside this
 BENCH_LOSS_RTOL = 1e-2
+# K11's bf16 tensor-core kernels against the CUDA-core template they
+# replace (flash_gqa.cu at rep = 1), timed in the same run on the same
+# card: at least this many times faster, forward and backward, at the
+# bf16 LM's shape
+TC_SPEEDUP_FLOOR = 3.0
 MHA_KERNELS = {"flash_mha_fwd": "cpd_tpu/ops/attention.py:116",
                "flash_mha_bwd": "cpd_tpu/ops/attention.py:116"}
 NO_LIBRARY_QGEMM = ("no PyTorch call computes a product whose every "
@@ -411,6 +423,59 @@ def device_ms(fn, iters: int, warmup: int = 3) -> float:
               flush=True)
         return time_ms(fn, iters, warmup=0)
     return sum(e.self_device_time_total for e in kernels) / 1e3 / iters
+
+
+def queued_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Device time of one ``fn()`` call without the profiler: CUDA events
+    around ``iters`` back-to-back calls queued behind a spin kernel
+    (``torch.cuda._sleep``), so that host dispatch slower than the
+    kernels does not count.  The spin is lengthened until it was still
+    running when the last call had been queued."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    cycles = 10_000_000                 # ~5 ms at the card's clock
+    for _ in range(5):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued = not start.query()      # the spin had not yet ended
+        torch.cuda.synchronize()
+        if queued:
+            return start.elapsed_time(end) / iters
+        cycles *= 4
+    raise AssertionError(f"host dispatch of {iters} calls outlasted a spin "
+                         f"of {cycles // 4} cycles")
+
+
+def device_kernels_ms(fn, iters: int) -> dict:
+    """Device ms per ``fn()`` call of each kernel it launches (by the
+    profiler's name) over ``iters`` calls under torch.profiler, or ``{}``
+    where the profile is not whole (a launch count that is not a whole
+    number per call: the profiler drops records in a long run)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    n = sum(e.count for e in kernels)
+    if n < iters or n % iters:
+        return {}
+    return {e.key: e.self_device_time_total / 1e3 / iters for e in kernels}
 
 
 def kv_case(cfg, n_slots: int, max_pages: int, nan_tail: bool,
@@ -2183,16 +2248,23 @@ def attention_inputs(shape, dtype, generator, device) -> tuple:
 
 
 def attention_check(fwd, bwd, fwd_ref, bwd_ref, shape, dtype, causal,
-                    generator, device) -> dict:
+                    generator, device, repeat: bool = False) -> dict:
     """One kernel pair against its plain pair on the same inputs: the
     largest error of (out, lse) and of (dq, dk, dv), absolute and as a
     share of the case's tolerance (fp32: FLASH_ATOL / FLASH_GRAD_ATOL;
-    bf16: BF16_RTOL / BF16_ATOL)."""
+    bf16: BF16_RTOL / BF16_ATOL).  ``repeat``: launch both again on the
+    same inputs and raise unless every output is bitwise the first's."""
     import torch
 
     q, k, v, g = attention_inputs(shape, dtype, generator, device)
     out, lse = fwd(q, k, v, causal)
     grads = bwd(q, k, v, out, lse, g, causal)
+    if repeat:
+        again = (*fwd(q, k, v, causal), *bwd(q, k, v, out, lse, g, causal))
+        if not all(same_bits(x, y)
+                   for x, y in zip((out, lse, *grads), again)):
+            raise AssertionError(f"{shape} {dtype} causal={causal}: two "
+                                 "launches on the same inputs differ")
     torch.cuda.synchronize()
     r_out, r_lse = fwd_ref(q, k, v, causal)
     r_grads = bwd_ref(q, k, v, r_out, r_lse, g, causal)
@@ -2645,7 +2717,8 @@ def mha_phase(device) -> dict:
     # (B, Tq, Tk, H, H_kv, D)
     mha = [((2, 256, 256, 4, 4, d), dt, c) for d in (32, 64, 128)
            for dt in (f32, b16) for c in (True, False)]
-    mha += [((2, 128, 384, 4, 4, 64), dt, True) for dt in (f32, b16)]
+    mha += [((2, tq, tk, 4, 4, 64), dt, True) for dt in (f32, b16)
+            for tq, tk in ((128, 384), (384, 128))]
     mha += [(shape, dt, True) for shape in ((b0, t0, t0, h0, h0, d0),
                                             (b0, t0, t0, 4, 4, 128))
             for dt in (f32, b16)]
@@ -2659,7 +2732,8 @@ def mha_phase(device) -> dict:
             ("flash_gqa", (fl.flash_gqa_fwd, fl.flash_gqa_bwd,
                            fl.flash_gqa_fwd_ref, fl.flash_gqa_bwd_ref), gqa)):
         for shape, dt, causal in cases:
-            r = attention_check(*kernels, shape, dt, causal, gen, device)
+            r = attention_check(*kernels, shape, dt, causal, gen, device,
+                                repeat=label == "flash_mha")
             if max(r["fwd_share"], r["bwd_share"]) > 1.0:
                 raise AssertionError(
                     f"{label} {shape} {dt} causal={causal}: kernel vs plain "
@@ -2674,7 +2748,26 @@ def mha_phase(device) -> dict:
                           f"{w['bwd_err']:.3e} ({w['bwd_share']:.3f} of tol)"
                           for (lab, dt), w in worst.items() if lab == label)
               + f" (fp32 atol {FLASH_ATOL} / {FLASH_GRAD_ATOL}; bf16 rtol "
-              f"{BF16_RTOL} atol {BF16_ATOL})", flush=True)
+              f"{BF16_RTOL} atol {BF16_ATOL})"
+              + ("; two launches bitwise equal in every case"
+                 if label == "flash_mha" else ""), flush=True)
+    # the tensor-core forward masks rows past a Tq its tile does not divide
+    ragged = 0.0
+    for d in (64, 128):
+        for causal in (True, False):
+            q, k, v, _ = attention_inputs((2, 200, 256, 4, 4, d), b16, gen,
+                                          device)
+            got = fm.flash_mha_fwd(q, k, v, causal)
+            want = fm.flash_mha_fwd_ref(q, k, v, causal)
+            ragged = max(ragged, *(within(x, w, BF16_RTOL, BF16_ATOL)
+                                   for x, w in zip(got, want)))
+    if ragged > 1.0:
+        raise AssertionError(f"flash_mha bf16 forward at Tq = 200: "
+                             f"{ragged} of the tolerance")
+    print(f"kernel flash_mha: bf16 forward at Tq = 200, Tk = 256 (D 64, "
+          f"128; causal and not) within {ragged:.3f} of the tolerance",
+          flush=True)
+    tc = tc_build_report()
 
     res = {}
     for shape, dt in (((b0, t0, t0, h0, h0, d0), b16),
@@ -2694,44 +2787,117 @@ def mha_phase(device) -> dict:
                       if dt == f32 else
                       (PEAK_BF16_FLOPS, "bf16 tensor cores 989 TFLOP/s"))
         tag = f"{str(dt).split('.')[-1]} D={d}"
-        for name, fn, plain, lib, products, n_bytes in (
+        for name, fn, plain, lib, template, products, n_bytes in (
                 ("flash_mha_fwd", lambda: fm.flash_mha_fwd(q, k, v, True),
                  lambda: fm.flash_mha_fwd_ref(q, k, v, True),
                  lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw),
+                 lambda: fl.flash_gqa_fwd(q, k, v, True),
                  2, es * 4 * n_elem + 4 * lse.numel()),
                 ("flash_mha_bwd",
                  lambda: fm.flash_mha_bwd(q, k, v, out, lse, g, True),
                  lambda: fm.flash_mha_bwd_ref(q, k, v, out, lse, g, True),
                  lambda: torch.autograd.grad(o_lib, leaves, gt,
                                              retain_graph=True),
+                 lambda: fl.flash_gqa_bwd(q, k, v, out, lse, g, True),
                  5, es * 8 * n_elem + 4 * lse.numel())):
             flops = flash_flops(b, tq, tk, h, d, True, products)
             t_ops, t_bytes = flops / peak, n_bytes / PEAK_BYTES_PER_S
-            r = dict(ms=time_ms(fn, iters=20),
+            # device time: at these sizes back-to-back calls are
+            # host-bound, and CUDA events around them read the host's
+            # dispatch; the profiler drops records in a long run
+            if dt == b16:
+                # the CUDA-core template it replaces, in turns with it:
+                # template, kernel, kernel, template
+                t1, k1, k2, t2 = (queued_ms(f, iters=20)
+                                  for f in (template, fn, fn, template))
+                ms, core = (k1 + k2) / 2, (t1 + t2) / 2
+            else:
+                ms, core = queued_ms(fn, iters=20), None
+            r = dict(ms=ms, call_ms=time_ms(fn, iters=20),
                      plain_ms=time_ms(plain, iters=3),
-                     library_ms=time_ms(lib, iters=20),
+                     library_ms=queued_ms(lib, iters=20),
                      bound_ms=max(t_ops, t_bytes) * 1e3,
                      bound_by="operations" if t_ops >= t_bytes else "bytes",
                      rate=rate, gflop=flops / 1e9, shape=list(shape),
-                     dtype=str(dt).split(".")[-1])
+                     dtype=str(dt).split(".")[-1],
+                     source=("cpd_tpu_torch/csrc/flash_mha_tc.cu"
+                             if dt == b16 else
+                             "cpd_tpu_torch/csrc/flash_gqa.cu"),
+                     kernels_ms={k_: round(v_, 5) for k_, v_ in
+                                 device_kernels_ms(fn, iters=20).items()})
+            r["vs_library"] = r["ms"] / r["library_ms"]
+            if core is not None:
+                r.update(cuda_core_ms=core, speedup=core / ms)
             res.setdefault(name, {})[tag] = r
             what = ("forward" if name == "flash_mha_fwd" else
                     "backward alone: autograd.grad of a stored forward")
-            print(f"kernel {name} [{tag}, {list(shape)} causal]: kernel_ms "
-                  f"{r['ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms "
+            vs = (f"; the CUDA-core template (flash_gqa.cu, rep = 1) "
+                  f"{core:.4f} ms, {r['speedup']:.2f}x the kernel's time"
+                  if core is not None else "")
+            print(f"kernel {name} [{tag}, {list(shape)} causal, "
+                  f"{r['source'].split('/')[-1]}]: kernel_ms {ms:.4f} "
+                  f"(device; per call with host dispatch "
+                  f"{r['call_ms']:.4f}) plain_ms {r['plain_ms']:.4f} bound_ms "
                   f"{r['bound_ms']:.4f} ({r['bound_by']}, {rate}; bytes at "
                   f"3.35 TB/s) {r['gflop']:.3f} GFLOP; library_ms "
                   f"{r['library_ms']:.4f} (scaled_dot_product_attention "
-                  f"{what}, {r['dtype']}, is_causal, scale 1/sqrt(D))",
-                  flush=True)
+                  f"{what}, {r['dtype']}, is_causal, scale 1/sqrt(D)), "
+                  f"kernel/library {r['vs_library']:.2f}{vs}; by kernel "
+                  f"{r['kernels_ms']}", flush=True)
         del o_lib, leaves
     for name in res:
-        res[name]["max_abs_err"] = worst[("flash_mha", "float32")][
+        # the main path's kernel is the bf16 one
+        res[name]["max_abs_err"] = worst[("flash_mha", "bfloat16")][
             "fwd_err" if name == "flash_mha_fwd" else "bwd_err"]
-        res[name]["bf16_max_abs_err"] = worst[("flash_mha", "bfloat16")][
+        res[name]["fp32_max_abs_err"] = worst[("flash_mha", "float32")][
             "fwd_err" if name == "flash_mha_fwd" else "bwd_err"]
     res["gqa_bf16"] = worst[("flash_gqa", "bfloat16")]
+    res["tc_build"] = tc
+    main = f"bfloat16 D={d0}"
+    slow = {n: res[n][main]["speedup"] for n in MHA_KERNELS
+            if res[n][main]["speedup"] < TC_SPEEDUP_FLOOR}
+    if slow:
+        raise AssertionError(f"K11's tensor-core kernels at {main}: only "
+                             f"{slow}x faster than the CUDA-core template "
+                             f"(floor {TC_SPEEDUP_FLOOR}x)")
     return res
+
+
+def tc_build_report() -> dict:
+    """Registers and spill bytes (``-Xptxas -v``) and dynamic shared
+    memory of each kernel of ``flash_mha_tc``, printed and returned."""
+    import re
+
+    from cpd_tpu_torch.ops.build import build_log
+    from cpd_tpu_torch.ops.flash_mha import tc_library
+
+    lib = tc_library()
+    out, entry = {}, None
+    for line in build_log("flash_mha_tc").splitlines():
+        m = re.search(r"Compiling entry function '\w*?(fwd|dq|dkv)_kernel"
+                      r"ILi(\d+)E", line)
+        if m:
+            entry = f"{m[1]}_kernel<{m[2]}>"
+            out[entry] = dict(smem_bytes=lib.flash_tc_smem_bytes(
+                ("fwd", "dq", "dkv").index(m[1]), int(m[2])))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and entry:
+            out[entry].update(spill_stores=int(m[1]),
+                              spill_loads=int(m[2]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out[entry]["registers"] = int(m[1])
+    if len(out) != 9:
+        raise AssertionError(f"flash_mha_tc's build log names {sorted(out)}"
+                             ", not the 9 kernels (3 kinds x 3 head dims)")
+    print("kernel flash_mha_tc build: " + "; ".join(
+        f"{e}: {r.get('registers')} registers, spills "
+        f"{r.get('spill_stores')}/{r.get('spill_loads')} bytes "
+        f"(stores/loads), {r['smem_bytes']} bytes of shared memory"
+        for e, r in sorted(out.items())), flush=True)
+    return out
 
 
 def bench_lm_model(device, seed: int, cfg=None, **kw):
@@ -2906,28 +3072,40 @@ def mha_kernel_entries(mha: dict, lm: dict) -> list:
     for name, replaces in MHA_KERNELS.items():
         k = mha[name][main]
         out.append(dict(
-            name=name, route="cuda",
-            source="cpd_tpu_torch/csrc/flash_gqa.cu", replaces=replaces,
+            name=name, route="cuda", source=k["source"], replaces=replaces,
             launches=lm["launches"][name],
             launches_per_rank_step=lm["launches_per_rank_step"][name],
             max_abs_err=mha[name]["max_abs_err"],
-            bf16_max_abs_err=mha[name]["bf16_max_abs_err"],
+            fp32_max_abs_err=mha[name]["fp32_max_abs_err"],
             ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], library_ms=k["library_ms"],
             rate=k["rate"], shape=k["shape"], dtype=k["dtype"],
+            cuda_core_ms=k["cuda_core_ms"], speedup=k["speedup"],
+            vs_library=k["vs_library"],
+            cuda_core_note="the CUDA-core template this kernel replaces in "
+                           "bf16 (cpd_tpu_torch/csrc/flash_gqa.cu at "
+                           "rep = 1), timed in turns with it",
+            fp32_source="cpd_tpu_torch/csrc/flash_gqa.cu",
+            build={e: r for e, r in mha["tc_build"].items()
+                   if e.startswith("fwd" if name == "flash_mha_fwd"
+                                   else "d")},
             library_note="torch.nn.functional.scaled_dot_product_attention"
                          + (" forward" if name == "flash_mha_fwd" else
                             " backward alone (autograd.grad of a stored "
                             "forward)") + ", is_causal, scale 1/sqrt(D)",
+            call_ms=k["call_ms"], kernels_ms=k["kernels_ms"],
             arms={tag: {f: r[f] for f in ("ms", "plain_ms", "bound_ms",
-                                          "bound_by", "library_ms")}
+                                          "bound_by", "library_ms", "source",
+                                          "cuda_core_ms", "speedup")
+                        if f in r}
                   for tag, r in mha[name].items()
-                  if isinstance(r, dict) and tag != main},
-            parity=f"fp32 within atol {FLASH_ATOL} (out, lse) and "
-                   f"{FLASH_GRAD_ATOL} (gradients), bf16 within rtol "
-                   f"{BF16_RTOL} atol {BF16_ATOL}, of the plain version in "
-                   f"every case; the bf16 LM's losses within "
-                   f"{BENCH_LOSS_RTOL} of the plain K11's"))
+                  if isinstance(r, dict) and "ms" in r and tag != main},
+            parity=f"bf16 (tensor cores) within rtol {BF16_RTOL} atol "
+                   f"{BF16_ATOL}, fp32 within atol {FLASH_ATOL} (out, lse) "
+                   f"and {FLASH_GRAD_ATOL} (gradients), of the plain version "
+                   f"in every case; two launches bitwise equal; the bf16 "
+                   f"LM's losses within {BENCH_LOSS_RTOL} of the plain "
+                   f"K11's"))
     return out
 
 
@@ -2956,7 +3134,8 @@ def main() -> int:
     t0 = now()
     build_all()
     print(f"build: all kernels in {now() - t0:.1f} s", flush=True)
-    for name in ("serve_attn", "quantize", "qgemm", "flash_gqa"):
+    for name in ("serve_attn", "quantize", "qgemm", "flash_gqa",
+                 "flash_mha_tc"):
         for line in build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}", flush=True)

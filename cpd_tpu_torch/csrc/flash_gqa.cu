@@ -15,7 +15,8 @@
 //       TPU kernel jax.experimental.pallas.ops.tpu.flash_attention (its
 //       forward :388-477 and its own backward, dkv :796-938, dq
 //       :1146-1261): the same function at rep = 1 (MHA), launched by
-//       ops/flash_mha.py
+//       ops/flash_mha.py in fp32; its bf16 calls run on the tensor cores
+//       in flash_mha_tc.cu
 // with q (B, Tq, H, D), k/v (B, Tk, H_kv, D) unexpanded (kv head g serves
 // query heads g*rep .. g*rep + rep - 1).  Logits, softmax and every
 // product accumulate in fp32; with bf16 elements the TPU kernels' roundings
@@ -37,8 +38,9 @@
 // 0.160 ms at that rate; the bytes (~21 MB in fp32) take 0.006 ms.  bf16
 // elements are widened to fp32 in shared memory and take the same
 // fp32 arithmetic, so they move half the bytes at the same bound; the
-// bf16 tensor cores (989 TFLOP/s) would bound them 15x lower, a later
-// kernel's work.
+// bf16 tensor cores (989 TFLOP/s) bound them 15x lower, which K11's bf16
+// calls reach through flash_mha_tc.cu (mma.sync bf16 tiles); K9/K10's
+// bf16 arm stays here.
 //
 // Design.  A CTA of 256 threads (16 x 16) owns a 64-row tile: the
 // forward and dq a (b, head, 64 queries) tile walking the key blocks,
