@@ -85,10 +85,16 @@ Phases; any failure exits non-zero:
    plain version at a small shape; (b) hold K9 and K10 against their
    plain versions within ``FLASH_ATOL`` / ``FLASH_GRAD_ATOL`` at the
    slice's shape (B=4, T=1024, H=8, H_kv=2, D=64, causal), with pad keys
-   (T=1000), at rep 1 and 2, non-causal and at head_dim 32; time them
-   beside their plain versions, their fp32 and TF32 bounds, and
-   `scaled_dot_product_attention` forward, backward and forward +
-   backward; (c) train the LM at full width (vocab 32000, d_model 512, 4
+   (T=1000), at rep 1 and 2, non-causal and at head_dim 32, two launches
+   bitwise equal in each case (fp32: the 3xTF32 tensor-core kernels of
+   ``flash_f32_tc.cu``); time them by device time in turns with the
+   CUDA-core template they replace (``flash_gqa.core_launchers``), which
+   they must beat ``F32_TC_SPEEDUP_FLOOR``-fold, beside their plain
+   versions, their bound at 3xTF32's 165 TFLOP/s (fp32's 67 and one TF32
+   product's 495 beside it), and `scaled_dot_product_attention` with
+   ``enable_gqa`` and with K/V expanded to the query heads (each form's
+   backend pinned and printed; forward, backward alone and forward +
+   backward); (c) train the LM at full width (vocab 32000, d_model 512, 4
    layers, 8 heads, 2 kv heads, d_ff 2048; seeded random weights) on a
    `LocalMesh` of 2 ranks, 4 sequences of 1024 random tokens each, 3
    steps of ``--attn-impl flash --flash-bwd pallas``, the e4m3 faithful
@@ -104,19 +110,21 @@ Phases; any failure exits non-zero:
    at the slice's flags;
 11. bench.py's bf16 MHA transformer LM: (a) hold K11 (`flash_mha_fwd`,
    `flash_mha_bwd`: the MHA flash kernel, forward with its LSE and its own
-   backward; bf16 on the tensor-core kernels of ``flash_mha_tc.cu``, fp32
-   on the CUDA-core templates of ``flash_gqa.cu``) against its plain
-   version at head_dim 32, 64 and 128, fp32 and bf16, causal and not, at
-   Tq != Tk either way and at the LM's shapes (fp32 within ``FLASH_ATOL``
-   / ``FLASH_GRAD_ATOL``, bf16 within ``BF16_RTOL`` / ``BF16_ATOL``), the
+   backward; bf16 on the tensor-core kernels of ``flash_mha_tc.cu``,
+   fp32 on the 3xTF32 tensor-core kernels of ``flash_f32_tc.cu``) against
+   its plain version at head_dim 32, 64 and 128, fp32 and bf16, causal
+   and not, at Tq != Tk either way and at the LM's shapes (fp32 within
+   ``FLASH_ATOL`` / ``FLASH_GRAD_ATOL``, bf16 within ``BF16_RTOL`` /
+   ``BF16_ATOL``), the
    bf16 forward at a Tq that is not a multiple of its 64-row tile, two
    launches bitwise equal in every case, and the bf16 and head_dim-128
-   arms of K9/K10; print the tensor-core library's registers, spills and
-   shared memory; time K11 at (4, 1024, 8, 64) in bf16 and fp32 and at
-   (4, 1024, 4, 128) in bf16 beside its plain version, its bound, SDPA's
-   forward and backward and, in bf16, the CUDA-core template it replaces
-   (``flash_gqa_fwd/_bwd`` at H_kv = H), which it must beat
-   ``TC_SPEEDUP_FLOOR``-fold at the LM's shape;
+   arms of K9/K10; print both tensor-core libraries' registers, spills
+   and shared memory (``flash_f32_tc`` must not spill); time K11 at (4,
+   1024, 8, 64) in bf16 and fp32 and at (4, 1024, 4, 128) in bf16 beside
+   its plain version, its bound, SDPA's forward and backward and, in
+   turns, the CUDA-core template it replaces (``flash_gqa.cu`` at H_kv =
+   H), which it must beat ``TC_SPEEDUP_FLOOR``-fold in bf16 and
+   ``F32_TC_SPEEDUP_FLOOR``-fold in fp32 at the LM's shape;
    (b) train bench.py's LM arm (vocab 32000, d_model 512, 8 layers, 8
    heads, d_ff 2048, bf16 compute over fp32 weights, seeded random
    weights) through K11 on a `LocalMesh` of 2 ranks, 4 sequences of 1024
@@ -243,14 +251,22 @@ LM_WEIGHT_ATOL = 1e-6
 # boundary casts to the neighbouring code (1/16) on one side, which moves
 # a step's loss by up to ~2e-3 relative (tests/test_torch_lm.py)
 LM_SMALL_LOSS_RTOL = 5e-3
-# the TPU kernels K8-K10 replace
+# the TPU kernels K8-K10 replace (K9/K10 in fp32, the LM's dtype)
 LM_KERNELS = {"qgemm_faithful": ("cpd_tpu/ops/qgemm.py:64",
                                  "cpd_tpu_torch/csrc/qgemm.cu"),
               "flash_gqa_fwd": ("cpd_tpu/ops/flash_gqa.py:151",
-                                "cpd_tpu_torch/csrc/flash_gqa.cu"),
+                                "cpd_tpu_torch/csrc/flash_f32_tc.cu"),
               "flash_gqa_bwd": ("cpd_tpu/ops/flash_gqa.py:298",
-                                "cpd_tpu_torch/csrc/flash_gqa.cu")}
+                                "cpd_tpu_torch/csrc/flash_f32_tc.cu")}
 PEAK_TF32_FLOPS = 495e12
+# fp32-accurate products on the TF32 tensor cores: 3xTF32 takes three
+# TF32 products for one fp32 one
+PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
+# the fp32 attention kernels (flash_f32_tc.cu, 3xTF32) against the
+# CUDA-core template they replace (flash_gqa.cu's fp32 arm), timed in
+# turns on the same card: at least this many times faster, forward and
+# backward, at the LM shapes of K11 (rep 1) and K9/K10 (rep 4)
+F32_TC_SPEEDUP_FLOOR = 2.0
 # the bf16 MHA LM slice: bench.py's LM arm (bench.py:505-540: vocab 32000,
 # d_model 512, 8 layers, 8 heads, d_ff 2048, bf16 compute over fp32
 # masters, seq 1024, 8 sequences per chip, SGD momentum 0.9, e5m2 APS)
@@ -341,12 +357,18 @@ KERNEL_NAMES = {"quantize_cast": "cast_kernel<false, false>",
                 "digest_rows": "digest_rows_kernel",
                 "sr_bits": "sr_bits_kernel",
                 "qgemm_faithful": "::qgemm_kernel(",
-                "flash_gqa_fwd": "::fwd_kernel<",
-                "flash_gqa_bwd": ("::dq_kernel<", "::dkv_kernel<"),
-                # K11 launches the same templates at rep = 1: a profile
-                # tells it from K9/K10 only in a run of one of them
-                "flash_mha_fwd": "::fwd_kernel<",
-                "flash_mha_bwd": ("::dq_kernel<", "::dkv_kernel<")}
+                # fp32 on flash_f32_tc.cu, bf16 on flash_gqa.cu
+                "flash_gqa_fwd": ("::f32tc_fwd_kernel<", "::fwd_kernel<"),
+                "flash_gqa_bwd": ("::f32tc_dq_kernel<", "::f32tc_dkv_kernel<",
+                                  "rep_sum_kernel", "::dq_kernel<",
+                                  "::dkv_kernel<"),
+                # K11 (bf16 flash_mha_tc.cu, fp32 flash_f32_tc.cu at rep =
+                # 1) shares kernel names with K9/K10: a profile tells them
+                # apart only in a run of one of them
+                "flash_mha_fwd": ("::fwd_kernel<", "::f32tc_fwd_kernel<"),
+                "flash_mha_bwd": ("::dq_kernel<", "::dkv_kernel<",
+                                  "::f32tc_dq_kernel<",
+                                  "::f32tc_dkv_kernel<")}
 NO_LIBRARY = ("no PyTorch call computes the eXmY cast: .to(torch.float8_*) "
               "rounds and saturates differently, so it is not the same "
               "function")
@@ -2284,11 +2306,50 @@ def attention_check(fwd, bwd, fwd_ref, bwd_ref, shape, dtype, causal,
     return res
 
 
+def sdpa_backend(fn) -> str:
+    """The backend `scaled_dot_product_attention` runs ``fn()`` on: the
+    first of the dispatcher's priority order that takes the call pinned
+    alone with `torch.nn.attention.sdpa_kernel`."""
+    import warnings
+
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    members = {int(b): b for b in SDPBackend.__members__.values()}
+    order = [members[b] for b in torch._C._get_sdp_priority_order()
+             if b in members]
+    for backend in order:
+        try:
+            # a backend that does not take the call warns why, then raises
+            with warnings.catch_warnings(), sdpa_kernel([backend]):
+                warnings.simplefilter("ignore")
+                fn()
+        except RuntimeError:
+            continue
+        return backend.name
+    raise AssertionError("no SDPA backend takes the call")
+
+
+def attention_bounds(flops: int, n_bytes: int) -> dict:
+    """The fp32 attention's least time at 3xTF32's 165 TFLOP/s (or its
+    bytes at 3.35 TB/s, the larger), and beside it at fp32's 67 TFLOP/s
+    on the CUDA cores and one TF32 product's 495 TFLOP/s."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S
+    t_ops = flops / PEAK_3XTF32_FLOPS
+    return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                fp32_bound_ms=max(flops / PEAK_FP32_FLOPS, t_bytes) * 1e3,
+                tf32_bound_ms=max(flops / PEAK_TF32_FLOPS, t_bytes) * 1e3)
+
+
 def flash_phase(device) -> dict:
     """Phase 10b: K9 and K10 against their plain versions at the slice's
     shape, with pad keys (T = 1000), at rep 1 and 2, non-causal, and at
-    head_dim 32 (the small model's); timed at the slice's shape beside
-    their plain versions and SDPA (forward, forward + backward)."""
+    head_dim 32 (the small model's), each launched twice and bitwise
+    equal; timed at the slice's shape in turns with the CUDA-core
+    template they replace (`flash_gqa.core_launchers`), beside their plain
+    versions and SDPA with enable_gqa and with K/V expanded to the query
+    heads (forward, backward alone, forward + backward)."""
     import torch
     import torch.nn.functional as F
 
@@ -2306,7 +2367,7 @@ def flash_phase(device) -> dict:
         r = attention_check(fl.flash_gqa_fwd, fl.flash_gqa_bwd,
                             fl.flash_gqa_fwd_ref, fl.flash_gqa_bwd_ref,
                             (bb, t, t, h, hkv, d), torch.float32, causal,
-                            gen, device)
+                            gen, device, repeat=True)
         if max(r["fwd_share"], r["bwd_share"]) > 1.0:
             raise AssertionError(
                 f"flash {(bb, t, h, hkv, d, causal)}: forward/LSE err "
@@ -2316,7 +2377,7 @@ def flash_phase(device) -> dict:
     print(f"kernel flash_gqa: K9 out/LSE within {err_f:.3e} (atol "
           f"{FLASH_ATOL}) and K10 dq/dk/dv within {err_b:.3e} (atol "
           f"{FLASH_GRAD_ATOL}) of their plain versions over {len(cases)} "
-          "cases", flush=True)
+          "cases, two launches bitwise equal in each", flush=True)
 
     shape = cases[0]
     bb, t, h, hkv, d, causal = shape
@@ -2325,67 +2386,99 @@ def flash_phase(device) -> dict:
     v = torch.randn((bb, t, hkv, d), generator=gen, device=device)
     out, lse = fl.flash_gqa_fwd(q, k, v, causal)
     g = torch.randn(out.shape, generator=gen, device=device)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    kw = dict(is_causal=True, enable_gqa=True)
-    sdpa_kv, lib_note = (kt, vt), "enable_gqa=True"
-    try:
-        F.scaled_dot_product_attention(qt, kt, vt, **kw)
-    except TypeError:       # torch before 2.5: expand the kv heads
-        kw = dict(is_causal=True)
-        sdpa_kv = tuple(x.repeat_interleave(h // hkv, dim=1)
-                        for x in (kt, vt))
-        lib_note = "K/V expanded to the query heads (no enable_gqa)"
-    gt = g.transpose(1, 2).contiguous()
-    leaves = (qt.detach().requires_grad_(),
-              *(x.detach().requires_grad_() for x in sdpa_kv))
+    core_fwd, core_bwd = fl.core_launchers()
+    qt, kt, vt, gt = (x.transpose(1, 2).contiguous() for x in (q, k, v, g))
+    # SDPA both ways: GQA-native, and on K/V expanded to the query heads
+    sdpa = {}
+    for form, kv, kw in (
+            ("enable_gqa", (kt, vt), dict(is_causal=True, enable_gqa=True)),
+            ("expanded", tuple(x.repeat_interleave(h // hkv, dim=1)
+                               for x in (kt, vt)), dict(is_causal=True))):
+        leaves = (qt.detach().requires_grad_(),
+                  *(x.detach().requires_grad_() for x in kv))
+        o_lib = F.scaled_dot_product_attention(*leaves, **kw)
 
-    def sdpa_fwd_bwd():
-        o = F.scaled_dot_product_attention(*leaves, **kw)
-        torch.autograd.grad(o, leaves, gt)
+        def fwd_bwd(leaves=leaves, kw=kw):
+            o = F.scaled_dot_product_attention(*leaves, **kw)
+            torch.autograd.grad(o, leaves, gt)
 
-    # the backward alone: one stored forward, its graph kept for each call
-    o_lib = F.scaled_dot_product_attention(*leaves, **kw)
+        sdpa[form] = dict(
+            backend=sdpa_backend(
+                lambda kv=kv, kw=kw: F.scaled_dot_product_attention(qt, *kv,
+                                                                    **kw)),
+            fwd_ms=queued_ms(lambda kv=kv, kw=kw:
+                             F.scaled_dot_product_attention(qt, *kv, **kw),
+                             iters=20),
+            # the backward alone: one stored forward, its graph kept
+            bwd_ms=queued_ms(lambda o=o_lib, leaves=leaves:
+                             torch.autograd.grad(o, leaves, gt,
+                                                 retain_graph=True),
+                             iters=20),
+            fwd_bwd_ms=queued_ms(fwd_bwd, iters=20))
+        del o_lib, leaves
+    print(f"kernel flash_gqa SDPA fp32 [{list(shape)}]: " + "; ".join(
+        f"{form}: {r['backend']} forward {r['fwd_ms']:.4f} backward alone "
+        f"{r['bwd_ms']:.4f} forward + backward {r['fwd_bwd_ms']:.4f} ms"
+        for form, r in sdpa.items()), flush=True)
 
     n_bytes_f = 4 * (2 * q.numel() + k.numel() + v.numel() + lse.numel())
     n_bytes_b = 4 * (5 * q.numel() + 4 * k.numel() + 2 * lse.numel())
     res = {}
-    for name, fn, plain, products, n_bytes in (
+    for name, fn, core, plain, products, n_bytes, part in (
             ("flash_gqa_fwd", lambda: fl.flash_gqa_fwd(q, k, v, causal),
-             lambda: fl.flash_gqa_fwd_ref(q, k, v, causal), 2, n_bytes_f),
+             lambda: core_fwd(q, k, v, causal, "template"),
+             lambda: fl.flash_gqa_fwd_ref(q, k, v, causal), 2, n_bytes_f,
+             "fwd"),
             ("flash_gqa_bwd",
              lambda: fl.flash_gqa_bwd(q, k, v, out, lse, g, causal),
+             lambda: core_bwd(q, k, v, out, lse, g, causal, "template"),
              lambda: fl.flash_gqa_bwd_ref(q, k, v, out, lse, g, causal), 5,
-             n_bytes_b)):
+             n_bytes_b, "bwd")):
         flops = flash_flops(bb, t, t, h, d, causal, products)
-        t_ops, t_bytes = flops / PEAK_FP32_FLOPS, n_bytes / PEAK_BYTES_PER_S
-        # CUDA events around back-to-back calls: a kernel outlasts its
-        # call's host dispatch, so the queue never drains (the profiler
-        # dropped launches here late in a long run)
+        # device time by queued_ms, in turns with the CUDA-core template:
+        # template, kernel, kernel, template
+        t1, k1, k2, t2 = (queued_ms(f, iters=20) for f in (core, fn, fn,
+                                                          core))
+        ms, core_ms = (k1 + k2) / 2, (t1 + t2) / 2
+        form = min(sdpa, key=lambda f: sdpa[f][f"{part}_ms"])
         res[name] = dict(
-            ms=time_ms(fn, iters=20), plain_ms=time_ms(plain, iters=3),
-            bound_ms=max(t_ops, t_bytes) * 1e3,
-            bound_by="operations" if t_ops >= t_bytes else "bytes",
-            tf32_bound_ms=max(flops / PEAK_TF32_FLOPS, t_bytes) * 1e3,
-            gflop=flops / 1e9, max_abs_err=err_f if products == 2
-            else err_b, shape=list(shape))
-    res["flash_gqa_fwd"]["library_ms"] = time_ms(
-        lambda: F.scaled_dot_product_attention(qt, *sdpa_kv, **kw), iters=20)
-    res["flash_gqa_bwd"]["library_ms"] = time_ms(
-        lambda: torch.autograd.grad(o_lib, leaves, gt, retain_graph=True),
-        iters=20)
-    res["flash_gqa_bwd"]["library_fwd_bwd_ms"] = time_ms(sdpa_fwd_bwd,
-                                                         iters=20)
-    del o_lib
-    for name, r in res.items():
-        what = ("forward" if name == "flash_gqa_fwd" else
-                "backward (autograd.grad of a stored forward); forward + "
-                f"backward {r['library_fwd_bwd_ms']:.4f}")
-        print(f"kernel {name} [{shape}]: kernel_ms {r['ms']:.4f} plain_ms "
-              f"{r['plain_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
-              f"({r['bound_by']}, fp32 67 TFLOP/s; TF32 tensor cores "
+            ms=ms, cuda_core_ms=core_ms, speedup=core_ms / ms,
+            call_ms=time_ms(fn, iters=20), plain_ms=time_ms(plain, iters=3),
+            **attention_bounds(flops, n_bytes), gflop=flops / 1e9,
+            max_abs_err=err_f if products == 2 else err_b,
+            shape=list(shape),
+            library_ms=sdpa[form][f"{part}_ms"],
+            library_note=(f"scaled_dot_product_attention fp32 "
+                          + ("forward" if part == "fwd" else
+                             "backward alone (autograd.grad of a stored "
+                             "forward)")
+                          + f", the faster form: {form} "
+                          f"({sdpa[form]['backend']})"),
+            library_forms={f: {"backend": r["backend"],
+                               "ms": r[f"{part}_ms"]}
+                           for f, r in sdpa.items()},
+            kernels_ms={k_: round(v_, 5) for k_, v_ in
+                        device_kernels_ms(fn, iters=20).items()})
+        if part == "bwd":
+            res[name]["library_fwd_bwd_ms"] = min(
+                r["fwd_bwd_ms"] for r in sdpa.values())
+        r = res[name]
+        print(f"kernel {name} [{shape}]: kernel_ms {ms:.4f} (device, "
+              f"flash_f32_tc.cu; per call with host dispatch "
+              f"{r['call_ms']:.4f}) the CUDA-core template (flash_gqa.cu) "
+              f"{core_ms:.4f}, {r['speedup']:.2f}x the kernel's time; "
+              f"plain_ms {r['plain_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
+              f"({r['bound_by']}, 3xTF32 165 TFLOP/s; fp32 67 TFLOP/s "
+              f"{r['fp32_bound_ms']:.4f}; one TF32 product 495 TFLOP/s "
               f"{r['tf32_bound_ms']:.4f}) {r['gflop']:.3f} GFLOP; "
-              f"library_ms {r['library_ms']:.4f} (scaled_dot_product_"
-              f"attention {what}, fp32, {lib_note})", flush=True)
+              f"library_ms {r['library_ms']:.4f} ({r['library_note']}); "
+              f"by kernel {r['kernels_ms']}", flush=True)
+    slow = {n: r["speedup"] for n, r in res.items()
+            if r["speedup"] < F32_TC_SPEEDUP_FLOOR}
+    if slow:
+        raise AssertionError(f"K9/K10 fp32 at {list(shape)}: only {slow}x "
+                             "faster than the CUDA-core template (floor "
+                             f"{F32_TC_SPEEDUP_FLOOR}x)")
     return res
 
 
@@ -2690,19 +2783,27 @@ def lm_kernel_entries(qgemm: dict, flash: dict, lm: dict) -> list:
             bound_by=k["bound_by"], library_ms=k["library_ms"],
             **{f: k[f] for f in ("library_note", "shapes", "plain_shape",
                                  "small_ms", "tf32_bound_ms", "shape",
-                                 "upper_bound_ms", "library_fwd_bwd_ms")
+                                 "upper_bound_ms", "library_fwd_bwd_ms",
+                                 "fp32_bound_ms", "cuda_core_ms", "speedup",
+                                 "call_ms", "library_forms", "kernels_ms")
                if f in k},
             parity=k.get("parity", f"within atol {FLASH_ATOL} (out, LSE) "
                                    f"and {FLASH_GRAD_ATOL} (gradients) of "
-                                   "the plain version in every case")))
+                                   "the plain version in every case; two "
+                                   "launches bitwise equal"),
+            **({"cuda_core_note": "flash_gqa.cu's fp32 CUDA-core template "
+                                  "(flash_gqa.core_launchers), timed in "
+                                  "turns with the kernel"}
+               if "cuda_core_ms" in k else {})))
     return out
 
 
 def mha_phase(device) -> dict:
     """Phase 11a: K11 (and the bf16 and head_dim 128 arms of K9/K10)
     against the plain versions over the cases, then K11 timed at the bf16
-    LM's shape and at head_dim 128 beside its plain version, its bound and
-    SDPA."""
+    LM's shape (bf16 and fp32) and at head_dim 128 in turns with the
+    CUDA-core template it replaces, beside its plain version, its bound
+    and SDPA."""
     import torch
     import torch.nn.functional as F
 
@@ -2767,7 +2868,9 @@ def mha_phase(device) -> dict:
     print(f"kernel flash_mha: bf16 forward at Tq = 200, Tk = 256 (D 64, "
           f"128; causal and not) within {ragged:.3f} of the tolerance",
           flush=True)
-    tc = tc_build_report()
+    tc = build_report("flash_mha_tc")
+    f32tc = build_report("flash_f32_tc")
+    core_fwd, core_bwd = fl.core_launchers()
 
     res = {}
     for shape, dt in (((b0, t0, t0, h0, h0, d0), b16),
@@ -2783,57 +2886,59 @@ def mha_phase(device) -> dict:
         o_lib = F.scaled_dot_product_attention(*leaves, **kw)
         es = q.element_size()
         n_elem = q.numel()
-        peak, rate = ((PEAK_FP32_FLOPS, "fp32 67 TFLOP/s")
-                      if dt == f32 else
-                      (PEAK_BF16_FLOPS, "bf16 tensor cores 989 TFLOP/s"))
+        rate = ("3xTF32 tensor cores 165 TFLOP/s" if dt == f32 else
+                "bf16 tensor cores 989 TFLOP/s")
         tag = f"{str(dt).split('.')[-1]} D={d}"
         for name, fn, plain, lib, template, products, n_bytes in (
                 ("flash_mha_fwd", lambda: fm.flash_mha_fwd(q, k, v, True),
                  lambda: fm.flash_mha_fwd_ref(q, k, v, True),
                  lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw),
-                 lambda: fl.flash_gqa_fwd(q, k, v, True),
+                 lambda: core_fwd(q, k, v, True, "template"),
                  2, es * 4 * n_elem + 4 * lse.numel()),
                 ("flash_mha_bwd",
                  lambda: fm.flash_mha_bwd(q, k, v, out, lse, g, True),
                  lambda: fm.flash_mha_bwd_ref(q, k, v, out, lse, g, True),
                  lambda: torch.autograd.grad(o_lib, leaves, gt,
                                              retain_graph=True),
-                 lambda: fl.flash_gqa_bwd(q, k, v, out, lse, g, True),
+                 lambda: core_bwd(q, k, v, out, lse, g, True, "template"),
                  5, es * 8 * n_elem + 4 * lse.numel())):
             flops = flash_flops(b, tq, tk, h, d, True, products)
-            t_ops, t_bytes = flops / peak, n_bytes / PEAK_BYTES_PER_S
+            if dt == f32:
+                bounds = attention_bounds(flops, n_bytes)
+            else:
+                t_ops = flops / PEAK_BF16_FLOPS
+                t_bytes = n_bytes / PEAK_BYTES_PER_S
+                bounds = dict(bound_ms=max(t_ops, t_bytes) * 1e3,
+                              bound_by="operations" if t_ops >= t_bytes
+                              else "bytes")
             # device time: at these sizes back-to-back calls are
             # host-bound, and CUDA events around them read the host's
-            # dispatch; the profiler drops records in a long run
-            if dt == b16:
-                # the CUDA-core template it replaces, in turns with it:
-                # template, kernel, kernel, template
-                t1, k1, k2, t2 = (queued_ms(f, iters=20)
-                                  for f in (template, fn, fn, template))
-                ms, core = (k1 + k2) / 2, (t1 + t2) / 2
-            else:
-                ms, core = queued_ms(fn, iters=20), None
+            # dispatch; the profiler drops records in a long run.  The
+            # CUDA-core template it replaces (flash_gqa.cu at rep = 1), in
+            # turns with it: template, kernel, kernel, template
+            t1, k1, k2, t2 = (queued_ms(f, iters=20)
+                              for f in (template, fn, fn, template))
+            ms, core = (k1 + k2) / 2, (t1 + t2) / 2
             r = dict(ms=ms, call_ms=time_ms(fn, iters=20),
                      plain_ms=time_ms(plain, iters=3),
-                     library_ms=queued_ms(lib, iters=20),
-                     bound_ms=max(t_ops, t_bytes) * 1e3,
-                     bound_by="operations" if t_ops >= t_bytes else "bytes",
+                     library_ms=queued_ms(lib, iters=20), **bounds,
                      rate=rate, gflop=flops / 1e9, shape=list(shape),
                      dtype=str(dt).split(".")[-1],
                      source=("cpd_tpu_torch/csrc/flash_mha_tc.cu"
                              if dt == b16 else
-                             "cpd_tpu_torch/csrc/flash_gqa.cu"),
+                             "cpd_tpu_torch/csrc/flash_f32_tc.cu"),
+                     cuda_core_ms=core, speedup=core / ms,
                      kernels_ms={k_: round(v_, 5) for k_, v_ in
                                  device_kernels_ms(fn, iters=20).items()})
             r["vs_library"] = r["ms"] / r["library_ms"]
-            if core is not None:
-                r.update(cuda_core_ms=core, speedup=core / ms)
             res.setdefault(name, {})[tag] = r
             what = ("forward" if name == "flash_mha_fwd" else
                     "backward alone: autograd.grad of a stored forward")
             vs = (f"; the CUDA-core template (flash_gqa.cu, rep = 1) "
-                  f"{core:.4f} ms, {r['speedup']:.2f}x the kernel's time"
-                  if core is not None else "")
+                  f"{core:.4f} ms, {r['speedup']:.2f}x the kernel's time")
+            if dt == f32:
+                vs += (f"; fp32 67 TFLOP/s {r['fp32_bound_ms']:.4f}, one "
+                       f"TF32 product 495 TFLOP/s {r['tf32_bound_ms']:.4f}")
             print(f"kernel {name} [{tag}, {list(shape)} causal, "
                   f"{r['source'].split('/')[-1]}]: kernel_ms {ms:.4f} "
                   f"(device; per call with host dispatch "
@@ -2853,33 +2958,51 @@ def mha_phase(device) -> dict:
             "fwd_err" if name == "flash_mha_fwd" else "bwd_err"]
     res["gqa_bf16"] = worst[("flash_gqa", "bfloat16")]
     res["tc_build"] = tc
-    main = f"bfloat16 D={d0}"
-    slow = {n: res[n][main]["speedup"] for n in MHA_KERNELS
-            if res[n][main]["speedup"] < TC_SPEEDUP_FLOOR}
+    res["f32tc_build"] = f32tc
+    slow = {(n, tag): res[n][tag]["speedup"] for n in MHA_KERNELS
+            for tag, floor in ((f"bfloat16 D={d0}", TC_SPEEDUP_FLOOR),
+                               (f"float32 D={d0}", F32_TC_SPEEDUP_FLOOR))
+            if res[n][tag]["speedup"] < floor}
     if slow:
-        raise AssertionError(f"K11's tensor-core kernels at {main}: only "
-                             f"{slow}x faster than the CUDA-core template "
-                             f"(floor {TC_SPEEDUP_FLOOR}x)")
+        raise AssertionError(f"K11's tensor-core kernels: only {slow}x "
+                             "faster than the CUDA-core template (floors: "
+                             f"bf16 {TC_SPEEDUP_FLOOR}x, fp32 "
+                             f"{F32_TC_SPEEDUP_FLOOR}x)")
     return res
 
 
-def tc_build_report() -> dict:
+# the tensor-core attention libraries: their typed loader, the extern "C"
+# function that gives a kernel's dynamic shared memory, and how many
+# kernels each builds (3 kinds x 3 head dims; flash_f32_tc adds the GQA
+# rep sum)
+TC_LIBRARIES = {"flash_mha_tc": ("cpd_tpu_torch.ops.flash_mha", "tc_library",
+                                 "flash_tc_smem_bytes", 9),
+                "flash_f32_tc": ("cpd_tpu_torch.ops.flash_gqa",
+                                 "f32tc_library", "flash_f32tc_smem_bytes",
+                                 10)}
+
+
+def build_report(name: str) -> dict:
     """Registers and spill bytes (``-Xptxas -v``) and dynamic shared
-    memory of each kernel of ``flash_mha_tc``, printed and returned."""
+    memory of each kernel of the tensor-core library ``name``, printed
+    and returned; flash_f32_tc must build with no spills."""
+    import importlib
     import re
 
     from cpd_tpu_torch.ops.build import build_log
-    from cpd_tpu_torch.ops.flash_mha import tc_library
 
-    lib = tc_library()
+    module, loader, smem_fn, count = TC_LIBRARIES[name]
+    smem = getattr(getattr(importlib.import_module(module), loader)(),
+                   smem_fn)
     out, entry = {}, None
-    for line in build_log("flash_mha_tc").splitlines():
-        m = re.search(r"Compiling entry function '\w*?(fwd|dq|dkv)_kernel"
-                      r"ILi(\d+)E", line)
+    for line in build_log(name).splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            entry = f"{m[1]}_kernel<{m[2]}>"
-            out[entry] = dict(smem_bytes=lib.flash_tc_smem_bytes(
-                ("fwd", "dq", "dkv").index(m[1]), int(m[2])))
+            k = re.search(r"(fwd|dq|dkv)_kernelILi(\d+)E", m[1])
+            entry = (f"{k[1]}_kernel<{k[2]}>" if k else
+                     re.search(r"\d([a-z_]+_kernel)E", m[1])[1])
+            out[entry] = dict(smem_bytes=smem(("fwd", "dq", "dkv").index(
+                k[1]), int(k[2])) if k else 0)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -2889,14 +3012,18 @@ def tc_build_report() -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m and entry:
             out[entry]["registers"] = int(m[1])
-    if len(out) != 9:
-        raise AssertionError(f"flash_mha_tc's build log names {sorted(out)}"
-                             ", not the 9 kernels (3 kinds x 3 head dims)")
-    print("kernel flash_mha_tc build: " + "; ".join(
+    if len(out) != count:
+        raise AssertionError(f"{name}'s build log names {sorted(out)}, not "
+                             f"its {count} kernels")
+    print(f"kernel {name} build: " + "; ".join(
         f"{e}: {r.get('registers')} registers, spills "
         f"{r.get('spill_stores')}/{r.get('spill_loads')} bytes "
         f"(stores/loads), {r['smem_bytes']} bytes of shared memory"
         for e, r in sorted(out.items())), flush=True)
+    spilled = {e: r.get("spill_stores") for e, r in out.items()
+               if r.get("spill_stores") or r.get("spill_loads")}
+    if name == "flash_f32_tc" and spilled:
+        raise AssertionError(f"{name} spills registers: {spilled}")
     return out
 
 
@@ -3082,13 +3209,16 @@ def mha_kernel_entries(mha: dict, lm: dict) -> list:
             rate=k["rate"], shape=k["shape"], dtype=k["dtype"],
             cuda_core_ms=k["cuda_core_ms"], speedup=k["speedup"],
             vs_library=k["vs_library"],
-            cuda_core_note="the CUDA-core template this kernel replaces in "
-                           "bf16 (cpd_tpu_torch/csrc/flash_gqa.cu at "
-                           "rep = 1), timed in turns with it",
-            fp32_source="cpd_tpu_torch/csrc/flash_gqa.cu",
+            cuda_core_note="the CUDA-core template these kernels replace "
+                           "(cpd_tpu_torch/csrc/flash_gqa.cu at rep = 1), "
+                           "timed in turns with each arm",
+            fp32_source="cpd_tpu_torch/csrc/flash_f32_tc.cu",
             build={e: r for e, r in mha["tc_build"].items()
                    if e.startswith("fwd" if name == "flash_mha_fwd"
                                    else "d")},
+            fp32_build={e: r for e, r in mha["f32tc_build"].items()
+                        if e.startswith("fwd" if name == "flash_mha_fwd"
+                                        else ("d", "rep"))},
             library_note="torch.nn.functional.scaled_dot_product_attention"
                          + (" forward" if name == "flash_mha_fwd" else
                             " backward alone (autograd.grad of a stored "
@@ -3096,7 +3226,8 @@ def mha_kernel_entries(mha: dict, lm: dict) -> list:
             call_ms=k["call_ms"], kernels_ms=k["kernels_ms"],
             arms={tag: {f: r[f] for f in ("ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms", "source",
-                                          "cuda_core_ms", "speedup")
+                                          "cuda_core_ms", "speedup", "rate",
+                                          "fp32_bound_ms", "tf32_bound_ms")
                         if f in r}
                   for tag, r in mha[name].items()
                   if isinstance(r, dict) and "ms" in r and tag != main},
@@ -3135,7 +3266,7 @@ def main() -> int:
     build_all()
     print(f"build: all kernels in {now() - t0:.1f} s", flush=True)
     for name in ("serve_attn", "quantize", "qgemm", "flash_gqa",
-                 "flash_mha_tc"):
+                 "flash_mha_tc", "flash_f32_tc"):
         for line in build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}", flush=True)

@@ -2,6 +2,11 @@
 // log-sum-exp, and the backward as a dq kernel and a dk/dv kernel, for
 // fp32 or bf16 elements and head_dim 32, 64 or 128, accumulating in fp32.
 //
+// Its bf16 arm is K9/K10's bf16 kernel (ops/flash_gqa.py).  Its fp32 arm
+// no longer runs on any path: fp32 K9, K10 and K11 run on the 3xTF32
+// tensor-core kernels of flash_f32_tc.cu, and this arm stays as the
+// yardstick they are timed against (ops.flash_gqa.core_launchers).
+//
 // Replaces three TPU kernels:
 //   K9  cpd_tpu/ops/flash_gqa.py _flash_gqa_fwd_call (:151; body
 //       _flash_gqa_kernel :64)
@@ -14,9 +19,8 @@
 //   K11 cpd_tpu/ops/attention.py:116 _flash_attention, the stock Pallas
 //       TPU kernel jax.experimental.pallas.ops.tpu.flash_attention (its
 //       forward :388-477 and its own backward, dkv :796-938, dq
-//       :1146-1261): the same function at rep = 1 (MHA), launched by
-//       ops/flash_mha.py in fp32; its bf16 calls run on the tensor cores
-//       in flash_mha_tc.cu
+//       :1146-1261): the same function at rep = 1 (MHA), which runs in
+//       bf16 on flash_mha_tc.cu and in fp32 on flash_f32_tc.cu
 // with q (B, Tq, H, D), k/v (B, Tk, H_kv, D) unexpanded (kv head g serves
 // query heads g*rep .. g*rep + rep - 1).  Logits, softmax and every
 // product accumulate in fp32; with bf16 elements the TPU kernels' roundings
@@ -40,7 +44,8 @@
 // fp32 arithmetic, so they move half the bytes at the same bound; the
 // bf16 tensor cores (989 TFLOP/s) bound them 15x lower, which K11's bf16
 // calls reach through flash_mha_tc.cu (mma.sync bf16 tiles); K9/K10's
-// bf16 arm stays here.
+// bf16 arm stays here.  fp32 products on the tensor cores, 3xTF32 at 165
+// TFLOP/s, are flash_f32_tc.cu's.
 //
 // Design.  A CTA of 256 threads (16 x 16) owns a 64-row tile: the
 // forward and dq a (b, head, 64 queries) tile walking the key blocks,

@@ -7,9 +7,10 @@
 // _flash_attention runs: the stock Pallas TPU kernel
 // jax.experimental.pallas.ops.tpu.flash_attention (its forward :388-477
 // and its own backward, dkv :796-938, dq :1146-1261), launched by
-// ops/flash_mha.py for every bf16 CUDA call.  Its fp32 arm stays on
-// flash_gqa.cu's CUDA-core templates at rep = 1 (TF32 would break its
-// 1e-5 tolerance against the plain version).
+// ops/flash_mha.py for every bf16 CUDA call.  Its fp32 arm runs on
+// flash_f32_tc.cu's 3xTF32 tensor-core kernels at rep = 1 (one TF32
+// product would break its 1e-5 tolerance against the plain version;
+// three do not).
 //
 // What it computes: the stock kernel's roundings, as the plain versions
 // flash_mha_fwd_ref / flash_mha_bwd_ref encode them.

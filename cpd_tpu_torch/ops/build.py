@@ -27,7 +27,8 @@ _CSRC = os.path.join(_PKG, "csrc")
 # kernel name -> source file under csrc/
 KERNEL_SOURCES = {"serve_attn": "serve_attn.cu", "quantize": "quantize.cu",
                   "qgemm": "qgemm.cu", "flash_gqa": "flash_gqa.cu",
-                  "flash_mha_tc": "flash_mha_tc.cu"}
+                  "flash_mha_tc": "flash_mha_tc.cu",
+                  "flash_f32_tc": "flash_f32_tc.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -25,10 +25,10 @@ p to fp32 round-off.  In fp32 every rounding is the identity.
   take the plain versions; CUDA tensors launch hand-written kernels
   (head_dim 32, 64 or 128) or raise: bf16 the tensor-core kernels of
   ``csrc/flash_mha_tc.cu`` (`mma.sync` bf16 tiles, fp32 accumulators),
-  fp32 the CUDA-core templates of ``csrc/flash_gqa.cu`` at rep = 1
-  (`launchers`).  ``flash_mha_fwd.launches`` counts forward launches,
-  ``flash_mha_bwd.launches`` backward calls (each launches a dq and a
-  dk/dv kernel);
+  fp32 the 3xTF32 tensor-core kernels of ``csrc/flash_f32_tc.cu`` at
+  rep = 1 (`launchers`).  ``flash_mha_fwd.launches`` counts forward
+  launches, ``flash_mha_bwd.launches`` backward calls (each launches a dq
+  and a dk/dv kernel);
 * `flash_mha(q, k, v, causal)` — the differentiable function: saves
   (q, k, v, out, lse) and always runs K11's own backward, as the stock
   kernel brings its own VJP.
@@ -47,8 +47,9 @@ import ctypes
 import numpy as np
 import torch
 
-from .flash_gqa import (_delta, _dims, _launch_bwd, _launch_fwd, _on_card,
-                        _raise_on, _rounded, _scale)
+from .flash_gqa import (_delta, _dims, _f32tc_bwd, _f32tc_fwd, _on_card,
+                        _raise_on, _rounded, _scale, _tc_args,
+                        _typed_library)
 
 __all__ = ["flash_mha", "flash_mha_fwd", "flash_mha_bwd",
            "flash_mha_fwd_ref", "flash_mha_bwd_ref", "launchers",
@@ -152,25 +153,7 @@ def flash_mha_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def tc_library():
     """The loaded ``flash_mha_tc`` library (built at first use), typed."""
-    from .build import load_library
-
-    lib = load_library("flash_mha_tc")
-    if not getattr(lib, "_cpd_typed", False):
-        for name, (restype, argtypes) in TC_SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.restype, fn.argtypes = restype, argtypes
-        lib._cpd_typed = True
-    return lib
-
-
-def _tc_args(what: str, *xs: torch.Tensor) -> tuple:
-    """Contiguous ``xs`` whose data the kernels' 16-byte copies can read."""
-    xs = tuple(x.contiguous() for x in xs)
-    for x in xs:
-        if x.data_ptr() % 16:
-            raise ValueError(f"{what}: a tensor's data is not 16-byte "
-                             "aligned, as the kernel's copies need")
-    return xs
+    return _typed_library("flash_mha_tc", TC_SIGNATURES)
 
 
 def _tc_fwd(q, k, v, causal, what) -> tuple:
@@ -215,10 +198,10 @@ def _tc_bwd(q, k, v, out, lse, dout, causal, what) -> tuple:
 def launchers(dtype: torch.dtype) -> tuple:
     """``(forward, backward)`` launch functions of a CUDA element type:
     bf16 on the tensor-core kernels of ``flash_mha_tc.cu``, fp32 on the
-    CUDA-core templates of ``flash_gqa.cu`` at rep = 1."""
+    3xTF32 tensor-core kernels of ``flash_f32_tc.cu`` at rep = 1."""
     if dtype == torch.bfloat16:
         return _tc_fwd, _tc_bwd
-    return _launch_fwd, _launch_bwd
+    return _f32tc_fwd, _f32tc_bwd
 
 
 def flash_mha_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

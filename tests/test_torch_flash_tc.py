@@ -14,7 +14,7 @@ The kernels run only on the card, so what can be held here is held here:
 * the C interface parsed from the source against the ctypes signatures
   the wrapper sets, and the build registry;
 * the wrappers' choice of library by element type (bf16: the tensor-core
-  kernels; fp32: the CUDA-core templates of ``flash_gqa.cu``).
+  kernels; fp32: the 3xTF32 tensor-core kernels of ``flash_f32_tc.cu``).
 
 The ``cuda``-marked tests hold the kernels against the plain version on
 the card and check that two launches are bitwise equal.
@@ -212,12 +212,12 @@ def test_build_registry_names_the_source():
 
 
 @pytest.mark.parametrize("dtype, library", [(torch.bfloat16, "tc"),
-                                            (torch.float32, "core")])
+                                            (torch.float32, "f32tc")])
 def test_cuda_calls_launch_the_library_of_their_dtype(monkeypatch, dtype,
                                                       library):
-    """A CUDA call of ``dtype`` goes to the tensor-core kernels (bf16) or
-    the CUDA-core templates at rep = 1 (fp32), once per call, counted;
-    the launchers are stood in for, since the CPU has no card."""
+    """A CUDA call of ``dtype`` goes to the bf16 tensor-core kernels or
+    the 3xTF32 tensor-core kernels at rep = 1 (fp32), once per call,
+    counted; the launchers are stood in for, since the CPU has no card."""
     calls = []
 
     def record(lib, ref):
@@ -229,10 +229,10 @@ def test_cuda_calls_launch_the_library_of_their_dtype(monkeypatch, dtype,
     monkeypatch.setattr(tfm, "_on_card", lambda *a, **k: True)
     monkeypatch.setattr(tfm, "_tc_fwd", record("tc", tfm.flash_mha_fwd_ref))
     monkeypatch.setattr(tfm, "_tc_bwd", record("tc", tfm.flash_mha_bwd_ref))
-    monkeypatch.setattr(tfm, "_launch_fwd",
-                        record("core", tfm.flash_mha_fwd_ref))
-    monkeypatch.setattr(tfm, "_launch_bwd",
-                        record("core", tfm.flash_mha_bwd_ref))
+    monkeypatch.setattr(tfm, "_f32tc_fwd",
+                        record("f32tc", tfm.flash_mha_fwd_ref))
+    monkeypatch.setattr(tfm, "_f32tc_bwd",
+                        record("f32tc", tfm.flash_mha_bwd_ref))
     _, (q, k, v, g) = _inputs((1, 128, 128, 2, 32), seed=3)
     q, k, v, g = (x.to(dtype) for x in (q, k, v, g))
     fwd0, bwd0 = tfm.flash_mha_fwd.launches, tfm.flash_mha_bwd.launches
