@@ -75,14 +75,22 @@ Phases; any failure exits non-zero:
    with the key; (e) 3 iterations of the trainer CLI with
    ``--mode ring --use_APS --grad_exp 4 --grad_man 3 --block-scale
    --block-size 128``;
-10. the GQA transformer LM: (a) hold K8 (`qgemm_faithful`) against its
-   plain scan, BITWISE, over the formats (4,3), (5,2), (5,10), (8,23) and
-   (2,1) at odd shapes and a K past two 32-step chunks, and at e4m3 at
-   the slice's four FFN GEMM shapes whole, with rows that saturate, land
-   on the format's subnormals and carry past the max; time it at those
-   four shapes against the bound of the SASS instructions its Kahan step
-   issues on the busiest pipe along the paths the timed data takes, its
-   plain version at a small shape; (b) hold K9 and K10 against their
+10. the GQA transformer LM: (a) hold K8 (`qgemm_faithful`, the tile
+   kernel of ``qgemm.cu``) against its plain scan, BITWISE, over the
+   formats (4,3), (5,2), (5,10), (8,23) and (2,1) at odd shapes, shapes
+   past its 32 x 32 output tile and a K past two 32-step chunks, and at
+   e4m3 at the slice's four FFN GEMM shapes whole, with rows that
+   saturate, land on the format's subnormals and carry past the max; the
+   cast probe: K8 at K = 1 on all 2^32 fp32 bit patterns against the
+   plain scan for each of those formats, and on boundary patterns
+   (`qgemm.cast_probe_patterns`) for all 192 formats against the plain
+   scan and the generic kernel it replaced; its registers and spills (no
+   spills); time it at the four shapes in turns with the generic kernel
+   (``qgemm.generic_launcher``), gated at ``QGEMM_SPEEDUP_FLOOR`` at the
+   main shape and no slower at any, against the bound of the SASS
+   instructions its Kahan step issues on the busiest pipe along the
+   paths the timed data takes, its plain version at a small shape; (b)
+   hold K9 and K10 against their
    plain versions within ``FLASH_ATOL`` / ``FLASH_GRAD_ATOL`` at the
    slice's shape (B=4, T=1024, H=8, H_kv=2, D=64, causal), with pad keys
    (T=1000), at rep 1 and 2, non-causal and at head_dim 32, two launches
@@ -94,14 +102,20 @@ Phases; any failure exits non-zero:
    product's 495 beside it), and `scaled_dot_product_attention` with
    ``enable_gqa`` and with K/V expanded to the query heads (each form's
    backend pinned and printed; forward, backward alone and forward +
-   backward); (c) train the LM at full width (vocab 32000, d_model 512, 4
-   layers, 8 heads, 2 kv heads, d_ff 2048; seeded random weights) on a
-   `LocalMesh` of 2 ranks, 4 sequences of 1024 random tokens each, 3
-   steps of ``--attn-impl flash --flash-bwd pallas``, the e4m3 faithful
-   FFN and the APS (5,2) faithful reduce: finite losses, step 0 within
-   ``LM_LOSS_BAND`` of ln 32000, launches as designed (per rank-step 24
+   backward); time K9/K10's bf16 arm (``flash_gqa.cu``'s CUDA-core
+   templates) at the same shape beside its bf16 tensor-core bound and
+   SDPA bf16 on K/V expanded, with no gate; (c) train the LM at full
+   width (vocab 32000, d_model 512, 4 layers, 8 heads, 2 kv heads, d_ff
+   2048; seeded random weights) on a `LocalMesh` of 2 ranks, 4
+   sequences of 1024 random tokens each, 3 steps of ``--attn-impl flash
+   --flash-bwd pallas``, the e4m3 faithful FFN and the APS (5,2)
+   faithful reduce: finite losses, step 0 within ``LM_LOSS_BAND`` of ln
+   32000, launches as designed (per rank-step 24
    K8, 4 K9, 4 K10), tokens/s, the step's split and each kernel's device
-   ms; then 2 steps with the fast FFN; (d) one full-width step at ffn
+   ms; K8 on the operands of one rank-step's 24 calls (the forward's
+   activations, the backward's gradients) bitwise the generic kernel and
+   timed in turns with it, the rank-step's sum each way; then 2 steps
+   with the fast FFN; (d) one full-width step at ffn
    (8,23) through K9/K10 and through their plain versions: loss and
    weights within ``LM_LOSS_RTOL`` / ``LM_WEIGHT_ATOL``; (e) a small
    faithful LM, 2 steps through every kernel and through every plain
@@ -232,6 +246,29 @@ LM_SMALL = dict(vocab_size=1024, d_model=128, n_layers=1, n_heads=4,
                 n_kv_heads=2, d_ff=512)
 LM_SMALL_TRAIN = dict(world=2, per_rank_batch=2, seq=128, steps=2)
 QGEMM_FORMATS = ((4, 3), (5, 2), (5, 10), (8, 23), (2, 1))
+# phase 10a: K8's tile kernel against the generic kernel it replaced
+# (qgemm.generic_launcher), timed in turns at the slice's four FFN GEMM
+# shapes on the same card: at least this many times faster at the main
+# shape (4096,512)x(512,2048), and at none slower
+QGEMM_SPEEDUP_FLOOR = 1.5
+# K8's cast probe: every fp32 bit pattern through K8 at K = 1 for each of
+# QGEMM_FORMATS, in chunks of this many; and cast_probe_patterns' boundary
+# patterns, this many mantissas per exponent field and sign (2^20 per
+# format), for all 192 formats
+QGEMM_PROBE_CHUNK = 1 << 27
+QGEMM_PROBE_PER_EXPONENT = 2048
+# the SASS names of K8's tile kernel on the main path (eb <= 7, mb <= 21:
+# exmy::cast_fadd) and of the kept generic kernel
+QGEMM_TILE_KERNEL = "qgemm_tile_kernelINS_8FaddCast"
+QGEMM_GENERIC_KERNEL = "qgemm_generic_kernel"
+# K8's bound counts the work of a quantized Kahan step, (ALU-pipe, fp32)
+# instructions, at the fewest the tile kernel's formulation needs: five
+# casts of exmy::cast_fadd's 6 ALU and 5 fp32 instructions and the step's
+# five fp32 ops; a zero step (the product casts to a zero, s and c are
+# ±0) its product's cast and its five fp32 ops, since every later cast
+# passes ±0 through.  No loads, moves, loop control, flags or votes.
+QGEMM_STEP_WORK = (30, 30)
+QGEMM_ZERO_STEP_WORK = (6, 10)
 # step 0's loss lies within this of ln(vocab): at init the tied head's
 # logits are ~N(0, 1) (unit-variance LayerNorm output against N(0, 1/d)
 # embeddings), so the expected CE is ~ln V + 1/2
@@ -356,7 +393,7 @@ KERNEL_NAMES = {"quantize_cast": "cast_kernel<false, false>",
                 "hop_pack_blocked_sr": "blocked_wire_kernel<false, true",
                 "digest_rows": "digest_rows_kernel",
                 "sr_bits": "sr_bits_kernel",
-                "qgemm_faithful": "::qgemm_kernel(",
+                "qgemm_faithful": "::qgemm_tile_kernel<",
                 # fp32 on flash_f32_tc.cu, bf16 on flash_gqa.cu
                 "flash_gqa_fwd": ("::f32tc_fwd_kernel<", "::fwd_kernel<"),
                 "flash_gqa_bwd": ("::f32tc_dq_kernel<", "::f32tc_dkv_kernel<",
@@ -754,32 +791,41 @@ def sass_per_element(library: str, kernel: str) -> dict:
     return _by_pipe(ops, stores)
 
 
+def _inner_loops(loops: list) -> list:
+    """The loop bodies that hold no other loop."""
+    return [(s, e) for s, e in loops
+            if not any(s < s2 <= e and (s2, e2) != (s, e)
+                       for s2, e2 in loops)]
+
+
 def _inner_loop(loops: list) -> tuple:
     """The largest loop body that holds no other loop."""
-    inner = [(s, e) for s, e in loops
-             if not any(s < s2 <= e and (s2, e2) != (s, e)
-                        for s2, e2 in loops)]
+    inner = _inner_loops(loops)
     if not inner:
         raise AssertionError("no loop in the SASS")
     return max(inner, key=lambda se: se[1] - se[0])
 
 
-def sass_inner_loop(library: str, kernel: str, steps: int = 1) -> dict:
-    """Instructions of one pass of ``kernel``'s innermost loop (its whole
-    body, every branch arm included), by pipe, divided by the ``steps``
-    that one pass computes."""
-    insns, loops, _ = _sass_loops(library, kernel)
-    start, end = _inner_loop(loops)
-    return _by_pipe(insns[start:end + 1], steps)
+def _fast_loop(insns: list, loops: list) -> tuple:
+    """The largest innermost loop whose body converts nothing: K8's tile
+    loop, and not the fallback loop beside it, whose reference cast
+    rebuilds its value with an integer-to-float conversion."""
+    fast = [(s, e) for s, e in _inner_loops(loops)
+            if not any(_sass_pipe(op) == "cvt" for op in insns[s:e + 1])]
+    if not fast:
+        raise AssertionError("no innermost loop without conversions")
+    return max(fast, key=lambda se: se[1] - se[0])
 
 
-def loop_paths(insns: list, loops: list, branches: dict) -> dict:
+def loop_paths(insns: list, loop: tuple, branches: dict,
+               steps: int = 1) -> dict:
     """The shortest and the longest path of instructions one pass of the
-    innermost loop issues, from its first instruction to its closing
-    branch, through the forward branches of its body (a guarded branch
-    may fall through, an unguarded one may not), by pipe: ``short`` and
-    ``long``."""
-    start, end = _inner_loop(loops)
+    loop ``loop`` (first index, closing branch) issues, from its first
+    instruction to its closing branch, through the forward branches of its
+    body (a guarded branch may fall through, an unguarded one may not; an
+    edge that leaves the body is no path of a pass), by pipe and divided
+    by the ``steps`` one pass computes: ``short`` and ``long``."""
+    start, end = loop
     best = {}
     for i in range(end, start - 1, -1):
         if i == end:
@@ -790,13 +836,14 @@ def loop_paths(insns: list, loops: list, branches: dict) -> dict:
                            target if i in branches else None)
                if j is not None and i < j <= end]
         if not nxt:
-            raise AssertionError(f"SASS {i}: a branch out of the loop body")
+            raise AssertionError(f"SASS {i}: no path on to the loop's "
+                                 "closing branch")
         lo = min((best[j][0] for j in nxt), key=lambda c: c[0])
         hi = max((best[j][1] for j in nxt), key=lambda c: c[0])
         best[i] = ((lo[0] + 1, [i] + lo[1]), (hi[0] + 1, [i] + hi[1]))
     (_, short), (_, long) = best[start]
-    return {"short": _by_pipe([insns[i] for i in short], 1),
-            "long": _by_pipe([insns[i] for i in long], 1)}
+    return {"short": _by_pipe([insns[i] for i in short], steps),
+            "long": _by_pipe([insns[i] for i in long], steps)}
 
 
 def pipe_bound_s(per_element: dict, n: int) -> tuple:
@@ -2082,73 +2129,166 @@ def lm_gemm_shapes() -> list:
     return [(t, d, ff), (t, ff, d), (d, t, ff), (ff, t, d)]
 
 
-def cast_census(pairs, exp_bits: int, man_bits: int) -> list:
-    """For each (a, b) of ``pairs`` (equal M, equal N, any K), over the
-    cast inputs of the quantized Kahan scan of a @ b (five per step):
-    the share that reaches the cast's rounding arm (not ±0, Inf, NaN, an
-    fp32 subnormal or past the format's range: the values that take its
-    early exits, `csrc/exmy.cuh` cast_with), and the share of those whose
-    target is subnormal.  One scan runs the pairs batched, each counted
-    up to its own K."""
+def step_census(pairs, exp_bits: int, man_bits: int) -> list:
+    """For each (a, b) of ``pairs`` (64 x K and K x 64, any K), over the
+    quantized Kahan scan of a @ b as K8's tile kernel runs it (a warp
+    holds rows {2w, 2w + 1, 2w + 16, 2w + 17} x the 32 columns of a 32 x
+    32 tile; a step is a zero step for the warp where the bound max|a| *
+    max|b| of its products is below ``tiny`` and every s and c has been
+    ±0 since the 32-step chunk began): the share of warp-steps that cast
+    (are not zero steps), the share of warp-steps that would fall back to
+    the reference cast (an input at or past the format's saturation, Inf,
+    NaN, or an fp32-subnormal product), and the shares of the cast inputs
+    (five per step) that are ±0, have a normal target, have a subnormal
+    target, or are special (those the fallback takes).  One plain scan
+    runs the pairs batched, each counted up to its own K."""
     import torch
 
+    from cpd_tpu_torch.ops.qgemm import cast_constants
     from cpd_tpu_torch.quant.numerics import cast_body
 
     dev = pairs[0][0].device
     ks = [a.shape[1] for a, _ in pairs]
-    m, n, kmax = pairs[0][0].shape[0], pairs[0][1].shape[1], max(ks)
-    a_all = torch.zeros((len(pairs), m, kmax), device=dev)
-    b_all = torch.zeros((len(pairs), kmax, n), device=dev)
+    n_p, kmax = len(pairs), max(ks)
+    a_all = torch.zeros((n_p, 64, kmax), device=dev)
+    b_all = torch.zeros((n_p, kmax, 64), device=dev)
     for i, (a, b) in enumerate(pairs):
         a_all[i, :, :ks[i]], b_all[i, :ks[i]] = a, b
     live = torch.tensor([[k < ki for ki in ks] for k in range(kmax)],
                         device=dev)
-    bias, top = (1 << (exp_bits - 1)) - 1, (1 << exp_bits) - 1
-    rounds = torch.zeros(len(pairs), dtype=torch.int64, device=dev)
-    subnormal = torch.zeros_like(rounds)
+    f = cast_constants(exp_bits, man_bits)
+    tiny = torch.tensor(f.tiny, dtype=torch.int32).view(torch.float32)
+    # the zero-step bound per (sample, warp, k): warps in (tile row, w,
+    # tile column) order
+    amax = a_all.abs().reshape(n_p, 2, 2, 8, 2, kmax).amax((2, 4))
+    bmax = b_all.abs().reshape(n_p, kmax, 2, 32).amax(-1)
+    bound = (amax[:, :, :, None, :] * bmax.transpose(1, 2)[:, None, None]
+             ).reshape(n_p, 32, kmax) < tiny.to(dev)
 
-    def q(x, on):
-        e = (x.view(torch.int32) >> 23) & 0xFF
-        new_e = e - 127 + bias
-        r = (e != 0) & (e != 0xFF) & (new_e < top)
-        rounds.add_(r.sum((1, 2)) * on)
-        subnormal.add_((r & (new_e <= 0)).sum((1, 2)) * on)
+    def warps(x):
+        # (P, 64, 64) -> (P, 32 warps, 128 outputs)
+        x = x.reshape(n_p, 2, 2, 8, 2, 2, 32).permute(0, 1, 3, 5, 2, 4, 6)
+        return x.reshape(n_p, 32, 128)
+
+    def q(x, flags, on, product=False):
+        u = x.view(torch.int32) & 0x7FFFFFFF
+        special = (u >= f.sat) | ((u > 0) & (u < 0x800000))
+        kinds.add_(torch.stack([
+            u == 0, (u >= f.norm) & (u < f.sat),
+            (u >= 0x800000) & (u < f.norm), special]).sum((2, 3)).T
+            * on[:, None])
+        flags |= warps(u >= f.sat).any(-1)
+        if product:
+            flags |= warps(special & (u < 0x800000)).any(-1)
         return cast_body(x, exp_bits, man_bits)
 
-    s = torch.zeros((len(pairs), m, n), device=dev)
+    s = torch.zeros((n_p, 64, 64), device=dev)
     c = torch.zeros_like(s)
+    casts = torch.zeros(n_p, dtype=torch.int64, device=dev)
+    falls = torch.zeros_like(casts)
+    kinds = torch.zeros((n_p, 4), dtype=torch.int64, device=dev)
     for k in range(kmax):
+        if k % 32 == 0:
+            zeros = warps(((s.view(torch.int32) | c.view(torch.int32))
+                           & 0x7FFFFFFF) == 0).all(-1)
+        casting = ~(zeros & bound[:, :, k])
+        zeros &= ~casting
+        flags = torch.zeros((n_p, 32), dtype=torch.bool, device=dev)
         on = live[k]
-        tmp = q(a_all[:, :, k, None] * b_all[:, None, k, :], on)
-        y = q(tmp - c, on)
-        t = q(s + y, on)
-        c = q(q(t - s, on) - y, on)
+        tmp = q(a_all[:, :, k, None] * b_all[:, None, k, :], flags, on,
+                product=True)
+        y = q(tmp - c, flags, on)
+        t = q(s + y, flags, on)
+        c = q(q(t - s, flags, on) - y, flags, on)
         s = t
-    return [(r / (5 * m * n * ki), sub / max(r, 1)) for r, sub, ki in
-            zip(rounds.tolist(), subnormal.tolist(), ks)]
+        casts.add_(casting.sum(-1) * on)
+        falls.add_((flags & casting).sum(-1) * on)
+    return [(n / (32 * ki), m / (32 * ki),
+             dict(zip(("zero", "normal_target", "subnormal_target",
+                       "special"), (v / (5 * 64 * 64 * ki) for v in kd))))
+            for n, m, kd, ki in zip(casts.tolist(), falls.tolist(),
+                                    kinds.tolist(), ks)]
 
 
-def qgemm_phase(device) -> dict:
-    """Phase 10a: K8 against its plain version, bitwise, over the formats
-    at odd shapes, and at e4m3 at the slice's four FFN GEMM shapes
-    whole; timed at those shapes over input sets that together hold
-    twice the L2.  Its bound counts the SASS instructions of one Kahan
-    step on the busiest pipe along the paths this data takes: between
-    the shortest path through the loop body (every cast takes an early
-    exit) and the longest (every cast rounds), in the share of cast
-    inputs that round (`cast_census` on 64 x 64 outputs of the timed
-    inputs; a rounding cast is counted along the longest arm).  The
-    whole body's count, special-value arms included, is printed beside
-    it as an upper figure."""
+def cast_probe(device) -> dict:
+    """K8's cast probe at K = 1, a = [[1]] (1 * x is exact: the first cast
+    sees x itself): every fp32 bit pattern, chunk by chunk, against the
+    plain scan for each of QGEMM_FORMATS; and `cast_probe_patterns` (every
+    exponent field x both signs x mantissas at the format's round, sticky
+    and lsb boundaries) for all 192 formats against the plain scan and the
+    kept generic kernel, bitwise."""
     import time
 
     import torch
 
     from cpd_tpu_torch.ops import qgemm as qg
 
+    one = torch.ones((1, 1), device=device)
+    t0 = time.perf_counter()
+    for fmt in QGEMM_FORMATS:
+        for lo in range(-2**31, 2**31, QGEMM_PROBE_CHUNK):
+            x = torch.arange(lo, lo + QGEMM_PROBE_CHUNK, dtype=torch.int32,
+                             device=device).view(torch.float32)[None]
+            if not same_bits(qg.qgemm_faithful(one, x, *fmt),
+                             qg.qgemm_faithful_ref(one, x, *fmt)):
+                raise AssertionError(f"K8 {fmt} at K = 1 differs from the "
+                                     f"plain scan on the bit patterns "
+                                     f"{lo & 0xFFFFFFFF:#010x} + "
+                                     f"[0, {QGEMM_PROBE_CHUNK})")
+    all_s = time.perf_counter() - t0
+    generic = qg.generic_launcher()
+    t0, n = time.perf_counter(), 0
+    for eb in range(1, 9):
+        for mb in range(24):
+            bits = qg.cast_probe_patterns(eb, mb, QGEMM_PROBE_PER_EXPONENT)
+            x = torch.from_numpy(bits.view("int32")).to(device).view(
+                torch.float32)[None]
+            got = qg.qgemm_faithful(one, x, eb, mb)
+            if not (same_bits(got, generic(one, x, eb, mb))
+                    and same_bits(got, qg.qgemm_faithful_ref(one, x, eb,
+                                                             mb))):
+                raise AssertionError(f"K8 ({eb}, {mb}) at K = 1 differs "
+                                     "from the kept kernel or the plain "
+                                     "scan on the boundary patterns")
+            n += bits.size
+    out = dict(all_patterns_formats=[list(f) for f in QGEMM_FORMATS],
+               all_patterns_s=all_s, boundary_formats=192,
+               boundary_per_format=n // 192,
+               boundary_s=time.perf_counter() - t0)
+    print(f"kernel qgemm cast probe: K8 at K = 1 bitwise the plain scan on "
+          f"all 2^32 fp32 bit patterns for {list(QGEMM_FORMATS)} "
+          f"({all_s:.1f} s), and bitwise the plain scan and the kept "
+          f"generic kernel on {n // 192} boundary patterns for each of "
+          f"the 192 formats ({out['boundary_s']:.1f} s)", flush=True)
+    return out
+
+
+def qgemm_phase(device) -> dict:
+    """Phase 10a: K8 against its plain version, bitwise, over the formats
+    at odd shapes, and at e4m3 at the slice's four FFN GEMM shapes whole;
+    the cast probe (`cast_probe`); timed at those shapes in turns with the
+    generic kernel it replaced (kept, kernel, kernel, kept) over input
+    sets that together hold twice the L2, gated at QGEMM_SPEEDUP_FLOOR.
+    Its bound counts the work (QGEMM_STEP_WORK, QGEMM_ZERO_STEP_WORK) on
+    the busiest pipe, in the share of warp-steps that cast on this data
+    (`step_census` on 64 x 64 outputs of the timed inputs).  Beside it,
+    as issue efficiency only, the same figure from the SASS instructions
+    of the tile kernel's own loop (one pass: 4 steps, the thread's 2 x 2
+    outputs) along the paths this data takes: between the shortest path
+    (a zero step) and the longest (a step that casts); the cast has no
+    branch by kind of value, so its shortest and longest paths coincide.
+    The generic kernel's counts are printed too."""
+    import time
+
+    import torch
+
+    from cpd_tpu_torch.ops import qgemm as qg
+    from cpd_tpu_torch.ops.build import build_log
+
     gen = torch.Generator(device=device).manual_seed(96)
     fmt = LM_PATH["ffn_exp"], LM_PATH["ffn_man"]
-    checks = [(f, [(37, 29, 23), (300, 129, 200)]) for f in QGEMM_FORMATS]
+    checks = [(f, [(37, 29, 23), (300, 129, 200), (70, 65, 33)])
+              for f in QGEMM_FORMATS]
     checks.append((fmt, lm_gemm_shapes()))
     cases, t0 = 0, time.perf_counter()
     for f, shapes in checks:
@@ -2165,75 +2305,135 @@ def qgemm_phase(device) -> dict:
           f"the slice's GEMMs {lm_gemm_shapes()}; saturating, subnormal "
           f"and carrying rows) in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    probe = cast_probe(device)
 
-    whole = sass_inner_loop("qgemm", "qgemm_kernel")
-    paths = loop_paths(*_sass_loops("qgemm", "qgemm_kernel"))
+    build = {}
+    for line in build_log("qgemm").splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "registers" in line:
+            build.setdefault(name, {})["registers"] = int(
+                line.split("Used ")[1].split()[0])
+        elif "spill" in line:
+            spills = [int(w) for w in line.split() if w.isdigit()]
+            build.setdefault(name, {})["spill_bytes"] = spills[1] + spills[2]
+    tile = {k: v for k, v in build.items() if "qgemm_tile_kernel" in k}
+    if len(tile) != 2 or any(v.get("spill_bytes", 1) for v in tile.values()):
+        raise AssertionError(f"qgemm build: tile kernels {tile} (both "
+                             "instantiations, no spills expected)")
+    print("kernel qgemm build: " + "; ".join(
+        f"{'FaddCast' if 'FaddCast' in k else 'RefCast'} "
+        f"{v['registers']} registers, {v['spill_bytes']} spill bytes"
+        for k, v in tile.items()), flush=True)
+
+    insns, loops, branches = _sass_loops("qgemm", QGEMM_TILE_KERNEL)
+    loop = _fast_loop(insns, loops)
+    whole = _by_pipe(insns[loop[0]:loop[1] + 1], 4)
+    paths = loop_paths(insns, loop, branches, steps=4)
     lo, hi = paths["short"], paths["long"]
+    g_insns, g_loops, g_branches = _sass_loops("qgemm", QGEMM_GENERIC_KERNEL)
+    g_loop = _inner_loop(g_loops)
+    old = dict(loop_paths(g_insns, g_loop, g_branches),
+               whole=_by_pipe(g_insns[g_loop[0]:g_loop[1] + 1], 1))
+    generic = qg.generic_launcher()
     shapes, samples = {}, []
-    rows = min([64] + [m for m, _, _ in lm_gemm_shapes()])
-    cols = min([64] + [n for _, _, n in lm_gemm_shapes()])
     for m, k, n in lm_gemm_shapes():
         set_bytes = 4 * (m * k + k * n)
         sets = [(torch.randn((m, k), generator=gen, device=device),
                  torch.randn((k, n), generator=gen, device=device) / k**0.5)
                 for _ in range(-(-2 * l2_bytes() // set_bytes) + 1)]
-        # ~50 ms a launch: CUDA events around back-to-back launches give
-        # the device time, host dispatch hidden behind the kernels
-        ms = time_ms(rotating(sets, lambda x, y: qg.qgemm_faithful(
-            x, y, *fmt)), iters=len(sets), warmup=1)
+        if not same_bits(qg.qgemm_faithful(*sets[0], *fmt),
+                         generic(*sets[0], *fmt)):
+            raise AssertionError(f"qgemm {fmt} {m}x{k}x{n}: the kernel "
+                                 "differs from the kept generic kernel")
+        # ~13-50 ms a launch: CUDA events around back-to-back launches
+        # give the device time, host dispatch hidden behind the kernels;
+        # in turns with the kept kernel: kept, kernel, kernel, kept
+        kern = rotating(sets, lambda x, y: qg.qgemm_faithful(x, y, *fmt))
+        kept = rotating(sets, lambda x, y: generic(x, y, *fmt))
+        t1, k1, k2, t2 = (time_ms(f, iters=len(sets), warmup=1)
+                          for f in (kept, kern, kern, kept))
         a, b = sets[0]
-        samples.append((a[:rows], b[:, :cols]))
+        samples.append((a[:64], b[:, :64]))
         shapes[f"{m}x{k}x{n}"] = dict(
-            ms=ms, input_sets=len(sets),
-            upper_bound_ms=pipe_bound_s(whole, m * n * k)[0] * 1e3,
-            longest_path_bound_ms=pipe_bound_s(hi, m * n * k)[0] * 1e3,
+            ms=(k1 + k2) / 2, generic_ms=(t1 + t2) / 2,
+            speedup=(t1 + t2) / (k1 + k2), input_sets=len(sets),
+            loop_body_ms=pipe_bound_s(whole, m * n * k)[0] * 1e3,
             matmul_ms=time_ms(lambda: a @ b, iters=20))
         del sets
     t0 = time.perf_counter()
-    census = cast_census(samples, *fmt)
+    census = step_census(samples, *fmt)
     census_s = time.perf_counter() - t0
-    for (m, k, n), (share, sub) in zip(lm_gemm_shapes(), census):
+    for (m, k, n), (share, fall, kinds) in zip(lm_gemm_shapes(), census):
+        alu, fp32 = (z + share * (w - z) for w, z in zip(
+            QGEMM_STEP_WORK, QGEMM_ZERO_STEP_WORK))
+        work = {"alu": alu, "imad": 0.0, "alu+imad": alu, "fp32": fp32,
+                "cvt": 0.0, "issue": alu + fp32}
+        t_ops, pipe = pipe_bound_s(work, m * n * k)
+        t_bytes = 4 * (m * k + k * n + m * n) / PEAK_BYTES_PER_S
         per = {p: lo[p] + share * (hi[p] - lo[p])
                for p in ("alu", "imad", "alu+imad", "fp32", "cvt", "issue")}
-        t_ops, pipe = pipe_bound_s(per, m * n * k)
-        t_bytes = 4 * (m * k + k * n + m * n) / PEAK_BYTES_PER_S
-        shapes[f"{m}x{k}x{n}"].update(
-            rounding_share=share, subnormal_share=sub,
+        r = shapes[f"{m}x{k}x{n}"]
+        r.update(
+            cast_share=share, fallback_share=fall,
+            cast_inputs={kd: round(v, 4) for kd, v in kinds.items()},
+            work_per_step={p: round(v, 3) for p, v in work.items()},
             per_step={p: round(v, 3) for p, v in per.items()},
             bound_ms=max(t_ops, t_bytes) * 1e3,
             bound_by="operations" if t_ops >= t_bytes else "bytes",
-            bound_pipe=pipe)
+            bound_pipe=pipe,
+            sass_bound_ms=pipe_bound_s(per, m * n * k)[0] * 1e3)
+        r["issue_efficiency"] = r["sass_bound_ms"] / r["ms"]
     small = (256, 64, 256)
     a = torch.randn(small[:2], generator=gen, device=device)
     b = torch.randn(small[1:], generator=gen, device=device)
-    out = dict(cases=cases, shapes=shapes, sass_loop_body=whole,
-               sass_paths=paths, census_s=census_s, plain_shape=small,
+    out = dict(cases=cases, probe=probe, build=tile, shapes=shapes,
+               sass_loop_body=whole, sass_paths=paths,
+               generic_sass=old, census_s=census_s, plain_shape=small,
                plain_ms=time_ms(lambda: qg.qgemm_faithful_ref(a, b, *fmt),
                                 iters=2, warmup=1),
                small_ms=time_ms(lambda: qg.qgemm_faithful(a, b, *fmt),
                                 iters=20))
     main = shapes["x".join(map(str, lm_gemm_shapes()[0]))]
     out.update(ms=main["ms"], bound_ms=main["bound_ms"],
-               bound_by=main["bound_by"],
-               upper_bound_ms=main["upper_bound_ms"])
+               bound_by=main["bound_by"], generic_ms=main["generic_ms"],
+               speedup=main["speedup"], sass_bound_ms=main["sass_bound_ms"],
+               issue_efficiency=main["issue_efficiency"])
     for shape, r in shapes.items():
         print(f"kernel qgemm_faithful [{fmt}, {shape}, {r['input_sets']} "
-              f"input sets]: kernel_ms {r['ms']:.3f} bound_ms "
-              f"{r['bound_ms']:.3f} ({r['bound_by']}, {r['bound_pipe']} "
-              f"pipe; {r['rounding_share']:.4f} of cast inputs round, "
-              f"{r['subnormal_share']:.4f} of those to a subnormal; per "
-              f"step {json.dumps(r['per_step'])}; longest path "
-              f"{r['longest_path_bound_ms']:.3f}, whole loop body "
-              f"{r['upper_bound_ms']:.3f}); library_ms null "
+              f"input sets]: kernel_ms {r['ms']:.3f} the kept generic "
+              f"kernel {r['generic_ms']:.3f}, {r['speedup']:.2f}x the "
+              f"kernel's time; bound_ms {r['bound_ms']:.3f} "
+              f"({r['bound_by']}, {r['bound_pipe']} pipe; the work per "
+              f"Kahan step {json.dumps(r['work_per_step'])}, "
+              f"{r['cast_share']:.4f} of warp-steps cast, "
+              f"{r['fallback_share']:.4f} of warp-steps fall back to the "
+              f"reference cast; cast inputs by kind "
+              f"{json.dumps(r['cast_inputs'])}); issue efficiency only: "
+              f"this build's SASS per Kahan step "
+              f"{json.dumps(r['per_step'])} (the cast has no branch by "
+              f"kind of value, so its shortest and longest paths "
+              f"coincide) take {r['sass_bound_ms']:.3f} ms, "
+              f"{r['issue_efficiency']:.3f} of the kernel's time, the "
+              f"whole loop body {r['loop_body_ms']:.3f}; library_ms null "
               f"({NO_LIBRARY_QGEMM}: torch.matmul fp32 "
               f"{r['matmul_ms']:.4f})", flush=True)
     brief = {k: {p: v for p, v in d.items() if p != "opcodes"}
              for k, d in dict(paths, whole=whole).items()}
+    brief_old = {k: {p: v for p, v in d.items() if p != "opcodes"}
+                 for k, d in old.items()}
     print(f"kernel qgemm_faithful [{fmt}, {small}]: kernel_ms "
           f"{out['small_ms']:.4f} plain_ms {out['plain_ms']:.3f}; census "
-          f"{census_s:.1f} s; SASS "
-          f"instructions per Kahan step {json.dumps(brief)}; longest path "
+          f"{census_s:.1f} s; SASS instructions per Kahan step of the tile "
+          f"kernel {json.dumps(brief)}, of the kept generic kernel "
+          f"{json.dumps(brief_old)}; the tile loop's longest path "
           f"opcodes {json.dumps(paths['long']['opcodes'])}", flush=True)
+    slow = {k: r["speedup"] for k, r in shapes.items()
+            if r["speedup"] < (QGEMM_SPEEDUP_FLOOR if r is main else 1.0)}
+    if slow:
+        raise AssertionError(f"K8 at {fmt}: only {slow}x the kept generic "
+                             f"kernel's speed (floor {QGEMM_SPEEDUP_FLOOR}x "
+                             "at the main shape, 1x at the others)")
     return out
 
 
@@ -2473,6 +2673,45 @@ def flash_phase(device) -> dict:
               f"{r['tf32_bound_ms']:.4f}) {r['gflop']:.3f} GFLOP; "
               f"library_ms {r['library_ms']:.4f} ({r['library_note']}); "
               f"by kernel {r['kernels_ms']}", flush=True)
+    # K9/K10's bf16 arm (flash_gqa.cu's CUDA-core templates: the GQA LM's
+    # --bf16 path) at the same shape, timed with no gate, beside its bf16
+    # tensor-core bound and SDPA bf16 on K/V expanded to the query heads
+    qb, kb, vb, gb = (x.to(torch.bfloat16) for x in (q, k, v, g))
+    ob, lb = fl.flash_gqa_fwd(qb, kb, vb, causal)
+    qbt, gbt = (x.transpose(1, 2).contiguous() for x in (qb, gb))
+    kvb = tuple(x.transpose(1, 2).repeat_interleave(h // hkv, dim=1)
+                .contiguous() for x in (kb, vb))
+    leaves = (qbt.detach().requires_grad_(),
+              *(x.detach().requires_grad_() for x in kvb))
+    o_lib = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    backend = sdpa_backend(lambda: F.scaled_dot_product_attention(
+        qbt, *kvb, is_causal=True))
+    for name, fn, lib_fn, products, n_bytes in (
+            ("flash_gqa_fwd", lambda: fl.flash_gqa_fwd(qb, kb, vb, causal),
+             lambda: F.scaled_dot_product_attention(qbt, *kvb,
+                                                    is_causal=True),
+             2, 2 * (2 * qb.numel() + 2 * kb.numel()) + 4 * lb.numel()),
+            ("flash_gqa_bwd",
+             lambda: fl.flash_gqa_bwd(qb, kb, vb, ob, lb, gb, causal),
+             lambda: torch.autograd.grad(o_lib, leaves, gbt,
+                                         retain_graph=True),
+             5, 2 * (5 * qb.numel() + 4 * kb.numel()) + 8 * lb.numel())):
+        flops = flash_flops(bb, t, t, h, d, causal, products)
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, n_bytes / PEAK_BYTES_PER_S
+        r = res[name]["bf16"] = dict(
+            ms=queued_ms(fn, iters=20), bound_ms=max(t_ops, t_bytes) * 1e3,
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            library_ms=queued_ms(lib_fn, iters=20),
+            library_note=f"scaled_dot_product_attention bf16, K/V expanded "
+                         f"({backend}), " + ("forward" if products == 2
+                                             else "backward alone"),
+            source="cpd_tpu_torch/csrc/flash_gqa.cu")
+        print(f"kernel {name} bf16 [{list(shape)}]: kernel_ms "
+              f"{r['ms']:.4f} (device, flash_gqa.cu's CUDA-core template) "
+              f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}, bf16 tensor "
+              f"cores 989 TFLOP/s) library_ms {r['library_ms']:.4f} "
+              f"({r['library_note']}); no gate", flush=True)
+    del o_lib, leaves
     slow = {n: r["speedup"] for n, r in res.items()
             if r["speedup"] < F32_TC_SPEEDUP_FLOOR}
     if slow:
@@ -2580,6 +2819,88 @@ def lm_split(model, batch, world, device) -> dict:
     return dict(fwd_bwd_ms=(t1 - t0) * 1e3, reduce_ms=(t2 - t1) * 1e3)
 
 
+def lm_operands(model, batch, world, device) -> list:
+    """The (a, b) operands of rank 0's K8 calls in one step of the LM:
+    for each layer's wi and wo_mlp the forward, then the backward's grad_x
+    and grad_W (6 per layer), copied as they reach `qgemm_faithful`."""
+    from cpd_tpu_torch.ops import qgemm as qg
+    from cpd_tpu_torch.parallel.mesh import data_parallel_mesh
+    from cpd_tpu_torch.train import fp32_numerics
+    from cpd_tpu_torch.train.lm import as_tokens, lm_local_gradients
+
+    calls, kernel = [], qg.qgemm_faithful
+    per_rank = 6 * LM_MODEL["n_layers"]
+
+    def record(a, b, exp_bits, man_bits):
+        if len(calls) < per_rank:
+            calls.append((a.detach().contiguous().clone(),
+                           b.detach().contiguous().clone()))
+        return kernel(a, b, exp_bits, man_bits)
+
+    # the kernel counts its launches on the module's name, the recorder
+    record.launches = kernel.launches
+    qg.qgemm_faithful = record
+    try:
+        with fp32_numerics():
+            lm_local_gradients(model, *as_tokens(*batch, device),
+                               data_parallel_mesh(world, device))
+    finally:
+        qg.qgemm_faithful = kernel
+        kernel.launches = record.launches
+    return calls
+
+
+def lm_operand_check(model, batch, world, device) -> dict:
+    """K8 on the LM's own operands (`lm_operands`: one rank-step's 24
+    calls): the tile kernel against the kept generic kernel, bitwise, each
+    pair timed in turns (kept, kernel, kernel, kept) by CUDA events; the
+    rank-step's sums each way, forward and backward apart.  This is the
+    data-dependent figure: on the backward's gradients most products cast
+    to a signed zero while s and c are ±0, and the tile kernel takes those
+    steps as zero steps, its float ops without the casts."""
+    from cpd_tpu_torch.ops import qgemm as qg
+
+    fmt = LM_PATH["ffn_exp"], LM_PATH["ffn_man"]
+    generic = qg.generic_launcher()
+    calls = lm_operands(model, batch, world, device)
+    n_fwd = 2 * LM_MODEL["n_layers"]
+    rows = []
+    for i, (a, b) in enumerate(calls):
+        if not same_bits(qg.qgemm_faithful(a, b, *fmt),
+                         generic(a, b, *fmt)):
+            raise AssertionError(f"K8 on the LM's operand pair {i} "
+                                 f"{tuple(a.shape)}x{tuple(b.shape)}: the "
+                                 "kernel differs from the kept kernel")
+        t1, k1, k2, t2 = (time_ms(lambda f=f: f(a, b, *fmt), iters=2,
+                                  warmup=1)
+                          for f in (generic, qg.qgemm_faithful,
+                                    qg.qgemm_faithful, generic))
+        rows.append(dict(kind="forward" if i < n_fwd else "backward",
+                         shape=[*a.shape, b.shape[1]], ms=(k1 + k2) / 2,
+                         generic_ms=(t1 + t2) / 2))
+    out = dict(calls=len(rows), parity="bitwise the kept generic kernel "
+                                       "on every pair")
+    for kind in ("forward", "backward"):
+        part = [r for r in rows if r["kind"] == kind]
+        out[kind] = dict(calls=len(part), ms=sum(r["ms"] for r in part),
+                         generic_ms=sum(r["generic_ms"] for r in part))
+    out.update(ms=sum(r["ms"] for r in rows),
+               generic_ms=sum(r["generic_ms"] for r in rows),
+               per_call=[{k: (round(v, 4) if isinstance(v, float) else v)
+                          for k, v in r.items()} for r in rows])
+    out["speedup"] = out["generic_ms"] / out["ms"]
+    print(f"kernel qgemm_faithful on the LM's operands ({len(rows)} calls "
+          f"of one rank-step, {fmt}): bitwise the kept generic kernel; "
+          f"rank-step sum {out['ms']:.3f} ms (forward "
+          f"{out['forward']['ms']:.3f}, backward "
+          f"{out['backward']['ms']:.3f}) against the kept kernel's "
+          f"{out['generic_ms']:.3f} (forward "
+          f"{out['forward']['generic_ms']:.3f}, backward "
+          f"{out['backward']['generic_ms']:.3f}), {out['speedup']:.2f}x",
+          flush=True)
+    return out
+
+
 def lm_phase(device) -> dict:
     """Phase 10c-f: the LM slice end to end at full width through K8, K9
     and K10 (and a fast-FFN step), kernels vs plain versions at full
@@ -2632,6 +2953,7 @@ def lm_phase(device) -> dict:
         device_busy_ms=prof["device_busy_ms"],
         kernel_launches_profiled=prof["kernel_launches"])
     print("train lm: " + json.dumps(out), flush=True)
+    out["real_operands"] = lm_operand_check(model, batches[0], w, device)
 
     # the same step with the fast FFN: fp32 product and one K1 cast
     fast = lm_model(device, LM_TRAIN["seed"], **dict(LM_PATH,
@@ -2769,8 +3091,16 @@ def lm_kernel_entries(qgemm: dict, flash: dict, lm: dict) -> list:
     timed = {"qgemm_faithful": dict(
         qgemm, max_abs_err=0.0, library_ms=None,
         library_note=NO_LIBRARY_QGEMM,
-        parity="bitwise in every format and shape case, and on the small "
-               "LM's FFN GEMMs"), **flash}
+        generic_note="the kept generic kernel (qgemm.generic_launcher), "
+                     "timed in turns with the kernel",
+        real_operands={k: v for k, v in lm["real_operands"].items()
+                       if k != "per_call"},
+        parity="bitwise the plain scan in every format and shape case and "
+               "at K = 1 on all 2^32 fp32 bit patterns for each of "
+               f"{list(QGEMM_FORMATS)}; bitwise the plain scan and the "
+               "kept generic kernel on boundary patterns for all 192 "
+               "formats; bitwise the kept kernel on the LM's operands; "
+               "and on the small LM's FFN GEMMs"), **flash}
     out = []
     for name, (replaces, source) in LM_KERNELS.items():
         k = timed[name]
@@ -2783,9 +3113,12 @@ def lm_kernel_entries(qgemm: dict, flash: dict, lm: dict) -> list:
             bound_by=k["bound_by"], library_ms=k["library_ms"],
             **{f: k[f] for f in ("library_note", "shapes", "plain_shape",
                                  "small_ms", "tf32_bound_ms", "shape",
-                                 "upper_bound_ms", "library_fwd_bwd_ms",
+                                 "sass_bound_ms", "issue_efficiency",
+                                 "library_fwd_bwd_ms",
                                  "fp32_bound_ms", "cuda_core_ms", "speedup",
-                                 "call_ms", "library_forms", "kernels_ms")
+                                 "call_ms", "library_forms", "kernels_ms",
+                                 "bf16", "generic_ms", "probe", "build",
+                                 "real_operands")
                if f in k},
             parity=k.get("parity", f"within atol {FLASH_ATOL} (out, LSE) "
                                    f"and {FLASH_GRAD_ATOL} (gradients) of "

@@ -12,6 +12,10 @@
 //   * cast_sr       -- cast_body_sr: the same cast with the SR step
 //                      (both are cast_with, templated on the rounding,
 //                      as numerics._cast_core takes a round_fn);
+//   * cast_fadd     -- cast_body again, for eb <= 7 and mb <= 21, with
+//                      per-format constants (CastBits) computed on the
+//                      host: the fp32 adder's own alignment and rounding
+//                      (K8's inner loop);
 //   * sr_bits_at    -- prng.sr_bits_at: two threefry2x32 evaluations;
 //   * pack_code     -- pack_code: a cast output -> its code word;
 //   * unpack_code   -- unpack_code: a code word -> the cast's fp32 bits;
@@ -121,6 +125,57 @@ __device__ __forceinline__ float cast(float x, int eb, int mb) {
 __device__ __forceinline__ float cast_sr(float x, int eb, int mb,
                                          uint32_t r) {
   return cast_with(x, eb, mb, Sr{r});
+}
+
+// The per-format constants of cast_fadd and of K8's zero steps,
+// computed once per launch on the host (ops/qgemm.py cast_constants) and
+// passed by value; bias = 2^(eb-1) - 1 and shift = 23 - mb.
+struct CastBits {
+  uint32_t norm;     // (128 - bias) << 23: |x| at or above it has a
+                     // normal target (new_e >= 1)
+  uint32_t sat;      // (127 - bias + 2^eb - 1) << 23: |x| at or above it
+                     // saturates (new_e >= 2^eb - 1)
+  uint32_t tiny;     // max(128 - bias + shift - 24, 1) << 23: |x| below
+                     // it casts to a zero (the round bit lies above the
+                     // significand of a subnormal target)
+  float kmul;        // 1.5 * 2^shift: cast_fadd's rounding constant
+  int32_t exp_bits;
+  int32_t man_bits;
+  int32_t fadd;      // 1 where cast_fadd is exact: eb <= 7 and mb <= 21
+};
+
+// cast through the fp32 adder, for eb <= 7 and mb <= 21 (CastBits::fadd),
+// where one formula covers zeros, normal and subnormal targets, so that
+// lanes of a warp that hold different kinds of value take one path:
+//   ct = ±max(|x|, 2^(1 - bias)): a subnormal target (|x| < 2^(1 - bias))
+//        truncates to a multiple of T = 2^(-22 - bias), the format's
+//        subnormal spacing over 2^shift, in (x +rz ct) - ct, since
+//        |x| + 2^(1 - bias) lies in the binade whose ulp is T; a normal
+//        target adds x to itself there, exactly, and subtracts it again;
+//   m  = ±1.5 * 2^(max(e, 1 - bias) + shift), e the exponent of x:
+//        (xt + m) - m rounds xt to a multiple of the target's quantum
+//        q = 2^(max(e, 1 - bias) - mb) to nearest even, exactly, since
+//        |xt| <= 2^22 q (mb <= 21) keeps the sum in the binade of m whose
+//        ulp is q, and m / q is even;
+//   the sign ORed back: a negative input that rounds to 0 gives -0, and
+//        ±0 passes through.
+// Saturation, Inf and NaN (|x| >= sat) set `flag` and return garbage; so
+// does an fp32 subnormal input (it must give +0.0) where kSubnormalIn: a
+// caller whose inputs are sums of outputs of this cast, multiples of the
+// format's least subnormal 2^(1 - bias - mb) >= 2^-83, sees none.
+template <bool kSubnormalIn>
+__device__ __forceinline__ float cast_fadd(float x, const CastBits& f,
+                                           bool& flag) {
+  const uint32_t bits = __float_as_uint(x);
+  const uint32_t u = bits & 0x7FFFFFFFu;
+  flag |= u >= f.sat;
+  if (kSubnormalIn) flag |= u - 1u < 0x007FFFFFu;
+  const uint32_t ct = max(u, f.norm) | (bits & 0x80000000u);
+  const float m = __fmul_rn(__uint_as_float(ct & 0xFF800000u), f.kmul);
+  const float xt = __fsub_rn(__fadd_rz(x, __uint_as_float(ct)),
+                             __uint_as_float(ct));
+  const float r = __fsub_rn(__fadd_rn(xt, m), m);
+  return __uint_as_float(__float_as_uint(r) | (bits & 0x80000000u));
 }
 
 // threefry2x32 with 20 rounds (quant/prng.py, bitwise jax.random's):

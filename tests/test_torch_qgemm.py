@@ -10,8 +10,17 @@ one ulp of the format.  Inputs come from seeded numpy with magnitudes
 that keep every product |a·b| a normal fp32 number: XLA:CPU flushes
 subnormal products to zero (ROADMAP Queue C), the port and the card do
 not.  The K8 kernel itself needs the card: the ``cuda``-marked test
-holds it to its plain version.
+holds it to its plain version and to the generic kernel it replaced.
+Its cast through the fp32 adder (``exmy::cast_fadd``) is modelled here
+in numpy, from the constants the wrapper hands the kernel, and held
+bitwise to `cast_body` for every format it serves on inputs at every
+rounding boundary (``qgemm.cast_probe_patterns``, the card probe's
+patterns).
 """
+
+import ctypes
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -26,11 +35,14 @@ from cpd_tpu_torch.ops import qgemm as tqg
 from cpd_tpu_torch.quant import prng
 from cpd_tpu_torch.quant import quant_function as tqf
 from cpd_tpu_torch.quant import quant_module as tqm
-from cpd_tpu_torch.quant.numerics import max_finite
+from cpd_tpu_torch.quant.numerics import cast_body, max_finite
 
 FORMATS = [(4, 3), (5, 2), (8, 23), (5, 10), (2, 1)]
 # (M, K, N): odd tails, K = 1, and a K past the kernel's 32-step chunk
 SHAPES = [(37, 29, 23), (5, 33, 40), (1, 1, 1)]
+# past the tile kernel's 32 x 32 outputs in M and N, K past two chunks
+TILE_SHAPES = [(70, 65, 33), (33, 40, 70)]
+EXMY = os.path.join(os.path.dirname(tqg.__file__), "..", "csrc", "exmy.cuh")
 
 
 def _bitwise(want, got, msg=""):
@@ -228,15 +240,161 @@ def test_quant_linear_module():
     assert torch.equal(ql(x[0]), want[0])
 
 
+@pytest.mark.parametrize("fmt", [(4, 3), (5, 2), (2, 1), (8, 23)])
+def test_faithful_qgemm_tile_tails_bitwise_vs_jax(fmt):
+    """The plain scan == JAX qgemm(mode="faithful") at shapes that cut the
+    tile kernel's 32-output M and N tails and cross its 32-step K chunk
+    twice."""
+    rng = np.random.default_rng(10 + sum(fmt))
+    for m, k, n in TILE_SHAPES:
+        a, b = _operand(rng, (m, k), fmt), _operand(rng, (k, n), fmt)
+        _bitwise(jqf.qgemm(jnp.asarray(a), jnp.asarray(b), exp=fmt[0],
+                           man=fmt[1]),
+                 tqf.qgemm(torch.from_numpy(a), torch.from_numpy(b), *fmt),
+                 f"{fmt} {(m, k, n)}")
+
+
+def _u32(x):
+    return np.uint32(x)
+
+
+def _add_rz(x, c):
+    """fp32 x + c rounded toward zero (the card's __fadd_rz), through
+    float64: exact here but for addends far below c's ulp, where the
+    float64 error cannot cross an fp32 boundary either."""
+    exact = x.astype(np.float64) + c.astype(np.float64)
+    r = exact.astype(np.float32)
+    return np.where(np.abs(r.astype(np.float64)) > np.abs(exact),
+                    np.nextafter(r, np.float32(0)), r)
+
+
+def cast_fadd_model(bits, f):
+    """``exmy::cast_fadd<true>`` in numpy fp32 (round to nearest even):
+    ct = ±max(|x|, norm), xt = (x +rz ct) - ct, m = (ct's sign and
+    exponent) * kmul, r = (xt + m) - m, the sign ORed back; and the flag
+    (|x| >= sat, or an fp32 subnormal) where the kernel drops the result
+    and redoes the step with the reference cast."""
+    u = bits & _u32(0x7FFFFFFF)
+    sign = bits & _u32(0x80000000)
+    flag = (u >= _u32(f.sat)) | (u - _u32(1) < _u32(0x7FFFFF))
+    ct = np.maximum(u, _u32(f.norm)) | sign
+    ctf = ct.view(np.float32)
+    with np.errstate(over="ignore", invalid="ignore"):
+        m = (ct & _u32(0xFF800000)).view(np.float32) * np.float32(f.kmul)
+        xt = _add_rz(bits.view(np.float32), ctf) - ctf
+        r = (xt + m) - m
+    return r.view(np.uint32) | sign, flag
+
+
+@pytest.mark.parametrize("exp_bits", range(1, 9))
+def test_bit_pattern_casts_bitwise_vs_cast_body(exp_bits):
+    """For every man_bits, on 65536 patterns at the format's rounding
+    boundaries (`cast_probe_patterns`): below ``tiny`` (the kernel's zero
+    step) `cast_body` gives a zero, and within a binade above it not
+    always; where ``fadd`` (eb <= 7, mb <= 21) the numpy model of
+    cast_fadd, run from `cast_constants`, == `cast_body` bitwise on every
+    input it does not flag, and it flags exactly |x| >= sat and fp32
+    subnormals (other formats take the reference cast itself)."""
+    for man_bits in range(24):
+        f = tqg.cast_constants(exp_bits, man_bits)
+        bits = tqg.cast_probe_patterns(exp_bits, man_bits)
+        want = cast_body(torch.from_numpy(bits.view(np.int32)).view(
+            torch.float32), exp_bits, man_bits).view(torch.int32).numpy(
+            ).view(np.uint32)
+        fmt = (exp_bits, man_bits)
+        # below ``tiny`` every input casts to a zero: the kernel's zero
+        # step takes ±0 -> itself, fp32 subnormals -> +0.0, the rest ->
+        # the signed zero
+        u = bits & _u32(0x7FFFFFFF)
+        low = u < f.tiny
+        zero = np.where(u == 0, bits, np.where(u < 0x800000, _u32(0),
+                                               bits & _u32(0x80000000)))
+        np.testing.assert_array_equal(want[low], zero[low],
+                                      err_msg=f"tiny {fmt}")
+        assert f.tiny >= 0x800000 and (u[~low] >= f.tiny).all()
+        nonzero = (want & _u32(0x7FFFFFFF)) != 0
+        near = (u >> 23) - (f.tiny >> 23) <= 1
+        assert nonzero[near].any() or f.tiny == 0x800000, (
+            f"tiny {fmt}: nothing within a binade above it casts to "
+            "a nonzero")
+        assert f.fadd == (exp_bits <= 7 and man_bits <= 21)
+        if not f.fadd:
+            continue
+        got, flag = cast_fadd_model(bits, f)
+        np.testing.assert_array_equal(got[~flag], want[~flag],
+                                      err_msg=f"cast_fadd {fmt}")
+        u = bits & _u32(0x7FFFFFFF)
+        special = (u >= f.sat) | ((u > 0) & (u < 0x800000))
+        np.testing.assert_array_equal(flag, special)
+
+
+@pytest.mark.parametrize("fmt", [(4, 3), (2, 1), (5, 10), (7, 21)])
+def test_scan_feeds_no_subnormal_to_the_later_casts(fmt):
+    """cast_fadd<false> serves the step's four casts after the product:
+    their inputs (tmp - c, s + y, t - s, q(t - s) - y) are sums of cast
+    outputs, never fp32 subnormals, even where products are tiny or
+    subnormal; the plain scan's own values, recorded."""
+    rng = np.random.default_rng(sum(fmt))
+    a = (rng.standard_normal((16, 40)) * 2.0 ** rng.integers(
+        -70, 8, (16, 40))).astype(np.float32)
+    b = (rng.standard_normal((40, 16)) * 2.0 ** rng.integers(
+        -70, 8, (40, 16))).astype(np.float32)
+    at, bt = torch.from_numpy(a), torch.from_numpy(b)
+    s = torch.zeros((16, 16))
+    c = torch.zeros_like(s)
+    seen = []
+
+    def q(x, record=True):
+        if record:
+            seen.append(x.clone())
+        return cast_body(x, *fmt)
+
+    for k in range(40):
+        tmp = q(at[:, k, None] * bt[None, k, :], record=False)
+        y = q(tmp - c)
+        t = q(s + y)
+        c = q(q(t - s) - y)
+        s = t
+    u = torch.stack(seen).view(torch.int32) & 0x7FFFFFFF
+    assert bool(((u > 0) & (u < 0x800000)).any()) is False
+    products = (at[:, :, None] * bt[None]).view(torch.int32) & 0x7FFFFFFF
+    assert bool(((products > 0) & (products < 0x800000)).any())
+
+
+def test_cast_constants_struct_is_exmy_castbits():
+    """`qgemm.CastBits` (the ctypes struct the wrapper passes by value)
+    lists ``exmy::CastBits``'s fields in order with the same types, and
+    the launchers' C signatures have as many parameters as the argtypes
+    the wrapper sets."""
+    src = open(EXMY).read()
+    body = re.search(r"struct CastBits \{(.*?)\};", src, re.S).group(1)
+    fields = re.findall(r"^\s*(uint32_t|int32_t|float)\s+(\w+);", body, re.M)
+    ctype = {"uint32_t": ctypes.c_uint32, "int32_t": ctypes.c_int32,
+             "float": ctypes.c_float}
+    assert [(n, ctype[t]) for t, n in fields] == tqg.CastBits._fields_
+    cu = open(os.path.join(os.path.dirname(EXMY), "qgemm.cu")).read()
+    for name, n_args in (("qgemm_launch", 8), ("qgemm_generic_launch", 9)):
+        sig = re.search(rf'extern "C" int {name}\((.*?)\)', cu, re.S)
+        assert len(sig.group(1).split(",")) == n_args, name
+
+
+def test_generic_launcher_takes_cuda_tensors_only():
+    launch = tqg.generic_launcher()
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        launch(torch.ones((2, 3)), torch.ones((3, 2)), 4, 3)
+
+
 @pytest.mark.cuda
 def test_qgemm_kernel_bitwise_vs_plain_on_card():
-    """K8 on the card == its plain version, bitwise, over the formats and
-    the odd shapes, on inputs that saturate, carry and underflow."""
+    """K8 on the card == its plain version and == the generic kernel it
+    replaced, bitwise, over the formats and the odd and tile-cutting
+    shapes, on inputs that saturate, carry and underflow."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
     gen = torch.Generator(device="cuda").manual_seed(0)
+    generic = tqg.generic_launcher()
     for fmt in FORMATS:
-        for m, k, n in SHAPES + [(300, 129, 200)]:
+        for m, k, n in SHAPES + TILE_SHAPES + [(300, 129, 200)]:
             a = torch.randn((m, k), generator=gen, device="cuda") * 8
             b = torch.randn((k, n), generator=gen, device="cuda")
             got = tqg.qgemm_faithful(a, b, *fmt)
@@ -244,3 +402,6 @@ def test_qgemm_kernel_bitwise_vs_plain_on_card():
             want = tqg.qgemm_faithful_ref(a, b, *fmt)
             assert torch.equal(got.view(torch.int32),
                                want.view(torch.int32)), (fmt, m, k, n)
+            assert torch.equal(got.view(torch.int32),
+                               generic(a, b, *fmt).view(torch.int32)), (
+                "generic", fmt, m, k, n)
