@@ -102,9 +102,11 @@ Phases; any failure exits non-zero:
    product's 495 beside it), and `scaled_dot_product_attention` with
    ``enable_gqa`` and with K/V expanded to the query heads (each form's
    backend pinned and printed; forward, backward alone and forward +
-   backward); time K9/K10's bf16 arm (``flash_gqa.cu``'s CUDA-core
-   templates) at the same shape beside its bf16 tensor-core bound and
-   SDPA bf16 on K/V expanded, with no gate; (c) train the LM at full
+   backward); time K9/K10's bf16 arm (the tensor-core kernels of
+   ``flash_mha_tc.cu``) at the same shape in turns with ``flash_gqa.cu``'s
+   bf16 templates, which it must beat ``TC_SPEEDUP_FLOOR``-fold, beside
+   its plain version, its bf16 tensor-core bound and SDPA bf16 on K/V
+   expanded; (c) train the LM at full
    width (vocab 32000, d_model 512, 4 layers, 8 heads, 2 kv heads, d_ff
    2048; seeded random weights) on a `LocalMesh` of 2 ranks, 4
    sequences of 1024 random tokens each, 3 steps of ``--attn-impl flash
@@ -130,10 +132,12 @@ Phases; any failure exits non-zero:
    and not, at Tq != Tk either way and at the LM's shapes (fp32 within
    ``FLASH_ATOL`` / ``FLASH_GRAD_ATOL``, bf16 within ``BF16_RTOL`` /
    ``BF16_ATOL``), the
-   bf16 forward at a Tq that is not a multiple of its 64-row tile, two
-   launches bitwise equal in every case, and the bf16 and head_dim-128
-   arms of K9/K10; print both tensor-core libraries' registers, spills
-   and shared memory (``flash_f32_tc`` must not spill); time K11 at (4,
+   bf16 forward at a Tq that is not a multiple of its 64-row tile, and
+   K9/K10's bf16 arm over ``GQA_BF16_CASES`` (rep 1, 2, 4; head_dim 32,
+   64, 128; causal and not; pad keys; Tq != Tk either way with a ragged
+   Tq in the backward), two launches bitwise equal in every case; print
+   both tensor-core libraries' registers, spills and shared memory
+   (neither may spill); time K11 at (4,
    1024, 8, 64) in bf16 and fp32 and at (4, 1024, 4, 128) in bf16 beside
    its plain version, its bound, SDPA's forward and backward and, in
    turns, the CUDA-core template it replaces (``flash_gqa.cu`` at H_kv =
@@ -150,7 +154,12 @@ Phases; any failure exits non-zero:
    (losses within ``BENCH_LOSS_RTOL``); one ``remat`` step (16 K11
    forwards per rank-step, the same loss); tokens/s of the xla and
    chunked arms; (c) 2 iterations of the LM CLI with ``--bf16 --attn-impl
-   flash --remat`` at 2 layers;
+   flash --remat`` at 2 layers; (d) bench.py's GQA flash arm, the same LM
+   with 2 kv heads and ``flash_bwd="pallas"``, 3 steps through K9/K10's
+   bf16 kernels: finite losses, step 0 within ``LM_LOSS_BAND`` of ln
+   32000, 8 K9 and 8 K10 launches per rank-step, tokens/s, the step's
+   split, peak memory and K9/K10's device ms per step; the same steps
+   through the plain K9/K10 (losses within ``BENCH_LOSS_RTOL``);
 12. print one JSON line ``{"kernels": [...]}`` and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -324,13 +333,35 @@ BF16_RTOL = BF16_ATOL = 2e-2
 # the plain K11 steps against the kernel's: a bf16 rounding flipped by
 # round-off moves the loss well inside this
 BENCH_LOSS_RTOL = 1e-2
-# K11's bf16 tensor-core kernels against the CUDA-core template they
-# replace (flash_gqa.cu at rep = 1), timed in the same run on the same
-# card: at least this many times faster, forward and backward, at the
-# bf16 LM's shape
+# the bf16 tensor-core kernels (flash_mha_tc.cu) against the CUDA-core
+# template they replace (flash_gqa.cu's bf16 arm), timed in the same run
+# on the same card: at least this many times faster, forward and
+# backward, at the bf16 LMs' shapes of K11 (rep 1) and K9/K10 (rep 4)
 TC_SPEEDUP_FLOOR = 3.0
 MHA_KERNELS = {"flash_mha_fwd": "cpd_tpu/ops/attention.py:116",
                "flash_mha_bwd": "cpd_tpu/ops/attention.py:116"}
+# bench.py's GQA flash arm (bench.py:541-578): the bf16 LM above with 2 kv
+# heads through K9 and K10's own backward, on flash_mha_tc.cu
+GQA_PATH = dict(n_kv_heads=2, flash_bwd="pallas")
+GQA_BF16_KERNELS = {"flash_gqa_fwd": "cpd_tpu/ops/flash_gqa.py:151",
+                    "flash_gqa_bwd": "cpd_tpu/ops/flash_gqa.py:298"}
+# K9/K10 bf16 against their plain versions (phase 11a, two launches each,
+# bitwise equal): (B, Tq, Tk, H, H_kv, D, causal) -- the GQA LM's shape;
+# rep 1, 2, 4; head_dim 32, 64, 128, causal and not; pad keys (T = 1000);
+# Tq < Tk and Tq > Tk with ragged Tq in the backward; both below a tile
+GQA_BF16_CASES = [(4, 1024, 1024, 8, 2, 64, True),
+                  (2, 256, 256, 4, 4, 64, True), (2, 256, 256, 4, 2, 64, True),
+                  (2, 256, 256, 8, 2, 64, True),
+                  (2, 256, 256, 8, 2, 64, False),
+                  (2, 256, 256, 8, 2, 32, True),
+                  (2, 256, 256, 8, 2, 128, True),
+                  (2, 256, 256, 4, 2, 128, False),
+                  (2, 1000, 1000, 8, 2, 64, True),
+                  (2, 200, 256, 8, 2, 64, True),
+                  (2, 200, 256, 4, 1, 128, False),
+                  (2, 384, 128, 8, 2, 64, True),
+                  (2, 384, 128, 8, 2, 32, False),
+                  (1, 77, 33, 4, 2, 64, True)]
 NO_LIBRARY_QGEMM = ("no PyTorch call computes a product whose every "
                     "step is re-cast to eXmY: torch.matmul is printed "
                     "beside it and is not the same function")
@@ -394,13 +425,13 @@ KERNEL_NAMES = {"quantize_cast": "cast_kernel<false, false>",
                 "digest_rows": "digest_rows_kernel",
                 "sr_bits": "sr_bits_kernel",
                 "qgemm_faithful": "::qgemm_tile_kernel<",
-                # fp32 on flash_f32_tc.cu, bf16 on flash_gqa.cu
+                # fp32 on flash_f32_tc.cu, bf16 on flash_mha_tc.cu
                 "flash_gqa_fwd": ("::f32tc_fwd_kernel<", "::fwd_kernel<"),
                 "flash_gqa_bwd": ("::f32tc_dq_kernel<", "::f32tc_dkv_kernel<",
                                   "rep_sum_kernel", "::dq_kernel<",
                                   "::dkv_kernel<"),
                 # K11 (bf16 flash_mha_tc.cu, fp32 flash_f32_tc.cu at rep =
-                # 1) shares kernel names with K9/K10: a profile tells them
+                # 1) shares its kernels with K9/K10: a profile tells them
                 # apart only in a run of one of them
                 "flash_mha_fwd": ("::fwd_kernel<", "::f32tc_fwd_kernel<"),
                 "flash_mha_bwd": ("::dq_kernel<", "::dkv_kernel<",
@@ -2543,13 +2574,15 @@ def attention_bounds(flops: int, n_bytes: int) -> dict:
 
 
 def flash_phase(device) -> dict:
-    """Phase 10b: K9 and K10 against their plain versions at the slice's
-    shape, with pad keys (T = 1000), at rep 1 and 2, non-causal, and at
-    head_dim 32 (the small model's), each launched twice and bitwise
-    equal; timed at the slice's shape in turns with the CUDA-core
+    """Phase 10b: K9 and K10 in fp32 against their plain versions at the
+    slice's shape, with pad keys (T = 1000), at rep 1 and 2, non-causal,
+    and at head_dim 32 (the small model's), each launched twice and
+    bitwise equal; timed at the slice's shape in turns with the CUDA-core
     template they replace (`flash_gqa.core_launchers`), beside their plain
     versions and SDPA with enable_gqa and with K/V expanded to the query
-    heads (forward, backward alone, forward + backward)."""
+    heads (forward, backward alone, forward + backward); then the bf16
+    arm (flash_mha_tc.cu; held to its plain version in phase 11a) timed
+    the same way against the bf16 templates and SDPA bf16."""
     import torch
     import torch.nn.functional as F
 
@@ -2622,7 +2655,8 @@ def flash_phase(device) -> dict:
         for form, r in sdpa.items()), flush=True)
 
     n_bytes_f = 4 * (2 * q.numel() + k.numel() + v.numel() + lse.numel())
-    n_bytes_b = 4 * (5 * q.numel() + 4 * k.numel() + 2 * lse.numel())
+    # q, out, dout, dq; k, v, dk, dv; lse: each read or written once
+    n_bytes_b = 4 * (4 * q.numel() + 4 * k.numel() + lse.numel())
     res = {}
     for name, fn, core, plain, products, n_bytes, part in (
             ("flash_gqa_fwd", lambda: fl.flash_gqa_fwd(q, k, v, causal),
@@ -2673,9 +2707,11 @@ def flash_phase(device) -> dict:
               f"{r['tf32_bound_ms']:.4f}) {r['gflop']:.3f} GFLOP; "
               f"library_ms {r['library_ms']:.4f} ({r['library_note']}); "
               f"by kernel {r['kernels_ms']}", flush=True)
-    # K9/K10's bf16 arm (flash_gqa.cu's CUDA-core templates: the GQA LM's
-    # --bf16 path) at the same shape, timed with no gate, beside its bf16
-    # tensor-core bound and SDPA bf16 on K/V expanded to the query heads
+    # K9/K10's bf16 arm (flash_mha_tc.cu's tensor-core kernels: the GQA
+    # LM's --bf16 path, bench.py's GQA flash arm) at the same shape, in
+    # turns with flash_gqa.cu's bf16 templates it replaced (gate
+    # TC_SPEEDUP_FLOOR), beside its plain version, its bf16 tensor-core
+    # bound and SDPA bf16 on K/V expanded to the query heads
     qb, kb, vb, gb = (x.to(torch.bfloat16) for x in (q, k, v, g))
     ob, lb = fl.flash_gqa_fwd(qb, kb, vb, causal)
     qbt, gbt = (x.transpose(1, 2).contiguous() for x in (qb, gb))
@@ -2686,32 +2722,57 @@ def flash_phase(device) -> dict:
     o_lib = F.scaled_dot_product_attention(*leaves, is_causal=True)
     backend = sdpa_backend(lambda: F.scaled_dot_product_attention(
         qbt, *kvb, is_causal=True))
-    for name, fn, lib_fn, products, n_bytes in (
+    for name, fn, core, plain, lib_fn, products, n_bytes in (
             ("flash_gqa_fwd", lambda: fl.flash_gqa_fwd(qb, kb, vb, causal),
+             lambda: core_fwd(qb, kb, vb, causal, "template"),
+             lambda: fl.flash_gqa_fwd_ref(qb, kb, vb, causal),
              lambda: F.scaled_dot_product_attention(qbt, *kvb,
                                                     is_causal=True),
              2, 2 * (2 * qb.numel() + 2 * kb.numel()) + 4 * lb.numel()),
             ("flash_gqa_bwd",
              lambda: fl.flash_gqa_bwd(qb, kb, vb, ob, lb, gb, causal),
+             lambda: core_bwd(qb, kb, vb, ob, lb, gb, causal, "template"),
+             lambda: fl.flash_gqa_bwd_ref(qb, kb, vb, ob, lb, gb, causal),
              lambda: torch.autograd.grad(o_lib, leaves, gbt,
                                          retain_graph=True),
-             5, 2 * (5 * qb.numel() + 4 * kb.numel()) + 8 * lb.numel())):
+             5, 2 * (4 * qb.numel() + 4 * kb.numel()) + 4 * lb.numel())):
         flops = flash_flops(bb, t, t, h, d, causal, products)
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS, n_bytes / PEAK_BYTES_PER_S
+        # template, kernel, kernel, template
+        t1, k1, k2, t2 = (queued_ms(f, iters=20) for f in (core, fn, fn,
+                                                          core))
+        ms, core_ms = (k1 + k2) / 2, (t1 + t2) / 2
         r = res[name]["bf16"] = dict(
-            ms=queued_ms(fn, iters=20), bound_ms=max(t_ops, t_bytes) * 1e3,
+            ms=ms, cuda_core_ms=core_ms, speedup=core_ms / ms,
+            call_ms=time_ms(fn, iters=20), plain_ms=time_ms(plain, iters=3),
+            bound_ms=max(t_ops, t_bytes) * 1e3,
             bound_by="operations" if t_ops >= t_bytes else "bytes",
+            gflop=flops / 1e9, shape=list(shape),
             library_ms=queued_ms(lib_fn, iters=20),
             library_note=f"scaled_dot_product_attention bf16, K/V expanded "
                          f"({backend}), " + ("forward" if products == 2
                                              else "backward alone"),
-            source="cpd_tpu_torch/csrc/flash_gqa.cu")
-        print(f"kernel {name} bf16 [{list(shape)}]: kernel_ms "
-              f"{r['ms']:.4f} (device, flash_gqa.cu's CUDA-core template) "
-              f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}, bf16 tensor "
-              f"cores 989 TFLOP/s) library_ms {r['library_ms']:.4f} "
-              f"({r['library_note']}); no gate", flush=True)
+            source="cpd_tpu_torch/csrc/flash_mha_tc.cu",
+            kernels_ms={k_: round(v_, 5) for k_, v_ in
+                        device_kernels_ms(fn, iters=20).items()})
+        r["vs_library"] = ms / r["library_ms"]
+        print(f"kernel {name} bf16 [{list(shape)}]: kernel_ms {ms:.4f} "
+              f"(device, flash_mha_tc.cu; per call with host dispatch "
+              f"{r['call_ms']:.4f}) the CUDA-core template (flash_gqa.cu) "
+              f"{core_ms:.4f}, {r['speedup']:.2f}x the kernel's time; "
+              f"plain_ms {r['plain_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
+              f"({r['bound_by']}, bf16 tensor cores 989 TFLOP/s; bytes at "
+              f"3.35 TB/s) {r['gflop']:.3f} GFLOP; library_ms "
+              f"{r['library_ms']:.4f} ({r['library_note']}), kernel/library "
+              f"{r['vs_library']:.2f}; by kernel {r['kernels_ms']}",
+              flush=True)
     del o_lib, leaves
+    slow = {n: res[n]["bf16"]["speedup"] for n in GQA_BF16_KERNELS
+            if res[n]["bf16"]["speedup"] < TC_SPEEDUP_FLOOR}
+    if slow:
+        raise AssertionError(f"K9/K10 bf16 at {list(shape)}: only {slow}x "
+                             "faster than the CUDA-core template (floor "
+                             f"{TC_SPEEDUP_FLOOR}x)")
     slow = {n: r["speedup"] for n, r in res.items()
             if r["speedup"] < F32_TC_SPEEDUP_FLOOR}
     if slow:
@@ -3117,7 +3178,7 @@ def lm_kernel_entries(qgemm: dict, flash: dict, lm: dict) -> list:
                                  "library_fwd_bwd_ms",
                                  "fp32_bound_ms", "cuda_core_ms", "speedup",
                                  "call_ms", "library_forms", "kernels_ms",
-                                 "bf16", "generic_ms", "probe", "build",
+                                 "generic_ms", "probe", "build",
                                  "real_operands")
                if f in k},
             parity=k.get("parity", f"within atol {FLASH_ATOL} (out, LSE) "
@@ -3132,11 +3193,12 @@ def lm_kernel_entries(qgemm: dict, flash: dict, lm: dict) -> list:
 
 
 def mha_phase(device) -> dict:
-    """Phase 11a: K11 (and the bf16 and head_dim 128 arms of K9/K10)
-    against the plain versions over the cases, then K11 timed at the bf16
-    LM's shape (bf16 and fp32) and at head_dim 128 in turns with the
-    CUDA-core template it replaces, beside its plain version, its bound
-    and SDPA."""
+    """Phase 11a: K11 and K9/K10's bf16 arm (flash_mha_tc.cu) against the
+    plain versions over the cases, each launched twice and bitwise equal;
+    the build's registers, spills and shared memory; then K11 timed at
+    the bf16 LM's shape (bf16 and fp32) and at head_dim 128 in turns with
+    the CUDA-core template it replaces, beside its plain version, its
+    bound and SDPA."""
     import torch
     import torch.nn.functional as F
 
@@ -3156,9 +3218,8 @@ def mha_phase(device) -> dict:
     mha += [(shape, dt, True) for shape in ((b0, t0, t0, h0, h0, d0),
                                             (b0, t0, t0, 4, 4, 128))
             for dt in (f32, b16)]
-    gqa = [((b0, t0, t0, h0, 2, d0), b16, True),
-           ((2, 256, 256, 4, 2, 128), b16, True),
-           ((2, 256, 256, 4, 2, 128), f32, False)]
+    gqa = [(case[:-1], b16, case[-1]) for case in GQA_BF16_CASES]
+    gqa += [((2, 256, 256, 4, 2, 128), f32, False)]
     worst = {}
     for label, kernels, cases in (
             ("flash_mha", (fm.flash_mha_fwd, fm.flash_mha_bwd,
@@ -3167,7 +3228,7 @@ def mha_phase(device) -> dict:
                            fl.flash_gqa_fwd_ref, fl.flash_gqa_bwd_ref), gqa)):
         for shape, dt, causal in cases:
             r = attention_check(*kernels, shape, dt, causal, gen, device,
-                                repeat=label == "flash_mha")
+                                repeat=True)
             if max(r["fwd_share"], r["bwd_share"]) > 1.0:
                 raise AssertionError(
                     f"{label} {shape} {dt} causal={causal}: kernel vs plain "
@@ -3182,9 +3243,8 @@ def mha_phase(device) -> dict:
                           f"{w['bwd_err']:.3e} ({w['bwd_share']:.3f} of tol)"
                           for (lab, dt), w in worst.items() if lab == label)
               + f" (fp32 atol {FLASH_ATOL} / {FLASH_GRAD_ATOL}; bf16 rtol "
-              f"{BF16_RTOL} atol {BF16_ATOL})"
-              + ("; two launches bitwise equal in every case"
-                 if label == "flash_mha" else ""), flush=True)
+              f"{BF16_RTOL} atol {BF16_ATOL}); two launches bitwise equal "
+              "in every case", flush=True)
     # the tensor-core forward masks rows past a Tq its tile does not divide
     ragged = 0.0
     for d in (64, 128):
@@ -3306,10 +3366,9 @@ def mha_phase(device) -> dict:
 
 # the tensor-core attention libraries: their typed loader, the extern "C"
 # function that gives a kernel's dynamic shared memory, and how many
-# kernels each builds (3 kinds x 3 head dims; flash_f32_tc adds the GQA
-# rep sum)
-TC_LIBRARIES = {"flash_mha_tc": ("cpd_tpu_torch.ops.flash_mha", "tc_library",
-                                 "flash_tc_smem_bytes", 9),
+# kernels each builds (3 kinds x 3 head dims and the GQA rep sum)
+TC_LIBRARIES = {"flash_mha_tc": ("cpd_tpu_torch.ops.flash_gqa", "tc_library",
+                                 "flash_tc_smem_bytes", 10),
                 "flash_f32_tc": ("cpd_tpu_torch.ops.flash_gqa",
                                  "f32tc_library", "flash_f32tc_smem_bytes",
                                  10)}
@@ -3318,7 +3377,7 @@ TC_LIBRARIES = {"flash_mha_tc": ("cpd_tpu_torch.ops.flash_mha", "tc_library",
 def build_report(name: str) -> dict:
     """Registers and spill bytes (``-Xptxas -v``) and dynamic shared
     memory of each kernel of the tensor-core library ``name``, printed
-    and returned; flash_f32_tc must build with no spills."""
+    and returned; neither library may spill."""
     import importlib
     import re
 
@@ -3355,7 +3414,7 @@ def build_report(name: str) -> dict:
         for e, r in sorted(out.items())), flush=True)
     spilled = {e: r.get("spill_stores") for e, r in out.items()
                if r.get("spill_stores") or r.get("spill_loads")}
-    if name == "flash_f32_tc" and spilled:
+    if spilled:
         raise AssertionError(f"{name} spills registers: {spilled}")
     return out
 
@@ -3380,26 +3439,35 @@ def bench_train(device, model, batches, world, seconds=None) -> tuple:
                     fmt=BENCH_TRAIN["fmt"], seconds=seconds)
 
 
-def bench_lm_phase(device) -> dict:
-    """Phase 11b-c: bench.py's bf16 MHA LM through K11, the same steps
-    through the plain K11, one remat step, the xla and chunked arms, then
-    the CLI with ``--bf16 --attn-impl flash --remat``."""
+def bench_batches() -> list:
+    """BENCH_TRAIN's global token batches, from its seed."""
+    w = BENCH_TRAIN["world"]
+    return lm_batches(BENCH_LM["vocab_size"], BENCH_TRAIN["steps"],
+                      w * BENCH_TRAIN["per_rank_batch"], BENCH_TRAIN["seq"],
+                      BENCH_TRAIN["seed"])
+
+
+def bench_slice(device, label: str, kernels: dict, **kw) -> dict:
+    """BENCH_TRAIN's steps of bench.py's bf16 LM with the model keywords
+    ``kw`` through its attention kernels (``kernels``: the forward's and
+    the backward's wrapper names), counted from 0 around them: finite
+    losses, step 0 within LM_LOSS_BAND of ln V, launches as designed (one
+    forward and one backward per layer and rank), tokens/s, the step's
+    split, peak memory and the kernels' device ms per step; then the same
+    steps from the same weights through the plain versions (losses within
+    BENCH_LOSS_RTOL).  Prints and returns ``train {label}: {...}``."""
     import torch
 
-    from cpd_tpu_torch.examples.lm import train as cli
     from cpd_tpu_torch.obs.timing import now
     from cpd_tpu_torch.parallel.overlap import (DEFAULT_BUCKET_ELEMS,
                                                 bucket_layout)
 
     w, steps = BENCH_TRAIN["world"], BENCH_TRAIN["steps"]
-    rows, seq = w * BENCH_TRAIN["per_rank_batch"], BENCH_TRAIN["seq"]
     vocab, layers = BENCH_LM["vocab_size"], BENCH_LM["n_layers"]
-    batches = lm_batches(vocab, steps, rows, seq, BENCH_TRAIN["seed"])
-    tokens = rows * seq
+    batches = bench_batches()
+    tokens = w * BENCH_TRAIN["per_rank_batch"] * BENCH_TRAIN["seq"]
     marks = [now()]
-
-    # (b) the slice: 3 steps through K11, counted from 0 around them
-    model = bench_lm_model(device, BENCH_TRAIN["seed"])
+    model = bench_lm_model(device, BENCH_TRAIN["seed"], **kw)
     sizes = [p.numel() for p in model.parameters()]
     n_buckets = len(bucket_layout(sizes, DEFAULT_BUCKET_ELEMS))
     secs = []
@@ -3410,21 +3478,21 @@ def bench_lm_phase(device) -> dict:
     counts = read_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     want = reduce_design("faithful", False, False, w, len(sizes), n_buckets)
-    want.update(flash_mha_fwd=layers * w, flash_mha_bwd=layers * w)
+    want.update({k: layers * w for k in kernels})
     want = {k: steps * v for k, v in want.items()}
     if counts != want:
-        raise AssertionError(f"bf16 LM launches {counts} != the design's "
+        raise AssertionError(f"{label} launches {counts} != the design's "
                              f"{want}")
     losses = [m["loss"] for m in metrics]
     if not all(math.isfinite(v) for v in losses) or not (
             abs(losses[0] - math.log(vocab)) <= LM_LOSS_BAND):
-        raise AssertionError(f"bf16 LM losses {losses}: not finite, or step "
+        raise AssertionError(f"{label} losses {losses}: not finite, or step "
                              f"0 not within {LM_LOSS_BAND} of ln {vocab}")
     split = lm_split(model, batches[0], w, device)
     prof = step_profile(step, state, batches[0])
     step_s = sum(secs[1:]) / (len(secs) - 1)
     out = dict(
-        model=dict(BENCH_LM, dtype="bfloat16", attn_impl="flash"),
+        model=dict(BENCH_LM, dtype="bfloat16", attn_impl="flash", **kw),
         world=w, tokens_per_step=tokens, steps=steps, losses=losses,
         accuracies=[m["accuracy"] for m in metrics], step_ms=step_s * 1e3,
         tokens_per_s=tokens / step_s, peak_memory_gib=peak_gib,
@@ -3432,33 +3500,55 @@ def bench_lm_phase(device) -> dict:
         launches={k: v for k, v in counts.items() if v},
         launches_per_step={k: v // steps for k, v in counts.items() if v},
         launches_per_rank_step={k: counts[k] // (steps * w)
-                                for k in MHA_KERNELS},
+                                for k in kernels},
         **split,
-        kernel_ms_per_step={k: prof[k] for k in MHA_KERNELS},
+        kernel_ms_per_step={k: prof[k] for k in kernels},
         device_busy_ms=prof["device_busy_ms"],
         kernel_launches_profiled=prof["kernel_launches"])
-    print("train bench lm: " + json.dumps(out), flush=True)
+    print(f"train {label}: " + json.dumps(out), flush=True)
     del state, step
 
-    # the same steps from the same weights through the plain K11
+    # the same steps from the same weights through the plain versions
     marks.append(now())
-    plain = bench_lm_model(device, BENCH_TRAIN["seed"])
+    plain = bench_lm_model(device, BENCH_TRAIN["seed"], **kw)
     with plain_kernels():
         _, _, p_metrics = bench_train(device, plain, batches, w)
     p_losses = [m["loss"] for m in p_metrics]
     for a, b in zip(losses, p_losses):
         if abs(a - b) > BENCH_LOSS_RTOL * abs(b):
-            raise AssertionError(f"bf16 LM losses {losses} (K11) vs "
-                                 f"{p_losses} (plain K11)")
+            raise AssertionError(f"{label} losses {losses} (kernels) vs "
+                                 f"{p_losses} (plain versions)")
     out["vs_plain"] = dict(losses_plain=p_losses, max_rel_diff=max(
         abs(a - b) / abs(b) for a, b in zip(losses, p_losses)))
-    print(f"train bench lm: the same {steps} steps through the plain K11: "
-          f"losses {p_losses} (rtol {BENCH_LOSS_RTOL}: "
-          f"{out['vs_plain']['max_rel_diff']:.3e})", flush=True)
+    print(f"train {label}: the same {steps} steps through the plain "
+          f"{' and '.join(kernels)}: losses {p_losses} (rtol "
+          f"{BENCH_LOSS_RTOL}: {out['vs_plain']['max_rel_diff']:.3e})",
+          flush=True)
     del plain
+    marks.append(now())
+    out["seconds"] = dict(zip(("slice", "vs_plain"),
+                              (b - a for a, b in zip(marks, marks[1:]))))
+    return out
+
+
+def bench_lm_phase(device) -> dict:
+    """Phase 11b-c: bench.py's bf16 MHA LM through K11, the same steps
+    through the plain K11, one remat step, the xla and chunked arms, then
+    the CLI with ``--bf16 --attn-impl flash --remat``."""
+    from cpd_tpu_torch.examples.lm import train as cli
+    from cpd_tpu_torch.obs.timing import now
+
+    w = BENCH_TRAIN["world"]
+    rows, seq = w * BENCH_TRAIN["per_rank_batch"], BENCH_TRAIN["seq"]
+    vocab, layers = BENCH_LM["vocab_size"], BENCH_LM["n_layers"]
+    batches = bench_batches()
+    tokens = rows * seq
+    # (b) the slice through K11, then through the plain K11
+    out = bench_slice(device, "bench lm", MHA_KERNELS)
+    losses = out["losses"]
+    marks = [now()]
 
     # one remat step: the forward kernels twice per layer, the same loss
-    marks.append(now())
     remat = bench_lm_model(device, BENCH_TRAIN["seed"], remat=True)
     reset_counts()
     _, _, r_metrics = bench_train(device, remat, batches[:1], w)
@@ -3516,10 +3606,44 @@ def bench_lm_phase(device) -> dict:
                       launches={k: v for k, v in cli_counts.items() if v})
     print("train bench lm cli: " + json.dumps(out["cli"]), flush=True)
     marks.append(now())
-    out["seconds"] = dict(zip(("slice", "vs_plain", "remat", "arms", "cli"),
+    out["seconds"].update(zip(("remat", "arms", "cli"),
                               (b - a for a, b in zip(marks, marks[1:]))))
     print("train bench lm seconds: " + json.dumps(out["seconds"]),
           flush=True)
+    return out
+
+
+def gqa_bf16_kernel_entries(flash: dict, mha: dict, lm: dict) -> list:
+    """The ``kernels`` line's entries of K9/K10's bf16 arm: launches from
+    bench.py's GQA flash LM (phase 11d, counted from 0 around its steps),
+    times and bounds from phase 10b, errors from phase 11a."""
+    out = []
+    for name, replaces in GQA_BF16_KERNELS.items():
+        k = flash[name]["bf16"]
+        err = mha["gqa_bf16"]["fwd_err" if name == "flash_gqa_fwd"
+                              else "bwd_err"]
+        out.append(dict(
+            name=f"{name}_bf16", route="cuda", source=k["source"],
+            replaces=replaces, launches=lm["launches"][name],
+            launches_per_rank_step=lm["launches_per_rank_step"][name],
+            max_abs_err=err, ms=k["ms"], plain_ms=k["plain_ms"],
+            bound_ms=k["bound_ms"], bound_by=k["bound_by"],
+            library_ms=k["library_ms"], library_note=k["library_note"],
+            shape=k["shape"], dtype="bfloat16",
+            rate="bf16 tensor cores 989 TFLOP/s",
+            cuda_core_ms=k["cuda_core_ms"], speedup=k["speedup"],
+            vs_library=k["vs_library"], call_ms=k["call_ms"],
+            kernels_ms=k["kernels_ms"],
+            cuda_core_note="flash_gqa.cu's bf16 CUDA-core template "
+                           "(flash_gqa.core_launchers), timed in turns with "
+                           "the kernel",
+            build={e: r for e, r in mha["tc_build"].items()
+                   if e.startswith("fwd" if name == "flash_gqa_fwd"
+                                   else ("d", "rep"))},
+            parity=f"within rtol {BF16_RTOL} atol {BF16_ATOL} of the plain "
+                   f"version in {len(GQA_BF16_CASES)} cases; two launches "
+                   f"bitwise equal; bench.py's GQA flash LM's losses within "
+                   f"{BENCH_LOSS_RTOL} of the plain K9/K10's"))
     return out
 
 
@@ -3618,6 +3742,11 @@ def main() -> int:
     lm = lm_phase(device)
     mha = mha_phase(device)
     bench_lm = bench_lm_phase(device)
+    # 11d: bench.py's GQA flash arm through K9/K10 bf16
+    gqa_lm = bench_slice(device, "bench gqa lm", GQA_BF16_KERNELS,
+                         **GQA_PATH)
+    print("train bench gqa lm seconds: " + json.dumps(gqa_lm["seconds"]),
+          flush=True)
 
     main_case = kern["cases"]["e4m3"]
     kernels = [dict(
@@ -3698,6 +3827,7 @@ def main() -> int:
             **{k: q[k] for k in ("ms_with_digest",) if k in q}))
     kernels += lm_kernel_entries(qgemm, flash, lm)
     kernels += mha_kernel_entries(mha, bench_lm)
+    kernels += gqa_bf16_kernel_entries(flash, mha, gqa_lm)
     print(card, flush=True)      # exactly as nvidia-smi gives it
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,12 +2,12 @@
 // log-sum-exp, and the backward as a dq kernel and a dk/dv kernel, for
 // fp32 or bf16 elements and head_dim 32, 64 or 128, accumulating in fp32.
 //
-// Its bf16 arm is K9/K10's bf16 kernel (ops/flash_gqa.py).  Its fp32 arm
-// no longer runs on any path: fp32 K9, K10 and K11 run on the 3xTF32
-// tensor-core kernels of flash_f32_tc.cu, and this arm stays as the
-// yardstick they are timed against (ops.flash_gqa.core_launchers).
+// No path runs these kernels any more: K9, K10 and K11 run on the tensor
+// cores, bf16 on flash_mha_tc.cu's mma.sync kernels and fp32 on
+// flash_f32_tc.cu's 3xTF32 kernels, and both arms stay here as the
+// yardstick those are timed against (ops.flash_gqa.core_launchers).
 //
-// Replaces three TPU kernels:
+// Computes the function of three TPU kernels:
 //   K9  cpd_tpu/ops/flash_gqa.py _flash_gqa_fwd_call (:151; body
 //       _flash_gqa_kernel :64)
 //         out = softmax(mask(q k^T * scale)) v, lse = m + log(l)
@@ -42,10 +42,10 @@
 // 0.160 ms at that rate; the bytes (~21 MB in fp32) take 0.006 ms.  bf16
 // elements are widened to fp32 in shared memory and take the same
 // fp32 arithmetic, so they move half the bytes at the same bound; the
-// bf16 tensor cores (989 TFLOP/s) bound them 15x lower, which K11's bf16
-// calls reach through flash_mha_tc.cu (mma.sync bf16 tiles); K9/K10's
-// bf16 arm stays here.  fp32 products on the tensor cores, 3xTF32 at 165
-// TFLOP/s, are flash_f32_tc.cu's.
+// bf16 tensor cores (989 TFLOP/s) bound them 15x lower, which K9-K11's
+// bf16 calls reach through flash_mha_tc.cu (mma.sync bf16 tiles).  fp32
+// products on the tensor cores, 3xTF32 at 165 TFLOP/s, are
+// flash_f32_tc.cu's.
 //
 // Design.  A CTA of 256 threads (16 x 16) owns a 64-row tile: the
 // forward and dq a (b, head, 64 queries) tile walking the key blocks,

@@ -13,14 +13,16 @@ per-row log-sum-exp the backward re-exponentiates.
   products), for CPU tensors and the kernels' checks;
 * `flash_gqa_fwd` (K9) / `flash_gqa_bwd` (K10) — the wrappers.  CPU
   tensors take the plain versions; CUDA tensors launch hand-written
-  kernels (built at first use, `ops.build`) or raise: fp32 the 3xTF32
-  tensor-core kernels of ``csrc/flash_f32_tc.cu`` (`_f32tc_fwd`,
-  `_f32tc_bwd`), bf16 the CUDA-core templates of ``csrc/flash_gqa.cu``
-  (`_launch_fwd`, `_launch_bwd`).  ``flash_gqa_fwd.launches`` counts
-  forward launches and ``flash_gqa_bwd.launches`` backward calls (each
-  launches the dq and the dk/dv kernel);
-* `core_launchers` — ``flash_gqa.cu``'s fp32 templates, which no path
-  calls: ``chip_smoke.py`` times them beside the tensor-core kernels;
+  tensor-core kernels (built at first use, `ops.build`) or raise: fp32
+  the 3xTF32 kernels of ``csrc/flash_f32_tc.cu`` (`_f32tc_fwd`,
+  `_f32tc_bwd`), bf16 the ``mma.sync`` bf16 kernels of
+  ``csrc/flash_mha_tc.cu`` (`_tc_fwd`, `_tc_bwd`), which K11 shares at
+  rep = 1.  ``flash_gqa_fwd.launches`` counts forward launches and
+  ``flash_gqa_bwd.launches`` backward calls (each launches the dq and the
+  dk/dv kernel, and at rep > 1 the rep sum);
+* `core_launchers` — the CUDA-core templates of ``csrc/flash_gqa.cu``,
+  which no path calls in either dtype: ``chip_smoke.py`` times them
+  beside the tensor-core kernels;
 * `flash_gqa(q, k, v, causal, bwd)` — the differentiable function.
   ``bwd="pallas"`` (the JAX name of the flash-backward kernels) saves
   (q, k, v, out, lse) and runs K10; ``bwd="chunked"`` recomputes through
@@ -31,8 +33,8 @@ TPU's row padding.  Elements are fp32 or bf16, as the JAX kernel takes
 q's dtype: logits, softmax and products accumulate in fp32, p is rounded
 to the element type before p·v (its fp32 value feeds the sum), p and ds
 before the backward's products, and each output once.  The kernels take
-head_dim 32, 64 or 128.  The fp32 kernels at rep = 1 are K11's fp32
-arm, the stock MHA kernel (`ops.flash_mha`).
+head_dim 32, 64 or 128.  Both tensor-core libraries at rep = 1 are
+K11, the stock MHA kernel (`ops.flash_mha`).
 """
 
 from __future__ import annotations
@@ -46,7 +48,8 @@ from .attention import _NEG_INF, _gqa_rep
 
 __all__ = ["flash_gqa", "flash_gqa_fwd", "flash_gqa_bwd",
            "flash_gqa_fwd_ref", "flash_gqa_bwd_ref", "KERNEL_HEAD_DIMS",
-           "KERNEL_DTYPES", "F32TC_SIGNATURES", "core_launchers"]
+           "KERNEL_DTYPES", "F32TC_SIGNATURES", "TC_SIGNATURES",
+           "core_launchers"]
 
 KERNEL_HEAD_DIMS = (32, 64, 128)
 # element type -> the kernels' dtype code
@@ -58,6 +61,13 @@ F32TC_SIGNATURES = {
     "flash_f32tc_fwd_launch": (_I, [_P] * 5 + [_I] * 7 + [_F, _P]),
     "flash_f32tc_bwd_launch": (_I, [_P] * 11 + [_I] * 7 + [_F, _P]),
     "flash_f32tc_smem_bytes": (_I, [_I, _I]),
+    "flash_error_string": (ctypes.c_char_p, [_I]),
+}
+# csrc/flash_mha_tc.cu's C interface (the bf16 kernels of K9-K11)
+TC_SIGNATURES = {
+    "flash_tc_fwd_launch": (_I, [_P] * 5 + [_I] * 7 + [_F, _P]),
+    "flash_tc_bwd_launch": (_I, [_P] * 11 + [_I] * 7 + [_F, _P]),
+    "flash_tc_smem_bytes": (_I, [_I, _I]),
     "flash_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -226,15 +236,15 @@ def flash_gqa_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"v {tuple(v.shape)} != k {tuple(k.shape)}")
     if not _on_card("flash_gqa_fwd", (q, k, v)):
         return flash_gqa_fwd_ref(q, k, v, causal)
-    fwd = _f32tc_fwd if q.dtype == torch.float32 else _launch_fwd
+    fwd = _f32tc_fwd if q.dtype == torch.float32 else _tc_fwd
     out, lse = fwd(q, k, v, causal, "flash_gqa_fwd")
     flash_gqa_fwd.launches += 1
     return out, lse
 
 
 def _launch_fwd(q, k, v, causal, what) -> tuple:
-    """``flash_gqa.cu``'s forward template on checked CUDA tensors (K9 in
-    bf16; in fp32 the yardstick of `core_launchers`): ``(out, lse)``."""
+    """``flash_gqa.cu``'s forward template on checked CUDA tensors, the
+    yardstick of `core_launchers` in both dtypes: ``(out, lse)``."""
     b, tq, tk, h, hkv, d = _dims(q, k)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
@@ -262,16 +272,15 @@ def flash_gqa_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _dims(q, k)
     if not _on_card("flash_gqa_bwd", (q, k, v, out, dout), (lse,)):
         return flash_gqa_bwd_ref(q, k, v, out, lse, dout, causal)
-    bwd = _f32tc_bwd if q.dtype == torch.float32 else _launch_bwd
+    bwd = _f32tc_bwd if q.dtype == torch.float32 else _tc_bwd
     grads = bwd(q, k, v, out, lse, dout, causal, "flash_gqa_bwd")
     flash_gqa_bwd.launches += 1
     return grads
 
 
 def _launch_bwd(q, k, v, out, lse, dout, causal, what) -> tuple:
-    """``flash_gqa.cu``'s dq and dk/dv templates on checked CUDA tensors
-    (K10 in bf16; in fp32 the yardstick of `core_launchers`):
-    ``(dq, dk, dv)``."""
+    """``flash_gqa.cu``'s dq and dk/dv templates on checked CUDA tensors,
+    the yardstick of `core_launchers` in both dtypes: ``(dq, dk, dv)``."""
     b, tq, tk, h, hkv, d = _dims(q, k)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     dout, lse = dout.contiguous(), lse.contiguous()
@@ -349,13 +358,64 @@ def _f32tc_bwd(q, k, v, out, lse, dout, causal, what) -> tuple:
     return dq, dk, dv
 
 
+def tc_library():
+    """The loaded ``flash_mha_tc`` library (built at first use), typed."""
+    return _typed_library("flash_mha_tc", TC_SIGNATURES)
+
+
+def _tc_fwd(q, k, v, causal, what) -> tuple:
+    """The bf16 tensor-core forward on checked bf16 CUDA tensors (K9, and
+    K11 at rep = 1): ``(out, lse)``."""
+    b, tq, tk, h, hkv, d = _dims(q, k)
+    q, k, v = _tc_args(what, q, k, v)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    if out.numel() == 0 or tk == 0:
+        return out.zero_(), lse.fill_(_NEG_INF)
+    lib = tc_library()
+    with torch.cuda.device(q.device):
+        rc = lib.flash_tc_fwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), b, tq, tk, h, hkv, d, int(causal), _scale(d),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(lib, rc, what)
+    return out, lse
+
+
+def _tc_bwd(q, k, v, out, lse, dout, causal, what) -> tuple:
+    """The bf16 tensor-core dq and dk/dv kernels on checked bf16 CUDA
+    tensors (K10, and K11's backward at rep = 1): ``(dq, dk, dv)``."""
+    b, tq, tk, h, hkv, d = _dims(q, k)
+    q, k, v, dout, lse, delta = _tc_args(what, q, k, v, dout, lse,
+                                         _delta(out, dout))
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    if tq == 0 or tk == 0 or dq.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    # at rep > 1 each query head's fp32 dk/dv share lands in scratch and a
+    # third kernel sums the rep shares of a kv head in order, rounding once
+    parts = ([torch.empty((b, tk, h, d), dtype=torch.float32,
+                          device=q.device) for _ in range(2)]
+             if h > hkv else [None, None])
+    lib = tc_library()
+    with torch.cuda.device(q.device):
+        rc = lib.flash_tc_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), *(x.data_ptr() if x is not None else None
+                             for x in parts),
+            b, tq, tk, h, hkv, d, int(causal), _scale(d),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(lib, rc, what)
+    return dq, dk, dv
+
+
 def core_launchers() -> tuple:
     """``(forward, backward)`` launch functions of ``flash_gqa.cu``'s
-    CUDA-core templates, the fp32 kernels the tensor-core ones replaced.
-    No path calls them in fp32: they are the yardstick ``chip_smoke.py``
-    times the tensor-core kernels against.  They take checked CUDA
-    tensors and a label: ``fwd(q, k, v, causal, what)``, ``bwd(q, k, v,
-    out, lse, dout, causal, what)``."""
+    CUDA-core templates, the kernels the tensor-core ones replaced in
+    both dtypes.  No path calls them: they are the yardstick
+    ``chip_smoke.py`` times the tensor-core kernels against.  They take
+    checked CUDA tensors and a label: ``fwd(q, k, v, causal, what)``,
+    ``bwd(q, k, v, out, lse, dout, causal, what)``."""
     return _launch_fwd, _launch_bwd
 
 

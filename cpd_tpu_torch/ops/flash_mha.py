@@ -25,10 +25,11 @@ p to fp32 round-off.  In fp32 every rounding is the identity.
   take the plain versions; CUDA tensors launch hand-written kernels
   (head_dim 32, 64 or 128) or raise: bf16 the tensor-core kernels of
   ``csrc/flash_mha_tc.cu`` (`mma.sync` bf16 tiles, fp32 accumulators),
-  fp32 the 3xTF32 tensor-core kernels of ``csrc/flash_f32_tc.cu`` at
-  rep = 1 (`launchers`).  ``flash_mha_fwd.launches`` counts forward
-  launches, ``flash_mha_bwd.launches`` backward calls (each launches a dq
-  and a dk/dv kernel);
+  fp32 the 3xTF32 tensor-core kernels of ``csrc/flash_f32_tc.cu``, both
+  at rep = 1, as K9/K10 (`ops.flash_gqa`) launch them (`launchers`).
+  ``flash_mha_fwd.launches`` counts forward launches,
+  ``flash_mha_bwd.launches`` backward calls (each launches a dq and a
+  dk/dv kernel);
 * `flash_mha(q, k, v, causal)` — the differentiable function: saves
   (q, k, v, out, lse) and always runs K11's own backward, as the stock
   kernel brings its own VJP.
@@ -42,31 +43,19 @@ fully masked.
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
-from .flash_gqa import (_delta, _dims, _f32tc_bwd, _f32tc_fwd, _on_card,
-                        _raise_on, _rounded, _scale, _tc_args,
-                        _typed_library)
+from .flash_gqa import (TC_SIGNATURES, _f32tc_bwd, _f32tc_fwd, _on_card,
+                        _rounded, _scale, _tc_bwd, _tc_fwd, tc_library)
 
 __all__ = ["flash_mha", "flash_mha_fwd", "flash_mha_bwd",
            "flash_mha_fwd_ref", "flash_mha_bwd_ref", "launchers",
-           "MASK_VALUE", "BLOCK", "TC_SIGNATURES"]
+           "tc_library", "MASK_VALUE", "BLOCK", "TC_SIGNATURES"]
 
 # the stock kernel's DEFAULT_MASK_VALUE and default block sizes
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 BLOCK = 128
-
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# csrc/flash_mha_tc.cu's C interface: name -> (restype, argtypes)
-TC_SIGNATURES = {
-    "flash_tc_fwd_launch": (_I, [_P] * 5 + [_I] * 6 + [_F, _P]),
-    "flash_tc_bwd_launch": (_I, [_P] * 9 + [_I] * 6 + [_F, _P]),
-    "flash_tc_smem_bytes": (_I, [_I, _I]),
-    "flash_error_string": (ctypes.c_char_p, [_I]),
-}
 
 
 def _verify_block(block_name: str, dim_name: str, dim: int,
@@ -151,54 +140,11 @@ def flash_mha_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def tc_library():
-    """The loaded ``flash_mha_tc`` library (built at first use), typed."""
-    return _typed_library("flash_mha_tc", TC_SIGNATURES)
-
-
-def _tc_fwd(q, k, v, causal, what) -> tuple:
-    """The tensor-core forward on checked bf16 CUDA tensors:
-    ``(out, lse)``."""
-    b, tq, tk, h, _, d = _dims(q, k)
-    q, k, v = _tc_args(what, q, k, v)
-    out = torch.empty_like(q)
-    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-    if out.numel() == 0:
-        return out, lse
-    lib = tc_library()
-    with torch.cuda.device(q.device):
-        rc = lib.flash_tc_fwd_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, tq, tk, h, d, int(causal), _scale(d),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(lib, rc, what)
-    return out, lse
-
-
-def _tc_bwd(q, k, v, out, lse, dout, causal, what) -> tuple:
-    """The tensor-core dq and dk/dv kernels on checked bf16 CUDA tensors:
-    ``(dq, dk, dv)``."""
-    b, tq, tk, h, _, d = _dims(q, k)
-    q, k, v, dout, lse, delta = _tc_args(what, q, k, v, dout, lse,
-                                         _delta(out, dout))
-    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-    if dq.numel() == 0:
-        return dq, dk, dv
-    lib = tc_library()
-    with torch.cuda.device(q.device):
-        rc = lib.flash_tc_bwd_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b, tq, tk, h, d, int(causal), _scale(d),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(lib, rc, what)
-    return dq, dk, dv
-
-
 def launchers(dtype: torch.dtype) -> tuple:
     """``(forward, backward)`` launch functions of a CUDA element type:
     bf16 on the tensor-core kernels of ``flash_mha_tc.cu``, fp32 on the
-    3xTF32 tensor-core kernels of ``flash_f32_tc.cu`` at rep = 1."""
+    3xTF32 tensor-core kernels of ``flash_f32_tc.cu``, both K9/K10's
+    kernels at rep = 1 (`ops.flash_gqa`)."""
     if dtype == torch.bfloat16:
         return _tc_fwd, _tc_bwd
     return _f32tc_fwd, _f32tc_bwd

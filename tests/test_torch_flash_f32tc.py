@@ -18,8 +18,8 @@ The kernels run only on the card, so what can be held here is held here:
 * the C interface parsed from the source against the ctypes table the
   wrapper sets, and the build registry;
 * the wrappers' choice of library by element type (fp32: the 3xTF32
-  kernels for K9/K10 and K11; bf16: flash_gqa.cu's templates for K9/K10,
-  flash_mha_tc.cu for K11), one count per call.
+  kernels for K9/K10 and K11; bf16: flash_mha_tc.cu for K9/K10 and K11),
+  one count per call.
 
 The ``cuda``-marked tests hold the kernels against the plain versions on
 the card over chip_smoke.py's fp32 cases and check that two launches are
@@ -288,16 +288,19 @@ def _recorders(monkeypatch, module, names):
 
 
 @pytest.mark.parametrize("dtype, library", [(torch.float32, "f32tc"),
-                                            (torch.bfloat16, "core")])
+                                            (torch.bfloat16, "tc")])
 def test_gqa_cuda_calls_launch_the_library_of_their_dtype(monkeypatch,
                                                           dtype, library):
     """K9/K10 on CUDA tensors: fp32 to the 3xTF32 kernels, bf16 to
-    flash_gqa.cu's templates, once per call and counted (the launchers
-    are stood in for, since the CPU has no card)."""
+    flash_mha_tc.cu's bf16 tensor-core kernels (not flash_gqa.cu's
+    templates), once per call and counted (the launchers are stood in
+    for, since the CPU has no card)."""
     monkeypatch.setattr(tfl, "_on_card", lambda *a, **k: True)
     calls = _recorders(monkeypatch, tfl, (
         ("_f32tc_fwd", "f32tc", tfl.flash_gqa_fwd_ref),
         ("_f32tc_bwd", "f32tc", tfl.flash_gqa_bwd_ref),
+        ("_tc_fwd", "tc", tfl.flash_gqa_fwd_ref),
+        ("_tc_bwd", "tc", tfl.flash_gqa_bwd_ref),
         ("_launch_fwd", "core", tfl.flash_gqa_fwd_ref),
         ("_launch_bwd", "core", tfl.flash_gqa_bwd_ref)))
     q, k, v, g = (torch.from_numpy(x).to(dtype)
@@ -334,7 +337,7 @@ def test_mha_cuda_calls_launch_the_library_of_their_dtype(monkeypatch,
 
 def test_core_launchers_are_the_cuda_core_templates():
     """The yardstick chip_smoke.py times: flash_gqa.cu's launchers, which
-    no path calls in fp32."""
+    no path calls in either dtype."""
     assert tfl.core_launchers() == (tfl._launch_fwd, tfl._launch_bwd)
 
 

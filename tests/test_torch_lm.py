@@ -285,18 +285,28 @@ def test_mha_flash_lm_logits_and_gradients_match_jax_xla():
                                    **MHA_TOL)
 
 
-@pytest.mark.parametrize("impl", ["xla", "flash", "chunked"])
+# bench.py's GQA flash arm at the tiny width: 2 kv heads, the GQA flash
+# kernels K9/K10 with their own backward
+GQA_FLASH = dict(MHA, n_kv_heads=2, attn_impl="flash", flash_bwd="pallas")
+
+
+@pytest.mark.parametrize("impl", ["xla", "flash", "chunked", "gqa-flash"])
 def test_bf16_lm_logits_and_loss_match_jax_bf16(impl):
     """The bf16 model (fp32 parameters loaded unchanged from the flax
     tree) against JAX's bf16 xla model: logits within BF16_LOGIT_ATOL,
     the mean CE within BF16_LOSS_RTOL; the parameters stay fp32 and the
-    logits come back fp32."""
-    jm, params = _jax_params(base=MHA, attn_impl="xla", dtype=jnp.bfloat16)
+    logits come back fp32.  ``gqa-flash``: bench.py's GQA flash arm
+    (GQA_FLASH: the plain K9/K10 here) against JAX's bf16 GQA flash model
+    (its Pallas kernels in interpret mode)."""
+    gqa = impl == "gqa-flash"
+    base = GQA_FLASH if gqa else MHA
+    jm, params = _jax_params(base=base, dtype=jnp.bfloat16,
+                             attn_impl=base["attn_impl"] if gqa else "xla")
     toks, tgts = _mha_batch(seed=1)
     want_ce, want_logits, _ = _jax_ce(jm, params, jnp.asarray(toks),
                                       jnp.asarray(tgts))
-    tm = _torch_model(params, base=MHA, attn_impl=impl,
-                      dtype=torch.bfloat16)
+    tm = _torch_model(params, base=base, dtype=torch.bfloat16,
+                      attn_impl=base["attn_impl"] if gqa else impl)
     assert all(p.dtype == torch.float32 for p in tm.parameters())
     ce, logits, grads = _torch_ce(tm, toks, tgts)
     assert logits.dtype == torch.float32
