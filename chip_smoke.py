@@ -8,11 +8,16 @@ Phases; any failure exits non-zero:
 1. build every CUDA kernel of the port from the sources in the checkout
    (``build/cuda/``, keyed by a hash of the sources, one nvcc per source,
    all started together) and print the card's name and power limit;
-2. hold the fused attention kernel (K12) against its plain PyTorch
-   version on the card, at the serving slice's shapes, over the KV formats
-   (4,3), (5,2), (8,23), blocked (4,3) with block 32, and (4,3) with
-   NaN-coded bytes past every slot's last live position: digests bitwise,
-   attention within ``ATTN_ATOL``/``ATTN_RTOL``; time the kernel, the
+2. hold the fused attention kernel (K12, split-K over pages: a split
+   kernel and an in-order combine) against its plain PyTorch version on
+   the card, at the serving slice's shapes, over the KV formats (4,3),
+   (5,2), (8,23), blocked (4,3) with block 32, and (4,3) with NaN-coded
+   bytes past every slot's last live position, and at (4,3) over a long
+   context (8 slots x 4096 positions), page 64 x head_dim 128 and GQA
+   8:1: digests bitwise, attention within ``ATTN_ATOL``/``ATTN_RTOL``,
+   two launches bitwise equal; time the kernel by device time in turns
+   with the kept serial kernel it replaces (``serve_attn.core_launcher``;
+   gate ``K12_SPEEDUP_FLOOR`` at the slice's e4m3 shape), beside the
    plain version and one library call (attention only — not the same
    function);
 3. hold the quantize kernels (K1 cast, K3 add-and-cast, K6 first ring
@@ -30,7 +35,8 @@ Phases; any failure exits non-zero:
    plain read path and require the same tokens and logits within
    ``LOGIT_ATOL``;
 5. profile 30 engine steps of a fresh fused engine (device busy share,
-   kernel launches and the heaviest kernels per step);
+   kernel launches, K12's device ms and launches and the heaviest
+   kernels per step);
 6. train full-width ResNet-18/CIFAR (11.2 M parameters, weights from
    seed 24) on a `LocalMesh` of 4 data-parallel ranks on the card, batch
    128 per rank on the synthetic CIFAR-10 with the port's sampler and
@@ -135,14 +141,19 @@ Phases; any failure exits non-zero:
    bf16 forward at a Tq that is not a multiple of its 64-row tile, and
    K9/K10's bf16 arm over ``GQA_BF16_CASES`` (rep 1, 2, 4; head_dim 32,
    64, 128; causal and not; pad keys; Tq != Tk either way with a ragged
-   Tq in the backward), two launches bitwise equal in every case; print
+   Tq in the backward), and K9-K11 at head_dim 48 and 96 (zero-padded to
+   the tensor-core kernels' 64 and 128) and 256 (``flash_gqa.cu``'s
+   templates) in both dtypes, causal and not, two launches bitwise equal
+   in every case; print
    both tensor-core libraries' registers, spills and shared memory
    (neither may spill); time K11 at (4,
    1024, 8, 64) in bf16 and fp32 and at (4, 1024, 4, 128) in bf16 beside
    its plain version, its bound, SDPA's forward and backward and, in
    turns, the CUDA-core template it replaces (``flash_gqa.cu`` at H_kv =
    H), which it must beat ``TC_SPEEDUP_FLOOR``-fold in bf16 and
-   ``F32_TC_SPEEDUP_FLOOR``-fold in fp32 at the LM's shape;
+   ``F32_TC_SPEEDUP_FLOOR``-fold in fp32 at the LM's shape; and its D =
+   256 arm at (4, 1024, 4, 256) in both dtypes beside SDPA, with no
+   speed target;
    (b) train bench.py's LM arm (vocab 32000, d_model 512, 8 layers, 8
    heads, d_ff 2048, bf16 compute over fp32 weights, seeded random
    weights) through K11 on a `LocalMesh` of 2 ranks, 4 sequences of 1024
@@ -343,6 +354,9 @@ MHA_KERNELS = {"flash_mha_fwd": "cpd_tpu/ops/attention.py:116",
 # bench.py's GQA flash arm (bench.py:541-578): the bf16 LM above with 2 kv
 # heads through K9 and K10's own backward, on flash_mha_tc.cu
 GQA_PATH = dict(n_kv_heads=2, flash_bwd="pallas")
+# phase 11a's head dims past the kernels' own 32/64/128: 48 and 96 run
+# zero-padded on the tensor-core kernels, 256 on flash_gqa.cu's templates
+NEW_HEAD_DIMS = (48, 96, 256)
 GQA_BF16_KERNELS = {"flash_gqa_fwd": "cpd_tpu/ops/flash_gqa.py:151",
                     "flash_gqa_bwd": "cpd_tpu/ops/flash_gqa.py:298"}
 # K9/K10 bf16 against their plain versions (phase 11a, two launches each,
@@ -446,11 +460,29 @@ NO_LIBRARY_BITS = ("no PyTorch call computes jax.random's threefry2x32 "
                    "bits: torch's generators are Philox and give other "
                    "numbers")
 
-KV_CASES = (("e4m3", (4, 3), None, False),
-            ("e5m2", (5, 2), None, False),
-            ("e8m23", (8, 23), None, False),
-            ("e4m3-blocked32", (4, 3), 32, False),
-            ("e4m3-nan-tail", (4, 3), None, True))
+# phase 2's K12 cases: (name, KV format, blocked codec block or None,
+# NaN-coded bytes past every slot's last live position, shape) with shape
+# (slots, positions per slot, page, head_dim, kv heads, query heads); the
+# serving slice's shape unless named
+SLICE_KV = (ENGINE["n_slots"], ENGINE["max_seq"], ENGINE["page_size"],
+            MODEL["d_model"] // MODEL["n_heads"], MODEL["n_kv_heads"],
+            MODEL["n_heads"])
+KV_CASES = (("e4m3", (4, 3), None, False, SLICE_KV),
+            ("e5m2", (5, 2), None, False, SLICE_KV),
+            ("e8m23", (8, 23), None, False, SLICE_KV),
+            ("e4m3-blocked32", (4, 3), 32, False, SLICE_KV),
+            ("e4m3-nan-tail", (4, 3), None, True, SLICE_KV),
+            # a long context: 8 slots x 4096 positions, 256 pages each
+            ("e4m3-long4096", (4, 3), None, False, (8, 4096, 16, 64, 2, 8)),
+            # page 64 x head_dim 128: a page's staging cut in two parts
+            ("e4m3-page64-d128", (4, 3), None, False, (8, 512, 64, 128, 2, 8)),
+            # GQA 8:1
+            ("e4m3-rep8", (4, 3), None, False, (8, 512, 16, 64, 1, 8)))
+# K12's kernels by the profiler's names
+K12_KERNEL_NAMES = ("split_kernel", "combine_kernel")
+# K12 at the slice's e4m3 shape against the kept serial kernel it replaces,
+# by device time in the same run: at least this many times faster
+K12_SPEEDUP_FLOOR = 5.0
 
 
 def fail(msg: str) -> int:
@@ -569,7 +601,7 @@ def device_kernels_ms(fn, iters: int) -> dict:
 
 
 def kv_case(cfg, n_slots: int, max_pages: int, nan_tail: bool,
-            generator, device):
+            generator, device, n_heads: int = MODEL["n_heads"]):
     """Inputs of one fused-attention call at the slice's shapes: a pool of
     random K/V packed in ``cfg``'s format (so every byte is a valid code
     of it), trash-padded page tables of distinct pages per slot, random
@@ -602,23 +634,23 @@ def kv_case(cfg, n_slots: int, max_pages: int, nan_tail: bool,
             lp = int(last[s])
             page = int(rows[s, lp // ps])
             pool[page, :, lp % ps + 1:] = nan_code
-    q = torch.randn((n_slots, 1, MODEL["n_heads"], hd),
+    q = torch.randn((n_slots, 1, n_heads, hd),
                     generator=generator, device=device)
     return pool, q, rows, last[:, None].contiguous(), last
 
 
 def bound_ms(pool, q, rows, positions, last, cfg) -> tuple:
     """(least time in ms, "bytes" or "operations") for one fused call on
-    these inputs: each distinct gathered page, q, the page table and the
-    positions read once, attn and the digests written once; the
-    operations of both attention contractions over each slot's unmasked
-    keys, at fp32 peak."""
+    these inputs: each DISTINCT gathered page, q, the page table and the
+    positions read once, attn (fp32) and the int64 digests written once;
+    the operations of both attention contractions over each slot's
+    unmasked keys, at fp32 peak."""
     import torch
 
     n_pages = int(torch.unique(rows).numel())
     n_bytes = (n_pages * cfg.page_bytes + q.numel() * 4 + rows.numel() * 4
                + positions.numel() * 4 + last.numel() * 4
-               + q.numel() * 4 + rows.numel() * 4)
+               + q.numel() * 4 + rows.numel() * 8)
     keys = int((positions[:, 0].clamp(max=rows.shape[1] * cfg.page_size - 1)
                 + 1).sum())
     h, d = q.shape[2], q.shape[3]
@@ -649,32 +681,41 @@ def library_attention_ms(pool, q, rows, positions, last, cfg) -> float:
     qh = q.transpose(1, 2).contiguous()                  # (S, H, 1, D)
     ki = torch.arange(t_cap, device=q.device)
     mask = (ki[None, :] <= positions.long())[:, None, None, :]
-    return time_ms(lambda: F.scaled_dot_product_attention(
-        qh, k, v, attn_mask=mask), iters=200)
+    return queued_ms(lambda: F.scaled_dot_product_attention(
+        qh, k, v, attn_mask=mask), iters=50)
 
 
 def kernel_phase(device) -> dict:
-    """Phase 2: the fused attention kernel against its plain version."""
+    """Phase 2: the fused attention kernel (K12, split-K) against its plain
+    version over `KV_CASES`, two launches bitwise equal in each; timed by
+    device time (`queued_ms`) in turns with the kept serial kernel it
+    replaces (kept, kernel, kernel, kept; where the kept kernel takes the
+    shape), beside the plain version and one library call (attention
+    only: not the same function)."""
     import torch
 
     from cpd_tpu_torch.ops import serve_attn
     from cpd_tpu_torch.serve.kvcache import KVCacheConfig
 
-    max_pages = -(-ENGINE["max_seq"] // ENGINE["page_size"])
-    n_pages = 1 + ENGINE["n_slots"] * max_pages
     gen = torch.Generator(device=device).manual_seed(1234)
+    kept = serve_attn.core_launcher()
     report = {"cases": {}}
-    for name, fmt, block, nan_tail in KV_CASES:
+    for name, fmt, block, nan_tail, shape in KV_CASES:
+        slots, seq, page, hd, hkv, heads = shape
+        max_pages = -(-seq // page)
         cfg = KVCacheConfig(
-            n_layers=1, n_kv_heads=MODEL["n_kv_heads"],
-            head_dim=MODEL["d_model"] // MODEL["n_heads"],
-            page_size=ENGINE["page_size"], n_pages=n_pages,
-            exp_bits=fmt[0], man_bits=fmt[1], block_scale=block is not None,
+            n_layers=1, n_kv_heads=hkv, head_dim=hd, page_size=page,
+            n_pages=1 + slots * max_pages, exp_bits=fmt[0],
+            man_bits=fmt[1], block_scale=block is not None,
             block_size=block or 32)
-        args = kv_case(cfg, ENGINE["n_slots"], max_pages, nan_tail, gen,
-                       device)
+        args = kv_case(cfg, slots, max_pages, nan_tail, gen, device,
+                       n_heads=heads)
         attn, dig = serve_attn.fused_gather_attention(*args, cfg=cfg)
+        again = serve_attn.fused_gather_attention(*args, cfg=cfg)
         torch.cuda.synchronize()
+        if not (same_bits(attn, again[0]) and same_bits(dig, again[1])):
+            raise AssertionError(f"{name}: two launches on the same inputs "
+                                 "differ")
         want, want_dig = serve_attn.fused_gather_attention_ref(*args, cfg=cfg)
         if not torch.equal(dig, want_dig):
             raise AssertionError(f"{name}: digests differ from the plain "
@@ -686,21 +727,59 @@ def kernel_phase(device) -> dict:
         if not torch.allclose(attn, want, rtol=ATTN_RTOL, atol=ATTN_ATOL):
             raise AssertionError(f"{name}: attention differs from the "
                                  f"plain version by {err}")
-        ms = time_ms(lambda: serve_attn.fused_gather_attention(*args,
-                                                               cfg=cfg),
-                     iters=200)
+
+        def kernel():
+            return serve_attn.fused_gather_attention(*args, cfg=cfg)
+
+        def kept_kernel():
+            return kept(*args, cfg)
+
+        try:
+            kept_kernel()
+        except ValueError as e:           # outside the serial kernel's limits
+            kept_kernel, why = None, str(e)
+        if kept_kernel is None:
+            ms = queued_ms(kernel, iters=50)
+            kept_ms = None
+        else:
+            t1, k1, k2, t2 = (queued_ms(f, iters=50) for f in (
+                kept_kernel, kernel, kernel, kept_kernel))
+            ms, kept_ms = (k1 + k2) / 2, (t1 + t2) / 2
         plain_ms = time_ms(lambda: serve_attn.fused_gather_attention_ref(
-            *args, cfg=cfg), iters=20)
+            *args, cfg=cfg), iters=5)
         lib_ms = library_attention_ms(*args, cfg)
         b_ms, b_by = bound_ms(*args, cfg)
-        report["cases"][name] = dict(max_abs_err=err, ms=ms,
-                                     plain_ms=plain_ms, library_ms=lib_ms,
-                                     bound_ms=b_ms, bound_by=b_by)
-        print(f"kernel serve_attn [{name}]: digests bitwise, attn max abs "
-              f"err {err:.3e} (atol {ATTN_ATOL}, rtol {ATTN_RTOL}); "
-              f"kernel_ms {ms:.5f} plain_ms {plain_ms:.5f} bound_ms "
-              f"{b_ms:.6f} ({b_by}) library_ms {lib_ms:.5f} (attention "
-              "only; not the same function)", flush=True)
+        unit, _, _ = serve_attn.split_plan(cfg, heads // hkv)
+        # the split and combine kernels' device ms per call, by the
+        # profiler's names ({} where the profile is not whole)
+        by_kernel = ({k[:40]: round(v, 5) for k, v in
+                      device_kernels_ms(kernel, iters=50).items()}
+                     if name == "e4m3" else {})
+        report["cases"][name] = dict(
+            max_abs_err=err, ms=ms, kept_ms=kept_ms,
+            speedup=None if kept_ms is None else kept_ms / ms,
+            call_ms=time_ms(kernel, iters=50), plain_ms=plain_ms,
+            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+            shape=list(shape), parts_per_page=-(-page // unit),
+            ctas=slots * max_pages * -(-page // unit), kernels_ms=by_kernel)
+        r = report["cases"][name]
+        vs = (f"the kept serial kernel {kept_ms:.5f}, {r['speedup']:.1f}x "
+              "the kernel's time" if kept_ms is not None
+              else f"the kept serial kernel does not take it ({why})")
+        print(f"kernel serve_attn [{name}, {list(shape)}]: digests "
+              f"bitwise, two launches bitwise, attn max abs err {err:.3e} "
+              f"(atol {ATTN_ATOL}, rtol {ATTN_RTOL}); kernel_ms {ms:.5f} "
+              f"(device, split {r['ctas']} CTAs, {r['parts_per_page']} "
+              f"part(s) a page; per call with host dispatch "
+              f"{r['call_ms']:.5f}); {vs}; plain_ms {plain_ms:.5f} "
+              f"bound_ms {b_ms:.6f} ({b_by}) library_ms {lib_ms:.5f} "
+              "(SDPA on K/V unpacked ahead: attention only; not the same "
+              f"function); by kernel {by_kernel}", flush=True)
+    speedup = report["cases"]["e4m3"]["speedup"]
+    if speedup < K12_SPEEDUP_FLOOR:
+        raise AssertionError(f"K12 at the slice's e4m3 shape: only "
+                             f"{speedup:.2f}x the kept serial kernel (floor "
+                             f"{K12_SPEEDUP_FLOOR}x)")
     return report
 
 
@@ -1260,11 +1339,16 @@ def profile_phase(device, steps: int = 30, warmup: int = 10) -> dict:
                if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    # K12: its split and combine kernels (serve_attn.cu)
+    k12 = [e for e in kernels if any(n in e.key for n in K12_KERNEL_NAMES)]
     out = dict(
         steps=steps, wall_ms_per_step=wall_s * 1e3 / steps,
         device_busy_ms_per_step=busy_us / 1e3 / steps,
         device_busy_share=(busy_us / 1e6) / wall_s if busy_us else None,
         kernel_launches_per_step=sum(e.count for e in kernels) / steps,
+        k12_ms_per_step=sum(e.self_device_time_total for e in k12) / 1e3
+        / steps if k12 else None,
+        k12_launches_per_step=sum(e.count for e in k12) / steps,
         top_kernels=[dict(name=e.key[:60], ms_per_step=e.
                           self_device_time_total / 1e3 / steps,
                           launches_per_step=e.count / steps) for e in top])
@@ -3194,11 +3278,12 @@ def lm_kernel_entries(qgemm: dict, flash: dict, lm: dict) -> list:
 
 def mha_phase(device) -> dict:
     """Phase 11a: K11 and K9/K10's bf16 arm (flash_mha_tc.cu) against the
-    plain versions over the cases, each launched twice and bitwise equal;
-    the build's registers, spills and shared memory; then K11 timed at
-    the bf16 LM's shape (bf16 and fp32) and at head_dim 128 in turns with
-    the CUDA-core template it replaces, beside its plain version, its
-    bound and SDPA."""
+    plain versions over the cases, each launched twice and bitwise equal,
+    K9-K11 at `NEW_HEAD_DIMS` too; the build's registers, spills and
+    shared memory; then K11 timed at the bf16 LM's shape (bf16 and fp32)
+    and at head_dim 128 in turns with the CUDA-core template it replaces,
+    and at head_dim 256 (the template itself), beside its plain version,
+    its bound and SDPA."""
     import torch
     import torch.nn.functional as F
 
@@ -3220,6 +3305,13 @@ def mha_phase(device) -> dict:
             for dt in (f32, b16)]
     gqa = [(case[:-1], b16, case[-1]) for case in GQA_BF16_CASES]
     gqa += [((2, 256, 256, 4, 2, 128), f32, False)]
+    # head dims the kernels are not built for (zero-padded to the next)
+    # and 256 (flash_gqa.cu's templates), both dtypes, causal and not
+    for d in NEW_HEAD_DIMS:
+        mha += [((2, 256, 256, 4, 4, d), dt, c) for dt in (f32, b16)
+                for c in (True, False)]
+        gqa += [((2, 200, 256, 8, 2, d), dt, c) for dt in (f32, b16)
+                for c in (True, False)]
     worst = {}
     for label, kernels, cases in (
             ("flash_mha", (fm.flash_mha_fwd, fm.flash_mha_bwd,
@@ -3268,7 +3360,9 @@ def mha_phase(device) -> dict:
     res = {}
     for shape, dt in (((b0, t0, t0, h0, h0, d0), b16),
                       ((b0, t0, t0, h0, h0, d0), f32),
-                      ((b0, t0, t0, 4, 4, 128), b16)):
+                      ((b0, t0, t0, 4, 4, 128), b16),
+                      ((b0, t0, t0, 4, 4, 256), b16),
+                      ((b0, t0, t0, 4, 4, 256), f32)):
         b, tq, tk, h, _, d = shape
         q, k, v, g = attention_inputs(shape, dt, gen, device)
         out, lse = fm.flash_mha_fwd(q, k, v, True)
@@ -3308,18 +3402,22 @@ def mha_phase(device) -> dict:
             # host-bound, and CUDA events around them read the host's
             # dispatch; the profiler drops records in a long run.  The
             # CUDA-core template it replaces (flash_gqa.cu at rep = 1), in
-            # turns with it: template, kernel, kernel, template
-            t1, k1, k2, t2 = (queued_ms(f, iters=20)
-                              for f in (template, fn, fn, template))
-            ms, core = (k1 + k2) / 2, (t1 + t2) / 2
+            # turns with it: template, kernel, kernel, template; at D =
+            # 256 the template is the kernel
+            if d in fl.TC_HEAD_DIMS:
+                t1, k1, k2, t2 = (queued_ms(f, iters=20)
+                                  for f in (template, fn, fn, template))
+                ms, core = (k1 + k2) / 2, (t1 + t2) / 2
+                source = ("cpd_tpu_torch/csrc/flash_mha_tc.cu" if dt == b16
+                          else "cpd_tpu_torch/csrc/flash_f32_tc.cu")
+            else:
+                ms = core = queued_ms(fn, iters=20)
+                source = "cpd_tpu_torch/csrc/flash_gqa.cu"
             r = dict(ms=ms, call_ms=time_ms(fn, iters=20),
                      plain_ms=time_ms(plain, iters=3),
                      library_ms=queued_ms(lib, iters=20), **bounds,
                      rate=rate, gflop=flops / 1e9, shape=list(shape),
-                     dtype=str(dt).split(".")[-1],
-                     source=("cpd_tpu_torch/csrc/flash_mha_tc.cu"
-                             if dt == b16 else
-                             "cpd_tpu_torch/csrc/flash_f32_tc.cu"),
+                     dtype=str(dt).split(".")[-1], source=source,
                      cuda_core_ms=core, speedup=core / ms,
                      kernels_ms={k_: round(v_, 5) for k_, v_ in
                                  device_kernels_ms(fn, iters=20).items()})
@@ -3328,7 +3426,10 @@ def mha_phase(device) -> dict:
             what = ("forward" if name == "flash_mha_fwd" else
                     "backward alone: autograd.grad of a stored forward")
             vs = (f"; the CUDA-core template (flash_gqa.cu, rep = 1) "
-                  f"{core:.4f} ms, {r['speedup']:.2f}x the kernel's time")
+                  f"{core:.4f} ms, {r['speedup']:.2f}x the kernel's time"
+                  if d in fl.TC_HEAD_DIMS else
+                  "; the kernel is flash_gqa.cu's template (no speed "
+                  "target at D = 256)")
             if dt == f32:
                 vs += (f"; fp32 67 TFLOP/s {r['fp32_bound_ms']:.4f}, one "
                        f"TF32 product 495 TFLOP/s {r['tf32_bound_ms']:.4f}")
@@ -3757,10 +3858,18 @@ def main() -> int:
         max_abs_err=max(c["max_abs_err"] for c in kern["cases"].values()),
         ms=main_case["ms"], plain_ms=main_case["plain_ms"],
         bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
+        bound_basis="distinct gathered pages read once; int64 digests",
         library_ms=main_case["library_ms"],
+        library_note="scaled_dot_product_attention on K/V unpacked and "
+                     "expanded ahead: attention only, not the same "
+                     "function",
+        kept_ms=main_case["kept_ms"], speedup=main_case["speedup"],
+        call_ms=main_case["call_ms"],
         parity="digests bitwise; attn within atol "
-               f"{ATTN_ATOL} rtol {ATTN_RTOL} in every case",
-        cases={k: {"max_abs_err": c["max_abs_err"], "ms": c["ms"]}
+               f"{ATTN_ATOL} rtol {ATTN_RTOL} in every case; two launches "
+               "bitwise",
+        cases={k: {"max_abs_err": c["max_abs_err"], "ms": c["ms"],
+                   "kept_ms": c["kept_ms"], "bound_ms": c["bound_ms"]}
                for k, c in kern["cases"].items()})]
     # each kernel's launches from the main path that runs it, counted from
     # 0 around that run: the RTNE ring training (K1, K6, K5), the faithful

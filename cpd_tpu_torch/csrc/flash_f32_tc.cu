@@ -13,9 +13,11 @@
 //   K11 cpd_tpu/ops/attention.py:116 _flash_attention (the stock Pallas
 //       kernel, via cpd_tpu/compat.py:79): the same function at rep = 1
 // launched by ops/flash_gqa.py (K9, K10) and ops/flash_mha.py (K11) for
-// every fp32 CUDA call.  bf16 stays elsewhere: K11 on flash_mha_tc.cu,
-// K9/K10 on flash_gqa.cu's templates, whose fp32 arm is now the yardstick
-// these kernels are timed against.
+// every fp32 CUDA call of head_dim <= 128: the wrappers zero-pad a
+// head_dim that is not 32, 64 or 128 to the next of them and pass the
+// original head_dim's scale; head_dim in (128, 256] runs on
+// flash_gqa.cu's templates.  bf16 runs on flash_mha_tc.cu; flash_gqa.cu's
+// fp32 arm is the yardstick these kernels are timed against.
 //
 // What they compute: flash_gqa.cu's fp32 contract, unchanged.  Logits,
 // the online softmax, l and m in fp32; s is scaled after the product; a
@@ -777,15 +779,36 @@ struct Shape {
   float scale;
 };
 
+// batches of at most 65535 / per_row rows each, so that a grid's y extent
+// of (batch rows) x `per_row` stays within 65535: launch(b0, rows) for
+// each chunk in order, stopping at the first error
+template <class L>
+int batch_chunks(int b, int per_row, L launch) {
+  constexpr int kGridY = 65535;
+  if (per_row < 1 || per_row > kGridY) return int(cudaErrorInvalidValue);
+  const int per = kGridY / per_row;
+  for (int b0 = 0; b0 < b; b0 += per) {
+    const int e = launch(b0, b - b0 < per ? b - b0 : per);
+    if (e != 0) return e;
+  }
+  return 0;
+}
+
 template <int D>
 int fwd(const float* q, const float* k, const float* v, float* out,
         float* lse, Shape n, cudaStream_t s) {
   const cudaError_t e = allow_smem(f32tc_fwd_kernel<D>, fwd_smem(D));
   if (e != cudaSuccess) return int(e);
-  f32tc_fwd_kernel<D><<<dim3((n.tq + kRows - 1) / kRows, n.b * n.h),
-                        kThreads, fwd_smem(D), s>>>(
-      q, k, v, out, lse, n.tq, n.tk, n.h, n.hkv, n.causal, n.scale);
-  return int(cudaGetLastError());
+  const long long qb = static_cast<long long>(n.tq) * n.h * D;
+  const long long kb = static_cast<long long>(n.tk) * n.hkv * D;
+  return batch_chunks(n.b, n.h, [&](int b0, int rows) {
+    f32tc_fwd_kernel<D><<<dim3((n.tq + kRows - 1) / kRows, rows * n.h),
+                          kThreads, fwd_smem(D), s>>>(
+        q + b0 * qb, k + b0 * kb, v + b0 * kb, out + b0 * qb,
+        lse + static_cast<long long>(b0) * n.h * n.tq, n.tq, n.tk, n.h,
+        n.hkv, n.causal, n.scale);
+    return int(cudaGetLastError());
+  });
 }
 
 // the second stream of a device on which the dk/dv kernel runs beside dq,
@@ -826,18 +849,28 @@ int bwd(const float* q, const float* k, const float* v, const float* dout,
   if (e == cudaSuccess) e = cudaStreamWaitEvent(sd->stream, sd->fork, 0);
   if (e != cudaSuccess) return int(e);
   const bool grouped = n.h > n.hkv;
-  f32tc_dkv_kernel<D><<<dim3((n.tk + kRows - 1) / kRows, n.b * n.h),
-                        kThreads, dkv_smem(D), sd->stream>>>(
-      q, k, v, dout, lse, delta, grouped ? dk_part : dk,
-      grouped ? dv_part : dv, n.tq, n.tk, n.h, n.hkv, grouped ? n.h : n.hkv,
-      n.causal, n.scale);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return int(e);
-  f32tc_dq_kernel<D><<<dim3((n.tq + kRows - 1) / kRows, n.b * n.h),
-                       kThreads, dq_smem(D), s>>>(
-      q, k, v, dout, lse, delta, dq, n.tq, n.tk, n.h, n.hkv, n.causal,
-      n.scale);
-  e = cudaGetLastError();
+  const long long qb = static_cast<long long>(n.tq) * n.h * D;
+  const long long kb = static_cast<long long>(n.tk) * n.hkv * D;
+  const long long pb = static_cast<long long>(n.tk) * n.h * D;
+  const long long rb = static_cast<long long>(n.h) * n.tq;
+  const int rc = batch_chunks(n.b, n.h, [&](int b0, int rows) {
+    const float *qc = q + b0 * qb, *kc = k + b0 * kb, *vc = v + b0 * kb;
+    const float *dc = dout + b0 * qb, *lc = lse + b0 * rb;
+    const float* ec = delta + b0 * rb;
+    f32tc_dkv_kernel<D><<<dim3((n.tk + kRows - 1) / kRows, rows * n.h),
+                          kThreads, dkv_smem(D), sd->stream>>>(
+        qc, kc, vc, dc, lc, ec, grouped ? dk_part + b0 * pb : dk + b0 * kb,
+        grouped ? dv_part + b0 * pb : dv + b0 * kb, n.tq, n.tk, n.h, n.hkv,
+        grouped ? n.h : n.hkv, n.causal, n.scale);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return int(err);
+    f32tc_dq_kernel<D><<<dim3((n.tq + kRows - 1) / kRows, rows * n.h),
+                         kThreads, dq_smem(D), s>>>(
+        qc, kc, vc, dc, lc, ec, dq + b0 * qb, n.tq, n.tk, n.h, n.hkv,
+        n.causal, n.scale);
+    return int(cudaGetLastError());
+  });
+  e = static_cast<cudaError_t>(rc);
   if (e == cudaSuccess) e = cudaEventRecord(sd->join, sd->stream);
   if (e == cudaSuccess) e = cudaStreamWaitEvent(s, sd->join, 0);
   if (e != cudaSuccess || !grouped) return int(e);
@@ -863,7 +896,8 @@ bool valid(Shape n, int d) {
 
 // forward: out (B, Tq, H, D) and lse (B, H, Tq) from fp32 q (B, Tq, H, D)
 // and k, v (B, Tk, H_kv, D), all contiguous and 16-byte aligned; head_dim
-// 32, 64 or 128.  Returns the cudaError of the launch
+// 32, 64 or 128, any batch (run in chunks of at most 65535 / H batch rows,
+// the grid's y extent being B * H).  Returns the cudaError of the launch
 // (cudaErrorInvalidValue for a shape it does not take).
 extern "C" int flash_f32tc_fwd_launch(const void* q, const void* k,
                                       const void* v, void* out, void* lse,

@@ -1,11 +1,16 @@
 // Flash attention on the CUDA cores: the forward with its per-row
 // log-sum-exp, and the backward as a dq kernel and a dk/dv kernel, for
-// fp32 or bf16 elements and head_dim 32, 64 or 128, accumulating in fp32.
+// fp32 or bf16 elements and head_dim 32, 64, 128 or 256, accumulating in
+// fp32.
 //
-// No path runs these kernels any more: K9, K10 and K11 run on the tensor
-// cores, bf16 on flash_mha_tc.cu's mma.sync kernels and fp32 on
-// flash_f32_tc.cu's 3xTF32 kernels, and both arms stay here as the
-// yardstick those are timed against (ops.flash_gqa.core_launchers).
+// At head_dim 32, 64 and 128 no path runs these kernels: K9, K10 and K11
+// run on the tensor cores there, bf16 on flash_mha_tc.cu's mma.sync
+// kernels and fp32 on flash_f32_tc.cu's 3xTF32 kernels, and both arms
+// stay here as the yardstick those are timed against
+// (ops.flash_gqa.core_launchers).  At head_dim 256 these kernels are
+// K9-K11's arm in both dtypes: the wrappers zero-pad any head_dim in
+// (128, 256] to 256 and launch them (ops.flash_gqa.launchers); the
+// tensor-core builds hold no D = 256 tile within their registers.
 //
 // Computes the function of three TPU kernels:
 //   K9  cpd_tpu/ops/flash_gqa.py _flash_gqa_fwd_call (:151; body
@@ -47,7 +52,9 @@
 // products on the tensor cores, 3xTF32 at 165 TFLOP/s, are
 // flash_f32_tc.cu's.
 //
-// Design.  A CTA of 256 threads (16 x 16) owns a 64-row tile: the
+// Design.  A CTA of 4 x R threads (16 x R/4) owns an R-row tile, R = 64
+// at head_dim <= 128 and 32 at 256 (`tile_rows`; R keys per key tile
+// too), which keeps the dq and dk/dv tiles within 227 KB at D = 256: the
 // forward and dq a (b, head, 64 queries) tile walking the key blocks,
 // dk/dv a (b, kv head, 64 keys) tile walking the query blocks of all rep
 // heads of its kv head (the GQA group sum inside the kernel: no atomics,
@@ -60,7 +67,9 @@
 // dk/dv kernel writes p and ds over the transposed query tiles once the
 // logits are taken, which keeps it within a block's 227 KB at D = 128.
 // Shared memory at D = 64 / 128: 70 / 118 KB (forward), 104 / 186 KB
-// (dq), 103 / 203 KB (dk/dv).
+// (dq), 103 / 203 KB (dk/dv); at D = 256 (R = 32): 109 / 181 / 209 KB.
+// The grid's y extent is B * H (B * H_kv for dk/dv), at most 65535: the
+// launchers run a larger batch in chunks of whole batch rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,11 +77,15 @@
 
 namespace {
 
-constexpr int kB = 64;              // query rows / keys per tile
-constexpr int kThreads = 256;       // 16 x 16
 constexpr int kPad = 4;             // keeps rows 16-byte aligned
-constexpr int kLd = kB + kPad;      // row stride of a [t][64] tile
 constexpr float kNegInf = -1e30f;   // the JAX package's _NEG_INF
+constexpr int kGridY = 65535;       // the grid's y extent
+
+// query rows of a tile and keys of a key tile at head_dim d, the threads
+// of a CTA (16 lanes x 4 rows each) and the row stride of a [t][R] tile
+__host__ __device__ constexpr int tile_rows(int d) { return d > 128 ? 32 : 64; }
+__host__ __device__ constexpr int threads_of(int d) { return 4 * tile_rows(d); }
+__host__ __device__ constexpr int ld_of(int d) { return tile_rows(d) + kPad; }
 
 // the element types: fp32 (dtype code 0) and bf16 (1), read into and
 // rounded from fp32
@@ -100,14 +113,15 @@ struct Elem<__nv_bfloat16> {
 __device__ __forceinline__ int lane_x() { return threadIdx.x % 16; }
 __device__ __forceinline__ int lane_y() { return threadIdx.x / 16; }
 
-// rows [r0, r0 + 64) of one head of a (B, T, heads, D) tensor (row
+// rows [r0, r0 + R) of one head of a (B, T, heads, D) tensor (row
 // stride `stride` elements from `src`), zero past `t_len`, widened to
-// fp32: transposed into dst[d][r] (row stride kLd) or as they lie into
-// dst[r][d] (D+kPad)
+// fp32: transposed into dst[d][r] (row stride ld_of(D)) or as they lie
+// into dst[r][d] (D+kPad)
 template <class T, int D, bool kTrans>
 __device__ void load_tile(float* dst, const T* src, long long stride,
                           int r0, int t_len) {
-  for (int i = threadIdx.x; i < kB * D; i += kThreads) {
+  constexpr int kB = tile_rows(D), kLd = ld_of(D);
+  for (int i = threadIdx.x; i < kB * D; i += threads_of(D)) {
     const int r = i / D, d = i % D;
     const float x =
         r0 + r < t_len ? Elem<T>::load(src + (r0 + r) * stride + d) : 0.0f;
@@ -166,19 +180,20 @@ __device__ __forceinline__ bool valid_at(int qpos, int kpos, int tq, int tk,
   return qpos < tq && kpos < tk && (!causal || qpos >= kpos);
 }
 
-// forward: grid (ceil(Tq/64), B*H)
+// forward: grid (ceil(Tq/R), B*H)
 template <class T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(threads_of(D))
     fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, T* __restrict__ out,
                float* __restrict__ lse, int tq, int tk, int h, int hkv,
                int causal, float scale) {
   constexpr int NC = D / 16, LdD = D + kPad;
+  constexpr int kB = tile_rows(D), kLd = ld_of(D), KC = kB / 16;
   extern __shared__ __align__(16) float smem[];
-  float* qt = smem;                 // [D][64] queries
-  float* kt = qt + D * kLd;         // [D][64] keys
-  float* vs = kt + D * kLd;         // [64][D] values
-  float* pt = vs + kB * LdD;        // [64 keys][64 queries] probabilities
+  float* qt = smem;                 // [D][R] queries
+  float* kt = qt + D * kLd;         // [D][R] keys
+  float* vs = kt + D * kLd;         // [R][D] values
+  float* pt = vs + kB * LdD;        // [R keys][R queries] probabilities
   const int tx = lane_x(), ty = lane_y();
   const int b = blockIdx.y / h, hh = blockIdx.y % h, g = hh / (h / hkv);
   const int q0 = blockIdx.x * kB;
@@ -200,15 +215,15 @@ __global__ void __launch_bounds__(kThreads)
     load_tile<T, D, true>(kt, kb, ks, k0, tk);
     load_tile<T, D, false>(vs, vb, ks, k0, tk);
     __syncthreads();
-    float s[4][4];
+    float s[4][KC];
     zero(s);
-    mma<4, D>(s, qt, kLd, kt, kLd);
+    mma<KC, D>(s, qt, kLd, kt, kLd);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qpos = q0 + ty * 4 + i;
       float mx = kNegInf;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
+      for (int c = 0; c < KC; ++c) {
         const bool ok = valid_at(qpos, k0 + tx + 16 * c, tq, tk, causal);
         s[i][c] = ok ? s[i][c] * scale : kNegInf;
         mx = fmaxf(mx, s[i][c]);
@@ -216,7 +231,7 @@ __global__ void __launch_bounds__(kThreads)
       const float m_new = fmaxf(m[i], row_max(mx));
       float sum = 0.0f;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
+      for (int c = 0; c < KC; ++c) {
         const bool ok = valid_at(qpos, k0 + tx + 16 * c, tq, tk, causal);
         const float p = ok ? expf(s[i][c] - m_new) : 0.0f;
         // l sums p in fp32; p v takes p rounded to the element type
@@ -249,7 +264,8 @@ __global__ void __launch_bounds__(kThreads)
 // p and ds of one (query rows ty*4+i, keys tx+16c) tile from the logits
 // s = q k^T and dp = do v^T (the shared recompute, _bwd_p_ds), both in
 // fp32 (ds from the unrounded p)
-__device__ __forceinline__ void p_ds(float (&s)[4][4], float (&dp)[4][4],
+template <int KC>
+__device__ __forceinline__ void p_ds(float (&s)[4][KC], float (&dp)[4][KC],
                                      const float (&lse)[4],
                                      const float (&delta)[4], int q0, int k0,
                                      int tq, int tk, int causal,
@@ -258,7 +274,7 @@ __device__ __forceinline__ void p_ds(float (&s)[4][4], float (&dp)[4][4],
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
+    for (int c = 0; c < KC; ++c) {
       const bool ok =
           valid_at(q0 + ty * 4 + i, k0 + tx + 16 * c, tq, tk, causal);
       const float p = ok ? expf(s[i][c] * scale - lse[i]) : 0.0f;
@@ -267,22 +283,23 @@ __device__ __forceinline__ void p_ds(float (&s)[4][4], float (&dp)[4][4],
     }
 }
 
-// backward, dq: grid (ceil(Tq/64), B*H); keys innermost
+// backward, dq: grid (ceil(Tq/R), B*H); keys innermost
 template <class T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(threads_of(D))
     dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const T* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
               T* __restrict__ dq, int tq, int tk, int h, int hkv,
               int causal, float scale) {
   constexpr int NC = D / 16, LdD = D + kPad;
+  constexpr int kB = tile_rows(D), kLd = ld_of(D), KC = kB / 16;
   extern __shared__ __align__(16) float smem[];
-  float* qt = smem;                 // [D][64]
-  float* dot = qt + D * kLd;        // [D][64]
-  float* kt = dot + D * kLd;        // [D][64]
-  float* vt = kt + D * kLd;         // [D][64]
-  float* ksm = vt + D * kLd;        // [64][D]
-  float* dst = ksm + kB * LdD;      // [64 keys][64 queries] ds
+  float* qt = smem;                 // [D][R]
+  float* dot = qt + D * kLd;        // [D][R]
+  float* kt = dot + D * kLd;        // [D][R]
+  float* vt = kt + D * kLd;         // [D][R]
+  float* ksm = vt + D * kLd;        // [R][D]
+  float* dst = ksm + kB * LdD;      // [R keys][R queries] ds
   const int tx = lane_x(), ty = lane_y();
   const int b = blockIdx.y / h, hh = blockIdx.y % h, g = hh / (h / hkv);
   const int q0 = blockIdx.x * kB;
@@ -312,16 +329,16 @@ __global__ void __launch_bounds__(kThreads)
     load_tile<T, D, true>(vt, vb, ks, k0, tk);
     load_tile<T, D, false>(ksm, kb, ks, k0, tk);
     __syncthreads();
-    float s[4][4], dp[4][4];
+    float s[4][KC], dp[4][KC];
     zero(s);
     zero(dp);
-    mma<4, D>(s, qt, kLd, kt, kLd);
-    mma<4, D>(dp, dot, kLd, vt, kLd);
+    mma<KC, D>(s, qt, kLd, kt, kLd);
+    mma<KC, D>(dp, dot, kLd, vt, kLd);
     p_ds(s, dp, rl, rd, q0, k0, tq, tk, causal, scale);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) dst[(tx + 16 * c) * kLd + ty * 4 + i] =
+      for (int c = 0; c < KC; ++c) dst[(tx + 16 * c) * kLd + ty * 4 + i] =
           Elem<T>::round(dp[i][c]);
     __syncthreads();
     mma<NC, kB>(acc, dst, kLd, ksm, LdD);
@@ -336,15 +353,15 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// a [D][64] query tile, later the [64][64] p or ds tile written over it
+// a [D][R] query tile, later the [R][R] p or ds tile written over it
 __host__ __device__ constexpr int qtile(int d) {
-  return (d > kB ? d : kB) * kLd;
+  return (d > tile_rows(d) ? d : tile_rows(d)) * ld_of(d);
 }
 
-// backward, dk/dv: grid (ceil(Tk/64), B*H_kv); queries of the rep heads
+// backward, dk/dv: grid (ceil(Tk/R), B*H_kv); queries of the rep heads
 // innermost, their sums in registers
 template <class T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(threads_of(D))
     dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const T* __restrict__ dout,
                const float* __restrict__ lse,
@@ -352,14 +369,15 @@ __global__ void __launch_bounds__(kThreads)
                T* __restrict__ dv, int tq, int tk, int h, int hkv,
                int causal, float scale) {
   constexpr int NC = D / 16, LdD = D + kPad;
+  constexpr int kB = tile_rows(D), kLd = ld_of(D), KC = kB / 16;
   extern __shared__ __align__(16) float smem[];
-  float* kt = smem;                 // [D][64] keys
-  float* vt = kt + D * kLd;         // [D][64]
-  float* qt = vt + D * kLd;         // [D][64] queries, then p [64 q][64 k]
-  float* dot = qt + qtile(D);       // [D][64], then ds [64 q][64 k]
-  float* qsm = dot + qtile(D);      // [64][D]
-  float* dos = qsm + kB * LdD;      // [64][D]
-  float* rows = dos + kB * LdD;     // lse[64], delta[64]
+  float* kt = smem;                 // [D][R] keys
+  float* vt = kt + D * kLd;         // [D][R]
+  float* qt = vt + D * kLd;         // [D][R] queries, then p [R q][R k]
+  float* dot = qt + qtile(D);       // [D][R], then ds [R q][R k]
+  float* qsm = dot + qtile(D);      // [R][D]
+  float* dos = qsm + kB * LdD;      // [R][D]
+  float* rows = dos + kB * LdD;     // lse[R], delta[R]
   float* ps = qt;
   float* dss = dot;
   const int tx = lane_x(), ty = lane_y();
@@ -393,7 +411,7 @@ __global__ void __launch_bounds__(kThreads)
         rows[kB + threadIdx.x] = qpos < tq ? delta[roff + qpos] : 0.0f;
       }
       __syncthreads();
-      float s[4][4], dp[4][4], rl[4], rd[4];
+      float s[4][KC], dp[4][KC], rl[4], rd[4];
 #pragma unroll
       for (int ii = 0; ii < 4; ++ii) {
         rl[ii] = rows[ty * 4 + ii];
@@ -401,14 +419,14 @@ __global__ void __launch_bounds__(kThreads)
       }
       zero(s);
       zero(dp);
-      mma<4, D>(s, qt, kLd, kt, kLd);
-      mma<4, D>(dp, dot, kLd, vt, kLd);
+      mma<KC, D>(s, qt, kLd, kt, kLd);
+      mma<KC, D>(dp, dot, kLd, vt, kLd);
       p_ds(s, dp, rl, rd, q0, k0, tq, tk, causal, scale);
       __syncthreads();              // every lane is done with qt and dot
 #pragma unroll
       for (int ii = 0; ii < 4; ++ii)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
+        for (int c = 0; c < KC; ++c) {
           ps[(ty * 4 + ii) * kLd + tx + 16 * c] = Elem<T>::round(s[ii][c]);
           dss[(ty * 4 + ii) * kLd + tx + 16 * c] = Elem<T>::round(dp[ii][c]);
         }
@@ -430,13 +448,21 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-constexpr int fwd_smem(int d) { return (2 * d * kLd + kB * (d + kPad) + kB * kLd) * 4; }
-constexpr int dq_smem(int d) { return (4 * d * kLd + kB * (d + kPad) + kB * kLd) * 4; }
-constexpr int dkv_smem(int d) {
-  return (2 * d * kLd + 2 * qtile(d) + 2 * kB * (d + kPad) + 2 * kB) * 4;
+constexpr int fwd_smem(int d) {
+  return (2 * d * ld_of(d) + tile_rows(d) * (d + kPad + ld_of(d))) * 4;
 }
-static_assert(dkv_smem(128) <= 232448, "dk/dv tiles exceed 227 KB");
-static_assert(dq_smem(128) <= 232448, "dq tiles exceed 227 KB");
+constexpr int dq_smem(int d) {
+  return (4 * d * ld_of(d) + tile_rows(d) * (d + kPad + ld_of(d))) * 4;
+}
+constexpr int dkv_smem(int d) {
+  return (2 * d * ld_of(d) + 2 * qtile(d) +
+          2 * tile_rows(d) * (d + kPad + 1)) * 4;
+}
+static_assert(dkv_smem(128) <= 232448 && dkv_smem(256) <= 232448,
+              "dk/dv tiles exceed 227 KB");
+static_assert(dq_smem(128) <= 232448 && dq_smem(256) <= 232448,
+              "dq tiles exceed 227 KB");
+static_assert(fwd_smem(256) <= 232448, "forward tiles exceed 227 KB");
 
 template <class K>
 cudaError_t allow_smem(K kernel, int bytes) {
@@ -450,42 +476,70 @@ struct Shape {
   float scale;
 };
 
+// batches of at most `per` rows each, so that a grid's y extent of
+// (batch rows) x `per_row` stays within 65535: launch(b0, rows) for each
+// chunk in order, stopping at the first error
+template <class L>
+int batch_chunks(int b, int per_row, L launch) {
+  if (per_row < 1 || per_row > kGridY) return int(cudaErrorInvalidValue);
+  const int per = kGridY / per_row;
+  for (int b0 = 0; b0 < b; b0 += per) {
+    const int e = launch(b0, b - b0 < per ? b - b0 : per);
+    if (e != 0) return e;
+  }
+  return 0;
+}
+
 template <class T, int D>
 int fwd(const void* q, const void* k, const void* v, void* out, float* lse,
         Shape n, cudaStream_t s) {
+  constexpr int kB = tile_rows(D);
   cudaError_t e = allow_smem(fwd_kernel<T, D>, fwd_smem(D));
   if (e != cudaSuccess) return int(e);
-  const dim3 grid((n.tq + kB - 1) / kB, n.b * n.h);
-  fwd_kernel<T, D><<<grid, kThreads, fwd_smem(D), s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse, n.tq, n.tk, n.h,
-      n.hkv, n.causal, n.scale);
-  return int(cudaGetLastError());
+  const long long qb = static_cast<long long>(n.tq) * n.h * D;
+  const long long kb = static_cast<long long>(n.tk) * n.hkv * D;
+  return batch_chunks(n.b, n.h, [&](int b0, int rows) {
+    const dim3 grid((n.tq + kB - 1) / kB, rows * n.h);
+    fwd_kernel<T, D><<<grid, threads_of(D), fwd_smem(D), s>>>(
+        static_cast<const T*>(q) + b0 * qb, static_cast<const T*>(k) + b0 * kb,
+        static_cast<const T*>(v) + b0 * kb, static_cast<T*>(out) + b0 * qb,
+        lse + static_cast<long long>(b0) * n.h * n.tq, n.tq, n.tk, n.h,
+        n.hkv, n.causal, n.scale);
+    return int(cudaGetLastError());
+  });
 }
 
 template <class T, int D>
 int bwd(const void* q, const void* k, const void* v, const void* dout,
         const float* lse, const float* delta, void* dq, void* dk, void* dv,
         Shape n, cudaStream_t s) {
+  constexpr int kB = tile_rows(D);
   cudaError_t e = allow_smem(dq_kernel<T, D>, dq_smem(D));
   if (e == cudaSuccess) e = allow_smem(dkv_kernel<T, D>, dkv_smem(D));
   if (e != cudaSuccess) return int(e);
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* dt = static_cast<const T*>(dout);
-  dq_kernel<T, D><<<dim3((n.tq + kB - 1) / kB, n.b * n.h), kThreads,
-                    dq_smem(D), s>>>(qt, kt, vt, dt, lse, delta,
-                                     static_cast<T*>(dq), n.tq, n.tk, n.h,
-                                     n.hkv, n.causal, n.scale);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return int(e);
-  dkv_kernel<T, D><<<dim3((n.tk + kB - 1) / kB, n.b * n.hkv), kThreads,
-                     dkv_smem(D), s>>>(qt, kt, vt, dt, lse, delta,
-                                       static_cast<T*>(dk),
-                                       static_cast<T*>(dv), n.tq, n.tk, n.h,
-                                       n.hkv, n.causal, n.scale);
-  return int(cudaGetLastError());
+  const long long qb = static_cast<long long>(n.tq) * n.h * D;
+  const long long kb = static_cast<long long>(n.tk) * n.hkv * D;
+  const long long rb = static_cast<long long>(n.h) * n.tq;
+  return batch_chunks(n.b, n.h, [&](int b0, int rows) {
+    const T* qt = static_cast<const T*>(q) + b0 * qb;
+    const T* kt = static_cast<const T*>(k) + b0 * kb;
+    const T* vt = static_cast<const T*>(v) + b0 * kb;
+    const T* dt = static_cast<const T*>(dout) + b0 * qb;
+    const float* lt = lse + b0 * rb;
+    const float* et = delta + b0 * rb;
+    dq_kernel<T, D><<<dim3((n.tq + kB - 1) / kB, rows * n.h), threads_of(D),
+                      dq_smem(D), s>>>(qt, kt, vt, dt, lt, et,
+                                       static_cast<T*>(dq) + b0 * qb, n.tq,
+                                       n.tk, n.h, n.hkv, n.causal, n.scale);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return int(err);
+    dkv_kernel<T, D><<<dim3((n.tk + kB - 1) / kB, rows * n.hkv),
+                       threads_of(D), dkv_smem(D), s>>>(
+        qt, kt, vt, dt, lt, et, static_cast<T*>(dk) + b0 * kb,
+        static_cast<T*>(dv) + b0 * kb, n.tq, n.tk, n.h, n.hkv, n.causal,
+        n.scale);
+    return int(cudaGetLastError());
+  });
 }
 
 // the instantiation for (element type code, head_dim): 0 fp32, 1 bf16
@@ -495,10 +549,12 @@ int dispatch(int dtype, int d, A... args) {
     if (d == 32) return F<float, 32>::run(args...);
     if (d == 64) return F<float, 64>::run(args...);
     if (d == 128) return F<float, 128>::run(args...);
+    if (d == 256) return F<float, 256>::run(args...);
   } else if (dtype == 1) {
     if (d == 32) return F<__nv_bfloat16, 32>::run(args...);
     if (d == 64) return F<__nv_bfloat16, 64>::run(args...);
     if (d == 128) return F<__nv_bfloat16, 128>::run(args...);
+    if (d == 256) return F<__nv_bfloat16, 256>::run(args...);
   }
   return int(cudaErrorInvalidValue);
 }
@@ -518,8 +574,9 @@ struct Bwd {
 
 // forward: out (B, Tq, H, D) and lse (B, H, Tq) fp32 from q (B, Tq, H, D),
 // k and v (B, Tk, H_kv, D), all contiguous, of element type `dtype` (0
-// fp32, 1 bf16); head_dim 32, 64 or 128.  Returns the cudaError of the
-// launch (cudaErrorInvalidValue for another dtype or head_dim).
+// fp32, 1 bf16); head_dim 32, 64, 128 or 256, any batch.  Returns the
+// cudaError of the launch (cudaErrorInvalidValue for another dtype or
+// head_dim, or more than 65535 heads).
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 void* out, void* lse, int b, int tq, int tk,
                                 int h, int hkv, int d, int dtype, int causal,

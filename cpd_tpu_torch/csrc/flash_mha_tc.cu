@@ -16,9 +16,12 @@
 //       forward :388-477 and its own backward, dkv :796-938, dq
 //       :1146-1261): the same function at rep = 1
 // launched by ops/flash_gqa.py (K9, K10) and ops/flash_mha.py (K11) for
-// every bf16 CUDA call.  fp32 runs on flash_f32_tc.cu's 3xTF32 kernels;
-// flash_gqa.cu's CUDA-core templates, which K9/K10's bf16 calls ran
-// before, are the yardstick these kernels are timed against.
+// every bf16 CUDA call of head_dim <= 128 (the wrappers zero-pad a
+// head_dim that is not 32, 64 or 128 to the next and pass the original
+// head_dim's scale; head_dim in (128, 256] runs on flash_gqa.cu).  fp32
+// runs on flash_f32_tc.cu's 3xTF32 kernels; flash_gqa.cu's CUDA-core
+// templates, which K9/K10's bf16 calls ran before, are the yardstick
+// these kernels are timed against.
 //
 // What they compute: the GQA contract of flash_gqa.cu and flash_f32_tc.cu
 // with the JAX kernels' bf16 roundings, as the plain versions
@@ -683,16 +686,38 @@ dim3 grid_of(Shape n, int t) {
   return dim3(n.h, n.b, (t + kRows - 1) / kRows);
 }
 
+// batches of at most 65535 rows each, the grid's y extent:
+// launch(b0, chunk) for each chunk in order, `chunk` the shape of its
+// rows, stopping at the first error
+template <class L>
+int batch_chunks(Shape n, L launch) {
+  constexpr int kGridY = 65535;
+  for (int b0 = 0; b0 < n.b; b0 += kGridY) {
+    Shape c = n;
+    c.b = n.b - b0 < kGridY ? n.b - b0 : kGridY;
+    const int e = launch(b0, c);
+    if (e != 0) return e;
+  }
+  return 0;
+}
+
 template <int D>
 int fwd(const void* q, const void* k, const void* v, void* out, float* lse,
         Shape n, cudaStream_t s) {
   const cudaError_t e = allow_smem(fwd_kernel<D>, fwd_smem(D));
   if (e != cudaSuccess) return int(e);
-  fwd_kernel<D><<<grid_of(n, n.tq), kThreads, fwd_smem(D), s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, n.tq, n.tk,
-      n.h, n.hkv, n.causal, n.scale);
-  return int(cudaGetLastError());
+  const long long qb = static_cast<long long>(n.tq) * n.h * D;
+  const long long kb = static_cast<long long>(n.tk) * n.hkv * D;
+  return batch_chunks(n, [&](int b0, Shape c) {
+    fwd_kernel<D><<<grid_of(c, c.tq), kThreads, fwd_smem(D), s>>>(
+        static_cast<const bf16*>(q) + b0 * qb,
+        static_cast<const bf16*>(k) + b0 * kb,
+        static_cast<const bf16*>(v) + b0 * kb,
+        static_cast<bf16*>(out) + b0 * qb,
+        lse + static_cast<long long>(b0) * n.h * n.tq, c.tq, c.tk, c.h,
+        c.hkv, c.causal, c.scale);
+    return int(cudaGetLastError());
+  });
 }
 
 // the second stream of a device on which the dk/dv kernel runs beside dq,
@@ -738,16 +763,27 @@ int bwd(const BwdArgs& a, Shape n, cudaStream_t s) {
   if (e == cudaSuccess) e = cudaStreamWaitEvent(sd->stream, sd->fork, 0);
   if (e != cudaSuccess) return int(e);
   const bool grouped = n.h > n.hkv;
-  dkv_kernel<D><<<grid_of(n, n.tk), kThreads, dkv_smem(D), sd->stream>>>(
-      a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dk, a.dv,
-      grouped ? a.dk_part : nullptr, grouped ? a.dv_part : nullptr, n.tq,
-      n.tk, n.h, n.hkv, n.causal, n.scale);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return int(e);
-  dq_kernel<D><<<grid_of(n, n.tq), kThreads, dq_smem(D), s>>>(
-      a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dq, n.tq, n.tk, n.h, n.hkv,
-      n.causal, n.scale);
-  e = cudaGetLastError();
+  const long long qb = static_cast<long long>(n.tq) * n.h * D;
+  const long long kb = static_cast<long long>(n.tk) * n.hkv * D;
+  const long long pb = static_cast<long long>(n.tk) * n.h * D;
+  const long long rb = static_cast<long long>(n.h) * n.tq;
+  const int rc = batch_chunks(n, [&](int b0, Shape c) {
+    const bf16 *qc = a.q + b0 * qb, *kc = a.k + b0 * kb, *vc = a.v + b0 * kb;
+    const bf16* dc = a.dout + b0 * qb;
+    const float *lc = a.lse + b0 * rb, *ec = a.delta + b0 * rb;
+    dkv_kernel<D><<<grid_of(c, c.tk), kThreads, dkv_smem(D), sd->stream>>>(
+        qc, kc, vc, dc, lc, ec, a.dk + b0 * kb, a.dv + b0 * kb,
+        grouped ? a.dk_part + b0 * pb : nullptr,
+        grouped ? a.dv_part + b0 * pb : nullptr, c.tq, c.tk, c.h, c.hkv,
+        c.causal, c.scale);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return int(err);
+    dq_kernel<D><<<grid_of(c, c.tq), kThreads, dq_smem(D), s>>>(
+        qc, kc, vc, dc, lc, ec, a.dq + b0 * qb, c.tq, c.tk, c.h, c.hkv,
+        c.causal, c.scale);
+    return int(cudaGetLastError());
+  });
+  e = static_cast<cudaError_t>(rc);
   if (e == cudaSuccess) e = cudaEventRecord(sd->join, sd->stream);
   if (e == cudaSuccess) e = cudaStreamWaitEvent(s, sd->join, 0);
   if (e != cudaSuccess || !grouped) return int(e);
@@ -764,11 +800,12 @@ int bwd(const BwdArgs& a, Shape n, cudaStream_t s) {
 }
 
 // what the kernels take: head_dim 32, 64 or 128, H_kv | H, nonempty, and
-// the grid's limits (B and the row blocks at most 65535)
+// the grid's limit on the row blocks (at most 65535; a batch past the
+// grid's 65535 runs in chunks, `batch_chunks`)
 bool valid(Shape n, int d) {
-  return (d == 32 || d == 64 || d == 128) && n.b > 0 && n.b <= 65535 &&
-         n.hkv > 0 && n.h >= n.hkv && n.h % n.hkv == 0 && n.tq > 0 &&
-         n.tk > 0 && (n.tq + kRows - 1) / kRows <= 65535 &&
+  return (d == 32 || d == 64 || d == 128) && n.b > 0 && n.hkv > 0 &&
+         n.h >= n.hkv && n.h % n.hkv == 0 && n.tq > 0 && n.tk > 0 &&
+         (n.tq + kRows - 1) / kRows <= 65535 &&
          (n.tk + kRows - 1) / kRows <= 65535;
 }
 

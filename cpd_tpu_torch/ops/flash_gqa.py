@@ -21,8 +21,12 @@ per-row log-sum-exp the backward re-exponentiates.
   ``flash_gqa_bwd.launches`` backward calls (each launches the dq and the
   dk/dv kernel, and at rep > 1 the rep sum);
 * `core_launchers` — the CUDA-core templates of ``csrc/flash_gqa.cu``,
-  which no path calls in either dtype: ``chip_smoke.py`` times them
-  beside the tensor-core kernels;
+  which no path calls in either dtype at head_dim <= 128:
+  ``chip_smoke.py`` times them beside the tensor-core kernels;
+* `launchers` — the launch functions a CUDA call of an element type and
+  head_dim takes (the tensor-core kernels up to 128, the templates at
+  256), and `_padded_head_dim`, which runs one of them (or a plain
+  version) on head dims zero-padded up to the kernel's;
 * `flash_gqa(q, k, v, causal, bwd)` — the differentiable function.
   ``bwd="pallas"`` (the JAX name of the flash-backward kernels) saves
   (q, k, v, out, lse) and runs K10; ``bwd="chunked"`` recomputes through
@@ -32,9 +36,19 @@ per-row log-sum-exp the backward re-exponentiates.
 TPU's row padding.  Elements are fp32 or bf16, as the JAX kernel takes
 q's dtype: logits, softmax and products accumulate in fp32, p is rounded
 to the element type before p·v (its fp32 value feeds the sum), p and ds
-before the backward's products, and each output once.  The kernels take
-head_dim 32, 64 or 128.  Both tensor-core libraries at rep = 1 are
-K11, the stock MHA kernel (`ops.flash_mha`).
+before the backward's products, and each output once.  Both tensor-core
+libraries at rep = 1 are K11, the stock MHA kernel (`ops.flash_mha`).
+
+Head dims on the card.  The kernels are built for head_dim 32, 64 and 128
+(the tensor-core kernels) and 256 (``flash_gqa.cu``'s templates).  Any
+other head_dim up to 256 is zero-padded to the next of these, as the JAX
+kernel pads D to a multiple of 128: q, k, v (and out, dout) get zero
+columns, the kernel runs with the ORIGINAL head_dim's scale, and out, dq,
+dk and dv are sliced back; lse is unchanged.  A padded column adds
+x · 0 = +0 to every dot product, so the result is the unpadded one up to
+the order of fp32 sums.  head_dim > 256 raises (ROADMAP Queue C).  The
+batch is not limited: the launchers run a batch past the grid's 65535
+rows in chunks.
 """
 
 from __future__ import annotations
@@ -43,15 +57,19 @@ import ctypes
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .attention import _NEG_INF, _gqa_rep
 
 __all__ = ["flash_gqa", "flash_gqa_fwd", "flash_gqa_bwd",
            "flash_gqa_fwd_ref", "flash_gqa_bwd_ref", "KERNEL_HEAD_DIMS",
            "KERNEL_DTYPES", "F32TC_SIGNATURES", "TC_SIGNATURES",
-           "core_launchers"]
+           "core_launchers", "launchers", "kernel_head_dim"]
 
-KERNEL_HEAD_DIMS = (32, 64, 128)
+# the head dims the kernels are built for: the tensor-core kernels take
+# the first three, flash_gqa.cu's templates the last
+KERNEL_HEAD_DIMS = (32, 64, 128, 256)
+TC_HEAD_DIMS = KERNEL_HEAD_DIMS[:3]
 # element type -> the kernels' dtype code
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -77,6 +95,36 @@ def _scale(d: int) -> float:
     return float(np.float32(1.0 / float(d) ** 0.5))
 
 
+def kernel_head_dim(d: int) -> int:
+    """The head_dim of the kernel a CUDA call of head_dim ``d`` runs: the
+    least of `KERNEL_HEAD_DIMS` >= d."""
+    for k in KERNEL_HEAD_DIMS:
+        if d <= k:
+            return k
+    raise ValueError(f"head_dim {d} > {KERNEL_HEAD_DIMS[-1]}: the kernels "
+                     "have no arm for it yet (ROADMAP Queue C: a "
+                     "head_dim-chunked arm)")
+
+
+def _padded_head_dim(fn, xs: tuple, *args):
+    """``fn(*xs, *args)`` with head_dim zero-padded to
+    `kernel_head_dim`: every (B, T, heads, D) tensor of ``xs`` gets zero
+    columns up to it, ``fn`` runs with the original D's scale
+    (``scale=``), and its (B, T, heads, D) outputs are sliced back to D;
+    lse and the other 3-d tensors pass as they are.  At a kernel's own
+    head_dim it is ``fn(*xs, *args)``.  ``fn`` is a launcher or a plain
+    version: the CPU tests hold this path itself against the JAX
+    kernels."""
+    d = xs[0].shape[-1]
+    d_p = kernel_head_dim(d)
+    if d_p == d:
+        return fn(*xs, *args)
+    padded = (F.pad(x, (0, d_p - d)) if x.dim() == 4 else x for x in xs)
+    res = fn(*padded, *args, scale=_scale(d))
+    return tuple(r[..., :d].contiguous() if r.dim() == 4 else r
+                 for r in res)
+
+
 def _valid(tq: int, tk: int, causal: bool, device) -> torch.Tensor:
     qi = torch.arange(tq, device=device)[:, None]
     ki = torch.arange(tk, device=device)[None, :]
@@ -98,13 +146,15 @@ def _grouped_logits(q, k, scale):
 
 
 def flash_gqa_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      causal: bool = True) -> tuple:
-    """Plain version of K9: ``(out (B, Tq, H, D), lse (B, H, Tq))``."""
+                      causal: bool = True, scale=None) -> tuple:
+    """Plain version of K9: ``(out (B, Tq, H, D), lse (B, H, Tq))``;
+    ``scale`` defaults to `_scale` of q's head_dim."""
     b, tq, h, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     _gqa_rep(q, k)
     valid = _valid(tq, tk, causal, q.device)
-    s = torch.where(valid, _grouped_logits(q, k, _scale(d)), _NEG_INF)
+    scale = _scale(d) if scale is None else scale
+    s = torch.where(valid, _grouped_logits(q, k, scale), _NEG_INF)
     m = s.amax(dim=-1, keepdim=True) if tk else torch.full(
         s.shape[:-1] + (1,), _NEG_INF, device=q.device)
     p = torch.where(valid, torch.exp(s - m), 0.0)
@@ -117,12 +167,14 @@ def flash_gqa_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_gqa_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       out: torch.Tensor, lse: torch.Tensor,
-                      dout: torch.Tensor, causal: bool = True) -> tuple:
-    """Plain version of K10: ``(dq, dk, dv)`` in the input shapes."""
+                      dout: torch.Tensor, causal: bool = True,
+                      scale=None) -> tuple:
+    """Plain version of K10: ``(dq, dk, dv)`` in the input shapes;
+    ``scale`` defaults to `_scale` of q's head_dim."""
     b, tq, h, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     rep = _gqa_rep(q, k)
-    scale = _scale(d)
+    scale = _scale(d) if scale is None else scale
     valid = _valid(tq, tk, causal, q.device)
     delta = _delta(out, dout).reshape(b, hkv, rep, tq)
     lse = lse.reshape(b, hkv, rep, tq)
@@ -183,7 +235,8 @@ def f32tc_library():
 def _on_card(what: str, elems: tuple, rows: tuple = ()) -> bool:
     """False for CPU tensors; for CUDA tensors check what the kernels
     take (one device; ``elems`` of one element type, fp32 or bf16, and
-    ``rows`` fp32; head_dim 32, 64 or 128) and return True."""
+    ``rows`` fp32; head_dim <= 256, `kernel_head_dim`) and return
+    True."""
     devices = {x.device for x in elems + rows}
     if len(devices) != 1:
         raise ValueError(f"{what}: inputs on several devices: "
@@ -200,10 +253,7 @@ def _on_card(what: str, elems: tuple, rows: tuple = ()) -> bool:
     for x in rows:
         if x.dtype != torch.float32:
             raise TypeError(f"{what}: lse dtype {x.dtype}, expected float32")
-    d = elems[0].shape[-1]
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{what}: the kernel takes head_dim in "
-                         f"{KERNEL_HEAD_DIMS}, got {d}")
+    kernel_head_dim(elems[0].shape[-1])
     return True
 
 
@@ -221,8 +271,6 @@ def _dims(q, k):
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
                          "match")
     _gqa_rep(q, k)
-    if b * h > 65535:
-        raise ValueError(f"B*H = {b * h} exceeds the kernel's grid")
     return b, tq, tk, h, hkv, d
 
 
@@ -236,15 +284,30 @@ def flash_gqa_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"v {tuple(v.shape)} != k {tuple(k.shape)}")
     if not _on_card("flash_gqa_fwd", (q, k, v)):
         return flash_gqa_fwd_ref(q, k, v, causal)
-    fwd = _f32tc_fwd if q.dtype == torch.float32 else _tc_fwd
-    out, lse = fwd(q, k, v, causal, "flash_gqa_fwd")
+    out, lse = _padded_head_dim(launchers(q.dtype, d)[0], (q, k, v), causal,
+                                "flash_gqa_fwd")
     flash_gqa_fwd.launches += 1
     return out, lse
 
 
-def _launch_fwd(q, k, v, causal, what) -> tuple:
-    """``flash_gqa.cu``'s forward template on checked CUDA tensors, the
-    yardstick of `core_launchers` in both dtypes: ``(out, lse)``."""
+def launchers(dtype: torch.dtype, head_dim: int) -> tuple:
+    """``(forward, backward)`` launch functions of CUDA calls of ``dtype``
+    and ``head_dim`` (padded to `kernel_head_dim` by `_padded_head_dim`):
+    up to 128 the tensor-core kernels, fp32 ``flash_f32_tc.cu``'s and
+    bf16 ``flash_mha_tc.cu``'s; at 256 ``flash_gqa.cu``'s templates in
+    both dtypes."""
+    if kernel_head_dim(head_dim) not in TC_HEAD_DIMS:
+        return _launch_fwd, _launch_bwd
+    if dtype == torch.float32:
+        return _f32tc_fwd, _f32tc_bwd
+    return _tc_fwd, _tc_bwd
+
+
+def _launch_fwd(q, k, v, causal, what, scale=None) -> tuple:
+    """``flash_gqa.cu``'s forward template on checked CUDA tensors: K9's
+    arm at head_dim 256 and, at the others, the yardstick of
+    `core_launchers` in both dtypes: ``(out, lse)``.  ``scale`` defaults
+    to `_scale` of the tensors' head_dim."""
     b, tq, tk, h, hkv, d = _dims(q, k)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
@@ -256,7 +319,7 @@ def _launch_fwd(q, k, v, causal, what) -> tuple:
         rc = lib.flash_fwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), b, tq, tk, h, hkv, d, KERNEL_DTYPES[q.dtype],
-            int(causal), _scale(d),
+            int(causal), _scale(d) if scale is None else scale,
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(lib, rc, what)
     return out, lse
@@ -269,18 +332,20 @@ def flash_gqa_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     output and lse (K10; delta = Σ dout·out is one torch op).  CPU
     tensors take `flash_gqa_bwd_ref`; CUDA tensors launch the dq and the
     dk/dv kernel, counted once per call in ``flash_gqa_bwd.launches``."""
-    _dims(q, k)
+    d = _dims(q, k)[-1]
     if not _on_card("flash_gqa_bwd", (q, k, v, out, dout), (lse,)):
         return flash_gqa_bwd_ref(q, k, v, out, lse, dout, causal)
-    bwd = _f32tc_bwd if q.dtype == torch.float32 else _tc_bwd
-    grads = bwd(q, k, v, out, lse, dout, causal, "flash_gqa_bwd")
+    grads = _padded_head_dim(launchers(q.dtype, d)[1],
+                             (q, k, v, out, lse, dout), causal,
+                             "flash_gqa_bwd")
     flash_gqa_bwd.launches += 1
     return grads
 
 
-def _launch_bwd(q, k, v, out, lse, dout, causal, what) -> tuple:
-    """``flash_gqa.cu``'s dq and dk/dv templates on checked CUDA tensors,
-    the yardstick of `core_launchers` in both dtypes: ``(dq, dk, dv)``."""
+def _launch_bwd(q, k, v, out, lse, dout, causal, what, scale=None) -> tuple:
+    """``flash_gqa.cu``'s dq and dk/dv templates on checked CUDA tensors:
+    K10's arm at head_dim 256 and, at the others, the yardstick of
+    `core_launchers` in both dtypes: ``(dq, dk, dv)``."""
     b, tq, tk, h, hkv, d = _dims(q, k)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     dout, lse = dout.contiguous(), lse.contiguous()
@@ -296,7 +361,7 @@ def _launch_bwd(q, k, v, out, lse, dout, causal, what) -> tuple:
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), b, tq, tk, h, hkv, d, KERNEL_DTYPES[q.dtype],
-            int(causal), _scale(d),
+            int(causal), _scale(d) if scale is None else scale,
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(lib, rc, what)
     return dq, dk, dv
@@ -312,7 +377,7 @@ def _tc_args(what: str, *xs: torch.Tensor) -> tuple:
     return xs
 
 
-def _f32tc_fwd(q, k, v, causal, what) -> tuple:
+def _f32tc_fwd(q, k, v, causal, what, scale=None) -> tuple:
     """The 3xTF32 tensor-core forward on checked fp32 CUDA tensors (K9,
     and K11 at rep = 1): ``(out, lse)``."""
     b, tq, tk, h, hkv, d = _dims(q, k)
@@ -325,13 +390,14 @@ def _f32tc_fwd(q, k, v, causal, what) -> tuple:
     with torch.cuda.device(q.device):
         rc = lib.flash_f32tc_fwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, tq, tk, h, hkv, d, int(causal), _scale(d),
+            lse.data_ptr(), b, tq, tk, h, hkv, d, int(causal),
+            _scale(d) if scale is None else scale,
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(lib, rc, what)
     return out, lse
 
 
-def _f32tc_bwd(q, k, v, out, lse, dout, causal, what) -> tuple:
+def _f32tc_bwd(q, k, v, out, lse, dout, causal, what, scale=None) -> tuple:
     """The 3xTF32 tensor-core dq and dk/dv kernels on checked fp32 CUDA
     tensors (K10, and K11's backward at rep = 1): ``(dq, dk, dv)``."""
     b, tq, tk, h, hkv, d = _dims(q, k)
@@ -352,7 +418,8 @@ def _f32tc_bwd(q, k, v, out, lse, dout, causal, what) -> tuple:
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), *(x.data_ptr() if x is not None else None
                              for x in parts),
-            b, tq, tk, h, hkv, d, int(causal), _scale(d),
+            b, tq, tk, h, hkv, d, int(causal),
+            _scale(d) if scale is None else scale,
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(lib, rc, what)
     return dq, dk, dv
@@ -363,7 +430,7 @@ def tc_library():
     return _typed_library("flash_mha_tc", TC_SIGNATURES)
 
 
-def _tc_fwd(q, k, v, causal, what) -> tuple:
+def _tc_fwd(q, k, v, causal, what, scale=None) -> tuple:
     """The bf16 tensor-core forward on checked bf16 CUDA tensors (K9, and
     K11 at rep = 1): ``(out, lse)``."""
     b, tq, tk, h, hkv, d = _dims(q, k)
@@ -376,13 +443,14 @@ def _tc_fwd(q, k, v, causal, what) -> tuple:
     with torch.cuda.device(q.device):
         rc = lib.flash_tc_fwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, tq, tk, h, hkv, d, int(causal), _scale(d),
+            lse.data_ptr(), b, tq, tk, h, hkv, d, int(causal),
+            _scale(d) if scale is None else scale,
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(lib, rc, what)
     return out, lse
 
 
-def _tc_bwd(q, k, v, out, lse, dout, causal, what) -> tuple:
+def _tc_bwd(q, k, v, out, lse, dout, causal, what, scale=None) -> tuple:
     """The bf16 tensor-core dq and dk/dv kernels on checked bf16 CUDA
     tensors (K10, and K11's backward at rep = 1): ``(dq, dk, dv)``."""
     b, tq, tk, h, hkv, d = _dims(q, k)
@@ -403,7 +471,8 @@ def _tc_bwd(q, k, v, out, lse, dout, causal, what) -> tuple:
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), *(x.data_ptr() if x is not None else None
                              for x in parts),
-            b, tq, tk, h, hkv, d, int(causal), _scale(d),
+            b, tq, tk, h, hkv, d, int(causal),
+            _scale(d) if scale is None else scale,
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(lib, rc, what)
     return dq, dk, dv

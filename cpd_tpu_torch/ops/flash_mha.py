@@ -22,11 +22,14 @@ p to fp32 round-off.  In fp32 every rounding is the identity.
   recipe over the whole score matrix in torch ops, with the same
   roundings;
 * `flash_mha_fwd` / `flash_mha_bwd` (K11) — the wrappers.  CPU tensors
-  take the plain versions; CUDA tensors launch hand-written kernels
-  (head_dim 32, 64 or 128) or raise: bf16 the tensor-core kernels of
+  take the plain versions; CUDA tensors launch hand-written kernels or
+  raise: up to head_dim 128 bf16 the tensor-core kernels of
   ``csrc/flash_mha_tc.cu`` (`mma.sync` bf16 tiles, fp32 accumulators),
-  fp32 the 3xTF32 tensor-core kernels of ``csrc/flash_f32_tc.cu``, both
-  at rep = 1, as K9/K10 (`ops.flash_gqa`) launch them (`launchers`).
+  fp32 the 3xTF32 tensor-core kernels of ``csrc/flash_f32_tc.cu``, and at
+  head_dim 256 ``csrc/flash_gqa.cu``'s CUDA-core templates in both
+  dtypes, all at rep = 1, as K9/K10 (`ops.flash_gqa`) launch them
+  (`launchers`); a head_dim between the kernels' is zero-padded to the
+  next (`flash_gqa._padded_head_dim`).
   ``flash_mha_fwd.launches`` counts forward launches,
   ``flash_mha_bwd.launches`` backward calls (each launches a dq and a
   dk/dv kernel);
@@ -46,8 +49,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .flash_gqa import (TC_SIGNATURES, _f32tc_bwd, _f32tc_fwd, _on_card,
-                        _rounded, _scale, _tc_bwd, _tc_fwd, tc_library)
+from .flash_gqa import (TC_HEAD_DIMS, TC_SIGNATURES, _f32tc_bwd, _f32tc_fwd,
+                        _launch_bwd, _launch_fwd, _on_card, _padded_head_dim,
+                        _rounded, _scale, _tc_bwd, _tc_fwd, kernel_head_dim,
+                        tc_library)
 
 __all__ = ["flash_mha", "flash_mha_fwd", "flash_mha_bwd",
            "flash_mha_fwd_ref", "flash_mha_bwd_ref", "launchers",
@@ -98,11 +103,12 @@ def _check_contract(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "larger")
 
 
-def _logits(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
+def _logits(q: torch.Tensor, k: torch.Tensor, causal: bool,
+            scale=None) -> torch.Tensor:
     """(B, H, Tq, Tk) fp32 ``q·kᵀ * sm_scale`` plus the additive causal
-    mask."""
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * _scale(
-        q.shape[-1])
+    mask; ``scale`` defaults to `_scale` of the head_dim."""
+    scale = _scale(q.shape[-1]) if scale is None else scale
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if causal:
         qi = torch.arange(q.shape[1], device=q.device)[:, None]
         ki = torch.arange(k.shape[1], device=q.device)[None, :]
@@ -111,10 +117,11 @@ def _logits(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
 
 
 def flash_mha_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      causal: bool = True) -> tuple:
+                      causal: bool = True, scale=None) -> tuple:
     """Plain version of K11's forward: ``(out (B, Tq, H, D) in q's dtype,
-    lse (B, H, Tq) fp32)``."""
-    s = _logits(q, k, causal)
+    lse (B, H, Tq) fp32)``; ``scale`` defaults to `_scale` of the
+    head_dim."""
+    s = _logits(q, k, causal, scale)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -125,26 +132,31 @@ def flash_mha_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_mha_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       out: torch.Tensor, lse: torch.Tensor,
-                      dout: torch.Tensor, causal: bool = True) -> tuple:
+                      dout: torch.Tensor, causal: bool = True,
+                      scale=None) -> tuple:
     """Plain version of K11's backward: ``(dq, dk, dv)`` in the inputs'
-    shapes and dtypes."""
-    p = torch.exp(_logits(q, k, causal) - lse[..., None])
+    shapes and dtypes; ``scale`` defaults to `_scale` of the head_dim."""
+    scale = _scale(q.shape[-1]) if scale is None else scale
+    p = torch.exp(_logits(q, k, causal, scale) - lse[..., None])
     do = dout.float()
     di = (out.float() * do).sum(-1).permute(0, 2, 1)        # (B, H, Tq)
     dv = torch.einsum("bhqk,bqhd->bkhd", _rounded(p, dout.dtype), do)
     dp = torch.einsum("bqhd,bkhd->bhqk", do, v.float())
-    ds = (dp - di[..., None]) * p * _scale(q.shape[-1])
+    ds = (dp - di[..., None]) * p * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", _rounded(ds, dout.dtype),
                       q.float())
     dq = torch.einsum("bhqk,bkhd->bqhd", _rounded(ds, k.dtype), k.float())
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def launchers(dtype: torch.dtype) -> tuple:
-    """``(forward, backward)`` launch functions of a CUDA element type:
-    bf16 on the tensor-core kernels of ``flash_mha_tc.cu``, fp32 on the
-    3xTF32 tensor-core kernels of ``flash_f32_tc.cu``, both K9/K10's
-    kernels at rep = 1 (`ops.flash_gqa`)."""
+def launchers(dtype: torch.dtype, head_dim: int) -> tuple:
+    """``(forward, backward)`` launch functions of a CUDA element type and
+    head_dim (padded to `flash_gqa.kernel_head_dim`): up to 128 bf16 on
+    the tensor-core kernels of ``flash_mha_tc.cu`` and fp32 on the 3xTF32
+    tensor-core kernels of ``flash_f32_tc.cu``; at 256 ``flash_gqa.cu``'s
+    templates; all K9/K10's kernels at rep = 1 (`ops.flash_gqa`)."""
+    if kernel_head_dim(head_dim) not in TC_HEAD_DIMS:
+        return _launch_fwd, _launch_bwd
     if dtype == torch.bfloat16:
         return _tc_fwd, _tc_bwd
     return _f32tc_fwd, _f32tc_bwd
@@ -158,7 +170,8 @@ def flash_mha_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_contract(q, k, v)
     if not _on_card("flash_mha_fwd", (q, k, v)):
         return flash_mha_fwd_ref(q, k, v, causal)
-    res = launchers(q.dtype)[0](q, k, v, causal, "flash_mha_fwd")
+    res = _padded_head_dim(launchers(q.dtype, q.shape[-1])[0], (q, k, v),
+                           causal, "flash_mha_fwd")
     flash_mha_fwd.launches += 1
     return res
 
@@ -174,8 +187,9 @@ def flash_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_contract(q, k, v, backward=True)
     if not _on_card("flash_mha_bwd", (q, k, v, out, dout), (lse,)):
         return flash_mha_bwd_ref(q, k, v, out, lse, dout, causal)
-    res = launchers(q.dtype)[1](q, k, v, out, lse, dout, causal,
-                                "flash_mha_bwd")
+    res = _padded_head_dim(launchers(q.dtype, q.shape[-1])[1],
+                           (q, k, v, out, lse, dout), causal,
+                           "flash_mha_bwd")
     flash_mha_bwd.launches += 1
     return res
 

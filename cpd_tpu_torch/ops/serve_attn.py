@@ -9,21 +9,31 @@ Pallas body is `_fused_kernel`).  Three functions:
 * `fused_gather_attention_ref` — the plain version of the whole fused
   function: gather the page rows, digest each gathered page as read,
   unpack, attend;
-* `fused_gather_attention` — the wrapper.  For CPU tensors it runs the
-  plain version; for CUDA tensors it launches the hand-written kernel in
+* `fused_gather_attention` — the wrapper.  It checks its arguments on
+  every device (`check_call`); for CPU tensors it runs the plain version;
+  for CUDA tensors it launches the hand-written kernel in
   ``csrc/serve_attn.cu`` (built at first use, `ops.build`) or raises.
-  There is no fallback from the card to the plain version.
+  There is no fallback from the card to the plain version;
+* `core_launcher` — the serial kernel of the same source (one CTA per
+  slot and kv head walking the pages in order), which no path calls: the
+  yardstick ``chip_smoke.py`` times the kernel against.
 
-The kernel returns both outputs of one launch: ``attn`` (S, 1, H, D)
-fp32 and the per-gathered-page digests (S, max_pages).  Digests come
-back as int64 holding the JAX package's uint32 values, as everywhere in
-the port.  Page ids outside the pool are clamped into it, as the JAX
-gather clamps them.
+The kernel is split-K over pages: one CTA per (slot, page, part of a
+page) reads the part's bytes once, digests them and, where a key of the
+part is at or before the query, writes a partial softmax; a second small
+kernel merges the partials in part order and sums the digests.  One call
+returns both outputs: ``attn`` (S, 1, H, D) fp32 and the per-gathered-
+page digests (S, max_pages), int64 holding the JAX package's uint32
+values, as everywhere in the port.  Page ids outside the pool are
+clamped into it, as the JAX gather clamps them.  Every rep, head_dim and
+page_size the cache config takes is served: a page whose staging does
+not fit `UNIT_BUDGET` bytes of shared memory is cut into parts.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -31,16 +41,21 @@ import torch
 from ..parallel.integrity import row_digests
 
 __all__ = ["paged_attention", "fused_gather_attention",
-           "fused_gather_attention_ref"]
+           "fused_gather_attention_ref", "check_call", "split_plan",
+           "core_launcher", "UNIT_BUDGET"]
 
 _NEG_INF = -1e30
 
-# the kernel keeps a query head's D values in 8 registers per lane
-_MAX_HEAD_DIM = 256
-# one warp per query head of a kv-head group
-_MAX_REP = 16
-# K and V tiles of one page, fp32, in static-size shared memory
-_MAX_TILE_BYTES = 48 * 1024
+# shared memory one CTA of the split kernel may stage a page part in,
+# bytes: two CTAs fit one SM's 227 KB
+UNIT_BUDGET = 96 * 1024
+# fp32 query values a CTA stages at once (32 KB)
+_Q_FLOATS = 8192
+
+
+def _scale(d: int) -> float:
+    """The softmax scale ``1 / sqrt(D)`` in fp32, the kernel's too."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(d)))
 
 
 def paged_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -55,7 +70,7 @@ def paged_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, t, h, d = q.shape
     hkv = k.shape[2]
     rep = h // hkv
-    scale = float(np.float32(1.0) / np.sqrt(np.float32(d)))
+    scale = _scale(d)
     ki = torch.arange(k.shape[1], device=q.device)
     live = (ki[None, :] <= last_pos.long()[:, None])[..., None, None]
     k = torch.where(live, k, 0.0)
@@ -99,46 +114,18 @@ def _check(name: str, x: torch.Tensor, dtype, shape: tuple) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _library():
-    from .build import load_library
-
-    lib = load_library("serve_attn")
-    if not getattr(lib, "_cpd_typed", False):
-        fn = lib.serve_attn_launch
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.serve_attn_error_string.argtypes = [ctypes.c_int]
-        lib.serve_attn_error_string.restype = ctypes.c_char_p
-        lib._cpd_typed = True
-    return lib
-
-
-def fused_gather_attention(pool_layer: torch.Tensor, q: torch.Tensor,
-                           page_rows: torch.Tensor, positions: torch.Tensor,
-                           last_pos: torch.Tensor, *, cfg) -> tuple:
-    """One decode batch's paged attention in a single pass.
-
-    pool_layer: ONE layer's pool slice, (n_pages, 2, page, H_kv, D, WB)
-    uint8 or (n_pages, 2, page, row_bytes) blocked; q: (S, 1, H, D) fp32;
-    page_rows: (S, max_pages) int32; positions: (S, 1) int32; last_pos:
-    (S,) int32; ``cfg``: the pool's `KVCacheConfig`.
-
-    Returns ``(attn, page_digests)``: (S, 1, H, D) fp32 and (S,
-    max_pages) int64 digests of every gathered page as read.  CPU
-    tensors take `fused_gather_attention_ref`; CUDA tensors launch the
-    kernel, counted in ``fused_gather_attention.launches``."""
+def check_call(pool_layer: torch.Tensor, q: torch.Tensor,
+               page_rows: torch.Tensor, positions: torch.Tensor,
+               last_pos: torch.Tensor, cfg) -> torch.device:
+    """What `fused_gather_attention` takes, checked on every device:
+    inputs on one device, decode queries (T == 1) of the cache's head_dim
+    and a multiple of its kv heads, at least one page per table row, each
+    tensor of its dtype, shape and contiguous.  Returns the device."""
     tensors = (pool_layer, q, page_rows, positions, last_pos)
     devices = {x.device for x in tensors}
     if len(devices) != 1:
-        raise ValueError(f"inputs on several devices: {sorted(map(str, devices))}")
-    dev = devices.pop()
-    if dev.type == "cpu":
-        return fused_gather_attention_ref(pool_layer, q, page_rows,
-                                          positions, last_pos, cfg=cfg)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-
+        raise ValueError("inputs on several devices: "
+                         f"{sorted(map(str, devices))}")
     s_count, t, h, d = q.shape
     if t != 1:
         raise ValueError(f"the fused kernel is decode-only (T == 1), got "
@@ -148,39 +135,148 @@ def fused_gather_attention(pool_layer: torch.Tensor, q: torch.Tensor,
     if d != cfg.head_dim or h % hkv:
         raise ValueError(f"q heads/dim ({h}, {d}) do not fit the cache's "
                          f"({hkv}, {cfg.head_dim})")
-    rep = h // hkv
-    max_pages = page_rows.shape[1]
+    if page_rows.dim() != 2 or page_rows.shape[1] < 1:
+        raise ValueError(f"page_rows {tuple(page_rows.shape)}: (S, max_pages"
+                         ") with max_pages >= 1")
     _check("pool_layer", pool_layer, torch.uint8, cfg.pool_shape[1:])
     _check("q", q, torch.float32, (s_count, 1, h, d))
-    _check("page_rows", page_rows, torch.int32, (s_count, max_pages))
+    _check("page_rows", page_rows, torch.int32,
+           (s_count, page_rows.shape[1]))
     _check("positions", positions, torch.int32, (s_count, 1))
     _check("last_pos", last_pos, torch.int32, (s_count,))
-    if d > _MAX_HEAD_DIM or rep > _MAX_REP:
-        raise ValueError(f"kernel limits: head_dim <= {_MAX_HEAD_DIM} and "
-                         f"n_heads / n_kv_heads <= {_MAX_REP}, got "
-                         f"({d}, {rep})")
-    if 2 * cfg.page_size * d * 4 > _MAX_TILE_BYTES:
-        raise ValueError(f"page_size {cfg.page_size} x head_dim {d}: the "
-                         "K/V tiles exceed the kernel's shared memory")
+    return devices.pop()
 
+
+@functools.lru_cache(maxsize=None)
+def split_plan(cfg, rep: int) -> tuple:
+    """``(unit, heads, q_rows)`` of the split kernel for a cache config and
+    GQA ratio: the positions of a page one CTA takes (the whole page where
+    its staging fits `UNIT_BUDGET`, else the page cut into equal parts),
+    the query heads of one pass over a kv head, and the query rows staged
+    at once (all H where they fit 32 KB, else one pass's).  The bytes
+    follow the kernel's ``split_smem``: a 256-entry table, the part's K
+    and V bytes, one kv head's decoded K and V tiles [unit][D + 1], the
+    query rows and one pass's logits [heads][unit], fp32."""
+    d, rb = cfg.head_dim, cfg.row_bytes
+    h = cfg.n_kv_heads * rep
+    heads = rep if rep * d <= _Q_FLOATS else max(1, _Q_FLOATS // d)
+    q_rows = h if heads == rep and h * d <= _Q_FLOATS else heads
+    fixed = 256 * 4 + 16 + 4 * q_rows * d
+    per_position = 2 * rb + 8 * (d + 1) + 4 * heads
+    fit = max(1, (UNIT_BUDGET - fixed) // per_position)
+    n_split = -(-cfg.page_size // fit)
+    return -(-cfg.page_size // n_split), heads, q_rows
+
+
+def _library():
+    from .build import load_library
+
+    lib = load_library("serve_attn")
+    if not getattr(lib, "_cpd_typed", False):
+        fn = lib.serve_attn_launch
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 15 + [
+            ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn = lib.serve_attn_serial_launch
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.serve_attn_error_string.argtypes = [ctypes.c_int]
+        lib.serve_attn_error_string.restype = ctypes.c_char_p
+        lib._cpd_typed = True
+    return lib
+
+
+def _raise_on(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib.serve_attn_error_string(rc).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg} "
+                           f"(cudaError {rc})")
+
+
+def fused_gather_attention(pool_layer: torch.Tensor, q: torch.Tensor,
+                           page_rows: torch.Tensor, positions: torch.Tensor,
+                           last_pos: torch.Tensor, *, cfg) -> tuple:
+    """One decode batch's paged attention in a single pass over the pages.
+
+    pool_layer: ONE layer's pool slice, (n_pages, 2, page, H_kv, D, WB)
+    uint8 or (n_pages, 2, page, row_bytes) blocked; q: (S, 1, H, D) fp32;
+    page_rows: (S, max_pages) int32; positions: (S, 1) int32; last_pos:
+    (S,) int32; ``cfg``: the pool's `KVCacheConfig`.
+
+    Returns ``(attn, page_digests)``: (S, 1, H, D) fp32 and (S,
+    max_pages) int64 digests of every gathered page as read.  CPU
+    tensors take `fused_gather_attention_ref`; CUDA tensors launch the
+    kernel (its split and combine kernels), counted once per call in
+    ``fused_gather_attention.launches``."""
+    dev = check_call(pool_layer, q, page_rows, positions, last_pos, cfg)
+    if dev.type == "cpu":
+        return fused_gather_attention_ref(pool_layer, q, page_rows,
+                                          positions, last_pos, cfg=cfg)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    s_count, _, h, d = q.shape
+    hkv, max_pages = cfg.n_kv_heads, page_rows.shape[1]
+    rep = h // hkv
+    unit, heads, q_rows = split_plan(cfg, rep)
+    n_split = -(-cfg.page_size // unit)
+    attn = torch.empty((s_count, 1, h, d), dtype=torch.float32, device=dev)
+    dig = torch.empty((s_count, max_pages), dtype=torch.int64, device=dev)
+    part = torch.empty((s_count, h, max_pages * n_split, d + 2),
+                       dtype=torch.float32, device=dev)
+    dpart = torch.empty((s_count, max_pages, n_split, 2), dtype=torch.int32,
+                        device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        rc = lib.serve_attn_launch(
+            pool_layer.data_ptr(), q.data_ptr(), page_rows.data_ptr(),
+            positions.data_ptr(), last_pos.data_ptr(), attn.data_ptr(),
+            dig.data_ptr(), part.data_ptr(), dpart.data_ptr(), s_count,
+            max_pages, pool_layer.shape[0], cfg.page_size, hkv, rep, d,
+            cfg.row_bytes, cfg.word_bytes, cfg.exp_bits, cfg.man_bits,
+            cfg.block_size if cfg.block_scale else 0, unit, heads, q_rows,
+            _scale(d), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, rc, "serve_attn")
+    fused_gather_attention.launches += 1
+    return attn, dig
+
+
+fused_gather_attention.launches = 0
+
+
+def _serial_launch(pool_layer, q, page_rows, positions, last_pos,
+                   cfg) -> tuple:
+    """The serial kernel on checked CUDA tensors: ``(attn, digests)`` as
+    `fused_gather_attention` returns them (its uint32 digests widened to
+    int64 by two torch ops, as its wrapper did).  It takes head_dim <= 256,
+    rep <= 16 and a page's fp32 K and V tiles within 48 KB, and raises
+    on the rest."""
+    dev = check_call(pool_layer, q, page_rows, positions, last_pos, cfg)
+    s_count, _, h, d = q.shape
+    hkv, max_pages = cfg.n_kv_heads, page_rows.shape[1]
+    rep = h // hkv
+    if d > 256 or rep > 16 or 2 * cfg.page_size * d * 4 > 48 * 1024:
+        raise ValueError(f"the serial kernel takes head_dim <= 256, rep <= "
+                         f"16 and 2 * page * D * 4 <= 48 KB, got D={d}, "
+                         f"rep={rep}, page={cfg.page_size}")
     attn = torch.empty((s_count, 1, h, d), dtype=torch.float32, device=dev)
     dig = torch.empty((s_count, max_pages), dtype=torch.int32, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.serve_attn_launch(
+        rc = lib.serve_attn_serial_launch(
             pool_layer.data_ptr(), q.data_ptr(), page_rows.data_ptr(),
             positions.data_ptr(), last_pos.data_ptr(), attn.data_ptr(),
             dig.data_ptr(), s_count, max_pages, pool_layer.shape[0],
             cfg.page_size, hkv, rep, d, cfg.row_bytes, cfg.word_bytes,
             cfg.exp_bits, cfg.man_bits,
-            cfg.block_size if cfg.block_scale else 0, stream)
-    if rc != 0:
-        msg = lib.serve_attn_error_string(rc).decode()
-        raise RuntimeError(f"serve_attn kernel launch failed: {msg} "
-                           f"(cudaError {rc})")
-    fused_gather_attention.launches += 1
+            cfg.block_size if cfg.block_scale else 0,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, rc, "serve_attn (serial)")
     return attn, dig.to(torch.int64) & 0xFFFFFFFF
 
 
-fused_gather_attention.launches = 0
+def core_launcher():
+    """The launch function of the serial kernel, K12's yardstick:
+    ``fn(pool_layer, q, page_rows, positions, last_pos, cfg)``.  No path
+    calls it; ``chip_smoke.py`` times the split kernel against it."""
+    return _serial_launch
