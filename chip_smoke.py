@@ -25,8 +25,13 @@ Phases; any failure exits non-zero:
    outputs, wire bytes, digests), at one ring chunk of the training slice
    and at an odd length, over the formats (5,2), (4,3), (5,7), (6,17) and,
    for K1/K3, (8,23) and (5,1); inputs at an APS-like scale plus a block
-   of special values; time each kernel and its plain version over input
-   sets that together hold twice the L2, so the inputs come from HBM;
+   of special values; K6/K5 (the streaming kernels) also at n = 1, 15,
+   17 and on inputs 4 bytes past a 16-byte boundary, against the kept
+   kernels they replaced too, and the path the ring's own calls take;
+   time each kernel and its plain version over input sets that together
+   hold twice the L2, so the inputs come from HBM, K6/K5 by device time
+   in turns with the kept kernels, without and with digests (gate
+   ``WIRE_SPEEDUP_FLOOR``);
 4. serve a 16-request mixed trace end to end at the full width of the
    repo's transformer LM (vocab 32000, d_model 512, 4 layers, 8 heads,
    2 kv heads, d_ff 2048; random weights from a seeded generator) with
@@ -51,7 +56,8 @@ Phases; any failure exits non-zero:
    and the SR arms of K6/K5) against their plain versions, BITWISE, over
    the formats (5,2), (4,3), (5,7), (6,17) and, for K2/K4, (8,23), (5,1)
    and (2,1), at the ring chunk and an odd length, bits drawn from
-   offsets that wrap past 2^32; time each as in phase 3 (``sr_bits``
+   offsets that wrap past 2^32, the SR arms of K6/K5 at the extra sizes
+   and alignments of phase 3; time each as in phase 3 (``sr_bits``
    against the time its integer instructions take on their pipes, counted
    in the SASS of the build);
 8. train the same slice with the SR ring: 3 steps of APS (5,2) with
@@ -67,9 +73,10 @@ Phases; any failure exits non-zero:
    versions, BITWISE (fp32 partials, every wire byte with the sidecar,
    digests), over the formats (4,3), (5,2), (5,7) and blocks 128, 1024
    and 65536, at the ring chunk and at an odd length whose last block is
-   short, and K7 (`digest_rows`) at the gathered wire of the largest
-   bucket (4 rows) and at W = 2 and 8 with an odd byte count; time them
-   as in phase 3; (b) train 3 steps of APS (4,3) with ``block_scale``,
+   short, and at phase 3's extra sizes and alignments, and K7
+   (`digest_rows`) at the gathered wire of the largest bucket (4 rows)
+   and at W = 2 and 8 with an odd byte count; time them as in phase 3;
+   (b) train 3 steps of APS (4,3) with ``block_scale``,
    block 128, ``verify_reduce`` through the kernels and through the
    plain versions — bitwise equal, ``reduce_ok`` 1 on every step — with
    the launches as designed, and hold one step's buckets through the
@@ -153,7 +160,11 @@ Phases; any failure exits non-zero:
    H), which it must beat ``TC_SPEEDUP_FLOOR``-fold in bf16 and
    ``F32_TC_SPEEDUP_FLOOR``-fold in fp32 at the LM's shape; and its D =
    256 arm at (4, 1024, 4, 256) in both dtypes beside SDPA, with no
-   speed target;
+   speed target; then past head_dim 256, on ``flash_gqa.cu``'s
+   head_dim-split arm: K9/K10 (rep 4) at 320, 384 and 512 and K11 at 384
+   and 512, fp32 and bf16, causal and not, at batch 2 x 512 positions,
+   each within the tolerances above, two launches bitwise equal, timed
+   beside its bound, its plain version and SDPA on K/V expanded;
    (b) train bench.py's LM arm (vocab 32000, d_model 512, 8 layers, 8
    heads, d_ff 2048, bf16 compute over fp32 weights, seeded random
    weights) through K11 on a `LocalMesh` of 2 ranks, 4 sequences of 1024
@@ -185,6 +196,7 @@ import json
 import math
 import subprocess
 import sys
+import time
 
 # -- tolerances ------------------------------------------------------------
 # The kernel's attention sums (64-term dots, the online softmax over up to
@@ -397,6 +409,30 @@ BLOCKED_KERNELS = {
         "cpd_tpu/ops/quantize.py:512 (block_size + rbits arm)",
         lambda n, wb, nb: 2 * (n * (4 + wb) + nb) + 4 * n, 9),
 }
+# K5/K6's streaming kernels (run_wire_kernel, run_blocked_kernel) against
+# the kept kernels they replace (ops.quantize.core_wire_launcher), by
+# queued_ms in turns at the ring chunk: at least this many times faster
+# without digests and with them: regression floors just under the lowest
+# ratios the arms measured (PERF.md section 6: 1.36x and 1.95x)
+WIRE_SPEEDUP_FLOOR = {"plain": 1.3, "digest": 1.8}
+# the wire kernels' ragged sizes, held besides the chunk and QUANT_ODD_N,
+# each also on a view 4 bytes past a 16-byte boundary
+WIRE_SMALL_N = (1, 15, 17)
+# what the kernels line adds for the streaming K5/K6 arms (`wire_timing`)
+WIRE_FIELDS = ("kernel", "kept_ms", "speedup", "kept_ms_with_digest",
+               "speedup_with_digest", "share", "share_with_digest",
+               "ms_no_fold", "digest_loop_ms", "fold_ms", "profiler_ms",
+               "profiler_ms_with_digest", "profiler_other_kernels",
+               "pipe_bound_ms", "kept_note")
+# the SASS (mangled) names of the per-tensor streaming kernel's digesting
+# instances at a 1-byte wire (512-thread CTAs), whose grid-stride loop the
+# pipe bound is counted from, and the elements one pass of it computes
+WIRE_RUN_SASS = {
+    "quantize_pack": "run_wire_kernelILb1ELb0ELi1ELi512ELb1EE",
+    "quantize_pack_sr": "run_wire_kernelILb1ELb1ELi1ELi512ELb1EE",
+    "hop_pack": "run_wire_kernelILb0ELb0ELi1ELi512ELb1EE",
+    "hop_pack_sr": "run_wire_kernelILb0ELb1ELi1ELi512ELb1EE"}
+WIRE_RUN_ELEMENTS = 4
 # K7 at W rows of B bytes reads W * B bytes; its integer work is a
 # multiply-add and a modulo per byte, below its bytes at 3.35 TB/s
 DIGEST_ROWS = ("cpd_tpu/ops/quantize.py:582", "digest_rows_pallas")
@@ -428,14 +464,14 @@ KERNEL_NAMES = {"quantize_cast": "cast_kernel<false, false>",
                 "quantize_cast_sr": "cast_kernel<false, true>",
                 "quantize_add": "cast_kernel<true, false>",
                 "quantize_add_sr": "cast_kernel<true, true>",
-                "quantize_pack": "wire_kernel<true, false>",
-                "quantize_pack_sr": "wire_kernel<true, true>",
-                "hop_pack": "wire_kernel<false, false>",
-                "hop_pack_sr": "wire_kernel<false, true>",
-                "quantize_pack_blocked": "blocked_wire_kernel<true, false",
-                "quantize_pack_blocked_sr": "blocked_wire_kernel<true, true",
-                "hop_pack_blocked": "blocked_wire_kernel<false, false",
-                "hop_pack_blocked_sr": "blocked_wire_kernel<false, true",
+                "quantize_pack": "run_wire_kernel<true, false,",
+                "quantize_pack_sr": "run_wire_kernel<true, true,",
+                "hop_pack": "run_wire_kernel<false, false,",
+                "hop_pack_sr": "run_wire_kernel<false, true,",
+                "quantize_pack_blocked": "run_blocked_kernel<true, false,",
+                "quantize_pack_blocked_sr": "run_blocked_kernel<true, true,",
+                "hop_pack_blocked": "run_blocked_kernel<false, false,",
+                "hop_pack_blocked_sr": "run_blocked_kernel<false, true,",
                 "digest_rows": "digest_rows_kernel",
                 "sr_bits": "sr_bits_kernel",
                 "qgemm_faithful": "::qgemm_tile_kernel<",
@@ -517,6 +553,15 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def profiled_kernels(prof) -> list:
+    """The device kernels of a torch.profiler run, by name."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+
+
+
 def device_ms(fn, iters: int, warmup: int = 3) -> float:
     """Device time of the kernels one ``fn()`` call launches, summed and
     averaged over ``iters`` calls under torch.profiler.  Unlike
@@ -526,7 +571,6 @@ def device_ms(fn, iters: int, warmup: int = 3) -> float:
     it kept one launch in twenty), the time comes from CUDA events
     (`time_ms`) and a line says so."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -537,14 +581,65 @@ def device_ms(fn, iters: int, warmup: int = 3) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    kernels = profiled_kernels(prof)
     if sum(e.count for e in kernels) < iters:
         print(f"  (torch.profiler recorded {sum(e.count for e in kernels)} "
               f"kernels for {iters} calls: timed with CUDA events instead)",
               flush=True)
         return time_ms(fn, iters, warmup=0)
     return sum(e.self_device_time_total for e in kernels) / 1e3 / iters
+
+
+def named_device_ms(fn, iters: int, kernel: str) -> dict:
+    """torch.profiler's device time of the kernel named ``kernel`` (a
+    substring of its name), one launch per ``fn()`` call, over ``iters``
+    calls: ``ms`` per call (None unless it recorded exactly ``iters``
+    launches of it), ``records`` of it, and ``other``: the records of every
+    other kernel in the same profile, which ``fn`` does not launch, as
+    {name: [count, device ms]}.  The whole-profile sum of `device_ms`
+    counts those too."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    mine = [e for e in profiled_kernels(prof) if kernel in e.key]
+    other = {e.key[:80]: [e.count, e.self_device_time_total / 1e3]
+             for e in profiled_kernels(prof) if kernel not in e.key}
+    count = sum(e.count for e in mine)
+    ms = (sum(e.self_device_time_total for e in mine) / 1e3 / iters
+          if count == iters else None)
+    return dict(ms=ms, records=count, other=other)
+
+
+def without_fold(fn):
+    """A digesting K6/K5 call ``fn`` whose streaming launch stops at the
+    CTAs' partials (`ops.quantize._launch_wire` with ``fold=False``: no
+    fence, ticket or last CTA's sum; its digests are not written).  Timed
+    against ``fn`` it gives the fold's share of a digesting launch."""
+    import functools
+
+    from cpd_tpu_torch.ops import quantize as tq
+
+    launch = tq._launch_wire
+
+    def call(*args):
+        tq._launch_wire = functools.partial(launch, fold=False)
+        try:
+            return fn(*args)
+        finally:
+            tq._launch_wire = launch
+    return call
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.5f}"
 
 
 def queued_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -582,7 +677,6 @@ def device_kernels_ms(fn, iters: int) -> dict:
     where the profile is not whole (a launch count that is not a whole
     number per call: the profiler drops records in a long run)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -592,8 +686,7 @@ def device_kernels_ms(fn, iters: int) -> dict:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    kernels = profiled_kernels(prof)
     n = sum(e.count for e in kernels)
     if n < iters or n % iters:
         return {}
@@ -889,16 +982,18 @@ def _by_pipe(ops: list, per: float) -> dict:
     return out
 
 
-def sass_per_element(library: str, kernel: str) -> dict:
+def sass_per_element(library: str, kernel: str, elements=None) -> dict:
     """Instructions one element of ``kernel`` issues, by pipe: the body
     of its grid-stride loop (its largest loop: from the target of a
-    backward branch to the branch) in the SASS of ``library``'s build,
-    divided by the global stores in it (one per element)."""
+    backward branch to the branch; every path of it counted) in the SASS
+    of ``library``'s build, divided by the ``elements`` one pass computes
+    (by default the global stores in it, one per element)."""
     insns, loops, _ = _sass_loops(library, kernel)
     start, end = max(loops, key=lambda se: se[1] - se[0], default=(0, -1))
     ops = insns[start:end + 1] if loops else insns
-    stores = max(1, sum(op.split(".")[0] in ("STG", "ST") for op in ops))
-    return _by_pipe(ops, stores)
+    if elements is None:
+        elements = max(1, sum(op.split(".")[0] in ("STG", "ST") for op in ops))
+    return _by_pipe(ops, elements)
 
 
 def _inner_loops(loops: list) -> list:
@@ -1046,9 +1141,31 @@ def quantize_phase(device) -> dict:
           f"to their plain versions (n = {chunk} and {QUANT_ODD_N}; formats "
           f"{list(CAST_FORMATS)}, wire kernels on {list(WIRE_FORMATS)})",
           flush=True)
+    more, wire_errs = wire_parity(device, gen, sr=False, blocked=False)
+    for name, e in wire_errs.items():
+        errs[name] = max(errs[name], e)
+    print(f"kernel quantize: {more} outputs of the streaming K6/K5 bitwise "
+          f"equal to their plain versions and the kept kernels (n = "
+          f"{list(WIRE_SMALL_N)}, and every n on inputs 4 bytes past a "
+          f"16-byte boundary; formats {list(WIRE_FORMATS)}; with and "
+          "without digests)", flush=True)
+
+    print(f"kernel quantize: {two_stream_digests(device)} digesting "
+          "K6/K5 launches queued on two streams at once (per tensor and "
+          "block 128, four sizes each) bitwise equal to their plain "
+          "versions, digests included", flush=True)
 
     fmt = TRAIN["fmt"]
     wb = wire_bytes(*fmt)
+    path = ring_run_path(device, chunk, wb)
+    print(f"kernel quantize: the ring's K5 calls at the slice's chunk take "
+          f"the run path {json.dumps(path)} (vec bits 1 g, 2 rbits, 4 "
+          f"wire_in, 8 res, 16 wire_out: 16-byte accesses)", flush=True)
+    from cpd_tpu_torch.ops.build import build_log
+
+    regs = wire_build_report(build_log("quantize"))
+    print("kernel quantize build: streaming K6/K5 <first, sr, [warp,] wire "
+          "bytes, threads, digest>: " + json.dumps(regs), flush=True)
     sets = input_sets(chunk, fmt, 4 + 4 + wb, gen, device,
                       lambda x, y: (x, y, tq.quantize_pack(y, *fmt)[1]))
     # (the main path's call, its plain version, the digesting form)
@@ -1059,17 +1176,34 @@ def quantize_phase(device) -> dict:
         "quantize_add": (lambda x, y, w: tq.quantize_add(x, y, *fmt),
                          lambda x, y, w: tq.quantize_add_ref(x, y, *fmt),
                          None),
-        "quantize_pack": (
-            lambda x, y, w: tq.quantize_pack(x, *fmt),
-            lambda x, y, w: tq.quantize_pack_ref(x, *fmt),
-            lambda x, y, w: tq.quantize_pack(x, *fmt, want_digest=True)),
-        "hop_pack": (
-            lambda x, y, w: tq.hop_pack(w, x, *fmt),
-            lambda x, y, w: tq.hop_pack_ref(w, x, *fmt),
-            lambda x, y, w: tq.hop_pack(w, x, *fmt, want_digest=True)),
     }
-    return {name: time_kernel(name, fmt, chunk, sets, *fns, errs[name])
-            for name, fns in calls.items()}
+    out = {name: time_kernel(name, fmt, chunk, sets, *fns, errs[name])
+           for name, fns in calls.items()}
+    core = tq.core_wire_launcher()
+    wire = {
+        "quantize_pack": dict(
+            new=lambda x, y, w: tq.quantize_pack(x, *fmt),
+            kept=lambda x, y, w: core(None, x, *fmt),
+            new_digest=lambda x, y, w: tq.quantize_pack(x, *fmt,
+                                                        want_digest=True),
+            kept_digest=lambda x, y, w: core(None, x, *fmt,
+                                             want_digest=True),
+            plain=lambda x, y, w: tq.quantize_pack_ref(x, *fmt)),
+        "hop_pack": dict(
+            new=lambda x, y, w: tq.hop_pack(w, x, *fmt),
+            kept=lambda x, y, w: core(w, x, *fmt),
+            new_digest=lambda x, y, w: tq.hop_pack(w, x, *fmt,
+                                                   want_digest=True),
+            kept_digest=lambda x, y, w: core(w, x, *fmt, want_digest=True),
+            plain=lambda x, y, w: tq.hop_pack_ref(w, x, *fmt)),
+    }
+    for name, fns in wire.items():
+        out[name] = wire_timing(
+            name, f"{fmt}, n={chunk}", chunk, sets, fns,
+            QUANT_KERNELS[name][1](wb) * chunk / PEAK_BYTES_PER_S,
+            QUANT_OPS[name] * chunk / PEAK_FP32_FLOPS, errs[name])
+    out["ring_path"] = path
+    return out
 
 
 def input_sets(n: int, fmt, set_bytes: int, generator, device,
@@ -1125,6 +1259,277 @@ def time_kernel(name: str, fmt, n: int, sets, kernel, plain, digest,
           f"{r['plain_call_ms']:.5f}; library_ms null ({lib})"
           + (f"; per element {json.dumps(extra)}" if extra else ""),
           flush=True)
+    return r
+
+
+def shifted(x):
+    """A copy of ``x`` whose data starts 4 bytes past a 16-byte boundary
+    (an fp32 view one element in, or bytes four in): the ring hands the
+    kernels views at chunk offsets."""
+    import torch
+
+    flat = x.reshape(-1)
+    lead = 4 // flat.element_size()
+    buf = torch.empty(flat.numel() + lead, dtype=flat.dtype,
+                      device=flat.device)
+    out = buf[lead:].view(x.shape)
+    out.copy_(x)
+    if out.data_ptr() % 16 != 4:
+        raise AssertionError("the shifted copy is not 4 bytes past a "
+                             "16-byte boundary")
+    return out
+
+
+def wire_parity(device, generator, sr: bool, blocked: bool) -> tuple:
+    """K6/K5's streaming kernels (RTNE or SR; per tensor over
+    WIRE_FORMATS, or blocked over BLOCKED_FORMATS x BLOCK_SIZES) against
+    their plain versions and the kept kernels, bitwise (partials, wire
+    bytes with any sidecar, both digests), with and without digests: at
+    n in WIRE_SMALL_N, and at every n (the chunk and QUANT_ODD_N too) with
+    g, the round bits and the received wire 4 bytes past a 16-byte
+    boundary.  Returns (outputs held, max abs err by counter name)."""
+    from cpd_tpu_torch.ops import quantize as tq
+
+    chunk = ring_chunk_of_slice(device)
+    core = tq.core_wire_launcher()
+    fmts = BLOCKED_FORMATS if blocked else WIRE_FORMATS
+    blocks = BLOCK_SIZES if blocked else (None,)
+    make = blocked_inputs if blocked else quant_inputs
+    errs, cases = {}, 0
+    for n in (chunk, QUANT_ODD_N) + WIRE_SMALL_N:
+        for fmt in fmts:
+            x0 = make(n, fmt, generator, device)
+            y0 = make(n, fmt, generator, device).flip(0)
+            rb0 = (tq.sr_bits((fmt[0], n), x0, offset_start=2**32 - 11)
+                   if sr else None)
+            for moved in ((False, True) if n in WIRE_SMALL_N else (True,)):
+                x, y = (shifted(x0), shifted(y0)) if moved else (x0, y0)
+                rb = shifted(rb0) if moved and sr else rb0
+                for b in blocks:
+                    kw = dict(rbits=rb, block_size=b)
+                    sfx = ("_blocked" if blocked else "") + \
+                        ("_sr" if sr else "")
+                    names = ["quantize_pack" + sfx, "hop_pack" + sfx]
+                    pairs = []
+                    for dig in (True, False):
+                        first = tq.quantize_pack(x, *fmt, want_digest=dig,
+                                                 **kw)
+                        for want in (tq.quantize_pack_ref(
+                                x, *fmt, want_digest=dig, **kw),
+                                core(None, x, *fmt, want_digest=dig, **kw)):
+                            pairs += [(names[0], u, v)
+                                      for u, v in zip(first, want)]
+                        w_in = shifted(first[1]) if moved else first[1]
+                        hop = tq.hop_pack(w_in, y, *fmt, want_digest=dig,
+                                          **kw)
+                        for want in (tq.hop_pack_ref(
+                                w_in, y, *fmt, want_digest=dig, **kw),
+                                core(w_in, y, *fmt, want_digest=dig, **kw)):
+                            pairs += [(names[1], u, v)
+                                      for u, v in zip(hop, want)]
+                    for name, got, want in pairs:
+                        if not same_bits(got, want):
+                            raise AssertionError(
+                                f"{name} n={n} {fmt} block {b} shifted="
+                                f"{moved}: the streaming kernel differs "
+                                "from its plain version or the kept kernel")
+                        errs[name] = max(errs.get(name, 0.0),
+                                         max_abs_diff(got, want))
+                        cases += 1
+    return cases, errs
+
+
+def wire_build_report(log: str) -> dict:
+    """Registers and spill bytes of each streaming K5/K6 instance in an
+    nvcc ``-Xptxas -v`` log of quantize.cu, by its template arguments
+    (first, sr, [warp,] wire bytes, threads, digest), and the CTAs an SM
+    can hold by registers alone (65536 a SM)."""
+    import re
+
+    out, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            k = re.search(r"(run_wire_kernel|run_blocked_kernel)I((?:L[bi]"
+                          r"\d+E)+)E", m[1])
+            entry = (f"{k[1]}<{','.join(re.findall(r'L[bi](\d+)E', k[2]))}>"
+                     if k else None)
+            if entry:
+                out[entry] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and entry:
+            out[entry]["spill_stores"] = int(m[1])
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            regs = int(m[1])
+            threads = int(entry.rstrip(">").split(",")[-2])
+            out[entry].update(registers=regs,
+                              ctas_by_registers=65536 // (
+                                  -(-regs // 8) * 8 * threads))
+    return out
+
+
+def ring_run_path(device, chunk: int, wb: int) -> dict:
+    """The path `quantize_run_head` picks for the ring's own K5 calls at
+    the slice's chunk: g a view of the padded bucket at each chunk offset,
+    the received wire, the round bits and the outputs fresh allocations
+    (`parallel.ring`'s `local` and `next_hop`)."""
+    import ctypes
+
+    import torch
+
+    from cpd_tpu_torch.ops import quantize as tq
+
+    lib = tq._library()
+    padded = torch.empty(TRAIN["world"] * chunk, device=device)
+    recv = torch.empty((chunk, wb), dtype=torch.uint8, device=device)
+    res = torch.empty(chunk, device=device)
+    out = torch.empty((chunk, wb), dtype=torch.uint8, device=device)
+    rb = torch.empty(chunk, dtype=torch.int32, device=device)
+    paths = []
+    for c in range(TRAIN["world"]):
+        g = padded[c * chunk:(c + 1) * chunk]
+        for r in (None, rb):
+            vec = ctypes.c_int(0)
+            head = lib.quantize_run_head(
+                recv.data_ptr(), g.data_ptr(),
+                None if r is None else r.data_ptr(), res.data_ptr(),
+                out.data_ptr(), chunk, wb, ctypes.byref(vec))
+            paths.append((head, vec.value))
+    head, vec = max(paths)
+    return dict(chunk=chunk, chunk_16_byte_aligned=chunk * 4 % 16 == 0,
+                heads=sorted({p[0] for p in paths}), head=head,
+                vec_bits=sorted({p[1] for p in paths}),
+                runs=(chunk - head) // WIRE_RUN_ELEMENTS,
+                scalar_elements=head + (chunk - head) % WIRE_RUN_ELEMENTS)
+
+
+def two_stream_digests(device) -> int:
+    """Digesting K6/K5 launches queued on two streams at once, each stream
+    with its own digest scratch (`ops.quantize._wire_scratch`), against
+    their plain versions: every output bitwise, digests included.  Returns
+    the outputs compared."""
+    import torch
+
+    from cpd_tpu_torch.ops import quantize as tq
+
+    fmt = (4, 3)
+    gen = torch.Generator(device=device).manual_seed(97)
+    x = quant_inputs(2_000_003, fmt, gen, device)
+    y = quant_inputs(2_000_003, fmt, gen, device)
+    cases = [(n, blk) for n in (2_000_003, 17, 100_003, 1_000)
+             for blk in (None, 128)]
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    got = []
+    for n, blk in cases * 3:
+        for s in streams:
+            with torch.cuda.stream(s):
+                first = tq.quantize_pack(x[:n], *fmt, block_size=blk,
+                                         want_digest=True)
+                got.append((n, blk, first, tq.hop_pack(
+                    first[1], y[:n], *fmt, block_size=blk,
+                    want_digest=True)))
+    torch.cuda.synchronize()
+    compared = 0
+    for n, blk, first, hop in got:
+        want = tq.quantize_pack_ref(x[:n], *fmt, block_size=blk,
+                                    want_digest=True)
+        want_hop = tq.hop_pack_ref(want[1], y[:n], *fmt, block_size=blk,
+                                   want_digest=True)
+        for a, b in zip(first + hop, want + want_hop):
+            if not same_bits(a, b):
+                raise AssertionError(f"two streams, n={n} block {blk}: a "
+                                     "digesting launch differs from its "
+                                     "plain version")
+            compared += 1
+    return compared
+
+
+def wire_timing(name: str, shape: str, n: int, sets, fns: dict,
+                t_bytes: float, t_ops: float, err: float) -> dict:
+    """One streaming K5/K6 arm's card numbers: by `queued_ms` in turns
+    with the kept kernel (kept, new, new, kept), without and with
+    digests; the torch.profiler device time beside them (the method of
+    the earlier figures); the plain version; per-call time with host
+    dispatch; the bound from the bytes one call moves (the digest adds
+    none) and, for the per-tensor arms, the SASS pipe bound of the
+    digesting loop.  ``fns``: new, kept, new_digest, kept_digest,
+    plain."""
+    r = dict(shape=shape, n=n, input_sets=len(sets), max_abs_err=err,
+             kernel="run_blocked_kernel" if "blocked" in name
+             else "run_wire_kernel",
+             kept_note="the kept kernel it replaced (wire_kernel / "
+                       "blocked_wire_kernel, with the zero-fill and the "
+                       "fold launch: ops.quantize.core_wire_launcher), "
+                       "timed in turns")
+    k1, n1, n2, k2 = (queued_ms(rotating(sets, f), iters=50)
+                      for f in (fns["kept"], fns["new"], fns["new"],
+                                fns["kept"]))
+    r.update(ms=(n1 + n2) / 2, kept_ms=(k1 + k2) / 2)
+    # with digests, the fold-less form between: (kept, new, fold-less,
+    # fold-less, new, kept)
+    k1, n1, f1, f2, n2, k2 = (
+        queued_ms(rotating(sets, f), iters=50)
+        for f in (fns["kept_digest"], fns["new_digest"],
+                  without_fold(fns["new_digest"]),
+                  without_fold(fns["new_digest"]), fns["new_digest"],
+                  fns["kept_digest"]))
+    r.update(ms_with_digest=(n1 + n2) / 2, kept_ms_with_digest=(k1 + k2) / 2,
+             ms_no_fold=(f1 + f2) / 2)
+    r["fold_ms"] = r["ms_with_digest"] - r["ms_no_fold"]
+    r["digest_loop_ms"] = r["ms_no_fold"] - r["ms"]
+    others = {}
+    for tag, new in (("", fns["new"]), ("_with_digest", fns["new_digest"])):
+        r["speedup" + tag] = r["kept_ms" + tag] / r["ms" + tag]
+        read = named_device_ms(rotating(sets, new), 100, r["kernel"])
+        r["profiler_ms" + tag] = read["ms"]
+        others["digest" if tag else "plain"] = {
+            k: read[k] for k in ("records", "other")}
+    r["profiler_other_kernels"] = others
+    r.update(plain_ms=device_ms(rotating(sets, fns["plain"]), iters=20),
+             call_ms=time_ms(rotating(sets, fns["new"]), iters=200),
+             plain_call_ms=time_ms(rotating(sets, fns["plain"]), iters=20),
+             bound_ms=max(t_bytes, t_ops) * 1e3,
+             bound_by="bytes" if t_bytes >= t_ops else "operations")
+    r["share"] = r["bound_ms"] / r["ms"]
+    r["share_with_digest"] = r["bound_ms"] / r["ms_with_digest"]
+    if name in WIRE_RUN_SASS:
+        per = sass_per_element("quantize", WIRE_RUN_SASS[name],
+                               WIRE_RUN_ELEMENTS)
+        t_pipe, pipe = pipe_bound_s(per, n)
+        r.update(pipe_bound_ms=t_pipe * 1e3, bound_pipe=pipe,
+                 sass_per_element={k: v for k, v in per.items()
+                                   if k != "opcodes"})
+    print(f"kernel {name} [{shape}, {len(sets)} input sets] streaming vs "
+          f"kept (queued_ms, in turns): new {r['ms']:.5f} kept "
+          f"{r['kept_ms']:.5f} ({r['speedup']:.2f}x); with digests new "
+          f"{r['ms_with_digest']:.5f} kept {r['kept_ms_with_digest']:.5f} "
+          f"({r['speedup_with_digest']:.2f}x), of which the digest loop "
+          f"and CTA partials {r['digest_loop_ms']:.5f} and the fold (fence, "
+          f"ticket, last CTA's sum) {r['fold_ms']:.5f} (fold-less form "
+          f"{r['ms_no_fold']:.5f}); bound_ms "
+          f"{r['bound_ms']:.6f} ({r['bound_by']}), share {r['share']:.3f} "
+          f"/ with digests {r['share_with_digest']:.3f}"
+          + (f"; SASS pipe bound of the digesting loop "
+             f"{r['pipe_bound_ms']:.6f} ms ({r['bound_pipe']})"
+             if "pipe_bound_ms" in r else "")
+          + f"; torch.profiler, {r['kernel']} records only: "
+          f"{fmt_ms(r['profiler_ms'])} / with digests "
+          f"{fmt_ms(r['profiler_ms_with_digest'])} (records of other kernels "
+          f"in the same profiles: {json.dumps(others)}); plain_ms "
+          f"{r['plain_ms']:.5f}; per call with host dispatch "
+          f"{r['call_ms']:.5f}, plain {r['plain_call_ms']:.5f}; library_ms "
+          f"null ({NO_LIBRARY})", flush=True)
+    slow = {k: r["speedup" + t] for k, t in (("plain", ""),
+                                             ("digest", "_with_digest"))
+            if r["speedup" + t] < WIRE_SPEEDUP_FLOOR[k]}
+    if slow:
+        raise AssertionError(f"{name}: the streaming kernel is only {slow}x "
+                             f"faster than the kept one (floors "
+                             f"{WIRE_SPEEDUP_FLOOR})")
     return r
 
 
@@ -1184,6 +1589,14 @@ def sr_quantize_phase(device) -> dict:
           f"K5-SR bitwise equal to their plain versions (n = {chunk} and "
           f"{QUANT_ODD_N}; formats {list(SR_CAST_FORMATS)}, wire kernels on "
           f"{list(WIRE_FORMATS)})", flush=True)
+    more, wire_errs = wire_parity(device, gen, sr=True, blocked=False)
+    for name, e in wire_errs.items():
+        errs[name] = max(errs[name], e)
+    print(f"kernel quantize SR: {more} outputs of the streaming K6-SR/K5-SR "
+          f"bitwise equal to their plain versions and the kept kernels (n = "
+          f"{list(WIRE_SMALL_N)}, and every n on inputs and round bits 4 "
+          f"bytes past a 16-byte boundary; formats {list(WIRE_FORMATS)}; "
+          "with and without digests)", flush=True)
 
     fmt = TRAIN["fmt"]
     wb = wire_bytes(*fmt)
@@ -1205,19 +1618,35 @@ def sr_quantize_phase(device) -> dict:
         "quantize_add_sr": (
             lambda x, y, w, r: tq.quantize_add_sr(x, y, *fmt, r),
             lambda x, y, w, r: tq.quantize_add_sr_ref(x, y, *fmt, r), None),
-        "quantize_pack_sr": (
-            lambda x, y, w, r: tq.quantize_pack_sr(x, *fmt, r),
-            lambda x, y, w, r: tq.quantize_pack_ref(x, *fmt, rbits=r),
-            lambda x, y, w, r: tq.quantize_pack_sr(x, *fmt, r,
-                                                   want_digest=True)),
-        "hop_pack_sr": (
-            lambda x, y, w, r: tq.hop_pack_sr(w, x, *fmt, r),
-            lambda x, y, w, r: tq.hop_pack_ref(w, x, *fmt, rbits=r),
-            lambda x, y, w, r: tq.hop_pack_sr(w, x, *fmt, r,
-                                              want_digest=True)),
     }
-    return {name: time_kernel(name, fmt, chunk, sets, *fns, errs[name])
-            for name, fns in calls.items()}
+    out = {name: time_kernel(name, fmt, chunk, sets, *fns, errs[name])
+           for name, fns in calls.items()}
+    core = tq.core_wire_launcher()
+    wire = {
+        "quantize_pack_sr": dict(
+            new=lambda x, y, w, r: tq.quantize_pack_sr(x, *fmt, r),
+            kept=lambda x, y, w, r: core(None, x, *fmt, rbits=r),
+            new_digest=lambda x, y, w, r: tq.quantize_pack_sr(
+                x, *fmt, r, want_digest=True),
+            kept_digest=lambda x, y, w, r: core(None, x, *fmt, rbits=r,
+                                                want_digest=True),
+            plain=lambda x, y, w, r: tq.quantize_pack_ref(x, *fmt,
+                                                          rbits=r)),
+        "hop_pack_sr": dict(
+            new=lambda x, y, w, r: tq.hop_pack_sr(w, x, *fmt, r),
+            kept=lambda x, y, w, r: core(w, x, *fmt, rbits=r),
+            new_digest=lambda x, y, w, r: tq.hop_pack_sr(
+                w, x, *fmt, r, want_digest=True),
+            kept_digest=lambda x, y, w, r: core(w, x, *fmt, rbits=r,
+                                                want_digest=True),
+            plain=lambda x, y, w, r: tq.hop_pack_ref(w, x, *fmt, rbits=r)),
+    }
+    for name, fns in wire.items():
+        out[name] = wire_timing(
+            name, f"{fmt}, n={chunk}", chunk, sets, fns,
+            QUANT_KERNELS[name][1](wb) * chunk / PEAK_BYTES_PER_S,
+            QUANT_OPS[name] * chunk / PEAK_FP32_FLOPS, errs[name])
+    return out
 
 
 def run_engine(model, trace, fused: bool, device):
@@ -1311,7 +1740,6 @@ def profile_phase(device, steps: int = 30, warmup: int = 10) -> dict:
     untraced ones.  Device busy share = summed kernel time over the
     window's wall time (one stream, so kernels do not overlap)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from cpd_tpu_torch.models import transformer_lm
@@ -1335,8 +1763,7 @@ def profile_phase(device, steps: int = 30, warmup: int = 10) -> dict:
             eng.step()
         torch.cuda.synchronize()
         wall_s = now() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    kernels = profiled_kernels(prof)
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     # K12: its split and combine kernels (serve_attn.cu)
@@ -1459,7 +1886,6 @@ def step_profile(step, state, batch) -> dict:
     """Device ms per step by kernel, summed kernel launches per step, over
     one profiled train step."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1467,21 +1893,49 @@ def step_profile(step, state, batch) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         step(state, *batch)
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    kernels = profiled_kernels(prof)
     if not kernels:
         print("  (torch.profiler recorded no device time for this step: its "
               "per-kernel device ms are not measured)", flush=True)
         return dict(dict.fromkeys(KERNEL_NAMES), device_busy_ms=None,
                     kernel_launches=None)
-    out = {k: sum(e.self_device_time_total for e in kernels
-                  if any(n in e.key for n in
-                         ((v,) if isinstance(v, str) else v))) / 1e3
-           for k, v in KERNEL_NAMES.items()}
+    named = {k: [e for e in kernels
+                 if any(n in e.key for n in
+                        ((v,) if isinstance(v, str) else v))]
+             for k, v in KERNEL_NAMES.items()}
+    out = {k: sum(e.self_device_time_total for e in es) / 1e3
+           for k, es in named.items()}
+    out["kernel_records"] = {k: sum(e.count for e in es)
+                             for k, es in named.items()}
     out["device_busy_ms"] = sum(e.self_device_time_total
                                 for e in kernels) / 1e3
     out["kernel_launches"] = sum(e.count for e in kernels)
+    # the kept K5/K6 kernels' second launch: none on a path since the
+    # streaming kernels fold their digests in the launch
+    out["wire_fold_launches"] = sum(e.count for e in kernels
+                                    if "fold_kernel<4>" in e.key)
     return out
+
+
+def no_wire_fold(prof: dict, label: str, per_step: dict) -> None:
+    """Every digesting K5/K6 call is one launch: a profiled step shows no
+    launch of the kept kernels' fold (where the profiler recorded it).
+    Also sets ``prof["wire_records_whole"]``: whether the profile holds
+    exactly the K5/K6 launches the wrappers counted in a step
+    (``per_step``), so that its K5/K6 device ms are those launches'."""
+    if prof.get("wire_fold_launches"):
+        raise AssertionError(f"{label}: {prof['wire_fold_launches']} "
+                             "fold_kernel<4> launches in a step: K5/K6 took "
+                             "the kept two-launch path")
+    wire = {k: (prof.get("kernel_records", {}).get(k), per_step.get(k, 0))
+            for k in KERNEL_NAMES
+            if k.startswith(("quantize_pack", "hop_pack"))}
+    prof["wire_records_whole"] = all(a == b for a, b in wire.values())
+    print(f"{label}: step profile {prof.get('kernel_launches')} kernel "
+          f"launches, {prof.get('wire_fold_launches')} of them the kept "
+          "K5/K6 digest fold; K5/K6 records (profile, wrappers' count): "
+          f"{json.dumps({k: v for k, v in wire.items() if any(v)})}, "
+          f"whole: {prof['wire_records_whole']}", flush=True)
 
 
 def slice_batches(steps: int) -> list:
@@ -1623,6 +2077,7 @@ def train_phase(device) -> dict:
     # the split of one step (host clock, synchronised between parts)
     split = reduce_split(mesh, model, x, y)
     prof = step_profile(step, state, batches[0])
+    no_wire_fold(prof, "train", {k: v // steps for k, v in counts.items()})
     step_s = sum(secs[1:]) / (len(secs) - 1)
     out = dict(
         world=w, global_batch=global_batch, steps=steps, losses=loss_f,
@@ -1879,6 +2334,16 @@ def blocked_quantize_phase(device) -> dict:
           f"versions (n = {chunk} and {QUANT_ODD_N}; formats "
           f"{list(BLOCKED_FORMATS)}; blocks {list(BLOCK_SIZES)}; K7 at "
           f"(4, {row_bytes}), (2, 100001), (8, 333333))", flush=True)
+    for sr in (False, True):
+        more, wire_errs = wire_parity(device, gen, sr=sr, blocked=True)
+        for name, e in wire_errs.items():
+            errs[name] = max(errs[name], e)
+        print(f"kernel blocked: {more} outputs of the streaming blocked "
+              f"K6/K5 ({'SR' if sr else 'RTNE'}) bitwise equal to their "
+              f"plain versions and the kept kernels (n = "
+              f"{list(WIRE_SMALL_N)}, and every n on inputs 4 bytes past a "
+              f"16-byte boundary; formats {list(BLOCKED_FORMATS)}; blocks "
+              f"{list(BLOCK_SIZES)}; with and without digests)", flush=True)
 
     nb_chunk = sidecar_bytes(chunk, block)
     key = (5, 9)
@@ -1918,14 +2383,27 @@ def blocked_quantize_phase(device) -> dict:
                                            block_size=block,
                                            want_digest=True)),
     }
+    core = tq.core_wire_launcher()
+    kept = {
+        "quantize_pack_blocked": lambda dig: lambda x, y, w, r: core(
+            None, x, *fmt, block_size=block, want_digest=dig),
+        "quantize_pack_blocked_sr": lambda dig: lambda x, y, w, r: core(
+            None, x, *fmt, rbits=r, block_size=block, want_digest=dig),
+        "hop_pack_blocked": lambda dig: lambda x, y, w, r: core(
+            w, x, *fmt, block_size=block, want_digest=dig),
+        "hop_pack_blocked_sr": lambda dig: lambda x, y, w, r: core(
+            w, x, *fmt, rbits=r, block_size=block, want_digest=dig),
+    }
     out = {}
     for name, (kernel, plain, digest) in calls.items():
         t_bytes = BLOCKED_KERNELS[name][1](chunk, wb, nb_chunk) \
             / PEAK_BYTES_PER_S
         t_ops = BLOCKED_KERNELS[name][2] * chunk / PEAK_FP32_FLOPS
-        out[name] = blocked_timing(name, f"{fmt} block {block}, n={chunk}",
-                                   sets, kernel, plain, digest, t_bytes,
-                                   t_ops, errs[name])
+        out[name] = wire_timing(
+            name, f"{fmt} block {block}, n={chunk}", chunk, sets,
+            dict(new=kernel, kept=kept[name](False), new_digest=digest,
+                 kept_digest=kept[name](True), plain=plain),
+            t_bytes, t_ops, errs[name])
     # K7: the gathered wire of the largest bucket, W rows
     row_sets = [(torch.randint(0, 256, (TRAIN["world"], row_bytes),
                                generator=gen, device=device,
@@ -2158,6 +2636,8 @@ def blocked_train_phase(device) -> dict:
 
     split_ms = reduce_split(mesh, model, x, y, fmt=fmt, verify=True, **bkw)
     prof = step_profile(step, state, batches[0])
+    no_wire_fold(prof, "train blocked",
+                 {k: v // steps for k, v in counts.items()})
     step_s = sum(secs[1:]) / (len(secs) - 1)
     out = dict(
         world=w, global_batch=global_batch, steps=steps, fmt=list(fmt),
@@ -3465,6 +3945,142 @@ def mha_phase(device) -> dict:
     return res
 
 
+# phase 11a's head dims past 256, on flash_gqa.cu's head_dim-split arm:
+# K9/K10 at (B, T, T, H, H_kv) = SPLIT_GQA (rep 4) and K11 at SPLIT_MHA,
+# both dtypes, causal and not; 320 is zero-padded to 384
+SPLIT_GQA_DIMS = (320, 384, 512)
+SPLIT_MHA_DIMS = (384, 512)
+SPLIT_GQA = (2, 512, 512, 8, 2)
+SPLIT_MHA = (2, 512, 512, 4, 4)
+SPLIT_KERNELS = {"flash_gqa_fwd": ("cpd_tpu/ops/flash_gqa.py:151 (D > 256; "
+                                   "K11: cpd_tpu/ops/attention.py:116)",
+                                   "split_fwd_kernel"),
+                 "flash_gqa_bwd": ("cpd_tpu/ops/flash_gqa.py:298 (D > 256; "
+                                   "K11: cpd_tpu/ops/attention.py:116)",
+                                   ("split_dq_kernel", "split_dkv_kernel"))}
+
+
+def sdpa_ms(q, k, v, g, causal: bool) -> dict:
+    """`scaled_dot_product_attention` on K/V expanded to the query heads:
+    the backend the dispatcher picks, the forward and the backward alone
+    (autograd.grad of a stored forward) by `queued_ms`; null times and the
+    reason where no backend takes the shape."""
+    import torch
+    import torch.nn.functional as F
+
+    rep = q.shape[2] // k.shape[2]
+    qt, kt, vt, gt = (x.transpose(1, 2).contiguous() for x in (
+        q, k.repeat_interleave(rep, 2), v.repeat_interleave(rep, 2), g))
+    kw = dict(is_causal=causal, scale=1.0 / math.sqrt(q.shape[-1]))
+    try:
+        backend = sdpa_backend(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw))
+    except AssertionError as e:
+        return dict(backend=None, fwd_ms=None, bwd_ms=None, reason=str(e))
+    leaves = tuple(x.detach().requires_grad_() for x in (qt, kt, vt))
+    o = F.scaled_dot_product_attention(*leaves, **kw)
+    out = dict(backend=backend,
+               fwd_ms=queued_ms(lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, **kw), iters=5),
+               bwd_ms=queued_ms(lambda: torch.autograd.grad(
+                   o, leaves, gt, retain_graph=True), iters=5))
+    del o, leaves
+    return out
+
+
+def split_head_dim_phase(device) -> dict:
+    """Phase 11a past head_dim 256: K9/K10 (GQA, rep 4) at
+    `SPLIT_GQA_DIMS` and K11 at `SPLIT_MHA_DIMS`, fp32 and bf16, causal
+    and not, on flash_gqa.cu's head_dim-split arm: within the phase's
+    tolerances of the plain versions, two launches bitwise equal, each
+    case timed by `queued_ms` (forward; backward) beside its bound, its
+    plain version and SDPA on K/V expanded (the backend printed)."""
+    import torch
+
+    from cpd_tpu_torch.ops import flash_gqa as fl
+    from cpd_tpu_torch.ops import flash_mha as fm
+
+    gen = torch.Generator(device=device).manual_seed(112)
+    cases = [("flash_gqa", SPLIT_GQA + (d,), dt, c) for d in SPLIT_GQA_DIMS
+             for dt in (torch.float32, torch.bfloat16) for c in (True, False)]
+    cases += [("flash_mha", SPLIT_MHA + (d,), dt, c) for d in SPLIT_MHA_DIMS
+              for dt in (torch.float32, torch.bfloat16)
+              for c in (True, False)]
+    fns = {"flash_gqa": (fl.flash_gqa_fwd, fl.flash_gqa_bwd,
+                         fl.flash_gqa_fwd_ref, fl.flash_gqa_bwd_ref),
+           "flash_mha": (fm.flash_mha_fwd, fm.flash_mha_bwd,
+                         fm.flash_mha_fwd_ref, fm.flash_mha_bwd_ref)}
+    before = {f: f.launches
+              for f in fns["flash_gqa"][:2] + fns["flash_mha"][:2]}
+    res, worst = {}, {}
+    t0 = time.perf_counter()
+    for label, shape, dt, causal in cases:
+        if fl.launchers(dt, shape[-1])[0] is not fl._split_fwd:
+            raise AssertionError(f"{label} D={shape[-1]}: not routed to the "
+                                 "head_dim-split arm")
+        r = attention_check(*fns[label], shape, dt, causal, gen, device,
+                            repeat=True)
+        if max(r["fwd_share"], r["bwd_share"]) > 1.0:
+            raise AssertionError(f"{label} {shape} {dt} causal={causal}: "
+                                 f"kernel vs plain {r} (shares of the "
+                                 "tolerance above 1)")
+        tag = str(dt).split(".")[-1]
+        w = worst.setdefault(tag, dict.fromkeys(r, 0.0))
+        for k2, v2 in r.items():
+            w[k2] = max(w[k2], v2)
+        b, tq, tk, h, hkv, d = shape
+        q, k, v, g = attention_inputs(shape, dt, gen, device)
+        fwd, bwd, fwd_ref, bwd_ref = fns[label]
+        out, lse = fwd(q, k, v, causal)
+        es = q.element_size()
+        kv_elems = k.numel()
+        times = dict(
+            fwd_ms=queued_ms(lambda: fwd(q, k, v, causal), iters=5),
+            bwd_ms=queued_ms(lambda: bwd(q, k, v, out, lse, g, causal),
+                             iters=5),
+            plain_fwd_ms=time_ms(lambda: fwd_ref(q, k, v, causal), iters=2),
+            plain_bwd_ms=time_ms(
+                lambda: bwd_ref(q, k, v, out, lse, g, causal), iters=2))
+        for part, products, n_bytes in (
+                ("fwd", 2, es * (2 * q.numel() + 2 * kv_elems)
+                 + 4 * lse.numel()),
+                ("bwd", 5, es * (4 * q.numel() + 4 * kv_elems)
+                 + 8 * lse.numel())):
+            flops = flash_flops(b, tq, tk, h, d, causal, products)
+            peak = (PEAK_3XTF32_FLOPS if dt == torch.float32
+                    else PEAK_BF16_FLOPS)
+            t_ops, t_bytes = flops / peak, n_bytes / PEAK_BYTES_PER_S
+            times[f"{part}_bound_ms"] = max(t_ops, t_bytes) * 1e3
+            times[f"{part}_bound_by"] = ("operations" if t_ops >= t_bytes
+                                         else "bytes")
+        sd = sdpa_ms(q, k, v, g, causal)
+        key = f"{label} {tag} D={d} {'causal' if causal else 'full'}"
+        res[key] = dict(shape=list(shape), **r, **times,
+                        sdpa_backend=sd["backend"], sdpa_fwd_ms=sd["fwd_ms"],
+                        sdpa_bwd_ms=sd["bwd_ms"],
+                        **({"sdpa_reason": sd["reason"]}
+                           if "reason" in sd else {}))
+        print(f"kernel {label} [{tag}, {list(shape)}, causal={causal}, "
+              f"flash_gqa.cu head_dim-split]: fwd {times['fwd_ms']:.4f} ms "
+              f"(bound {times['fwd_bound_ms']:.4f}, {times['fwd_bound_by']}), "
+              f"bwd {times['bwd_ms']:.4f} ms (bound "
+              f"{times['bwd_bound_ms']:.4f}); plain fwd "
+              f"{times['plain_fwd_ms']:.4f} bwd {times['plain_bwd_ms']:.4f}; "
+              f"SDPA ({sd['backend']}, K/V expanded) fwd {sd['fwd_ms']} bwd "
+              f"{sd['bwd_ms']}" + (f" ({sd['reason']})" if "reason" in sd
+                                   else "")
+              + f"; out/lse err {r['fwd_err']:.3e} ({r['fwd_share']:.3f} of "
+              f"tol), grads {r['bwd_err']:.3e} ({r['bwd_share']:.3f} of tol)",
+              flush=True)
+    launches = {f.__name__: f.launches - n for f, n in before.items()}
+    if device != "cpu" and not all(launches.values()):
+        raise AssertionError(f"head_dim-split cases launched {launches}")
+    print(f"kernel head_dim-split: {len(cases)} cases within tolerance, two "
+          f"launches bitwise equal in each; launches {json.dumps(launches)}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(cases=res, worst=worst, launches=launches)
+
+
 # the tensor-core attention libraries: their typed loader, the extern "C"
 # function that gives a kernel's dynamic shared memory, and how many
 # kernels each builds (3 kinds x 3 head dims and the GQA rep sum)
@@ -3748,6 +4364,44 @@ def gqa_bf16_kernel_entries(flash: dict, mha: dict, lm: dict) -> list:
     return out
 
 
+def split_kernel_entries(split: dict) -> list:
+    """The ``kernels`` line's entries of flash_gqa.cu's head_dim-split arm
+    (K9-K11 past head_dim 256): launches from phase 11a's cases (no
+    training path of the port runs a head_dim past 256), times and
+    bounds of its GQA bf16 causal case at D = 512."""
+    main = "flash_gqa bfloat16 D=512 causal"
+    c = split["cases"][main]
+    out = []
+    for name, (replaces, kernel) in SPLIT_KERNELS.items():
+        part = "fwd" if name == "flash_gqa_fwd" else "bwd"
+        mha_name = name.replace("gqa", "mha")
+        out.append(dict(
+            name=f"{name}_split", route="cuda",
+            source="cpd_tpu_torch/csrc/flash_gqa.cu", kernel=kernel,
+            replaces=replaces,
+            launches=split["launches"][name] + split["launches"][mha_name],
+            launches_from="phase 11a's head_dim > 256 cases (K9/K10 and "
+                          "K11 calls)",
+            max_abs_err=max(w[f"{part}_err"]
+                            for w in split["worst"].values()),
+            ms=c[f"{part}_ms"], plain_ms=c[f"plain_{part}_ms"],
+            bound_ms=c[f"{part}_bound_ms"], bound_by=c[f"{part}_bound_by"],
+            library_ms=c[f"sdpa_{part}_ms"],
+            library_note=f"scaled_dot_product_attention ({c['sdpa_backend']}"
+                         ", K/V expanded" + (", forward)" if part == "fwd"
+                                             else ", backward alone)"),
+            shape=c["shape"], dtype="bfloat16",
+            cases={k: {f: v[f] for f in ("fwd_ms", "bwd_ms", "fwd_bound_ms",
+                                         "bwd_bound_ms", "sdpa_backend",
+                                         "sdpa_fwd_ms", "sdpa_bwd_ms")}
+                   for k, v in split["cases"].items()},
+            parity=f"fp32 within atol {FLASH_ATOL} / {FLASH_GRAD_ATOL}, "
+                   f"bf16 within rtol {BF16_RTOL} atol {BF16_ATOL} of the "
+                   f"plain versions in {len(split['cases'])} cases; two "
+                   "launches bitwise equal"))
+    return out
+
+
 def mha_kernel_entries(mha: dict, lm: dict) -> list:
     """The ``kernels`` line's entries of K11: launches from the bf16 LM's
     steps (counted from 0 around them), times and bounds from phase 11a
@@ -3842,6 +4496,7 @@ def main() -> int:
     flash = flash_phase(device)
     lm = lm_phase(device)
     mha = mha_phase(device)
+    split = split_head_dim_phase(device)
     bench_lm = bench_lm_phase(device)
     # 11d: bench.py's GQA flash arm through K9/K10 bf16
     gqa_lm = bench_slice(device, "bench gqa lm", GQA_BF16_KERNELS,
@@ -3909,7 +4564,8 @@ def main() -> int:
             library_note=NO_LIBRARY_BITS if name == "sr_bits" else NO_LIBRARY,
             parity=parity,
             **{k: q[k] for k in ("ms_with_digest", "bound_pipe",
-                                 "sass_per_element") if k in q}))
+                                 "sass_per_element") + WIRE_FIELDS
+               if k in q}))
     # the blocked arms and K7: launches from the blocked verified training
     # run (RTNE, 3 steps) and its SR step
     for name in tuple(BLOCKED_KERNELS) + ("digest_rows",):
@@ -3933,10 +4589,12 @@ def main() -> int:
                    "digests) in every format, block and size case; and "
                    "the blocked verified training kernels == plain",
             shape=q["shape"],
-            **{k: q[k] for k in ("ms_with_digest",) if k in q}))
+            **{k: q[k] for k in ("ms_with_digest",) + WIRE_FIELDS
+               if k in q}))
     kernels += lm_kernel_entries(qgemm, flash, lm)
     kernels += mha_kernel_entries(mha, bench_lm)
     kernels += gqa_bf16_kernel_entries(flash, mha, gqa_lm)
+    kernels += split_kernel_entries(split)
     print(card, flush=True)      # exactly as nvidia-smi gives it
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

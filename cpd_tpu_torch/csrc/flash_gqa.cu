@@ -1,7 +1,8 @@
 // Flash attention on the CUDA cores: the forward with its per-row
 // log-sum-exp, and the backward as a dq kernel and a dk/dv kernel, for
-// fp32 or bf16 elements and head_dim 32, 64, 128 or 256, accumulating in
-// fp32.
+// fp32 or bf16 elements and head_dim 32, 64, 128 or 256 (the templates)
+// or any multiple of 128 past 256 (the head_dim-split arm, below the
+// templates), accumulating in fp32.
 //
 // At head_dim 32, 64 and 128 no path runs these kernels: K9, K10 and K11
 // run on the tensor cores there, bf16 on flash_mha_tc.cu's mma.sync
@@ -10,7 +11,12 @@
 // (ops.flash_gqa.core_launchers).  At head_dim 256 these kernels are
 // K9-K11's arm in both dtypes: the wrappers zero-pad any head_dim in
 // (128, 256] to 256 and launch them (ops.flash_gqa.launchers); the
-// tensor-core builds hold no D = 256 tile within their registers.
+// tensor-core builds hold no D = 256 tile within their registers.  Past
+// 256 the wrappers pad D to the next multiple of 128, the JAX kernel's
+// rule, and launch the head_dim-split arm (flash_split_*_launch), whose
+// tiles are those of D = 256 with a grid axis over 128-column chunks of
+// D; it recomputes the logits in every chunk's CTA, D/128 times the
+// logit work, a simple kernel that is right before a fast one.
 //
 // Computes the function of three TPU kernels:
 //   K9  cpd_tpu/ops/flash_gqa.py _flash_gqa_fwd_call (:151; body
@@ -448,6 +454,301 @@ __global__ void __launch_bounds__(threads_of(D))
   }
 }
 
+// ---------------------------------------------------------------------------
+// The head_dim-split arm: D a multiple of 128 past 256, which no tile of
+// the templates above holds within 227 KB.  A fourth grid axis (z) takes
+// D in chunks of 128 columns.  Every CTA accumulates the logits q k^T
+// (and dp = do v^T) over ALL chunks, staging 128 columns of each operand
+// at a time in the order t = 0 .. D-1 of the templates' sums, so every
+// chunk's CTA computes the same logits bitwise; it then produces only its
+// own chunk's 128 columns of the output (out, dq, or dk and dv).  The
+// recompute costs D/128 times the logit work.  Tiles as at D = 256: R =
+// 32 rows, 128 threads (16 lanes x 8 rows).
+
+constexpr int kDC = 128;                    // columns of a D chunk
+constexpr int kSR = tile_rows(256);         // rows of a tile (32)
+constexpr int kSLd = ld_of(256);            // [t][R] row stride
+constexpr int kSLdC = kDC + kPad;           // [R][t] row stride
+constexpr int kSThreads = threads_of(256);  // 128
+
+// columns [c0, c0 + 128) of rows [r0, r0 + R) of one head (row stride
+// `stride`), zero past t_len, widened to fp32: transposed into dst[d][r]
+// or as they lie into dst[r][d]
+template <class T, bool kTrans>
+__device__ void load_chunk(float* dst, const T* src, long long stride,
+                           int c0, int r0, int t_len) {
+  for (int i = threadIdx.x; i < kSR * kDC; i += kSThreads) {
+    const int r = i / kDC, d = i % kDC;
+    const float x = r0 + r < t_len
+                        ? Elem<T>::load(src + (r0 + r) * stride + c0 + d)
+                        : 0.0f;
+    if (kTrans)
+      dst[d * kSLd + r] = x;
+    else
+      dst[r * kSLdC + d] = x;
+  }
+}
+
+// forward: grid (ceil(Tq/R), B*H, D/128)
+template <class T>
+__global__ void __launch_bounds__(kSThreads)
+    split_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, T* __restrict__ out,
+                     float* __restrict__ lse, int tq, int tk, int h,
+                     int hkv, int d, int causal, float scale) {
+  constexpr int NC = kDC / 16, KC = kSR / 16;
+  extern __shared__ __align__(16) float smem[];
+  float* qt = smem;                 // [128][R] queries, chunk cc
+  float* kt = qt + kDC * kSLd;      // [128][R] keys, chunk cc
+  float* vs = kt + kDC * kSLd;      // [R][128] values, chunk c
+  float* pt = vs + kSR * kSLdC;     // [R keys][R queries]
+  const int tx = lane_x(), ty = lane_y();
+  const int b = blockIdx.y / h, hh = blockIdx.y % h, g = hh / (h / hkv);
+  const int q0 = blockIdx.x * kSR, c0 = blockIdx.z * kDC, chunks = d / kDC;
+  const long long qs = static_cast<long long>(h) * d;
+  const long long ks = static_cast<long long>(hkv) * d;
+  const T* qb = q + (static_cast<long long>(b) * tq * h + hh) * d;
+  const T* kb = k + (static_cast<long long>(b) * tk * hkv + g) * d;
+  const T* vb = v + (static_cast<long long>(b) * tk * hkv + g) * d;
+  float m[4], l[4], acc[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) m[i] = kNegInf, l[i] = 0.0f;
+  zero(acc);
+  const int n_k = (tk + kSR - 1) / kSR;
+  const int n_j = causal ? min(n_k, static_cast<int>(blockIdx.x) + 1) : n_k;
+  for (int j = 0; j < n_j; ++j) {
+    const int k0 = j * kSR;
+    float s[4][KC];
+    zero(s);
+    for (int cc = 0; cc < chunks; ++cc) {
+      __syncthreads();   // the last products are done with every tile
+      load_chunk<T, true>(qt, qb, qs, cc * kDC, q0, tq);
+      load_chunk<T, true>(kt, kb, ks, cc * kDC, k0, tk);
+      if (cc == 0) load_chunk<T, false>(vs, vb, ks, c0, k0, tk);
+      __syncthreads();
+      mma<KC, kDC>(s, qt, kSLd, kt, kSLd);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qpos = q0 + ty * 4 + i;
+      float mx = kNegInf;
+#pragma unroll
+      for (int c = 0; c < KC; ++c) {
+        const bool ok = valid_at(qpos, k0 + tx + 16 * c, tq, tk, causal);
+        s[i][c] = ok ? s[i][c] * scale : kNegInf;
+        mx = fmaxf(mx, s[i][c]);
+      }
+      const float m_new = fmaxf(m[i], row_max(mx));
+      float sum = 0.0f;
+#pragma unroll
+      for (int c = 0; c < KC; ++c) {
+        const bool ok = valid_at(qpos, k0 + tx + 16 * c, tq, tk, causal);
+        const float p = ok ? expf(s[i][c] - m_new) : 0.0f;
+        pt[(tx + 16 * c) * kSLd + ty * 4 + i] = Elem<T>::round(p);
+        sum += p;
+      }
+      const float alpha = expf(m[i] - m_new);
+      l[i] = l[i] * alpha + row_sum(sum);
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
+    }
+    __syncthreads();
+    mma<NC, kSR>(acc, pt, kSLd, vs, kSLdC);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qpos = q0 + ty * 4 + i;
+    if (qpos >= tq) continue;
+    const float den = fmaxf(l[i], 1e-30f);
+    T* o = out + ((static_cast<long long>(b) * tq + qpos) * h + hh) * d + c0;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      Elem<T>::store(o + tx + 16 * c, acc[i][c] / den);
+    if (tx == 0 && blockIdx.z == 0)
+      lse[(static_cast<long long>(b) * h + hh) * tq + qpos] =
+          m[i] + logf(den);
+  }
+}
+
+// backward, dq: grid (ceil(Tq/R), B*H, D/128); keys innermost
+template <class T>
+__global__ void __launch_bounds__(kSThreads)
+    split_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq,
+                    int tq, int tk, int h, int hkv, int d, int causal,
+                    float scale) {
+  constexpr int NC = kDC / 16, KC = kSR / 16;
+  extern __shared__ __align__(16) float smem[];
+  float* qt = smem;                 // [128][R], chunk cc
+  float* dot = qt + kDC * kSLd;     // [128][R]
+  float* kt = dot + kDC * kSLd;     // [128][R]
+  float* vt = kt + kDC * kSLd;      // [128][R]
+  float* ksm = vt + kDC * kSLd;     // [R][128] keys, chunk c
+  float* dst = ksm + kSR * kSLdC;   // [R keys][R queries] ds
+  const int tx = lane_x(), ty = lane_y();
+  const int b = blockIdx.y / h, hh = blockIdx.y % h, g = hh / (h / hkv);
+  const int q0 = blockIdx.x * kSR, c0 = blockIdx.z * kDC, chunks = d / kDC;
+  const long long qs = static_cast<long long>(h) * d;
+  const long long ks = static_cast<long long>(hkv) * d;
+  const long long qoff = (static_cast<long long>(b) * tq * h + hh) * d;
+  const T* kb = k + (static_cast<long long>(b) * tk * hkv + g) * d;
+  const T* vb = v + (static_cast<long long>(b) * tk * hkv + g) * d;
+  float rl[4], rd[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qpos = q0 + ty * 4 + i;
+    const long long at = (static_cast<long long>(b) * h + hh) * tq + qpos;
+    rl[i] = qpos < tq ? lse[at] : 0.0f;
+    rd[i] = qpos < tq ? delta[at] : 0.0f;
+  }
+  float acc[4][NC];
+  zero(acc);
+  const int n_k = (tk + kSR - 1) / kSR;
+  const int n_j = causal ? min(n_k, static_cast<int>(blockIdx.x) + 1) : n_k;
+  for (int j = 0; j < n_j; ++j) {
+    const int k0 = j * kSR;
+    float s[4][KC], dp[4][KC];
+    zero(s);
+    zero(dp);
+    for (int cc = 0; cc < chunks; ++cc) {
+      __syncthreads();
+      load_chunk<T, true>(qt, q + qoff, qs, cc * kDC, q0, tq);
+      load_chunk<T, true>(dot, dout + qoff, qs, cc * kDC, q0, tq);
+      load_chunk<T, true>(kt, kb, ks, cc * kDC, k0, tk);
+      load_chunk<T, true>(vt, vb, ks, cc * kDC, k0, tk);
+      if (cc == 0) load_chunk<T, false>(ksm, kb, ks, c0, k0, tk);
+      __syncthreads();
+      mma<KC, kDC>(s, qt, kSLd, kt, kSLd);
+      mma<KC, kDC>(dp, dot, kSLd, vt, kSLd);
+    }
+    p_ds(s, dp, rl, rd, q0, k0, tq, tk, causal, scale);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < KC; ++c)
+        dst[(tx + 16 * c) * kSLd + ty * 4 + i] = Elem<T>::round(dp[i][c]);
+    __syncthreads();
+    mma<NC, kSR>(acc, dst, kSLd, ksm, kSLdC);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qpos = q0 + ty * 4 + i;
+    if (qpos >= tq) continue;
+    T* o = dq + ((static_cast<long long>(b) * tq + qpos) * h + hh) * d + c0;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) Elem<T>::store(o + tx + 16 * c, acc[i][c]);
+  }
+}
+
+// backward, dk/dv: grid (ceil(Tk/R), B*H_kv, D/128); the query blocks of
+// the rep heads innermost, in the templates' order, their sums in
+// registers
+template <class T>
+__global__ void __launch_bounds__(kSThreads)
+    split_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, T* __restrict__ dk,
+                     T* __restrict__ dv, int tq, int tk, int h, int hkv,
+                     int d, int causal, float scale) {
+  constexpr int NC = kDC / 16, KC = kSR / 16;
+  extern __shared__ __align__(16) float smem[];
+  float* kt = smem;                 // [128][R] keys, chunk cc
+  float* vt = kt + kDC * kSLd;      // [128][R]
+  float* qt = vt + kDC * kSLd;      // [128][R] queries, chunk cc
+  float* dot = qt + kDC * kSLd;     // [128][R]
+  float* qsm = dot + kDC * kSLd;    // [R][128] queries, chunk c
+  float* dos = qsm + kSR * kSLdC;   // [R][128]
+  float* ps = dos + kSR * kSLdC;    // [R q][R k] p
+  float* dss = ps + kSR * kSLd;     // [R q][R k] ds
+  float* rows = dss + kSR * kSLd;   // lse[R], delta[R]
+  const int tx = lane_x(), ty = lane_y();
+  const int b = blockIdx.y / hkv, g = blockIdx.y % hkv, rep = h / hkv;
+  const int k0 = blockIdx.x * kSR, c0 = blockIdx.z * kDC, chunks = d / kDC;
+  const long long qs = static_cast<long long>(h) * d;
+  const long long ks = static_cast<long long>(hkv) * d;
+  const long long kvoff = (static_cast<long long>(b) * tk * hkv + g) * d;
+  float dk_acc[4][NC], dv_acc[4][NC];
+  zero(dk_acc);
+  zero(dv_acc);
+  const int n_q = (tq + kSR - 1) / kSR;
+  const int i0 = causal ? static_cast<int>(blockIdx.x) : 0;
+  for (int r = 0; r < rep; ++r) {
+    const int hh = g * rep + r;
+    const long long qoff = (static_cast<long long>(b) * tq * h + hh) * d;
+    const long long roff = (static_cast<long long>(b) * h + hh) * tq;
+    for (int i = i0; i < n_q; ++i) {
+      const int q0 = i * kSR;
+      float s[4][KC], dp[4][KC];
+      zero(s);
+      zero(dp);
+      for (int cc = 0; cc < chunks; ++cc) {
+        __syncthreads();
+        load_chunk<T, true>(kt, k + kvoff, ks, cc * kDC, k0, tk);
+        load_chunk<T, true>(vt, v + kvoff, ks, cc * kDC, k0, tk);
+        load_chunk<T, true>(qt, q + qoff, qs, cc * kDC, q0, tq);
+        load_chunk<T, true>(dot, dout + qoff, qs, cc * kDC, q0, tq);
+        if (cc == 0) {
+          load_chunk<T, false>(qsm, q + qoff, qs, c0, q0, tq);
+          load_chunk<T, false>(dos, dout + qoff, qs, c0, q0, tq);
+          if (threadIdx.x < kSR) {
+            const int qpos = q0 + threadIdx.x;
+            rows[threadIdx.x] = qpos < tq ? lse[roff + qpos] : 0.0f;
+            rows[kSR + threadIdx.x] = qpos < tq ? delta[roff + qpos] : 0.0f;
+          }
+        }
+        __syncthreads();
+        mma<KC, kDC>(s, qt, kSLd, kt, kSLd);
+        mma<KC, kDC>(dp, dot, kSLd, vt, kSLd);
+      }
+      float rl[4], rd[4];
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii) {
+        rl[ii] = rows[ty * 4 + ii];
+        rd[ii] = rows[kSR + ty * 4 + ii];
+      }
+      p_ds(s, dp, rl, rd, q0, k0, tq, tk, causal, scale);
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+        for (int c = 0; c < KC; ++c) {
+          ps[(ty * 4 + ii) * kSLd + tx + 16 * c] = Elem<T>::round(s[ii][c]);
+          dss[(ty * 4 + ii) * kSLd + tx + 16 * c] = Elem<T>::round(dp[ii][c]);
+        }
+      __syncthreads();
+      mma<NC, kSR>(dv_acc, ps, kSLd, dos, kSLdC);
+      mma<NC, kSR>(dk_acc, dss, kSLd, qsm, kSLdC);
+    }
+  }
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii) {
+    const int kpos = k0 + ty * 4 + ii;
+    if (kpos >= tk) continue;
+    const long long at = kvoff + static_cast<long long>(kpos) * ks + c0;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      Elem<T>::store(dk + at + tx + 16 * c, dk_acc[ii][c]);
+      Elem<T>::store(dv + at + tx + 16 * c, dv_acc[ii][c]);
+    }
+  }
+}
+
+constexpr int split_fwd_smem() {
+  return (2 * kDC * kSLd + kSR * (kSLdC + kSLd)) * 4;
+}
+constexpr int split_dq_smem() {
+  return (4 * kDC * kSLd + kSR * (kSLdC + kSLd)) * 4;
+}
+constexpr int split_dkv_smem() {
+  return (4 * kDC * kSLd + 2 * kSR * (kSLdC + kSLd) + 2 * kSR) * 4;
+}
+static_assert(split_fwd_smem() <= 232448 && split_dq_smem() <= 232448 &&
+                  split_dkv_smem() <= 232448,
+              "head_dim-split tiles exceed 227 KB");
+
 constexpr int fwd_smem(int d) {
   return (2 * d * ld_of(d) + tile_rows(d) * (d + kPad + ld_of(d))) * 4;
 }
@@ -559,6 +860,57 @@ int dispatch(int dtype, int d, A... args) {
   return int(cudaErrorInvalidValue);
 }
 
+template <class T>
+int split_fwd(const void* q, const void* k, const void* v, void* out,
+              float* lse, Shape n, int d, cudaStream_t s) {
+  cudaError_t e = allow_smem(split_fwd_kernel<T>, split_fwd_smem());
+  if (e != cudaSuccess) return int(e);
+  const long long qb = static_cast<long long>(n.tq) * n.h * d;
+  const long long kb = static_cast<long long>(n.tk) * n.hkv * d;
+  return batch_chunks(n.b, n.h, [&](int b0, int rows) {
+    const dim3 grid((n.tq + kSR - 1) / kSR, rows * n.h, d / kDC);
+    split_fwd_kernel<T><<<grid, kSThreads, split_fwd_smem(), s>>>(
+        static_cast<const T*>(q) + b0 * qb, static_cast<const T*>(k) + b0 * kb,
+        static_cast<const T*>(v) + b0 * kb, static_cast<T*>(out) + b0 * qb,
+        lse + static_cast<long long>(b0) * n.h * n.tq, n.tq, n.tk, n.h,
+        n.hkv, d, n.causal, n.scale);
+    return int(cudaGetLastError());
+  });
+}
+
+template <class T>
+int split_bwd(const void* q, const void* k, const void* v, const void* dout,
+              const float* lse, const float* delta, void* dq, void* dk,
+              void* dv, Shape n, int d, cudaStream_t s) {
+  cudaError_t e = allow_smem(split_dq_kernel<T>, split_dq_smem());
+  if (e == cudaSuccess) e = allow_smem(split_dkv_kernel<T>, split_dkv_smem());
+  if (e != cudaSuccess) return int(e);
+  const long long qb = static_cast<long long>(n.tq) * n.h * d;
+  const long long kb = static_cast<long long>(n.tk) * n.hkv * d;
+  const long long rb = static_cast<long long>(n.h) * n.tq;
+  return batch_chunks(n.b, n.h, [&](int b0, int rows) {
+    const T* qt = static_cast<const T*>(q) + b0 * qb;
+    const T* kt = static_cast<const T*>(k) + b0 * kb;
+    const T* vt = static_cast<const T*>(v) + b0 * kb;
+    const T* dt = static_cast<const T*>(dout) + b0 * qb;
+    const float* lt = lse + b0 * rb;
+    const float* et = delta + b0 * rb;
+    split_dq_kernel<T><<<dim3((n.tq + kSR - 1) / kSR, rows * n.h, d / kDC),
+                         kSThreads, split_dq_smem(), s>>>(
+        qt, kt, vt, dt, lt, et, static_cast<T*>(dq) + b0 * qb, n.tq, n.tk,
+        n.h, n.hkv, d, n.causal, n.scale);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return int(err);
+    split_dkv_kernel<T><<<dim3((n.tk + kSR - 1) / kSR, rows * n.hkv,
+                               d / kDC),
+                          kSThreads, split_dkv_smem(), s>>>(
+        qt, kt, vt, dt, lt, et, static_cast<T*>(dk) + b0 * kb,
+        static_cast<T*>(dv) + b0 * kb, n.tq, n.tk, n.h, n.hkv, d, n.causal,
+        n.scale);
+    return int(cudaGetLastError());
+  });
+}
+
 template <class T, int D>
 struct Fwd {
   template <class... A>
@@ -600,6 +952,42 @@ extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v,
                        static_cast<const float*>(lse),
                        static_cast<const float*>(delta), dq, dk, dv, n,
                        static_cast<cudaStream_t>(stream));
+}
+
+// the head_dim-split arm: flash_fwd_launch / flash_bwd_launch's function
+// for head_dim d a multiple of 128 past 256 (cudaErrorInvalidValue for
+// another d or dtype)
+extern "C" int flash_split_fwd_launch(const void* q, const void* k,
+                                      const void* v, void* out, void* lse,
+                                      int b, int tq, int tk, int h, int hkv,
+                                      int d, int dtype, int causal,
+                                      float scale, void* stream) {
+  if (d <= 256 || d % kDC != 0) return int(cudaErrorInvalidValue);
+  const Shape n{b, tq, tk, h, hkv, causal, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  if (dtype == 0) return split_fwd<float>(q, k, v, out, l, n, d, s);
+  if (dtype == 1) return split_fwd<__nv_bfloat16>(q, k, v, out, l, n, d, s);
+  return int(cudaErrorInvalidValue);
+}
+
+extern "C" int flash_split_bwd_launch(const void* q, const void* k,
+                                      const void* v, const void* dout,
+                                      const void* lse, const void* delta,
+                                      void* dq, void* dk, void* dv, int b,
+                                      int tq, int tk, int h, int hkv, int d,
+                                      int dtype, int causal, float scale,
+                                      void* stream) {
+  if (d <= 256 || d % kDC != 0) return int(cudaErrorInvalidValue);
+  const Shape n{b, tq, tk, h, hkv, causal, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  const float* e = static_cast<const float*>(delta);
+  if (dtype == 0)
+    return split_bwd<float>(q, k, v, dout, l, e, dq, dk, dv, n, d, s);
+  if (dtype == 1)
+    return split_bwd<__nv_bfloat16>(q, k, v, dout, l, e, dq, dk, dv, n, d, s);
+  return int(cudaErrorInvalidValue);
 }
 
 extern "C" const char* flash_error_string(int code) {

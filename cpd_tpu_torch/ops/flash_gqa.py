@@ -25,8 +25,9 @@ per-row log-sum-exp the backward re-exponentiates.
   ``chip_smoke.py`` times them beside the tensor-core kernels;
 * `launchers` — the launch functions a CUDA call of an element type and
   head_dim takes (the tensor-core kernels up to 128, the templates at
-  256), and `_padded_head_dim`, which runs one of them (or a plain
-  version) on head dims zero-padded up to the kernel's;
+  256, the head_dim-split arm of ``flash_gqa.cu`` past 256), and
+  `_padded_head_dim`, which runs one of them (or a plain version) on
+  head dims zero-padded up to the kernel's;
 * `flash_gqa(q, k, v, causal, bwd)` — the differentiable function.
   ``bwd="pallas"`` (the JAX name of the flash-backward kernels) saves
   (q, k, v, out, lse) and runs K10; ``bwd="chunked"`` recomputes through
@@ -39,16 +40,17 @@ to the element type before p·v (its fp32 value feeds the sum), p and ds
 before the backward's products, and each output once.  Both tensor-core
 libraries at rep = 1 are K11, the stock MHA kernel (`ops.flash_mha`).
 
-Head dims on the card.  The kernels are built for head_dim 32, 64 and 128
-(the tensor-core kernels) and 256 (``flash_gqa.cu``'s templates).  Any
-other head_dim up to 256 is zero-padded to the next of these, as the JAX
-kernel pads D to a multiple of 128: q, k, v (and out, dout) get zero
+Head dims on the card.  Any head_dim runs.  The kernels are built for
+head_dim 32, 64 and 128 (the tensor-core kernels), 256 (``flash_gqa.cu``'s
+templates) and any multiple of 128 past 256 (``flash_gqa.cu``'s
+head_dim-split arm: a grid axis over 128-column chunks of D).  Any other
+head_dim is zero-padded to the next of these (`kernel_head_dim`), as the
+JAX kernel pads D to a multiple of 128: q, k, v (and out, dout) get zero
 columns, the kernel runs with the ORIGINAL head_dim's scale, and out, dq,
 dk and dv are sliced back; lse is unchanged.  A padded column adds
 x · 0 = +0 to every dot product, so the result is the unpadded one up to
-the order of fp32 sums.  head_dim > 256 raises (ROADMAP Queue C).  The
-batch is not limited: the launchers run a batch past the grid's 65535
-rows in chunks.
+the order of fp32 sums.  The batch is not limited: the launchers run a
+batch past the grid's 65535 rows in chunks.
 """
 
 from __future__ import annotations
@@ -64,12 +66,15 @@ from .attention import _NEG_INF, _gqa_rep
 __all__ = ["flash_gqa", "flash_gqa_fwd", "flash_gqa_bwd",
            "flash_gqa_fwd_ref", "flash_gqa_bwd_ref", "KERNEL_HEAD_DIMS",
            "KERNEL_DTYPES", "F32TC_SIGNATURES", "TC_SIGNATURES",
-           "core_launchers", "launchers", "kernel_head_dim"]
+           "core_launchers", "launchers", "kernel_head_dim", "SPLIT_CHUNK"]
 
 # the head dims the kernels are built for: the tensor-core kernels take
 # the first three, flash_gqa.cu's templates the last
 KERNEL_HEAD_DIMS = (32, 64, 128, 256)
 TC_HEAD_DIMS = KERNEL_HEAD_DIMS[:3]
+# columns of a D chunk of the head_dim-split arm: it takes the multiples
+# of this past KERNEL_HEAD_DIMS[-1]
+SPLIT_CHUNK = 128
 # element type -> the kernels' dtype code
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -97,13 +102,12 @@ def _scale(d: int) -> float:
 
 def kernel_head_dim(d: int) -> int:
     """The head_dim of the kernel a CUDA call of head_dim ``d`` runs: the
-    least of `KERNEL_HEAD_DIMS` >= d."""
+    least of `KERNEL_HEAD_DIMS` >= d, and past them the JAX kernel's own
+    rule, the next multiple of 128 (the head_dim-split arm)."""
     for k in KERNEL_HEAD_DIMS:
         if d <= k:
             return k
-    raise ValueError(f"head_dim {d} > {KERNEL_HEAD_DIMS[-1]}: the kernels "
-                     "have no arm for it yet (ROADMAP Queue C: a "
-                     "head_dim-chunked arm)")
+    return -(-d // SPLIT_CHUNK) * SPLIT_CHUNK
 
 
 def _padded_head_dim(fn, xs: tuple, *args):
@@ -207,6 +211,10 @@ def _library():
         lib.flash_bwd_launch.argtypes = [ctypes.c_void_p] * 9 + [
             ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
         lib.flash_bwd_launch.restype = ctypes.c_int
+        for fn in ("fwd", "bwd"):
+            split = getattr(lib, f"flash_split_{fn}_launch")
+            core = getattr(lib, f"flash_{fn}_launch")
+            split.argtypes, split.restype = core.argtypes, core.restype
         lib.flash_error_string.argtypes = [ctypes.c_int]
         lib.flash_error_string.restype = ctypes.c_char_p
         lib._cpd_typed = True
@@ -235,7 +243,7 @@ def f32tc_library():
 def _on_card(what: str, elems: tuple, rows: tuple = ()) -> bool:
     """False for CPU tensors; for CUDA tensors check what the kernels
     take (one device; ``elems`` of one element type, fp32 or bf16, and
-    ``rows`` fp32; head_dim <= 256, `kernel_head_dim`) and return
+    ``rows`` fp32; any head_dim, padded by `_padded_head_dim`) and return
     True."""
     devices = {x.device for x in elems + rows}
     if len(devices) != 1:
@@ -253,7 +261,6 @@ def _on_card(what: str, elems: tuple, rows: tuple = ()) -> bool:
     for x in rows:
         if x.dtype != torch.float32:
             raise TypeError(f"{what}: lse dtype {x.dtype}, expected float32")
-    kernel_head_dim(elems[0].shape[-1])
     return True
 
 
@@ -294,9 +301,12 @@ def launchers(dtype: torch.dtype, head_dim: int) -> tuple:
     """``(forward, backward)`` launch functions of CUDA calls of ``dtype``
     and ``head_dim`` (padded to `kernel_head_dim` by `_padded_head_dim`):
     up to 128 the tensor-core kernels, fp32 ``flash_f32_tc.cu``'s and
-    bf16 ``flash_mha_tc.cu``'s; at 256 ``flash_gqa.cu``'s templates in
-    both dtypes."""
-    if kernel_head_dim(head_dim) not in TC_HEAD_DIMS:
+    bf16 ``flash_mha_tc.cu``'s; at 256 ``flash_gqa.cu``'s templates and
+    past 256 its head_dim-split arm, in both dtypes."""
+    d_p = kernel_head_dim(head_dim)
+    if d_p > KERNEL_HEAD_DIMS[-1]:
+        return _split_fwd, _split_bwd
+    if d_p not in TC_HEAD_DIMS:
         return _launch_fwd, _launch_bwd
     if dtype == torch.float32:
         return _f32tc_fwd, _f32tc_bwd
@@ -308,6 +318,17 @@ def _launch_fwd(q, k, v, causal, what, scale=None) -> tuple:
     arm at head_dim 256 and, at the others, the yardstick of
     `core_launchers` in both dtypes: ``(out, lse)``.  ``scale`` defaults
     to `_scale` of the tensors' head_dim."""
+    return _core_fwd("flash_fwd_launch", q, k, v, causal, what, scale)
+
+
+def _split_fwd(q, k, v, causal, what, scale=None) -> tuple:
+    """``flash_gqa.cu``'s head_dim-split forward on checked CUDA tensors
+    of head_dim a multiple of 128 past 256 (K9 and K11 there):
+    ``(out, lse)``."""
+    return _core_fwd("flash_split_fwd_launch", q, k, v, causal, what, scale)
+
+
+def _core_fwd(entry, q, k, v, causal, what, scale) -> tuple:
     b, tq, tk, h, hkv, d = _dims(q, k)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
@@ -316,7 +337,7 @@ def _launch_fwd(q, k, v, causal, what, scale=None) -> tuple:
         return out.zero_(), lse.fill_(_NEG_INF)
     lib = _library()
     with torch.cuda.device(q.device):
-        rc = lib.flash_fwd_launch(
+        rc = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), b, tq, tk, h, hkv, d, KERNEL_DTYPES[q.dtype],
             int(causal), _scale(d) if scale is None else scale,
@@ -346,6 +367,19 @@ def _launch_bwd(q, k, v, out, lse, dout, causal, what, scale=None) -> tuple:
     """``flash_gqa.cu``'s dq and dk/dv templates on checked CUDA tensors:
     K10's arm at head_dim 256 and, at the others, the yardstick of
     `core_launchers` in both dtypes: ``(dq, dk, dv)``."""
+    return _core_bwd("flash_bwd_launch", q, k, v, out, lse, dout, causal,
+                     what, scale)
+
+
+def _split_bwd(q, k, v, out, lse, dout, causal, what, scale=None) -> tuple:
+    """``flash_gqa.cu``'s head_dim-split dq and dk/dv kernels on checked
+    CUDA tensors of head_dim a multiple of 128 past 256 (K10 and K11's
+    backward there): ``(dq, dk, dv)``."""
+    return _core_bwd("flash_split_bwd_launch", q, k, v, out, lse, dout,
+                     causal, what, scale)
+
+
+def _core_bwd(entry, q, k, v, out, lse, dout, causal, what, scale) -> tuple:
     b, tq, tk, h, hkv, d = _dims(q, k)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     dout, lse = dout.contiguous(), lse.contiguous()
@@ -357,7 +391,7 @@ def _launch_bwd(q, k, v, out, lse, dout, causal, what, scale=None) -> tuple:
         return dq.zero_(), dk.zero_(), dv.zero_()
     lib = _library()
     with torch.cuda.device(q.device):
-        rc = lib.flash_bwd_launch(
+        rc = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), b, tq, tk, h, hkv, d, KERNEL_DTYPES[q.dtype],

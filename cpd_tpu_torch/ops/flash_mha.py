@@ -25,11 +25,12 @@ p to fp32 round-off.  In fp32 every rounding is the identity.
   take the plain versions; CUDA tensors launch hand-written kernels or
   raise: up to head_dim 128 bf16 the tensor-core kernels of
   ``csrc/flash_mha_tc.cu`` (`mma.sync` bf16 tiles, fp32 accumulators),
-  fp32 the 3xTF32 tensor-core kernels of ``csrc/flash_f32_tc.cu``, and at
-  head_dim 256 ``csrc/flash_gqa.cu``'s CUDA-core templates in both
-  dtypes, all at rep = 1, as K9/K10 (`ops.flash_gqa`) launch them
-  (`launchers`); a head_dim between the kernels' is zero-padded to the
-  next (`flash_gqa._padded_head_dim`).
+  fp32 the 3xTF32 tensor-core kernels of ``csrc/flash_f32_tc.cu``, at
+  head_dim 256 ``csrc/flash_gqa.cu``'s CUDA-core templates and at the
+  multiples of 128 past 256 its head_dim-split arm, in both dtypes, all
+  at rep = 1, as K9/K10 (`ops.flash_gqa`) launch them (`launchers`); a
+  head_dim up to 128 between the kernels' is zero-padded to the next
+  (`flash_gqa._padded_head_dim`).
   ``flash_mha_fwd.launches`` counts forward launches,
   ``flash_mha_bwd.launches`` backward calls (each launches a dq and a
   dk/dv kernel);
@@ -49,10 +50,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .flash_gqa import (TC_HEAD_DIMS, TC_SIGNATURES, _f32tc_bwd, _f32tc_fwd,
-                        _launch_bwd, _launch_fwd, _on_card, _padded_head_dim,
-                        _rounded, _scale, _tc_bwd, _tc_fwd, kernel_head_dim,
-                        tc_library)
+from .flash_gqa import (KERNEL_HEAD_DIMS, TC_HEAD_DIMS, TC_SIGNATURES,
+                        _f32tc_bwd, _f32tc_fwd, _launch_bwd, _launch_fwd,
+                        _on_card, _padded_head_dim, _rounded, _scale,
+                        _split_bwd, _split_fwd, _tc_bwd, _tc_fwd,
+                        kernel_head_dim, tc_library)
 
 __all__ = ["flash_mha", "flash_mha_fwd", "flash_mha_bwd",
            "flash_mha_fwd_ref", "flash_mha_bwd_ref", "launchers",
@@ -154,8 +156,12 @@ def launchers(dtype: torch.dtype, head_dim: int) -> tuple:
     head_dim (padded to `flash_gqa.kernel_head_dim`): up to 128 bf16 on
     the tensor-core kernels of ``flash_mha_tc.cu`` and fp32 on the 3xTF32
     tensor-core kernels of ``flash_f32_tc.cu``; at 256 ``flash_gqa.cu``'s
-    templates; all K9/K10's kernels at rep = 1 (`ops.flash_gqa`)."""
-    if kernel_head_dim(head_dim) not in TC_HEAD_DIMS:
+    templates and past 256 its head_dim-split arm; all K9/K10's kernels at
+    rep = 1 (`ops.flash_gqa`)."""
+    d_p = kernel_head_dim(head_dim)
+    if d_p > KERNEL_HEAD_DIMS[-1]:
+        return _split_fwd, _split_bwd
+    if d_p not in TC_HEAD_DIMS:
         return _launch_fwd, _launch_bwd
     if dtype == torch.bfloat16:
         return _tc_fwd, _tc_bwd

@@ -36,7 +36,11 @@ Each wrapper takes the plain PyTorch version (``*_ref``, the same
 function in torch ops) for CPU tensors and launches its hand-written
 kernel in ``csrc/quantize.cu`` (built at first use, `ops.build`) for CUDA
 tensors, or raises.  There is no fallback from the card to the plain
-version.  Each wrapper counts its launches in ``<wrapper>.launches``;
+version.  K6 and K5 launch the streaming kernels (``run_wire_kernel``,
+``run_blocked_kernel``: 16-byte accesses, the digests folded inside the
+one launch); `core_wire_launcher` reaches the kernels they replaced,
+which no path calls, as the yardstick ``chip_smoke.py`` times them
+against.  Each wrapper counts its launches in ``<wrapper>.launches``;
 the SR arms of K6 and K5 count theirs in ``quantize_pack_sr.launches``
 and ``hop_pack_sr.launches`` only, whichever name the caller used, and
 the blocked arms in the counters ``quantize_pack_blocked[_sr].launches``
@@ -71,9 +75,10 @@ __all__ = ["quantize_cast", "quantize_cast_sr", "quantize_add",
            "hop_pack", "hop_pack_sr", "quantize_pack_blocked",
            "quantize_pack_blocked_sr", "hop_pack_blocked",
            "hop_pack_blocked_sr", "digest_rows", "sr_bits",
-           "fused_block_ok", "quantize_cast_ref", "quantize_cast_sr_ref",
-           "quantize_add_ref", "quantize_add_sr_ref", "quantize_pack_ref",
-           "hop_pack_ref", "digest_rows_ref", "sr_bits_ref"]
+           "fused_block_ok", "core_wire_launcher", "quantize_cast_ref",
+           "quantize_cast_sr_ref", "quantize_add_ref", "quantize_add_sr_ref",
+           "quantize_pack_ref", "hop_pack_ref", "digest_rows_ref",
+           "sr_bits_ref"]
 
 
 # -- plain versions --------------------------------------------------------
@@ -227,6 +232,16 @@ def _library():
         lib.quantize_blocked_blocks.argtypes = [ctypes.c_longlong,
                                                 ctypes.c_int]
         lib.quantize_blocked_blocks.restype = ctypes.c_int
+        lib.quantize_run_launch.argtypes = lib.quantize_wire_launch.argtypes
+        lib.quantize_run_launch.restype = ctypes.c_int
+        lib.quantize_run_blocked_launch.argtypes = \
+            lib.quantize_blocked_launch.argtypes
+        lib.quantize_run_blocked_launch.restype = ctypes.c_int
+        lib.quantize_run_scratch_words.argtypes = []
+        lib.quantize_run_scratch_words.restype = ctypes.c_int
+        lib.quantize_run_head.argtypes = [ctypes.c_void_p] * 5 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.quantize_run_head.restype = ctypes.c_longlong
         lib.digest_rows_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
@@ -375,22 +390,85 @@ def sr_bits(key: tuple, like: torch.Tensor, *,
     return out
 
 
+# the digesting K6/K5 launches' scratch (the digest sums the CTAs add to
+# and the ticket they draw) by (device index, stream): launches on one
+# stream run in turn and each leaves the sums and the ticket at 0, while
+# two streams never share them
+_WIRE_SCRATCH: dict = {}
+
+
+def _wire_scratch(lib, dev: torch.device) -> torch.Tensor:
+    """The current stream's scratch on ``dev``, zeroed at its first use
+    (on that stream, so before any launch that takes it)."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    buf = _WIRE_SCRATCH.get(key)
+    if buf is None:
+        buf = torch.zeros((lib.quantize_run_scratch_words(),),
+                          dtype=torch.int32, device=dev)
+        _WIRE_SCRATCH[key] = buf
+    return buf
+
+
 def _launch_wire(wire_in, g: torch.Tensor, rbits, exp_bits: int,
-                 man_bits: int, block_size, want_digest: bool,
-                 what: str) -> tuple:
+                 man_bits: int, block_size, want_digest: bool, what: str,
+                 fold: bool = True) -> tuple:
+    """One launch of the streaming K6/K5 kernel (per tensor, or blocked
+    with ``block_size``) on checked CUDA tensors: ``(res, wire)`` or, with
+    the digests the launch folds itself, ``(res, wire, digest_in,
+    digest_out)``.  ``fold=False`` (digests only) is the timing form that
+    stops at the CTAs' sums, drawing no ticket: its digests are not
+    written."""
     n = g.numel()
     wb = wire_bytes(exp_bits, man_bits)
     dev = g.device
     res = torch.empty((n,), dtype=torch.float32, device=dev)
+    wire = _wire_out(n, wb, exp_bits, man_bits, block_size, dev)
     lib = _library()
+    scratch = digest = None
+    if want_digest:
+        scratch = _wire_scratch(lib, dev)
+        digest = torch.empty((2,), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        args = (_ptr(wire_in), g.data_ptr(), _ptr(rbits), res.data_ptr(),
+                wire.data_ptr(), _ptr(scratch), _ptr(digest if fold else None),
+                n)
+        if block_size is None:
+            rc = lib.quantize_run_launch(*args, wb, exp_bits, man_bits,
+                                         _stream(dev))
+        else:
+            rc = lib.quantize_run_blocked_launch(
+                *args, block_size, wb, exp_bits, man_bits, _stream(dev))
+    _raise_on(lib, rc, what)
+    if not want_digest:
+        return res, wire
+    return res, wire, digest[0], digest[1]
+
+
+def _wire_out(n: int, wb: int, exp_bits: int, man_bits: int, block_size,
+              dev) -> torch.Tensor:
+    """The uninitialised emitted wire: (n, wb), or the flat blocked
+    buffer."""
     if block_size is None:
-        wire = torch.empty((n, wb), dtype=torch.uint8, device=dev)
-        blocks = lib.quantize_wire_blocks(n)
-    else:
-        wire = torch.empty((wire_bytes_blocked(exp_bits, man_bits, n,
-                                               block_size),),
-                           dtype=torch.uint8, device=dev)
-        blocks = lib.quantize_blocked_blocks(n, block_size)
+        return torch.empty((n, wb), dtype=torch.uint8, device=dev)
+    return torch.empty((wire_bytes_blocked(exp_bits, man_bits, n,
+                                           block_size),),
+                       dtype=torch.uint8, device=dev)
+
+
+def _launch_core_wire(wire_in, g: torch.Tensor, rbits, exp_bits: int,
+                      man_bits: int, block_size, want_digest: bool,
+                      what: str) -> tuple:
+    """`_launch_wire` on the kept kernels (``wire_kernel`` and
+    ``blocked_wire_kernel``): a zero-filled digest, the launch and the
+    one-CTA ``fold_kernel``."""
+    n = g.numel()
+    wb = wire_bytes(exp_bits, man_bits)
+    dev = g.device
+    res = torch.empty((n,), dtype=torch.float32, device=dev)
+    wire = _wire_out(n, wb, exp_bits, man_bits, block_size, dev)
+    lib = _library()
+    blocks = (lib.quantize_wire_blocks(n) if block_size is None
+              else lib.quantize_blocked_blocks(n, block_size))
     partials = digest = None
     if want_digest:
         partials = torch.empty((blocks * 4,), dtype=torch.int64, device=dev)
@@ -413,14 +491,34 @@ def _launch_wire(wire_in, g: torch.Tensor, rbits, exp_bits: int,
     return res, wire, d[0], d[1]
 
 
-def _wire(wire_in, g: torch.Tensor, exp_bits: int, man_bits: int, rbits,
-          block_size, want_digest: bool, counted) -> tuple:
-    """The body of the K6 (``wire_in`` None) and K5 wrappers, per-tensor
-    or blocked: the plain version for CPU tensors, else one launch,
-    counted in ``counted.launches``."""
+def core_wire_launcher():
+    """K6/K5's kept kernels, the yardstick the streaming kernels are timed
+    against; no path calls them.  Returns ``fn(wire_in, g, exp_bits,
+    man_bits, *, rbits=None, block_size=None, want_digest=False)`` with
+    `quantize_pack`'s (``wire_in`` None) or `hop_pack`'s outputs, on CUDA
+    tensors only, counting nothing."""
+    def launch(wire_in, g, exp_bits, man_bits, *, rbits=None,
+               block_size=None, want_digest=False):
+        _wire_checks(wire_in, g, exp_bits, man_bits, block_size)
+        if _device(*(t for t in (wire_in, g, rbits)
+                     if t is not None)).type != "cuda" or g.numel() == 0:
+            raise ValueError("the kept wire kernels take non-empty CUDA "
+                             "tensors")
+        _card_checks(wire_in, g, rbits)
+        out = _launch_core_wire(wire_in, g, rbits, exp_bits, man_bits,
+                                block_size, want_digest, "core wire")
+        first = wire_in is None
+        return out[:2] + (out[3],) if first and want_digest else out
+    return launch
+
+
+def _wire_checks(wire_in, g: torch.Tensor, exp_bits: int, man_bits: int,
+                 block_size) -> None:
+    """What K6/K5 take on every device: a wire format, a block size the
+    blocked kernel takes, and a received wire of the emitted one's
+    size."""
     _validate_wire(exp_bits, man_bits)
     n = g.numel()
-    first = wire_in is None
     if block_size is None:
         expected = n * wire_bytes(exp_bits, man_bits)
         layout = f"{n} elements x {wire_bytes(exp_bits, man_bits)} bytes"
@@ -432,21 +530,35 @@ def _wire(wire_in, g: torch.Tensor, exp_bits: int, man_bits: int, rbits,
         expected = wire_bytes_blocked(exp_bits, man_bits, n, block_size)
         layout = (f"{n} elements x {wire_bytes(exp_bits, man_bits)} bytes "
                   f"+ {sidecar_bytes(n, block_size)} sidecar bytes")
-    if not first and wire_in.numel() != expected:
+    if wire_in is not None and wire_in.numel() != expected:
         raise ValueError(f"wire_in holds {wire_in.numel()} bytes, expected "
                          f"{layout}")
+
+
+def _card_checks(wire_in, g: torch.Tensor, rbits) -> None:
+    """The kernels' operand types: contiguous uint8 / fp32 / int32."""
+    if wire_in is not None:
+        _check("wire_in", wire_in, torch.uint8)
+    _check("g", g, torch.float32)
+    if rbits is not None:
+        _check_rbits(rbits, g.numel())
+
+
+def _wire(wire_in, g: torch.Tensor, exp_bits: int, man_bits: int, rbits,
+          block_size, want_digest: bool, counted) -> tuple:
+    """The body of the K6 (``wire_in`` None) and K5 wrappers, per-tensor
+    or blocked: the plain version for CPU tensors, else one launch of the
+    streaming kernel, counted in ``counted.launches``."""
+    _wire_checks(wire_in, g, exp_bits, man_bits, block_size)
+    first = wire_in is None
     operands = [t for t in (wire_in, g, rbits) if t is not None]
-    if _device(*operands).type == "cpu" or n == 0:
+    if _device(*operands).type == "cpu" or g.numel() == 0:
         kw = dict(rbits=rbits, block_size=block_size,
                   want_digest=want_digest)
         if first:
             return quantize_pack_ref(g, exp_bits, man_bits, **kw)
         return hop_pack_ref(wire_in, g, exp_bits, man_bits, **kw)
-    if not first:
-        _check("wire_in", wire_in, torch.uint8)
-    _check("g", g, torch.float32)
-    if rbits is not None:
-        _check_rbits(rbits, n)
+    _card_checks(wire_in, g, rbits)
     out = _launch_wire(wire_in, g, rbits, exp_bits, man_bits, block_size,
                        want_digest, "quantize_pack" if first else "hop_pack")
     counted.launches += 1

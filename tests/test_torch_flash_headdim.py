@@ -1,12 +1,13 @@
 """K9-K11 at head dims the kernels are not built for, against JAX.
 
 On the card the wrappers zero-pad a head_dim that is not one of the
-kernels' (32, 64, 128, 256) up to the next one, run the kernel with the
+kernels' (32, 64, 128, 256, and past 256 the multiples of 128 the
+head_dim-split arm takes) up to the next one, run the kernel with the
 ORIGINAL head_dim's scale and slice out, dq, dk and dv back
 (`flash_gqa._padded_head_dim`), as the JAX kernels pad D to a multiple
 of 128.  The padding runs the same way on CPU tensors through the plain
 versions, so this file holds the padded path itself, at head_dim 16, 48,
-80 and 96:
+80 and 96, and past 256 at 320 and 512 (K9/K10) and 384 (K11):
 
 * K9/K10 (`flash_gqa_fwd_ref` / `flash_gqa_bwd_ref` padded) against
   JAX's `_flash_gqa_fwd_call` in interpret mode and `jax.vjp` of
@@ -21,7 +22,7 @@ versions, so this file holds the padded path itself, at head_dim 16, 48,
 * the wrappers' routing on CUDA tensors, the launchers stood in for
   (the CPU has no card): what the launcher is handed (padded tensors, the
   original scale), what comes back (sliced), which library a head_dim
-  takes, the raise past 256, and no batch limit.
+  takes (past 256 the head_dim-split arm), and no batch limit.
 
 The ``cuda``-marked test holds the kernels to their plain versions at
 each new head_dim on the card.
@@ -49,6 +50,8 @@ HEAD_DIMS = (16, 48, 80, 96)
 # both met at each rep
 GQA_CASES = [(d, rep, (i + rep) % 2 == 1)
              for i, d in enumerate(HEAD_DIMS) for rep in (1, 4)]
+# past 256: B = 1, H = 4, H_kv = 2, padded to 384 and run at 512 as it is
+GQA_CASES += [(320, 2, True), (512, 2, False)]
 
 
 def _arrays(shapes, seed):
@@ -117,11 +120,13 @@ def test_padded_gqa_bf16_vs_jax(d):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("d", HEAD_DIMS + (384,))
 def test_padded_mha_vs_jax_xla(d, dtype):
     """K11 padded, against JAX xla attention and its gradient (fp32:
-    FWD_ATOL / GRAD_ATOL; bf16: BF16_TOL), causal at 16 and 80, not at 48
-    and 96; and against the unpadded plain K11."""
+    FWD_ATOL / GRAD_ATOL; bf16: BF16_TOL), causal at 16 and 80, not at 48,
+    96 and 384 (the head_dim-split arm's, held through the plain K11: the
+    stock Pallas kernel does not run off a TPU); and against the unpadded
+    plain K11."""
     causal = d in (16, 80)
     q, k, v, g = _arrays([(1, 128, 2, d)] * 4, seed=d)
     jdt, tdt = ((jnp.float32, torch.float32) if dtype == "float32"
@@ -152,11 +157,13 @@ def test_padded_mha_vs_jax_xla(d, dtype):
 
 
 def test_kernel_head_dim_and_the_raise_past_256():
+    """Up to 256 the kernels' own head dims; past 256 no raise since the
+    head_dim-split arm: the JAX kernel's next multiple of 128."""
     assert [tfl.kernel_head_dim(d) for d in (1, 16, 32, 33, 48, 64, 80, 96,
                                              128, 129, 200, 256)] == [
         32, 32, 32, 64, 64, 64, 128, 128, 128, 256, 256, 256]
-    with pytest.raises(ValueError, match="ROADMAP Queue C"):
-        tfl.kernel_head_dim(257)
+    assert [tfl.kernel_head_dim(d) for d in (257, 320, 384, 512, 1000)] == [
+        384, 384, 384, 512, 1024]
 
 
 def _stand_ins(monkeypatch, module, names):
@@ -177,12 +184,15 @@ GQA_STAND_INS = (("_f32tc_fwd", "f32tc", tfl.flash_gqa_fwd_ref),
                  ("_tc_fwd", "tc", tfl.flash_gqa_fwd_ref),
                  ("_tc_bwd", "tc", tfl.flash_gqa_bwd_ref),
                  ("_launch_fwd", "core", tfl.flash_gqa_fwd_ref),
-                 ("_launch_bwd", "core", tfl.flash_gqa_bwd_ref))
+                 ("_launch_bwd", "core", tfl.flash_gqa_bwd_ref),
+                 ("_split_fwd", "split", tfl.flash_gqa_fwd_ref),
+                 ("_split_bwd", "split", tfl.flash_gqa_bwd_ref))
 
 
 @pytest.mark.parametrize("dtype, d, library, d_p", [
     (torch.float32, 48, "f32tc", 64), (torch.bfloat16, 80, "tc", 128),
-    (torch.float32, 200, "core", 256), (torch.bfloat16, 256, "core", 256)])
+    (torch.float32, 200, "core", 256), (torch.bfloat16, 256, "core", 256),
+    (torch.float32, 320, "split", 384), (torch.bfloat16, 512, "split", 512)])
 def test_cuda_calls_pad_to_the_kernel_and_slice_back(monkeypatch, dtype, d,
                                                      library, d_p):
     """K9/K10 on CUDA tensors of head_dim ``d``: the launcher of ``d_p``
@@ -213,14 +223,15 @@ def test_cuda_calls_pad_to_the_kernel_and_slice_back(monkeypatch, dtype, d,
 
 @pytest.mark.parametrize("dtype, d, library", [
     (torch.float32, 96, "f32tc"), (torch.bfloat16, 16, "tc"),
-    (torch.float32, 256, "core"), (torch.bfloat16, 256, "core")])
+    (torch.float32, 256, "core"), (torch.bfloat16, 256, "core"),
+    (torch.float32, 384, "split"), (torch.bfloat16, 512, "split")])
 def test_mha_cuda_calls_take_the_library_of_their_head_dim(monkeypatch,
                                                            dtype, d,
                                                            library):
     """K11 on CUDA tensors: up to 128 the tensor-core library of the
-    dtype, padded; at 256 flash_gqa.cu's templates; D = 200 breaks the
-    stock kernel's contract (a multiple of 128 past 128) on every
-    device."""
+    dtype, padded; at 256 flash_gqa.cu's templates; at 384 and 512 its
+    head_dim-split arm; D = 200 breaks the stock kernel's contract (a
+    multiple of 128 past 128) on every device."""
     monkeypatch.setattr(tfm, "_on_card", lambda *a, **k: True)
     calls = _stand_ins(monkeypatch, tfm, (
         ("_f32tc_fwd", "f32tc", tfm.flash_mha_fwd_ref),
@@ -228,7 +239,9 @@ def test_mha_cuda_calls_take_the_library_of_their_head_dim(monkeypatch,
         ("_tc_fwd", "tc", tfm.flash_mha_fwd_ref),
         ("_tc_bwd", "tc", tfm.flash_mha_bwd_ref),
         ("_launch_fwd", "core", tfm.flash_mha_fwd_ref),
-        ("_launch_bwd", "core", tfm.flash_mha_bwd_ref)))
+        ("_launch_bwd", "core", tfm.flash_mha_bwd_ref),
+        ("_split_fwd", "split", tfm.flash_mha_fwd_ref),
+        ("_split_bwd", "split", tfm.flash_mha_bwd_ref)))
     q, k, v, g = (torch.from_numpy(x).to(dtype)
                   for x in _arrays([(1, 128, 2, d)] * 4, seed=6))
     leaves = [x.requires_grad_() for x in (q, k, v)]
@@ -243,8 +256,9 @@ def test_mha_cuda_calls_take_the_library_of_their_head_dim(monkeypatch,
 
 def test_no_batch_limit_and_head_dim_past_256_raises(monkeypatch):
     """B * H past the grid's 65535 reaches the launcher (it runs the batch
-    in chunks); head_dim 320 raises on the card, naming ROADMAP Queue
-    C, and runs on the CPU through the plain version."""
+    in chunks); head_dim 320, which raised on the card before the
+    head_dim-split arm, reaches that arm zero-padded to 384, and runs on
+    the CPU through the plain version."""
     monkeypatch.setattr(tfl, "_on_card", lambda *a, **k: True)
     seen = []
     monkeypatch.setattr(tfl, "_tc_fwd", lambda q, *a, **kw: seen.append(
@@ -254,8 +268,10 @@ def test_no_batch_limit_and_head_dim_past_256_raises(monkeypatch):
     tfl.flash_gqa_fwd(q, kv, kv, True)
     assert seen == [q.shape]
     x = torch.zeros((1, 8, 2, 320))
-    with pytest.raises(ValueError, match="ROADMAP Queue C"):
-        tfl.flash_gqa_fwd(x, x, x, True)
+    monkeypatch.setattr(tfl, "_split_fwd", lambda q, *a, **kw: seen.append(
+        q.shape) or (q, q[..., 0].transpose(1, 2)))
+    assert tfl.flash_gqa_fwd(x, x, x, True)[0].shape == x.shape
+    assert seen[-1] == (1, 8, 2, 384)
     monkeypatch.undo()
     assert tfl.flash_gqa_fwd(x, x, x, True)[0].shape == x.shape
 
@@ -266,16 +282,18 @@ def _card():
 
 
 # (B, T, H, H_kv, D, causal) at the padded head dims and at 256
-CARD_CASES = [(2, 200, 4, 2, d, c) for d in (16, 48, 80, 96, 256)
-              for c in (True, False)] + [(2, 128, 4, 4, 256, True)]
+CARD_CASES = [(2, 200, 4, 2, d, c) for d in (16, 48, 80, 96, 256, 320, 512)
+              for c in (True, False)] + [(2, 128, 4, 4, d, True)
+                                         for d in (256, 384, 512)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernels_at_new_head_dims_vs_plain_on_card(dtype):
     """K9/K10 at each new head_dim within 1e-5 / 1e-4 (fp32) or 2e-2
-    (bf16) of their plain versions, and K11 at D = 256; two launches
-    bitwise equal."""
+    (bf16) of their plain versions (320 and 512 on the head_dim-split
+    arm), and K11 at D = 256, 384 and 512; two launches bitwise
+    equal."""
     _card()
     gen = torch.Generator(device="cuda").manual_seed(11)
     for b, t, h, hkv, d, causal in CARD_CASES:
@@ -285,7 +303,7 @@ def test_kernels_at_new_head_dims_vs_plain_on_card(dtype):
                 .to(dtype) for _ in range(2))
         fwd, bwd, fwd_ref, bwd_ref = (
             (tfm.flash_mha_fwd, tfm.flash_mha_bwd, tfm.flash_mha_fwd_ref,
-             tfm.flash_mha_bwd_ref) if h == hkv and d == 256 else
+             tfm.flash_mha_bwd_ref) if h == hkv else
             (tfl.flash_gqa_fwd, tfl.flash_gqa_bwd, tfl.flash_gqa_fwd_ref,
              tfl.flash_gqa_bwd_ref))
         out, lse = fwd(q, k, v, causal)

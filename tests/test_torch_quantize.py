@@ -335,3 +335,45 @@ def test_sr_kernels_match_plain_on_card(fmt):
         counts[0], counts[1], counts[2] + 1, counts[3] + 1)
     with pytest.raises(TypeError, match="int32"):
         tq.quantize_cast_sr(x, *fmt, rb.to(torch.int64))
+
+
+def test_kept_wire_kernels_take_cuda_tensors_only():
+    """`core_wire_launcher`, K6/K5's kept kernels, is a yardstick on the
+    card: CPU tensors raise rather than run a plain version."""
+    x = torch.from_numpy(_grads(64, (5, 2), 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        tq.core_wire_launcher()(None, x, 5, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sr", [False, True])
+@pytest.mark.parametrize("fmt", WIRE_FORMATS + [(8, 23)])
+def test_streaming_wire_kernels_ragged_and_misaligned_on_card(fmt, sr):
+    """Bitwise, on the card: K6/K5's streaming kernels against their plain
+    versions and the kept kernels (`core_wire_launcher`) at n = 1, 15, 17
+    and 100_003, on g at a 16-byte boundary and 4 bytes past one, with and
+    without digests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    core = tq.core_wire_launcher()
+    big = torch.from_numpy(_grads(100_008, fmt, 11)).cuda()
+    other = torch.from_numpy(_grads(100_008, fmt, 12)).cuda()
+    for n in (1, 15, 17, 100_003):
+        for off in (0, 1):          # off 1: 4 bytes past a 16-byte boundary
+            x, y = big[off:off + n], other[off:off + n]
+            rb = (tq.sr_bits((fmt[0], n), x, offset_start=2**32 - 9)
+                  if sr else None)
+            for dig in (True, False):
+                got = tq.quantize_pack(x, *fmt, rbits=rb, want_digest=dig)
+                for want in (tq.quantize_pack_ref(x, *fmt, rbits=rb,
+                                                  want_digest=dig),
+                             core(None, x, *fmt, rbits=rb, want_digest=dig)):
+                    for a, b in zip(want, got):
+                        _eq(a.cpu(), b.cpu())
+                hop = tq.hop_pack(got[1], y, *fmt, rbits=rb, want_digest=dig)
+                for want in (tq.hop_pack_ref(got[1], y, *fmt, rbits=rb,
+                                             want_digest=dig),
+                             core(got[1], y, *fmt, rbits=rb,
+                                  want_digest=dig)):
+                    for a, b in zip(want, hop):
+                        _eq(a.cpu(), b.cpu())

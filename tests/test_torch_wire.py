@@ -7,14 +7,18 @@ in interpret mode, the blocked ring on a `LocalMesh` against the JAX ring
 under `shard_map` and both oracles, the verified ring's reports (clean
 and under each wire fault, per rank), the bytes the ring moves,
 `sum_gradients` with block scale and verify, and two train steps (to the
-tolerance `tests/test_torch_train.py` states).  Inputs come from seeded
-numpy with block-structured magnitudes; none is an fp32 subnormal and no
-column is -0.0 on every rank (XLA:CPU flushes the one and folds
-``0 + x`` for the other, ROADMAP Queue C).  The kernels themselves need
-the card: the ``cuda``-marked tests hold them to their plain versions.
+tolerance `tests/test_torch_train.py` states); and, at the end, a numpy
+model of the digest K5/K6's streaming kernels compute in their launch.
+Inputs come from seeded numpy with block-structured magnitudes; none is
+an fp32 subnormal and no column is -0.0 on every rank (XLA:CPU flushes
+the one and folds ``0 + x`` for the other, ROADMAP Queue C).  The
+kernels themselves need the card: the ``cuda``-marked tests hold them to
+their plain versions.
 """
 
 import functools
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -681,3 +685,345 @@ def test_digest_rows_kernel_and_fused_verified_ring_on_card():
     want = tring.ring_oracle_sum(st, 4, 3, block_scale=True)
     for v in vecs:
         _bitwise(want.cpu().numpy(), v.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [128, 1024, 65536])
+@pytest.mark.parametrize("sr", [False, True])
+def test_streaming_blocked_kernels_ragged_and_misaligned_on_card(block, sr):
+    """Bitwise on the card: the streaming blocked arms of K6/K5 against
+    their plain versions and the kept kernels (`core_wire_launcher`) at n
+    = 1, 15, 17 and 100_003, on g at a 16-byte boundary and 4 bytes past
+    one, with and without digests."""
+    _card()
+    core = tq.core_wire_launcher()
+    st = torch.from_numpy(_spread(2, 100_008, seed=block + 1)).cuda()
+    for fmt in ((4, 3), (5, 2), (5, 7)):
+        for n in (1, 15, 17, 100_003):
+            for off in (0, 1):
+                x, y = st[0, off:off + n], st[1, off:off + n]
+                rb = (tq.sr_bits((3, n), x, offset_start=2**32 - 5)
+                      if sr else None)
+                kw = dict(rbits=rb, block_size=block)
+                for dig in (True, False):
+                    got = tq.quantize_pack(x, *fmt, want_digest=dig, **kw)
+                    for want in (tq.quantize_pack_ref(x, *fmt,
+                                                      want_digest=dig, **kw),
+                                 core(None, x, *fmt, want_digest=dig, **kw)):
+                        for a, b in zip(want, got):
+                            _bitwise(a.cpu().numpy(), b.cpu(), str(fmt))
+                    hop = tq.hop_pack(got[1], y, *fmt, want_digest=dig, **kw)
+                    for want in (tq.hop_pack_ref(got[1], y, *fmt,
+                                                 want_digest=dig, **kw),
+                                 core(got[1], y, *fmt, want_digest=dig,
+                                      **kw)):
+                        for a, b in zip(want, hop):
+                            _bitwise(a.cpu().numpy(), b.cpu(), str(fmt))
+
+
+@pytest.mark.cuda
+def test_streaming_digests_back_to_back_and_on_two_streams_on_card():
+    """The single-launch digest's ticket: digesting launches of different
+    grid sizes back to back on one stream, and launches queued on two
+    streams at once (each with its own scratch), each give the plain
+    version's digests."""
+    _card()
+    st = torch.from_numpy(_spread(2, 2_000_003, seed=5)).cuda()
+    cases = [(n, blk) for n in (100_003, 17, 2_000_003, 1_000)
+             for blk in (None, 128)]
+
+    def launch(c):
+        n, blk = c
+        first = tq.quantize_pack(st[0, :n], 4, 3, block_size=blk,
+                                 want_digest=True)
+        return first, tq.hop_pack(first[1], st[1, :n], 4, 3, block_size=blk,
+                                  want_digest=True)
+
+    def check(c, got):
+        n, blk = c
+        want = tq.quantize_pack_ref(st[0, :n], 4, 3, block_size=blk,
+                                    want_digest=True)
+        for a, b in zip(want, got[0]):
+            _bitwise(a.cpu().numpy(), b.cpu(), str(c))
+        for a, b in zip(tq.hop_pack_ref(want[1], st[1, :n], 4, 3,
+                                        block_size=blk, want_digest=True),
+                        got[1]):
+            _bitwise(a.cpu().numpy(), b.cpu(), str(c))
+
+    for c, got in zip(cases, [launch(c) for c in cases]):
+        check(c, got)
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    outs = ([], [])
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    for c in cases:
+        for s, out in zip(streams, outs):
+            with torch.cuda.stream(s):
+                out.append(launch(c))
+    torch.cuda.synchronize()
+    for out in outs:
+        for c, got in zip(cases, out):
+            check(c, got)
+
+
+# -- K5/K6's streaming digest, modelled in numpy --------------------
+#
+# ``run_wire_kernel`` (per tensor) and ``run_blocked_kernel`` (block-scaled
+# wire) in ``cpd_tpu_torch/csrc/quantize.cu`` digest both wires in the one
+# launch that writes them.  A thread owns runs of 4 elements (per tensor)
+# or groups of 4 (blocked, a warp per block of 128); it takes the Fletcher
+# weight ``(pos mod 65521) + 1`` of its first run's first byte with one
+# modulo and advances it by the grid stride's bytes with a compare and
+# subtract.  It sums a run's bytes as ``a1 = sum b_k`` and ``a2 = sum k *
+# b_k`` and adds ``a1`` and ``w0 * a1 + a2`` (below 2^28) to its two
+# 32-bit sums, each kept below ``65521 * 2^15`` by a compare and subtract:
+# past the weight's wrap and after a subtraction the sums differ from the
+# per-byte ones by multiples of 65521 only.  The head before the first run
+# and the ragged tail take per-byte weights.  Each CTA sums its threads'
+# sums mod 65521 and adds that mod 65521 to two 64-bit sums, a pair of
+# 32-bit halves each; the CTA with the last ticket takes them.  The models
+# below follow those steps (each thread's runs in order, the CTA split,
+# every 32-bit bound) and are held to `integrity.wire_digest` over the
+# wire formats' byte widths, ragged sizes, heads 0..3, several grids and
+# positions past 65521.  The CUDA build itself is held to the plain
+# versions on the card (the ``cuda``-marked tests of
+# ``tests/test_torch_quantize.py`` and above).
+
+DIGEST_MOD = 65521
+DIGEST_THREADS = 512   # kDigestThreads: a digesting launch's CTA
+RUN_ELEMS = 4          # kRun
+SUM_LIMIT = DIGEST_MOD * 2**15   # kSumLimit
+U32 = 2**32
+
+
+def _digest(s1: int, s2: int) -> int:
+    return ((s2 % DIGEST_MOD) << 16) | (s1 % DIGEST_MOD)
+
+
+def _add_term(s: np.ndarray, t: np.ndarray) -> np.ndarray:
+    """quantize.cu's add_term on int64 arrays: the 32-bit add may not wrap,
+    then the sum is brought below SUM_LIMIT."""
+    assert t.max(initial=0) < 2**28
+    s = s + t
+    assert s.max(initial=0) < U32
+    return np.where(s >= SUM_LIMIT, s - SUM_LIMIT, s)
+
+
+def _advance(w: np.ndarray, step: int) -> np.ndarray:
+    """quantize.cu's advance_weight: a weight in [1, 65521] moved on by
+    ``step`` < 65521 positions."""
+    assert 0 <= step < DIGEST_MOD
+    w = w + step
+    return np.where(w > DIGEST_MOD, w - DIGEST_MOD, w)
+
+
+def _weight(pos) -> np.ndarray:
+    return np.asarray(pos, dtype=np.int64) % DIGEST_MOD + 1
+
+
+def _fold(sums: np.ndarray, cta: np.ndarray, grid: int) -> int:
+    """The launch's fold of the per-thread (threads, 2) sums: each CTA
+    sums its threads' sums mod 65521 (in 32 bits) and adds that mod 65521
+    to a 32-bit half of a 64-bit sum, which no carry may leave (integer
+    adds: the CTAs' order does not matter)."""
+    parts = np.zeros((grid, 2), dtype=np.int64)
+    np.add.at(parts, cta, sums % DIGEST_MOD)
+    assert parts.max(initial=0) < U32
+    parts %= DIGEST_MOD
+    total = parts.sum(axis=0)
+    assert total.max(initial=0) < 2**28 and grid <= 4096   # kMaxRunCtas
+    return _digest(int(total[0]), int(total[1]))
+
+
+def _run_terms(words: np.ndarray, w0: np.ndarray) -> tuple:
+    """(a1, w0 * a1 + a2) of each row of bytes, as the kernel takes them:
+    __dp4a sums of 16 bytes at most."""
+    assert words.shape[1] <= 16
+    b = words.astype(np.int64)
+    k = np.arange(words.shape[1], dtype=np.int64)
+    a1 = b.sum(axis=1)
+    return a1, w0 * a1 + (b * k).sum(axis=1)
+
+
+def run_model(buf: np.ndarray, n: int, wb: int, head: int,
+              grid: int) -> int:
+    """The per-tensor kernel's digest of the (n * wb,) wire ``buf``."""
+    head = min(head, n)
+    runs = (n - head) // RUN_ELEMS
+    threads = grid * DIGEST_THREADS
+    tid = np.arange(threads, dtype=np.int64)
+    s = np.zeros((threads, 2), dtype=np.int64)
+    w0 = _weight((head + tid * RUN_ELEMS) * wb)
+    step = threads * RUN_ELEMS * wb % DIGEST_MOD
+    for first in range(0, runs, threads):
+        r = first + tid[: min(threads, runs - first)]
+        i0 = head + r * RUN_ELEMS
+        np.testing.assert_array_equal(w0[: len(r)], _weight(i0 * wb))
+        rows = buf[(i0[:, None] * wb + np.arange(RUN_ELEMS * wb))]
+        a1, t2 = _run_terms(rows, w0[: len(r)])
+        s[: len(r), 0] = _add_term(s[: len(r), 0], a1)
+        s[: len(r), 1] = _add_term(s[: len(r), 1], t2)
+        w0 = _advance(w0, step)
+    tail = head + runs * RUN_ELEMS
+    scalar = np.concatenate([np.arange(head), np.arange(tail, n)])
+    assert len(scalar) <= threads
+    for k in range(wb):                    # a thread's bytes in order
+        pos = scalar * wb + k
+        b = buf[pos].astype(np.int64)
+        at = np.arange(len(scalar))
+        s[at, 0] = _add_term(s[at, 0], b)
+        s[at, 1] = _add_term(s[at, 1], b * _weight(pos))
+    return _fold(s, tid // DIGEST_THREADS, grid)
+
+
+def blocked_model(buf: np.ndarray, n: int, wb: int, bs: int,
+                  grid: int) -> int:
+    """The blocked kernel's digest of ``buf`` (n * wb code bytes, then a
+    sidecar byte per block of bs): groups of 4 elements; at bs = 128 a
+    warp per block (DIGEST_THREADS / 32 warps a CTA) with the weights
+    advanced by the stride, above it a CTA per block walking its groups
+    at a stride of DIGEST_THREADS, one modulo a group; the sidecar byte of
+    block b at position n * wb + b, added by lane 0 (thread 0) after the
+    block's groups."""
+    nb = -(-n // bs)
+    threads = grid * DIGEST_THREADS
+    s = np.zeros((threads, 2), dtype=np.int64)
+
+    def add(t, i, w):
+        """Thread t adds group i's bytes (zero past n) at weight w."""
+        idx = i[:, None] * wb + np.arange(4 * wb)
+        codes = np.where(idx < n * wb, buf[np.minimum(idx, n * wb - 1)], 0)
+        a1, t2 = _run_terms(codes, w)
+        s[t, 0] = _add_term(s[t, 0], a1)
+        s[t, 1] = _add_term(s[t, 1], t2)
+
+    def side(t, b, w):
+        v = buf[n * wb + b].astype(np.int64)
+        s[t, 0] = _add_term(s[t, 0], v)
+        s[t, 1] = _add_term(s[t, 1], v * w)
+
+    if bs == 128:
+        warps = threads // 32
+        lane = np.arange(32, dtype=np.int64)
+        b0 = np.arange(warps, dtype=np.int64)
+        w0 = _weight((b0[:, None] * 128 + 4 * lane) * wb)
+        ws = _weight(n * wb + b0)
+        for first in range(0, nb, warps):
+            b = first + b0[: min(warps, nb - first)]
+            i = (b[:, None] * 128 + 4 * lane).reshape(-1)
+            t = (b[:, None] % warps * 32 + lane).reshape(-1)
+            w = w0[: len(b)].reshape(-1)
+            np.testing.assert_array_equal(w, _weight(i * wb))
+            live = i < n
+            add(t[live], i[live], w[live])
+            np.testing.assert_array_equal(ws[: len(b)], _weight(n * wb + b))
+            side(b % warps * 32, b, ws[: len(b)])
+            w0 = _advance(w0, warps * 128 * wb % DIGEST_MOD)
+            ws = _advance(ws, warps % DIGEST_MOD)
+    else:
+        for b in range(nb):
+            lo, hi = b * bs, min(b * bs + bs, n)
+            cta = b % grid
+            for start in range(lo, hi, 4 * DIGEST_THREADS):
+                i = np.arange(start, min(start + 4 * DIGEST_THREADS, hi), 4,
+                              dtype=np.int64)
+                t = cta * DIGEST_THREADS + (i - start) // 4
+                add(t, i, _weight(i * wb))
+            side(np.array([cta * DIGEST_THREADS]), np.array([b]),
+                 _weight(np.array([n * wb + b])))
+    return _fold(s, np.arange(threads) // DIGEST_THREADS, grid)
+
+
+def _wire_bytes_rand(nbytes: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    buf = rng.integers(0, 256, nbytes, dtype=np.uint8)
+    buf[: min(nbytes, 64)] = 255                 # the largest byte terms
+    return buf
+
+
+def _wire_digest_of(buf: np.ndarray) -> int:
+    return int(tint.wire_digest(torch.from_numpy(buf)))
+
+
+# (n, wb, head, grid): ragged sizes, every head a run can have, a grid of
+# one CTA and grids whose stride splits the runs unevenly; n * wb past
+# 65521 (the weight wraps inside runs) and past 2 * 65521
+RUN_CASES = ([(1, 1, 0, 1), (15, 3, 3, 1), (17, 2, 1, 1), (31, 1, 2, 2)]
+             + [(70_001, wb, head, grid) for wb in (1, 2, 3, 4)
+                for head, grid in ((0, 1), (3, 5), (2, 33))]
+             + [(200_003, 3, 1, 97), (65_521, 1, 0, 3)])
+
+
+@pytest.mark.parametrize("n, wb, head, grid", RUN_CASES)
+def test_run_digest_model_equals_wire_digest(n, wb, head, grid):
+    buf = _wire_bytes_rand(n * wb, seed=n + wb + head)
+    assert run_model(buf, n, wb, head, grid) == _wire_digest_of(buf)
+
+
+@pytest.mark.parametrize("n, wb, bs, grid", [
+    (1, 1, 128, 1), (17, 2, 128, 1), (130, 3, 128, 2),
+    (70_001, 1, 128, 9), (70_001, 2, 1024, 7), (100_003, 3, 128, 257),
+    (200_000, 1, 65536, 2), (131_077, 2, 65536, 1)])
+def test_blocked_digest_model_equals_wire_digest(n, wb, bs, grid):
+    buf = _wire_bytes_rand(n * wb + -(-n // bs), seed=bs + wb)
+    assert blocked_model(buf, n, wb, bs, grid) == _wire_digest_of(buf)
+
+
+def test_run_sums_stay_in_32_bits_at_the_largest_weight():
+    """A run of 16 bytes of 255 (wb = 4; a blocked group's largest too) at
+    the last weight before the wrap: its s2 term stays below 2^28, so
+    `add_term` never wraps a sum kept below SUM_LIMIT (< 2^31)."""
+    words = np.full((1, RUN_ELEMS * 4), 255, dtype=np.uint8)
+    a1, t2 = _run_terms(words, np.array([DIGEST_MOD]))
+    assert a1[0] == 16 * 255 and t2[0] < 2**28
+    assert SUM_LIMIT < 2**31 and SUM_LIMIT + 2**28 < U32
+
+
+def test_add_term_keeps_the_sum_mod_65521_below_the_limit():
+    """`add_term` on a long run of the largest terms (the sum crosses
+    SUM_LIMIT many times) and of random ones: the 32-bit sums stay below
+    SUM_LIMIT and equal the exact sum mod 65521."""
+    rng = np.random.default_rng(11)
+    big = np.full(40, 2**28 - 1, dtype=np.int64)
+    terms = np.concatenate([big, rng.integers(0, 2**28, 4000)])
+    s = np.zeros(1, dtype=np.int64)
+    for t in terms:
+        s = _add_term(s, np.array([t]))
+        assert s[0] < SUM_LIMIT
+    assert s[0] % DIGEST_MOD == int(terms.sum()) % DIGEST_MOD
+
+
+@pytest.mark.parametrize("start, stride", [(65_519, 1), (0, 65_520),
+                                           (123_457, 4 * 512 * 3),
+                                           (2**33 + 5, 132 * 2048 * 4)])
+def test_advance_weight_equals_the_weight_of_each_position(start, stride):
+    """A thread's weight moved on by the grid stride's bytes mod 65521
+    with `advance_weight` is the weight of each position it reaches,
+    across the wrap at 65521."""
+    pos = start + stride * np.arange(2000, dtype=np.int64)
+    w = _weight(start)
+    for p in pos:
+        assert int(w) == int(_weight(p))
+        w = _advance(w, stride % DIGEST_MOD)
+
+
+def _c_params(src: str, name: str) -> list:
+    m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src)
+    assert m, name
+    return [re.sub(r"\s+", " ", p).strip().rsplit(" ", 1)[0]
+            for p in m.group(1).split(",")]
+
+
+def test_streaming_entries_take_the_kept_entries_arguments():
+    """`ops.quantize._library` types the streaming kernels' C entries with
+    the kept ones' argtypes: the C parameter types must match; the
+    scratch size takes no arguments."""
+    path = os.path.join(os.path.dirname(__file__), os.pardir,
+                        "cpd_tpu_torch", "csrc", "quantize.cu")
+    with open(path) as fh:
+        src = fh.read()
+    assert (_c_params(src, "quantize_run_launch")
+            == _c_params(src, "quantize_wire_launch"))
+    assert (_c_params(src, "quantize_run_blocked_launch")
+            == _c_params(src, "quantize_blocked_launch"))
+    assert _c_params(src, "quantize_run_scratch_words") == ["void"]
