@@ -74,12 +74,19 @@ Phases; any failure exits non-zero:
    digests), over the formats (4,3), (5,2), (5,7) and blocks 128, 1024
    and 65536, at the ring chunk and at an odd length whose last block is
    short, and at phase 3's extra sizes and alignments, and K7
-   (`digest_rows`) at the gathered wire of the largest bucket (4 rows)
-   and at W = 2 and 8 with an odd byte count; time them as in phase 3;
+   (`digest_rows`, one launch a call writing int64 digests) against its
+   plain version and the kept two-launch kernel at the gathered wire of
+   the largest bucket (4 rows), at W = 2 and 8 with an odd byte count,
+   and at W in 1, 2, 4, 8 over rows of 1, 15, 16, 17 and 16k + 1..15
+   bytes at a 16-byte boundary and 1-15 bytes past one, back to back
+   and on two streams at once; time them as in phase 3, K7 by device time
+   in turns with the kept kernel (gate ``K7_SPEEDUP_FLOOR``);
    (b) train 3 steps of APS (4,3) with ``block_scale``,
    block 128, ``verify_reduce`` through the kernels and through the
    plain versions — bitwise equal, ``reduce_ok`` 1 on every step — with
-   the launches as designed, and hold one step's buckets through the
+   the launches as designed (a profiled step holds one K7 launch per
+   distinct gathered stack and no kept K7 fold), and hold one step's
+   buckets through the
    blocked ring to ``ring_oracle_sum(block_scale=True)``; (c) one step
    each with a flip, stale and drop wire fault on rank 2: the metrics
    ``hop_bad 1, gather_bad 1, agree 0, ok 0`` through the kernels and the
@@ -182,7 +189,18 @@ Phases; any failure exits non-zero:
    32000, 8 K9 and 8 K10 launches per rank-step, tokens/s, the step's
    split, peak memory and K9/K10's device ms per step; the same steps
    through the plain K9/K10 (losses within ``BENCH_LOSS_RTOL``);
-12. print one JSON line ``{"kernels": [...]}`` and, last,
+12. bench.py's headline step through ``cpd_tpu_torch.bench``: ResNet-50
+   (25.6 M parameters) in bf16 over fp32 weights from seed 0, batch 32
+   at 224 x 224 on one rank, SGD, the APS e5m2 reduce in faithful and
+   then fast mode, each from a fresh state, 3 warm and 10 timed steps:
+   finite losses, step 0 within ``LM_LOSS_BAND`` of ln 1000, the K1 / K3
+   launches per step as designed, a non-null images/s in each mode, the
+   step's split, peak memory and a profiled step's device busy time and
+   launches; at W = 2 one step's gradients through the faithful and the
+   fast reduce with the kernels and with the plain versions, bitwise;
+   one iteration of the ResNet CLI with ``--arch resnet50 --mode fast
+   --use_APS``;
+13. print one JSON line ``{"kernels": [...]}`` and, last,
    ``{"ok": true, "device": {...}}``.
 
 The script imports neither jax nor the JAX package.
@@ -419,11 +437,12 @@ WIRE_SPEEDUP_FLOOR = {"plain": 1.3, "digest": 1.8}
 # each also on a view 4 bytes past a 16-byte boundary
 WIRE_SMALL_N = (1, 15, 17)
 # what the kernels line adds for the streaming K5/K6 arms (`wire_timing`)
+# and K7 (`digest_rows_timing`)
 WIRE_FIELDS = ("kernel", "kept_ms", "speedup", "kept_ms_with_digest",
                "speedup_with_digest", "share", "share_with_digest",
                "ms_no_fold", "digest_loop_ms", "fold_ms", "profiler_ms",
                "profiler_ms_with_digest", "profiler_other_kernels",
-               "pipe_bound_ms", "kept_note")
+               "pipe_bound_ms", "kept_note", "launch_floor_ms")
 # the SASS (mangled) names of the per-tensor streaming kernel's digesting
 # instances at a 1-byte wire (512-thread CTAs), whose grid-stride loop the
 # pipe bound is counted from, and the elements one pass of it computes
@@ -433,9 +452,18 @@ WIRE_RUN_SASS = {
     "hop_pack": "run_wire_kernelILb0ELb0ELi1ELi512ELb1EE",
     "hop_pack_sr": "run_wire_kernelILb0ELb1ELi1ELi512ELb1EE"}
 WIRE_RUN_ELEMENTS = 4
-# K7 at W rows of B bytes reads W * B bytes; its integer work is a
-# multiply-add and a modulo per byte, below its bytes at 3.35 TB/s
+# K7 at W rows of B bytes reads W * B bytes and writes W int64 digests;
+# its integer work (two __dp4a a word) is below its bytes at 3.35 TB/s
 DIGEST_ROWS = ("cpd_tpu/ops/quantize.py:582", "digest_rows_pallas")
+# K7's one-launch kernel (run_rows_kernel) against the kept two-launch
+# kernel it replaces (ops.quantize.core_digest_launcher), by queued_ms in
+# turns at the verified ring's gathered wire: at least this many times
+# faster
+K7_SPEEDUP_FLOOR = 2.5
+# K7's parity cases besides the ring's: W rows of every size here, each
+# at a 16-byte boundary and some bytes past one
+K7_ROWS = (1, 2, 4, 8)
+K7_SIZES = (1, 15, 16, 17) + tuple(16 * 40 + r for r in range(1, 16))
 # K1-K6 and the SR helper: the TPU kernel each replaces, and the bytes one
 # element moves (each input read once, each output written once; wb =
 # wire bytes; SR round bits are 4 bytes)
@@ -472,7 +500,7 @@ KERNEL_NAMES = {"quantize_cast": "cast_kernel<false, false>",
                 "quantize_pack_blocked_sr": "run_blocked_kernel<true, true,",
                 "hop_pack_blocked": "run_blocked_kernel<false, false,",
                 "hop_pack_blocked_sr": "run_blocked_kernel<false, true,",
-                "digest_rows": "digest_rows_kernel",
+                "digest_rows": "run_rows_kernel",
                 "sr_bits": "sr_bits_kernel",
                 "qgemm_faithful": "::qgemm_tile_kernel<",
                 # fp32 on flash_f32_tc.cu, bf16 on flash_mha_tc.cu
@@ -514,6 +542,14 @@ KV_CASES = (("e4m3", (4, 3), None, False, SLICE_KV),
             ("e4m3-page64-d128", (4, 3), None, False, (8, 512, 64, 128, 2, 8)),
             # GQA 8:1
             ("e4m3-rep8", (4, 3), None, False, (8, 512, 16, 64, 1, 8)))
+# phase 12: bench.py's headline arms through `cpd_tpu_torch.bench` (its
+# WORLD, BATCH and IMAGE_SIZE: ResNet-50 bf16, APS e5m2, faithful then
+# fast, its warm and timed steps); the W = 2 reduce held kernels vs plain
+# on one step's gradients; the CLI's --arch resnet50 --mode fast
+HEADLINE_W2 = 2
+HEADLINE_CLASSES = 1000
+HEADLINE_CLI_BATCH = 32
+
 # K12's kernels by the profiler's names
 K12_KERNEL_NAMES = ("split_kernel", "combine_kernel")
 # K12 at the slice's e4m3 shape against the kept serial kernel it replaces,
@@ -1914,6 +1950,12 @@ def step_profile(step, state, batch) -> dict:
     # streaming kernels fold their digests in the launch
     out["wire_fold_launches"] = sum(e.count for e in kernels
                                     if "fold_kernel<4>" in e.key)
+    # the kept K7's second launch: none since K7 folds in its launch
+    out["digest_fold_launches"] = sum(e.count for e in kernels
+                                      if "fold_kernel<2>" in e.key)
+    out["top_kernels"] = [
+        [e.key[:70], e.count, e.self_device_time_total / 1e3]
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]]
     return out
 
 
@@ -2317,23 +2359,24 @@ def blocked_quantize_phase(device) -> dict:
                             "its plain version")
                     errs[name] = max(errs[name], max_abs_diff(got, want))
                     cases += 1
-    # K7 on the largest bucket's gathered wire and on odd rows
+    print(f"kernel blocked: {cases} outputs of K6/K5 blocked (RTNE, SR; "
+          f"with and without digests) bitwise equal to their plain "
+          f"versions (n = {chunk} and {QUANT_ODD_N}; formats "
+          f"{list(BLOCKED_FORMATS)}; blocks {list(BLOCK_SIZES)})",
+          flush=True)
+    # K7 on the largest bucket's gathered wire, on odd rows, at every
+    # alignment, back to back and on two streams
     fmt, block = BLOCKED["fmt"], BLOCKED["block"]
     wb = wire_bytes(*fmt)
     row_bytes = chunk * wb + sidecar_bytes(chunk, block)
-    for w, nb in ((TRAIN["world"], row_bytes), (2, 100_001), (8, 333_333)):
-        rows = torch.randint(0, 256, (w, nb), generator=gen, device=device,
-                             dtype=torch.uint8)
-        got, want = tq.digest_rows(rows), tq.digest_rows_ref(rows)
-        if not same_bits(got, want):
-            raise AssertionError(f"digest_rows ({w}, {nb}): differs from "
-                                 "its plain version")
-        cases += 1
-    print(f"kernel blocked: {cases} outputs of K6/K5 blocked (RTNE, SR; "
-          f"with and without digests) and K7 bitwise equal to their plain "
-          f"versions (n = {chunk} and {QUANT_ODD_N}; formats "
-          f"{list(BLOCKED_FORMATS)}; blocks {list(BLOCK_SIZES)}; K7 at "
-          f"(4, {row_bytes}), (2, 100001), (8, 333333))", flush=True)
+    k7_cases = digest_rows_parity(device, gen, row_bytes)
+    print(f"kernel digest_rows: {k7_cases} outputs of the one-launch K7 "
+          f"bitwise equal to its plain version and to the kept kernel, one "
+          f"launch a call (the ring's ({TRAIN['world']}, {row_bytes}), (2, "
+          f"100001), (8, 333333); W {list(K7_ROWS)} x rows of "
+          f"{list(K7_SIZES)} bytes, each at a 16-byte boundary and 1-15 "
+          f"bytes past one; back to back; on two streams at once)",
+          flush=True)
     for sr in (False, True):
         more, wire_errs = wire_parity(device, gen, sr=sr, blocked=True)
         for name, e in wire_errs.items():
@@ -2410,37 +2453,129 @@ def blocked_quantize_phase(device) -> dict:
                                dtype=torch.uint8),)
                 for _ in range(-(-2 * l2_bytes()
                                  // (TRAIN["world"] * row_bytes)) + 1)]
-    out["digest_rows"] = blocked_timing(
-        "digest_rows", f"({TRAIN['world']}, {row_bytes}) u8", row_sets,
-        tq.digest_rows, tq.digest_rows_ref, None,
-        TRAIN["world"] * row_bytes / PEAK_BYTES_PER_S, 0.0,
-        errs["digest_rows"])
+    out["digest_rows"] = digest_rows_timing(row_sets, errs["digest_rows"])
     return out
 
 
-def blocked_timing(name: str, shape: str, sets, kernel, plain, digest,
-                   t_bytes: float, t_ops: float, err: float) -> dict:
-    """`time_kernel` for the blocked kernels and K7, whose bytes are not
-    a multiple of the element count: device ms of the kernel and its
-    plain version (each timed launch on the next input set), per-call ms
-    with host dispatch, and the bound."""
-    r = dict(shape=shape, input_sets=len(sets), max_abs_err=err,
-             ms=device_ms(rotating(sets, kernel), iters=100),
-             plain_ms=device_ms(rotating(sets, plain), iters=20),
-             call_ms=time_ms(rotating(sets, kernel), iters=200),
-             plain_call_ms=time_ms(rotating(sets, plain), iters=20),
-             bound_ms=max(t_bytes, t_ops) * 1e3,
-             bound_by="bytes" if t_bytes >= t_ops else "operations")
-    if digest is not None:
-        r["ms_with_digest"] = device_ms(rotating(sets, digest), iters=100)
-    lib = NO_LIBRARY_DIGEST if name == "digest_rows" else NO_LIBRARY
-    print(f"kernel {name} [{shape}, {len(sets)} input sets]: kernel_ms "
-          f"{r['ms']:.5f} plain_ms {r['plain_ms']:.5f} (device time) "
-          f"bound_ms {r['bound_ms']:.6f} ({r['bound_by']})"
-          + (f" with digests {r['ms_with_digest']:.5f}"
-             if "ms_with_digest" in r else "")
-          + f"; per call with host dispatch {r['call_ms']:.5f}, plain "
-          f"{r['plain_call_ms']:.5f}; library_ms null ({lib})", flush=True)
+def offset_rows(w: int, nbytes: int, base: int, generator, device):
+    """(w, nbytes) random bytes whose first byte sits ``base`` bytes past
+    a 16-byte boundary: a slice of a larger buffer, as the ring's gathered
+    stacks are views."""
+    import torch
+
+    buf = torch.randint(0, 256, (w * nbytes + 16,), generator=generator,
+                        device=device, dtype=torch.uint8)
+    lead = (base - buf.data_ptr()) % 16
+    rows = buf[lead:lead + w * nbytes].view(w, nbytes)
+    if rows.data_ptr() % 16 != base:
+        raise AssertionError(f"rows at {rows.data_ptr() % 16}, not {base}, "
+                             "past a 16-byte boundary")
+    return rows
+
+
+def digest_rows_parity(device, generator, row_bytes: int) -> int:
+    """K7 (one launch a call, int64 digests) against its plain version
+    and the kept kernel, bitwise: the ring's gathered wire, odd rows, W in
+    K7_ROWS x K7_SIZES at a 16-byte boundary and 1-15 bytes past one,
+    launches back to back and on two streams at once.  Returns the
+    outputs compared."""
+    import torch
+
+    from cpd_tpu_torch.ops import quantize as tq
+
+    core = tq.core_digest_launcher()
+    cases = [(TRAIN["world"], row_bytes, 0), (2, 100_001, 0),
+             (8, 333_333, 0)]
+    cases += [(w, nb, base) for w in K7_ROWS for nb in K7_SIZES
+              for base in (0, 1 + (nb + w) % 15)]
+    rows = [offset_rows(w, nb, base, generator, device)
+            for w, nb, base in cases]
+    before = tq.digest_rows.launches
+    back = [tq.digest_rows(r) for r in rows]       # back to back
+    if tq.digest_rows.launches - before != len(rows):
+        raise AssertionError(f"{len(rows)} digest_rows calls launched "
+                             f"{tq.digest_rows.launches - before} times")
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    both = []
+    for r in rows[:3] * 3:
+        for s in streams:
+            with torch.cuda.stream(s):
+                both.append((r, tq.digest_rows(r)))
+    torch.cuda.synchronize()
+    compared = 0
+    for (w, nb, base), r, got in zip(cases, rows, back):
+        want = tq.digest_rows_ref(r)
+        for label, other in (("plain", want), ("kept", core(r))):
+            if got.dtype != torch.int64 or not same_bits(got, other):
+                raise AssertionError(f"digest_rows ({w}, {nb}) {base} bytes "
+                                     f"past a 16-byte boundary: differs "
+                                     f"from the {label} version")
+            compared += 1
+    for r, got in both:
+        if not same_bits(got, tq.digest_rows_ref(r)):
+            raise AssertionError(f"digest_rows {tuple(r.shape)} on two "
+                                 "streams: differs from its plain version")
+        compared += 1
+    return compared
+
+
+def digest_rows_timing(sets, err: float) -> dict:
+    """K7's card numbers at the ring's gathered wire: the one-launch
+    kernel by `queued_ms` in turns with the kept kernel (kept, new, new,
+    kept), gated at K7_SPEEDUP_FLOOR; torch.profiler's read of its own
+    kernel beside it; the plain version; per-call time with host
+    dispatch; the byte bound (rows read once, int64 digests written)."""
+    from cpd_tpu_torch.ops import quantize as tq
+
+    import torch
+
+    rows = sets[0][0]
+    w, nb = rows.shape
+    core = tq.core_digest_launcher()
+    k1, n1, n2, k2 = (queued_ms(rotating(sets, f), iters=50)
+                      for f in (core, tq.digest_rows, tq.digest_rows, core))
+    # what one launch of a one-kernel torch op takes, timed the same way
+    tiny = torch.zeros(16, device=rows.device)
+    floor = queued_ms(lambda: tiny.fill_(1.0), iters=50)
+    t_bytes = (w * nb + 8 * w) / PEAK_BYTES_PER_S
+    r = dict(shape=f"({w}, {nb}) u8", input_sets=len(sets), max_abs_err=err,
+             kernel="run_rows_kernel", ms=(n1 + n2) / 2,
+             kept_ms=(k1 + k2) / 2,
+             kept_note="the kept kernel it replaced (digest_rows_kernel, "
+                       "its fold_kernel<2> launch, the partials tensor and "
+                       "the int64 widening: ops.quantize."
+                       "core_digest_launcher), timed in turns",
+             bound_ms=t_bytes * 1e3, bound_by="bytes",
+             launch_floor_ms=floor)
+    r["speedup"] = r["kept_ms"] / r["ms"]
+    r["share"] = r["bound_ms"] / r["ms"]
+    read = named_device_ms(rotating(sets, tq.digest_rows), 100,
+                           "run_rows_kernel")
+    r.update(profiler_ms=read["ms"],
+             profiler_other_kernels={k: read[k] for k in ("records",
+                                                          "other")},
+             plain_ms=device_ms(rotating(sets, tq.digest_rows_ref),
+                                iters=20),
+             call_ms=time_ms(rotating(sets, tq.digest_rows), iters=200),
+             plain_call_ms=time_ms(rotating(sets, tq.digest_rows_ref),
+                                   iters=20))
+    print(f"kernel digest_rows [{r['shape']}, {len(sets)} input sets] one "
+          f"launch vs kept (queued_ms, in turns): new {r['ms']:.5f} kept "
+          f"{r['kept_ms']:.5f} ({r['speedup']:.2f}x); bound_ms "
+          f"{r['bound_ms']:.6f} (bytes), share {r['share']:.3f}; one "
+          f"launch of a one-kernel fill_ {floor:.5f}; "
+          f"torch.profiler, run_rows_kernel records only: "
+          f"{fmt_ms(r['profiler_ms'])} (other kernels in the profile: "
+          f"{json.dumps(r['profiler_other_kernels'])}); plain_ms "
+          f"{r['plain_ms']:.5f}; per call with host dispatch "
+          f"{r['call_ms']:.5f}, plain {r['plain_call_ms']:.5f}; library_ms "
+          f"null ({NO_LIBRARY_DIGEST})", flush=True)
+    if r["speedup"] < K7_SPEEDUP_FLOOR:
+        raise AssertionError(f"digest_rows: the one-launch kernel is only "
+                             f"{r['speedup']:.2f}x the kept one (floor "
+                             f"{K7_SPEEDUP_FLOOR}x)")
     return r
 
 
@@ -2638,6 +2773,16 @@ def blocked_train_phase(device) -> dict:
     prof = step_profile(step, state, batches[0])
     no_wire_fold(prof, "train blocked",
                  {k: v // steps for k, v in counts.items()})
+    k7_records = prof.get("kernel_records", {}).get("digest_rows")
+    print(f"train blocked: step profile: {k7_records} K7 (run_rows_kernel) "
+          f"records for {n_buckets} distinct gathered stacks, "
+          f"{prof.get('digest_fold_launches')} kept K7 fold launches",
+          flush=True)
+    if k7_records != n_buckets or prof.get("digest_fold_launches") != 0:
+        raise AssertionError(f"blocked step profile: {k7_records} K7 "
+                             f"launches (design {n_buckets}) and "
+                             f"{prof.get('digest_fold_launches')} "
+                             "fold_kernel<2> launches (design 0)")
     step_s = sum(secs[1:]) / (len(secs) - 1)
     out = dict(
         world=w, global_batch=global_batch, steps=steps, fmt=list(fmt),
@@ -2667,6 +2812,174 @@ def blocked_train_phase(device) -> dict:
                       launches_per_iter={k: v // iters
                                          for k, v in cli_counts.items()})
     print("train blocked cli: " + json.dumps(out["cli"]), flush=True)
+    return out
+
+
+def headline_design(mode: str, w: int, leaves: int, buckets: int) -> dict:
+    """The quantize launches one step of bench.py's headline arm makes
+    (APS e5m2, RTNE): K1 per leaf per rank for the APS cast, then the
+    faithful scan's K3 (`reduce_design`), or fast mode's one K1 over the
+    rank sum."""
+    want = reduce_design("faithful", False, False, w, leaves, buckets)
+    if mode == "fast":
+        want = dict.fromkeys(want, 0)
+        want["quantize_cast"] = w * leaves + 1
+    return {k: v for k, v in want.items() if v}
+
+
+def cudnn_cost(model, mesh, images, labels, reps: int = 3) -> dict:
+    """The forward and backward of the headline step with cuDNN's
+    deterministic algorithms (the step's `fp32_numerics`) and with its
+    default ones (TF32 still off, no autotuning), in turns, on the host
+    clock between synchronisations: what the step's bitwise
+    reproducibility costs.  The port has no switch for it."""
+    import torch
+
+    from cpd_tpu_torch.obs.timing import now
+    from cpd_tpu_torch.train import as_batch, fp32_numerics, local_gradients
+
+    x, y = as_batch(images, labels, mesh.device)
+    ms = {True: [], False: []}
+    for det in (True, False, False, True) * reps:
+        with fp32_numerics(), torch.backends.cudnn.flags(
+                enabled=True, benchmark=False, deterministic=det,
+                allow_tf32=False):
+            torch.cuda.synchronize()
+            t0 = now()
+            local_gradients(model, x, y, mesh)
+            torch.cuda.synchronize()
+            ms[det].append((now() - t0) * 1e3)
+    out = {"fwd_bwd_ms_deterministic": min(ms[True]),
+           "fwd_bwd_ms_default": min(ms[False])}
+    print("train headline cudnn: " + json.dumps(out), flush=True)
+    return out
+
+
+def headline_phase(device) -> dict:
+    """Phase 12: bench.py's headline ResNet-50 bf16 step on the card
+    through `cpd_tpu_torch.bench` (faithful and fast mode, each from a
+    fresh state): finite losses, step 0 within LM_LOSS_BAND of ln 1000,
+    the quantize launches as designed, a non-null value; images/s, the
+    split, peak memory; a profiled step of each mode (device busy ms and
+    launches); at W = HEADLINE_W2 one step's gradients through the
+    faithful and the fast reduce with the kernels and with the plain
+    versions, bitwise; one iteration of the ResNet CLI with ``--arch
+    resnet50 --mode fast --use_APS``."""
+    import torch
+
+    from cpd_tpu_torch import bench
+    from cpd_tpu_torch.examples.resnet18_cifar import train as cli
+    from cpd_tpu_torch.obs.timing import now
+    from cpd_tpu_torch.parallel.dist import sum_gradients
+    from cpd_tpu_torch.parallel.mesh import data_parallel_mesh
+    from cpd_tpu_torch.parallel.overlap import (DEFAULT_BUCKET_ELEMS,
+                                                bucket_layout)
+    from cpd_tpu_torch.train import as_batch, fp32_numerics, local_gradients
+
+    marks = [now()]
+    reset_counts()
+    out = bench.run(device)
+    out["launches"] = {k: v for k, v in read_counts().items() if v}
+    marks.append(now())
+    if not (out["launches"].get("quantize_cast")
+            and out["launches"].get("quantize_add")):
+        raise AssertionError(f"the headline run launched "
+                             f"{out['launches']}: K1 and K3 must run")
+    mesh = data_parallel_mesh(bench.WORLD, device)
+    model = bench.headline_step("faithful", mesh)[0]
+    sizes = [p.numel() for p in model.parameters()]
+    n_buckets = len(bucket_layout(sizes, DEFAULT_BUCKET_ELEMS))
+    if out["value"] is None or out["fast"] is None:
+        raise AssertionError(f"bench value {out['value']}, fast "
+                             f"{out['fast']}")
+    x, y = bench.headline_batches(bench.WORLD, bench.BATCH,
+                                  bench.IMAGE_SIZE, device, fuse=1)
+    for mode, r in out["modes"].items():
+        losses = r["losses"]
+        if not all(math.isfinite(v) for v in losses) or not (
+                abs(losses[0] - math.log(HEADLINE_CLASSES))
+                <= LM_LOSS_BAND):
+            raise AssertionError(f"headline {mode} losses {losses}: not "
+                                 f"finite, or step 0 not within "
+                                 f"{LM_LOSS_BAND} of ln {HEADLINE_CLASSES}")
+        want = headline_design(mode, bench.WORLD, len(sizes),
+                               n_buckets)
+        if r["launches_per_step"] != want:
+            raise AssertionError(f"headline {mode} launches per step "
+                                 f"{r['launches_per_step']} != the "
+                                 f"design's {want}")
+        _, _, state, step = bench.headline_step(mode, mesh)
+        step(state, x[0], y[0])
+        prof = step_profile(step, state, (x[0], y[0]))
+        r["profile"] = {k: prof.get(k) for k in (
+            "device_busy_ms", "kernel_launches", "quantize_cast",
+            "quantize_add", "top_kernels")}
+        del state, step
+    out["cudnn_deterministic_cost"] = cudnn_cost(model, mesh, x[0], y[0])
+    print(f"card: {out['device']['card']}", flush=True)
+    print("train headline: " + json.dumps(out), flush=True)
+    print(f"train headline: ResNet-50 bf16 APS e5m2, W={bench.WORLD} x "
+          f"{bench.BATCH} at {bench.IMAGE_SIZE}^2: faithful "
+          f"{out['value']:.2f} img/s, fast {out['fast']:.2f} img/s; split "
+          + json.dumps({m: {k: r[k] for k in ("step_ms", "fwd_bwd_ms",
+                                              "reduce_ms", "update_ms",
+                                              "peak_memory_gib")}
+                        for m, r in out["modes"].items()}), flush=True)
+
+    # W = 2: one step's gradients, kernels vs plain versions, bitwise
+    mesh2 = data_parallel_mesh(HEADLINE_W2, device)
+    model2 = bench.headline_step("faithful", mesh2)[0]
+    x2, y2 = bench.headline_batches(HEADLINE_W2, bench.BATCH,
+                                    bench.IMAGE_SIZE, device, fuse=1)
+    xb, yb = as_batch(x2[0], y2[0], device)
+    w2 = {}
+    with fp32_numerics():
+        grads = local_gradients(model2, xb, yb, mesh2)[0]
+        for mode in ("faithful", "fast"):
+            kw = dict(use_aps=True, grad_exp=bench.FMT[0],
+                      grad_man=bench.FMT[1], mode=mode)
+            reset_counts()
+            got = sum_gradients(grads, mesh2, **kw)
+            counts = {k: v for k, v in read_counts().items() if v}
+            want = sum_gradients(grads, mesh2, fused=False, **kw)
+            torch.cuda.synchronize()
+            design = headline_design(mode, HEADLINE_W2, len(sizes),
+                                     n_buckets)
+            if counts != design:
+                raise AssertionError(f"W={HEADLINE_W2} {mode} reduce "
+                                     f"launches {counts} != {design}")
+            for r in range(HEADLINE_W2):
+                for i, (a, b) in enumerate(zip(got[r], want[r])):
+                    if not same_bits(a, b):
+                        raise AssertionError(
+                            f"W={HEADLINE_W2} {mode} reduce, rank {r} leaf "
+                            f"{i}: the kernels differ from the plain "
+                            "versions")
+            w2[mode] = counts
+    print(f"train headline W={HEADLINE_W2}: one step's ResNet-50 bf16 "
+          f"gradients through the APS e5m2 faithful and fast reduce: "
+          f"kernels bitwise equal to the plain versions; launches "
+          f"{json.dumps(w2)}", flush=True)
+    del model2, grads, got, want
+    marks.append(now())
+
+    reset_counts()
+    t0 = now()
+    rc = cli.main(["--arch", "resnet50", "--mode", "fast", "--use_APS",
+                   "--grad_exp", str(bench.FMT[0]), "--grad_man",
+                   str(bench.FMT[1]), "--max-iter", "1", "--batch_size",
+                   str(HEADLINE_CLI_BATCH)])
+    cli_counts = {k: v for k, v in read_counts().items() if v}
+    design = headline_design("fast", 1, len(sizes), n_buckets)
+    if rc != 0 or cli_counts != design:
+        raise AssertionError(f"ResNet-50 fast CLI returned {rc}, launches "
+                             f"{cli_counts} (design {design})")
+    out["cli"] = dict(rc=rc, seconds=now() - t0, launches=cli_counts)
+    print("train headline cli: " + json.dumps(out["cli"]), flush=True)
+    marks.append(now())
+    out["seconds"] = dict(zip(("bench", "w2", "cli"),
+                              (b - a for a, b in zip(marks, marks[1:]))))
+    out["n_buckets"] = n_buckets
     return out
 
 
@@ -4503,6 +4816,9 @@ def main() -> int:
                          **GQA_PATH)
     print("train bench gqa lm seconds: " + json.dumps(gqa_lm["seconds"]),
           flush=True)
+    headline = headline_phase(device)
+    print("train headline seconds: " + json.dumps(headline["seconds"]),
+          flush=True)
 
     main_case = kern["cases"]["e4m3"]
     kernels = [dict(
@@ -4530,6 +4846,9 @@ def main() -> int:
     # 0 around that run: the RTNE ring training (K1, K6, K5), the faithful
     # CLI (K3), the SR ring training (sr_bits, K2, K6-SR, K5-SR) and the
     # SR Kahan faithful CLI (K4)
+    # the headline step's launches of K1 (both modes) and K3 (faithful)
+    headline_runs = {k: headline["launches"].get(k, 0)
+                     for k in ("quantize_cast", "quantize_add")}
     runs = {"quantize_cast": (train, "launches_per_step"),
             "quantize_pack": (train, "launches_per_step"),
             "hop_pack": (train, "launches_per_step"),
@@ -4563,6 +4882,8 @@ def main() -> int:
             bound_by=q["bound_by"], library_ms=None,
             library_note=NO_LIBRARY_BITS if name == "sr_bits" else NO_LIBRARY,
             parity=parity,
+            **({"launches_headline": headline_runs[name]}
+               if name in headline_runs else {}),
             **{k: q[k] for k in ("ms_with_digest", "bound_pipe",
                                  "sass_per_element") + WIRE_FIELDS
                if k in q}))
@@ -4585,9 +4906,14 @@ def main() -> int:
             bound_ms=q["bound_ms"], bound_by=q["bound_by"], library_ms=None,
             library_note=(NO_LIBRARY_DIGEST if name == "digest_rows"
                           else NO_LIBRARY),
-            parity="bitwise (fp32 partials, wire bytes with the sidecar, "
-                   "digests) in every format, block and size case; and "
-                   "the blocked verified training kernels == plain",
+            parity=("bitwise its plain version and the kept two-launch "
+                    "kernel in every row count, size and alignment case, "
+                    "back to back and on two streams; and the blocked "
+                    "verified training kernels == plain"
+                    if name == "digest_rows" else
+                    "bitwise (fp32 partials, wire bytes with the sidecar, "
+                    "digests) in every format, block and size case; and "
+                    "the blocked verified training kernels == plain"),
             shape=q["shape"],
             **{k: q[k] for k in ("ms_with_digest",) + WIRE_FIELDS
                if k in q}))

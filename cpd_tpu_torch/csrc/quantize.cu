@@ -84,10 +84,14 @@
 // the max (the loops stop at n).
 //
 // K7 spreads each row of the (W, B) gathered wire over several CTAs
-// (blockIdx.y = row); each CTA stores its row's (s1, s2) partials mod
-// 65521, and the same fold kernel, with one CTA per row, sums them.  The byte
-// weight is (pos mod 65521) + 1 of the position in the row, so any split
-// is exact, and 64-bit sums cannot wrap.
+// (blockIdx.y = row).  run_rows_kernel, the one the wrapper launches,
+// reads a row in streaming 16-byte loads from its first 16-byte boundary
+// (a scalar head and tail around them), sums them as K5/K6's runs are
+// summed, and folds every row's sums in the same launch, writing int64
+// digests.  The kept digest_rows_kernel stores each CTA's (s1, s2)
+// partials mod 65521, and the fold kernel, with one CTA per row, sums
+// them.  The byte weight is (pos mod 65521) + 1 of the position in the
+// row, so any split is exact.
 
 #include <cuda/atomic>
 #include <cuda_runtime.h>
@@ -577,22 +581,22 @@ __device__ __forceinline__ float hop_value(float g, uint32_t code_in,
   return kSR ? exmy::cast_sr(v, eb, mb, r) : exmy::cast(v, eb, mb);
 }
 
-// each of 4 sums over a CTA of kT threads, by the warps' reduce
+// each of kS sums over a CTA of kT threads, by the warps' reduce
 // instruction; the totals land in thread 0's s (each input below 2^21, so
 // no total wraps).  Every thread of the CTA must call it.
-template <int kT>
-__device__ __forceinline__ void cta_sum32(uint32_t (&s)[4]) {
-  __shared__ uint32_t red[4][kT / 32];
+template <int kT, int kS>
+__device__ __forceinline__ void cta_sum32(uint32_t (&s)[kS]) {
+  __shared__ uint32_t red[kS][kT / 32];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int j = 0; j < kS; ++j) {
     s[j] = __reduce_add_sync(0xffffffffu, s[j]);
     if (lane == 0) red[j][warp] = s[j];
   }
   __syncthreads();
   if (warp == 0) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < kS; ++j)
       s[j] = __reduce_add_sync(0xffffffffu,
                                lane < kT / 32 ? red[j][lane] : 0u);
   }
@@ -616,7 +620,7 @@ __device__ void fold_in_launch(const uint32_t (&s)[4],
   uint32_t m[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) m[j] = exmy::fletcher_mod65521(s[j]);
-  cta_sum32<kT>(m);
+  cta_sum32<kT, 4>(m);
   if (threadIdx.x != 0) return;
 #pragma unroll
   for (int j = 0; j < 4; ++j) m[j] = exmy::fletcher_mod65521(m[j]);
@@ -953,6 +957,121 @@ __global__ void digest_rows_kernel(const uint8_t* __restrict__ rows,
        i < nbytes; i += stride)
     digest_byte(s[0], s[1], r[i], i);
   store_partials(s, partials, (size_t)blockIdx.y * gridDim.x + blockIdx.x);
+}
+
+// ---------------------------------------------------------------------------
+// K7 as the wrapper launches it: one streaming launch over every row, the
+// digests folded in it as K5/K6's are.  digest_rows_kernel above
+// and its fold_kernel<2> launch stay as the yardstick
+// (ops.quantize.core_digest_launcher); no path launches them.
+//
+// What bounds it.  W * B bytes read once and W int64 digests written: at
+// the verified ring's gathered wire (4 rows of 996,671 bytes) 1.19 us at
+// 3.35 TB/s, so the launch itself and the fold's atomics are most of what
+// a design can save.
+
+// 256 threads a CTA and 2 loads in flight a thread (at the ring's
+// gathered wire, 4 rows of 996,671 bytes: 488 CTAs).  Shapes from 128 to
+// 1024 threads and 1 to 8 loads in flight timed close to each other on
+// the card, this one among the fastest from HBM: the launch and the fold
+// take most of the time, not the loads.
+constexpr int kRowThreads = 256;
+constexpr int kRowUnroll = 2;   // 16-byte loads a thread has in flight
+// a row-digest launch's scratch, in uint32 words: the ticket and a pad
+// word, then one 64-bit sum per row, (s2 << 32) | s1
+constexpr int kRowSumsWord = 2;
+
+// This CTA's row sums (s1, s2), folded in the launch: thread 0 adds them
+// mod 65521 to the row's 64-bit sum in the scratch and draws a ticket with
+// an acquire-release add, which orders that add before it; the CTA that
+// draws the last ticket of the launch takes every row's sum (zeroing it),
+// writes digest[r] = (s2 << 16) | s1 as int64 and resets the ticket.  A
+// half sums at most kMaxRunCtas values below 65521, under 2^28, so no
+// carry crosses into the other.  Every thread of every CTA must call it.
+template <int kT>
+__device__ void fold_rows(const uint32_t (&s)[2],
+                          uint32_t* __restrict__ scratch,
+                          long long* __restrict__ digest) {
+  __shared__ int last;
+  uint32_t m[2] = {exmy::fletcher_mod65521(s[0]),
+                   exmy::fletcher_mod65521(s[1])};
+  cta_sum32<kT, 2>(m);
+  unsigned long long* sums =
+      reinterpret_cast<unsigned long long*>(scratch + kRowSumsWord);
+  const unsigned int ctas = gridDim.x * gridDim.y;
+  if (threadIdx.x == 0) {
+    m[0] = exmy::fletcher_mod65521(m[0]);
+    m[1] = exmy::fletcher_mod65521(m[1]);
+    if (m[0] | m[1])
+      atomicAdd(sums + blockIdx.y, (unsigned long long)m[1] << 32 | m[0]);
+    cuda::atomic_ref<unsigned int, cuda::thread_scope_device> ticket(
+        scratch[0]);
+    last = ticket.fetch_add(1u, cuda::memory_order_acq_rel) == ctas - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  for (unsigned int r = threadIdx.x; r < gridDim.y; r += kT) {
+    const unsigned long long t = atomicExch(sums + r, 0ull);
+    digest[r] = (long long)(exmy::fletcher_mod65521(uint32_t(t >> 32)) << 16 |
+                            exmy::fletcher_mod65521(uint32_t(t)));
+  }
+  if (threadIdx.x == 0) {
+    cuda::atomic_ref<unsigned int, cuda::thread_scope_device> ticket(
+        scratch[0]);
+    ticket.store(0u, cuda::memory_order_relaxed);
+  }
+}
+
+// K7: the Fletcher digest of row blockIdx.y of a (w, nbytes) u8 buffer,
+// spread over gridDim.x CTAs of kT threads.  A row starts wherever
+// r * nbytes puts it: the bytes before its first 16-byte boundary (the
+// head) and after its last (the tail) take the scalar path in the row's
+// first threads; the rest comes in streaming 16-byte loads at a grid
+// stride, kRowUnroll in flight a thread, each summed by fold_words (two
+// __dp4a a word).  A thread takes its first load's weight with one modulo
+// and advances it by the stride's (wstep, its bytes mod 65521) with a
+// compare and subtract.
+template <int kT>
+__global__ void __launch_bounds__(kT)
+    run_rows_kernel(const uint8_t* __restrict__ rows, long long nbytes,
+                    uint32_t wstep, uint32_t* __restrict__ scratch,
+                    long long* __restrict__ digest) {
+  const uint8_t* row = rows + (long long)blockIdx.y * nbytes;
+  long long head = (16 - (long long)(reinterpret_cast<uintptr_t>(row) & 15u))
+                   & 15;
+  head = head < nbytes ? head : nbytes;
+  const long long chunks = (nbytes - head) / 16;
+  const long long tail = head + chunks * 16;
+  const uint4* body = reinterpret_cast<const uint4*>(row + head);
+  const long long tid = (long long)blockIdx.x * kT + threadIdx.x;
+  const long long stride = (long long)gridDim.x * kT;
+  uint32_t s[2] = {0u, 0u};
+  uint32_t w = weight_at((unsigned long long)(head + tid * 16));
+  long long c = tid;
+  for (; c + (kRowUnroll - 1) * stride < chunks; c += kRowUnroll * stride) {
+    uint4 v[kRowUnroll];
+#pragma unroll
+    for (int j = 0; j < kRowUnroll; ++j) v[j] = __ldcs(body + c + j * stride);
+#pragma unroll
+    for (int j = 0; j < kRowUnroll; ++j) {
+      const uint32_t words[4] = {v[j].x, v[j].y, v[j].z, v[j].w};
+      fold_words(words, w, s[0], s[1]);
+      w = advance_weight(w, wstep);
+    }
+  }
+  for (; c < chunks; c += stride) {
+    const uint4 v = __ldcs(body + c);
+    const uint32_t words[4] = {v.x, v.y, v.z, v.w};
+    fold_words(words, w, s[0], s[1]);
+    w = advance_weight(w, wstep);
+  }
+  if (tid < head + (nbytes - tail)) {
+    const long long pos = tid < head ? tid : tail + (tid - head);
+    const uint32_t b = row[pos];
+    add_term(s[0], b);
+    add_term(s[1], b * weight_at((unsigned long long)pos));
+  }
+  fold_rows<kT>(s, scratch, digest);
 }
 
 // out[i] = sr_bits_at((k0, k1), start + i), the offset wrapping mod 2^32
@@ -1371,8 +1490,39 @@ extern "C" int quantize_run_blocked_launch(const void* wire_in,
   return int(cudaGetLastError());
 }
 
-// CTAs per row K7 launches for (w, nbytes): its `partials` scratch holds
-// w * ctas * 2 uint64 words.
+// The uint32 words of the scratch a digest_rows_run_launch over w rows
+// takes: zero before its stream's first launch, and left so by each.
+extern "C" long long digest_rows_scratch_words(int w) {
+  return kRowSumsWord + 2LL * (w < 1 ? 1 : w);
+}
+
+// K7: digest[r] = wire_digest(rows[r]) as int64 for the w rows of nbytes
+// bytes, in one launch of run_rows_kernel: enough CTAs a row that each
+// thread has kRowUnroll 16-byte loads to make, no more than the card
+// keeps resident over all rows, nor kMaxRunCtas.  scratch: the stream's
+// digest_rows_scratch_words(w) words; launches that share one must run in
+// turn (one stream).
+extern "C" int digest_rows_run_launch(const void* rows, int w,
+                                      long long nbytes, void* scratch,
+                                      void* digest, void* stream) {
+  if (w < 1 || w > 65535 || nbytes < 1) return int(cudaErrorInvalidValue);
+  static const int resident =
+      resident_ctas(run_rows_kernel<kRowThreads>, kRowThreads);
+  constexpr long long per_cta = 16LL * kRowThreads * kRowUnroll;
+  const int per_row = run_grid((nbytes + per_cta - 1) / per_cta,
+                               resident / w > 0 ? resident / w : 1);
+  const uint32_t wstep =
+      uint32_t(16ull * kRowThreads * per_row % exmy::kDigestMod);
+  run_rows_kernel<kRowThreads>
+      <<<dim3(per_row, w), kRowThreads, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const uint8_t*>(rows), nbytes, wstep,
+          static_cast<uint32_t*>(scratch), static_cast<long long*>(digest));
+  return int(cudaGetLastError());
+}
+
+// CTAs per row the kept K7 launches for (w, nbytes): its `partials`
+// scratch holds w * ctas * 2 uint64 words.
 extern "C" int digest_rows_ctas(int w, long long nbytes) {
   const long long per = (nbytes + kThreads * 16 - 1) / (kThreads * 16);
   long long cap = 4096 / (w < 1 ? 1 : w);
@@ -1380,7 +1530,8 @@ extern "C" int digest_rows_ctas(int w, long long nbytes) {
   return int(per < 1 ? 1 : (per > cap ? cap : per));
 }
 
-// K7: digest[r] = wire_digest(rows[r]) for the w rows of nbytes bytes.
+// The kept K7: digest[r] = wire_digest(rows[r]) (uint32) for the w rows of
+// nbytes bytes, a partials launch and a fold launch.
 extern "C" int digest_rows_launch(const void* rows, int w, long long nbytes,
                                   void* partials, void* digest,
                                   void* stream) {

@@ -152,8 +152,6 @@ def parse_args(argv=None) -> argparse.Namespace:
                                  ("--optimizer", args.optimizer, "sgd")):
         if value != default:
             raise _not_ported(f"{flag} {value}")
-    if args.mode == "fast":
-        raise _not_ported("--mode fast")
     if args.dp < 1:
         raise SystemExit(f"--dp must be >= 1, got {args.dp}")
     if args.n_kv_heads is not None:

@@ -4,16 +4,18 @@
     python -m cpd_tpu_torch.examples.resnet18_cifar.train --mode ring \\
         --use_APS --grad_exp 5 --grad_man 2 --max-iter 20
 
-One data-parallel rank on the card: seed-24 weights, the seed-0
-iteration sampler, pad-4 reflect / random crop / flip augmentation
-re-drawn each epoch, SGD (momentum and weight decay from
-``configs/res18_cifar.yaml``) under the warmup -> peak -> x0.1 at epochs
-40 and 80 schedule, the APS low-precision gradient reduce in ``--mode``
-faithful or ring (``--grad-rounding stochastic --grad-seed N`` rounds it
-stochastically, ``--use_kahan`` compensates it, ``--block-scale
---block-size B`` ships the ring block-scaled), validation every
-``--val_freq`` iterations and at the end.  Without CIFAR-10 under ``--data-root`` (or ``./data``) it trains
-on the deterministic synthetic stand-in.  Checkpoints and the other
+One data-parallel rank on the card: ``--arch`` (the config's
+``res_cifar`` by default; the ImageNet ResNets of `models.resnet` too),
+seed-24 weights, the seed-0 iteration sampler, pad-4 reflect / random
+crop / flip augmentation re-drawn each epoch, SGD (momentum and weight
+decay from ``configs/res18_cifar.yaml``) under the warmup -> peak -> x0.1
+at epochs 40 and 80 schedule, the APS low-precision gradient reduce in
+``--mode`` faithful, ring or fast (``--grad-rounding stochastic
+--grad-seed N`` rounds it stochastically, ``--use_kahan`` compensates
+it, ``--block-scale --block-size B`` ships the ring block-scaled),
+validation every ``--val_freq`` iterations and at the end.  Without
+CIFAR-10 under ``--data-root`` (or ``./data``) it trains on the
+deterministic synthetic stand-in.  Checkpoints and the other
 flags of the JAX trainer are not ported yet: passing one raises.
 """
 
@@ -36,7 +38,7 @@ _NOT_PORTED = (
     "--resume-opt", "--use_lars", "--opt_exp", "--opt_man", "--opt_kahan",
     "--opt-rounding", "--opt-seed", "--optimizer", "--shampoo-stat-exp",
     "--shampoo-stat-man", "--shampoo-stat-mode", "-e", "--evaluate",
-    "--emulate_node", "--arch", "--max_epoch", "--save_path", "--clip-grad",
+    "--emulate_node", "--max_epoch", "--save_path", "--clip-grad",
     "--profile-dir", "--tensorboard", "--zero1", "--zero2",
     "--overlap-reduce", "--bucket-elems", "--obs-dir", "--obs-flight", "--fault-plan", "--guard-grads",
     "--spike-factor", "--watchdog-timeout", "--divergence-window",
@@ -65,6 +67,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--use_kahan", action="store_true")
     p.add_argument("--mode", default="faithful",
                    choices=["faithful", "fast", "ring"])
+    p.add_argument("--arch", default=None, type=str,
+                   help="model by the JAX registry's name (default: the "
+                        "config's), built as the JAX trainer builds it: "
+                        "fp32, 10 classes for the CIFAR ResNet, 1000 for "
+                        "the ImageNet ones")
     p.add_argument("--block-scale", action="store_true",
                    help="block-scaled ring wire (EQuARX-style): every hop "
                         "cast shares one power-of-2 scale per --block-size "
@@ -131,9 +138,6 @@ def parse_args(argv=None) -> argparse.Namespace:
             raise SystemExit(f"{flag}: not yet ported to cpd_tpu_torch "
                              f"(ROADMAP Queue A)")
         build_parser().error(f"unrecognized arguments: {' '.join(rest)}")
-    if args.mode == "fast":
-        raise SystemExit("--mode fast: not yet ported to cpd_tpu_torch "
-                         "(ROADMAP Queue A, A3)")
     if args.block_scale and args.mode != "ring":
         raise SystemExit("--block-scale needs --mode ring: the per-block "
                          "scale sidecar rides a packed wire")
@@ -142,9 +146,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                          f"(man_bits >= 2 for the codec's special codes), "
                          f"got e{args.grad_exp}m{args.grad_man}")
     cfg = read_config(args.config)
-    if cfg.get("arch", "res_cifar") != "res_cifar":
-        raise SystemExit(f"arch {cfg['arch']!r}: not yet ported to "
-                         "cpd_tpu_torch (only res_cifar)")
+    if args.arch is None:
+        args.arch = cfg.get("arch", "res_cifar")
+    from ... import models
+
+    if args.arch not in models.ARCHS:
+        raise SystemExit(f"arch {args.arch!r}: not yet ported to "
+                         f"cpd_tpu_torch (ported: "
+                         f"{', '.join(models.ARCHS)})")
     for key in ("batch_size", "val_freq", "print_freq"):
         if getattr(args, key) is None:
             setattr(args, key, int(cfg[key]))
@@ -160,7 +169,7 @@ def run(args: argparse.Namespace, device="cuda") -> dict:
     from ...data import (CIFAR10Pipeline, DistributedGivenIterationSampler,
                          load_cifar10)
     from ...device import resolve_device
-    from ...models.resnet_cifar import resnet18_cifar
+    from ... import models
     from ...parallel.mesh import data_parallel_mesh
     from ...train import (create_train_state, make_eval_step,
                           make_train_step, sgd, warmup_step_decay)
@@ -178,7 +187,7 @@ def run(args: argparse.Namespace, device="cuda") -> dict:
         [40 * iter_per_epoch, 80 * iter_per_epoch],
         warmup_from=peak_lr / 16.0)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    model = resnet18_cifar(device=dev).init_weights(gen)
+    model = models.get_model(args.arch, device=dev).init_weights(gen)
     opt = sgd(schedule, momentum=args.momentum,
               weight_decay=args.weight_decay)
     state = create_train_state(model, opt)

@@ -11,7 +11,8 @@ Both projection layouts load: MHA (``wqkv``) and GQA (``wq``/``wkv``).
 ``batch_stats``: conv kernels HWIO -> OIHW, the Dense kernel (I, O) ->
 (O, I), BN ``scale``/``bias``/``mean``/``var`` -> ``weight``/``bias``/
 ``running_mean``/``running_var``.  (The port's own copy of the mapping
-in `cpd_tpu/interop/torch_export.py`.)
+in `cpd_tpu/interop/torch_export.py`.)  `load_jax_resnet` — the same
+mapping for a flax ImageNet `ResNet` (`models.resnet`).
 
 The trees hold numpy arrays (``jax.device_get`` of the flax variables);
 this module never imports jax.
@@ -24,7 +25,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-__all__ = ["load_jax_params", "load_jax_resnet_cifar"]
+__all__ = ["load_jax_params", "load_jax_resnet_cifar", "load_jax_resnet"]
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> dict:
@@ -87,6 +88,22 @@ def load_jax_resnet_cifar(model: torch.nn.Module,
     """Copy a flax ResNetCIFAR's ``{"params": ..., "batch_stats": ...}``
     (numpy leaves) into the port's `ResNetCIFAR` in place.  Every
     parameter and running stat must be covered and every leaf used."""
+    return _load_resnet(model, variables)
+
+
+def load_jax_resnet(model: torch.nn.Module,
+                    variables: Mapping[str, Any]) -> torch.nn.Module:
+    """Copy a flax ImageNet ResNet's ``{"params": ..., "batch_stats":
+    ...}`` (numpy leaves: ``stem_conv``, ``stem_bn``,
+    ``layer{s}_block{b}.{conv1..3, bn1..3, downsample_conv,
+    downsample_bn}``, ``fc``) into the port's `models.resnet.ResNet` in
+    place.  Every parameter and running stat must be covered and every
+    leaf used."""
+    return _load_resnet(model, variables)
+
+
+def _load_resnet(model: torch.nn.Module,
+                 variables: Mapping[str, Any]) -> torch.nn.Module:
     flat = {}
     for coll in ("params", "batch_stats"):
         for k, v in _flatten(variables[coll]).items():

@@ -10,9 +10,11 @@ one (`interop.load_jax_resnet_cifar`).
 BatchNorm keeps flax's semantics: momentum 0.9 on the running stats
 (torch's ``momentum=0.1``), eps 1e-5, and the running variance updated
 with the BIASED batch variance (torch's own BatchNorm would fold in the
-unbiased one).  Init follows flax too: convs kaiming-normal (truncated,
-fan-in), the head lecun-normal (truncated) with a zero bias, BN scale 1
-and bias 0, drawn from a caller's `torch.Generator`.
+unbiased one); a bf16 input (`models.resnet` at ``dtype=bfloat16``)
+goes through the same fp32 statistics and normalisation and is rounded
+back once, as flax's does.  Init follows flax too: convs kaiming-normal
+(truncated, fan-in), the head lecun-normal (truncated) with a zero bias,
+BN scale 1 and bias 0, drawn from a caller's `torch.Generator`.
 """
 
 from __future__ import annotations
@@ -47,6 +49,9 @@ class BatchNorm(nn.Module):
                              torch.ones(channels, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype != torch.float32:
+            # flax: fp32 statistics and normalisation, one rounding back
+            return self.forward(x.to(torch.float32)).to(x.dtype)
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)

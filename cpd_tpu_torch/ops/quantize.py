@@ -40,11 +40,14 @@ version.  K6 and K5 launch the streaming kernels (``run_wire_kernel``,
 ``run_blocked_kernel``: 16-byte accesses, the digests folded inside the
 one launch); `core_wire_launcher` reaches the kernels they replaced,
 which no path calls, as the yardstick ``chip_smoke.py`` times them
-against.  Each wrapper counts its launches in ``<wrapper>.launches``;
-the SR arms of K6 and K5 count theirs in ``quantize_pack_sr.launches``
-and ``hop_pack_sr.launches`` only, whichever name the caller used, and
-the blocked arms in the counters ``quantize_pack_blocked[_sr].launches``
-and ``hop_pack_blocked[_sr].launches``.
+against.  K7 launches ``run_rows_kernel`` (one streaming launch over every
+row, int64 digests written by the kernel); `core_digest_launcher` reaches
+the two-launch kernel it replaced.  Each wrapper counts its launches in
+``<wrapper>.launches``; the SR arms of K6 and K5 count theirs in
+``quantize_pack_sr.launches`` and ``hop_pack_sr.launches`` only,
+whichever name the caller used, and the blocked arms in the counters
+``quantize_pack_blocked[_sr].launches`` and
+``hop_pack_blocked[_sr].launches``.
 
 The blocked kernel takes the JAX kernel's block sizes only: a multiple
 of 128 that divides 65536 (the ring's default, 128, qualifies).  Other
@@ -75,7 +78,8 @@ __all__ = ["quantize_cast", "quantize_cast_sr", "quantize_add",
            "hop_pack", "hop_pack_sr", "quantize_pack_blocked",
            "quantize_pack_blocked_sr", "hop_pack_blocked",
            "hop_pack_blocked_sr", "digest_rows", "sr_bits",
-           "fused_block_ok", "core_wire_launcher", "quantize_cast_ref",
+           "fused_block_ok", "core_wire_launcher", "core_digest_launcher",
+           "quantize_cast_ref",
            "quantize_cast_sr_ref", "quantize_add_ref", "quantize_add_sr_ref",
            "quantize_pack_ref", "hop_pack_ref", "digest_rows_ref",
            "sr_bits_ref"]
@@ -248,6 +252,10 @@ def _library():
         lib.digest_rows_launch.restype = ctypes.c_int
         lib.digest_rows_ctas.argtypes = [ctypes.c_int, ctypes.c_longlong]
         lib.digest_rows_ctas.restype = ctypes.c_int
+        lib.digest_rows_run_launch.argtypes = lib.digest_rows_launch.argtypes
+        lib.digest_rows_run_launch.restype = ctypes.c_int
+        lib.digest_rows_scratch_words.argtypes = [ctypes.c_int]
+        lib.digest_rows_scratch_words.restype = ctypes.c_longlong
         lib.quantize_error_string.argtypes = [ctypes.c_int]
         lib.quantize_error_string.restype = ctypes.c_char_p
         lib._cpd_typed = True
@@ -622,29 +630,77 @@ def hop_pack_sr(wire_in: torch.Tensor, g: torch.Tensor, exp_bits: int,
                     block_size=block_size, want_digest=want_digest)
 
 
-def digest_rows(rows: torch.Tensor) -> torch.Tensor:
-    """The (W,) int64 `wire_digest` of each row of a (W, B) uint8 buffer
-    (K7).  CPU tensors take `digest_rows_ref`; CUDA tensors launch the
-    kernel, counted in ``digest_rows.launches``."""
+def _rows_arg(rows: torch.Tensor) -> None:
     if rows.dim() != 2:
         raise ValueError(f"digest_rows wants (W, n_bytes) uint8, got shape "
                          f"{tuple(rows.shape)}")
+
+
+# K7's launches' scratch (the ticket and one 64-bit sum per row) by
+# (device index, stream), grown with the row count; as `_WIRE_SCRATCH`
+_ROW_SCRATCH: dict = {}
+
+
+def _row_scratch(lib, dev: torch.device, w: int) -> torch.Tensor:
+    """The current stream's K7 scratch on ``dev`` for ``w`` rows, zeroed
+    when it is made; a larger one replaces it (the stream's pending
+    launches keep the old buffer, which the caching allocator hands out
+    again only in the stream's order)."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    words = lib.digest_rows_scratch_words(w)
+    buf = _ROW_SCRATCH.get(key)
+    if buf is None or buf.numel() < words:
+        buf = torch.zeros((words,), dtype=torch.int32, device=dev)
+        _ROW_SCRATCH[key] = buf
+    return buf
+
+
+def digest_rows(rows: torch.Tensor) -> torch.Tensor:
+    """The (W,) int64 `wire_digest` of each row of a (W, B) uint8 buffer
+    (K7).  CPU tensors take `digest_rows_ref`; CUDA tensors launch the
+    kernel once, counted in ``digest_rows.launches``."""
+    _rows_arg(rows)
     dev = _device(rows)
     w, nb = rows.shape
     if dev.type == "cpu" or w == 0 or nb == 0:
         return digest_rows_ref(rows)
     _check("rows", rows, torch.uint8)
     lib = _library()
-    partials = torch.empty((w * lib.digest_rows_ctas(w, nb) * 2,),
-                           dtype=torch.int64, device=dev)
-    out = torch.empty((w,), dtype=torch.int32, device=dev)
+    out = torch.empty((w,), dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
-        rc = lib.digest_rows_launch(rows.data_ptr(), w, nb,
-                                    partials.data_ptr(), out.data_ptr(),
-                                    _stream(dev))
+        rc = lib.digest_rows_run_launch(rows.data_ptr(), w, nb,
+                                        _row_scratch(lib, dev, w).data_ptr(),
+                                        out.data_ptr(), _stream(dev))
     _raise_on(lib, rc, "digest_rows")
     digest_rows.launches += 1
-    return out.to(torch.int64) & 0xFFFFFFFF
+    return out
+
+
+def core_digest_launcher():
+    """K7's kept kernels (``digest_rows_kernel`` and its ``fold_kernel<2>``
+    launch, with the wrapper's partials tensor and its int64 widening),
+    the yardstick the one-launch kernel is timed against; no path calls
+    them.  Returns ``fn(rows)`` with `digest_rows`'s output, on non-empty
+    CUDA tensors only, counting nothing."""
+    def launch(rows):
+        _rows_arg(rows)
+        w, nb = rows.shape
+        if _device(rows).type != "cuda" or w == 0 or nb == 0:
+            raise ValueError("the kept digest kernel takes non-empty CUDA "
+                             "tensors")
+        _check("rows", rows, torch.uint8)
+        dev = rows.device
+        lib = _library()
+        partials = torch.empty((w * lib.digest_rows_ctas(w, nb) * 2,),
+                               dtype=torch.int64, device=dev)
+        out = torch.empty((w,), dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            rc = lib.digest_rows_launch(rows.data_ptr(), w, nb,
+                                        partials.data_ptr(), out.data_ptr(),
+                                        _stream(dev))
+        _raise_on(lib, rc, "core digest_rows")
+        return out.to(torch.int64) & 0xFFFFFFFF
+    return launch
 
 
 for _fn in (quantize_cast, quantize_cast_sr, quantize_add, quantize_add_sr,

@@ -15,7 +15,10 @@ by the world size, so the sum is the mean).  The pipeline:
   requantizing scan (`reduction.quantized_sum`), one per bucket;
 * ``ring`` — the bit-packed reduce-scatter + all-gather ring
   (`ring.ring_quantized_sum`), one per bucket; ``block_scale`` ships it
-  block-scaled (ring mode only).
+  block-scaled (ring mode only);
+* ``fast`` — the cast of each rank's gradients (already done by APS;
+  none at (8, 23)), an fp32 sum over the ranks in rank order (the JAX
+  package's ``psum``), and one cast of the sum (none at (8, 23)).
 
 Both modes bucket the leaves (concatenated in leaf order) at
 `overlap.DEFAULT_BUCKET_ELEMS` with `overlap.bucket_layout`.  The ring's
@@ -30,22 +33,24 @@ every cast's bits by GLOBAL flat offset: leaf i's elements sit at
 ``_leaf_starts(leaves)[i] + j``, so bucketing changes no bit.  The key
 splits three ways as in the JAX package: the APS pre-quantize takes
 ``k_pre`` with the rank folded in (each rank rounds its own gradients
-with its own bits), the reduction takes the shared ``k_sum`` (``k_post``
-belongs to ``mode="fast"``, not ported).
+with its own bits), the reduction takes the shared ``k_sum``, and fast
+mode's cast of the sum the shared ``k_post``.
 
 ``verify=True`` returns ``(reduced, report)``: in ring mode each
 bucket's ring reports {hop_bad, gather_bad, agree, ok} and the reports
-merge (counts add, agreement ANDs, ``ok`` recomputed); in faithful mode
-the report is the cross-rank agreement of `integrity.tree_digest` of the
-reduced leaves alone.  ``wire_fault=(code, rank)`` hits the ring of
-bucket 0 only (`ring.ring_quantized_sum`'s ``fault``), so one fault
-gives the same counters whatever the bucket count.
+merge (counts add, agreement ANDs, ``ok`` recomputed); in faithful and
+fast mode the report is the cross-rank agreement of
+`integrity.tree_digest` of the reduced leaves alone.
+``wire_fault=(code, rank)`` hits the ring of bucket 0 only
+(`ring.ring_quantized_sum`'s ``fault``), so one fault gives the same
+counters whatever the bucket count.
 
 On CUDA tensors (``fused=None``) every cast is a hand-written kernel:
 the APS pre-quantize is K1, or `sr_bits` + K2 (one launch each per leaf
 per rank), a faithful scan step K3 or `sr_bits` + K4 (four of each per
 step with Kahan), a ring hop K6/K5 with their SR arms (K3/K4 for a
-format the codec cannot pack, and for every Kahan site).
+format the codec cannot pack, and for every Kahan site), fast mode's
+cast of the sum one K1 (or `sr_bits` + K2) over all leaves.
 ``fused=False`` runs the plain torch version of each, on any device —
 the reference the kernels are held against.
 """
@@ -135,12 +140,9 @@ def sum_gradients(grads: Sequence[Sequence[torch.Tensor]], mesh,
     (module docstring).  ``block_scale`` ships the ring block-scaled
     (blocks of ``block_size``); ``verify`` returns ``(reduced, report)``
     and ``wire_fault`` corrupts bucket 0's ring (module docstring).
-    Stats and ``mode="fast"`` are not ported yet and raise."""
+    Stats are not ported yet and raise."""
     if mode not in ("faithful", "ring", "fast"):
         raise ValueError(f"unknown mode {mode!r}")
-    if mode == "fast":
-        raise NotImplementedError("mode='fast' is not ported yet (ROADMAP "
-                                  "Queue A, A3)")
     if rounding not in ("nearest", "stochastic"):
         raise ValueError(f"unknown rounding {rounding!r}")
     if rounding == "stochastic" and key is None:
@@ -169,10 +171,10 @@ def sum_gradients(grads: Sequence[Sequence[torch.Tensor]], mesh,
     grads = [[g.to(torch.float32) for g in leaves] for leaves in grads]
     starts = _leaf_starts(template)
 
-    k_sum = None
+    k_sum = k_post = None
     k_pre = [None] * len(grads)
     if key is not None:
-        k_pre_all, k_sum, _ = split(key, 3)
+        k_pre_all, k_sum, k_post = split(key, 3)
         # each rank rounds its own gradients with its own bits
         k_pre = [fold_in(k_pre_all, r) for r in mesh.ranks]
 
@@ -185,6 +187,13 @@ def sum_gradients(grads: Sequence[Sequence[torch.Tensor]], mesh,
         grads = [quantize_tree_sr(aps_scale(leaves, s), grad_exp, grad_man,
                                   k, starts, fused=kernel)
                  for leaves, s, k in zip(grads, shifts, k_pre)]
+
+    if mode == "fast":
+        reduced = _fast_sum(grads, mesh, template, shifts, use_aps,
+                            grad_exp, grad_man, k_pre, k_post, starts,
+                            kernel)
+        return (reduced, _agreement_report(reduced, mesh)) if verify \
+            else reduced
 
     buckets = bucket_layout([g.numel() for g in template],
                             bucket_elems if bucket_elems is not None
@@ -218,12 +227,45 @@ def sum_gradients(grads: Sequence[Sequence[torch.Tensor]], mesh,
         return reduced
     if mode == "ring":
         return reduced, _merge_verify_reports(reports)
-    # the gather has no wire of its own to checksum: the agreement of
-    # the reduced trees is the whole verdict
+    return reduced, _agreement_report(reduced, mesh)
+
+
+def _fast_sum(grads: list, mesh, template: list, shifts: list,
+              use_aps: bool, grad_exp: int, grad_man: int, k_pre: list,
+              k_post, starts: list, kernel: bool) -> list:
+    """``mode="fast"``: each rank's cast (where APS has not cast already,
+    and off (8, 23)), the fp32 SUM over the ranks in rank order, one cast
+    of the sum with ``k_post`` (off (8, 23)), then the APS unscale.  The
+    sum and its cast run on the leaves concatenated in leaf order: both
+    are elementwise, and the SR bits are drawn by the same global
+    offsets (`_leaf_starts`), so the bits are those of a cast per leaf in
+    one launch."""
+    fp32 = grad_exp == 8 and grad_man == 23
+    if not use_aps and not fp32:
+        grads = [quantize_tree_sr(leaves, grad_exp, grad_man, k, starts,
+                                  fused=kernel)
+                 for leaves, k in zip(grads, k_pre)]
+    total = mesh.sum([_concat(leaves) for leaves in grads])
+    if not fp32:
+        total = per_distinct(lambda t: cast_site(
+            t, None, grad_exp, grad_man, kernel=kernel, key=k_post,
+            offset_start=0), total)
+
+    def unscaled(flat, s):
+        pieces = _split(flat, template)
+        return pieces if s is None else aps_unscale(pieces, s)
+
+    return [list(p) for p in per_distinct(unscaled, total, shifts)]
+
+
+def _agreement_report(reduced: list, mesh) -> dict:
+    """The verdict of a reduce with no wire of its own to checksum (the
+    faithful gather, the fast sum): the cross-rank agreement of the
+    reduced trees is the whole report."""
     agree = digest_agree(per_distinct(tree_digest, reduced), mesh)[0]
     report = clean_report(agree.device)
     report["agree"] = report["ok"] = agree
-    return reduced, report
+    return report
 
 
 def _merge_verify_reports(reports: list) -> dict:

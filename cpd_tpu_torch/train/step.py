@@ -60,9 +60,12 @@ def fp32_numerics():
 
 
 def as_batch(images, labels, device) -> tuple:
-    """NHWC images and labels (numpy or tensors) -> NCHW fp32 images and
-    int64 labels on ``device``."""
-    x = torch.as_tensor(images).to(device, torch.float32)
+    """NHWC images and labels (numpy or tensors) -> NCHW images and int64
+    labels on ``device``: a bf16 image batch stays bf16 (as bench.py
+    feeds its bf16 model; the model casts), any other becomes fp32."""
+    x = torch.as_tensor(images)
+    x = x.to(device, torch.bfloat16 if x.dtype == torch.bfloat16
+             else torch.float32)
     y = torch.as_tensor(labels).to(device, torch.int64)
     return x.permute(0, 3, 1, 2).contiguous(), y
 

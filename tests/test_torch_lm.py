@@ -411,10 +411,18 @@ def test_cli_trains_bf16_mha_flash_remat(capsys):
     ["--scan-layers"], ["--dropout", "0.1"], ["--sample", "4"],
     ["--emulate_node", "2"], ["--optimizer", "adamw"], ["--save-path", "x"],
     ["--export-torch", "x.pth"], ["--verify-reduce"], ["--obs-dir", "d"],
-    ["--overlap-reduce"], ["--mode", "fast"]])
+    ["--overlap-reduce"]])
 def test_cli_unported_flags_raise(extra):
     with pytest.raises(SystemExit, match="not yet ported"):
         tcli.parse_args(TINY_ARGV + extra)
+
+
+def test_cli_trains_in_fast_mode(capsys):
+    """``--mode fast`` (the fp32 rank sum between the APS casts) trains
+    one tiny iteration at W = 2 on the CPU."""
+    res = tcli.run(tcli.parse_args(TINY_ARGV[:-4] + [
+        "--max-iter", "1", "--mode", "fast"]), device="cpu")
+    assert res["step"] == 1 and np.isfinite(res["loss"])
 
 
 def test_cli_refuses_what_the_jax_cli_refuses():

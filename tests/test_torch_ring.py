@@ -276,16 +276,59 @@ def test_sum_gradients_sr_kahan_matches_jax(mode, kahan, sr):
         _bitwise(w, g, f"leaf {i}")
 
 
+def _fast_leaves(world, seed):
+    """`_leaves` where no element casts to -0.0 on every rank: the JAX
+    psum returns +0.0 there (Queue C: XLA's sum starts from or folds in
+    +0.0), the port's rank-order sum -0.0.  Rank 0's values below 1e-3 in
+    magnitude are made positive."""
+    out = _leaves(world, seed)
+    for g in out:
+        g[0] = np.where(np.abs(g[0]) < 1e-3, np.abs(g[0]), g[0])
+    return out
+
+
+# (world, use_aps, stochastic rounding, format): every combination at W = 2;
+# APS (5, 2) RTNE at W = 4 and SR at W = 8
+FAST_CASES = ([(2, aps, sr, fmt) for aps in (False, True)
+               for sr in (False, True) for fmt in ((5, 2), (8, 23))]
+              + [(4, True, False, (5, 2)), (8, True, True, (5, 2))])
+
+
+@pytest.mark.parametrize("world,aps,sr,fmt", FAST_CASES)
+def test_sum_gradients_fast_matches_jax(world, aps, sr, fmt):
+    """Bitwise: ``mode="fast"`` (each rank's cast where APS has not cast,
+    none at (8, 23); the fp32 sum over the ranks; one cast of the sum with
+    ``k_post``; the APS unscale) against the JAX package's under
+    shard_map.  At W = 2 the sum of two values has one order; at W = 4
+    and 8 the port's rank-order sum equals the JAX psum bitwise too on
+    these inputs.  With ``verify`` the report is the agreement alone."""
+    leaves = _fast_leaves(world, seed=13 + world)
+    mesh = make_mesh(dp=world, devices=jax.devices()[:world])
+    key = jdist.grad_sr_key(3, 7, 1) if sr else None
+    kw = dict(use_aps=aps, grad_exp=fmt[0], grad_man=fmt[1], mode="fast",
+              rounding="stochastic" if sr else "nearest")
+    want = jdist.make_sum_gradients_fn(mesh, axis_name="dp", key=key, **kw)(
+        [jax.device_put(jnp.asarray(g), NamedSharding(mesh, P("dp")))
+         for g in leaves])
+    tfn = tdist.make_sum_gradients_fn(
+        LocalMesh(world, "cpu"), key=_tkey(key) if sr else None,
+        verify=True, **kw)
+    got, report = tfn([torch.from_numpy(g) for g in leaves])
+    for i, (w, g) in enumerate(zip(want, got)):
+        assert tuple(g.shape) == LEAF_SHAPES[i]
+        _bitwise(w, g, f"leaf {i}")
+    assert {k: int(v) for k, v in report.items()} == {
+        "hop_bad": 0, "gather_bad": 0, "agree": 1, "ok": 1}
+
+
 def test_unported_and_misplaced_options_raise():
-    """What the reduce still refuses: fast mode, reduce-wire telemetry
-    (stats=), fused kernels on CPU tensors, a key without stochastic
-    rounding and the reverse."""
+    """What the reduce still refuses: reduce-wire telemetry (stats=),
+    fused kernels on CPU tensors, a key without stochastic rounding and
+    the reverse."""
     mesh = LocalMesh(2, "cpu")
     flats = [torch.zeros(10), torch.zeros(10)]
     with pytest.raises(ValueError, match="CUDA"):
         tring.ring_quantized_sum(flats, mesh, 5, 2, fused=True)
-    with pytest.raises(NotImplementedError, match="fast"):
-        tdist.sum_gradients([[f] for f in flats], mesh, mode="fast")
     with pytest.raises(NotImplementedError, match="stats"):
         tdist.sum_gradients([[f] for f in flats], mesh, mode="ring",
                             stats=True)

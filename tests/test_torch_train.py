@@ -337,9 +337,35 @@ def test_cli_trains_on_cpu_and_rejects_unported_flags(tiny_cifar_factory,
     assert cfg["weight_decay"] == 0.0001 and cfg["lr_steps"] == [3000, 6000,
                                                                   9000]
     for bad in (["--use_lars"], ["--zero2"], ["--opt_exp", "5"],
-                ["--mode", "fast"]):
+                ["--arch", "davidnet"]):
         with pytest.raises(SystemExit, match="not yet ported"):
             tcli.main(argv + bad, device="cpu")
+
+
+def test_cli_trains_in_fast_mode_and_with_resnet50_on_cpu(
+        tiny_cifar_factory, tmp_path, capsys, monkeypatch):
+    """``--mode fast`` trains one iteration of the tiny CIFAR ResNet and,
+    with ``--arch resnet50``, of the full-depth fp32 ResNet-50 (1000
+    classes, as the JAX trainer builds it) at batch 2 on the CPU; every
+    ported JAX registry name parses."""
+    from cpd_tpu_torch import models
+
+    root = tiny_cifar_factory(tmp_path, n_train=40, n_test=8)
+    argv = ["--mode", "fast", "--use_APS", "--grad_exp", "5", "--grad_man",
+            "2", "--max-iter", "1", "--batch_size", "2", "--data-root", root,
+            "--print_freq", "1", "--val_freq", "1"]
+    res = tcli.run(tcli.parse_args(argv + ["--arch", "resnet50"]),
+                   device="cpu")
+    assert res["step"] == 1 and math.isfinite(res["loss"])
+    assert "done: 1 iters" in capsys.readouterr().out
+    monkeypatch.setitem(models._REGISTRY, "res_cifar",
+                        lambda device: ResNetCIFAR(device=device, **TINY))
+    res = tcli.run(tcli.parse_args(argv), device="cpu")
+    assert res["step"] == 1 and math.isfinite(res["loss"])
+    for arch in ("res_cifar", "resnet18_cifar", "resnet18", "resnet34",
+                 "resnet50", "resnet101"):
+        assert tcli.parse_args(["--arch", arch]).arch == arch
+    assert tcli.parse_args([]).arch == "res_cifar"
 
 
 def test_cli_trains_with_sr_and_kahan_on_cpu(tiny_cifar_factory, tmp_path,
@@ -347,9 +373,9 @@ def test_cli_trains_with_sr_and_kahan_on_cpu(tiny_cifar_factory, tmp_path,
     """The ported reduce flags parse with the JAX trainer's choices and
     defaults, and two iterations train with them on the CPU (at the tiny
     width: the plain threefry over full-width leaves is slow on a CPU)."""
-    import cpd_tpu_torch.models.resnet_cifar as tres
+    from cpd_tpu_torch import models
 
-    monkeypatch.setattr(tres, "resnet18_cifar",
+    monkeypatch.setitem(models._REGISTRY, "res_cifar",
                         lambda device: ResNetCIFAR(device=device, **TINY))
     args = tcli.parse_args(["--max-iter", "1"])
     assert (args.grad_rounding, args.grad_seed, args.use_kahan) == \

@@ -608,11 +608,11 @@ def test_cli_block_scale_trains_on_cpu_and_refusals(tiny_cifar_factory,
     blocked iterations on the CPU (tiny width), its two refusals (a mode
     other than ring, a format with man < 2), and --verify-reduce still
     refused with the reason."""
-    import cpd_tpu_torch.models.resnet_cifar as tres
+    from cpd_tpu_torch import models
     from cpd_tpu_torch.models.resnet_cifar import ResNetCIFAR
     from tests.test_torch_train import TINY
 
-    monkeypatch.setattr(tres, "resnet18_cifar",
+    monkeypatch.setitem(models._REGISTRY, "res_cifar",
                         lambda device: ResNetCIFAR(device=device, **TINY))
     args = tcli.parse_args(["--max-iter", "1"])
     assert (args.block_scale, args.block_size) == (False, 128)
@@ -1027,3 +1027,87 @@ def test_streaming_entries_take_the_kept_entries_arguments():
     assert (_c_params(src, "quantize_run_blocked_launch")
             == _c_params(src, "quantize_blocked_launch"))
     assert _c_params(src, "quantize_run_scratch_words") == ["void"]
+
+
+# K7's one-launch kernel (``run_rows_kernel``): row r of the (W, B)
+# buffer starts at base + r * B; its head up to the first 16-byte
+# boundary and its ragged tail go byte by byte to the row's first
+# threads, the rest in 16-byte loads at a grid stride (some in flight a
+# thread, summed in load order), each folded as a K5/K6 run.
+# Each row's CTAs fold their sums into the row's 64-bit sum.
+
+ROW_THREADS = 256      # kRowThreads
+
+
+def rows_model(buf: np.ndarray, w: int, nbytes: int, base: int,
+               grid: int) -> list:
+    """The kernel's digests of the ``w`` rows of ``buf`` (row-major, w *
+    nbytes bytes) whose first byte sits ``base`` bytes past a 16-byte
+    boundary, at ``grid`` CTAs a row."""
+    threads = grid * ROW_THREADS
+    tid = np.arange(threads, dtype=np.int64)
+    stride_bytes = threads * 16 % DIGEST_MOD
+    out = []
+    for r in range(w):
+        row = buf[r * nbytes:(r + 1) * nbytes]
+        head = min((16 - (base + r * nbytes) % 16) % 16, nbytes)
+        chunks = (nbytes - head) // 16
+        tail = head + chunks * 16
+        s = np.zeros((threads, 2), dtype=np.int64)
+        wt = _weight(head + tid * 16)
+        for first in range(0, chunks, threads):
+            c = first + tid[: min(threads, chunks - first)]
+            np.testing.assert_array_equal(wt[: len(c)],
+                                          _weight(head + c * 16))
+            words = row[head + c[:, None] * 16 + np.arange(16)]
+            a1, t2 = _run_terms(words, wt[: len(c)])
+            s[: len(c), 0] = _add_term(s[: len(c), 0], a1)
+            s[: len(c), 1] = _add_term(s[: len(c), 1], t2)
+            wt = _advance(wt, stride_bytes)
+        scalar = np.concatenate([np.arange(head), np.arange(tail, nbytes)])
+        assert len(scalar) < 32 <= threads
+        b = row[scalar].astype(np.int64)
+        at = np.arange(len(scalar))
+        s[at, 0] = _add_term(s[at, 0], b)
+        s[at, 1] = _add_term(s[at, 1], b * _weight(scalar))
+        out.append(_fold(s, tid // ROW_THREADS, grid))
+    return out
+
+
+# (w, nbytes, base, grid): one row to 8, rows of 1, 15, 16 and 17 bytes
+# and of every residue mod 16 (so the rows' heads differ), bases 0..15,
+# one CTA a row and grids whose stride splits the loads unevenly; rows
+# past 65521 bytes (the weight wraps inside loads) and past 2 * 65521
+ROW_CASES = ([(w, nb, base, 1) for w in (1, 2, 4, 8)
+              for nb in (1, 15, 16, 17)
+              for base in (0, 1, 15)]
+             + [(4, 16 * 40 + k, k, 1 + k % 3) for k in range(1, 16)]
+             + [(4, 996_671, 0, 122), (2, 100_001, 7, 3),
+                (8, 33_333, 9, 2), (1, 200_003, 13, 5),
+                (3, 65_521, 4, 1)])
+
+
+@pytest.mark.parametrize("w, nbytes, base, grid", ROW_CASES)
+def test_rows_digest_model_equals_wire_digest(w, nbytes, base, grid):
+    buf = _wire_bytes_rand(w * nbytes, seed=w + nbytes + base)
+    rows = torch.from_numpy(buf.reshape(w, nbytes))
+    want = [int(v) for v in tq.digest_rows_ref(rows)]
+    assert rows_model(buf, w, nbytes, base, grid) == want
+    assert want == [_wire_digest_of(buf[r * nbytes:(r + 1) * nbytes])
+                    for r in range(w)]
+
+
+def test_row_entry_takes_the_kept_entrys_arguments():
+    """`ops.quantize._library` types K7's one-launch C entry with the
+    kept entry's argtypes (its partials pointer becomes the scratch, its
+    digest pointer the int64 output): the C parameter types must match;
+    the scratch size takes the row count."""
+    path = os.path.join(os.path.dirname(__file__), os.pardir,
+                        "cpd_tpu_torch", "csrc", "quantize.cu")
+    with open(path) as fh:
+        src = fh.read()
+    assert (_c_params(src, "digest_rows_run_launch")
+            == _c_params(src, "digest_rows_launch"))
+    m = re.search(r'extern "C" long long digest_rows_scratch_words\((\w+) '
+                  r'\w+\)', src)
+    assert m and m.group(1) == "int"
