@@ -200,7 +200,25 @@ Phases; any failure exits non-zero:
    fast reduce with the kernels and with the plain versions, bitwise;
    one iteration of the ResNet CLI with ``--arch resnet50 --mode fast
    --use_APS``;
-13. print one JSON line ``{"kernels": [...]}`` and, last,
+13. the flagship step's other arms: (a) the flat-index arm of the
+   ``sr_bits`` kernel (``jax.random.bits``' stream) bitwise its plain
+   version at the emulate cast's shapes and timed; full-width
+   ResNet-18/CIFAR at W = 2 ranks x ``emulate_node`` 4 x 64 images (512
+   a step), APS e5m2, ``quant_stats``, 3 steps of each arm — the
+   faithful RTNE reduce with LARS, and the SR ring with the e4m3
+   Kahan SR momentum buffer of ``quant_sgd``: finite losses, step 0
+   within ``LM_LOSS_BAND`` of ln 10, launches per step as designed
+   (`emulate_step_design`), ``prec_wire_total`` W x the parameter count,
+   one step from the same start through the plain versions bitwise
+   (weights, BN stats, optimizer buffers), one step's reduce bitwise
+   with the stats on and off; images/s, the split (``fwd_bwd_ms``,
+   ``emulate_ms``, ``reduce_ms``, ``update_ms``) and a profiled step;
+   (b) 3 iterations of the ResNet CLI at ``--emulate_node 8 --batch_size
+   64`` with ``--use_lars`` and with ``--opt_exp 4 --opt_man 3
+   --opt_kahan``; (c) the golden APS ordering (`aps_golden`, e3m4, the
+   tiny CNN on 8 ranks x ``emulate_node`` 2 x 8, 100 iterations, fast
+   mode): APS Prec@1 at least no-APS + 10 and at least 60;
+14. print one JSON line ``{"kernels": [...]}`` and, last,
    ``{"ok": true, "device": {...}}``.
 
 The script imports neither jax nor the JAX package.
@@ -501,7 +519,8 @@ KERNEL_NAMES = {"quantize_cast": "cast_kernel<false, false>",
                 "hop_pack_blocked": "run_blocked_kernel<false, false,",
                 "hop_pack_blocked_sr": "run_blocked_kernel<false, true,",
                 "digest_rows": "run_rows_kernel",
-                "sr_bits": "sr_bits_kernel",
+                # the offset-indexed bits and their flat-index arm
+                "sr_bits": ("sr_bits_kernel", "flat_bits_kernel"),
                 "qgemm_faithful": "::qgemm_tile_kernel<",
                 # fp32 on flash_f32_tc.cu, bf16 on flash_mha_tc.cu
                 "flash_gqa_fwd": ("::f32tc_fwd_kernel<", "::fwd_kernel<"),
@@ -549,6 +568,34 @@ KV_CASES = (("e4m3", (4, 3), None, False, SLICE_KV),
 HEADLINE_W2 = 2
 HEADLINE_CLASSES = 1000
 HEADLINE_CLI_BATCH = 32
+
+# phase 13: the flagship step's other arms on full-width ResNet-18/CIFAR:
+# W ranks x emulate_node micro-batches of micro_batch (512 images a step,
+# the config's batch_size), APS e5m2, `steps` steps an arm; arm "a" the
+# faithful RTNE reduce with LARS, arm "b" the SR ring with the e4m3 Kahan
+# SR momentum buffer; both with the reduce's health telemetry
+EMU = dict(world=2, emulate_node=4, micro_batch=64, steps=3, fmt=(5, 2),
+           seed=24, grad_seed=0)
+EMU_ARMS = {
+    "a": dict(mode="faithful", grad_rounding="nearest", optimizer="lars",
+              opt_kw={}),
+    "b": dict(mode="ring", grad_rounding="stochastic",
+              optimizer="quant_sgd",
+              opt_kw=dict(opt_exp=4, opt_man=3, opt_kahan=True,
+                          opt_rounding="stochastic", opt_seed=0)),
+}
+# 13b: the CLI at the reference quick-start's --emulate_node 8
+EMU_CLI = ["--use_APS", "--grad_exp", "5", "--grad_man", "2",
+           "--emulate_node", "8", "--batch_size", "64", "--max-iter", "3",
+           "--val_freq", "3"]
+EMU_CLI_ARMS = (["--use_lars"], ["--opt_exp", "4", "--opt_man", "3",
+                                 "--opt_kahan"])
+# 13c: tests/test_golden.py's settings and ordering
+GOLDEN = dict(iters=100, batch_size=8, margin=10.0, floor=60.0)
+GOLDEN_CONFIGS = [("e3m4_noaps", 3, 4, False), ("e3m4_aps", 3, 4, True)]
+# the flat-index arm of the sr_bits kernel at the emulate cast's shapes:
+# the largest ResNet-18 leaf stacked N = 4 times, and an odd length
+FLAT_BITS_N = (4 * 512 * 512 * 3 * 3, QUANT_ODD_N)
 
 # K12's kernels by the profiler's names
 K12_KERNEL_NAMES = ("split_kernel", "combine_kernel")
@@ -2983,6 +3030,336 @@ def headline_phase(device) -> dict:
     return out
 
 
+def quant_sgd_design(leaves: int, sr: bool, kahan: bool) -> dict:
+    """The launches one `quant_sgd` update makes: per leaf a cast of
+    ``momentum * buf`` (K1, or a flat `sr_bits` + K2) and one add-cast
+    (K3, or `sr_bits` + K4); with Kahan two casts and four add-casts."""
+    casts, adds = (2, 4) if kahan else (1, 1)
+    if sr:
+        return {"quantize_cast_sr": casts * leaves,
+                "quantize_add_sr": adds * leaves,
+                "sr_bits": (casts + adds) * leaves}
+    return {"quantize_cast": casts * leaves, "quantize_add": adds * leaves}
+
+
+def emulate_design(n: int, sr: bool, sizes: list) -> dict:
+    """The kernel launches one rank's `emulate_node_reduce` makes over
+    leaves of ``sizes`` elements at N = ``n`` (none at N = 1): RTNE one
+    K1 and N K3 a bucket of whole leaves; SR one flat `sr_bits` and one
+    K2 a leaf, and N `sr_bits` + K4 a leaf for the sum."""
+    from cpd_tpu_torch.parallel.overlap import (DEFAULT_BUCKET_ELEMS,
+                                                bucket_layout)
+
+    if n == 1 or not sizes:
+        return {}
+    if sr:
+        leaves = len(sizes)
+        return {"sr_bits": (n + 1) * leaves, "quantize_cast_sr": leaves,
+                "quantize_add_sr": n * leaves}
+    buckets = len(bucket_layout(list(sizes), DEFAULT_BUCKET_ELEMS))
+    return {"quantize_cast": buckets, "quantize_add": n * buckets}
+
+
+def emulate_step_design(arm: dict, w: int, n: int, sizes: list,
+                        buckets: int) -> dict:
+    """The kernel launches one phase-13 step makes: every rank's
+    emulate-node reduce (`emulate_design`), the APS reduce
+    (`reduce_design`; its health counters observe the APS cast and add
+    none), and the optimizer (`quant_sgd_design`; LARS casts nothing)."""
+    sr = arm["grad_rounding"] == "stochastic"
+    want = reduce_design(arm["mode"], sr, False, w, len(sizes), buckets)
+    for k, v in emulate_design(n, sr, sizes).items():
+        want[k] += w * v
+    if arm["optimizer"] == "quant_sgd":
+        kw = arm["opt_kw"]
+        for k, v in quant_sgd_design(
+                len(sizes), kw.get("opt_rounding") == "stochastic",
+                kw.get("opt_kahan", False)).items():
+            want[k] += v
+    return want
+
+
+def emu_build(device, arm: dict, mesh, fused):
+    """The seed-24 ResNet-18/CIFAR, the arm's optimizer (momentum 0.9,
+    wd 1e-4, the CLI's warmup schedule at 512 images a step) and its
+    `make_train_step` (APS e5m2, ``quant_stats``)."""
+    import torch
+
+    from cpd_tpu_torch.models.resnet_cifar import resnet18_cifar
+    from cpd_tpu_torch.train import (create_train_state, make_optimizer,
+                                     make_train_step, warmup_step_decay)
+
+    gen = torch.Generator(device=device).manual_seed(EMU["seed"])
+    model = resnet18_cifar(device=device).init_weights(gen)
+    rows = EMU["world"] * EMU["emulate_node"] * EMU["micro_batch"]
+    ipe = math.ceil(TRAIN["n_train"] / rows)
+    peak = TRAIN["peak_lr"]
+    opt = make_optimizer(arm["optimizer"], warmup_step_decay(
+        peak, 5 * ipe, [40 * ipe, 80 * ipe], warmup_from=peak / 16.0),
+        momentum=0.9, weight_decay=1e-4, **arm["opt_kw"])
+    state = create_train_state(model, opt)
+    step = make_train_step(
+        model, opt, mesh, emulate_node=EMU["emulate_node"],
+        mode=arm["mode"], use_aps=True, grad_exp=EMU["fmt"][0],
+        grad_man=EMU["fmt"][1], grad_rounding=arm["grad_rounding"],
+        grad_seed=EMU["grad_seed"], quant_stats=True, fused=fused)
+    return model, opt, state, step
+
+
+def opt_tensors(opt_state) -> list:
+    """Every tensor of an optimizer state (buffers, Kahan residuals)."""
+    out = []
+    for v in opt_state:
+        if isinstance(v, list):
+            out += v
+    return out
+
+
+def flat_bits_check(device) -> dict:
+    """The flat-index arm of the `sr_bits` kernel (``flat_bits_kernel``:
+    ``jax.random.bits(key, shape)``'s bits, which the emulate cast and
+    `quant_sgd` draw) against its plain version at the emulate cast's
+    shapes, bitwise, and timed beside its bound."""
+    import torch
+
+    from cpd_tpu_torch.ops import quantize as tq
+
+    err = 0.0
+    for n in FLAT_BITS_N:
+        like = torch.empty(n, device=device)
+        for key in ((3, 17), (2**32 - 5, 9)):
+            got = tq.sr_bits(key, like, flat=True)
+            want = tq.sr_bits_ref(key, like, flat=True)
+            if not same_bits(got, want):
+                raise AssertionError(f"flat sr_bits n={n}: differs from its "
+                                     "plain version")
+            err = max(err, max_abs_diff(got, want))
+    n = FLAT_BITS_N[0]
+    like = torch.empty(n, device=device)
+    per = sass_per_element("quantize", "flat_bits_kernel")
+    t_ops, pipe = pipe_bound_s(per, n)
+    t_bytes = 4 * n / PEAK_BYTES_PER_S
+    out = dict(n=n, max_abs_err=err,
+               ms=device_ms(lambda: tq.sr_bits((3, 17), like, flat=True),
+                            iters=50),
+               plain_ms=device_ms(lambda: tq.sr_bits_ref((3, 17), like,
+                                                         flat=True),
+                                  iters=5),
+               bound_ms=max(t_ops, t_bytes) * 1e3,
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               bound_pipe=pipe, sass_per_element=per)
+    print("kernel sr_bits flat arm: bitwise its plain version at n = "
+          f"{list(FLAT_BITS_N)}; " + json.dumps(out), flush=True)
+    return out
+
+
+def emulate_arm(device, name: str, batches, mesh) -> dict:
+    """13a for one arm: the 3 steps through the kernels (losses, launches
+    against the design, images/s), one step from the same start through
+    the plain versions (bitwise), stats on/off bitwise on one step's
+    reduce, the split of a step and a profiled step."""
+    import torch
+
+    from cpd_tpu_torch.obs.timing import now
+    from cpd_tpu_torch.parallel.dist import grad_sr_key, sum_gradients
+    from cpd_tpu_torch.parallel.emulate import emulate_node_reduce
+    from cpd_tpu_torch.parallel.overlap import (DEFAULT_BUCKET_ELEMS,
+                                                bucket_layout)
+    from cpd_tpu_torch.quant.prng import fold_in
+    from cpd_tpu_torch.train import as_batch, fp32_numerics, local_gradients
+
+    arm = EMU_ARMS[name]
+    w, n, fmt = EMU["world"], EMU["emulate_node"], EMU["fmt"]
+    sr = arm["grad_rounding"] == "stochastic"
+    reset_counts()
+    model, opt, state, step = emu_build(device, arm, mesh, None)
+    sizes = [p.numel() for p in model.parameters()]
+    n_buckets = len(bucket_layout(sizes, DEFAULT_BUCKET_ELEMS))
+    losses, secs, metrics, after_one = [], [], [], None
+    for i, (bx, by) in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = now()
+        state, m = step(state, bx, by)
+        torch.cuda.synchronize()
+        secs.append(now() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+        losses.append(metrics[-1]["loss"])
+        if i == 0:
+            after_one = ([t.clone() for t in model.state_dict().values()]
+                         + [t.clone() for t in opt_tensors(state.opt_state)])
+    counts = read_counts()
+    design = {k: len(batches) * v for k, v in emulate_step_design(
+        arm, w, n, sizes, n_buckets).items()}
+    if counts != design:
+        raise AssertionError(f"emulate arm {name}: launches {counts} != the "
+                             f"design's {design}")
+    if not all(math.isfinite(v) for v in losses) or not (
+            abs(losses[0] - math.log(10)) <= LM_LOSS_BAND):
+        raise AssertionError(f"emulate arm {name}: losses {losses} not "
+                             f"finite, or step 0 not within {LM_LOSS_BAND} "
+                             "of ln 10")
+    total = w * sum(sizes)
+    for i, m in enumerate(metrics):
+        if m["prec_wire_total"] != total or m["prec_aps_bad"] != 0:
+            raise AssertionError(f"emulate arm {name} step {i}: "
+                                 f"prec_wire_total {m['prec_wire_total']} "
+                                 f"(design W x parameters = {total}), "
+                                 f"prec_aps_bad {m['prec_aps_bad']}")
+
+    # one step from the same start through the plain versions
+    plain_model, _, plain_state, plain_step = emu_build(device, arm, mesh,
+                                                        False)
+    torch.cuda.synchronize()
+    t0 = now()
+    plain_state, _ = plain_step(plain_state, *batches[0])
+    torch.cuda.synchronize()
+    plain_s = now() - t0
+    plain = (list(plain_model.state_dict().values())
+             + opt_tensors(plain_state.opt_state))
+    if len(plain) != len(after_one):
+        raise AssertionError(f"emulate arm {name}: state sizes differ")
+    for i, (a, b) in enumerate(zip(after_one, plain)):
+        if not same_bits(a, b):
+            raise AssertionError(f"emulate arm {name}: state tensor {i} "
+                                 "after one step differs between the "
+                                 "kernels and the plain versions")
+    del plain_model, plain_state, plain_step, plain, after_one
+
+    # one step's reduce with stats on and off, and the step's split
+    x, y = as_batch(*batches[0], device)
+    kw = dict(use_aps=True, grad_exp=fmt[0], grad_man=fmt[1],
+              mode=arm["mode"], rounding=arm["grad_rounding"],
+              key=grad_sr_key(EMU["grad_seed"], state.step, 1) if sr
+              else None)
+    emu_key = grad_sr_key(EMU["grad_seed"], state.step, 0)
+    marks = []
+    with fp32_numerics():
+        torch.cuda.synchronize()
+        marks.append(now())
+        grads = local_gradients(model, x, y, mesh, n)[0]
+        torch.cuda.synchronize()
+        marks.append(now())
+        local = [emulate_node_reduce(
+            g, n, True, fmt[0], fmt[1], key=fold_in(emu_key, r) if sr
+            else None, rounding=arm["grad_rounding"])
+            for g, r in zip(grads, mesh.ranks)]
+        del grads
+        torch.cuda.synchronize()
+        marks.append(now())
+        red_on, report = sum_gradients(local, mesh, stats=True, **kw)
+        torch.cuda.synchronize()
+        marks.append(now())
+        red_off = sum_gradients(local, mesh, **kw)
+        for i, (a, b) in enumerate(zip(red_on[0], red_off[0])):
+            if not same_bits(a, b):
+                raise AssertionError(f"emulate arm {name} leaf {i}: the "
+                                     "reduce differs with stats on and off")
+        if float(report["wire_total"]) != total:
+            raise AssertionError(f"emulate arm {name}: wire_total "
+                                 f"{float(report['wire_total'])} != {total}")
+        torch.cuda.synchronize()
+        marks.append(now())
+        opt.apply(red_on[0], state.opt_state, state.params)
+        torch.cuda.synchronize()
+        marks.append(now())
+    del local, red_on, red_off
+    split = dict(zip(("fwd_bwd_ms", "emulate_ms", "reduce_ms"),
+                     ((b - a) * 1e3 for a, b in zip(marks, marks[1:4]))))
+    split["update_ms"] = (marks[5] - marks[4]) * 1e3
+    prof = step_profile(step, state, batches[0])
+    rows = w * n * EMU["micro_batch"]
+    timed = secs[1:]
+    out = dict(
+        arm=name, mode=arm["mode"], grad_rounding=arm["grad_rounding"],
+        optimizer=arm["optimizer"], opt_kw=arm["opt_kw"], world=w,
+        emulate_node=n, micro_batch=EMU["micro_batch"], global_batch=rows,
+        steps=len(batches), losses=losses,
+        step_ms=sum(timed) / len(timed) * 1e3,
+        images_per_s=rows / (sum(timed) / len(timed)),
+        plain_step_ms=plain_s * 1e3, n_leaves=len(sizes),
+        n_buckets=n_buckets, launches=counts,
+        launches_per_step={k: v // len(batches) for k, v in counts.items()
+                           if v},
+        health={k: v for k, v in metrics[-1].items()
+                if k.startswith("prec_")},
+        **split,
+        profile={k: prof.get(k) for k in ("device_busy_ms",
+                                          "kernel_launches",
+                                          "top_kernels")})
+    print(f"train emulate {name}: " + json.dumps(out), flush=True)
+    print(f"train emulate {name}: {arm['mode']} {arm['grad_rounding']} "
+          f"{arm['optimizer']}, W={w} x emulate_node {n} x {EMU['micro_batch']}"
+          f": one step kernels == plain versions bitwise (weights, buffers, "
+          "BN stats), launches per step as designed, stats on/off bitwise, "
+          f"wire_total {total}; {out['images_per_s']:.1f} images/s",
+          flush=True)
+    return out
+
+
+def emulate_phase(device) -> dict:
+    """Phase 13: the flagship step's other arms (`emulate_node`, LARS,
+    `quant_sgd`, the reduce's health telemetry): (a) the library step at
+    full width, both arms; (b) the CLI with ``--emulate_node 8`` and
+    LARS, then the e4m3 Kahan buffer; (c) the golden APS ordering."""
+    import torch
+
+    from cpd_tpu_torch.examples import aps_golden
+    from cpd_tpu_torch.examples.resnet18_cifar import train as cli
+    from cpd_tpu_torch.obs.timing import now
+    from cpd_tpu_torch.parallel.mesh import data_parallel_mesh
+
+    marks = [now()]
+    flat = flat_bits_check(device)
+    rows = EMU["world"] * EMU["emulate_node"] * EMU["micro_batch"]
+    if rows != TRAIN["world"] * TRAIN["per_rank_batch"]:
+        raise AssertionError("phase 13 reuses the slice's 512-image batches")
+    batches = slice_batches(EMU["steps"])
+    mesh = data_parallel_mesh(EMU["world"], device)
+    arms = {name: emulate_arm(device, name, batches, mesh)
+            for name in EMU_ARMS}
+    marks.append(now())
+
+    cli_runs = []
+    for extra in EMU_CLI_ARMS:
+        reset_counts()
+        t0 = now()
+        res = cli.run(cli.parse_args(EMU_CLI + extra), device=device)
+        run = dict(flags=extra, seconds=now() - t0, loss=res["loss"],
+                   best_prec1=res["best_prec1"],
+                   launches={k: v for k, v in read_counts().items() if v})
+        if (res["diverged"] or res["step"] != 3
+                or not math.isfinite(res["loss"]) or not run["launches"]):
+            raise AssertionError(f"CLI {EMU_CLI + extra}: {res}")
+        cli_runs.append(run)
+        print("train emulate cli: " + json.dumps(run), flush=True)
+    marks.append(now())
+
+    reset_counts()
+    golden = aps_golden.run_experiment(
+        iters=GOLDEN["iters"], batch_size=GOLDEN["batch_size"],
+        configs=GOLDEN_CONFIGS, device=device)
+    noaps = golden["e3m4_noaps"]["prec1"]
+    aps = golden["e3m4_aps"]["prec1"]
+    golden_launches = {k: v for k, v in read_counts().items() if v}
+    print(f"golden: e3m4 on the tiny CNN, W={aps_golden.WORLD} x "
+          f"emulate_node 2 x {GOLDEN['batch_size']}, {GOLDEN['iters']} "
+          f"iterations, fast mode: no-APS Prec@1 {noaps:.2f}, APS Prec@1 "
+          f"{aps:.2f}; launches {json.dumps(golden_launches)}", flush=True)
+    if not (aps >= noaps + GOLDEN["margin"] and aps >= GOLDEN["floor"]):
+        raise AssertionError(f"golden ordering: APS {aps} must reach no-APS "
+                             f"{noaps} + {GOLDEN['margin']} and "
+                             f"{GOLDEN['floor']}")
+    marks.append(now())
+    torch.cuda.synchronize()
+    seconds = dict(zip(("library_step", "cli", "golden"),
+                       (b - a for a, b in zip(marks, marks[1:]))))
+    print("train emulate seconds: " + json.dumps(seconds), flush=True)
+    return dict(flat_bits=flat, arms=arms, cli=cli_runs,
+                golden=dict(noaps=noaps, aps=aps, launches=golden_launches,
+                            **{k: golden[k] for k in golden}),
+                seconds=seconds)
+
+
 @contextlib.contextmanager
 def plain_kernels():
     """K8-K11 replaced by their plain versions, on CUDA tensors too, for
@@ -4819,6 +5196,7 @@ def main() -> int:
     headline = headline_phase(device)
     print("train headline seconds: " + json.dumps(headline["seconds"]),
           flush=True)
+    emulate = emulate_phase(device)
 
     main_case = kern["cases"]["e4m3"]
     kernels = [dict(
@@ -4917,6 +5295,15 @@ def main() -> int:
             shape=q["shape"],
             **{k: q[k] for k in ("ms_with_digest",) + WIRE_FIELDS
                if k in q}))
+    # phase 13's launches per step of each arm (the emulate-node reduce,
+    # the APS reduce and quant_sgd's casts), and the flat bits arm
+    for entry in kernels:
+        per_arm = {a: r["launches_per_step"].get(entry["name"], 0)
+                   for a, r in emulate["arms"].items()}
+        if any(per_arm.values()):
+            entry["launches_per_step_emulate"] = per_arm
+        if entry["name"] == "sr_bits":
+            entry["flat_arm"] = emulate["flat_bits"]
     kernels += lm_kernel_entries(qgemm, flash, lm)
     kernels += mha_kernel_entries(mha, bench_lm)
     kernels += gqa_bf16_kernel_entries(flash, mha, gqa_lm)

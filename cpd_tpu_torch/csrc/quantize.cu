@@ -30,6 +30,9 @@
 // (numerics.sr_bits_at: two threefry2x32 per element); it is bound by
 // the integer instructions it issues per element (about two on the
 // 64-lane ALU pipe per threefry round), not by its 4 written bytes.
+// flat_bits_kernel is its one-threefry arm: jax.random.bits(key, shape)
+// by flat index (numerics.cast_to_format_sr), the bits of quant_sgd's
+// casts and of the emulate-node pre-quantize.
 //
 // What bounds them.  Each is a streaming pass of a few integer ops per
 // element: 8 bytes per element for the cast (read 4, write 4), 12 for the
@@ -1084,6 +1087,20 @@ __global__ void sr_bits_kernel(uint32_t* __restrict__ out, int64_t n,
     out[i] = exmy::sr_bits_at(k0, k1, start + uint32_t(i));
 }
 
+// out[i] = x0 ^ x1 of TF((k0, k1), (0, i)): jax.random.bits(key, shape)
+// at the flat index i (prng.random_bits), the bits quant_sgd's casts and
+// the emulate-node pre-quantize draw
+__global__ void flat_bits_kernel(uint32_t* __restrict__ out, int64_t n,
+                                 uint32_t k0, uint32_t k1) {
+  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
+  for (int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    uint32_t x0 = 0u, x1 = uint32_t(i);
+    exmy::threefry2x32(k0, k1, x0, x1);
+    out[i] = x0 ^ x1;
+  }
+}
+
 // one CTA per row of `count` partials of kS sums each: the row's kS / 2
 // digests (s2 << 16) | s1 at digest[row * kS / 2].  K5/K6: one row, kS 4
 // (digest[0] the received wire, digest[1] the emitted one); K7: a row per
@@ -1158,6 +1175,16 @@ extern "C" int quantize_sr_bits_launch(void* out, long long n,
   sr_bits_kernel<<<grid_for(n, 4096), kThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<uint32_t*>(out), n, start, k0, k1);
+  return int(cudaGetLastError());
+}
+
+// The flat-index bits of n elements at the indices 0 .. n - 1.
+extern "C" int quantize_flat_bits_launch(void* out, long long n,
+                                         unsigned int k0, unsigned int k1,
+                                         void* stream) {
+  flat_bits_kernel<<<grid_for(n, 4096), kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint32_t*>(out), n, k0, k1);
   return int(cudaGetLastError());
 }
 

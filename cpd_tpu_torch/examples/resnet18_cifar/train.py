@@ -4,19 +4,27 @@
     python -m cpd_tpu_torch.examples.resnet18_cifar.train --mode ring \\
         --use_APS --grad_exp 5 --grad_man 2 --max-iter 20
 
-One data-parallel rank on the card: ``--arch`` (the config's
-``res_cifar`` by default; the ImageNet ResNets of `models.resnet` too),
-seed-24 weights, the seed-0 iteration sampler, pad-4 reflect / random
-crop / flip augmentation re-drawn each epoch, SGD (momentum and weight
-decay from ``configs/res18_cifar.yaml``) under the warmup -> peak -> x0.1
-at epochs 40 and 80 schedule, the APS low-precision gradient reduce in
-``--mode`` faithful, ring or fast (``--grad-rounding stochastic
---grad-seed N`` rounds it stochastically, ``--use_kahan`` compensates
-it, ``--block-scale --block-size B`` ships the ring block-scaled),
-validation every ``--val_freq`` iterations and at the end.  Without
-CIFAR-10 under ``--data-root`` (or ``./data``) it trains on the
-deterministic synthetic stand-in.  Checkpoints and the other
-flags of the JAX trainer are not ported yet: passing one raises.
+    python -m cpd_tpu_torch.examples.resnet18_cifar.train --use_APS \\
+        --grad_exp 5 --grad_man 2 --emulate_node 8 --use_lars
+
+Data-parallel ranks on the card (`run`'s ``world``, one by default, the
+JAX trainer's device count): ``--arch`` (the config's ``res_cifar`` by
+default; the ImageNet ResNets of `models.resnet` and the ``tiny`` CNN
+too), seed-24 weights, the seed-0 iteration sampler, pad-4 reflect /
+random crop / flip augmentation re-drawn each epoch, ``--emulate_node
+N`` micro-batches of ``--batch_size`` a rank reduced locally before the
+cross-rank reduce (an epoch counts the emulated cluster), SGD (momentum
+and weight decay from ``configs/res18_cifar.yaml``), LARS (``--use_lars``)
+or the eXmY momentum buffer (``--opt_exp/--opt_man/--opt_kahan``,
+``--opt-rounding stochastic --opt-seed N``; ``--optimizer`` names one)
+under the warmup -> peak -> x0.1 at epochs 40 and 80 schedule, the APS
+low-precision gradient reduce in ``--mode`` faithful, ring or fast
+(``--grad-rounding stochastic --grad-seed N`` rounds it stochastically,
+``--use_kahan`` compensates it, ``--block-scale --block-size B`` ships
+the ring block-scaled), validation every ``--val_freq`` iterations and
+at the end.  Without CIFAR-10 under ``--data-root`` (or ``./data``) it
+trains on the deterministic synthetic stand-in.  Checkpoints and the
+other flags of the JAX trainer are not ported yet: passing one raises.
 """
 
 from __future__ import annotations
@@ -32,22 +40,27 @@ from ...obs.timing import now
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 
-# flags of the JAX trainer that the port does not have yet
-_NOT_PORTED = (
-    "--dist", "--load-path", "--init-from-torch", "--export-torch",
-    "--resume-opt", "--use_lars", "--opt_exp", "--opt_man", "--opt_kahan",
-    "--opt-rounding", "--opt-seed", "--optimizer", "--shampoo-stat-exp",
-    "--shampoo-stat-man", "--shampoo-stat-mode", "-e", "--evaluate",
-    "--emulate_node", "--max_epoch", "--save_path", "--clip-grad",
-    "--profile-dir", "--tensorboard", "--zero1", "--zero2",
-    "--overlap-reduce", "--bucket-elems", "--obs-dir", "--obs-flight", "--fault-plan", "--guard-grads",
-    "--spike-factor", "--watchdog-timeout", "--divergence-window",
-    "--divergence-factor", "--divergence-mode", "--max-rollbacks",
-    "--rollback-backoff", "--no-ckpt-integrity", "--verify-reduce",
-    "--reduce-retries", "--transport-probation", "--precision-ladder",
-    "--sat-threshold", "--sat-patience", "--precision-probation",
-    "--quant-telemetry", "--elastic", "--heartbeat-patience",
-    "--straggler-factor")
+# flags of the JAX trainer that the port does not have yet, by the
+# ROADMAP Queue A item they wait for
+_NOT_PORTED = {
+    "--dist": "A3", "--load-path": "A4", "--init-from-torch": "A4",
+    "--export-torch": "A4", "--resume-opt": "A4",
+    "--shampoo-stat-exp": "A12", "--shampoo-stat-man": "A12",
+    "--shampoo-stat-mode": "A12", "-e": "A4", "--evaluate": "A4",
+    "--max_epoch": "A4", "--save_path": "A4", "--clip-grad": "A4",
+    "--profile-dir": "A11", "--tensorboard": "A11", "--zero1": "A6",
+    "--zero2": "A6", "--overlap-reduce": "A6", "--bucket-elems": "A6",
+    "--obs-dir": "A11", "--obs-flight": "A11", "--fault-plan": "A10",
+    "--guard-grads": "A10", "--spike-factor": "A10",
+    "--watchdog-timeout": "A10", "--divergence-window": "A10",
+    "--divergence-factor": "A10", "--divergence-mode": "A10",
+    "--max-rollbacks": "A10", "--rollback-backoff": "A10",
+    "--no-ckpt-integrity": "A4", "--verify-reduce": "A10",
+    "--reduce-retries": "A10", "--transport-probation": "A10",
+    "--precision-ladder": "A10", "--sat-threshold": "A10",
+    "--sat-patience": "A10", "--precision-probation": "A10",
+    "--quant-telemetry": "A10", "--elastic": "A10",
+    "--heartbeat-patience": "A10", "--straggler-factor": "A10"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -63,8 +76,32 @@ def build_parser() -> argparse.ArgumentParser:
                         "stochastic = unbiased SR")
     p.add_argument("--grad-seed", default=0, type=int,
                    help="PRNG seed for --grad-rounding stochastic")
+    p.add_argument("--use_lars", action="store_true")
     p.add_argument("--use_APS", action="store_true")
     p.add_argument("--use_kahan", action="store_true")
+    # optimizer-state precision: the SGD momentum buffer held in eXmY
+    p.add_argument("--opt_exp", default=8, type=int)
+    p.add_argument("--opt_man", default=23, type=int)
+    p.add_argument("--opt_kahan", action="store_true",
+                   help="Kahan-compensate the quantized momentum buffer")
+    p.add_argument("--opt-rounding", default="nearest",
+                   choices=["nearest", "stochastic"],
+                   help="rounding of the eXmY momentum-buffer casts: "
+                        "stochastic = unbiased SR (train/optim.py "
+                        "quant_sgd)")
+    p.add_argument("--opt-seed", default=0, type=int,
+                   help="PRNG seed for --opt-rounding stochastic")
+    p.add_argument("--optimizer", default="auto",
+                   choices=["auto", "sgd", "nesterov", "lars", "quant_sgd",
+                            "shampoo-lite"],
+                   help="optimizer family.  'auto' (default) keeps the "
+                        "flag-driven choice (--use_lars / --opt_exp&co -> "
+                        "quant_sgd, else sgd).  'shampoo-lite' is not "
+                        "ported yet")
+    p.add_argument("--emulate_node", default=1, type=int,
+                   help="micro-batches a rank runs and reduces locally "
+                        "before the cross-rank reduce (an emulated "
+                        "cluster of ranks x N)")
     p.add_argument("--mode", default="faithful",
                    choices=["faithful", "fast", "ring"])
     p.add_argument("--arch", default=None, type=str,
@@ -136,8 +173,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                 "make_train_step(verify_reduce=True)")
         if flag in _NOT_PORTED:
             raise SystemExit(f"{flag}: not yet ported to cpd_tpu_torch "
-                             f"(ROADMAP Queue A)")
+                             f"(ROADMAP Queue A, {_NOT_PORTED[flag]})")
         build_parser().error(f"unrecognized arguments: {' '.join(rest)}")
+    if args.emulate_node < 1:
+        raise SystemExit(f"--emulate_node must be >= 1, got "
+                         f"{args.emulate_node}")
+    args.opt_name = _optimizer_name(args)
     if args.block_scale and args.mode != "ring":
         raise SystemExit("--block-scale needs --mode ring: the per-block "
                          "scale sidecar rides a packed wire")
@@ -163,7 +204,38 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
-def run(args: argparse.Namespace, device="cuda") -> dict:
+def _optimizer_name(args: argparse.Namespace) -> str:
+    """The optimizer the flags select, with the JAX trainer's
+    contradiction checks (`examples/resnet18_cifar/train.py:198-257`)."""
+    quant_opt = (args.opt_exp, args.opt_man) != (8, 23) or args.opt_kahan
+    if quant_opt and args.use_lars:
+        raise SystemExit("--use_lars and --opt_exp/--opt_man/--opt_kahan "
+                         "are exclusive")
+    if (args.opt_rounding != "nearest"
+            and (args.opt_exp, args.opt_man) == (8, 23)):
+        # --opt_kahan with an fp32 buffer would silently drop SR
+        raise SystemExit("--opt-rounding stochastic needs a quantized "
+                         "buffer (--opt_exp/--opt_man below fp32)")
+    if args.optimizer == "shampoo-lite":
+        raise SystemExit("--optimizer shampoo-lite: not yet ported to "
+                         "cpd_tpu_torch (ROADMAP Queue A, A12)")
+    if args.optimizer != "auto":
+        if args.use_lars and args.optimizer != "lars":
+            raise SystemExit("--use_lars contradicts --optimizer "
+                             f"{args.optimizer}")
+        if quant_opt and args.optimizer != "quant_sgd":
+            raise SystemExit(f"--opt_exp/--opt_man/--opt_kahan need "
+                             f"the quantized momentum buffer; "
+                             f"--optimizer {args.optimizer} would "
+                             f"ignore them (use quant_sgd or auto)")
+        return args.optimizer
+    return "lars" if args.use_lars else "quant_sgd" if quant_opt else "sgd"
+
+
+def run(args: argparse.Namespace, device="cuda", world: int = 1) -> dict:
+    """Train as the flags say on ``world`` `LocalMesh` ranks on
+    ``device`` (the JAX trainer's device count); returns the last
+    metrics with ``step``, ``best_prec1`` and ``diverged``."""
     import torch
 
     from ...data import (CIFAR10Pipeline, DistributedGivenIterationSampler,
@@ -172,13 +244,16 @@ def run(args: argparse.Namespace, device="cuda") -> dict:
     from ... import models
     from ...parallel.mesh import data_parallel_mesh
     from ...train import (create_train_state, make_eval_step,
-                          make_train_step, sgd, warmup_step_decay)
+                          make_optimizer, make_train_step,
+                          warmup_step_decay)
 
     dev = resolve_device(device)
-    mesh = data_parallel_mesh(1, dev)
+    mesh = data_parallel_mesh(world, dev)
     seed = 24
     train_x, train_y, test_x, test_y = load_cifar10(args.data_root)
-    iter_per_epoch = math.ceil(len(train_y) / (mesh.world * args.batch_size))
+    # iterations per epoch count the emulated cluster
+    iter_per_epoch = math.ceil(len(train_y) / (
+        mesh.world * args.batch_size * args.emulate_node))
     total_iter = (args.max_iter if args.max_iter is not None
                   else args.max_epoch * iter_per_epoch)
     peak_lr = args.peak_lr if args.peak_lr is not None else 1.6
@@ -188,10 +263,16 @@ def run(args: argparse.Namespace, device="cuda") -> dict:
         warmup_from=peak_lr / 16.0)
     gen = torch.Generator(device=dev).manual_seed(seed)
     model = models.get_model(args.arch, device=dev).init_weights(gen)
-    opt = sgd(schedule, momentum=args.momentum,
-              weight_decay=args.weight_decay)
+    opt = make_optimizer(args.opt_name, schedule, momentum=args.momentum,
+                         weight_decay=args.weight_decay,
+                         opt_exp=args.opt_exp, opt_man=args.opt_man,
+                         opt_kahan=args.opt_kahan,
+                         opt_rounding=args.opt_rounding,
+                         opt_seed=args.opt_seed)
     state = create_train_state(model, opt)
-    train_step = make_train_step(model, opt, mesh, mode=args.mode,
+    train_step = make_train_step(model, opt, mesh,
+                                 emulate_node=args.emulate_node,
+                                 mode=args.mode,
                                  use_aps=args.use_APS,
                                  grad_exp=args.grad_exp,
                                  grad_man=args.grad_man,
@@ -202,10 +283,11 @@ def run(args: argparse.Namespace, device="cuda") -> dict:
                                  block_size=args.block_size)
     eval_step = make_eval_step(model, mesh)
 
-    global_batch = args.batch_size * mesh.world
+    global_batch = args.batch_size * mesh.world * args.emulate_node
     pipeline = CIFAR10Pipeline(train_x, train_y, global_batch, augment=True,
                                cutout=0)
-    eval_bs = max(1, min(1000, len(test_y)))
+    eval_bs = max(mesh.world,
+                  (min(1000, len(test_y)) // mesh.world) * mesh.world)
     eval_pipe = CIFAR10Pipeline(test_x, test_y, eval_bs, augment=False)
 
     def validate() -> dict:

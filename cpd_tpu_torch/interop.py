@@ -12,7 +12,8 @@ Both projection layouts load: MHA (``wqkv``) and GQA (``wq``/``wkv``).
 (O, I), BN ``scale``/``bias``/``mean``/``var`` -> ``weight``/``bias``/
 ``running_mean``/``running_var``.  (The port's own copy of the mapping
 in `cpd_tpu/interop/torch_export.py`.)  `load_jax_resnet` — the same
-mapping for a flax ImageNet `ResNet` (`models.resnet`).
+mapping for a flax ImageNet `ResNet` (`models.resnet`), `load_jax_tiny`
+for a flax `TinyCNN` (`models.tiny`).
 
 The trees hold numpy arrays (``jax.device_get`` of the flax variables);
 this module never imports jax.
@@ -25,7 +26,8 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-__all__ = ["load_jax_params", "load_jax_resnet_cifar", "load_jax_resnet"]
+__all__ = ["load_jax_params", "load_jax_resnet_cifar", "load_jax_resnet",
+           "load_jax_tiny"]
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> dict:
@@ -99,6 +101,15 @@ def load_jax_resnet(model: torch.nn.Module,
     downsample_bn}``, ``fc``) into the port's `models.resnet.ResNet` in
     place.  Every parameter and running stat must be covered and every
     leaf used."""
+    return _load_resnet(model, variables)
+
+
+def load_jax_tiny(model: torch.nn.Module,
+                  variables: Mapping[str, Any]) -> torch.nn.Module:
+    """Copy a flax TinyCNN's ``{"params": ..., "batch_stats": ...}``
+    (numpy leaves: ``conv0``, ``bn0``, ``conv1``, ``bn1``, ``fc``) into
+    the port's `models.tiny.TinyCNN` in place.  Every parameter and
+    running stat must be covered and every leaf used."""
     return _load_resnet(model, variables)
 
 

@@ -3,6 +3,7 @@ by the JAX package's names (`get_model`)."""
 
 from .resnet import ResNet, resnet18, resnet34, resnet50, resnet101
 from .resnet_cifar import ResNetCIFAR, resnet18_cifar
+from .tiny import TinyCNN, tiny_cnn
 from .transformer import TransformerLM, transformer_lm
 
 _REGISTRY = {
@@ -12,6 +13,7 @@ _REGISTRY = {
     "resnet34": resnet34,
     "resnet50": resnet50,
     "resnet101": resnet101,
+    "tiny": tiny_cnn,
 }
 ARCHS = tuple(_REGISTRY)
 
@@ -27,4 +29,4 @@ def get_model(name: str, **kwargs):
 
 __all__ = ["ResNetCIFAR", "resnet18_cifar", "ResNet", "resnet18",
            "resnet34", "resnet50", "resnet101", "TransformerLM",
-           "transformer_lm", "get_model", "ARCHS"]
+           "transformer_lm", "TinyCNN", "tiny_cnn", "get_model", "ARCHS"]

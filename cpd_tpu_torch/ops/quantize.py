@@ -71,7 +71,7 @@ from ..quant.numerics import (_validate, _validate_wire, cast_body,
                               pack_exmy_blocked, sidecar_bytes, unpack_exmy,
                               unpack_exmy_blocked, wire_bytes,
                               wire_bytes_blocked)
-from ..quant.prng import sr_bits_at, to_int32_bits
+from ..quant.prng import random_bits, sr_bits_at, to_int32_bits
 
 __all__ = ["quantize_cast", "quantize_cast_sr", "quantize_add",
            "quantize_add_sr", "quantize_pack", "quantize_pack_sr",
@@ -167,14 +167,24 @@ def digest_rows_ref(rows: torch.Tensor) -> torch.Tensor:
     return row_digests(rows)
 
 
-def sr_bits_ref(key: tuple, like: torch.Tensor, *,
-                offset_start: int = 0) -> torch.Tensor:
+def sr_bits_ref(key: tuple, like: torch.Tensor, *, offset_start: int = 0,
+                flat: bool = False) -> torch.Tensor:
     """Plain version of `sr_bits`: ``prng.sr_bits_at(key, o)`` for the
-    offsets ``offset_start + i`` of ``like``'s elements, as a flat int32
-    tensor of uint32 patterns."""
+    offsets ``offset_start + i`` of ``like``'s elements (``flat``:
+    ``prng.random_bits(key, (n,))``, which has no offset), as a flat
+    int32 tensor of uint32 patterns."""
+    if flat:
+        _flat_from_zero(offset_start)
+        return to_int32_bits(random_bits(key, (like.numel(),), like.device))
     o = torch.arange(like.numel(), dtype=torch.int64,
                      device=like.device) + offset_start
     return to_int32_bits(sr_bits_at(key, o))
+
+
+def _flat_from_zero(offset_start: int) -> None:
+    if offset_start:
+        raise ValueError(f"offset_start={offset_start} with flat=True: the "
+                         "flat bits (jax.random.bits) start at index 0")
 
 
 # -- the kernels -----------------------------------------------------------
@@ -227,6 +237,10 @@ def _library():
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint, ctypes.c_uint,
             ctypes.c_uint, ctypes.c_void_p]
         lib.quantize_sr_bits_launch.restype = ctypes.c_int
+        lib.quantize_flat_bits_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint, ctypes.c_uint,
+            ctypes.c_void_p]
+        lib.quantize_flat_bits_launch.restype = ctypes.c_int
         lib.quantize_wire_blocks.argtypes = [ctypes.c_longlong]
         lib.quantize_wire_blocks.restype = ctypes.c_int
         lib.quantize_blocked_launch.argtypes = [ctypes.c_void_p] * 7 + [
@@ -374,25 +388,35 @@ def quantize_add_sr(x: torch.Tensor, y: torch.Tensor, exp_bits: int,
     return out
 
 
-def sr_bits(key: tuple, like: torch.Tensor, *,
-            offset_start: int = 0) -> torch.Tensor:
+def sr_bits(key: tuple, like: torch.Tensor, *, offset_start: int = 0,
+            flat: bool = False) -> torch.Tensor:
     """The SR round bits of ``like``'s elements: ``prng.sr_bits_at(key,
     o)`` at the offsets ``offset_start + i`` (mod 2^32), as a flat int32
-    tensor of uint32 patterns on ``like``'s device.  A CPU ``like`` takes
-    `sr_bits_ref`; a CUDA one launches the kernel, counted in
-    ``sr_bits.launches``."""
+    tensor of uint32 patterns on ``like``'s device.  ``flat=True`` draws
+    ``jax.random.bits(key, shape)``'s bits instead (one threefry an
+    element at its flat index from 0, the stream of
+    `numerics.cast_to_format_sr`; ``flat_bits_kernel``), and refuses an
+    ``offset_start``.  A CPU ``like`` takes `sr_bits_ref`; a CUDA one
+    launches the kernel, counted in ``sr_bits.launches`` either way."""
     dev = _device(like)
     if dev.type == "cpu":
-        return sr_bits_ref(key, like, offset_start=offset_start)
+        return sr_bits_ref(key, like, offset_start=offset_start, flat=flat)
+    if flat:
+        _flat_from_zero(offset_start)
     n = like.numel()
     out = torch.empty((n,), dtype=torch.int32, device=dev)
     if n == 0:
         return out
     lib = _library()
+    keys = (key[0] & 0xFFFFFFFF, key[1] & 0xFFFFFFFF)
     with torch.cuda.device(dev):
-        rc = lib.quantize_sr_bits_launch(
-            out.data_ptr(), n, offset_start & 0xFFFFFFFF,
-            key[0] & 0xFFFFFFFF, key[1] & 0xFFFFFFFF, _stream(dev))
+        if flat:
+            rc = lib.quantize_flat_bits_launch(out.data_ptr(), n, *keys,
+                                               _stream(dev))
+        else:
+            rc = lib.quantize_sr_bits_launch(
+                out.data_ptr(), n, offset_start & 0xFFFFFFFF, *keys,
+                _stream(dev))
     _raise_on(lib, rc, "sr_bits")
     sr_bits.launches += 1
     return out

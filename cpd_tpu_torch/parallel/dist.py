@@ -45,6 +45,17 @@ fast mode the report is the cross-rank agreement of
 (`ring.ring_quantized_sum`'s ``fault``), so one fault gives the same
 counters whatever the bucket count.
 
+``stats=True`` returns ``(reduced, report)`` too, the report holding the
+reduce wire's numeric health (`numerics.quant_health`): ``wire_sat``,
+``wire_underflow``, ``wire_nan`` and ``wire_total`` summed over the ranks,
+and ``aps_bad``, the leaves whose rank-MAX'd APS exponent is +Inf or NaN
+(`aps_shift_factors_checked`; 0 without APS).  With APS the counters
+observe the pre-quantize's (scaled, cast) pair that already ran; without
+APS each rank's gradients x W are cast to the wire format once (RTNE,
+one K1 a leaf, whatever ``rounding``) as a probe whose output is
+discarded.  The reduced values are bitwise those of ``stats=False``.
+With ``verify`` the two reports merge into one dict.
+
 On CUDA tensors (``fused=None``) every cast is a hand-written kernel:
 the APS pre-quantize is K1, or `sr_bits` + K2 (one launch each per leaf
 per rank), a faithful scan step K3 or `sr_bits` + K4 (four of each per
@@ -61,6 +72,7 @@ from typing import Mapping, Optional, Sequence
 
 import torch
 
+from ..quant.numerics import HEALTH_FIELDS, quant_health
 from ..quant.prng import PRNGKey, fold_in, split
 from .aps import (aps_max_exponents, aps_scale, aps_shift_factors_checked,
                   aps_unscale)
@@ -71,7 +83,7 @@ from .reduction import _use_kernel, cast_site, quantized_sum
 from .ring import clean_report, hierarchical_ring_sum, report_ok
 
 __all__ = ["sum_gradients", "make_sum_gradients_fn", "grad_sr_key",
-           "quantize_tree_sr"]
+           "quantize_tree_sr", "tree_quant_health"]
 
 
 def _leaf_starts(leaves: Sequence[torch.Tensor]) -> list:
@@ -97,6 +109,31 @@ def quantize_tree_sr(leaves: Sequence[torch.Tensor], grad_exp: int,
     starts = _leaf_starts(leaves) if starts is None else list(starts)
     return [cast_site(g, None, grad_exp, grad_man, kernel=kernel, key=key,
                       offset_start=st) for st, g in zip(starts, leaves)]
+
+
+# below this many elements every float32 count is an exact integer
+EXACT_COUNTS = 1 << 24
+
+
+def tree_quant_health(before: Sequence[torch.Tensor],
+                      after: Sequence[torch.Tensor]) -> dict:
+    """`quant_health` summed over two matching leaf lists (cast inputs
+    and outputs, leaf for leaf), as the JAX package sums it: float32,
+    leaf by leaf from zero.  Below EXACT_COUNTS elements every partial
+    sum is an exact integer, so the counts are taken once over the leaves
+    concatenated; past it, leaf by leaf, where the float32 sum rounds as
+    JAX's does.  Empty lists report zeros."""
+    if not before:
+        return {f: torch.zeros((), dtype=torch.float32) for f in
+                HEALTH_FIELDS}
+    if sum(b.numel() for b in before) < EXACT_COUNTS:
+        return quant_health(_concat(before), _concat(after))
+    total = None
+    for b, a in zip(before, after):
+        h = quant_health(b, a)
+        total = h if total is None else {f: total[f] + h[f]
+                                         for f in HEALTH_FIELDS}
+    return total
 
 
 def grad_sr_key(grad_seed: int, step: int, site: int) -> tuple:
@@ -139,8 +176,9 @@ def sum_gradients(grads: Sequence[Sequence[torch.Tensor]], mesh,
     `prng` key, e.g. `grad_sr_key`) rounds every cast stochastically
     (module docstring).  ``block_scale`` ships the ring block-scaled
     (blocks of ``block_size``); ``verify`` returns ``(reduced, report)``
-    and ``wire_fault`` corrupts bucket 0's ring (module docstring).
-    Stats are not ported yet and raise."""
+    and ``wire_fault`` corrupts bucket 0's ring; ``stats`` returns
+    ``(reduced, report)`` with the wire's health counters (module
+    docstring)."""
     if mode not in ("faithful", "ring", "fast"):
         raise ValueError(f"unknown mode {mode!r}")
     if rounding not in ("nearest", "stochastic"):
@@ -157,16 +195,16 @@ def sum_gradients(grads: Sequence[Sequence[torch.Tensor]], mesh,
             f"block_scale=True needs mode='ring' (got {mode!r}): the "
             f"per-block shift sidecar rides the ring's packed wire — "
             f"faithful's gather and fast's psum have no lane to carry it")
-    if stats:
-        raise NotImplementedError("stats=True (reduce-wire telemetry) is "
-                                  "not ported yet (ROADMAP Queue A, A3)")
     if len(grads) != len(mesh.ranks):
         raise ValueError(f"expected one leaf list per local rank "
                          f"({len(mesh.ranks)}), got {len(grads)}")
     template = list(grads[0])
     if not template:
         out = [list(g) for g in grads]
-        return (out, clean_report()) if verify else out
+        prec = [tree_quant_health([], [])] * len(grads)
+        return _with_report(out, clean_report() if verify else None,
+                            prec if stats else None, torch.zeros(
+                                (), dtype=torch.int32), mesh)
     kernel = _use_kernel(template[0], fused)
     grads = [[g.to(torch.float32) for g in leaves] for leaves in grads]
     starts = _leaf_starts(template)
@@ -179,21 +217,39 @@ def sum_gradients(grads: Sequence[Sequence[torch.Tensor]], mesh,
         k_pre = [fold_in(k_pre_all, r) for r in mesh.ranks]
 
     shifts = [None] * len(grads)
+    prec = None
+    aps_bad = torch.zeros((), dtype=torch.int32, device=template[0].device)
     if use_aps:
         max_exp = mesh.max([aps_max_exponents(leaves, mesh.world)
                             for leaves in grads])
-        shifts = per_distinct(
-            lambda m: aps_shift_factors_checked(m, grad_exp)[0], max_exp)
-        grads = [quantize_tree_sr(aps_scale(leaves, s), grad_exp, grad_man,
-                                  k, starts, fused=kernel)
-                 for leaves, s, k in zip(grads, shifts, k_pre)]
+        checked = per_distinct(
+            lambda m: aps_shift_factors_checked(m, grad_exp), max_exp)
+        shifts = [c[0] for c in checked]
+        aps_bad = checked[0][1]
+        scaled = [aps_scale(leaves, s) for leaves, s in zip(grads, shifts)]
+        grads = [quantize_tree_sr(sc, grad_exp, grad_man, k, starts,
+                                  fused=kernel)
+                 for sc, k in zip(scaled, k_pre)]
+        if stats:
+            # the pre-quantize's own (input, output) pair: no extra cast
+            prec = [tree_quant_health(sc, g) for sc, g in zip(scaled, grads)]
+    elif stats:
+        # the probe: each rank's gradients x W (APS's bound on the scan's
+        # partial sums) cast once to the wire format, output discarded
+        w = float(mesh.world)
+        scaled = [[g * w for g in leaves] for leaves in grads]
+        prec = [tree_quant_health(sc, quantize_tree_sr(
+            sc, grad_exp, grad_man, None, starts, fused=kernel))
+            for sc in scaled]
+        del scaled
 
     if mode == "fast":
         reduced = _fast_sum(grads, mesh, template, shifts, use_aps,
                             grad_exp, grad_man, k_pre, k_post, starts,
                             kernel)
-        return (reduced, _agreement_report(reduced, mesh)) if verify \
-            else reduced
+        return _with_report(
+            reduced, _agreement_report(reduced, mesh) if verify else None,
+            prec, aps_bad, mesh)
 
     buckets = bucket_layout([g.numel() for g in template],
                             bucket_elems if bucket_elems is not None
@@ -223,11 +279,26 @@ def sum_gradients(grads: Sequence[Sequence[torch.Tensor]], mesh,
 
         for out, pieces in zip(reduced, per_distinct(unscaled, red, shifts)):
             out[lo:hi] = pieces
-    if not verify:
+    report = None
+    if verify:
+        report = (_merge_verify_reports(reports) if mode == "ring"
+                  else _agreement_report(reduced, mesh))
+    return _with_report(reduced, report, prec, aps_bad, mesh)
+
+
+def _with_report(reduced: list, report: Optional[dict],
+                 prec: Optional[list], aps_bad: torch.Tensor, mesh):
+    """``reduced``, or ``(reduced, report)`` when a verify report or the
+    per-rank health counters ``prec`` are on: the counters summed over
+    the ranks as ``wire_*``, beside ``aps_bad``."""
+    if report is None and prec is None:
         return reduced
-    if mode == "ring":
-        return reduced, _merge_verify_reports(reports)
-    return reduced, _agreement_report(reduced, mesh)
+    report = {} if report is None else dict(report)
+    if prec is not None:
+        for f in HEALTH_FIELDS:
+            report["wire_" + f] = mesh.sum([p[f] for p in prec])[0]
+        report["aps_bad"] = aps_bad
+    return reduced, report
 
 
 def _fast_sum(grads: list, mesh, template: list, shifts: list,
@@ -286,8 +357,8 @@ def _merge_verify_reports(reports: list) -> dict:
 def make_sum_gradients_fn(mesh, **kwargs):
     """``stacked_grads -> reduced`` over ``mesh``: the leaves hold every
     rank's gradient stacked, ``(W, *shape)``; the result holds rank 0's
-    reduced ``(*shape)`` leaves (with ``verify=True``, ``(reduced,
-    report)``).  A dict keeps its keys (leaf order is its insertion
+    reduced ``(*shape)`` leaves (with ``verify`` or ``stats``,
+    ``(reduced, report)``).  A dict keeps its keys (leaf order is its insertion
     order), a sequence becomes a list.  Every keyword goes to
     `sum_gradients`."""
 
@@ -298,7 +369,8 @@ def make_sum_gradients_fn(mesh, **kwargs):
             keys, leaves = None, list(stacked)
         per_rank = [[leaf[r] for leaf in leaves] for r in mesh.ranks]
         res = sum_gradients(per_rank, mesh, **kwargs)
-        out, report = res if kwargs.get("verify") else (res, None)
+        out, report = (res if kwargs.get("verify") or kwargs.get("stats")
+                       else (res, None))
         out = dict(zip(keys, out[0])) if keys is not None else out[0]
         return out if report is None else (out, report)
 

@@ -49,19 +49,20 @@ def _use_kernel(x: torch.Tensor, fused: Optional[bool]) -> bool:
 
 
 def cast_site(x: torch.Tensor, y: Optional[torch.Tensor], exp: int,
-              man: int, *, kernel: bool, key=None,
-              offset_start: int = 0) -> torch.Tensor:
+              man: int, *, kernel: bool, key=None, offset_start: int = 0,
+              flat: bool = False) -> torch.Tensor:
     """``q(x [+ y])`` at one cast site: RTNE when ``key`` is None, else
     SR with the bits ``prng.sr_bits_at(key, offset_start + i)`` of each
-    element i.  ``kernel``: K1/K3, or `sr_bits` + K2/K4; else their plain
-    versions."""
+    element i (``flat``: ``jax.random.bits(key, x.shape)``'s, the bits of
+    `numerics.cast_to_format_sr`).  ``kernel``: K1/K3, or `sr_bits` +
+    K2/K4; else their plain versions."""
     if key is None:
         if y is None:
             return (quantize_cast if kernel else quantize_cast_ref)(
                 x, exp, man)
         return (quantize_add if kernel else quantize_add_ref)(x, y, exp, man)
     rbits = (sr_bits if kernel else sr_bits_ref)(
-        key, x, offset_start=offset_start)
+        key, x, offset_start=offset_start, flat=flat)
     if y is None:
         return (quantize_cast_sr if kernel else quantize_cast_sr_ref)(
             x, exp, man, rbits)

@@ -29,7 +29,9 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["cast_body", "cast_body_sr", "cast_to_format",
-           "cast_to_format_sr", "cast_to_format_sr_at", "max_finite", "wire_bytes",
+           "cast_to_format_sr", "cast_to_format_sr_at", "HEALTH_FIELDS",
+           "quant_health", "cast_to_format_stats", "max_finite",
+           "wire_bytes",
            "kv_page_bytes", "pack_code", "pack_exmy", "unpack_code",
            "unpack_exmy", "format_max_exponent", "sidecar_bytes",
            "block_shifts", "cast_body_blocked", "pack_exmy_blocked",
@@ -175,14 +177,14 @@ def cast_to_format(x: torch.Tensor, exp_bits: int,
 def cast_to_format_sr(x: torch.Tensor, exp_bits: int, man_bits: int,
                       key: tuple) -> torch.Tensor:
     """Stochastically rounded cast with the bits of
-    ``jax.random.bits(key, x.shape)`` (`prng.random_bits`, torch ops on
-    ``x``'s device); the cast itself is K2 (`ops.quantize.
-    quantize_cast_sr`) on a CUDA tensor, `cast_body_sr` on a CPU one."""
-    from ..ops.quantize import quantize_cast_sr
-    from .prng import random_bits, to_int32_bits
+    ``jax.random.bits(key, x.shape)`` (`prng.random_bits`); on a CUDA
+    tensor the bits are the flat arm of the `sr_bits` kernel and the cast
+    is K2 (`ops.quantize.quantize_cast_sr`), on a CPU one their plain
+    versions."""
+    from ..ops.quantize import quantize_cast_sr, sr_bits
 
-    return quantize_cast_sr(x, exp_bits, man_bits, to_int32_bits(
-        random_bits(key, x.shape, x.device)))
+    return quantize_cast_sr(x, exp_bits, man_bits,
+                            sr_bits(key, x, flat=True))
 
 
 def cast_to_format_sr_at(x: torch.Tensor, exp_bits: int, man_bits: int,
@@ -205,6 +207,50 @@ def cast_to_format_sr_at(x: torch.Tensor, exp_bits: int, man_bits: int,
 # specials: man 0 -> ±Inf, man 1 -> ±2^(emax+1) (the carry value),
 # man 2 -> NaN.  (8, 23) is the plain fp32 byte split.
 # --------------------------------------------------------------------------
+
+
+# -- numeric-health telemetry (`cpd_tpu/quant/numerics.py:316-355`) -----
+# One cast's (input, output) pair, three failure signatures: ``sat`` — the
+# output is ±Inf (saturation, or an Inf passed through); ``underflow`` — a
+# non-zero finite input came out ±0 (the fp32-subnormal flush, or a
+# subnormal target rounding its whole significand away); ``nan`` — NaN
+# inputs.  ``total`` is the element count.  Pure observation: the cast's
+# bits never depend on it.  The counters are float32 scalars (exact below
+# 2^24), summable over leaves and ranks.
+
+HEALTH_FIELDS = ("sat", "underflow", "nan", "total")
+
+_MAG = 0x7FFFFFFF
+_INF_BITS = 0x7F800000
+
+
+def quant_health(x: torch.Tensor, q: torch.Tensor) -> dict:
+    """{sat, underflow, nan, total} float32 scalars for one cast's input
+    ``x`` and output ``q``.  Zero-ness, Inf and NaN are read off the BIT
+    PATTERN (``& 0x7FFFFFFF``), never by a float compare, as the JAX
+    function decides them (XLA:CPU compares under DAZ, where a subnormal
+    == 0.0).  Each count is an integer sum taken to float32: equal to the
+    JAX package's float32 sum of ones below 2^24 elements."""
+    xb = x.to(torch.float32).reshape(-1).view(torch.int32) & _MAG
+    qb = q.to(torch.float32).reshape(-1).view(torch.int32) & _MAG
+    f32 = torch.float32
+    return {
+        "sat": (qb == _INF_BITS).sum().to(f32),
+        "underflow": ((qb == 0) & (xb != 0) & (xb < _INF_BITS)).sum().to(
+            f32),
+        "nan": (xb > _INF_BITS).sum().to(f32),
+        "total": torch.full((), float(x.numel()), dtype=f32,
+                            device=x.device),
+    }
+
+
+def cast_to_format_stats(x: torch.Tensor, exp_bits: int,
+                         man_bits: int) -> tuple:
+    """`cast_to_format` plus its health counters: ``(q, health)``, ``q``
+    bitwise the plain cast (K1 on a CUDA tensor, `cast_body` on a CPU
+    one) and ``health`` = `quant_health(x, q)`."""
+    q = cast_to_format(x, exp_bits, man_bits)
+    return q, quant_health(x, q)
 
 
 def wire_bytes(exp_bits: int, man_bits: int) -> int:

@@ -100,8 +100,10 @@ def make_lm_train_step(model, opt, mesh, *, emulate_node: int = 1,
     B rows.  ``metrics`` are 0-d tensors on the device.  ``fused`` goes
     to `sum_gradients` (None: the kernels on CUDA)."""
     if emulate_node != 1:
-        raise NotImplementedError("emulate_node > 1: not yet ported to "
-                                  "cpd_tpu_torch (ROADMAP Queue A, A3)")
+        raise NotImplementedError(
+            "emulate_node > 1 in the LM step: not yet ported to "
+            "cpd_tpu_torch (ROADMAP Queue A, A8; the ResNet step has it "
+            "through parallel.emulate.emulate_node_reduce)")
     if not 0.0 <= label_smoothing < 1.0:
         raise ValueError(f"label_smoothing must be in [0, 1), got "
                          f"{label_smoothing}")

@@ -4,16 +4,23 @@
 One train step over a mesh of W ranks, as the JAX step runs it under
 `shard_map`:
 
-1. rank r takes rows ``[r*B, (r+1)*B)`` of the global batch, runs the
-   forward and backward from the step's starting BN stats, and takes the
-   gradients of ``loss / W`` (so the reduced SUM is the mean);
-2. the per-rank gradients are reduced by `parallel.dist.sum_gradients`
+1. rank r takes rows ``[r*B*N, (r+1)*B*N)`` of the global batch and
+   splits them into N = ``emulate_node`` contiguous micro-batches of B;
+   each micro-batch runs its forward and backward from the BN stats the
+   previous one left (the first from the step's stats), and takes the
+   gradients of ``loss / (W*N) * loss_scale`` (so the reduced SUM is the
+   mean; a static ``loss_scale`` is not divided out again, as in the
+   reference);
+2. with N > 1 each rank reduces its N gradients locally
+   (`parallel.emulate.emulate_node_reduce`: local APS shift, cast,
+   ordered quantized sum);
+3. the per-rank gradients are reduced by `parallel.dist.sum_gradients`
    (APS, eXmY casts rounded to nearest or stochastically, the faithful
-   scan or the ring, optionally Kahan-compensated, block-scaled and
-   verified);
-3. the optimizer updates the fp32 master weights with the reduced
-   gradients;
-4. the BN running stats become the mean of the ranks' stats.
+   scan, the ring or fast mode, optionally Kahan-compensated,
+   block-scaled, verified and observed by the health counters);
+4. the optimizer (`train.optim`: SGD, LARS, `quant_sgd`) updates the
+   fp32 master weights with the reduced gradients;
+5. the BN running stats become the mean of the ranks' stats.
 
 The step runs with TF32 off and cuDNN deterministic (restored after), as
 the reference computes in fp32 and the reduce is bitwise.  The weights,
@@ -35,6 +42,8 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel.dist import grad_sr_key, sum_gradients
+from ..parallel.emulate import emulate_node_reduce
+from ..quant.prng import fold_in
 from .state import TrainState
 
 __all__ = ["make_train_step", "make_eval_step", "fp32_numerics",
@@ -70,19 +79,31 @@ def as_batch(images, labels, device) -> tuple:
     return x.permute(0, 3, 1, 2).contiguous(), y
 
 
-def local_gradients(model, x: torch.Tensor, y: torch.Tensor, mesh) -> tuple:
+def local_gradients(model, x: torch.Tensor, y: torch.Tensor, mesh,
+                    emulate_node: int = 1, loss_scale: float = 1.0) -> tuple:
     """Step 1 for every local rank of ``mesh``: rank r's forward and
-    backward on rows ``[r*B, (r+1)*B)`` of the global batch ``x``/``y``
-    (NCHW on the mesh's device), each from the same starting BN stats.
-    Returns ``(grads, stats, losses, hits)``, one entry per local rank:
-    the gradients of ``loss / W`` in ``parameters()`` order, the BN
-    running stats the rank's forward left, its loss / W and its count of
-    top-1 hits.  The module's BN stats are left at the last rank's."""
-    world = mesh.world
+    backward on rows ``[r*B*N, (r+1)*B*N)`` of the global batch ``x``/
+    ``y`` (NCHW on the mesh's device) as N = ``emulate_node`` contiguous
+    micro-batches of B in turn, the first from the step's starting BN
+    stats.  Returns ``(grads, stats, losses, hits)``, one entry per local
+    rank: the gradients of ``loss / (W*N) * loss_scale`` in
+    ``parameters()`` order (at N > 1 each leaf stacks the N micro-batch
+    gradients, ``(N, *shape)``), the BN running stats the rank's last
+    micro-batch left, its summed micro losses / (W*N) (unscaled) and its
+    count of top-1 hits.  The module's BN stats are left at the last
+    rank's."""
+    world, n = mesh.world, emulate_node
     if x.shape[0] % world:
         raise ValueError(f"global batch {x.shape[0]} is not a multiple of "
                          f"the {world} ranks")
-    b = x.shape[0] // world
+    per_rank = x.shape[0] // world
+    if per_rank < n or per_rank % n:
+        raise ValueError(
+            f"per-rank batch {per_rank} must be a positive multiple of "
+            f"emulate_node={n} (global batch = ranks * per-rank batch; "
+            f"each rank's rows are split into emulate_node sequential "
+            f"micro-batches)")
+    b = per_rank // n
     params = list(model.parameters())
     stats = list(model.buffers())
     start = [s.clone() for s in stats]
@@ -91,13 +112,24 @@ def local_gradients(model, x: torch.Tensor, y: torch.Tensor, mesh) -> tuple:
     for r in mesh.ranks:
         for s, s0 in zip(stats, start):
             s.copy_(s0)
-        xr, yr = x[r * b:(r + 1) * b], y[r * b:(r + 1) * b]
-        logits = model(xr)
-        loss = F.cross_entropy(logits, yr) / world
-        grads.append(list(torch.autograd.grad(loss, params)))
+        micro, rank_loss, rank_hits = [], None, None
+        for j in range(n):
+            lo = r * per_rank + j * b
+            xr, yr = x[lo:lo + b], y[lo:lo + b]
+            logits = model(xr)
+            loss = F.cross_entropy(logits, yr) / (world * n)
+            objective = loss if loss_scale == 1.0 else loss * loss_scale
+            micro.append(list(torch.autograd.grad(objective, params)))
+            hit = (logits.detach().argmax(-1) == yr).sum()
+            loss = loss.detach()
+            rank_loss = loss if rank_loss is None else rank_loss + loss
+            rank_hits = hit if rank_hits is None else rank_hits + hit
+        grads.append(micro[0] if n == 1 else
+                     [torch.stack(gs) for gs in zip(*micro)])
+        del micro
         new_stats.append([s.clone() for s in stats])
-        losses.append(loss.detach())
-        hits.append((logits.detach().argmax(-1) == yr).sum())
+        losses.append(rank_loss)
+        hits.append(rank_hits)
     return grads, new_stats, losses, hits
 
 
@@ -111,55 +143,83 @@ def _wire_fault(plan, step: int):
     return (int(codes[i]) if step < len(codes) else 0, int(ranks[i]))
 
 
-def make_train_step(model, opt, mesh, *, mode: str = "faithful",
+def make_train_step(model, opt, mesh, *, emulate_node: int = 1,
+                    mode: str = "faithful",
                     use_aps: bool = False, grad_exp: int = 8,
                     grad_man: int = 23, use_kahan: bool = False,
+                    loss_scale: float = 1.0,
                     grad_rounding: str = "nearest", grad_seed: int = 0,
                     verify_reduce: bool = False, wire_fault_plan=None,
+                    quant_stats: bool = False,
                     block_scale: bool = False, block_size: int = 128,
                     fused: Optional[bool] = None):
     """``step(state, images, labels) -> (state, metrics)`` over ``mesh``.
 
-    ``images``: the global batch, (W * B, 32, 32, 3) NHWC fp32; each rank
-    takes its contiguous B rows.  ``metrics``: ``loss`` (the rank-summed
-    loss / W, i.e. the global mean) and ``accuracy`` (top-1 over the
-    global batch), as 0-d tensors on the device.  With
+    ``images``: the global batch, (W * B * N, 32, 32, 3) NHWC fp32 with
+    N = ``emulate_node``; each rank takes its contiguous B * N rows, as
+    N micro-batches (module docstring).  ``metrics``: ``loss`` (the
+    rank-summed micro losses / (W*N), i.e. the global mean) and
+    ``accuracy`` (top-1 over the global batch), as 0-d tensors on the
+    device.  ``loss_scale``: a static factor on the loss the gradients
+    are taken of (``"dynamic"`` is not ported yet and raises).  With
     ``grad_rounding="stochastic"`` step s reduces with the key
-    ``grad_sr_key(grad_seed, s, 1)``.  ``block_scale``/``block_size``
+    ``grad_sr_key(grad_seed, s, 1)`` and rank r's emulate-node reduce
+    with ``fold_in(grad_sr_key(grad_seed, s, 0), r)``.  ``quant_stats``
+    adds the reduce wire's health counters as float32 metrics
+    ``prec_wire_sat``, ``prec_wire_underflow``, ``prec_wire_nan``,
+    ``prec_wire_total`` and ``prec_aps_bad``.  ``block_scale``/``block_size``
     ship the ring block-scaled.  ``verify_reduce`` adds the reduce's
     verdict as float32 metrics ``reduce_ok``, ``reduce_hop_bad``,
     ``reduce_gather_bad`` and ``reduce_agree``.  ``wire_fault_plan =
     (codes, ranks)``: in ring mode, step s injects the wire fault
     ``(codes[s], ranks[s])`` (none past the plan's end).  The update
-    applies rank 0's reduced gradients.  ``fused`` goes to
-    `sum_gradients` (None: the kernels on CUDA)."""
+    applies rank 0's reduced gradients.  ``fused`` goes to the
+    emulate-node reduce, `sum_gradients` and the optimizer (None: the
+    kernels on CUDA)."""
     if grad_rounding not in ("nearest", "stochastic"):
         raise ValueError(f"unknown grad_rounding {grad_rounding!r}")
+    if emulate_node < 1:
+        raise ValueError(f"emulate_node must be >= 1, got {emulate_node}")
+    if isinstance(loss_scale, str):
+        raise NotImplementedError(
+            f"loss_scale={loss_scale!r}: dynamic loss scaling "
+            f"(train/scaling.py) is not ported to cpd_tpu_torch yet "
+            f"(ROADMAP Queue A, A4); pass a static float")
     if block_scale and mode != "ring":
         raise ValueError(
             f"block_scale=True needs mode='ring' (got {mode!r}): the "
             f"per-block scale sidecar rides the ring's packed wire")
 
+    sr = grad_rounding == "stochastic"
+
     def step(state: TrainState, images, labels):
         x, y = as_batch(images, labels, mesh.device)
-        sum_key = (grad_sr_key(grad_seed, state.step, 1)
-                   if grad_rounding == "stochastic" else None)
+        sum_key = grad_sr_key(grad_seed, state.step, 1) if sr else None
         fault = (_wire_fault(wire_fault_plan, state.step)
                  if wire_fault_plan is not None and mode == "ring" else None)
         with fp32_numerics():
-            grads, new_stats, losses, hits = local_gradients(model, x, y,
-                                                             mesh)
+            grads, new_stats, losses, hits = local_gradients(
+                model, x, y, mesh, emulate_node, loss_scale)
+            if emulate_node > 1:
+                emu_key = grad_sr_key(grad_seed, state.step, 0)
+                grads = [emulate_node_reduce(
+                    g, emulate_node, use_aps, grad_exp, grad_man,
+                    key=fold_in(emu_key, r) if sr else None,
+                    rounding=grad_rounding, fused=fused)
+                    for g, r in zip(grads, mesh.ranks)]
             out = sum_gradients(grads, mesh, use_aps=use_aps,
                                 grad_exp=grad_exp, grad_man=grad_man,
                                 use_kahan=use_kahan, mode=mode,
                                 rounding=grad_rounding, key=sum_key,
                                 verify=verify_reduce, wire_fault=fault,
-                                block_scale=block_scale,
+                                stats=quant_stats, block_scale=block_scale,
                                 block_size=block_size, fused=fused)
-            reduced, report = out if verify_reduce else (out, None)
+            del grads
+            reduced, report = (out if verify_reduce or quant_stats
+                               else (out, None))
             reduced = reduced[0]
             state.opt_state = opt.apply(reduced, state.opt_state,
-                                        state.params)
+                                        state.params, fused=fused)
             with torch.no_grad():
                 for j, s in enumerate(state.batch_stats):
                     s.copy_(mesh.mean([ns[j] for ns in new_stats])[0])
@@ -167,10 +227,14 @@ def make_train_step(model, opt, mesh, *, mode: str = "faithful",
         metrics = {"loss": mesh.sum(losses)[0],
                    "accuracy": mesh.sum(hits)[0].to(torch.float32)
                    / x.shape[0]}
-        if report is not None:
+        if verify_reduce:
             metrics.update({f"reduce_{k}": report[k].to(torch.float32)
                             for k in ("ok", "hop_bad", "gather_bad",
                                       "agree")})
+        if quant_stats:
+            metrics.update({f"prec_{k}": report[k].to(torch.float32)
+                            for k in ("wire_sat", "wire_underflow",
+                                      "wire_nan", "wire_total", "aps_bad")})
         return state, metrics
 
     return step

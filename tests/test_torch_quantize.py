@@ -207,6 +207,22 @@ def test_sr_bits_helper_matches_jax():
     _eq(np.asarray(want).view(np.int32), got)
 
 
+def test_flat_sr_bits_match_jax_random_bits():
+    """Bitwise: ``sr_bits(flat=True)`` is ``jax.random.bits(key,
+    shape)`` flattened (one threefry an element from index 0), for a 1-d
+    and a 2-d ``like``; an ``offset_start`` with ``flat`` raises, since
+    the flat stream has no offset."""
+    key = jax.random.PRNGKey(31)
+    for shape in [(1,), (777,), (6, 7)]:
+        want = jax.random.bits(key, shape, jnp.uint32)
+        got = tq.sr_bits(_tkey(key), torch.zeros(shape), flat=True)
+        assert got.dtype == torch.int32 and tuple(got.shape) == (
+            int(np.prod(shape)),)
+        _eq(np.asarray(want).reshape(-1).view(np.int32), got)
+    with pytest.raises(ValueError, match="index 0"):
+        tq.sr_bits(_tkey(key), torch.zeros(5), offset_start=3, flat=True)
+
+
 def test_unported_wire_arms_raise():
     """What the wire wrappers still refuse: a block size the blocked
     kernel does not take (the JAX kernel's rule; the ring casts such

@@ -322,16 +322,16 @@ def test_sum_gradients_fast_matches_jax(world, aps, sr, fmt):
 
 
 def test_unported_and_misplaced_options_raise():
-    """What the reduce still refuses: reduce-wire telemetry (stats=),
-    fused kernels on CPU tensors, a key without stochastic rounding and
-    the reverse."""
+    """What the reduce refuses: fused kernels on CPU tensors, a key
+    without stochastic rounding and the reverse.  Reduce-wire telemetry
+    (stats=) is ported: it returns the report instead of raising."""
     mesh = LocalMesh(2, "cpu")
     flats = [torch.zeros(10), torch.zeros(10)]
     with pytest.raises(ValueError, match="CUDA"):
         tring.ring_quantized_sum(flats, mesh, 5, 2, fused=True)
-    with pytest.raises(NotImplementedError, match="stats"):
-        tdist.sum_gradients([[f] for f in flats], mesh, mode="ring",
-                            stats=True)
+    _, report = tdist.sum_gradients([[f] for f in flats], mesh, mode="ring",
+                                    stats=True)
+    assert int(report["wire_total"]) == 20 and int(report["aps_bad"]) == 0
     with pytest.raises(ValueError, match="requires a PRNG key"):
         tdist.sum_gradients([[f] for f in flats], mesh,
                             rounding="stochastic")

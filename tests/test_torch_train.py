@@ -336,7 +336,7 @@ def test_cli_trains_on_cpu_and_rejects_unported_flags(tiny_cifar_factory,
     cfg = tcli.read_config(tcli.build_parser().get_default("config"))
     assert cfg["weight_decay"] == 0.0001 and cfg["lr_steps"] == [3000, 6000,
                                                                   9000]
-    for bad in (["--use_lars"], ["--zero2"], ["--opt_exp", "5"],
+    for bad in (["--zero1"], ["--zero2"], ["--optimizer", "shampoo-lite"],
                 ["--arch", "davidnet"]):
         with pytest.raises(SystemExit, match="not yet ported"):
             tcli.main(argv + bad, device="cpu")
