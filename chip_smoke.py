@@ -218,7 +218,26 @@ Phases; any failure exits non-zero:
    --opt_kahan``; (c) the golden APS ordering (`aps_golden`, e3m4, the
    tiny CNN on 8 ranks x ``emulate_node`` 2 x 8, 100 iterations, fast
    mode): APS Prec@1 at least no-APS + 10 and at least 60;
-14. print one JSON line ``{"kernels": [...]}`` and, last,
+14. the process mesh (`parallel.mesh.ProcessMesh`, one rank per
+   process over `torch.distributed`, `parallel.launch.spawn` starting
+   the ranks with a deadline; a rank that raises or hangs fails the
+   run): (a) 2 processes sharing the card over gloo (the wire staged
+   through host memory), (b) one process per card over nccl, W = the
+   card count up to 4 (W = 1 here).  In each, every rank runs the reduce
+   matrix at ResNet-18/CIFAR's 62 leaves (11.17 M elements): APS e5m2
+   faithful, ring and fast x RTNE, SR and Kahan, and the blocked (4, 3)
+   b128 verified ring with each wire fault code on the last rank — its
+   result bitwise the plain versions on the same mesh and a `LocalMesh`
+   of the same W on its card, the reports equal (``reduce_ok`` per
+   fault), the launches per rank as designed (`rank_design`); (a) then
+   runs 2 iterations of the ResNet CLI under ``--dist --dist-backend
+   gloo``; (b) checks the bytes each rank hands to the collectives
+   against `ring_transport_bytes`/`gather_transport_bytes`, trains
+   full-width ResNet-18 at W x 128 for 5 ring APS steps (images/s per
+   card, the split, device busy and NCCL ms of a profiled step) and runs
+   bench.py's headline (`bench.run` on the process mesh: ResNet-50 bf16,
+   32 a card, faithful and fast, images/s per card);
+15. print one JSON line ``{"kernels": [...]}`` and, last,
    ``{"ok": true, "device": {...}}``.
 
 The script imports neither jax nor the JAX package.
@@ -5142,6 +5161,513 @@ def mha_kernel_entries(mha: dict, lm: dict) -> list:
     return out
 
 
+# -- phase 14: the process mesh ------------------------------------------
+# 14a: W = DIST["world_a"] processes sharing the one card over gloo (the
+# wire staged through host memory); 14b: one process per card over nccl,
+# W = the card count (at most DIST["max_cards"]).  Each part is one
+# spawn of W rank processes, killed at its deadline.
+DIST = dict(world_a=2, max_cards=4, seed=41, deadline_a=300.0,
+            deadline_b=480.0, per_rank_batch=128, steps=5, n_train=4096,
+            n_test=1000, cli_iters=2)
+DIST_FAULT_CODES = (0, 1, 2, 3)
+DIST_CLEAN = {"hop_bad": 0, "gather_bad": 0, "agree": 1, "ok": 1}
+DIST_FAULTED = {"hop_bad": 1, "gather_bad": 1, "agree": 0, "ok": 0}
+
+
+def dist_arms() -> dict:
+    """Phase 14's reduce matrix: name -> (`sum_gradients` keywords, SR,
+    wire fault code or None).  APS e5m2 faithful, ring and fast x RTNE,
+    SR and Kahan (fast mode has no scan to compensate), and the blocked
+    (4, 3) b128 verified ring with each fault code on the last rank."""
+    arms = {}
+    for mode in ("faithful", "ring", "fast"):
+        for arm in ("rtne", "sr", "kahan"):
+            if (mode, arm) != ("fast", "kahan"):
+                arms[f"{mode}-{arm}"] = (
+                    dict(use_aps=True, grad_exp=5, grad_man=2, mode=mode,
+                         use_kahan=arm == "kahan"), arm == "sr", None)
+    for code in DIST_FAULT_CODES:
+        arms[f"blocked-fault{code}"] = (
+            dict(use_aps=True, grad_exp=BLOCKED["fmt"][0],
+                 grad_man=BLOCKED["fmt"][1], mode="ring", block_scale=True,
+                 block_size=BLOCKED["block"], verify=True), False, code)
+    return arms
+
+
+def rank_design(mode: str, sr: bool, kahan: bool, w: int, leaves: int,
+                buckets: int, blocked: bool = False) -> dict:
+    """The launches one APS `sum_gradients` makes on ONE rank of a
+    ProcessMesh of w ranks: K1 (or sr_bits + K2) per leaf, fast mode one
+    more for the sum; the faithful scan's W casts per bucket (K3, or
+    sr_bits + K4; four each with Kahan), which every rank runs on its
+    own gathered stack; the ring's K6 once and K5 W - 1 times per bucket
+    (the blocked arms on the blocked wire, with one K7 per bucket), or
+    with Kahan 4 W casts per bucket; sr_bits once per SR cast site."""
+    sfx = "_sr" if sr else ""
+    want = dict.fromkeys(read_counts(), 0)
+    cast = leaves + (1 if mode == "fast" else 0)
+    want["quantize_cast" + sfx] = cast
+    bits = cast
+    if blocked:
+        want["quantize_pack_blocked" + sfx] = buckets
+        want["hop_pack_blocked" + sfx] = (w - 1) * buckets
+        want["digest_rows"] = buckets
+        bits += w * buckets
+    elif mode == "ring" and not kahan:
+        want["quantize_pack" + sfx] = buckets
+        want["hop_pack" + sfx] = (w - 1) * buckets
+        bits += w * buckets
+    elif mode != "fast":
+        calls = w * buckets * (4 if kahan else 1)
+        want["quantize_add" + sfx] = calls
+        bits += calls
+    if sr:
+        want["sr_bits"] = bits
+    return {k: v for k, v in want.items() if v}
+
+
+def dist_grads(world: int, device) -> tuple:
+    """Every rank's gradients at ResNet-18/CIFAR's leaves (its parameter
+    shapes, 11.17 M elements), drawn in rank order from one seeded
+    generator on ``device`` and scaled leaf by leaf by 10^(i mod 5 - 4):
+    ``(shapes, grads)`` with ``grads[r]`` rank r's leaf list."""
+    import torch
+
+    from cpd_tpu_torch.models.resnet_cifar import resnet18_cifar
+
+    shapes = [tuple(p.shape)
+              for p in resnet18_cifar(device=device).parameters()]
+    gen = torch.Generator(device=device).manual_seed(DIST["seed"])
+    grads = [[torch.randn(s, generator=gen, device=device)
+              * (10.0 ** (i % 5 - 4)) for i, s in enumerate(shapes)]
+             for _ in range(world)]
+    return shapes, grads
+
+
+def dist_matrix(mesh, shapes, grads) -> dict:
+    """Every arm of `dist_arms` on this rank: through the kernels (the
+    launches counted from 0 around it, held to `rank_design`), through
+    the plain versions on the same mesh, and on a `LocalMesh` of the same
+    W on this rank's card from every rank's gradients — all three
+    bitwise, reports equal."""
+    import torch
+
+    from cpd_tpu_torch.obs.timing import now
+    from cpd_tpu_torch.parallel.dist import grad_sr_key, sum_gradients
+    from cpd_tpu_torch.parallel.mesh import LocalMesh
+    from cpd_tpu_torch.parallel.overlap import (DEFAULT_BUCKET_ELEMS,
+                                                bucket_layout)
+
+    w, rank = mesh.world, mesh.rank
+    sizes = [math.prod(s) for s in shapes]
+    buckets = len(bucket_layout(sizes, DEFAULT_BUCKET_ELEMS))
+    local = LocalMesh(w, mesh.device)
+    arms = {}
+    for name, (kw, sr, code) in dist_arms().items():
+        kw = dict(kw)
+        if sr:
+            kw.update(rounding="stochastic",
+                      key=grad_sr_key(DIST["seed"], 0, 1))
+        if code is not None:
+            kw["wire_fault"] = (code, w - 1)
+        verify = kw.get("verify", False)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = now()
+        got = sum_gradients([grads[rank]], mesh, **kw)
+        torch.cuda.synchronize()
+        ms = (now() - t0) * 1e3
+        counts = {k: v for k, v in read_counts().items() if v}
+        plain = sum_gradients([grads[rank]], mesh, fused=False, **kw)
+        ref = sum_gradients(grads, local, **kw)
+        (got, rep), (plain, prep), (ref, lrep) = (
+            r if verify else (r, None) for r in (got, plain, ref))
+        for i, (a, b, c) in enumerate(zip(got[0], plain[0], ref[rank])):
+            if not same_bits(a, b):
+                raise AssertionError(f"rank {rank} {name} leaf {i}: the "
+                                     "kernels differ from the plain "
+                                     "versions")
+            if not same_bits(a, c):
+                raise AssertionError(f"rank {rank} {name} leaf {i}: the "
+                                     f"process mesh differs from the "
+                                     f"LocalMesh W={w}")
+        design = rank_design(kw["mode"], sr, kw.get("use_kahan", False), w,
+                             len(sizes), buckets,
+                             blocked=kw.get("block_scale", False))
+        if counts != design:
+            raise AssertionError(f"rank {rank} {name}: launches {counts} "
+                                 f"!= the design's {design}")
+        entry = dict(ms=ms, launches=counts)
+        if verify:
+            rep, prep, lrep = ({k: int(v) for k, v in r.items()}
+                               for r in (rep, prep, lrep))
+            want = (DIST_FAULTED if code else DIST_CLEAN) if w > 1 else lrep
+            if not rep == prep == lrep == want:
+                raise AssertionError(f"rank {rank} {name}: reports "
+                                     f"kernels {rep}, plain {prep}, "
+                                     f"LocalMesh {lrep}, want {want}")
+            entry["report"] = rep
+        arms[name] = entry
+    return dict(arms=arms, leaves=len(sizes), elements=sum(sizes),
+                buckets=buckets)
+
+
+def dist_bytes(mesh, own) -> dict:
+    """The bytes this rank hands to the collectives (`ProcessMesh.log`)
+    in one RTNE (5, 2) ring over its whole gradient and one faithful
+    reduce without APS, against `ring_transport_bytes` and
+    `gather_transport_bytes`; each timed on the host clock."""
+    import torch
+
+    from cpd_tpu_torch.obs.timing import now
+    from cpd_tpu_torch.parallel.dist import sum_gradients
+    from cpd_tpu_torch.parallel.ring import (gather_transport_bytes,
+                                             ring_quantized_sum,
+                                             ring_transport_bytes)
+
+    w = mesh.world
+    flat = torch.cat([g.reshape(-1) for g in own])
+    n = flat.numel()
+
+    def handed(fn) -> tuple:
+        torch.cuda.synchronize()
+        mesh.log = []
+        t0 = now()
+        fn()
+        torch.cuda.synchronize()
+        ms = (now() - t0) * 1e3
+        log, mesh.log = mesh.log, None
+        shift = sum(b for op, _, b in log if op == "ring_shift")
+        gather = sum(b for op, _, b in log if op == "all_gather")
+        return shift + (w - 1) * gather, ms
+
+    ring, ring_ms = handed(lambda: ring_quantized_sum([flat], mesh, 5, 2))
+    gather, gather_ms = handed(lambda: sum_gradients(
+        [own], mesh, grad_exp=5, grad_man=2))
+    out = dict(elements=n, ring_handed=ring,
+               ring_table=ring_transport_bytes(n, w, 5, 2), ring_ms=ring_ms,
+               gather_handed=gather,
+               gather_table=gather_transport_bytes(n, w, 5, 2),
+               faithful_ms=gather_ms)
+    if (out["ring_handed"], out["gather_handed"]) != (out["ring_table"],
+                                                      out["gather_table"]):
+        raise AssertionError(f"rank {mesh.rank}: bytes handed to the "
+                             f"collectives {out}")
+    return out
+
+
+def dist_slice_batches(mesh, steps: int) -> list:
+    """``steps`` global batches of W x DIST["per_rank_batch"] augmented
+    synthetic CIFAR-10 images (the port's sampler, seed 0), this
+    process's rows of each."""
+    from cpd_tpu_torch.data import (CIFAR10Pipeline,
+                                    DistributedGivenIterationSampler,
+                                    synthetic_cifar10)
+    from cpd_tpu_torch.parallel.dist import local_rows
+
+    global_batch = mesh.world * DIST["per_rank_batch"]
+    x, y, _, _ = synthetic_cifar10(DIST["n_train"], DIST["n_test"])
+    pipe = CIFAR10Pipeline(x, y, global_batch, augment=True, cutout=0)
+    sampler = DistributedGivenIterationSampler(len(y), steps, global_batch,
+                                               seed=0)
+    return [tuple(local_rows(a, mesh) for a in pipe.batch(idx, seed=0))
+            for idx in sampler.batches()]
+
+
+def dist_train(mesh, buckets: int) -> dict:
+    """The ResNet-18 CLI's step (`make_train_step` as ``--mode ring
+    --use_APS --grad_exp 5 --grad_man 2`` builds it) at full width, W x
+    128 images a step, DIST["steps"] steps from rank 0's seed-24
+    weights: finite losses, step 0 within LM_LOSS_BAND of ln 10, the
+    launches per step as designed; images/s per card over the steps after
+    the first, one step split (`bench.step_split`) and one profiled step
+    (device busy ms, the NCCL kernels' ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cpd_tpu_torch import bench
+    from cpd_tpu_torch.models.resnet_cifar import resnet18_cifar
+    from cpd_tpu_torch.obs.timing import now
+    from cpd_tpu_torch.parallel.dist import replicate
+    from cpd_tpu_torch.train import (create_train_state, make_train_step,
+                                     sgd, warmup_step_decay)
+
+    steps = DIST["steps"]
+    batches = dist_slice_batches(mesh, steps + 2)
+    gen = torch.Generator(device=mesh.device).manual_seed(TRAIN["seed"])
+    model = replicate(resnet18_cifar(device=mesh.device).init_weights(gen),
+                      mesh)
+    ipe = math.ceil(DIST["n_train"] / (mesh.world * DIST["per_rank_batch"]))
+    peak = TRAIN["peak_lr"]
+    opt = sgd(warmup_step_decay(peak, 5 * ipe, [40 * ipe, 80 * ipe],
+                                warmup_from=peak / 16.0),
+              momentum=0.9, weight_decay=1e-4)
+    state = create_train_state(model, opt)
+    step = make_train_step(model, opt, mesh, mode="ring", use_aps=True,
+                           grad_exp=5, grad_man=2)
+    losses, secs = [], []
+    reset_counts()
+    for bx, by in batches[:steps]:
+        torch.cuda.synchronize()
+        t0 = now()
+        state, m = step(state, bx, by)
+        torch.cuda.synchronize()
+        secs.append(now() - t0)
+        losses.append(float(m["loss"]))
+    counts = {k: v for k, v in read_counts().items() if v}
+    per_step = {k: v // steps for k, v in counts.items()}
+    n_leaves = len(list(model.parameters()))
+    design = rank_design("ring", False, False, mesh.world, n_leaves,
+                         buckets)
+    if any(v % steps for v in counts.values()) or per_step != design:
+        raise AssertionError(f"rank {mesh.rank} train: launches {counts} "
+                             f"over {steps} steps, design {design} a step")
+    if not all(math.isfinite(v) for v in losses) or abs(
+            losses[0] - math.log(10)) > LM_LOSS_BAND:
+        raise AssertionError(f"rank {mesh.rank} train losses {losses}")
+    split = bench.step_split(model, opt, state, mesh, *batches[steps],
+                             "ring")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state, *batches[steps + 1])
+        torch.cuda.synchronize()
+    kernels = profiled_kernels(prof)
+    busy = (sum(e.self_device_time_total for e in kernels) / 1e3
+            if kernels else None)
+    nccl = (sum(e.self_device_time_total for e in kernels
+                if "nccl" in e.key.lower()) / 1e3 if kernels else None)
+    per_rank = DIST["per_rank_batch"]
+    ips = per_rank * (steps - 1) / sum(secs[1:])
+    return dict(world=mesh.world, per_rank_batch=per_rank, steps=steps,
+                losses=losses, step_ms=[s * 1e3 for s in secs],
+                img_per_s_per_card=ips, img_per_s=ips * mesh.world,
+                launches_per_step=per_step, device_busy_ms=busy,
+                nccl_ms=nccl, **split)
+
+
+def dist_headline(mesh) -> dict:
+    """bench.py's headline arms (`bench.run`) on this process's rank:
+    ResNet-50 bf16, batch 32 a card at 224^2, APS e5m2 faithful then
+    fast: finite losses, step 0 within LM_LOSS_BAND of ln 1000, the
+    launches per step as designed, images/s per card."""
+    from cpd_tpu_torch import bench
+    from cpd_tpu_torch.models.resnet import resnet50
+    from cpd_tpu_torch.parallel.overlap import (DEFAULT_BUCKET_ELEMS,
+                                                bucket_layout)
+
+    out = bench.run(mesh=mesh)
+    sizes = [p.numel() for p in resnet50(device=mesh.device).parameters()]
+    buckets = len(bucket_layout(sizes, DEFAULT_BUCKET_ELEMS))
+    for mode, r in out["modes"].items():
+        losses = r["losses"]
+        if not all(math.isfinite(v) for v in losses) or abs(
+                losses[0] - math.log(HEADLINE_CLASSES)) > LM_LOSS_BAND:
+            raise AssertionError(f"rank {mesh.rank} headline {mode} "
+                                 f"losses {losses}")
+        want = rank_design(mode, False, False, mesh.world, len(sizes),
+                           buckets)
+        if r["launches_per_step"] != want:
+            raise AssertionError(f"rank {mesh.rank} headline {mode} "
+                                 f"launches {r['launches_per_step']} != "
+                                 f"{want}")
+    return dict(value=out["value"], fast=out["fast"], config=out["config"],
+                modes={m: {k: r[k] for k in (
+                    "img_per_s", "step_ms", "fwd_bwd_ms", "reduce_ms",
+                    "update_ms", "peak_memory_gib", "launches_per_step",
+                    "losses")} for m, r in out["modes"].items()})
+
+
+def dist_cifar_root() -> str:
+    """A small CIFAR-10 pickle tree (DIST["n_train"] + DIST["n_test"]
+    seeded random images) under the checkout's ``build/``, for the
+    ``--dist`` CLI runs."""
+    import os
+    import pickle
+
+    import numpy as np
+
+    from cpd_tpu_torch.ops.build import build_dir
+
+    root = os.path.join(os.path.dirname(build_dir()), "dist_cifar")
+    folder = os.path.join(root, "cifar-10-batches-py")
+    os.makedirs(folder, exist_ok=True)
+    rng = np.random.RandomState(DIST["seed"])
+    per = DIST["n_train"] // 5
+    files = [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]
+    for name in files:
+        n = DIST["n_test"] if name == "test_batch" else per
+        with open(os.path.join(folder, name), "wb") as fh:
+            pickle.dump({b"data": rng.randint(0, 256, (n, 3072),
+                                              dtype=np.uint8),
+                         b"labels": rng.randint(0, 10, n).tolist()}, fh)
+    return root
+
+
+def dist_cli(mesh, root: str, buckets: int, leaves: int) -> dict:
+    """DIST["cli_iters"] iterations of the ResNet-18 CLI under ``--dist
+    --dist-backend gloo`` (faithful APS e5m2, batch 128 a rank), this
+    process one of its ranks: it finishes, the loss is finite, the
+    launches are the design's per iteration."""
+    from cpd_tpu_torch.examples.resnet18_cifar import train as cli
+    from cpd_tpu_torch.obs.timing import now
+
+    reset_counts()
+    t0 = now()
+    res = cli.run(cli.parse_args([
+        "--dist", "--dist-backend", mesh.backend, "--mode", "faithful",
+        "--use_APS", "--grad_exp", "5", "--grad_man", "2", "--max-iter",
+        str(DIST["cli_iters"]), "--batch_size", str(DIST["per_rank_batch"]),
+        "--data-root", root,
+        "--print_freq", "1", "--val_freq", str(DIST["cli_iters"])]),
+        device=mesh.device)
+    seconds = now() - t0
+    counts = {k: v for k, v in read_counts().items() if v}
+    want = {k: v * DIST["cli_iters"] for k, v in rank_design(
+        "faithful", False, False, mesh.world, leaves, buckets).items()}
+    if (res["diverged"] or res["step"] != DIST["cli_iters"]
+            or not math.isfinite(res["loss"]) or counts != want):
+        raise AssertionError(f"rank {mesh.rank} --dist CLI: {res}, "
+                             f"launches {counts} (design {want})")
+    return dict(seconds=seconds, launches=counts, loss=res["loss"],
+                best_prec1=res["best_prec1"])
+
+
+def dist_rank(part: str, backend: str, device, root=None) -> dict:
+    """One rank process of phase 14 (`parallel.launch.spawn` starts W):
+    joins the group with ``backend``, its rank on ``device`` (under nccl
+    its own card), then 14a (``part`` "a": the matrix and the ``--dist``
+    CLI on the data under ``root``) or 14b ("b": the matrix, the bytes,
+    the ResNet-18 step and the headline)."""
+    import torch
+
+    from cpd_tpu_torch.obs.timing import now
+    from cpd_tpu_torch.parallel.dist import dist_init
+    from cpd_tpu_torch.parallel.mesh import ProcessMesh
+
+    marks = [now()]
+    rank, world = dist_init(backend)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = ProcessMesh(device)
+    out = dict(rank=rank, world=world, backend=backend,
+               device=str(mesh.device), staged=mesh.staged,
+               card=torch.cuda.get_device_name(mesh.device))
+    shapes, grads = dist_grads(world, mesh.device)
+    marks.append(now())
+    out["matrix"] = dist_matrix(mesh, shapes, grads)
+    marks.append(now())
+    names = ["init", "matrix"]
+    buckets, leaves = out["matrix"]["buckets"], out["matrix"]["leaves"]
+    if part == "a":
+        out["cli"] = dist_cli(mesh, root, buckets, leaves)
+        names.append("cli")
+        marks.append(now())
+    else:
+        out["bytes"] = dist_bytes(mesh, grads[rank])
+        del grads
+        marks.append(now())
+        out["train"] = dist_train(mesh, buckets)
+        marks.append(now())
+        out["headline"] = dist_headline(mesh)
+        marks.append(now())
+        names += ["bytes", "train", "headline"]
+    out["seconds"] = dict(zip(names, (b - a for a, b in
+                                      zip(marks, marks[1:]))))
+    return out
+
+
+def dist_phase(device, parts=("a", "b")) -> dict:
+    """Phase 14: the process mesh.  14a spawns DIST["world_a"] processes
+    on the one card over gloo; 14b one process per card over nccl, W =
+    the card count (at most DIST["max_cards"]; W = 1 on a one-card
+    machine, where NCCL's init and all-gathers still run).  Every rank's
+    results are checked in the rank (`dist_matrix`, `dist_bytes`,
+    `dist_train`, `dist_headline`, `dist_cli`); here the ranks must agree
+    with each other.  A rank that raises or outlives its deadline fails
+    the phase."""
+    import torch
+
+    from cpd_tpu_torch.obs.timing import now
+    from cpd_tpu_torch.parallel.launch import spawn
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = {}
+    if "a" in parts:
+        t0 = now()
+        root = dist_cifar_root()
+        ranks = spawn(dist_rank, DIST["world_a"],
+                      args=("a", "gloo", device, root),
+                      timeout=DIST["deadline_a"])
+        out["a"] = dist_summary("14a", ranks, now() - t0)
+    if "b" in parts:
+        cards = min(torch.cuda.device_count(), DIST["max_cards"])
+        t0 = now()
+        ranks = spawn(dist_rank, cards, args=("b", "nccl", device),
+                      timeout=DIST["deadline_b"],
+                      env={"NCCL_DEBUG": "WARN"})
+        out["b"] = dist_summary("14b", ranks, now() - t0)
+    return out
+
+
+def dist_summary(label: str, ranks: list, seconds: float) -> dict:
+    """Print one part's figures, a line per sub-phase, after checking
+    that the ranks agree: the same reports and launches in every arm,
+    the same losses in every step."""
+    r0 = ranks[0]
+    w = r0["world"]
+    for r in ranks[1:]:
+        for name, e in r0["matrix"]["arms"].items():
+            o = r["matrix"]["arms"][name]
+            if (o["launches"], o.get("report")) != (e["launches"],
+                                                      e.get("report")):
+                raise AssertionError(f"{label} {name}: rank {r['rank']} "
+                                     f"{o} != rank 0 {e}")
+        if "train" in r0 and r["train"]["losses"] != r0["train"]["losses"]:
+            raise AssertionError(f"{label} train: rank {r['rank']} losses "
+                                 "differ from rank 0's")
+    where = ("one card, gloo, wire staged through the host" if r0["staged"]
+             else f"{w} card(s), {r0['backend']}")
+    print(f"dist {label}: W={w} processes on {where} ({r0['card']}); "
+          f"{seconds:.1f} s", flush=True)
+    print(f"dist {label} matrix: ResNet-18/CIFAR's {r0['matrix']['leaves']}"
+          f" leaves ({r0['matrix']['elements']} elements, "
+          f"{r0['matrix']['buckets']} buckets), every rank bitwise the "
+          f"plain versions and the LocalMesh W={w}; rank 0's host ms and "
+          "launches per arm: " + json.dumps(
+              {k: {"ms": round(v["ms"], 3), "launches": v["launches"],
+                   **({"report": v["report"]} if "report" in v else {})}
+               for k, v in r0["matrix"]["arms"].items()}), flush=True)
+    if "cli" in r0:
+        print(f"dist {label} cli: --dist --dist-backend {r0['backend']} "
+              f"{DIST['cli_iters']} iterations on every rank: " +
+              json.dumps([r["cli"] for r in ranks]), flush=True)
+    if "bytes" in r0:
+        print(f"dist {label} bytes: handed to the collectives == the "
+              "transport tables on every rank; rank 0: " +
+              json.dumps(r0["bytes"]), flush=True)
+    if "train" in r0:
+        t = r0["train"]
+        print(f"dist {label} train: ResNet-18/CIFAR full width, W={w} x "
+              f"{t['per_rank_batch']}, {t['steps']} ring APS e5m2 steps: "
+              f"{t['img_per_s_per_card']:.2f} img/s per card, "
+              f"{t['img_per_s']:.2f} in all; " + json.dumps(
+                  {k: t[k] for k in ("losses", "step_ms", "fwd_bwd_ms",
+                                     "reduce_ms", "update_ms",
+                                     "device_busy_ms", "nccl_ms",
+                                     "launches_per_step")}), flush=True)
+    if "headline" in r0:
+        h = r0["headline"]
+        print(f"dist {label} headline: ResNet-50 bf16 APS e5m2, W={w} x "
+              f"32 at 224^2, one process per card: faithful "
+              f"{h['value']:.2f} img/s per card, fast {h['fast']:.2f}; " +
+              json.dumps(h["modes"]), flush=True)
+    print(f"dist {label} seconds per rank: " +
+          json.dumps([r["seconds"] for r in ranks]), flush=True)
+    return dict(world=w, seconds=seconds, ranks=ranks)
+
+
 def main() -> int:
     try:
         import torch
@@ -5197,6 +5723,21 @@ def main() -> int:
     print("train headline seconds: " + json.dumps(headline["seconds"]),
           flush=True)
     emulate = emulate_phase(device)
+    dist = dist_phase(device)
+    print("dist seconds: " + json.dumps({k: v["seconds"]
+                                         for k, v in dist.items()}),
+          flush=True)
+    if dist["b"]["world"] == 1:
+        # at W = 1, 14b's headline is phase 12's: the same seed, batches
+        # and steps on one rank, through the ProcessMesh in place of the
+        # LocalMesh
+        for mode, r in headline["modes"].items():
+            got = dist["b"]["ranks"][0]["headline"]["modes"][mode]["losses"]
+            if got != r["losses"]:
+                return fail(f"14b headline {mode} losses at W=1 {got} != "
+                            f"phase 12's LocalMesh {r['losses']}")
+        print("dist 14b headline: the W=1 losses of both modes bitwise "
+              "phase 12's LocalMesh", flush=True)
 
     main_case = kern["cases"]["e4m3"]
     kernels = [dict(
@@ -5304,6 +5845,11 @@ def main() -> int:
             entry["launches_per_step_emulate"] = per_arm
         if entry["name"] == "sr_bits":
             entry["flat_arm"] = emulate["flat_bits"]
+        # phase 14a's launches per rank per arm on the process mesh
+        per_arm = {a: e["launches"].get(entry["name"], 0) for a, e in
+                   dist["a"]["ranks"][0]["matrix"]["arms"].items()}
+        if any(per_arm.values()):
+            entry["launches_per_rank_process_mesh"] = per_arm
     kernels += lm_kernel_entries(qgemm, flash, lm)
     kernels += mha_kernel_entries(mha, bench_lm)
     kernels += gqa_bf16_kernel_entries(flash, mha, gqa_lm)

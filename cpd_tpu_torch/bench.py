@@ -2,6 +2,8 @@
 one NVIDIA card.
 
     python -m cpd_tpu_torch.bench
+    python -m torch.distributed.run --nproc_per_node 4 \\
+        -m cpd_tpu_torch.bench --dist
 
 The workload of the repo's ``bench.py`` (its headline arms,
 ``bench.py:283-340``): `models.resnet.resnet50` at ``dtype=bfloat16``
@@ -10,15 +12,20 @@ weight decay 1e-4 under ``warmup_step_decay(3.2, 500, [3000, 6000])``,
 the APS e5m2 gradient reduce (``use_aps=True``, ``grad_exp=5``,
 ``grad_man=2``) in ``mode="faithful"`` and then ``mode="fast"``, each
 from a fresh state (weights from seed 0), on one rank on the card
-(bench.py's one-card mesh), batch 32 at 224 x 224, images and labels
+(bench.py's one-card mesh), or with ``--dist`` on one rank per card
+(bench.py's mesh over every device of the host: one process per card
+under torchrun, `parallel.mesh.ProcessMesh` over nccl), batch 32 a rank
+at 224 x 224, images and labels
 drawn from ``np.random.RandomState(0)`` as bench.py draws them (16
-batches, the images rounded to bf16).  Each mode runs 3 warm steps, then
+global batches, the images rounded to bf16; each process keeps its
+contiguous slice of each).  Each mode runs 3 warm steps, then
 10 timed steps (host clock between synchronisations), then one step
 split into its forward and backward, its reduce and its update.
 
-Prints ONE JSON line: ``metric`` ("resnet50_train_img_per_sec_per_chip"),
-``value`` (the faithful images/s per card), ``fast`` (the fast-mode
-images/s), the step's split in each mode (``fwd_bwd_ms``, ``reduce_ms``,
+Prints ONE JSON line (rank 0's, under ``--dist``): ``metric``
+("resnet50_train_img_per_sec_per_chip"), ``value`` (the faithful images/s
+per card, bench.py:343's unit: the images one card's ranks take a
+second), ``fast`` (the fast-mode images/s per card), the step's split in each mode (``fwd_bwd_ms``, ``reduce_ms``,
 ``update_ms``), peak device memory, the quantize kernels' launches per
 step, the losses, the card's name and power limit as nvidia-smi gives
 them, and ``tflops_per_sec``/``mfu_pct``: ``FLOPS_PER_IMG`` (bench.py's
@@ -69,15 +76,20 @@ def card_line() -> str:
 
 
 def headline_batches(world: int, batch: int, size: int, device,
-                     fuse: int = FUSE) -> tuple:
+                     fuse: int = FUSE, mesh=None) -> tuple:
     """bench.py's inputs: ``fuse`` global batches of ``world * batch``
     NHWC images, ``RandomState(0).randn`` rounded to bf16, and labels in
-    [0, 1000), on ``device``."""
+    [0, 1000), on ``device``; with a ``mesh``, this process's rows of
+    each (`parallel.dist.local_rows`)."""
     import torch
+
+    from .parallel.dist import local_rows
 
     rng = np.random.RandomState(SEED)
     x = rng.randn(fuse, batch * world, size, size, 3).astype(np.float32)
     y = rng.randint(0, 1000, (fuse, batch * world)).astype(np.int32)
+    if mesh is not None:
+        x, y = (np.stack([local_rows(b, mesh) for b in a]) for a in (x, y))
     return (torch.from_numpy(x).to(device).to(torch.bfloat16),
             torch.from_numpy(y).to(device))
 
@@ -92,9 +104,11 @@ def headline_step(mode: str, mesh):
     from .train import (create_train_state, make_train_step, sgd,
                         warmup_step_decay)
 
+    from .parallel.dist import replicate
+
     gen = torch.Generator(device=mesh.device).manual_seed(SEED)
-    model = resnet50(dtype=torch.bfloat16,
-                     device=mesh.device).init_weights(gen)
+    model = replicate(resnet50(dtype=torch.bfloat16,
+                               device=mesh.device).init_weights(gen), mesh)
     opt = sgd(warmup_step_decay(3.2, 500, [3000, 6000]), momentum=0.9,
               weight_decay=1e-4)
     state = create_train_state(model, opt)
@@ -118,7 +132,8 @@ def step_split(model, opt, state, mesh, images, labels, mode: str) -> dict:
 
     from .obs.timing import now
     from .parallel.dist import sum_gradients
-    from .train import as_batch, fp32_numerics, local_gradients
+    from .train.step import (as_batch, fp32_numerics, local_gradients,
+                             mean_stats)
 
     x, y = as_batch(images, labels, mesh.device)
     with fp32_numerics():
@@ -134,8 +149,8 @@ def step_split(model, opt, state, mesh, images, labels, mode: str) -> dict:
         state.opt_state = opt.apply(reduced[0], state.opt_state,
                                     state.params)
         with torch.no_grad():
-            for j, s in enumerate(state.batch_stats):
-                s.copy_(mesh.mean([ns[j] for ns in new_stats])[0])
+            for s, m in zip(state.batch_stats, mean_stats(new_stats, mesh)):
+                s.copy_(m)
         torch.cuda.synchronize()
         t3 = now()
     state.step += 1
@@ -170,9 +185,10 @@ def _measure(mode: str, mesh, batches) -> dict:
     i = WARMUP + STEPS
     split = step_split(model, opt, state, mesh, x[i % len(x)],
                        y[i % len(y)], mode)
-    # every rank runs on the one card: its images/s are the card's
+    # this process's ranks all run on its one card: their images/s are
+    # the card's
     return dict(
-        img_per_s=mesh.world * BATCH * STEPS / seconds,
+        img_per_s=len(mesh.ranks) * BATCH * STEPS / seconds,
         step_ms=seconds / STEPS * 1e3, losses=[float(v) for v in losses],
         launches_per_step={k: (after[k] - before[k]) // STEPS
                            for k in _COUNTED if after[k] != before[k]},
@@ -181,26 +197,34 @@ def _measure(mode: str, mesh, batches) -> dict:
         n_leaves=len(list(model.parameters())), **split)
 
 
-def run(device="cuda") -> dict:
-    """The headline arms on ``device`` (a CUDA device); the result that
+def run(device="cuda", mesh=None) -> dict:
+    """The headline arms on ``device`` (a CUDA device) over ``mesh``
+    (default: ``WORLD`` `LocalMesh` ranks; a `ProcessMesh` runs this
+    process's rank on its card, batch ``BATCH`` a rank); the result that
     `main` prints.  Raises where there is no card."""
     import torch
 
     from .device import resolve_device
     from .parallel.mesh import data_parallel_mesh
 
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.device
     if dev.type != "cuda":
         raise RuntimeError("the bench measures a CUDA device; got "
                            f"{dev}")
-    mesh = data_parallel_mesh(WORLD, dev)
-    batches = headline_batches(WORLD, BATCH, IMAGE_SIZE, dev)
+    if mesh is None:
+        mesh = data_parallel_mesh(WORLD, dev)
+    batches = headline_batches(mesh.world, BATCH, IMAGE_SIZE, dev,
+                               mesh=mesh)
     modes = {m: _measure(m, mesh, batches) for m in ("faithful", "fast")}
     ips = modes["faithful"]["img_per_s"]
     tflops = ips * FLOPS_PER_IMG / 1e12
+    cards = mesh.world // len(mesh.ranks)
     return dict(metric=METRIC, value=ips, unit="img/s",
                 fast=modes["fast"]["img_per_s"], modes=modes,
-                config=dict(arch="resnet50", dtype="bfloat16", world=WORLD,
+                config=dict(arch="resnet50", dtype="bfloat16",
+                            world=mesh.world, cards=cards,
+                            mesh=type(mesh).__name__,
+                            backend=getattr(mesh, "backend", None),
                             batch_per_rank=BATCH, image_size=IMAGE_SIZE,
                             grad_format=list(FMT), use_aps=True,
                             warmup_steps=WARMUP, timed_steps=STEPS),
@@ -211,9 +235,18 @@ def run(device="cuda") -> dict:
                 mfu_pct=100.0 * tflops / PEAK_BF16_TFLOPS, peak=PEAK_NAME)
 
 
-def main() -> int:
+def main(argv=()) -> int:
+    """Print the JSON line; ``argv`` are the flags (``--dist``), none by
+    default."""
+    import argparse
+
     import torch
 
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--dist", action="store_true",
+                   help="one rank per process and card over nccl (launch "
+                        "with torchrun)")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print(json.dumps({
             "metric": METRIC, "value": None, "unit": "img/s",
@@ -221,9 +254,20 @@ def main() -> int:
                      "measures an NVIDIA card and prints no estimate"}),
             flush=True)
         return 1
-    print(json.dumps(run()), flush=True)
+    if not args.dist:
+        print(json.dumps(run()), flush=True)
+        return 0
+    import torch.distributed as dist
+
+    from .parallel.dist import dist_init
+    from .parallel.mesh import ProcessMesh
+
+    rank = dist_init("nccl")[0]
+    out = run(mesh=ProcessMesh("cuda") if dist.is_initialized() else None)
+    if rank == 0:
+        print(json.dumps(out), flush=True)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -7,8 +7,21 @@
     python -m cpd_tpu_torch.examples.resnet18_cifar.train --use_APS \\
         --grad_exp 5 --grad_man 2 --emulate_node 8 --use_lars
 
+    python -m torch.distributed.run --nproc_per_node 4 \\
+        -m cpd_tpu_torch.examples.resnet18_cifar.train --dist \\
+        --mode ring --use_APS --grad_exp 5 --grad_man 2
+
 Data-parallel ranks on the card (`run`'s ``world``, one by default, the
-JAX trainer's device count): ``--arch`` (the config's ``res_cifar`` by
+JAX trainer's device count), or with ``--dist`` one rank per process
+(`parallel.dist.dist_init` reads the launcher's variables; the
+``--dist-backend``, ``nccl`` by default, one process per card, or
+``gloo`` for processes that share a card or run on the CPU): each
+process loads its contiguous slice of every global batch through its
+own `DistributedGivenIterationSampler` (the JAX trainer's per-host
+schedule, `examples/resnet18_cifar/train.py:540-548`), starts from rank
+0's weights (`parallel.dist.replicate`), and rank 0 alone prints and
+validates.  Outside a cluster ``--dist`` runs one process, as the JAX
+trainer does.  ``--arch`` (the config's ``res_cifar`` by
 default; the ImageNet ResNets of `models.resnet` and the ``tiny`` CNN
 too), seed-24 weights, the seed-0 iteration sampler, pad-4 reflect /
 random crop / flip augmentation re-drawn each epoch, ``--emulate_node
@@ -43,7 +56,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 # flags of the JAX trainer that the port does not have yet, by the
 # ROADMAP Queue A item they wait for
 _NOT_PORTED = {
-    "--dist": "A3", "--load-path": "A4", "--init-from-torch": "A4",
+    "--load-path": "A4", "--init-from-torch": "A4",
     "--export-torch": "A4", "--resume-opt": "A4",
     "--shampoo-stat-exp": "A12", "--shampoo-stat-man": "A12",
     "--shampoo-stat-mode": "A12", "-e": "A4", "--evaluate": "A4",
@@ -65,7 +78,8 @@ _NOT_PORTED = {
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="cpd_tpu_torch ResNet18/CIFAR10 (one rank on the card)")
+        description="cpd_tpu_torch ResNet18/CIFAR10 (ranks on the card, or "
+                    "one rank per process with --dist)")
     p.add_argument("--config",
                    default=os.path.join(_HERE, "configs", "res18_cifar.yaml"))
     p.add_argument("--grad_exp", default=5, type=int)
@@ -120,6 +134,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "(default 128; multiples of 128 dividing 65536 "
                         "keep the fused CUDA wire kernel eligible — other "
                         "sizes take the plain torch hop)")
+    p.add_argument("--dist", action="store_true",
+                   help="one rank per process in a torch.distributed group "
+                        "(launch with torchrun); a no-op outside a cluster")
+    p.add_argument("--dist-backend", default="nccl",
+                   choices=["nccl", "gloo"],
+                   help="the group's backend under --dist: nccl, one "
+                        "process per card; gloo, processes that share a "
+                        "card or run on the CPU")
     p.add_argument("--batch_size", default=None, type=int)
     p.add_argument("--val_freq", default=None, type=int)
     p.add_argument("--print_freq", default=None, type=int)
@@ -234,21 +256,31 @@ def _optimizer_name(args: argparse.Namespace) -> str:
 
 def run(args: argparse.Namespace, device="cuda", world: int = 1) -> dict:
     """Train as the flags say on ``world`` `LocalMesh` ranks on
-    ``device`` (the JAX trainer's device count); returns the last
-    metrics with ``step``, ``best_prec1`` and ``diverged``."""
+    ``device`` (the JAX trainer's device count), or with ``--dist`` in a
+    process group on this process's one rank (``world`` must be 1; under
+    nccl ``device`` is the rank's card); returns the last metrics with
+    ``step``, ``best_prec1`` (rank 0's validation; 0 on the others) and
+    ``diverged``."""
     import torch
+    import torch.distributed
 
     from ...data import (CIFAR10Pipeline, DistributedGivenIterationSampler,
                          load_cifar10)
     from ...device import resolve_device
     from ... import models
+    from ...parallel.dist import dist_init, replicate
     from ...parallel.mesh import data_parallel_mesh
     from ...train import (create_train_state, make_eval_step,
                           make_optimizer, make_train_step,
                           warmup_step_decay)
 
+    rank, n_proc = (dist_init(args.dist_backend) if args.dist else (0, 1))
+    grouped = args.dist and torch.distributed.is_initialized()
+    if grouped and world != 1:
+        raise ValueError(f"--dist runs one rank per process; world="
+                         f"{world} asks for {world} in this one")
     dev = resolve_device(device)
-    mesh = data_parallel_mesh(world, dev)
+    mesh = data_parallel_mesh(None if grouped else world, dev)
     seed = 24
     train_x, train_y, test_x, test_y = load_cifar10(args.data_root)
     # iterations per epoch count the emulated cluster
@@ -261,8 +293,10 @@ def run(args: argparse.Namespace, device="cuda", world: int = 1) -> dict:
         peak_lr, 5 * iter_per_epoch,
         [40 * iter_per_epoch, 80 * iter_per_epoch],
         warmup_from=peak_lr / 16.0)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    model = models.get_model(args.arch, device=dev).init_weights(gen)
+    gen = torch.Generator(device=mesh.device).manual_seed(seed)
+    model = models.get_model(args.arch, device=mesh.device).init_weights(
+        gen)
+    replicate(model, mesh)
     opt = make_optimizer(args.opt_name, schedule, momentum=args.momentum,
                          weight_decay=args.weight_decay,
                          opt_exp=args.opt_exp, opt_man=args.opt_man,
@@ -284,13 +318,16 @@ def run(args: argparse.Namespace, device="cuda", world: int = 1) -> dict:
     eval_step = make_eval_step(model, mesh)
 
     global_batch = args.batch_size * mesh.world * args.emulate_node
-    pipeline = CIFAR10Pipeline(train_x, train_y, global_batch, augment=True,
+    # this process's contiguous slice of each global batch
+    host_batch = global_batch // n_proc
+    pipeline = CIFAR10Pipeline(train_x, train_y, host_batch, augment=True,
                                cutout=0)
     eval_bs = max(mesh.world,
                   (min(1000, len(test_y)) // mesh.world) * mesh.world)
     eval_pipe = CIFAR10Pipeline(test_x, test_y, eval_bs, augment=False)
 
     def validate() -> dict:
+        # rank 0 alone: every rank holds the same weights and BN stats
         tot = {"loss": 0.0, "top1": 0.0, "top5": 0.0}
         lows = range(0, (len(test_y) // eval_bs) * eval_bs, eval_bs)
         for lo in lows:
@@ -304,7 +341,7 @@ def run(args: argparse.Namespace, device="cuda", world: int = 1) -> dict:
         return avg
 
     sampler = DistributedGivenIterationSampler(
-        len(train_y), total_iter, global_batch, world_size=1, rank=0,
+        len(train_y), total_iter, host_batch, world_size=n_proc, rank=rank,
         seed=0)
     best, last, diverged, step_no = 0.0, {}, False, 0
     t0 = now()
@@ -315,17 +352,21 @@ def run(args: argparse.Namespace, device="cuda", world: int = 1) -> dict:
         last = {k: float(v) for k, v in metrics.items()}
         step_no += 1
         if not math.isfinite(last["loss"]):
-            print(f"=> non-finite loss {last['loss']} at iter {step_no}: "
-                  "diverged", file=sys.stderr)
+            # the loss is the global one: every rank stops here
+            if rank == 0:
+                print(f"=> non-finite loss {last['loss']} at iter "
+                      f"{step_no}: diverged", file=sys.stderr)
             diverged = True
             break
-        if step_no % args.print_freq == 0 or step_no == total_iter:
+        if rank == 0 and (step_no % args.print_freq == 0
+                          or step_no == total_iter):
             print(f"Iter: [{step_no}/{total_iter}] Loss {last['loss']:.4f} "
                   f"Prec@1 {100 * last['accuracy']:.3f} LR {lr:.4f}",
                   flush=True)
-        if step_no % args.val_freq == 0 or step_no == total_iter:
+        if rank == 0 and (step_no % args.val_freq == 0
+                          or step_no == total_iter):
             best = max(best, 100 * validate()["top1"])
-    if not diverged:
+    if rank == 0 and not diverged:
         print(f"done: {step_no} iters in {now() - t0:.1f}s best Prec@1 "
               f"{best:.2f}", flush=True)
     return {"step": step_no, "best_prec1": best, "diverged": diverged,

@@ -56,6 +56,13 @@ one K1 a leaf, whatever ``rounding``) as a probe whose output is
 discarded.  The reduced values are bitwise those of ``stats=False``.
 With ``verify`` the two reports merge into one dict.
 
+The mesh is a `mesh.LocalMesh` (every rank in this process) or a
+`mesh.ProcessMesh` (this process's rank of a `torch.distributed` group,
+joined by `dist_init`); ``grads`` holds one leaf list per local rank of
+either, and the result is bitwise the same on both.  `replicate`,
+`broadcast_from`, `all_reduce_mean` and `local_rows` are the
+multi-process helpers of the JAX module.
+
 On CUDA tensors (``fused=None``) every cast is a hand-written kernel:
 the APS pre-quantize is K1, or `sr_bits` + K2 (one launch each per leaf
 per rank), a faithful scan step K3 or `sr_bits` + K4 (four of each per
@@ -68,6 +75,7 @@ the reference the kernels are held against.
 
 from __future__ import annotations
 
+import os
 from typing import Mapping, Optional, Sequence
 
 import torch
@@ -83,7 +91,153 @@ from .reduction import _use_kernel, cast_site, quantized_sum
 from .ring import clean_report, hierarchical_ring_sum, report_ok
 
 __all__ = ["sum_gradients", "make_sum_gradients_fn", "grad_sr_key",
-           "quantize_tree_sr", "tree_quant_health"]
+           "quantize_tree_sr", "tree_quant_health", "dist_init",
+           "replicate", "broadcast_from", "all_reduce_mean", "local_rows"]
+
+# where a launcher says which process this is: torchrun, SLURM, Open MPI
+# (rank, world size, local rank)
+_LAUNCHERS = (("RANK", "WORLD_SIZE", "LOCAL_RANK"),
+              ("SLURM_PROCID", "SLURM_NTASKS", "SLURM_LOCALID"),
+              ("OMPI_COMM_WORLD_RANK", "OMPI_COMM_WORLD_SIZE",
+               "OMPI_COMM_WORLD_LOCAL_RANK"))
+
+
+def _launcher_env() -> Optional[tuple]:
+    """``(rank, world, local_rank)`` from the first launcher whose
+    variables are set, else None."""
+    for rank, world, local in _LAUNCHERS:
+        if rank in os.environ and world in os.environ:
+            r = int(os.environ[rank])
+            return r, int(os.environ[world]), int(os.environ.get(local, r))
+    return None
+
+
+def _check_nccl_card(local_rank: int) -> None:
+    """nccl runs one rank per card: this rank's card must exist, and no
+    other local rank may share it."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("backend 'nccl' needs an NVIDIA card, and "
+                           "torch.cuda.is_available() is False; the CPU "
+                           "and ranks that share a card take 'gloo'")
+    cards = torch.cuda.device_count()
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", local_rank + 1))
+    if local_rank >= cards or local_world > cards:
+        raise RuntimeError(
+            f"backend 'nccl' runs one rank per card, but local rank "
+            f"{local_rank} of {max(local_world, local_rank + 1)} has "
+            f"{cards} card(s): NCCL refuses two ranks on one device; "
+            f"run one process per card, or take backend 'gloo' to share "
+            f"a card")
+
+
+def dist_init(backend: Optional[str] = None, *, rank: Optional[int] = None,
+              world_size: Optional[int] = None,
+              local_rank: Optional[int] = None,
+              init_method: Optional[str] = None) -> tuple:
+    """Join the `torch.distributed` process group and return ``(rank,
+    world_size)`` (port of `cpd_tpu/parallel/dist.py:dist_init`).
+
+    The process learns who it is from explicit arguments, else from its
+    launcher's variables: torchrun's ``RANK``/``WORLD_SIZE``/
+    ``LOCAL_RANK``, SLURM's ``SLURM_PROCID``/``SLURM_NTASKS``/
+    ``SLURM_LOCALID`` or Open MPI's ``OMPI_COMM_WORLD_*``; the rendezvous
+    is ``init_method``, else ``env://`` (``MASTER_ADDR``/
+    ``MASTER_PORT``).  Outside a cluster (none of these) it is a no-op
+    returning ``(0, 1)``; an initialized group returns its own numbers.
+    ``backend`` is the caller's choice and is never guessed: ``nccl``,
+    one rank per card (``torch.cuda.set_device(local_rank)`` comes
+    first; two ranks on one card raise), or ``gloo`` (the CPU, or ranks
+    sharing a card, `mesh.ProcessMesh` staging the wire through the
+    host).  A failed rendezvous raises: nothing is swallowed, so an
+    N-process job never degrades to N independent trainings."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    env = _launcher_env()
+    explicit = (rank is not None or world_size is not None
+                or init_method is not None)
+    if not explicit and env is None:
+        return 0, 1
+    if backend not in ("nccl", "gloo"):
+        raise ValueError(f"backend must be 'nccl' (one rank per card) or "
+                         f"'gloo' (the CPU, or ranks sharing a card), got "
+                         f"{backend!r}")
+    if rank is None or world_size is None:
+        if env is None:
+            raise ValueError("pass both rank= and world_size=, or launch "
+                             "under torchrun, SLURM or Open MPI")
+        rank = env[0] if rank is None else rank
+        world_size = env[1] if world_size is None else world_size
+        local_rank = env[2] if local_rank is None else local_rank
+    local_rank = rank if local_rank is None else local_rank
+    if backend == "nccl":
+        _check_nccl_card(local_rank)
+        torch.cuda.set_device(local_rank)
+    dist.init_process_group(backend, init_method=init_method or "env://",
+                            rank=rank, world_size=world_size)
+    return dist.get_rank(), dist.get_world_size()
+
+
+def _broadcast_(t: torch.Tensor, mesh, src: int) -> None:
+    """``t`` overwritten in place with rank ``src``'s bytes."""
+    if mesh.world == 1 or len(mesh.ranks) == mesh.world:
+        return
+    import torch.distributed as dist
+
+    if mesh.staged:
+        host = t.detach().cpu()
+        dist.broadcast(host, src)
+        with torch.no_grad():
+            t.copy_(host)
+    else:
+        dist.broadcast(t.detach(), src)
+
+
+def replicate(module, mesh, src: int = 0):
+    """Rank ``src``'s parameters and buffers, byte for byte, on every
+    rank of ``mesh`` (port of `replicate`, the reference's
+    ``broadcast_params``); in place, returning ``module``.  A `LocalMesh`
+    shares its one module, so there is nothing to move."""
+    for t in list(module.parameters()) + list(module.buffers()):
+        _broadcast_(t, mesh, src)
+    return module
+
+
+def broadcast_from(x: torch.Tensor, mesh, src: int = 0) -> torch.Tensor:
+    """Rank ``src``'s value of ``x`` on every rank (a new tensor): one
+    broadcast on a `ProcessMesh`, ``x`` itself on a `LocalMesh`.  API
+    parity with the JAX module's ``broadcast_from``: nothing on the main
+    path calls it (`replicate` moves the weights)."""
+    out = x.clone()
+    _broadcast_(out, mesh, src)
+    return out
+
+
+def all_reduce_mean(xs: Sequence[torch.Tensor], mesh) -> list:
+    """The mean over the ranks of one value per local rank: the
+    rank-order sum / world (`mesh.sum`), the loss and metric averaging of
+    the reference's examples.  API parity with the JAX module's
+    ``all_reduce_mean``: nothing on the main path calls it (the step
+    averages through ``mesh.mean`` itself)."""
+    return mesh.mean(xs)
+
+
+def local_rows(x, mesh):
+    """This process's rows of a global batch ``x`` (numpy or a tensor):
+    the contiguous ``1/P`` slice of process ``p`` out of ``P``, which
+    holds the rows of its local ranks (the per-process contract of the
+    JAX ``host_batch_to_global``: the global batch is the processes'
+    slices in rank order).  A `LocalMesh` holds every rank: all rows."""
+    if len(mesh.ranks) == mesh.world:
+        return x
+    n = x.shape[0]
+    if n % mesh.world:
+        raise ValueError(f"global batch {n} is not a multiple of the "
+                         f"{mesh.world} processes")
+    per = n // mesh.world * len(mesh.ranks)
+    lo = mesh.ranks[0] * (n // mesh.world)
+    return x[lo:lo + per]
 
 
 def _leaf_starts(leaves: Sequence[torch.Tensor]) -> list:

@@ -79,9 +79,17 @@ gather ships each rank's final wire as it is: a packed wire is
 canonical, so re-packing its decode would give the same bytes.
 
 The hop logic is rank-local (`_Ring.first_hop`, `_Ring.next_hop`); the
-mesh only moves wires (`parallel/mesh.py`), so a multi-card mesh can
-reuse it.  On a `LocalMesh` all ranks share the one gathered stack; a
-gather-site fault corrupts a copy for the faulted rank only.
+mesh only moves wires (`parallel/mesh.py`), so the same code runs on a
+`LocalMesh` (every rank in this process, a hop a device copy) and on a
+`ProcessMesh` (this process's rank alone, a hop one `batch_isend_irecv`
+to rank + 1 and from rank - 1, the gather one all-gather).  Every rank
+takes part in every collective, verified or not, faulted or not: no
+rank returns early.  On a `LocalMesh` all ranks share the one gathered
+stack; a gather-site fault corrupts a copy for the faulted rank only.
+On a `ProcessMesh` each rank holds its own stack, and only the faulted
+rank's copy is corrupted, as there.  The verify tables (the sent tags,
+each rank's gather tag, whole-wire digest and ``hop_bad``) travel by
+the same collectives, so every rank ends with the same report.
 """
 
 from __future__ import annotations
@@ -422,9 +430,10 @@ def ring_quantized_sum(flats: Sequence[torch.Tensor], mesh, exp: int,
 
 def hierarchical_ring_sum(flats: Sequence[torch.Tensor], mesh, exp: int,
                           man: int, **kw):
-    """The ring over the mesh's axes.  A `LocalMesh` has one axis, where
-    this is exactly `ring_quantized_sum`; the multi-axis composition
-    (innermost axis first) waits for a multi-card mesh."""
+    """The ring over the mesh's axes.  `LocalMesh` and `ProcessMesh` have
+    one data-parallel axis, where this is exactly `ring_quantized_sum`;
+    the multi-axis composition (innermost axis first) is not ported yet
+    (ROADMAP Queue A, A5)."""
     return ring_quantized_sum(flats, mesh, exp, man, **kw)
 
 

@@ -46,7 +46,12 @@ def as_tokens(tokens, targets, device) -> tuple:
             torch.as_tensor(targets).to(device, torch.int64))
 
 
-def _rank_rows(n: int, world: int) -> int:
+def _rank_rows(n: int, mesh) -> int:
+    if len(mesh.ranks) != mesh.world:
+        raise NotImplementedError(
+            "the LM step on a ProcessMesh (one rank a process) is not "
+            "ported yet (ROADMAP Queue A): run it on a LocalMesh")
+    world = mesh.world
     if n % world:
         raise ValueError(f"global batch {n} is not a multiple of the "
                          f"{world} ranks")
@@ -67,7 +72,7 @@ def lm_local_gradients(model, toks: torch.Tensor, tgts: torch.Tensor, mesh,
     Returns ``(grads, sums, hits)``, one entry per local rank: the
     gradients of its CE sum over the global token count in
     ``parameters()`` order, the CE sum and the count of argmax hits."""
-    b = _rank_rows(toks.shape[0], mesh.world)
+    b = _rank_rows(toks.shape[0], mesh)
     global_n = float(toks.numel())
     params = list(model.parameters())
     model.train()
@@ -155,7 +160,7 @@ def make_lm_eval_step(model, mesh):
     @torch.no_grad()
     def eval_step(state: TrainState, tokens, targets):
         toks, tgts = as_tokens(tokens, targets, mesh.device)
-        b = _rank_rows(toks.shape[0], mesh.world)
+        b = _rank_rows(toks.shape[0], mesh)
         model.eval()
         sums, hits = [], []
         with fp32_numerics():

@@ -5,7 +5,9 @@ One train step over a mesh of W ranks, as the JAX step runs it under
 `shard_map`:
 
 1. rank r takes rows ``[r*B*N, (r+1)*B*N)`` of the global batch and
-   splits them into N = ``emulate_node`` contiguous micro-batches of B;
+   splits them into N = ``emulate_node`` contiguous micro-batches of B
+   (a `ProcessMesh` step is handed its process's rows alone,
+   `parallel.dist.local_rows`, and takes them all);
    each micro-batch runs its forward and backward from the BN stats the
    previous one left (the first from the step's stats), and takes the
    gradients of ``loss / (W*N) * loss_scale`` (so the reduced SUM is the
@@ -20,11 +22,17 @@ One train step over a mesh of W ranks, as the JAX step runs it under
    block-scaled, verified and observed by the health counters);
 4. the optimizer (`train.optim`: SGD, LARS, `quant_sgd`) updates the
    fp32 master weights with the reduced gradients;
-5. the BN running stats become the mean of the ranks' stats.
+5. the BN running stats become the mean of the ranks' stats, and the
+   loss and the top-1 hits are summed over the ranks, each through the
+   mesh (in rank order, so a `ProcessMesh` gives the `LocalMesh`'s bits).
 
 The step runs with TF32 off and cuDNN deterministic (restored after), as
-the reference computes in fp32 and the reduce is bitwise.  The weights,
-BN stats and optimizer buffers are updated in place.
+the reference computes in fp32 and the reduce is bitwise; on a
+`ProcessMesh` each process sets them for itself, as each runs its own
+step.  The weights, BN stats and optimizer buffers are updated in place;
+every rank applies the same reduced gradients and the same mean of the
+BN stats, so ranks that start from `parallel.dist.replicate`'s bytes
+stay equal.
 
 The gradient leaves are the module's parameters in ``parameters()``
 order, in torch layouts (OIHW convs).  The ring's chunks follow that
@@ -47,7 +55,7 @@ from ..quant.prng import fold_in
 from .state import TrainState
 
 __all__ = ["make_train_step", "make_eval_step", "fp32_numerics",
-           "local_gradients", "as_batch"]
+           "local_gradients", "as_batch", "mean_stats"]
 
 
 @contextlib.contextmanager
@@ -81,22 +89,23 @@ def as_batch(images, labels, device) -> tuple:
 
 def local_gradients(model, x: torch.Tensor, y: torch.Tensor, mesh,
                     emulate_node: int = 1, loss_scale: float = 1.0) -> tuple:
-    """Step 1 for every local rank of ``mesh``: rank r's forward and
-    backward on rows ``[r*B*N, (r+1)*B*N)`` of the global batch ``x``/
-    ``y`` (NCHW on the mesh's device) as N = ``emulate_node`` contiguous
-    micro-batches of B in turn, the first from the step's starting BN
-    stats.  Returns ``(grads, stats, losses, hits)``, one entry per local
-    rank: the gradients of ``loss / (W*N) * loss_scale`` in
+    """Step 1 for every local rank of ``mesh``: the i-th local rank's
+    forward and backward on rows ``[i*B*N, (i+1)*B*N)`` of ``x``/``y``
+    (NCHW on the mesh's device: the global batch on a `LocalMesh`, this
+    process's rows on a `ProcessMesh`) as N = ``emulate_node``
+    contiguous micro-batches of B in turn, the first from the step's
+    starting BN stats.  Returns ``(grads, stats, losses, hits)``, one
+    entry per local rank: the gradients of ``loss / (W*N) * loss_scale`` in
     ``parameters()`` order (at N > 1 each leaf stacks the N micro-batch
     gradients, ``(N, *shape)``), the BN running stats the rank's last
     micro-batch left, its summed micro losses / (W*N) (unscaled) and its
     count of top-1 hits.  The module's BN stats are left at the last
     rank's."""
-    world, n = mesh.world, emulate_node
-    if x.shape[0] % world:
-        raise ValueError(f"global batch {x.shape[0]} is not a multiple of "
-                         f"the {world} ranks")
-    per_rank = x.shape[0] // world
+    world, n, local = mesh.world, emulate_node, len(mesh.ranks)
+    if x.shape[0] % local:
+        raise ValueError(f"batch {x.shape[0]} is not a multiple of the "
+                         f"{local} local ranks")
+    per_rank = x.shape[0] // local
     if per_rank < n or per_rank % n:
         raise ValueError(
             f"per-rank batch {per_rank} must be a positive multiple of "
@@ -109,12 +118,12 @@ def local_gradients(model, x: torch.Tensor, y: torch.Tensor, mesh,
     start = [s.clone() for s in stats]
     model.train()
     grads, new_stats, losses, hits = [], [], [], []
-    for r in mesh.ranks:
+    for i in range(local):
         for s, s0 in zip(stats, start):
             s.copy_(s0)
         micro, rank_loss, rank_hits = [], None, None
         for j in range(n):
-            lo = r * per_rank + j * b
+            lo = i * per_rank + j * b
             xr, yr = x[lo:lo + b], y[lo:lo + b]
             logits = model(xr)
             loss = F.cross_entropy(logits, yr) / (world * n)
@@ -131,6 +140,28 @@ def local_gradients(model, x: torch.Tensor, y: torch.Tensor, mesh,
         losses.append(rank_loss)
         hits.append(rank_hits)
     return grads, new_stats, losses, hits
+
+
+def mean_stats(new_stats: list, mesh) -> list:
+    """Step 5: the mean over the ranks of every BN buffer
+    (``new_stats[i]``: the i-th local rank's buffers), one `mesh.mean`
+    per dtype over the buffers concatenated.  The mean is elementwise,
+    so each buffer gets the bits of its own mean; on a `ProcessMesh` the
+    buffers share one all-gather instead of one each."""
+    first = new_stats[0]
+    groups: dict = {}
+    for j, b in enumerate(first):
+        groups.setdefault(b.dtype, []).append(j)
+    out = [None] * len(first)
+    for idx in groups.values():
+        mean = mesh.mean([torch.cat([ns[j].reshape(-1) for j in idx])
+                          for ns in new_stats])[0]
+        off = 0
+        for j in idx:
+            n = first[j].numel()
+            out[j] = mean[off:off + n].reshape(first[j].shape)
+            off += n
+    return out
 
 
 def _wire_fault(plan, step: int):
@@ -156,7 +187,8 @@ def make_train_step(model, opt, mesh, *, emulate_node: int = 1,
     """``step(state, images, labels) -> (state, metrics)`` over ``mesh``.
 
     ``images``: the global batch, (W * B * N, 32, 32, 3) NHWC fp32 with
-    N = ``emulate_node``; each rank takes its contiguous B * N rows, as
+    N = ``emulate_node``, on a `ProcessMesh` this process's (B * N)
+    rows of it; each rank takes its contiguous B * N rows, as
     N micro-batches (module docstring).  ``metrics``: ``loss`` (the
     rank-summed micro losses / (W*N), i.e. the global mean) and
     ``accuracy`` (top-1 over the global batch), as 0-d tensors on the
@@ -221,12 +253,14 @@ def make_train_step(model, opt, mesh, *, emulate_node: int = 1,
             state.opt_state = opt.apply(reduced, state.opt_state,
                                         state.params, fused=fused)
             with torch.no_grad():
-                for j, s in enumerate(state.batch_stats):
-                    s.copy_(mesh.mean([ns[j] for ns in new_stats])[0])
+                for s, m in zip(state.batch_stats,
+                                mean_stats(new_stats, mesh)):
+                    s.copy_(m)
         state.step += 1
+        global_batch = x.shape[0] // len(mesh.ranks) * mesh.world
         metrics = {"loss": mesh.sum(losses)[0],
                    "accuracy": mesh.sum(hits)[0].to(torch.float32)
-                   / x.shape[0]}
+                   / global_batch}
         if verify_reduce:
             metrics.update({f"reduce_{k}": report[k].to(torch.float32)
                             for k in ("ok", "hop_bad", "gather_bad",
