@@ -237,7 +237,29 @@ Phases; any failure exits non-zero:
    card, the split, device busy and NCCL ms of a profiled step) and runs
    bench.py's headline (`bench.run` on the process mesh: ResNet-50 bf16,
    32 a card, faithful and fast, images/s per card);
-15. print one JSON line ``{"kernels": [...]}`` and, last,
+15. the transport ladder and checkpoints through the ResNet CLI on
+   full-width ResNet-18/CIFAR, APS e5m2, phase 14's 4096-image synthetic
+   set, every checkpoint under a temporary directory: (a) a ladder drill
+   at W = 4 x 128 on the card, ``--verify-reduce --reduce-retries 1
+   --transport-probation 2 --fault-plan wire_flip@2:1`` over 10
+   iterations (`LADDER_WANT`: 8 updates, the counters and the
+   transitions ring -> faithful -> ring), every kept update's loss and
+   the saved final state bitwise a replay of the same rung steps by hand
+   over the batches that were not discarded, each rung's step ms and
+   launches per step, the discarded steps' ms; (b) one step of the fp32
+   rung (`StepTable`) bitwise the ``--mode fast`` (8, 23) step from the
+   same state; (c) an unbroken 8-iteration run saved at 4 and 8, its
+   step 4 resumed with ``--load-path --resume-opt`` to 8 bitwise
+   (losses 5-8 and every array of step 8), save and restore ms and the
+   bytes of a step, a bit-flipped newest step skipped by
+   ``restore_latest_valid``, ``-e --export-torch`` then ``-e
+   --init-from-torch`` giving the same validation numbers bitwise; (d) 2
+   processes sharing the card over gloo under ``--dist`` (the tiny CNN)
+   with ``wire_flip`` on rank 1 and a save, then a resume: both ranks'
+   runs bitwise a third process's `LocalMesh` W = 2 run of the same
+   argv, the ranks' digests equal after each resync, and every rank
+   restoring the same bytes;
+16. print one JSON line ``{"kernels": [...]}`` and, last,
    ``{"ok": true, "device": {...}}``.
 
 The script imports neither jax nor the JAX package.
@@ -246,11 +268,15 @@ The script imports neither jax nor the JAX package.
 from __future__ import annotations
 
 import contextlib
+import io
 import itertools
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 # -- tolerances ------------------------------------------------------------
@@ -626,6 +652,20 @@ K12_SPEEDUP_FLOOR = 5.0
 def fail(msg: str) -> int:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     return 1
+
+
+# every checkpoint the ResNet CLI writes goes under one temporary root,
+# made at the first use and removed when main returns
+_SAVE_ROOT: list = []
+
+
+def save_path(label: str) -> str:
+    """A fresh checkpoint directory for one CLI run."""
+    if not _SAVE_ROOT:
+        _SAVE_ROOT.append(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    path = os.path.join(_SAVE_ROOT[0], label)
+    shutil.rmtree(path, ignore_errors=True)
+    return path
 
 
 def card_line() -> str:
@@ -2202,7 +2242,8 @@ def train_phase(device) -> dict:
     t0 = now()
     rc = cli.main(["--mode", "faithful", "--use_APS", "--grad_exp",
                    str(fmt[0]), "--grad_man", str(fmt[1]), "--max-iter",
-                   str(TRAIN["cli_iters"])])
+                   str(TRAIN["cli_iters"]), "--save_path",
+                   save_path("train_cli")])
     cli_counts = read_counts()
     if rc != 0 or cli_counts["quantize_add"] == 0:
         raise AssertionError(f"trainer CLI returned {rc}, launches "
@@ -2348,7 +2389,8 @@ def sr_train_phase(device, rtne: dict) -> dict:
     rc = cli.main(["--mode", "faithful", "--use_APS", "--use_kahan",
                    "--grad-rounding", "stochastic", "--grad-seed",
                    str(SR_SEED), "--grad_exp", str(fmt[0]), "--grad_man",
-                   str(fmt[1]), "--max-iter", str(iters)])
+                   str(fmt[1]), "--max-iter", str(iters), "--save_path",
+                   save_path("sr_cli")])
     cli_counts = read_counts()
     design = {k: iters * v for k, v in reduce_design(
         "faithful", True, True, 1, len(sizes), n_buckets).items()}
@@ -2866,7 +2908,8 @@ def blocked_train_phase(device) -> dict:
     t0 = now()
     rc = cli.main(["--mode", "ring", "--use_APS", "--grad_exp", str(fmt[0]),
                    "--grad_man", str(fmt[1]), "--block-scale",
-                   "--block-size", str(block), "--max-iter", str(iters)])
+                   "--block-size", str(block), "--max-iter", str(iters),
+                   "--save_path", save_path("blocked_cli")])
     cli_counts = read_counts()
     # the CLI's mesh is one rank: hop 0 only, one K6-blocked per bucket
     design = {k: iters * v for k, v in blocked_design(
@@ -3034,7 +3077,8 @@ def headline_phase(device) -> dict:
     rc = cli.main(["--arch", "resnet50", "--mode", "fast", "--use_APS",
                    "--grad_exp", str(bench.FMT[0]), "--grad_man",
                    str(bench.FMT[1]), "--max-iter", "1", "--batch_size",
-                   str(HEADLINE_CLI_BATCH)])
+                   str(HEADLINE_CLI_BATCH), "--save_path",
+                   save_path("headline_cli")])
     cli_counts = {k: v for k, v in read_counts().items() if v}
     design = headline_design("fast", 1, len(sizes), n_buckets)
     if rc != 0 or cli_counts != design:
@@ -3342,7 +3386,8 @@ def emulate_phase(device) -> dict:
     for extra in EMU_CLI_ARMS:
         reset_counts()
         t0 = now()
-        res = cli.run(cli.parse_args(EMU_CLI + extra), device=device)
+        res = cli.run(cli.parse_args(EMU_CLI + extra + [
+            "--save_path", save_path("emulate_cli")]), device=device)
         run = dict(flags=extra, seconds=now() - t0, loss=res["loss"],
                    best_prec1=res["best_prec1"],
                    launches={k: v for k, v in read_counts().items() if v})
@@ -5504,11 +5549,12 @@ def dist_cifar_root() -> str:
     return root
 
 
-def dist_cli(mesh, root: str, buckets: int, leaves: int) -> dict:
+def dist_cli(mesh, root: str, buckets: int, leaves: int, save: str) -> dict:
     """DIST["cli_iters"] iterations of the ResNet-18 CLI under ``--dist
-    --dist-backend gloo`` (faithful APS e5m2, batch 128 a rank), this
-    process one of its ranks: it finishes, the loss is finite, the
-    launches are the design's per iteration."""
+    --dist-backend gloo`` (faithful APS e5m2, batch 128 a rank, its
+    checkpoints in ``save``), this process one of its ranks: it
+    finishes, the loss is finite, the launches are the design's per
+    iteration."""
     from cpd_tpu_torch.examples.resnet18_cifar import train as cli
     from cpd_tpu_torch.obs.timing import now
 
@@ -5518,7 +5564,7 @@ def dist_cli(mesh, root: str, buckets: int, leaves: int) -> dict:
         "--dist", "--dist-backend", mesh.backend, "--mode", "faithful",
         "--use_APS", "--grad_exp", "5", "--grad_man", "2", "--max-iter",
         str(DIST["cli_iters"]), "--batch_size", str(DIST["per_rank_batch"]),
-        "--data-root", root,
+        "--data-root", root, "--save_path", save,
         "--print_freq", "1", "--val_freq", str(DIST["cli_iters"])]),
         device=mesh.device)
     seconds = now() - t0
@@ -5533,12 +5579,13 @@ def dist_cli(mesh, root: str, buckets: int, leaves: int) -> dict:
                 best_prec1=res["best_prec1"])
 
 
-def dist_rank(part: str, backend: str, device, root=None) -> dict:
+def dist_rank(part: str, backend: str, device, root=None,
+              save=None) -> dict:
     """One rank process of phase 14 (`parallel.launch.spawn` starts W):
     joins the group with ``backend``, its rank on ``device`` (under nccl
     its own card), then 14a (``part`` "a": the matrix and the ``--dist``
-    CLI on the data under ``root``) or 14b ("b": the matrix, the bytes,
-    the ResNet-18 step and the headline)."""
+    CLI on the data under ``root``, checkpoints in ``save``) or 14b
+    ("b": the matrix, the bytes, the ResNet-18 step and the headline)."""
     import torch
 
     from cpd_tpu_torch.obs.timing import now
@@ -5560,7 +5607,7 @@ def dist_rank(part: str, backend: str, device, root=None) -> dict:
     names = ["init", "matrix"]
     buckets, leaves = out["matrix"]["buckets"], out["matrix"]["leaves"]
     if part == "a":
-        out["cli"] = dist_cli(mesh, root, buckets, leaves)
+        out["cli"] = dist_cli(mesh, root, buckets, leaves, save)
         names.append("cli")
         marks.append(now())
     else:
@@ -5598,7 +5645,8 @@ def dist_phase(device, parts=("a", "b")) -> dict:
         t0 = now()
         root = dist_cifar_root()
         ranks = spawn(dist_rank, DIST["world_a"],
-                      args=("a", "gloo", device, root),
+                      args=("a", "gloo", device, root,
+                            save_path("dist_cli")),
                       timeout=DIST["deadline_a"])
         out["a"] = dist_summary("14a", ranks, now() - t0)
     if "b" in parts:
@@ -5668,6 +5716,560 @@ def dist_summary(label: str, ranks: list, seconds: float) -> dict:
     return dict(world=w, seconds=seconds, ranks=ranks)
 
 
+# phase 15: the transport ladder and checkpoints through the ResNet CLI,
+# full-width ResNet-18/CIFAR on phase 14's synthetic set (`dist_cifar_root`)
+# at W ranks x 128 on the card, APS e5m2; 15d: 2 gloo processes on the
+# card, the tiny CNN at dist_batch a rank
+LADDER = dict(world=4, per_rank_batch=128, fmt=(5, 2), iters=10,
+              fault="wire_flip@2:1", retries=1, probation=2,
+              ckpt_iters=8, ckpt_at=4, dist_world=2, dist_batch=32,
+              dist_iters=6, dist_resume_iters=8, dist_deadline=300.0)
+# 15a's ladder as the JAX trainer's loop runs it (tests/test_torch_ladder.py
+# holds the port's CLI to the JAX CLI's on the same argv): 10 batches,
+# the update-2 fault discarded twice (a retry, then a downgrade), two clean
+# faithful updates and back to the ring
+LADDER_WANT = dict(
+    step=8, transitions=[(2, "ring", "faithful"), (3, "faithful", "ring")],
+    counters={"wire_faults_detected": 2, "reduce_retries": 1,
+              "transport_downgrades": 1, "resyncs": 1,
+              "transport_upgrades": 1})
+# the kernels of each rung's step that the kernels line reports per rung
+LADDER_KERNELS = ("quantize_cast", "quantize_add", "quantize_pack",
+                  "hop_pack")
+# the kernels each rung's step must launch
+LADDER_PATH = {"ring": ("quantize_cast", "quantize_pack", "hop_pack",
+                        "digest_rows"),
+               "faithful": ("quantize_cast", "quantize_add"),
+               "fp32": ("quantize_cast",)}
+
+
+def rung_of(mode: str, fmt) -> str:
+    """The ladder rung a step's reduce mode and format belong to."""
+    return "fp32" if mode == "fast" and tuple(fmt) == (8, 23) else mode
+
+
+@contextlib.contextmanager
+def recorded_steps(log: list):
+    """Every train step built while open records, per call: its rung,
+    the batch, the loss, the verdict, the host ms between
+    synchronisations and the kernel launches (the steps the ResNet CLI
+    builds included: it looks `make_train_step` up at each run)."""
+    import numpy as np
+    import torch
+
+    import cpd_tpu_torch.train as ttrain
+    from cpd_tpu_torch.obs.timing import now
+
+    real = ttrain.make_train_step
+
+    def build(model, opt, mesh, **kw):
+        step = real(model, opt, mesh, **kw)
+        rung = rung_of(kw.get("mode", "faithful"),
+                       (kw.get("grad_exp", 8), kw.get("grad_man", 23)))
+
+        def recorded(state, images, labels):
+            before = read_counts()
+            torch.cuda.synchronize()
+            t0 = now()
+            state, metrics = step(state, images, labels)
+            torch.cuda.synchronize()
+            ms = (now() - t0) * 1e3
+            after = read_counts()
+            log.append(dict(
+                rung=rung, images=np.array(images), labels=np.array(labels),
+                loss=metrics["loss"].clone(),
+                ok=float(metrics.get("reduce_ok", 1.0)), ms=ms,
+                launches={k: after[k] - before[k] for k in after
+                          if after[k] != before[k]}))
+            return state, metrics
+
+        return recorded
+
+    ttrain.make_train_step = build
+    try:
+        yield log
+    finally:
+        ttrain.make_train_step = real
+
+
+def ladder_argv(root: str, iters: int, *extra) -> list:
+    """The ResNet CLI at phase 15's width and data, the ring APS e5m2."""
+    L = LADDER
+    return ["--mode", "ring", "--use_APS", "--grad_exp", str(L["fmt"][0]),
+            "--grad_man", str(L["fmt"][1]), "--batch_size",
+            str(L["per_rank_batch"]), "--max-iter", str(iters),
+            "--print_freq", "100", "--data-root", root, *extra]
+
+
+def run_cli(argv: list, world: int, device) -> tuple:
+    """The ResNet CLI's ``run``: (result, its ``=>`` lines)."""
+    from cpd_tpu_torch.examples.resnet18_cifar import train as cli
+
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err), \
+            contextlib.redirect_stdout(io.StringIO()):
+        res = cli.run(cli.parse_args(argv), device=device, world=world)
+    return res, [ln for ln in err.getvalue().splitlines()
+                 if ln.startswith("=>")]
+
+
+def fresh_state(args, device, world: int) -> tuple:
+    """(model, optimizer, state) as the ResNet CLI starts them for
+    ``args`` on phase 15's data."""
+    import torch
+
+    from cpd_tpu_torch import models
+    from cpd_tpu_torch.data import load_cifar10
+    from cpd_tpu_torch.train import (create_train_state, make_optimizer,
+                                     warmup_step_decay)
+
+    n = len(load_cifar10(args.data_root)[1])
+    ipe = math.ceil(n / (world * args.batch_size * args.emulate_node))
+    schedule = warmup_step_decay(1.6, 5 * ipe, [40 * ipe, 80 * ipe],
+                                 warmup_from=0.1)
+    gen = torch.Generator(device=device).manual_seed(24)
+    model = models.get_model(args.arch, device=device).init_weights(gen)
+    opt = make_optimizer(args.opt_name, schedule, momentum=args.momentum,
+                         weight_decay=args.weight_decay)
+    return model, opt, create_train_state(model, opt)
+
+
+def state_arrays(state) -> list:
+    """Every tensor of a train state as host bytes (integrity order)."""
+    from cpd_tpu_torch.parallel.integrity import tensor_leaves
+
+    return [t.detach().cpu().clone() for t in tensor_leaves(state)]
+
+
+def same_state(a: list, b: list, label: str) -> None:
+    if len(a) != len(b):
+        raise AssertionError(f"{label}: {len(a)} tensors vs {len(b)}")
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x.shape != y.shape or x.dtype != y.dtype or not same_bits(x, y):
+            raise AssertionError(f"{label}: tensor {i} differs")
+
+
+def per_rung(log: list, label: str) -> dict:
+    """rung -> the launches of one kept step (the same in every kept step
+    of the rung) and the kept steps' host ms."""
+    out: dict = {}
+    for e in log:
+        if e["ok"] != 1.0:
+            continue
+        r = out.setdefault(e["rung"], dict(launches=e["launches"], ms=[]))
+        if e["launches"] != r["launches"]:
+            raise AssertionError(f"{label} {e['rung']}: launches "
+                                 f"{e['launches']} != {r['launches']}")
+        r["ms"].append(e["ms"])
+    return out
+
+
+def ladder_drill(device, root: str) -> dict:
+    """15a: the ladder through the CLI, then its replay by hand."""
+    import torch
+
+    from cpd_tpu_torch.examples.resnet18_cifar import train as cli
+    from cpd_tpu_torch.parallel.mesh import data_parallel_mesh
+    from cpd_tpu_torch.resilience import FaultPlan, level_reduce_kwargs
+    from cpd_tpu_torch.train import make_train_step
+    from cpd_tpu_torch.train.checkpoint import restore_latest
+
+    L = LADDER
+    save = save_path("ladder_15a")
+    argv = ladder_argv(root, L["iters"], "--verify-reduce",
+                       "--reduce-retries", str(L["retries"]),
+                       "--transport-probation", str(L["probation"]),
+                       "--fault-plan", L["fault"], "--val_freq",
+                       str(LADDER_WANT["step"]), "--save_path", save)
+    log: list = []
+    reset_counts()
+    with recorded_steps(log):
+        res, lines = run_cli(argv, L["world"], device)
+    counts = read_counts()
+    got = dict(step=res["step"], transitions=res["transport"]["transitions"],
+               counters={k: v for k, v in res["resilience"].items() if v})
+    if got != LADDER_WANT or res["diverged"] or len(lines) != 3:
+        raise AssertionError(f"15a ladder {got}, lines {lines} != "
+                             f"{LADDER_WANT}")
+    if len(log) != L["iters"]:
+        raise AssertionError(f"15a: {len(log)} steps ran, not "
+                             f"{L['iters']}")
+    rungs = per_rung(log, "15a")
+    for rung in ("ring", "faithful"):
+        missing = [k for k in LADDER_PATH[rung]
+                   if not rungs[rung]["launches"].get(k)]
+        if missing:
+            raise AssertionError(f"15a {rung} step launched none of "
+                                 f"{missing}: {rungs[rung]['launches']}")
+
+    # the replay: the same rung steps by hand over the kept batches
+    args = cli.parse_args(argv)
+    mesh = data_parallel_mesh(L["world"], device)
+    model, opt, state = fresh_state(args, mesh.device, L["world"])
+    plan = FaultPlan.parse(L["fault"]).wire_schedule(L["iters"])
+    steps = {lv: make_train_step(
+        model, opt, mesh, verify_reduce=True, use_aps=True,
+        wire_fault_plan=plan if lv == "ring" else None,
+        **level_reduce_kwargs(lv, *L["fmt"])) for lv in rungs}
+    kept = [e for e in log if e["ok"] == 1.0]
+    for i, e in enumerate(kept):
+        state, m = steps[e["rung"]](state, e["images"], e["labels"])
+        if float(m["reduce_ok"]) != 1.0 or not same_bits(m["loss"],
+                                                          e["loss"]):
+            raise AssertionError(f"15a update {i} ({e['rung']}): replay "
+                                 f"loss {float(m['loss'])!r}, CLI "
+                                 f"{float(e['loss'])!r}")
+    want = state_arrays(state)
+    model2, _, fresh = fresh_state(args, mesh.device, L["world"])
+    saved = restore_latest(save, fresh)
+    if saved is None or saved.step != LADDER_WANT["step"]:
+        raise AssertionError(f"15a: no checkpoint of update "
+                             f"{LADDER_WANT['step']} in {save}")
+    same_state(want, state_arrays(saved), "15a saved state vs replay")
+    del model, model2, state, saved, fresh, steps
+    torch.cuda.empty_cache()
+    out = dict(step=res["step"], lines=lines, counts=counts,
+               batch=dict(images=kept[0]["images"],
+                          labels=kept[0]["labels"], root=root),
+               losses=[float(e["loss"]) for e in kept],
+               discarded_ms=[e["ms"] for e in log if e["ok"] != 1.0],
+               rungs={k: dict(launches=v["launches"], ms=v["ms"])
+                      for k, v in rungs.items()})
+    print(f"ladder 15a: W={L['world']} x {L['per_rank_batch']} "
+          "ResNet-18/CIFAR, ring APS e5m2, "
+          f"--fault-plan {L['fault']}: {res['step']} updates of "
+          f"{L['iters']} batches, transitions {got['transitions']}, "
+          f"counters {got['counters']}; every kept update's loss and the "
+          "saved state bitwise the replay; " + json.dumps(
+              {k: out[k] for k in ("losses", "discarded_ms", "rungs")}),
+          flush=True)
+    return out
+
+
+def fp32_rung(device, batch) -> dict:
+    """15b: the fp32 rung's step bitwise fast mode at (8, 23)."""
+    from cpd_tpu_torch.examples.resnet18_cifar import train as cli
+    from cpd_tpu_torch.obs.timing import now
+    from cpd_tpu_torch.parallel.mesh import data_parallel_mesh
+    from cpd_tpu_torch.resilience import StepTable, level_reduce_kwargs
+    from cpd_tpu_torch.train import make_train_step
+
+    import torch
+
+    L = LADDER
+    args = cli.parse_args(ladder_argv(batch["root"], L["iters"]))
+    mesh = data_parallel_mesh(L["world"], device)
+    model_a, opt_a, state_a = fresh_state(args, mesh.device, L["world"])
+    model_b, opt_b, state_b = fresh_state(args, mesh.device, L["world"])
+    table = StepTable(lambda lv: make_train_step(
+        model_a, opt_a, mesh, verify_reduce=True, use_aps=True,
+        **level_reduce_kwargs(lv, *L["fmt"])))
+    fast = make_train_step(model_b, opt_b, mesh, mode="fast", grad_exp=8,
+                           grad_man=23, use_aps=True)
+    x, y = batch["images"], batch["labels"]
+    reset_counts()
+    state_a, ma = table["fp32"](state_a, x, y)
+    launches = {k: v for k, v in read_counts().items() if v}
+    state_b, mb = fast(state_b, x, y)
+    if float(ma["reduce_ok"]) != 1.0 or not same_bits(ma["loss"],
+                                                      mb["loss"]):
+        raise AssertionError(f"15b: fp32 rung loss {float(ma['loss'])!r} "
+                             f"vs fast (8, 23) {float(mb['loss'])!r}")
+    same_state(state_arrays(state_a), state_arrays(state_b),
+               "15b fp32 rung vs fast (8, 23)")
+    missing = [k for k in LADDER_PATH["fp32"] if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"15b: the fp32 rung launched none of "
+                             f"{missing}: {launches}")
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = now()
+        state_a, _ = table["fp32"](state_a, x, y)
+        torch.cuda.synchronize()
+        ms.append((now() - t0) * 1e3)
+    del model_a, model_b, state_a, state_b, table, fast
+    torch.cuda.empty_cache()
+    out = dict(launches=launches, ms=ms)
+    print("ladder 15b: one fp32-rung step bitwise the --mode fast "
+          "(8, 23) step from the same state; " + json.dumps(out),
+          flush=True)
+    return out
+
+
+def npz_arrays(step_dir: str) -> list:
+    import numpy as np
+
+    with np.load(os.path.join(step_dir, "state.npz")) as z:
+        return [z[k] for k in sorted(z.files)]
+
+
+def ckpt_drill(device, root: str) -> dict:
+    """15c: resume bitwise, save/restore cost, a corrupt newest step,
+    and the reference .pth round trip."""
+    import numpy as np
+    import torch
+
+    from cpd_tpu_torch.examples.resnet18_cifar import train as cli
+    from cpd_tpu_torch.obs.timing import now
+    from cpd_tpu_torch.train.checkpoint import (CheckpointManager,
+                                                checkpoint_digest)
+
+    L = LADDER
+    n, at = L["ckpt_iters"], L["ckpt_at"]
+    argv = ladder_argv(root, n, "--val_freq", str(at))
+    whole = save_path("ckpt_whole")
+    log_w: list = []
+    with recorded_steps(log_w):
+        res_w, _ = run_cli(argv + ["--save_path", whole], L["world"], device)
+    copy = save_path("ckpt_copy")
+    shutil.copytree(whole, copy)
+    shutil.rmtree(os.path.join(copy, str(n)))
+    os.remove(os.path.join(copy, f"meta-{n}.json"))
+    resumed = save_path("ckpt_resumed")
+    log_r: list = []
+    with recorded_steps(log_r):
+        res_r, _ = run_cli(argv + ["--load-path", copy, "--resume-opt",
+                                   "--save_path", resumed], L["world"],
+                           device)
+    if (res_w["step"], res_r["step"], len(log_r)) != (n, n, n - at):
+        raise AssertionError(f"15c: steps {res_w['step']}, "
+                             f"{res_r['step']}, {len(log_r)} resumed")
+    for i, (a, b) in enumerate(zip(log_w[at:], log_r)):
+        if not same_bits(a["loss"], b["loss"]):
+            raise AssertionError(f"15c iteration {at + i + 1}: resumed "
+                                 f"loss {float(b['loss'])!r}, unbroken "
+                                 f"{float(a['loss'])!r}")
+    want = npz_arrays(os.path.join(whole, str(n)))
+    got = npz_arrays(os.path.join(resumed, str(n)))
+    if len(want) != len(got) or not all(
+            a.dtype == b.dtype and a.shape == b.shape
+            and np.array_equal(a.view(np.uint8), b.view(np.uint8))
+            for a, b in zip(want, got)):
+        raise AssertionError("15c: the resumed step-8 checkpoint differs "
+                             "from the unbroken run's")
+
+    # save and restore of the full-width state, timed
+    args = cli.parse_args(argv)
+    model, _, template = fresh_state(args, device, L["world"])
+    mgr = CheckpointManager(whole)
+    torch.cuda.synchronize()
+    t0 = now()
+    state = mgr.restore(template)
+    torch.cuda.synchronize()
+    restore_ms = (now() - t0) * 1e3
+    timed = CheckpointManager(save_path("ckpt_timed"))
+    t0 = now()
+    timed.save(n, state)
+    save_ms = (now() - t0) * 1e3
+    info = checkpoint_digest(os.path.join(timed.directory, str(n)))
+
+    # a bit flip in the newest step: the scan takes the step before
+    victim = os.path.join(whole, str(n), "state.npz")
+    size = os.path.getsize(victim)
+    with open(victim, "r+b") as fh:
+        fh.seek(size // 2)
+        byte = fh.read(1)
+        fh.seek(size // 2)
+        fh.write(bytes([byte[0] ^ 0xFF]))
+    with contextlib.redirect_stderr(io.StringIO()):
+        scan = mgr.restore_latest_valid(template)
+    if scan is None or (scan.step, scan.skipped) != (at, (n,)):
+        raise AssertionError(f"15c: restore_latest_valid after a bit flip "
+                             f"in step {n}: {scan and scan[1:3]}")
+
+    # the reference .pth: export, then evaluate from it
+    pth = os.path.join(save_path("ckpt_pth"), "res18.pth")
+    os.makedirs(os.path.dirname(pth))
+    ev = ladder_argv(root, n, "-e", "--save_path", save_path("ckpt_eval"))
+    v1, _ = run_cli(ev + ["--load-path", resumed, "--export-torch", pth],
+                    L["world"], device)
+    v2, _ = run_cli(ev + ["--init-from-torch", pth], L["world"], device)
+    if v1 != v2:
+        raise AssertionError(f"15c: -e from the checkpoint {v1} != -e "
+                             f"--init-from-torch of its export {v2}")
+    del model, template, state
+    torch.cuda.empty_cache()
+    out = dict(losses=[float(e["loss"]) for e in log_r],
+               save_ms=save_ms, restore_ms=restore_ms, bytes=info["bytes"],
+               files=info["files"], validation=v1)
+    print(f"ladder 15c: {n} iterations saved at {at} and {n}; step {at} "
+          f"resumed with --load-path --resume-opt: losses {at + 1}-{n} and "
+          f"every array of step {n} bitwise the unbroken run; a bit flip "
+          f"in step {n} skipped for step {at}; -e --export-torch then -e "
+          "--init-from-torch: the same validation bitwise; " +
+          json.dumps(out), flush=True)
+    return out
+
+
+class LadderStitched:
+    """The global batches of a 15d ``--dist`` run over its processes:
+    each process's sampler slice, in rank order."""
+
+    def __init__(self, n, total_iter, batch, world_size=1, rank=0, seed=0,
+                 last_iter=-1):
+        from cpd_tpu_torch.data import samplers
+
+        w = LADDER["dist_world"]
+        self.parts = [samplers.DistributedGivenIterationSampler(
+            n, total_iter, batch // w, world_size=w, rank=r, seed=seed,
+            last_iter=last_iter) for r in range(w)]
+
+    def batches(self):
+        import numpy as np
+
+        for parts in zip(*(p.batches() for p in self.parts)):
+            yield np.concatenate(parts)
+
+
+def ladder_dist_rank(root: str, base: str, device) -> dict:
+    """One process of 15d: ranks 0 and 1 run the ladder and the resume
+    under ``--dist --dist-backend gloo``; the last process runs the same
+    argv on a `LocalMesh` of 2.  Each reports its runs, the digest and
+    agreement after every resync, and the state it restores from the
+    resumed run's checkpoint."""
+    import torch
+
+    import cpd_tpu_torch.data as tdata
+    import cpd_tpu_torch.parallel.integrity as integ
+    from cpd_tpu_torch.examples.resnet18_cifar import train as cli
+    from cpd_tpu_torch.train.checkpoint import restore_latest
+
+    L = LADDER
+    local = int(os.environ["RANK"]) == L["dist_world"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    where = os.path.join(base, "local" if local else "dist")
+    resyncs: list = []
+    real = integ.make_consensus_fns
+
+    def consensus(mesh):
+        check, resync = real(mesh)
+
+        def checked(tree):
+            tree = resync(tree)
+            resyncs.append(dict(
+                agree=int(check(tree)),
+                digest=int(integ.tree_digest(integ.tensor_leaves(tree)))))
+            return tree
+
+        return check, checked
+
+    integ.make_consensus_fns = consensus
+    if local:
+        tdata.DistributedGivenIterationSampler = LadderStitched
+    argv = ["--arch", "tiny", "--mode", "ring", "--use_APS", "--grad_exp",
+            "5", "--grad_man", "2", "--batch_size", str(L["dist_batch"]),
+            "--val_freq", "2", "--print_freq", "100", "--verify-reduce",
+            "--reduce-retries", str(L["retries"]), "--transport-probation",
+            str(L["probation"]), "--fault-plan", L["fault"],
+            "--data-root", root]
+    dist = [] if local else ["--dist", "--dist-backend", "gloo"]
+    runs = []
+    for extra in (["--max-iter", str(L["dist_iters"]), "--save_path",
+                   os.path.join(where, "a")],
+                  ["--max-iter", str(L["dist_resume_iters"]),
+                   "--load-path", os.path.join(where, "a"), "--resume-opt",
+                   "--save_path", os.path.join(where, "b")]):
+        res, lines = run_cli(argv + extra + dist,
+                             L["dist_world"] if local else 1, device)
+        res["lines"] = lines
+        runs.append(res)
+    args = cli.parse_args(argv)
+    _, _, fresh = fresh_state(args, device, L["dist_world"])
+    state = restore_latest(os.path.join(where, "b"), fresh)
+    return dict(runs=runs, resyncs=resyncs, restored_step=state.step,
+                restored=[t.numpy() for t in state_arrays(state)])
+
+
+def ladder_dist(device, root: str) -> dict:
+    """15d: the ladder, a save and a resume on two gloo processes
+    sharing the card, against a `LocalMesh` W = 2 in a third."""
+    import numpy as np
+
+    from cpd_tpu_torch.obs.timing import now
+    from cpd_tpu_torch.parallel.launch import spawn
+
+    L = LADDER
+    w = L["dist_world"]
+    t0 = now()
+    base = save_path("ladder_15d")
+    os.makedirs(base)
+    out = spawn(ladder_dist_rank, w + 1, args=(root, base, device),
+                timeout=L["dist_deadline"],
+                env={"WORLD_SIZE": str(w), "LOCAL_WORLD_SIZE": str(w)})
+    ranks, local = out[:w], out[w]
+    first, resumed = local["runs"]
+    if (first["step"], resumed["step"]) != (L["dist_iters"] - 2,
+                                            L["dist_resume_iters"]):
+        raise AssertionError(f"15d LocalMesh steps {first['step']}, "
+                             f"{resumed['step']}")
+    if first["transport"]["transitions"] != LADDER_WANT["transitions"]:
+        raise AssertionError(f"15d transitions "
+                             f"{first['transport']['transitions']}")
+    for r, res in enumerate(ranks):
+        for i, (want, got) in enumerate(zip(local["runs"], res["runs"])):
+            for k in ("step", "loss", "accuracy", "diverged", "resilience",
+                      "transport", "reduce_ok"):
+                if got[k] != want[k]:
+                    raise AssertionError(f"15d rank {r} run {i} {k}: "
+                                         f"{got[k]} != LocalMesh "
+                                         f"{want[k]}")
+        if res["resyncs"] != ranks[0]["resyncs"] or not res["resyncs"] or \
+                any(s["agree"] != 1 for s in res["resyncs"]):
+            raise AssertionError(f"15d rank {r} resyncs {res['resyncs']} "
+                                 f"vs rank 0 {ranks[0]['resyncs']}")
+        if res["restored_step"] != resumed["step"] or len(
+                res["restored"]) != len(local["restored"]) or not all(
+                a.dtype == b.dtype and np.array_equal(
+                    a.reshape(-1).view(np.uint8),
+                    b.reshape(-1).view(np.uint8))
+                for a, b in zip(local["restored"], res["restored"])):
+            raise AssertionError(f"15d rank {r}: the restored state "
+                                 "differs from the LocalMesh's")
+    if ranks[0]["runs"][0]["lines"] != first["lines"] or \
+            ranks[1]["runs"][0]["lines"]:
+        raise AssertionError("15d: rank 0's ladder lines differ from the "
+                             "LocalMesh's, or rank 1 printed")
+    res = dict(seconds=now() - t0, steps=[first["step"], resumed["step"]],
+               transitions=first["transport"]["transitions"],
+               resyncs=ranks[0]["resyncs"])
+    print(f"ladder 15d: 2 gloo processes on the card, --dist, the tiny CNN "
+          f"at {L['dist_batch']} a rank, wire_flip on rank 1: both runs of "
+          "both ranks bitwise the LocalMesh W=2 (losses, counters, "
+          "transitions), digests equal after each resync, every rank "
+          "restoring the same bytes; " + json.dumps(res), flush=True)
+    return res
+
+
+def ladder_phase(device) -> dict:
+    """Phase 15: 15a-15d (module docstring)."""
+    import torch
+
+    from cpd_tpu_torch.obs.timing import now
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    marks = [now()]
+    root = dist_cifar_root()
+    out = {"a": ladder_drill(device, root)}
+    marks.append(now())
+    out["b"] = fp32_rung(device, out["a"].pop("batch"))
+    marks.append(now())
+    out["c"] = ckpt_drill(device, root)
+    marks.append(now())
+    out["d"] = ladder_dist(device, root)
+    marks.append(now())
+    out["seconds"] = dict(zip("abcd", (b - a for a, b in
+                                       zip(marks, marks[1:]))))
+    out["seconds"]["all"] = marks[-1] - marks[0]
+    out["launches_per_step"] = {
+        rung: out["a"]["rungs"][rung]["launches"] if rung in out["a"]["rungs"]
+        else out["b"]["launches"] for rung in ("ring", "faithful", "fp32")}
+    print("ladder seconds: " + json.dumps(out["seconds"]), flush=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -5727,6 +6329,7 @@ def main() -> int:
     print("dist seconds: " + json.dumps({k: v["seconds"]
                                          for k, v in dist.items()}),
           flush=True)
+    ladder = ladder_phase(device)
     if dist["b"]["world"] == 1:
         # at W = 1, 14b's headline is phase 12's: the same seed, batches
         # and steps on one rank, through the ProcessMesh in place of the
@@ -5850,6 +6453,12 @@ def main() -> int:
                    dist["a"]["ranks"][0]["matrix"]["arms"].items()}
         if any(per_arm.values()):
             entry["launches_per_rank_process_mesh"] = per_arm
+    # phase 15a/15b's launches per step of each rung of the ladder
+    for entry in kernels:
+        if entry["name"] in LADDER_KERNELS:
+            entry["launches_per_step_ladder"] = {
+                rung: counts.get(entry["name"], 0)
+                for rung, counts in ladder["launches_per_step"].items()}
     kernels += lm_kernel_entries(qgemm, flash, lm)
     kernels += mha_kernel_entries(mha, bench_lm)
     kernels += gqa_bf16_kernel_entries(flash, mha, gqa_lm)
@@ -5863,4 +6472,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        for _root in _SAVE_ROOT:
+            shutil.rmtree(_root, ignore_errors=True)
+    sys.exit(rc)

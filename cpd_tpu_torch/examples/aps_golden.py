@@ -20,7 +20,10 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
+import shutil
 import sys
+import tempfile
 
 CONFIGS = [
     # tag, grad_exp, grad_man, use_aps
@@ -36,23 +39,31 @@ CONFIGS = [
 WORLD = 8
 
 
-def run_experiment(iters: int, batch_size: int = 16,
+def run_experiment(iters: int, save_root=None, batch_size: int = 16,
                    emulate_node: int = 2, peak_lr: float = 0.4,
                    configs=CONFIGS, data_root=None, arch: str = "tiny",
                    mode: str = "fast", quiet: bool = True, world: int = WORLD,
                    device="cuda") -> dict:
-    """Train every gradient-precision config; ``{tag: {"prec1", "loss",
-    "diverged"}}`` (``loss`` the last step's).  The JAX function's
-    ``save_root`` has no counterpart: the port's CLI writes no
-    checkpoints or logs yet."""
+    """Train every gradient-precision config, each from scratch with its
+    checkpoints under ``save_root/<tag>`` (a temporary directory, removed
+    after, when None); ``{tag: {"prec1", "loss", "diverged"}}`` (``loss``
+    the last step's)."""
+    if save_root is None:
+        with tempfile.TemporaryDirectory() as tmp:
+            return run_experiment(iters, tmp, batch_size, emulate_node,
+                                  peak_lr, configs, data_root, arch, mode,
+                                  quiet, world, device)
     from .resnet18_cifar.train import parse_args, run
 
     out = {}
     for tag, ge, gm, aps, *extra in configs:
+        save = os.path.join(save_root, tag)
+        # from scratch: a stale checkpoint would resume at max_iter
+        shutil.rmtree(save, ignore_errors=True)
         argv = ["--arch", arch, "--batch_size", str(batch_size),
                 "--max-iter", str(iters), "--val_freq", str(iters),
                 "--print_freq", "100000" if quiet else "50",
-                "--peak-lr", str(peak_lr),
+                "--peak-lr", str(peak_lr), "--save_path", save,
                 "--emulate_node", str(emulate_node), "--mode", mode,
                 "--grad_exp", str(ge), "--grad_man", str(gm)]
         argv += ["--use_APS"] if aps else []

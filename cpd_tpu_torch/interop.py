@@ -17,6 +17,26 @@ for a flax `TinyCNN` (`models.tiny`).
 
 The trees hold numpy arrays (``jax.device_get`` of the flax variables);
 this module never imports jax.
+
+The reference CPDtorch ResNet-18 ``.pth`` (the layout of
+`cpd_tpu/interop/torch_import.py` and `torch_export.py`):
+`load_reference_checkpoint` reads one (a ``state_dict`` or ``model``
+wrapper or a bare dict, DDP's ``module.`` prefix dropped),
+`import_reference_resnet18_cifar` copies it into the port's
+`ResNetCIFAR`, `export_reference_resnet18_cifar` gives the reference's
+dict back and `save_torch_checkpoint` writes it.  The reference builds
+its model from ``nn.Sequential`` children, the port names its modules as
+flax does; both keep torch's layouts (OIHW convs, (out, in) linears), so
+the mapping is a key map (`reference_key`) with no transposes:
+
+    conv1.0 / conv1.1               <-> stem_conv / stem_bn
+    layer{s}.{b}.left.0/.1/.3/.4    <-> layer{s}_block{b}.conv1/bn1/conv2/bn2
+    layer{s}.{b}.shortcut.0/.1      <-> layer{s}_block{b}.shortcut_conv/_bn
+    fc                              <-> fc
+
+The reference's BatchNorm ``num_batches_tracked`` has no counterpart in
+the port: import drops it, export writes 0, as the reference's export
+does.
 """
 
 from __future__ import annotations
@@ -27,7 +47,9 @@ import numpy as np
 import torch
 
 __all__ = ["load_jax_params", "load_jax_resnet_cifar", "load_jax_resnet",
-           "load_jax_tiny"]
+           "load_jax_tiny", "reference_key", "load_reference_checkpoint",
+           "import_reference_resnet18_cifar",
+           "export_reference_resnet18_cifar", "save_torch_checkpoint"]
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> dict:
@@ -134,3 +156,93 @@ def _load_resnet(model: torch.nn.Module,
                                  f"{tuple(t.shape)}")
             t.copy_(torch.from_numpy(np.array(arr)))
     return model
+
+
+_REF_BLOCK = {"conv1": "left.0", "bn1": "left.1", "conv2": "left.3",
+              "bn2": "left.4", "shortcut_conv": "shortcut.0",
+              "shortcut_bn": "shortcut.1"}
+
+
+def reference_key(port_key: str) -> str:
+    """The reference ResNet-18's state_dict key of one of the port's
+    `ResNetCIFAR` keys (module docstring)."""
+    module, _, leaf = port_key.rpartition(".")
+    head, _, sub = module.partition(".")
+    if head == "stem_conv":
+        return f"conv1.0.{leaf}"
+    if head == "stem_bn":
+        return f"conv1.1.{leaf}"
+    if head == "fc":
+        return port_key
+    stage, sep, block = head.partition("_block")
+    if sep and stage.startswith("layer") and sub in _REF_BLOCK:
+        return f"{stage}.{block}.{_REF_BLOCK[sub]}.{leaf}"
+    raise KeyError(f"{port_key}: no reference ResNet-18 key")
+
+
+def load_reference_checkpoint(path: str) -> dict:
+    """A reference ``.pth`` as its bare state_dict of tensors, loaded
+    with ``weights_only=True`` on the CPU: the ``state_dict`` or
+    ``model`` wrapper unwrapped, DDP's ``module.`` prefix dropped."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    sd = ckpt
+    if isinstance(ckpt, dict):
+        for key in ("state_dict", "model"):
+            if key in ckpt and isinstance(ckpt[key], dict):
+                sd = ckpt[key]
+                break
+    if any(k.startswith("module.") for k in sd):
+        sd = {k[len("module."):] if k.startswith("module.") else k: v
+              for k, v in sd.items()}
+    return dict(sd)
+
+
+def import_reference_resnet18_cifar(model: torch.nn.Module,
+                                    sd: Mapping[str, Any]
+                                    ) -> torch.nn.Module:
+    """Copy a reference ResNet-18 state_dict (tensors or arrays) into
+    the port's `ResNetCIFAR` in place, on the model's device.  Every
+    parameter and running stat must be covered and every key used (the
+    ``num_batches_tracked`` counters aside); a shape mismatch raises."""
+    sd = {k: v for k, v in sd.items()
+          if not k.endswith("num_batches_tracked")}
+    own = model.state_dict()
+    want = {reference_key(k): k for k in own}
+    missing = sorted(set(want) - set(sd))
+    extra = sorted(set(sd) - set(want))
+    if missing or extra:
+        raise KeyError(f"reference checkpoint does not match the model "
+                       f"(wrong --arch?): missing {missing[:5]}, "
+                       f"unexpected {extra[:5]}")
+    with torch.no_grad():
+        for ref, name in want.items():
+            src = torch.as_tensor(sd[ref])
+            t = own[name]
+            if tuple(src.shape) != tuple(t.shape):
+                raise ValueError(f"{ref}: shape {tuple(src.shape)} != "
+                                 f"{tuple(t.shape)} of {name}")
+            t.copy_(src.to(t.dtype))
+    return model
+
+
+def export_reference_resnet18_cifar(model: torch.nn.Module) -> dict:
+    """The port's `ResNetCIFAR` as the reference trainer's state_dict:
+    fp32 CPU tensors under the reference's keys, each BatchNorm with
+    ``num_batches_tracked`` 0."""
+    out = {}
+    for name, t in model.state_dict().items():
+        key = reference_key(name)
+        out[key] = t.detach().to("cpu", torch.float32).clone()
+        if key.endswith(".running_var"):
+            out[key[:-len("running_var")] + "num_batches_tracked"] = \
+                torch.tensor(0, dtype=torch.int64)
+    return out
+
+
+def save_torch_checkpoint(sd: Mapping[str, Any], path: str,
+                          wrapper: str = "state_dict") -> None:
+    """``torch.save`` of ``sd`` wrapped as the reference's loaders
+    expect: ``state_dict`` (its ResNet-18 trainer), ``model`` (its
+    ResNet-50 trainer) or ``""`` for a bare dict."""
+    tensors = {k: torch.as_tensor(v) for k, v in sd.items()}
+    torch.save({wrapper: tensors} if wrapper else tensors, path)

@@ -206,9 +206,10 @@ def replicate(module, mesh, src: int = 0):
 
 def broadcast_from(x: torch.Tensor, mesh, src: int = 0) -> torch.Tensor:
     """Rank ``src``'s value of ``x`` on every rank (a new tensor): one
-    broadcast on a `ProcessMesh`, ``x`` itself on a `LocalMesh`.  API
-    parity with the JAX module's ``broadcast_from``: nothing on the main
-    path calls it (`replicate` moves the weights)."""
+    broadcast on a `ProcessMesh`, a copy of ``x`` on a `LocalMesh`.  The
+    transport ladder's resync after a downgrade calls it on every tensor
+    of the state (`integrity.make_consensus_fns`); `replicate` moves the
+    weights at the start."""
     out = x.clone()
     _broadcast_(out, mesh, src)
     return out

@@ -1,5 +1,5 @@
-"""Fletcher-style payload digests and the ring's tag algebra (port of
-`cpd_tpu/parallel/integrity.py`, without the consensus check).
+"""Fletcher-style payload digests, the ring's tag algebra and the
+replica consensus pair (port of `cpd_tpu/parallel/integrity.py`).
 
 ``digest = (s2 << 16) | s1`` with ``s1 = Σ w_i`` and
 ``s2 = Σ ((i mod 65521) + 1) · w_i``, both mod 65521 (`DIGEST_MOD`),
@@ -19,7 +19,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["wire_digest", "row_digests", "tree_digest", "tag_from_digest",
-           "hop_tag", "digest_concat", "digest_agree", "DIGEST_MOD"]
+           "hop_tag", "digest_concat", "digest_agree", "tensor_leaves",
+           "make_consensus_fns", "DIGEST_MOD"]
 
 DIGEST_MOD = 65521
 _U32 = 0xFFFFFFFF
@@ -119,3 +120,48 @@ def digest_agree(digests, mesh) -> list:
     lo = mesh.min(digests)
     hi = mesh.max(digests)
     return [(a == b).to(torch.int32) for a, b in zip(lo, hi)]
+
+
+def tensor_leaves(tree) -> list:
+    """The tensors of ``tree`` in a fixed order: a module's parameters
+    then its buffers; a `train.state.TrainState`'s module, then its
+    optimizer state; the fields of a tuple (a NamedTuple optimizer
+    state) or list, and a dict's values, in order.  Ints, keys and None
+    hold no tensor."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, torch.nn.Module):
+        return list(tree.parameters()) + list(tree.buffers())
+    if hasattr(tree, "model") and hasattr(tree, "opt_state"):
+        return tensor_leaves(tree.model) + tensor_leaves(tree.opt_state)
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [t for x in tree for t in tensor_leaves(x)]
+    return []
+
+
+def make_consensus_fns(mesh) -> tuple:
+    """``(check_fn, resync_fn)`` over a replicated tree (a `TrainState`,
+    a module, tensors; `tensor_leaves`).
+
+    ``check_fn(tree)``: int32 1/0, do all ranks hold the same
+    `tree_digest` of their copy (`digest_agree`)?  ``resync_fn(tree)``:
+    rank 0's bytes on every rank, copied in place from
+    `parallel.dist.broadcast_from` of each tensor, returning ``tree``.  A
+    `LocalMesh` keeps one copy for all its ranks, so it always agrees
+    and the resync is the identity."""
+
+    def check_fn(tree) -> torch.Tensor:
+        d = tree_digest(tensor_leaves(tree))
+        return digest_agree([d] * len(mesh.ranks), mesh)[0]
+
+    def resync_fn(tree):
+        from .dist import broadcast_from
+
+        with torch.no_grad():
+            for t in tensor_leaves(tree):
+                t.copy_(broadcast_from(t, mesh, 0))
+        return tree
+
+    return check_fn, resync_fn

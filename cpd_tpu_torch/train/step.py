@@ -29,7 +29,8 @@ One train step over a mesh of W ranks, as the JAX step runs it under
 The step runs with TF32 off and cuDNN deterministic (restored after), as
 the reference computes in fp32 and the reduce is bitwise; on a
 `ProcessMesh` each process sets them for itself, as each runs its own
-step.  The weights, BN stats and optimizer buffers are updated in place;
+step.  The weights, BN stats and optimizer buffers are updated in place
+(a verified step whose reduce failed leaves them as they were);
 every rank applies the same reduced gradients and the same mean of the
 BN stats, so ranks that start from `parallel.dist.replicate`'s bytes
 stay equal.
@@ -180,7 +181,8 @@ def make_train_step(model, opt, mesh, *, emulate_node: int = 1,
                     grad_man: int = 23, use_kahan: bool = False,
                     loss_scale: float = 1.0,
                     grad_rounding: str = "nearest", grad_seed: int = 0,
-                    verify_reduce: bool = False, wire_fault_plan=None,
+                    verify_reduce: bool = False, keep_failed: bool = False,
+                    wire_fault_plan=None,
                     quant_stats: bool = False,
                     block_scale: bool = False, block_size: int = 128,
                     fused: Optional[bool] = None):
@@ -202,7 +204,14 @@ def make_train_step(model, opt, mesh, *, emulate_node: int = 1,
     ``prec_wire_total`` and ``prec_aps_bad``.  ``block_scale``/``block_size``
     ship the ring block-scaled.  ``verify_reduce`` adds the reduce's
     verdict as float32 metrics ``reduce_ok``, ``reduce_hop_bad``,
-    ``reduce_gather_bad`` and ``reduce_agree``.  ``wire_fault_plan =
+    ``reduce_gather_bad`` and ``reduce_agree``, and discards a failed
+    step: when ``reduce_ok`` is 0 no update is applied and the BN stats
+    are put back, so the weights, buffers, optimizer state and
+    ``state.step`` stay bitwise as they were (the transport ladder's
+    retry; the JAX trainer rewinds to the step's input state).  Reading
+    the verdict syncs the host with the card once a step;
+    ``keep_failed`` applies a failed step all the same (detection only,
+    as the JAX trainer's fast mode keeps it).  ``wire_fault_plan =
     (codes, ranks)``: in ring mode, step s injects the wire fault
     ``(codes[s], ranks[s])`` (none past the plan's end).  The update
     applies rank 0's reduced gradients.  ``fused`` goes to the
@@ -230,6 +239,9 @@ def make_train_step(model, opt, mesh, *, emulate_node: int = 1,
         fault = (_wire_fault(wire_fault_plan, state.step)
                  if wire_fault_plan is not None and mode == "ring" else None)
         with fp32_numerics():
+            # the BN stats the forwards move, kept for a discarded step
+            start = ([b.clone() for b in state.batch_stats]
+                     if verify_reduce else None)
             grads, new_stats, losses, hits = local_gradients(
                 model, x, y, mesh, emulate_node, loss_scale)
             if emulate_node > 1:
@@ -250,13 +262,19 @@ def make_train_step(model, opt, mesh, *, emulate_node: int = 1,
             reduced, report = (out if verify_reduce or quant_stats
                                else (out, None))
             reduced = reduced[0]
-            state.opt_state = opt.apply(reduced, state.opt_state,
-                                        state.params, fused=fused)
+            # the merged report is the same on every rank (its counts
+            # are all-gathered), so every rank takes the same branch
+            ok = not verify_reduce or keep_failed or bool(report["ok"])
+            if ok:
+                state.opt_state = opt.apply(reduced, state.opt_state,
+                                            state.params, fused=fused)
             with torch.no_grad():
                 for s, m in zip(state.batch_stats,
-                                mean_stats(new_stats, mesh)):
+                                mean_stats(new_stats, mesh) if ok
+                                else start):
                     s.copy_(m)
-        state.step += 1
+        if ok:
+            state.step += 1
         global_batch = x.shape[0] // len(mesh.ranks) * mesh.world
         metrics = {"loss": mesh.sum(losses)[0],
                    "accuracy": mesh.sum(hits)[0].to(torch.float32)
@@ -277,7 +295,8 @@ def make_train_step(model, opt, mesh, *, emulate_node: int = 1,
 def make_eval_step(model, mesh):
     """``eval_step(state, images, labels) -> metrics``: ``loss`` (mean
     cross-entropy), ``top1`` and ``top5`` over the batch, with the BN
-    running stats."""
+    running stats; equal logits rank by class index, as the JAX
+    step's ``argmax`` and ``top_k`` rank them."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, images, labels):
@@ -286,7 +305,9 @@ def make_eval_step(model, mesh):
         with fp32_numerics():
             logits = model(x)
         k = min(5, logits.shape[-1])
-        top = logits.topk(k, dim=-1).indices
+        # ties go to the lower class index, as jnp.argmax and lax.top_k
+        # break them (topk's order among equal logits is unspecified)
+        top = logits.sort(dim=-1, descending=True, stable=True).indices[:, :k]
         return {"loss": F.cross_entropy(logits, y),
                 "top1": (top[:, 0] == y).to(torch.float32).mean(),
                 "top5": (top == y[:, None]).any(-1).to(torch.float32).mean()}

@@ -86,12 +86,13 @@ class _Stitched:
     (what the JAX trainer's ``host_batch_to_global`` assembles), with the
     single-process sampler's signature."""
 
-    def __init__(self, n, total_iter, batch, world_size=1, rank=0, seed=0):
+    def __init__(self, n, total_iter, batch, world_size=1, rank=0, seed=0,
+                 last_iter=-1):
         from cpd_tpu_torch.data import samplers
 
         self.parts = [samplers.DistributedGivenIterationSampler(
             n, total_iter, batch // WORLD, world_size=WORLD, rank=r,
-            seed=seed) for r in range(WORLD)]
+            seed=seed, last_iter=last_iter) for r in range(WORLD)]
 
     def batches(self):
         for parts in zip(*(p.batches() for p in self.parts)):
@@ -108,8 +109,10 @@ def _process(variables, root: str) -> dict:
     from cpd_tpu_torch.parallel.mesh import LocalMesh, ProcessMesh
 
     torch.set_num_threads(1)
-    argv = CLI_ARGV + ["--data-root", root]
-    if int(os.environ["RANK"]) == WORLD:
+    local = int(os.environ["RANK"]) == WORLD
+    argv = CLI_ARGV + ["--data-root", root, "--save_path", os.path.join(
+        root, "ckpt_local" if local else "ckpt_dist")]
+    if local:
         tdata.DistributedGivenIterationSampler = _Stitched
         with contextlib.redirect_stdout(io.StringIO()):
             cli = tcli.run(tcli.parse_args(argv), device="cpu", world=WORLD)

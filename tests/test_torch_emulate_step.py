@@ -27,6 +27,7 @@ card (kernels vs plain), not against JAX (ROADMAP Queue C).
 """
 
 import math
+import os
 
 import jax
 import jax.numpy as jnp
@@ -240,7 +241,8 @@ def test_loss_scale_and_micro_batch_contract():
 def _argv(root, *extra):
     return ["--arch", "tiny", "--use_APS", "--grad_exp", "5", "--grad_man",
             "2", "--batch_size", "4", "--max-iter", "2", "--val_freq", "2",
-            "--print_freq", "1", "--data-root", root, *extra]
+            "--print_freq", "1", "--data-root", root, "--save_path",
+            os.path.join(root, "ckpt"), *extra]
 
 
 @pytest.mark.parametrize("extra,opt_name", [

@@ -329,7 +329,8 @@ def test_cli_trains_on_cpu_and_rejects_unported_flags(tiny_cifar_factory,
     root = tiny_cifar_factory(tmp_path, n_train=40, n_test=8)
     argv = ["--mode", "ring", "--use_APS", "--grad_exp", "5", "--grad_man",
             "2", "--max-iter", "2", "--batch_size", "4", "--data-root", root,
-            "--print_freq", "1", "--val_freq", "2"]
+            "--print_freq", "1", "--val_freq", "2", "--save_path",
+            str(tmp_path / "ckpt")]
     assert tcli.main(argv, device="cpu") == 0
     out = capsys.readouterr().out
     assert "Iter: [2/2]" in out and "Prec@1" in out and "done: 2 iters" in out
@@ -354,13 +355,15 @@ def test_cli_trains_in_fast_mode_and_with_resnet50_on_cpu(
     argv = ["--mode", "fast", "--use_APS", "--grad_exp", "5", "--grad_man",
             "2", "--max-iter", "1", "--batch_size", "2", "--data-root", root,
             "--print_freq", "1", "--val_freq", "1"]
-    res = tcli.run(tcli.parse_args(argv + ["--arch", "resnet50"]),
-                   device="cpu")
+    res = tcli.run(tcli.parse_args(argv + [
+        "--arch", "resnet50", "--save_path", str(tmp_path / "r50")]),
+        device="cpu")
     assert res["step"] == 1 and math.isfinite(res["loss"])
     assert "done: 1 iters" in capsys.readouterr().out
     monkeypatch.setitem(models._REGISTRY, "res_cifar",
                         lambda device: ResNetCIFAR(device=device, **TINY))
-    res = tcli.run(tcli.parse_args(argv), device="cpu")
+    res = tcli.run(tcli.parse_args(argv + [
+        "--save_path", str(tmp_path / "tiny")]), device="cpu")
     assert res["step"] == 1 and math.isfinite(res["loss"])
     for arch in ("res_cifar", "resnet18_cifar", "resnet18", "resnet34",
                  "resnet50", "resnet101"):
@@ -386,7 +389,8 @@ def test_cli_trains_with_sr_and_kahan_on_cpu(tiny_cifar_factory, tmp_path,
     argv = ["--mode", "faithful", "--use_APS", "--use_kahan",
             "--grad-rounding", "stochastic", "--grad-seed", "3",
             "--max-iter", "2", "--batch_size", "4", "--data-root", root,
-            "--print_freq", "1", "--val_freq", "2"]
+            "--print_freq", "1", "--val_freq", "2", "--save_path",
+            str(tmp_path / "ckpt")]
     assert tcli.main(argv, device="cpu") == 0
     assert "done: 2 iters" in capsys.readouterr().out
 

@@ -606,8 +606,9 @@ def test_cli_block_scale_trains_on_cpu_and_refusals(tiny_cifar_factory,
                                                     monkeypatch):
     """The JAX CLI's --block-scale/--block-size defaults and help, two
     blocked iterations on the CPU (tiny width), its two refusals (a mode
-    other than ring, a format with man < 2), and --verify-reduce still
-    refused with the reason."""
+    other than ring, a format with man < 2), and with --verify-reduce the
+    blocked verified ring under the transport ladder (no fault: two
+    clean updates on the ring rung)."""
     from cpd_tpu_torch import models
     from cpd_tpu_torch.models.resnet_cifar import ResNetCIFAR
     from tests.test_torch_train import TINY
@@ -620,15 +621,20 @@ def test_cli_block_scale_trains_on_cpu_and_refusals(tiny_cifar_factory,
     argv = ["--mode", "ring", "--use_APS", "--grad_exp", "4", "--grad_man",
             "3", "--block-scale", "--block-size", "128", "--max-iter", "2",
             "--batch_size", "4", "--data-root", root, "--print_freq", "1",
-            "--val_freq", "2"]
+            "--val_freq", "2", "--save_path", str(tmp_path / "ckpt")]
     assert tcli.main(argv, device="cpu") == 0
     assert "done: 2 iters" in capsys.readouterr().out
     with pytest.raises(SystemExit, match="needs --mode ring"):
         tcli.main(argv + ["--mode", "faithful"], device="cpu")
     with pytest.raises(SystemExit, match="packable"):
         tcli.main(argv + ["--grad_man", "1"], device="cpu")
-    with pytest.raises(SystemExit, match="TransportSupervisor"):
-        tcli.main(argv + ["--verify-reduce"], device="cpu")
+    res = tcli.run(tcli.parse_args(argv + [
+        "--verify-reduce", "--save_path", str(tmp_path / "verified")]),
+        device="cpu")
+    assert res["step"] == 2 and float(res["reduce_ok"]) == 1.0
+    assert res["transport"] == {"mode": "ring", "home": "ring",
+                                "transitions": []}
+    assert not any(res["resilience"].values())
 
 
 # -- the kernels, on the card --------------------------------------------
