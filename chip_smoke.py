@@ -259,7 +259,35 @@ Phases; any failure exits non-zero:
    runs bitwise a third process's `LocalMesh` W = 2 run of the same
    argv, the ranks' digests equal after each resync, and every rank
    restoring the same bytes;
-16. print one JSON line ``{"kernels": [...]}`` and, last,
+16. the step's remaining switches and the LM on the process mesh: (a)
+   the LM slice's model and path (the serving width, GQA flash with the
+   flash-backward kernels, the e4m3 faithful FFN) on a `LocalMesh` of 2
+   ranks x ``emulate_node`` 2 x 2 sequences of 1024 seeded random
+   tokens, APS e5m2, ``quant_stats``, SGD momentum 0.9: 3 steps through
+   the kernels (finite losses, step 0 within ``LM_LOSS_BAND`` of ln
+   32000, launches per step as designed (`lm_emulate_design`: K8, K9,
+   K10, the emulate reduce's K1/K3, the reduce's K1/K3),
+   ``prec_wire_total`` W x the parameter count), one step from the same
+   start through the plain versions of the reduce kernels (metrics and
+   the state's digest bitwise), the split (``fwd_bwd_ms``,
+   ``emulate_ms``, ``reduce_ms``, ``update_ms``) and a profiled step;
+   one SR step through the kernels (``sr_bits``, K2, K4) and the plain
+   versions, bitwise; (b) 2 gloo processes sharing the card, each handed
+   its rows, 2 steps of the faithful arm and of the RTNE ring arm with
+   ``verify_reduce``, and one nccl process a card (W = the card count):
+   2 steps of the faithful arm; every rank's metrics and state digests
+   bitwise the `LocalMesh` of the same W; (c) the ResNet-18 CLI at W = 4
+   x 128 with ``--clip-grad 1.0`` for 3 iterations (the global norm the
+   clip read each step); the LM CLI under ``--dist --dist-backend nccl
+   --optimizer adamw --emulate_node 2`` for 2 iterations in the nccl
+   ranks at the serving width with a 256-token vocabulary; `all_finite`
+   on the card (NaN, +Inf and -Inf in any leaf, its launches); a dynamic
+   loss-scale drill on ResNet-18 at W = 4 x 128 over the e5m2 faithful
+   reduce without APS, from a scale at which the wire overflows (DRILL):
+   each step's scale and verdict, GradScaler's policy replayed, the
+   params after the first applied steps bitwise a static-scale run;
+17. print each phase's wall seconds (``phase seconds: {...}``), one JSON
+   line ``{"kernels": [...]}`` and, last,
    ``{"ok": true, "device": {...}}``.
 
 The script imports neither jax nor the JAX package.
@@ -6270,6 +6298,710 @@ def ladder_phase(device) -> dict:
     return out
 
 
+# phase 16: the step's remaining switches and the LM on the process mesh.
+# 16a: the LM slice's model and path (phase 10: the serving width, GQA
+# flash with the flash-backward kernels, the e4m3 faithful FFN) at W = 2 x
+# emulate_node 2 x 2 sequences of 1024 tokens (phase 10's 4 a rank, split
+# in two micro-batches), APS e5m2, quant_stats, SGD momentum 0.9 at a
+# constant rate (every step moves the weights); 16b: the same on 2 gloo
+# processes sharing the card (faithful, and the RTNE ring verified) and on
+# one nccl process a card; 16c: the ResNet CLI's --clip-grad, the LM CLI's
+# --dist --optimizer adamw --emulate_node 2, a dynamic loss-scale drill
+LM_EMU = dict(world=2, emulate_node=2, micro_batch=2, seq=1024, steps=3,
+              fmt=(5, 2), seed=0, grad_seed=0, lr=0.01, dist_steps=2,
+              deadline=300.0)
+# the LM CLI in 16c: the serving width but a 256-token vocabulary: the
+# Markov table of SyntheticText at 32000 costs ~17 s a process (phase 10f
+# builds it once)
+LM_EMU_CLI_VOCAB = 256
+# 16c's drill: ResNet-18/CIFAR at the training slice's W x 128, SGD
+# momentum 0.9 without weight decay at a constant power-of-two rate (the
+# static run divides it by the scale exactly), the e5m2 faithful reduce
+# WITHOUT APS: the configuration dynamic scaling is for (APS shifts each
+# leaf itself).  In fp32 ResNet-18's gradients at init (largest ~0.1) reach
+# fp32's max at no power-of-two scale; on the e5m2 wire every value from
+# 2^16 up casts to Inf.  The scale starts 4x past the power of two at which
+# the largest element of batch 0's per-rank gradients reaches 2^16, so the
+# first steps overflow the wire
+DRILL = dict(steps=8, growth_interval=2, lr=2.0 ** -4, fmt=(5, 2),
+             overflow_at=2.0 ** 16, max_scale=2.0 ** 127)
+
+
+def lm_emulate_design(n_layers: int, w: int, n: int, sizes: list,
+                      buckets: int, sr: bool = False) -> dict:
+    """The kernel launches one LM step makes at W ranks x N micro-batches:
+    per rank and micro-batch and layer, three K8 GEMMs for each of wi and
+    wo_mlp, one K9 and one K10; every rank's emulate-node reduce
+    (`emulate_design`) and the faithful APS reduce (`reduce_design`; the
+    health counters observe the APS cast and add none)."""
+    want = reduce_design("faithful", sr, False, w, len(sizes), buckets)
+    for k, v in emulate_design(n, sr, sizes).items():
+        want[k] += w * v
+    want.update(qgemm_faithful=6 * n_layers * w * n,
+                flash_gqa_fwd=n_layers * w * n,
+                flash_gqa_bwd=n_layers * w * n)
+    return want
+
+
+def lm_emu_batches(world: int, steps: int) -> list:
+    """The global batches of phase 16 at ``world`` ranks: W x N x B
+    sequences of seeded random tokens (phase 10's draw)."""
+    E = LM_EMU
+    return lm_batches(LM_MODEL["vocab_size"], steps,
+                      world * E["emulate_node"] * E["micro_batch"],
+                      E["seq"], E["seed"])
+
+
+def lm_emu_build(device, mesh, fused=None, **step_kw):
+    """The phase's LM (seed 0, LM_PATH), SGD momentum 0.9 at LM_EMU's
+    constant rate and its step at ``emulate_node`` N, APS e5m2,
+    ``quant_stats``."""
+    from cpd_tpu_torch.train import create_train_state, sgd
+    from cpd_tpu_torch.train.lm import make_lm_train_step
+
+    E = LM_EMU
+    model = lm_model(device, E["seed"], **LM_PATH)
+    opt = sgd(lambda s: E["lr"], momentum=0.9)
+    state = create_train_state(model, opt)
+    kw = dict(emulate_node=E["emulate_node"], use_aps=True,
+              grad_exp=E["fmt"][0], grad_man=E["fmt"][1],
+              grad_seed=E["grad_seed"], quant_stats=True, fused=fused)
+    kw.update(step_kw)
+    return model, opt, state, make_lm_train_step(model, opt, mesh, **kw)
+
+
+def state_digest(state) -> str:
+    """sha256 of every tensor of a train state (weights, then the
+    optimizer's), its bytes on the host."""
+    import hashlib
+
+    import torch
+
+    from cpd_tpu_torch.parallel.integrity import tensor_leaves
+
+    h = hashlib.sha256()
+    for t in tensor_leaves(state):
+        h.update(t.detach().contiguous().view(-1).view(
+            torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def lm_emu_steps(device, mesh, batches, fused=None, digest_at=(-1,),
+                 **step_kw) -> dict:
+    """Steps of `lm_emu_build`'s step, one per batch, each process handed
+    its rows (`local_rows`): the metrics of each step (host floats), the
+    state's digest after the steps ``digest_at`` (indices into
+    ``batches``; -1 the last), host seconds per step and the launches."""
+    import torch
+
+    from cpd_tpu_torch.obs.timing import now
+    from cpd_tpu_torch.parallel.dist import local_rows
+
+    model, opt, state, step = lm_emu_build(device, mesh, fused, **step_kw)
+    reset_counts()
+    out = dict(metrics=[], digests={}, secs=[])
+    want = {i % len(batches) for i in digest_at}
+    for i, (toks, tgts) in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = now()
+        state, m = step(state, local_rows(toks, mesh),
+                        local_rows(tgts, mesh))
+        metrics = {k: float(v) for k, v in m.items()}
+        torch.cuda.synchronize()
+        out["secs"].append(now() - t0)
+        out["metrics"].append(metrics)
+        if i in want:
+            out["digests"][i] = state_digest(state)
+    out["launches"] = read_counts()
+    out.update(model=model, opt=opt, state=state, step=step)
+    return out
+
+
+def lm_emu_library(device) -> dict:
+    """16a: the library step at W = 2 x N = 2 through the kernels (the
+    design's launches, finite losses within ``LM_LOSS_BAND`` of ln V at
+    step 0, ``prec_wire_total`` W x the parameter count), one step from
+    the same start through the plain versions of the reduce kernels
+    (``fused=False``: the same metrics and state bitwise), the split and
+    a profiled step; then one SR step, kernels vs plain, bitwise."""
+    import torch
+
+    from cpd_tpu_torch.obs.timing import now
+    from cpd_tpu_torch.parallel.dist import sum_gradients
+    from cpd_tpu_torch.parallel.emulate import emulate_node_reduce
+    from cpd_tpu_torch.parallel.mesh import data_parallel_mesh
+    from cpd_tpu_torch.parallel.overlap import (DEFAULT_BUCKET_ELEMS,
+                                                bucket_layout)
+    from cpd_tpu_torch.train import fp32_numerics
+    from cpd_tpu_torch.train.lm import as_tokens, lm_local_gradients
+
+    E = LM_EMU
+    w, n, fmt = E["world"], E["emulate_node"], E["fmt"]
+    layers, vocab = LM_MODEL["n_layers"], LM_MODEL["vocab_size"]
+    mesh = data_parallel_mesh(w, device)
+    batches = lm_emu_batches(w, E["steps"])
+    marks = [now()]
+    # digests after step 1 (the plain step's) and after 16b's last step
+    run = lm_emu_steps(device, mesh, batches,
+                       digest_at=(0, E["dist_steps"] - 1))
+    marks.append(now())
+    model, state = run["model"], run["state"]
+    sizes = [p.numel() for p in model.parameters()]
+    n_buckets = len(bucket_layout(sizes, DEFAULT_BUCKET_ELEMS))
+    design = {k: E["steps"] * v for k, v in lm_emulate_design(
+        layers, w, n, sizes, n_buckets).items()}
+    if run["launches"] != design:
+        raise AssertionError(f"16a launches {run['launches']} != the "
+                             f"design's {design}")
+    losses = [m["loss"] for m in run["metrics"]]
+    if not all(math.isfinite(v) for v in losses) or not (
+            abs(losses[0] - math.log(vocab)) <= LM_LOSS_BAND):
+        raise AssertionError(f"16a losses {losses}: not finite, or step 0 "
+                             f"not within {LM_LOSS_BAND} of ln {vocab}")
+    total = w * sum(sizes)
+    for i, m in enumerate(run["metrics"]):
+        if m["prec_wire_total"] != total or m["prec_aps_bad"] != 0:
+            raise AssertionError(f"16a step {i}: prec_wire_total "
+                                 f"{m['prec_wire_total']} (design W x "
+                                 f"parameters = {total}), prec_aps_bad "
+                                 f"{m['prec_aps_bad']}")
+    # one step from the same start through the plain versions
+    plain = lm_emu_steps(device, mesh, batches[:1], fused=False)
+    marks.append(now())
+    plain_s = sum(plain["secs"])
+    if (plain["metrics"][0], plain["digests"][0]) != (run["metrics"][0],
+                                                      run["digests"][0]):
+        raise AssertionError(f"16a: one step through the plain versions "
+                             f"{plain['metrics'][0]} (state "
+                             f"{plain['digests'][0][:16]}) differs from the "
+                             f"kernels' {run['metrics'][0]} "
+                             f"({run['digests'][0][:16]})")
+    del plain
+
+    # the split of a step (after the checks: it moves the weights)
+    toks, tgts = as_tokens(*batches[0], device)
+    split_marks = []
+    with fp32_numerics():
+        torch.cuda.synchronize()
+        split_marks.append(now())
+        grads = lm_local_gradients(model, toks, tgts, mesh, 0.0, n)[0]
+        torch.cuda.synchronize()
+        split_marks.append(now())
+        local = [emulate_node_reduce(g, n, True, fmt[0], fmt[1])
+                 for g in grads]
+        del grads
+        torch.cuda.synchronize()
+        split_marks.append(now())
+        red, _ = sum_gradients(local, mesh, use_aps=True, grad_exp=fmt[0],
+                               grad_man=fmt[1], mode="faithful", stats=True)
+        del local
+        torch.cuda.synchronize()
+        split_marks.append(now())
+        run["opt"].apply(red[0], state.opt_state, state.params)
+        torch.cuda.synchronize()
+        split_marks.append(now())
+    del red
+    split = dict(zip(("fwd_bwd_ms", "emulate_ms", "reduce_ms", "update_ms"),
+                     ((b - a) * 1e3 for a, b in zip(split_marks,
+                                                    split_marks[1:]))))
+    marks.append(now())
+    prof = step_profile(run["step"], state, batches[0])
+    del run["model"], run["state"], run["step"], run["opt"], model, state
+    torch.cuda.empty_cache()
+    marks.append(now())
+
+    # one SR step, kernels vs the plain versions
+    sr_runs = [lm_emu_steps(device, mesh, batches[:1], fused=fused,
+                            grad_rounding="stochastic")
+               for fused in (None, False)]
+    marks.append(now())
+    sr_design = lm_emulate_design(layers, w, n, sizes, n_buckets, sr=True)
+    if sr_runs[0]["launches"] != sr_design:
+        raise AssertionError(f"16a SR launches {sr_runs[0]['launches']} != "
+                             f"the design's {sr_design}")
+    if (sr_runs[0]["metrics"], sr_runs[0]["digests"]) != (
+            sr_runs[1]["metrics"], sr_runs[1]["digests"]):
+        raise AssertionError(f"16a SR step: kernels {sr_runs[0]['metrics']} "
+                             f"vs plain {sr_runs[1]['metrics']}, states "
+                             f"{[r['digests'] for r in sr_runs]}")
+    del sr_runs[1]
+    timed = run["secs"][1:]
+    tokens = len(batches[0][0]) * E["seq"]
+    out = dict(
+        world=w, emulate_node=n, micro_batch=E["micro_batch"],
+        seq=E["seq"], tokens_per_step=tokens, steps=E["steps"],
+        losses=losses, step_ms=sum(timed) / len(timed) * 1e3,
+        tokens_per_s=tokens / (sum(timed) / len(timed)),
+        plain_step_ms=plain_s * 1e3, n_leaves=len(sizes),
+        n_buckets=n_buckets, parameters=sum(sizes),
+        launches_per_step={k: v // E["steps"]
+                           for k, v in run["launches"].items() if v},
+        sr_launches_per_step={k: v for k, v in
+                              sr_runs[0]["launches"].items() if v},
+        sr_loss=sr_runs[0]["metrics"][0]["loss"],
+        health={k: v for k, v in run["metrics"][-1].items()
+                if k.startswith("prec_")},
+        **split,
+        profile={k: prof.get(k) for k in ("device_busy_ms",
+                                          "kernel_launches", "top_kernels")},
+        seconds=dict(zip(("kernels", "plain", "split", "profile", "sr"),
+                         (b - a for a, b in zip(marks, marks[1:])))),
+        metrics=run["metrics"], digests=run["digests"])
+    print("lm emulate 16a: " + json.dumps(
+        {k: v for k, v in out.items() if k not in ("metrics", "digests")}),
+        flush=True)
+    print(f"lm emulate 16a: the serving-width LM at W={w} x emulate_node {n}"
+          f" x {E['micro_batch']} x {E['seq']}: launches per step as "
+          "designed (lm_emulate_design), one step kernels == the plain "
+          "versions bitwise (metrics, prec_*, weights, momentum), "
+          f"prec_wire_total {total}; one SR step kernels == plain bitwise; "
+          f"step {out['step_ms']:.2f} ms, emulate_ms "
+          f"{split['emulate_ms']:.2f}", flush=True)
+    return out
+
+
+def lm_dist_rank(device, ports: tuple, cards: int, cli_argv: list) -> dict:
+    """One process of 16b (`parallel.launch.spawn` starts max(2, cards)):
+    (a) processes 0 and 1 join a gloo group on ``ports[0]`` and run
+    `LM_EMU`'s steps on their rows of the global batches, the faithful
+    arm and the RTNE ring arm with ``verify_reduce``, sharing the card;
+    then (b) processes 0..cards-1 join an nccl group on ``ports[1]``, one
+    card each, run the faithful arm, and the LM CLI at ``cli_argv`` under
+    ``--dist``.  Each group is destroyed after its part."""
+    import torch
+    import torch.distributed as dist
+
+    from cpd_tpu_torch.obs.timing import now
+    from cpd_tpu_torch.parallel.dist import dist_init
+    from cpd_tpu_torch.parallel.mesh import ProcessMesh
+
+    rank = int(os.environ["RANK"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = dict(rank=rank, parts={})
+    for part, backend, w, port in (("a", "gloo", LM_EMU["world"], ports[0]),
+                                   ("b", "nccl", cards, ports[1])):
+        if rank >= w:
+            continue
+        marks = [now()]
+        os.environ.update(WORLD_SIZE=str(w), LOCAL_WORLD_SIZE=str(w))
+        dist_init(backend, rank=rank, world_size=w, local_rank=rank,
+                  init_method=f"tcp://localhost:{port}")
+        mesh = ProcessMesh(device)
+        batches = lm_emu_batches(w, LM_EMU["dist_steps"])
+        res = dict(world=w, backend=backend, staged=mesh.staged, arms={})
+        marks.append(now())
+        arms = {"faithful": {}}
+        if part == "a":
+            arms["ring-verify"] = dict(mode="ring", verify_reduce=True)
+        for name, kw in arms.items():
+            r = lm_emu_steps(device, mesh, batches, **kw)
+            res["arms"][name] = dict(
+                metrics=r["metrics"], digests=r["digests"], secs=r["secs"],
+                launches={k: v for k, v in r["launches"].items() if v})
+            del r
+            marks.append(now())
+        if part == "b":
+            from cpd_tpu_torch.examples.lm import train as cli
+
+            reset_counts()
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                cres = cli.run(cli.parse_args(cli_argv), device=mesh.device)
+            res["cli"] = dict(cres, printed=text.getvalue(),
+                              launches={k: v for k, v in
+                                        read_counts().items() if v})
+            marks.append(now())
+        dist.destroy_process_group()
+        res["seconds"] = [b - a for a, b in zip(marks, marks[1:])]
+        out["parts"][part] = res
+    return out
+
+
+def lm_emu_cli_argv() -> list:
+    """16c's LM CLI: the serving width at LM_EMU_CLI_VOCAB, phase 10f's
+    path, ``--dist --dist-backend nccl --optimizer adamw --emulate_node
+    2``, 2 iterations."""
+    E = LM_EMU
+    return ["--vocab-size", str(LM_EMU_CLI_VOCAB), "--d-model",
+            str(LM_MODEL["d_model"]), "--n-layers",
+            str(LM_MODEL["n_layers"]), "--n-heads", str(LM_MODEL["n_heads"]),
+            "--n-kv-heads", str(LM_MODEL["n_kv_heads"]), "--seq-len",
+            str(E["seq"]), "--batch-size", str(E["micro_batch"]),
+            "--attn-impl", "flash", "--flash-bwd", "pallas", "--ffn-exp",
+            str(LM_PATH["ffn_exp"]), "--ffn-man", str(LM_PATH["ffn_man"]),
+            "--ffn-mode", "faithful", "--use_APS", "--grad_exp",
+            str(E["fmt"][0]), "--grad_man", str(E["fmt"][1]),
+            "--emulate_node", str(E["emulate_node"]), "--optimizer",
+            "adamw", "--max-iter", "2", "--print-freq", "1", "--dist",
+            "--dist-backend", "nccl"]
+
+
+def lm_dist(device, library: dict) -> dict:
+    """16b: one spawn of max(2, cards) processes (`lm_dist_rank`): 2 gloo
+    ranks sharing the card, then one nccl rank a card, each rank's
+    metrics and final state digest bitwise the `LocalMesh` of the same W
+    on the same global batches (16a's steps for the gloo faithful arm,
+    the others run here); the LM CLI under ``--dist`` (16c) in the nccl
+    ranks."""
+    import torch
+
+    from cpd_tpu_torch.obs.timing import now
+    from cpd_tpu_torch.parallel.launch import _free_port, spawn
+    from cpd_tpu_torch.parallel.mesh import data_parallel_mesh
+
+    E = LM_EMU
+    steps = E["dist_steps"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    marks = [now()]
+    last = steps - 1
+    refs = {("faithful", E["world"]): dict(
+        metrics=library["metrics"][:steps],
+        digests={last: library["digests"][last]})}
+    r = lm_emu_steps(device, data_parallel_mesh(E["world"], device),
+                     lm_emu_batches(E["world"], steps), mode="ring",
+                     verify_reduce=True)
+    refs[("ring-verify", E["world"])] = dict(metrics=r["metrics"],
+                                             digests=r["digests"])
+    cards = min(torch.cuda.device_count(), DIST["max_cards"])
+    r = lm_emu_steps(device, data_parallel_mesh(cards, device),
+                     lm_emu_batches(cards, steps))
+    refs[("faithful", cards)] = dict(metrics=r["metrics"],
+                                     digests=r["digests"])
+    del r
+    torch.cuda.empty_cache()
+    marks.append(now())
+    ports = {_free_port()}
+    while len(ports) < 2:
+        # one rendezvous a group: the gloo pair's, then the nccl ranks'
+        ports.add(_free_port())
+    ranks = spawn(lm_dist_rank, max(E["world"], cards),
+                  args=(device, tuple(sorted(ports)), cards,
+                        lm_emu_cli_argv()),
+                  timeout=E["deadline"], env={"NCCL_DEBUG": "WARN"})
+    marks.append(now())
+    out = dict(seconds=dict(references=marks[1] - marks[0],
+                            spawn=marks[2] - marks[1]))
+    for part in ("a", "b"):
+        held = [rk["parts"][part] for rk in ranks if part in rk["parts"]]
+        w, backend = held[0]["world"], held[0]["backend"]
+        for r, got_part in enumerate(held):
+            for name, got in got_part["arms"].items():
+                want = refs[(name, w)]
+                if (got["metrics"], got["digests"]) != (want["metrics"],
+                                                        want["digests"]):
+                    raise AssertionError(
+                        f"16b {backend} rank {r} {name}: metrics "
+                        f"{got['metrics']} (state {got['digests']}) differ "
+                        f"from the LocalMesh W={w}'s {want['metrics']} "
+                        f"({want['digests']})")
+                if name == "ring-verify" and any(
+                        m["reduce_ok"] != 1.0 for m in got["metrics"]):
+                    raise AssertionError(f"16b rank {r}: the verified ring "
+                                         f"failed {got['metrics']}")
+                if got["launches"] != held[0]["arms"][name]["launches"]:
+                    raise AssertionError(f"16b {backend} {name}: rank {r}'s "
+                                         "launches differ from rank 0's")
+        out[part] = dict(
+            backend=backend, world=w, staged=held[0]["staged"],
+            step_ms={name: [x * 1e3 for x in a["secs"]]
+                     for name, a in held[0]["arms"].items()},
+            launches_per_rank={name: {k: v // steps for k, v in
+                                      a["launches"].items()}
+                               for name, a in held[0]["arms"].items()},
+            rank_seconds=[p["seconds"] for p in held])
+        print(f"lm dist 16b{part}: W={w} {backend} process(es)"
+              f"{' sharing the card' if held[0]['staged'] else ''}, "
+              f"{steps} steps of each arm at the serving width, every rank's "
+              f"metrics and state bitwise the LocalMesh W={w}; "
+              + json.dumps(out[part]), flush=True)
+    clis = [rk["parts"]["b"]["cli"] for rk in ranks if "b" in rk["parts"]]
+    for c in clis:
+        if (c["diverged"] or c["step"] != 2 or not math.isfinite(c["loss"])
+                or (c["loss"], c["val"]) != (clis[0]["loss"],
+                                             clis[0]["val"])):
+            raise AssertionError("16c LM CLI under --dist nccl: " + str(
+                [dict(x, printed=None) for x in clis]))
+    if "Iter: [2/2]" not in clis[0]["printed"] or any(
+            c["printed"] for c in clis[1:]):
+        raise AssertionError("16c LM CLI: rank 0 did not print its "
+                             "iterations, or another rank printed")
+    out["cli"] = dict(argv=" ".join(lm_emu_cli_argv()),
+                      loss=clis[0]["loss"], val=clis[0]["val"],
+                      seconds=clis[0]["seconds"],
+                      launches=clis[0]["launches"])
+    print(f"lm cli 16c: --vocab-size {LM_EMU_CLI_VOCAB} (not 32000: its "
+          "Markov table costs ~17 s a process) under --dist nccl "
+          "--optimizer adamw --emulate_node 2: " + json.dumps(out["cli"]),
+          flush=True)
+    print("lm dist 16b seconds: " + json.dumps(out["seconds"]), flush=True)
+    return out
+
+
+def clip_cli(device, root: str) -> dict:
+    """16c: the ResNet-18 CLI at the training slice's W x 128 on phase
+    14's data, faithful APS e5m2 with ``--clip-grad 1.0``, 3 iterations:
+    it finishes with a finite loss, its optimizer is the clip in front of
+    SGD, and the global norm the clip read each step is printed with
+    whether it clipped."""
+    import cpd_tpu_torch.train as ttrain
+    from cpd_tpu_torch.obs.timing import now
+    from cpd_tpu_torch.train import optim as toptim
+
+    norms: list = []
+    built: list = []
+    real_norm, real_make = toptim.global_norm, ttrain.make_optimizer
+
+    def recorded_norm(grads):
+        g = real_norm(grads)
+        norms.append(float(g))
+        return g
+
+    def recorded_make(*a, **kw):
+        built.append(real_make(*a, **kw))
+        return built[-1]
+
+    toptim.global_norm, ttrain.make_optimizer = recorded_norm, recorded_make
+    reset_counts()
+    t0 = now()
+    try:
+        res, _ = run_cli(
+            ["--mode", "faithful", "--use_APS", "--grad_exp", "5",
+             "--grad_man", "2", "--batch_size", str(TRAIN["per_rank_batch"]),
+             "--max-iter", "3", "--clip-grad", "1.0", "--data-root", root,
+             "--save_path", save_path("clip_cli"), "--print_freq", "1",
+             "--val_freq", "3"], TRAIN["world"], device)
+    finally:
+        toptim.global_norm, ttrain.make_optimizer = real_norm, real_make
+    seconds = now() - t0
+    if (res["diverged"] or res["step"] != 3 or not math.isfinite(res["loss"])
+            or len(built) != 1 or type(built[0]).__name__ !=
+            "ClipByGlobalNorm" or built[0].max_norm != 1.0
+            or len(norms) != 3):
+        raise AssertionError(f"16c --clip-grad CLI: {res}, optimizers "
+                             f"{built}, norms {norms}")
+    out = dict(world=TRAIN["world"], seconds=seconds, loss=res["loss"],
+               global_norms=norms, clipped=[g >= 1.0 for g in norms],
+               launches={k: v for k, v in read_counts().items() if v})
+    print("clip cli 16c: ResNet-18 CLI --clip-grad 1.0 at W="
+          f"{TRAIN['world']} x {TRAIN['per_rank_batch']}, 3 iterations: "
+          + json.dumps(out), flush=True)
+    return out
+
+
+def all_finite_check(device) -> dict:
+    """16c: `train.scaling.all_finite` on the card (one multi-tensor
+    ``_foreach_norm(inf)`` over the leaves, then one vector test) over
+    ResNet-18/CIFAR's 62 gradient shapes: True on finite leaves (3e38
+    among them), False with one NaN, +Inf or -Inf anywhere; its kernel
+    launches (a profiled call) and device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cpd_tpu_torch.models.resnet_cifar import resnet18_cifar
+    from cpd_tpu_torch.train.scaling import all_finite
+
+    shapes = [p.shape for p in resnet18_cifar(device=device).parameters()]
+    gen = torch.Generator(device=device).manual_seed(3)
+    leaves = [torch.randn(s, generator=gen, device=device) for s in shapes]
+    leaves[7].view(-1)[5] = 3e38
+    if not bool(all_finite(leaves)):
+        raise AssertionError("all_finite: finite leaves read non-finite")
+    for bad in (math.nan, math.inf, -math.inf):
+        for i in (0, 31, len(leaves) - 1):
+            flat = leaves[i].view(-1)
+            j = flat.numel() // 2 + 1
+            keep = flat[j].clone()
+            flat[j] = bad
+            if bool(all_finite(leaves)):
+                raise AssertionError(f"all_finite: {bad} in leaf {i} read "
+                                     "finite")
+            flat[j] = keep
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        all_finite(leaves)
+        torch.cuda.synchronize()
+    kernels = profiled_kernels(prof)
+    out = dict(leaves=len(leaves), elements=sum(t.numel() for t in leaves),
+               launches=sum(e.count for e in kernels) if kernels else None,
+               kernels=[[e.key[:60], e.count] for e in kernels],
+               ms=time_ms(lambda: all_finite(leaves), 20))
+    print("all_finite 16c: " + json.dumps(out), flush=True)
+    return out
+
+
+def drill_batches(root: str, steps: int) -> list:
+    """The first ``steps`` global batches of W x 128 over phase 14's
+    CIFAR-10 tree at ``root``: the port's sampler (seed 0) and
+    augmentation, as the CLI draws them."""
+    from cpd_tpu_torch.data import (CIFAR10Pipeline,
+                                    DistributedGivenIterationSampler,
+                                    load_cifar10)
+
+    global_batch = TRAIN["world"] * TRAIN["per_rank_batch"]
+    train_x, train_y, _, _ = load_cifar10(root)
+    pipe = CIFAR10Pipeline(train_x, train_y, global_batch, augment=True,
+                           cutout=0)
+    sampler = DistributedGivenIterationSampler(len(train_y), steps,
+                                               global_batch, seed=0)
+    return [pipe.batch(idx, seed=0) for idx in sampler.batches()]
+
+
+def loss_scale_drill(device, root: str) -> dict:
+    """16c: ``make_train_step(loss_scale="dynamic")`` on full-width
+    ResNet-18/CIFAR at the training slice's W x 128 on phase 14's data
+    under ``root``, the e5m2 faithful
+    reduce without APS, SGD momentum 0.9 (no decay) at a power-of-two
+    rate, the scale starting 4x past the power of two at which the
+    largest element of batch 0's gradients casts to Inf (DRILL): each
+    step's scale and whether it applied (the weights moved) printed; the
+    scale and ``good_steps`` after every step as GradScaler's policy
+    gives them from those verdicts, step 0 skipped, at least one applied
+    step and one growth; the params after the first
+    applied steps (at scale S) bitwise a static ``loss_scale=S`` run of
+    the same batches from the same start whose rate is divided by S (the
+    unscale by a power of two is exact)."""
+    import torch
+
+    from cpd_tpu_torch.models.resnet_cifar import resnet18_cifar
+    from cpd_tpu_torch.obs.timing import now
+    from cpd_tpu_torch.parallel.mesh import data_parallel_mesh
+    from cpd_tpu_torch.train import (as_batch, create_train_state,
+                                     fp32_numerics, local_gradients,
+                                     make_train_step, sgd,
+                                     with_dynamic_loss_scale)
+
+    D = DRILL
+    mesh = data_parallel_mesh(TRAIN["world"], device)
+    batches = drill_batches(root, D["steps"])
+    kw = dict(mode="faithful", grad_exp=D["fmt"][0], grad_man=D["fmt"][1])
+
+    def build(opt, scale):
+        gen = torch.Generator(device=device).manual_seed(TRAIN["seed"])
+        model = resnet18_cifar(device=device).init_weights(gen)
+        state = create_train_state(model, opt)
+        return model, state, make_train_step(model, opt, mesh,
+                                             loss_scale=scale, **kw)
+
+    # the largest element of batch 0's per-rank gradients at scale 1
+    probe, _, _ = build(sgd(lambda s: 0.0), 1.0)
+    with fp32_numerics():
+        grads = local_gradients(probe, *as_batch(*batches[0], device),
+                                mesh)[0]
+    top = max(float(g.abs().max()) for rank in grads for g in rank)
+    del probe, grads
+    over = math.ceil(math.log2(D["overflow_at"] / top))
+    init_scale = 2.0 ** (over + 1)
+    opt = with_dynamic_loss_scale(
+        sgd(lambda s: D["lr"], momentum=0.9), init_scale=init_scale,
+        growth_interval=D["growth_interval"], max_scale=D["max_scale"])
+    model, state, step = build(opt, "dynamic")
+    log, after = [], []
+    for i, (bx, by) in enumerate(batches):
+        before = [p.detach().clone() for p in model.parameters()]
+        scale = state.opt_state.scale
+        torch.cuda.synchronize()
+        t0 = now()
+        state, m = step(state, bx, by)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        ms = (now() - t0) * 1e3
+        applied = not all(same_bits(a, b.detach()) for a, b in
+                          zip(before, model.parameters()))
+        after.append(([p.detach().clone() for p in model.parameters()],
+                      [b.clone() for b in
+                       state.opt_state.inner.momentum_buf]))
+        log.append(dict(step=i, scale=scale, applied=applied, loss=loss,
+                        ms=ms, scale_after=state.opt_state.scale,
+                        good_steps=state.opt_state.good_steps))
+        print(f"loss scale drill 16c: step {i} scale 2^"
+              f"{math.log2(scale):g} {'applied' if applied else 'SKIPPED'}"
+              f" loss {loss:.5f} -> scale 2^"
+              f"{math.log2(state.opt_state.scale):g} good_steps "
+              f"{state.opt_state.good_steps} ({ms:.2f} ms)", flush=True)
+    del before
+    # GradScaler's policy replayed from the verdicts
+    s, g, grew = init_scale, 0, 0
+    for e in log:
+        if e["scale"] != s:
+            raise AssertionError(f"drill step {e['step']}: scale "
+                                 f"{e['scale']} != the policy's {s}")
+        if e["applied"]:
+            g += 1
+            if g >= D["growth_interval"]:
+                s, g, grew = min(s * 2, D["max_scale"]), 0, grew + 1
+        else:
+            s, g = max(s / 2, 1.0), 0
+        if (e["scale_after"], e["good_steps"]) != (s, g):
+            raise AssertionError(f"drill step {e['step']}: scale "
+                                 f"{e['scale_after']} good {e['good_steps']}"
+                                 f" != the policy's {s}, {g}")
+    applied = [e for e in log if e["applied"]]
+    if log[0]["applied"] or not applied or not grew:
+        raise AssertionError(f"drill: step 0 applied, or no applied step "
+                             f"or no growth in {log}")
+    # the first applied steps at their scale S, against a static S run
+    first = applied[0]
+    s1, run = first["scale"], []
+    for e in log[first["step"]:first["step"] + D["growth_interval"]]:
+        if not e["applied"] or e["scale"] != s1:
+            break
+        run.append(e)
+    dyn = after[run[-1]["step"]]
+    del after
+    sm, sstate, sstep = build(sgd(lambda s: D["lr"] / s1, momentum=0.9), s1)
+    for e in run:
+        sstate, _ = sstep(sstate, *batches[e["step"]])
+    for i, (a, b) in enumerate(zip(dyn[0], sm.parameters())):
+        if not same_bits(a, b.detach()):
+            raise AssertionError(f"drill: param {i} after the first applied "
+                                 f"steps differs from the static 2^"
+                                 f"{math.log2(s1):g} run")
+    for i, (a, b) in enumerate(zip(dyn[1], sstate.opt_state.momentum_buf)):
+        if not same_bits(a * s1, b):
+            raise AssertionError(f"drill: momentum {i} x S differs from the "
+                                 "static run's")
+    out = dict(world=TRAIN["world"], steps=len(log), log=log,
+               fmt=D["fmt"], largest_gradient=top,
+               overflow_scale_log2=over, init_scale_log2=over + 1,
+               skips=len(log) - len(applied), growths=grew,
+               first_applied=first["step"], first_scale_log2=math.log2(s1),
+               static_steps=[e["step"] for e in run])
+    print("loss scale drill 16c: " + json.dumps(
+        {k: v for k, v in out.items() if k != "log"}) + "; the policy "
+          "replayed exactly; the params after the first applied steps "
+          "bitwise the static-scale run, its momentum S x the dynamic "
+          "one's", flush=True)
+    return out
+
+
+def switches_phase(device) -> dict:
+    """Phase 16: 16a, 16b and 16c (module docstring)."""
+    import torch
+
+    from cpd_tpu_torch.obs.timing import now
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    marks = [now()]
+    out = {"a": lm_emu_library(device)}
+    marks.append(now())
+    out["b"] = lm_dist(device, out["a"])
+    marks.append(now())
+    root = dist_cifar_root()
+    out["c"] = dict(clip=clip_cli(device, root),
+                    all_finite=all_finite_check(device),
+                    drill=loss_scale_drill(device, root))
+    marks.append(now())
+    out["seconds"] = dict(zip("abc", (b - a for a, b in
+                                      zip(marks, marks[1:]))))
+    out["seconds"]["all"] = marks[-1] - marks[0]
+    print("switches seconds: " + json.dumps(out["seconds"]), flush=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -6301,35 +7033,46 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
 
-    kern = kernel_phase(device)
-    quant = quantize_phase(device)
-    quant.update(sr_quantize_phase(device))
-    serve = serve_phase(device)
-    profile_phase(device)
-    train = train_phase(device)
-    sr_train = sr_train_phase(device, train)
-    blocked = blocked_quantize_phase(device)
-    blocked_train = blocked_train_phase(device)
-    qgemm = qgemm_phase(device)
-    flash = flash_phase(device)
-    lm = lm_phase(device)
-    mha = mha_phase(device)
-    split = split_head_dim_phase(device)
-    bench_lm = bench_lm_phase(device)
+    phase_seconds = {}
+
+    def timed(name, fn, *args, **kwargs):
+        # each phase's wall seconds, printed on one line after the last
+        t = now()
+        out = fn(*args, **kwargs)
+        phase_seconds[name] = now() - t
+        return out
+
+    kern = timed("2", kernel_phase, device)
+    quant = timed("3", quantize_phase, device)
+    quant.update(timed("7", sr_quantize_phase, device))
+    serve = timed("4", serve_phase, device)
+    timed("5", profile_phase, device)
+    train = timed("6", train_phase, device)
+    sr_train = timed("8", sr_train_phase, device, train)
+    blocked = timed("9a", blocked_quantize_phase, device)
+    blocked_train = timed("9b", blocked_train_phase, device)
+    qgemm = timed("10a", qgemm_phase, device)
+    flash = timed("10b", flash_phase, device)
+    lm = timed("10c-f", lm_phase, device)
+    mha = timed("11a", mha_phase, device)
+    split = timed("11a split", split_head_dim_phase, device)
+    bench_lm = timed("11b-c", bench_lm_phase, device)
     # 11d: bench.py's GQA flash arm through K9/K10 bf16
-    gqa_lm = bench_slice(device, "bench gqa lm", GQA_BF16_KERNELS,
-                         **GQA_PATH)
+    gqa_lm = timed("11d", bench_slice, device, "bench gqa lm",
+                   GQA_BF16_KERNELS, **GQA_PATH)
     print("train bench gqa lm seconds: " + json.dumps(gqa_lm["seconds"]),
           flush=True)
-    headline = headline_phase(device)
+    headline = timed("12", headline_phase, device)
     print("train headline seconds: " + json.dumps(headline["seconds"]),
           flush=True)
-    emulate = emulate_phase(device)
-    dist = dist_phase(device)
+    emulate = timed("13", emulate_phase, device)
+    dist = timed("14", dist_phase, device)
     print("dist seconds: " + json.dumps({k: v["seconds"]
                                          for k, v in dist.items()}),
           flush=True)
-    ladder = ladder_phase(device)
+    ladder = timed("15", ladder_phase, device)
+    switches = timed("16", switches_phase, device)
+    print("phase seconds: " + json.dumps(phase_seconds), flush=True)
     if dist["b"]["world"] == 1:
         # at W = 1, 14b's headline is phase 12's: the same seed, batches
         # and steps on one rank, through the ProcessMesh in place of the
@@ -6463,6 +7206,19 @@ def main() -> int:
     kernels += mha_kernel_entries(mha, bench_lm)
     kernels += gqa_bf16_kernel_entries(flash, mha, gqa_lm)
     kernels += split_kernel_entries(split)
+    # phase 16a's launches per step of the LM at emulate_node 2 (RTNE, and
+    # its SR step), 16b's per rank and step on the gloo process mesh
+    lm_emu = switches["a"]
+    for entry in kernels:
+        per = {arm: counts.get(entry["name"], 0) for arm, counts in (
+            ("rtne", lm_emu["launches_per_step"]),
+            ("sr", lm_emu["sr_launches_per_step"]))}
+        if any(per.values()):
+            entry["launches_per_step_lm_emulate"] = per
+        per = {arm: counts.get(entry["name"], 0) for arm, counts in
+               switches["b"]["a"]["launches_per_rank"].items()}
+        if any(per.values()):
+            entry["launches_per_rank_lm_process_mesh"] = per
     print(card, flush=True)      # exactly as nvidia-smi gives it
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,10 +5,12 @@ from .augment import (CIFAR10_MEAN, CIFAR10_STD, Crop, Cutout, FlipLR,
                       TransformPipeline, normalise, pad_reflect)
 from .cifar import CIFAR10Pipeline, load_cifar10, synthetic_cifar10
 from .lm_data import SyntheticText
-from .samplers import DistributedGivenIterationSampler, GivenIterationSampler
+from .samplers import (DistributedEpochSampler,
+                       DistributedGivenIterationSampler, GivenIterationSampler)
 
 __all__ = ["CIFAR10_MEAN", "CIFAR10_STD", "Crop", "Cutout", "FlipLR",
            "TransformPipeline", "normalise", "pad_reflect",
            "CIFAR10Pipeline", "load_cifar10", "synthetic_cifar10",
            "GivenIterationSampler", "DistributedGivenIterationSampler",
+           "DistributedEpochSampler",
            "SyntheticText"]

@@ -1,11 +1,14 @@
-"""Deterministic, iteration-based, resumable samplers (port of
-`cpd_tpu/data/samplers.py`: the iteration samplers, bitwise).
+"""Deterministic samplers (port of `cpd_tpu/data/samplers.py`, bitwise:
+the iteration-based, resumable samplers and the epoch sampler).
 
 `DistributedGivenIterationSampler` is the reference recipe
 (train_util.py:159-222): seed-0 RandomState, dataset indices capped at
 all_size BEFORE tiling, tiled to all_size, ONE whole-schedule shuffle, a
 contiguous per-rank slice; resume by skipping ``last_iter`` batches.
-`GivenIterationSampler` is its single-rank form.  Numpy index
+`GivenIterationSampler` is its single-rank form.
+`DistributedEpochSampler` is torch's ``DistributedSampler`` contract
+(train_util.py:225-265): a ``RandomState(epoch)`` permutation, padded
+to a multiple of the world, a strided rank slice.  Numpy index
 generators; the trainer feeds the indices to its array-backed dataset.
 """
 
@@ -15,7 +18,8 @@ from typing import Iterator, Optional
 
 import numpy as np
 
-__all__ = ["GivenIterationSampler", "DistributedGivenIterationSampler"]
+__all__ = ["GivenIterationSampler", "DistributedGivenIterationSampler",
+           "DistributedEpochSampler"]
 
 
 def _gen_new_list(dataset_len: int, total_size: int, world_size: int,
@@ -87,3 +91,37 @@ class DistributedGivenIterationSampler(GivenIterationSampler):
                              self.total_iter * self.batch_size,
                              world_size=self.world_size, rank=self.rank,
                              seed=self.seed)
+
+
+class DistributedEpochSampler:
+    """Epoch-seeded shuffling sampler (train_util.py:225-265): a
+    permutation seeded by the epoch (`set_epoch`), padded with its own
+    head to a multiple of ``world_size``, every ``world_size``-th index
+    from ``rank`` on."""
+
+    def __init__(self, dataset_len: int, world_size: int = 1, rank: int = 0,
+                 shuffle: bool = True):
+        self.dataset_len = dataset_len
+        self.world_size = world_size
+        self.rank = rank
+        self.shuffle = shuffle
+        self.epoch = 0
+        self.num_samples = -(-dataset_len // world_size)  # ceil
+        self.total_size = self.num_samples * world_size
+
+    def set_epoch(self, epoch: int):
+        self.epoch = epoch
+
+    def __iter__(self) -> Iterator[int]:
+        if self.shuffle:
+            indices = np.random.RandomState(self.epoch).permutation(
+                self.dataset_len)
+        else:
+            indices = np.arange(self.dataset_len)
+        pad = self.total_size - len(indices)
+        if pad:
+            indices = np.concatenate([indices, indices[:pad]])
+        return iter(indices[self.rank:self.total_size:self.world_size])
+
+    def __len__(self) -> int:
+        return self.num_samples

@@ -29,8 +29,10 @@ N`` micro-batches of ``--batch_size`` a rank reduced locally before the
 cross-rank reduce (an epoch counts the emulated cluster), SGD (momentum
 and weight decay from ``configs/res18_cifar.yaml``), LARS (``--use_lars``)
 or the eXmY momentum buffer (``--opt_exp/--opt_man/--opt_kahan``,
-``--opt-rounding stochastic --opt-seed N``; ``--optimizer`` names one)
-under the warmup -> peak -> x0.1 at epochs 40 and 80 schedule, the APS
+``--opt-rounding stochastic --opt-seed N``; ``--optimizer`` names one),
+fed the reduced gradients clipped to a global norm with ``--clip-grad``,
+under the warmup -> peak -> x0.1 at epochs 40 and 80 schedule over
+``--max_epoch`` epochs (the config's by default), the APS
 low-precision gradient reduce in ``--mode`` faithful, ring or fast
 (``--grad-rounding stochastic --grad-seed N`` rounds it stochastically,
 ``--use_kahan`` compensates it, ``--block-scale --block-size B`` ships
@@ -77,7 +79,6 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _NOT_PORTED = {
     "--shampoo-stat-exp": "A12", "--shampoo-stat-man": "A12",
     "--shampoo-stat-mode": "A12",
-    "--max_epoch": "A4", "--clip-grad": "A4",
     "--profile-dir": "A11", "--tensorboard": "A11", "--zero1": "A6",
     "--zero2": "A6", "--overlap-reduce": "A6", "--bucket-elems": "A6",
     "--obs-dir": "A11", "--obs-flight": "A11",
@@ -200,6 +201,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data-root", default=None)
     p.add_argument("--peak-lr", default=None, type=float)
     p.add_argument("--max-iter", default=None, type=int)
+    p.add_argument("--max_epoch", default=None, type=int,
+                   help="epochs to train (default: the config's); "
+                        "--max-iter overrides it")
+    p.add_argument("--clip-grad", default=None, type=float,
+                   help="global-norm gradient clipping of the fully "
+                        "reduced gradients")
     return p
 
 
@@ -272,7 +279,8 @@ def parse_args(argv=None) -> argparse.Namespace:
         if getattr(args, key) is None:
             value = cfg[key]
             setattr(args, key, value if key == "save_path" else int(value))
-    args.max_epoch = int(cfg["max_epoch"])
+    if args.max_epoch is None:
+        args.max_epoch = int(cfg["max_epoch"])
     args.momentum = float(cfg["momentum"])
     args.weight_decay = float(cfg["weight_decay"])
     return args
@@ -311,6 +319,9 @@ def _optimizer_name(args: argparse.Namespace) -> str:
         raise SystemExit("--opt-rounding stochastic needs a quantized "
                          "buffer (--opt_exp/--opt_man below fp32)")
     if args.optimizer == "shampoo-lite":
+        if args.clip_grad is not None:
+            raise SystemExit("--clip-grad runs inside the optax chain, "
+                             "which the ShampooLite updater bypasses")
         raise SystemExit("--optimizer shampoo-lite: not yet ported to "
                          "cpd_tpu_torch (ROADMAP Queue A, A12)")
     if args.optimizer != "auto":
@@ -405,7 +416,8 @@ def run(args: argparse.Namespace, device="cuda", world: int = 1) -> dict:
                          opt_exp=args.opt_exp, opt_man=args.opt_man,
                          opt_kahan=args.opt_kahan,
                          opt_rounding=args.opt_rounding,
-                         opt_seed=args.opt_seed)
+                         opt_seed=args.opt_seed,
+                         clip_norm=args.clip_grad)
     state = create_train_state(model, opt)
 
     # where the run starts: a reference .pth, --load-path, or the newest

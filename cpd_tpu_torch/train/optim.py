@@ -1,5 +1,6 @@
-"""Optimizers on fp32 master weights (port of `sgd`, `lars`, `quant_sgd`
-and `make_optimizer` from `cpd_tpu/train/optim.py`).
+"""Optimizers on fp32 master weights (port of `sgd`, `lars`, `quant_sgd`,
+``adamw``, ``clip_norm`` and `make_optimizer` from
+`cpd_tpu/train/optim.py`).
 
 `sgd` — torch.optim.SGD semantics, optionally Nesterov, weight decay on
 the leaves ``wd_mask`` selects:
@@ -37,26 +38,60 @@ Each line is separate fp32 operations in the JAX function's order (no
 fused multiply-add), so given the same gradients `sgd` and `quant_sgd`
 are bitwise the JAX ones.  LARS's two norms are fp32 reductions that
 XLA and ATen sum in other orders: given the same norms, the rest is
-bitwise (``w - buf`` is ``w + (-buf)`` in IEEE).  ``apply`` updates the weights in place and returns the new
-optimizer state; every optimizer takes ``fused`` (used by `quant_sgd`).
+bitwise (``w - buf`` is ``w + (-buf)`` in IEEE).
+
+`adamw` — ``optax.adamw(schedule, b1=momentum, weight_decay=wd,
+mask=wd_mask)`` at optax 0.2.6's defaults (`ADAM_B2` 0.999, `ADAM_EPS`
+1e-8, eps_root 0), in optax's order (the decay is added to the Adam
+direction, not to the weights before the step as ``torch.optim.AdamW``
+does):
+
+    mu = (1 - b1) * g + b1 * mu;   nu = (1 - b2) * (g * g) + b2 * nu
+    count += 1
+    u  = (mu / (1 - b1**count)) / (sqrt(nu / (1 - b2**count)) + eps)
+    w  = w + (-lr(count - 1)) * (u + wd * w   where the mask is true)
+
+The bias corrections ``1 - b**count`` are fp32 host scalars (numpy's
+fp32 power, which may differ from XLA's ``pow`` in the last bit); given
+the same corrections the rest is bitwise optax's, op by op.
+
+`clip_norm` (`ClipByGlobalNorm`) puts ``optax.clip_by_global_norm`` in
+front of any optimizer: ``g_norm`` = sqrt of the sum over the leaves of
+each leaf's sum of squares (each leaf's norm from one multi-tensor
+``_foreach_norm``, squared); below ``max_norm`` the gradients pass
+unchanged, otherwise each ``g`` becomes ``(g / g_norm) * max_norm``.
+The choice is made on the card (a divide and a multiply by 1 below the
+norm, both exact), with no host sync.
+
+``apply`` updates the weights in place and returns the new optimizer
+state; every optimizer takes ``fused`` (used by `quant_sgd`).
 """
 
 from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..parallel.reduction import _use_kernel, cast_site
 from ..quant.prng import PRNGKey, fold_in, split
 
 __all__ = ["SGD", "TorchSGDState", "sgd", "LARS", "lars", "QuantSGD",
-           "QuantSGDState", "quant_sgd", "make_optimizer"]
+           "QuantSGDState", "quant_sgd", "AdamW", "AdamState", "adamw",
+           "ClipByGlobalNorm", "clip_by_global_norm", "global_norm",
+           "make_optimizer"]
 
 
 class TorchSGDState(NamedTuple):
     step: int
     momentum_buf: list
+
+
+class AdamState(NamedTuple):
+    count: int
+    mu: list
+    nu: list
 
 
 class QuantSGDState(NamedTuple):
@@ -262,6 +297,110 @@ def quant_sgd(schedule: Callable, momentum: float = 0.9,
                     nesterov, wd_mask, rounding, seed)
 
 
+def bias_correction(decay: float, count: int) -> float:
+    """``1 - decay**count`` in fp32, as a Python float."""
+    f32 = np.float32
+    return float(f32(1) - f32(decay) ** f32(count))
+
+
+# optax.adamw's defaults, which the reference's make_optimizer keeps
+ADAM_B2 = 0.999
+ADAM_EPS = 1e-8
+
+
+class AdamW:
+    """optax's ``adamw`` (module docstring)."""
+
+    def __init__(self, schedule: Callable, b1: float = 0.9,
+                 weight_decay: float = 1e-4,
+                 wd_mask: Optional[Callable] = None):
+        self.schedule = schedule
+        self.b1 = b1
+        self.weight_decay = weight_decay
+        self.wd_mask = wd_mask
+
+    def init(self, params: Sequence[torch.Tensor]) -> AdamState:
+        return AdamState(0, [torch.zeros_like(p) for p in params],
+                         [torch.zeros_like(p) for p in params])
+
+    @torch.no_grad()
+    def apply(self, grads: Sequence[torch.Tensor], state: AdamState,
+              params: Sequence[torch.Tensor], *,
+              fused: Optional[bool] = None) -> AdamState:
+        params, grads = list(params), list(grads)
+        b1, b2 = self.b1, ADAM_B2
+        # the moments, each product rounded before the sum (no FMA)
+        mu = list(torch._foreach_mul(grads, 1 - b1))
+        torch._foreach_add_(mu, torch._foreach_mul(state.mu, b1))
+        nu = list(torch._foreach_mul(grads, grads))
+        torch._foreach_mul_(nu, 1 - b2)
+        torch._foreach_add_(nu, torch._foreach_mul(state.nu, b2))
+        count = state.count + 1
+        denom = torch._foreach_div(nu, bias_correction(b2, count))
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, ADAM_EPS)
+        u = torch._foreach_div(mu, bias_correction(b1, count))
+        torch._foreach_div_(u, denom)
+        # the decoupled decay u + wd * w (u is never -0.0, so skipping it
+        # at wd = 0 changes no bit)
+        u = _decayed(u, params, self.weight_decay,
+                     _mask(self.wd_mask, params))
+        torch._foreach_mul_(u, -self.schedule(state.count))
+        torch._foreach_add_(params, u)
+        return AdamState(count, mu, nu)
+
+
+def adamw(schedule: Callable, b1: float = 0.9, weight_decay: float = 1e-4,
+          wd_mask: Optional[Callable] = None) -> AdamW:
+    """optax's ``adamw`` over a `Schedule`; ``wd_mask(params)`` -> one
+    bool a leaf picks the leaves that take the decoupled decay."""
+    return AdamW(schedule, b1, weight_decay, wd_mask)
+
+
+def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum over the leaves of each leaf's sum of squares, a
+    0-d fp32 tensor (one multi-tensor pass over the leaves)."""
+    norms = torch.stack(torch._foreach_norm(list(grads)))
+    return (norms * norms).sum().sqrt()
+
+
+def clip_by_global_norm(grads: Sequence[torch.Tensor],
+                        max_norm: float) -> list:
+    """``optax.clip_by_global_norm``'s update: ``grads`` unchanged below
+    ``max_norm``, else each ``(g / g_norm) * max_norm``."""
+    grads = list(grads)
+    if not grads:
+        return grads
+    g_norm = global_norm(grads)
+    below = g_norm < max_norm
+    one = torch.ones_like(g_norm)
+    # below the norm: g / 1 * 1, which is g bit for bit
+    out = torch._foreach_div(grads, torch.where(below, one, g_norm))
+    torch._foreach_mul_(out, torch.where(below, one, one * max_norm))
+    return list(out)
+
+
+class ClipByGlobalNorm:
+    """``inner`` fed globally clipped gradients; its state is the inner
+    optimizer's (the clip keeps none)."""
+
+    def __init__(self, inner, max_norm: float):
+        if max_norm <= 0:
+            raise ValueError(f"clip_norm must be > 0, got {max_norm}")
+        self.inner = inner
+        self.max_norm = max_norm
+
+    def init(self, params: Sequence[torch.Tensor]):
+        return self.inner.init(params)
+
+    @torch.no_grad()
+    def apply(self, grads: Sequence[torch.Tensor], state,
+              params: Sequence[torch.Tensor], *,
+              fused: Optional[bool] = None):
+        return self.inner.apply(clip_by_global_norm(grads, self.max_norm),
+                                state, params, fused=fused)
+
+
 def make_optimizer(name: str, schedule: Callable, momentum: float = 0.9,
                    weight_decay: float = 0.0, nesterov: bool = False,
                    wd_mask: Optional[Callable] = None, opt_exp: int = 8,
@@ -269,26 +408,28 @@ def make_optimizer(name: str, schedule: Callable, momentum: float = 0.9,
                    clip_norm: Optional[float] = None,
                    opt_rounding: str = "nearest", opt_seed: int = 0):
     """The trainers' registry: 'sgd' | 'nesterov' | 'lars' |
-    'quant_sgd' (opt_exp/opt_man/opt_kahan/opt_rounding/opt_seed apply
-    to 'quant_sgd').  'adamw' and ``clip_norm`` are not ported yet."""
+    'quant_sgd' | 'adamw' (opt_exp/opt_man/opt_kahan/opt_rounding/
+    opt_seed apply to 'quant_sgd'; 'adamw' takes ``momentum`` as b1 and
+    ``wd_mask`` for its decoupled decay).  ``clip_norm`` puts global-norm
+    gradient clipping in front (`ClipByGlobalNorm`)."""
     if name == "adamw":
-        raise NotImplementedError("optimizer 'adamw' is not ported to "
-                                  "cpd_tpu_torch yet (ROADMAP Queue A, A4)")
+        tx = adamw(schedule, b1=momentum, weight_decay=weight_decay,
+                   wd_mask=wd_mask)
+    elif name == "sgd":
+        tx = sgd(schedule, momentum, weight_decay, nesterov=nesterov,
+                 wd_mask=wd_mask)
+    elif name == "nesterov":
+        tx = sgd(schedule, momentum, weight_decay, nesterov=True,
+                 wd_mask=wd_mask)
+    elif name == "lars":
+        tx = lars(schedule, momentum, weight_decay)
+    elif name == "quant_sgd":
+        tx = quant_sgd(schedule, momentum, weight_decay, exp=opt_exp,
+                       man=opt_man, use_kahan=opt_kahan,
+                       nesterov=nesterov, wd_mask=wd_mask,
+                       rounding=opt_rounding, seed=opt_seed)
+    else:
+        raise ValueError(f"unknown optimizer {name!r}")
     if clip_norm is not None:
-        raise NotImplementedError("clip_norm (global-norm clipping) is not "
-                                  "ported to cpd_tpu_torch yet (ROADMAP "
-                                  "Queue A, A4)")
-    if name == "sgd":
-        return sgd(schedule, momentum, weight_decay, nesterov=nesterov,
-                   wd_mask=wd_mask)
-    if name == "nesterov":
-        return sgd(schedule, momentum, weight_decay, nesterov=True,
-                   wd_mask=wd_mask)
-    if name == "lars":
-        return lars(schedule, momentum, weight_decay)
-    if name == "quant_sgd":
-        return quant_sgd(schedule, momentum, weight_decay, exp=opt_exp,
-                         man=opt_man, use_kahan=opt_kahan,
-                         nesterov=nesterov, wd_mask=wd_mask,
-                         rounding=opt_rounding, seed=opt_seed)
-    raise ValueError(f"unknown optimizer {name!r}")
+        return ClipByGlobalNorm(tx, clip_norm)
+    return tx

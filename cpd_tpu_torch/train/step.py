@@ -12,7 +12,8 @@ One train step over a mesh of W ranks, as the JAX step runs it under
    previous one left (the first from the step's stats), and takes the
    gradients of ``loss / (W*N) * loss_scale`` (so the reduced SUM is the
    mean; a static ``loss_scale`` is not divided out again, as in the
-   reference);
+   reference; ``"dynamic"`` takes the scale from the optimizer's
+   `train.scaling` wrapper, which divides it out);
 2. with N > 1 each rank reduces its N gradients locally
    (`parallel.emulate.emulate_node_reduce`: local APS shift, cast,
    ordered quantized sum);
@@ -20,8 +21,9 @@ One train step over a mesh of W ranks, as the JAX step runs it under
    (APS, eXmY casts rounded to nearest or stochastically, the faithful
    scan, the ring or fast mode, optionally Kahan-compensated,
    block-scaled, verified and observed by the health counters);
-4. the optimizer (`train.optim`: SGD, LARS, `quant_sgd`) updates the
-   fp32 master weights with the reduced gradients;
+4. the optimizer (`train.optim`: SGD, LARS, `quant_sgd`, AdamW, any
+   of them behind global-norm clipping or dynamic loss scaling) updates
+   the fp32 master weights with the reduced gradients;
 5. the BN running stats become the mean of the ranks' stats, and the
    loss and the top-1 hits are summed over the ranks, each through the
    mesh (in rank order, so a `ProcessMesh` gives the `LocalMesh`'s bits).
@@ -53,6 +55,7 @@ import torch.nn.functional as F
 from ..parallel.dist import grad_sr_key, sum_gradients
 from ..parallel.emulate import emulate_node_reduce
 from ..quant.prng import fold_in
+from .scaling import current_scale, find_dynamic_scale
 from .state import TrainState
 
 __all__ = ["make_train_step", "make_eval_step", "fp32_numerics",
@@ -195,7 +198,10 @@ def make_train_step(model, opt, mesh, *, emulate_node: int = 1,
     rank-summed micro losses / (W*N), i.e. the global mean) and
     ``accuracy`` (top-1 over the global batch), as 0-d tensors on the
     device.  ``loss_scale``: a static factor on the loss the gradients
-    are taken of (``"dynamic"`` is not ported yet and raises).  With
+    are taken of, or ``"dynamic"``: the scale of the optimizer's
+    `train.scaling.with_dynamic_loss_scale` state, which unscales, skips
+    a non-finite step and moves the scale (a static factor with a
+    wrapped optimizer raises).  With
     ``grad_rounding="stochastic"`` step s reduces with the key
     ``grad_sr_key(grad_seed, s, 1)`` and rank r's emulate-node reduce
     with ``fold_in(grad_sr_key(grad_seed, s, 0), r)``.  ``quant_stats``
@@ -221,11 +227,9 @@ def make_train_step(model, opt, mesh, *, emulate_node: int = 1,
         raise ValueError(f"unknown grad_rounding {grad_rounding!r}")
     if emulate_node < 1:
         raise ValueError(f"emulate_node must be >= 1, got {emulate_node}")
-    if isinstance(loss_scale, str):
-        raise NotImplementedError(
-            f"loss_scale={loss_scale!r}: dynamic loss scaling "
-            f"(train/scaling.py) is not ported to cpd_tpu_torch yet "
-            f"(ROADMAP Queue A, A4); pass a static float")
+    dynamic_scale = loss_scale == "dynamic"
+    if not dynamic_scale:
+        loss_scale = float(loss_scale)
     if block_scale and mode != "ring":
         raise ValueError(
             f"block_scale=True needs mode='ring' (got {mode!r}): the "
@@ -234,6 +238,17 @@ def make_train_step(model, opt, mesh, *, emulate_node: int = 1,
     sr = grad_rounding == "stochastic"
 
     def step(state: TrainState, images, labels):
+        if dynamic_scale:
+            scale = current_scale(state.opt_state)
+        elif find_dynamic_scale(state.opt_state) is not None:
+            # a static factor would never be divided out: every update
+            # would be the wrapper's unscale of an unscaled gradient
+            raise ValueError(
+                "optimizer is wrapped with with_dynamic_loss_scale but "
+                "loss_scale is static; pass loss_scale='dynamic' to "
+                "make_train_step")
+        else:
+            scale = loss_scale
         x, y = as_batch(images, labels, mesh.device)
         sum_key = grad_sr_key(grad_seed, state.step, 1) if sr else None
         fault = (_wire_fault(wire_fault_plan, state.step)
@@ -243,7 +258,7 @@ def make_train_step(model, opt, mesh, *, emulate_node: int = 1,
             start = ([b.clone() for b in state.batch_stats]
                      if verify_reduce else None)
             grads, new_stats, losses, hits = local_gradients(
-                model, x, y, mesh, emulate_node, loss_scale)
+                model, x, y, mesh, emulate_node, scale)
             if emulate_node > 1:
                 emu_key = grad_sr_key(grad_seed, state.step, 0)
                 grads = [emulate_node_reduce(

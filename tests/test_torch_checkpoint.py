@@ -47,6 +47,7 @@ from cpd_tpu_torch.train.checkpoint import (CheckpointManager,
                                             checkpoint_digest,
                                             restore_latest,
                                             save_checkpoint)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures",
                        "cifar10_real_format")

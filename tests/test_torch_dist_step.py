@@ -14,6 +14,15 @@ gloo processes, one rank each) vs the `LocalMesh` W = 2, BITWISE.
   own rows of the global batch (`parallel.dist.local_rows`); its losses,
   metrics, weights, BN stats and momentum buffers equal those of the
   `LocalMesh` W = 2 step on the global batch;
+* two `make_lm_train_step` steps of the tiny LM (fp32 FFN, the plain
+  GQA flash kernels, seeded weights): plain with SGD, and at
+  ``emulate_node`` 2 on the SR ring with AdamW and the health counters;
+  each process handed its own rows; losses, metrics, weights and
+  optimizer state equal the `LocalMesh` W = 2 step's;
+* two iterations of the LM CLI under ``--dist --dist-backend gloo``
+  (``--emulate_node 2 --optimizer adamw --mode ring``): the last loss,
+  accuracy and validation equal ``--dp 2`` on one process, and rank 1
+  prints nothing;
 * an ``nccl`` mesh asked for where there is no card raises.
 
 One spawn runs all of it: the two ranks, and beside them a third
@@ -41,6 +50,22 @@ ARMS = {
     "emulate-sgd-stats": dict(emulate_node=2, mode="faithful", opt="sgd",
                               quant_stats=True),
 }
+# the LM arms: make_lm_train_step keywords and the optimizer
+LM_ARMS = {
+    "lm-plain": dict(emulate_node=1, mode="faithful", opt="sgd"),
+    "lm-emulate-adamw-sr-ring": dict(emulate_node=2, mode="ring",
+                                     opt="adamw",
+                                     grad_rounding="stochastic",
+                                     grad_seed=5, quant_stats=True),
+}
+LM_TINY = dict(vocab_size=64, d_model=32, n_layers=1, n_heads=4,
+               n_kv_heads=2, d_ff=64, attn_impl="flash", flash_bwd="pallas")
+LM_ARGV = ["--vocab-size", "64", "--d-model", "32", "--n-layers", "1",
+           "--n-heads", "4", "--n-kv-heads", "2", "--seq-len", "16",
+           "--batch-size", "2", "--attn-impl", "flash", "--flash-bwd",
+           "pallas", "--use_APS", "--grad_exp", "5", "--grad_man", "2",
+           "--max-iter", "2", "--print-freq", "1", "--emulate_node", "2",
+           "--optimizer", "adamw", "--mode", "ring"]
 CLI_ARGV = ["--mode", "ring", "--use_APS", "--grad_exp", "5", "--grad_man",
             "2", "--max-iter", "2", "--batch_size", "4", "--print_freq",
             "1", "--val_freq", "2"]
@@ -80,6 +105,40 @@ def _two_steps(variables, arm: dict, mesh) -> dict:
                           for b in state.opt_state.momentum_buf])
 
 
+def _lm_two_steps(arm: dict, mesh) -> dict:
+    """Two steps of the LM ``arm`` on ``mesh`` from seeded weights, each
+    process handed its rows of the global batch: metrics per step, the
+    state dict and every optimizer-state tensor after."""
+    from cpd_tpu_torch.models import transformer_lm
+    from cpd_tpu_torch.parallel.dist import local_rows
+    from cpd_tpu_torch.train import (create_train_state, make_optimizer,
+                                     warmup_step_decay)
+    from cpd_tpu_torch.train.lm import make_lm_train_step
+
+    arm = dict(arm)
+    opt_name = arm.pop("opt")
+    model = transformer_lm(**LM_TINY, device="cpu").init_weights(
+        torch.Generator().manual_seed(7))
+    opt = make_optimizer(opt_name, warmup_step_decay(0.05, 2, [8],
+                                                     warmup_from=0.02),
+                         momentum=0.9)
+    step = make_lm_train_step(model, opt, mesh, use_aps=True, grad_exp=5,
+                              grad_man=2, **arm)
+    state = create_train_state(model, opt)
+    rng = np.random.RandomState(5)
+    metrics = []
+    for _ in range(2):
+        x = rng.randint(0, 64, (WORLD * 2 * arm["emulate_node"], 17))
+        state, m = step(state, local_rows(x[:, :-1], mesh),
+                        local_rows(x[:, 1:], mesh))
+        metrics.append({k: v.numpy().copy() for k, v in m.items()})
+    return dict(metrics=metrics,
+                state={k: v.detach().numpy().copy()
+                       for k, v in model.state_dict().items()},
+                momentum=[t.numpy().copy() for f in state.opt_state
+                          if isinstance(f, list) for t in f])
+
+
 class _Stitched:
     """The global batches of a ``--dist`` run over WORLD processes: each
     process's `DistributedGivenIterationSampler` slice, in rank order
@@ -105,6 +164,7 @@ def _process(variables, root: str) -> dict:
     `ProcessMesh`.  Process WORLD, outside the group: the `LocalMesh`
     W = 2 references of both."""
     import cpd_tpu_torch.data as tdata
+    from cpd_tpu_torch.examples.lm import train as lcli
     from cpd_tpu_torch.examples.resnet18_cifar import train as tcli
     from cpd_tpu_torch.parallel.mesh import LocalMesh, ProcessMesh
 
@@ -116,18 +176,30 @@ def _process(variables, root: str) -> dict:
         tdata.DistributedGivenIterationSampler = _Stitched
         with contextlib.redirect_stdout(io.StringIO()):
             cli = tcli.run(tcli.parse_args(argv), device="cpu", world=WORLD)
-        return {"cli": cli,
-                "steps": {n: _two_steps(variables, a,
-                                        LocalMesh(WORLD, "cpu"))
-                          for n, a in ARMS.items()}}
-    text = io.StringIO()
+        with contextlib.redirect_stdout(io.StringIO()):
+            lm_cli = lcli.run(lcli.parse_args(LM_ARGV + ["--dp",
+                                                         str(WORLD)]),
+                              device="cpu")
+        mesh = LocalMesh(WORLD, "cpu")
+        return {"cli": cli, "lm_cli": lm_cli,
+                "steps": {n: _two_steps(variables, a, mesh)
+                          for n, a in ARMS.items()},
+                "lm_steps": {n: _lm_two_steps(a, mesh)
+                             for n, a in LM_ARMS.items()}}
+    text, lm_text = io.StringIO(), io.StringIO()
     with contextlib.redirect_stdout(text):
         cli = tcli.run(tcli.parse_args(argv + ["--dist", "--dist-backend",
                                                "gloo"]), device="cpu")
     mesh = ProcessMesh("cpu")
-    return {"cli": cli, "printed": text.getvalue(),
+    with contextlib.redirect_stdout(lm_text):
+        lm_cli = lcli.run(lcli.parse_args(LM_ARGV + [
+            "--dist", "--dist-backend", "gloo"]), device="cpu")
+    return {"cli": cli, "printed": text.getvalue(), "lm_cli": lm_cli,
+            "lm_printed": lm_text.getvalue(),
             "steps": {n: _two_steps(variables, a, mesh)
-                      for n, a in ARMS.items()}}
+                      for n, a in ARMS.items()},
+            "lm_steps": {n: _lm_two_steps(a, mesh)
+                         for n, a in LM_ARMS.items()}}
 
 
 @pytest.fixture(scope="module")
@@ -176,6 +248,41 @@ def test_two_process_steps_are_bitwise_the_local_mesh(arm, processes):
         n_params = sum(v.size for k, v in want["state"].items()
                        if "running" not in k and "num_batches" not in k)
         assert float(m["prec_wire_total"]) == WORLD * n_params
+
+
+@pytest.mark.parametrize("arm", list(LM_ARMS))
+def test_two_process_lm_steps_are_bitwise_the_local_mesh(arm, processes):
+    ranks, local = processes
+    want = local["lm_steps"][arm]
+    for r, res in enumerate(ranks):
+        got = res["lm_steps"][arm]
+        for s, (wm, gm) in enumerate(zip(want["metrics"], got["metrics"])):
+            assert set(wm) == set(gm)
+            for k in wm:
+                _bitwise(wm[k], gm[k], f"rank {r} step {s} {k}")
+        for k, v in want["state"].items():
+            _bitwise(v, got["state"][k], f"rank {r} {k}")
+        assert len(want["momentum"]) == len(got["momentum"]) > 0
+        for i, (a, b) in enumerate(zip(want["momentum"], got["momentum"])):
+            _bitwise(a, b, f"rank {r} optimizer tensor {i}")
+    m = want["metrics"][-1]
+    assert np.isfinite(m["loss"])
+    if "quant_stats" in LM_ARMS[arm]:
+        assert float(m["prec_wire_total"]) == WORLD * sum(
+            v.size for v in want["state"].values())
+
+
+def test_lm_cli_under_dist_matches_run_dp_2(processes):
+    ranks, local = processes
+    want = local["lm_cli"]
+    assert want["step"] == 2 and not want["diverged"]
+    for r, res in enumerate(ranks):
+        got = res["lm_cli"]
+        for k in ("step", "loss", "accuracy", "diverged", "val"):
+            assert got[k] == want[k], (r, k)
+    assert "Iter: [2/2]" in ranks[0]["lm_printed"]
+    assert "Val [2]" in ranks[0]["lm_printed"]
+    assert ranks[1]["lm_printed"] == ""
 
 
 def test_cli_under_dist_matches_run_world_2(processes):

@@ -13,9 +13,11 @@ Each test says how it compares:
   the two steps within a share of JAX's change (L2) and the BN stats
   within STATS_TOL, the shares stated beside each case;
 * EXACT — the ``quant_stats`` metrics' ``wire_total``, ``wire_nan`` and
-  ``aps_bad``, and a power-of-two ``loss_scale``'s gradients (2x the
-  unscaled ones, bitwise), besides the two steps with a static
-  ``loss_scale`` (1024 with APS, 3 without) held to JAX's as above;
+  ``aps_bad``, a power-of-two ``loss_scale``'s gradients (2x the
+  unscaled ones, bitwise) and a ``"dynamic"`` step's scale, besides the
+  two steps with a static ``loss_scale`` (1024 with APS, 3 without)
+  held to JAX's as above (the dynamic steps against JAX's:
+  tests/test_torch_scaling.py);
 * the CLI: 2 iterations with ``--emulate_node 2 --use_lars`` and with
   ``--opt_exp 4 --opt_man 3 --opt_kahan`` at ``--arch tiny``; the JAX
   CLI's contradiction errors; the flags gone from ``_NOT_PORTED``.
@@ -50,7 +52,9 @@ from cpd_tpu_torch.models import tiny as ttiny
 from cpd_tpu_torch.parallel.mesh import LocalMesh
 from cpd_tpu_torch.train import (as_batch, create_train_state,
                                  local_gradients, make_optimizer,
-                                 make_train_step, warmup_step_decay)
+                                 make_train_step, warmup_step_decay,
+                                 with_dynamic_loss_scale)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 FWD_TOL = dict(rtol=1e-5, atol=1e-5)
 LOSS_RTOL = 1e-5
@@ -128,6 +132,8 @@ def _two_steps(opt_name, fmt, use_aps, quant_stats=False, loss_scale=1.0):
                     params=variables["params"],
                     batch_stats=variables["batch_stats"],
                     opt_state=tx.init(variables["params"]))
+    # placed as the step returns it: the second step reuses the compile
+    jstate = jax.device_put(jstate, NamedSharding(mesh, P()))
     kw = dict(emulate_node=N, use_aps=use_aps, grad_exp=fmt[0],
               grad_man=fmt[1], mode="faithful", quant_stats=quant_stats,
               loss_scale=loss_scale)
@@ -218,9 +224,10 @@ def test_two_emulated_steps_match_jax(opt_name, fmt, use_aps, loss_scale):
 
 def test_loss_scale_and_micro_batch_contract():
     """A static power-of-two ``loss_scale`` gives exactly 2x the
-    gradients (no unscale follows); ``"dynamic"`` is not ported and
-    raises naming ROADMAP; a per-rank batch that N does not divide
-    raises."""
+    gradients (no unscale follows); ``"dynamic"`` runs at W = 2 x N, the
+    scale of the wrapped optimizer reaching the loss (one finite step at
+    ``growth_interval`` 1 doubles it); a per-rank batch that N does not
+    divide raises."""
     _, _, tmodel = _carried(seed=2)
     x, y, _, _ = jcifar.synthetic_cifar10(16, 8, seed=1)
     bx, by = as_batch(x, y, "cpu")
@@ -232,8 +239,12 @@ def test_loss_scale_and_micro_batch_contract():
             assert u.shape[0] == N
             np.testing.assert_array_equal((2 * u).numpy(), v.numpy())
     _, opt = _optimizers("sgd")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(tmodel, opt, mesh, loss_scale="dynamic")
+    opt = with_dynamic_loss_scale(opt, init_scale=4.0, growth_interval=1)
+    state = create_train_state(tmodel, opt)
+    state, m = make_train_step(tmodel, opt, mesh, emulate_node=N,
+                               loss_scale="dynamic")(state, x, y)
+    assert math.isfinite(float(m["loss"]))
+    assert (state.opt_state.scale, state.opt_state.good_steps) == (8.0, 0)
     with pytest.raises(ValueError, match="emulate_node=3"):
         local_gradients(tmodel, bx, by, mesh, 3)
 

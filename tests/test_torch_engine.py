@@ -25,6 +25,7 @@ from cpd_tpu_torch.interop import load_jax_params
 from cpd_tpu_torch.models import transformer_lm as torch_lm
 from cpd_tpu_torch.serve import Request, ServeEngine, mixed_trace
 from cpd_tpu_torch.serve.engine import _COUNTERS
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 VOCAB = 64
 ENGINE_KW = dict(n_slots=2, max_seq=32, page_size=8, prefill_chunk=4)

@@ -34,6 +34,7 @@ import torch
 
 from cpd_tpu_torch.examples.resnet18_cifar import train as tcli
 from cpd_tpu_torch.parallel.launch import spawn
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 LADDER = ["--arch", "tiny", "--mode", "ring", "--use_APS", "--grad_exp",
           "5", "--grad_man", "2", "--batch_size", "2", "--max-iter", "6",

@@ -37,6 +37,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.sharding import NamedSharding, PartitionSpec as P
 
 from cpd_tpu.data.lm_data import SyntheticText as JText
 from cpd_tpu.models import transformer_lm as jax_lm
@@ -53,13 +54,21 @@ from cpd_tpu_torch.models import transformer_lm as torch_lm
 from cpd_tpu_torch.parallel.mesh import LocalMesh
 from cpd_tpu_torch.train import (create_train_state, sgd, warmup_cosine,
                                  warmup_step_decay)
+from cpd_tpu_torch.parallel import emulate as temulate
+from cpd_tpu_torch.train import lm as tlm
 from cpd_tpu_torch.train.lm import make_lm_eval_step, make_lm_train_step
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=4, n_kv_heads=2,
             d_ff=64, attn_impl="flash", ffn_exp=4, ffn_man=3)
 LOGIT_ATOL = 2e-5
 LOSS_RTOL = 5e-3
 WEIGHT_ATOL = 1e-7
+# test_two_emulated_steps_match_jax: the elements a leaf that may move
+# past WEIGHT_ATOL (the measured count), each only where an emulate cast
+# input lay within MIDPOINT_ULPS fp32 ulps of an e5m2 rounding boundary
+EMU_FLIPS = 1
+MIDPOINT_ULPS = 16
 # bench.py's LM model at a tiny width: MHA (no kv heads), the fp32 FFN
 MHA = dict(TINY, n_kv_heads=None, ffn_exp=8, ffn_man=23)
 MHA_SEQ = 128
@@ -132,6 +141,12 @@ def _leaves(params) -> dict:
             for k, v in _flatten(jax.device_get(params)).items()}
 
 
+def _replicated(state, mesh):
+    """The JAX state placed as the step returns it (replicated over the
+    mesh), so the second step reuses the first step's compile."""
+    return jax.device_put(state, NamedSharding(mesh, P()))
+
+
 def _two_steps_match_jax(ffn, weight_tol):
     """Two steps of the faithful APS (5,2) reduce at W = 2, batch 2 per
     rank, seq 16, one layer of the tiny LM at FFN format ``ffn``, from
@@ -149,6 +164,7 @@ def _two_steps_match_jax(ffn, weight_tol):
     mesh = make_mesh(dp=world, devices=jax.devices()[:world])
     jstate = JState(step=jnp.zeros([], jnp.int32), params=params,
                     batch_stats={}, opt_state=tx.init(params))
+    jstate = _replicated(jstate, mesh)
     jstep = j_train_step(jm, tx, mesh, use_aps=True, grad_exp=5, grad_man=2,
                          donate=False)
     tm = _torch_model(params, n_layers=1, ffn_exp=ffn[0], ffn_man=ffn[1])
@@ -196,6 +212,132 @@ def test_two_train_steps_match_jax_fp32_ffn():
     _two_steps_match_jax((8, 23), lambda update: WEIGHT_ATOL)
 
 
+class _FlaxOrder(torch.nn.Module):
+    """The port LM with its ``parameters()`` in the flax tree's leaf
+    order (the JAX step's): the SR streams fold the leaf index in, so
+    the two steps draw the same bits only over the same leaf order."""
+
+    def __init__(self, inner, order):
+        super().__init__()
+        self.inner = inner
+        self.order = list(order)
+
+    def forward(self, toks):
+        return self.inner(toks)
+
+    def parameters(self, recurse=True):
+        named = dict(self.inner.named_parameters())
+        return iter([named[n] for n in self.order])
+
+
+def _midpoint_ulps(x: np.ndarray, exp: int, man: int) -> np.ndarray:
+    """Each element's distance to the nearest eXmY round-to-nearest
+    boundary (the midpoint of two neighbouring codes), in fp32 ulps of
+    the element; inf at 0."""
+    a = np.abs(x.astype(np.float64))
+    e = np.floor(np.log2(np.where(a > 0, a, 1.0)))
+    step = np.exp2(np.maximum(e, 2 - 2 ** (exp - 1)) - man)
+    r = a / step
+    dist = np.abs(r - np.floor(r) - 0.5) * step
+    return np.where(a > 0, dist / np.exp2(e - 23), np.inf)
+
+
+@pytest.mark.parametrize("rounding", ["nearest", "stochastic"])
+def test_two_emulated_steps_match_jax(rounding, monkeypatch):
+    """Two steps at W = 2 x ``emulate_node`` 2 x 2 rows, seq 16, of the
+    one-layer tiny LM at an fp32 FFN against JAX's
+    ``make_lm_train_step(emulate_node=2)``: the micro-batch split, each
+    micro loss / (one micro-batch's global token count) / N, the local
+    emulate reduce (RTNE, or SR keyed ``fold_in(grad_sr_key(seed, step,
+    0), rank)``), the faithful APS (5, 2) reduce with ``quant_stats``,
+    SGD.  Losses to LOSS_RTOL, accuracies to one token in 64, the five
+    ``prec_*`` metrics equal JAX's and ``prec_wire_total`` W x the
+    parameter count.  Each step starts from JAX's weights and momentum
+    (the second is loaded into the port's state), so the two packages'
+    gradients differ only by their fp32 sums' order (XLA's and ATen's),
+    in the last bits.  After each step every element of every leaf
+    within WEIGHT_ATOL (as the fp32-FFN steps without emulation), but
+    for at most EMU_FLIPS elements a leaf, each within 1/8 of the leaf's
+    update, and each one whose emulate cast input (the gradient times
+    its APS scale, on some rank and micro-batch) lay within
+    MIDPOINT_ULPS fp32 ulps of an e5m2 rounding boundary: an input that
+    close casts to the neighbouring code in one package and not the
+    other (ROADMAP Queue C).  That cast is the only one of values that
+    are not already e5m2 codes times a power of 2, so a flip starts
+    nowhere else.  Measured: RTNE one such element at step 0
+    (blocks.0.wkv.kernel, 6 ulps from the boundary, 0.042 of its
+    update; the next nearest input of any leaf 91 ulps), none at step
+    1; SR none; every other element within 7.5e-9."""
+    world, seq, n = 2, 16, 2
+    ffn = dict(n_layers=1, ffn_exp=8, ffn_man=23)
+    jm, params = _jax_params(seed=4, **ffn)
+    start = _leaves(params)
+    schedule = jsched.warmup_step_decay(0.05, 2, [8], warmup_from=0.02)
+    tx = joptim.make_optimizer("sgd", schedule, momentum=0.9)
+    mesh = make_mesh(dp=world, devices=jax.devices()[:world])
+    kw = dict(emulate_node=n, use_aps=True, grad_exp=5, grad_man=2,
+              grad_rounding=rounding, grad_seed=3, quant_stats=True)
+    jstate = JState(step=jnp.zeros([], jnp.int32), params=params,
+                    batch_stats={}, opt_state=tx.init(params))
+    jstate = _replicated(jstate, mesh)
+    jstep = j_train_step(jm, tx, mesh, donate=False, **kw)
+    inner = _torch_model(params, **ffn)
+    tm = _FlaxOrder(inner, start)
+    opt = sgd(warmup_step_decay(0.05, 2, [8], warmup_from=0.02),
+              momentum=0.9)
+    tstate = create_train_state(tm, opt)
+    tstep = make_lm_train_step(tm, opt, LocalMesh(world, "cpu"), **kw)
+    # each element's nearest approach to an e5m2 rounding boundary over
+    # the emulate casts' fp32 inputs (the gradients times their APS
+    # scale, every rank and micro-batch, every step so far): the only
+    # casts of values that are not already e5m2 codes times a power of 2
+    order = list(start)
+    near = {k: np.full(v.shape, np.inf) for k, v in start.items()}
+    reduce = tlm.emulate_node_reduce
+
+    def recording(g, n, use_aps, grad_exp, grad_man, **kw):
+        scales = temulate._scales(g, n, use_aps, grad_exp)
+        for name, x, scale in zip(order, g, scales):
+            ulps = _midpoint_ulps((x * scale).numpy(), grad_exp, grad_man)
+            near[name] = np.minimum(near[name], ulps.min(axis=0))
+        return reduce(g, n, use_aps, grad_exp, grad_man, **kw)
+
+    monkeypatch.setattr(tlm, "emulate_node_reduce", recording)
+    ds = JText(64, seq, 64, 1)
+    rows = world * 2 * n
+    for i in range(2):
+        toks, tgts = ds.batch(np.arange(rows * i, rows * (i + 1)), seed=i)
+        jstate, jm_ = jstep(jstate, jnp.asarray(toks), jnp.asarray(tgts))
+        tstate, tm_ = tstep(tstate, toks, tgts)
+        np.testing.assert_allclose(float(tm_["loss"]), float(jm_["loss"]),
+                                   rtol=LOSS_RTOL)
+        np.testing.assert_allclose(float(tm_["accuracy"]),
+                                   float(jm_["accuracy"]), atol=1 / 64)
+        prec = {k: float(v) for k, v in tm_.items() if k.startswith("prec_")}
+        assert len(prec) == 5
+        assert prec == {k: float(jm_[k]) for k in prec}, i
+        assert prec["prec_wire_total"] == world * sum(
+            v.size for v in start.values())
+        want = _leaves(jstate.params)
+        for name, p in inner.named_parameters():
+            update = np.abs(want[name] - start[name]).max()
+            assert update > 0, (i, name)
+            diff = np.abs(p.detach().numpy() - want[name])
+            flips = diff > WEIGHT_ATOL
+            assert flips.sum() <= EMU_FLIPS, (i, name)
+            assert (near[name][flips] <= MIDPOINT_ULPS).all(), (i, name)
+            assert diff.max() <= update / 8, (i, name)
+        # the next step starts from JAX's weights and momentum
+        bufs = _leaves(jstate.opt_state.momentum_buf)
+        with torch.no_grad():
+            for name, p in inner.named_parameters():
+                p.copy_(torch.tensor(want[name]))
+            for name, b in zip(order, tstate.opt_state.momentum_buf):
+                b.copy_(torch.tensor(bufs[name]))
+        near = {k: np.full(v.shape, np.inf) for k, v in start.items()}
+    assert tstate.step == 2
+
+
 def test_lm_gradient_leaves_are_contiguous():
     """Every gradient leaf of the flash + quantized-FFN LM is contiguous:
     the reduce's casts on the card (K1, K3) take contiguous tensors."""
@@ -231,8 +373,11 @@ def test_label_smoothing_is_the_dense_target_loss():
     with pytest.raises(ValueError, match="label_smoothing"):
         make_lm_train_step(tm, opt, LocalMesh(1, "cpu"),
                            label_smoothing=1.0)
-    with pytest.raises(NotImplementedError, match="emulate_node"):
-        make_lm_train_step(tm, opt, LocalMesh(1, "cpu"), emulate_node=2)
+    with pytest.raises(ValueError, match="emulate_node"):
+        make_lm_train_step(tm, opt, LocalMesh(1, "cpu"), emulate_node=0)
+    step = make_lm_train_step(tm, opt, LocalMesh(1, "cpu"), emulate_node=3)
+    with pytest.raises(ValueError, match="emulate_node=3"):
+        step(create_train_state(tm, opt), toks, tgts)
 
 
 def _mha_batch(seed=0, rows=2):
@@ -351,6 +496,7 @@ def test_two_bf16_aps_steps_match_jax():
     mesh = make_mesh(dp=world, devices=jax.devices()[:world])
     jstate = JState(step=jnp.zeros([], jnp.int32), params=params,
                     batch_stats={}, opt_state=tx.init(params))
+    jstate = _replicated(jstate, mesh)
     jstep = j_train_step(jm, tx, mesh, use_aps=True, grad_exp=5, grad_man=2,
                          donate=False)
     tm = _torch_model(params, base=MHA, n_layers=1, dtype=torch.bfloat16,
@@ -409,12 +555,38 @@ def test_cli_trains_bf16_mha_flash_remat(capsys):
 @pytest.mark.parametrize("extra", [
     ["--sp", "2"], ["--tp", "2"], ["--pp", "2"], ["--moe"],
     ["--scan-layers"], ["--dropout", "0.1"], ["--sample", "4"],
-    ["--emulate_node", "2"], ["--optimizer", "adamw"], ["--save-path", "x"],
+    ["--save-path", "x"],
     ["--export-torch", "x.pth"], ["--verify-reduce"], ["--obs-dir", "d"],
     ["--overlap-reduce"]])
 def test_cli_unported_flags_raise(extra):
     with pytest.raises(SystemExit, match="not yet ported"):
         tcli.parse_args(TINY_ARGV + extra)
+
+
+@pytest.mark.parametrize("extra,opt_type", [
+    (["--optimizer", "adamw"], "AdamW"),
+    (["--emulate_node", "2", "--optimizer", "nesterov"], "SGD")])
+def test_cli_trains_with_adamw_and_emulated_nodes(extra, opt_type,
+                                                  monkeypatch):
+    """The flags this slice ports, two tiny iterations each at an fp32
+    FFN: ``--optimizer adamw`` (b1 = the CLI's momentum 0.9) and
+    ``--emulate_node 2`` with Nesterov (the global batch ranks x
+    batch-size x 2, validated on ranks x batch-size rows)."""
+    from cpd_tpu_torch import train
+
+    built = []
+    real = train.make_optimizer
+    monkeypatch.setattr(train, "make_optimizer", lambda *a, **kw: built.append(
+        real(*a, **kw)) or built[-1])
+    args = tcli.parse_args(TINY_ARGV + ["--ffn-exp", "8", "--ffn-man", "23"]
+                           + extra)
+    res = tcli.run(args, device="cpu")
+    assert res["step"] == 2 and np.isfinite(res["loss"])
+    assert np.isfinite(res["val"]["loss"])
+    (opt,) = built
+    assert type(opt).__name__ == opt_type
+    assert opt_type != "AdamW" or opt.b1 == 0.9
+    assert opt_type != "SGD" or opt.nesterov
 
 
 def test_cli_trains_in_fast_mode(capsys):

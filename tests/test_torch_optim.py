@@ -10,11 +10,23 @@ Each test says how it compares:
 * to a TOLERANCE — LARS with each package's own norms: XLA and ATen sum
   ||w|| and ||g|| in other orders, so each leaf's weights and buffer are
   held within LARS_RTOL of their magnitude (measured 1.9e-8 on the
-  head's buffer; the other leaves came out bitwise).
+  head's buffer; the other leaves came out bitwise);
+* AdamW against ``optax.adamw`` over five updates, with and without the
+  weight-decay mask, to ADAMW_RTOL (measured: bitwise on this host —
+  the port's fp32 ``1 - b**count`` equals optax's jitted one at every
+  count below 200 — but XLA's ``pow`` is not numpy's, so a count may
+  differ in the last bit); BITWISE given the same bias corrections;
+* global-norm clipping against ``optax.clip_by_global_norm`` on both
+  sides of ``max_norm``: BITWISE given the same ``g_norm``, and the
+  norm itself to NORM_RTOL (XLA and ATen sum the squares in other
+  orders; the port squares each leaf's ``_foreach_norm``; measured
+  9.9e-8, one fp32 ulp).
 
 The weights, gradients and buffers are the same leaf lists in both
 packages, normal fp32 values (XLA:CPU flushes subnormals).
 """
+
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +44,11 @@ SHAPES = [(6, 3, 3, 3), (6,), (10, 6)]
 # LARS with each package's own norms: each leaf within this share of its
 # L2 magnitude (measured 1.9e-8, the head's buffer after three updates)
 LARS_RTOL = 1e-6
+# AdamW after five updates, each leaf's weights and moments relative to
+# their magnitude (measured 0: bitwise at counts 1-5)
+ADAMW_RTOL = 1e-6
+# the global norm of the clip (measured 9.9e-8 relative: one fp32 ulp)
+NORM_RTOL = 1e-6
 
 
 def _bitwise(want, got, msg=""):
@@ -165,9 +182,102 @@ def test_lars_is_bitwise_given_the_same_norms(monkeypatch):
         _bitwise(a, b)
 
 
+def _adamw_pair(mask: bool):
+    js, ts = _schedules()
+    kw = dict(momentum=0.9, weight_decay=1e-2,
+              wd_mask=_wd_mask if mask else None)
+    return (joptim.make_optimizer("adamw", js, **kw),
+            toptim.make_optimizer("adamw", ts, **kw))
+
+
+def _adam_leaves(jst, tst) -> list:
+    """(JAX leaf, port leaf) pairs of the moments of both states."""
+    adam = jst[0]
+    assert tst.count == int(adam.count)
+    return list(zip(list(adam.mu) + list(adam.nu), tst.mu + tst.nu))
+
+
+@pytest.mark.parametrize("mask", [False, True])
+def test_adamw_matches_optax(mask):
+    """Five updates of AdamW (b1 = momentum 0.9, b2 0.999, eps 1e-8, wd
+    1e-2 on every leaf or on the masked ones) against optax's: weights
+    and both moments within ADAMW_RTOL of their magnitude."""
+    jp, jst, tp, tst = _run(*_adamw_pair(mask), steps=5)
+    for i, (a, b) in enumerate(list(zip(jp, tp)) + _adam_leaves(jst, tst)):
+        a, b = np.asarray(a), b.numpy()
+        assert np.linalg.norm(b - a) <= ADAMW_RTOL * np.linalg.norm(a), i
+    assert tst.count == 5
+
+
+def test_adamw_is_bitwise_given_the_same_bias_corrections(monkeypatch):
+    """Both packages divide the moments by one fp32 ``1 - b**count``
+    computed in numpy: the moments, the bias-corrected direction, the
+    masked decay and the rate are then the same fp32 operations in the
+    same order (optax's, op by op)."""
+    def correction(decay, count):
+        f32 = np.float32
+        return f32(1) - f32(decay) ** f32(int(count))
+
+    monkeypatch.setattr(optax.tree, "bias_correction", lambda m, d, c: [
+        t / jnp.asarray(correction(d, c)) for t in m])
+    monkeypatch.setattr(toptim, "bias_correction",
+                        lambda d, c: float(correction(d, c)))
+    for mask in (False, True):
+        jp, jst, tp, tst = _run(*_adamw_pair(mask), steps=5)
+        for a, b in list(zip(jp, tp)) + _adam_leaves(jst, tst):
+            _bitwise(a, b)
+
+
+def _clip_grads(seed: int) -> list:
+    rng = np.random.RandomState(seed)
+    return [(rng.randn(*s) * 0.3).astype(np.float32) for s in SHAPES]
+
+
+@pytest.mark.parametrize("max_norm", [0.5, 100.0])
+def test_clip_by_global_norm_matches_optax(max_norm, monkeypatch):
+    """The clip on both sides of ``max_norm`` (the gradients' norm is ~4.8):
+    the global norm within NORM_RTOL of optax's; with both packages fed
+    one norm (summed in float64 by numpy, rounded to fp32) the clipped
+    gradients bitwise optax's (unchanged below ``max_norm``); and SGD
+    behind ``make_optimizer(clip_norm=)`` bitwise the JAX chain over
+    three updates given that norm."""
+    from optax._src import linear_algebra
+
+    grads = _clip_grads(2)
+    got = float(toptim.global_norm([torch.from_numpy(g) for g in grads]))
+    want = float(optax.global_norm([jnp.asarray(g) for g in grads]))
+    assert abs(got - want) <= NORM_RTOL * want
+
+    def np_norm(gs):
+        return np.float32(np.sqrt(sum(np.sum(np.asarray(g, np.float64) ** 2)
+                                      for g in gs)))
+
+    monkeypatch.setattr(linear_algebra, "global_norm",
+                        lambda gs: jnp.asarray(np_norm(
+                            jax.tree_util.tree_leaves(gs))))
+    monkeypatch.setattr(toptim, "global_norm", lambda gs: torch.tensor(
+        np_norm([g.numpy() for g in gs])))
+    clip = optax.clip_by_global_norm(max_norm)
+    want, _ = clip.update([jnp.asarray(g) for g in grads], clip.init(None))
+    got = toptim.clip_by_global_norm([torch.from_numpy(g) for g in grads],
+                                     max_norm)
+    for a, b, g in zip(want, got, grads):
+        _bitwise(a, b)
+        if max_norm > 5:
+            _bitwise(g, b)
+    js, ts = _schedules()
+    kw = dict(momentum=0.9, weight_decay=1e-3, clip_norm=max_norm)
+    jp, jst, tp, tst = _run(joptim.make_optimizer("sgd", js, **kw),
+                            toptim.make_optimizer("sgd", ts, **kw),
+                            grad_scale=0.3)
+    for a, b in zip(jp + list(jst[1].momentum_buf), tp + tst.momentum_buf):
+        _bitwise(a, b)
+
+
 def test_make_optimizer_names_and_errors():
-    """The registry builds the four ported names with their settings;
-    'adamw' and clip_norm raise naming ROADMAP; an unknown name raises."""
+    """The registry builds the five names with their settings and the
+    clip in front of any of them; ``clip_norm <= 0`` and an unknown name
+    raise, as the JAX registry's."""
     _, ts = _schedules()
     assert isinstance(toptim.make_optimizer("sgd", ts), toptim.SGD)
     assert toptim.make_optimizer("nesterov", ts).nesterov
@@ -178,10 +288,23 @@ def test_make_optimizer_names_and_errors():
                               opt_seed=3)
     assert (q.fmt, q.use_kahan, q.stochastic, q.seed) == ((4, 3), True,
                                                           True, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        toptim.make_optimizer("adamw", ts)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        toptim.make_optimizer("sgd", ts, clip_norm=1.0)
+    a = toptim.make_optimizer("adamw", ts, 0.8, 1e-4, wd_mask=_wd_mask)
+    assert isinstance(a, toptim.AdamW)
+    assert (a.b1, a.weight_decay, a.wd_mask) == (0.8, 1e-4, _wd_mask)
+    # b2 and eps are optax.adamw's defaults, which the reference keeps
+    # (it passes neither), and eps_root, which the port leaves out, is 0
+    adam_defaults = inspect.signature(optax.adamw).parameters
+    assert (toptim.ADAM_B2, toptim.ADAM_EPS, 0.0) == tuple(
+        adam_defaults[k].default for k in ("b2", "eps", "eps_root"))
+    for name in ("sgd", "lars", "quant_sgd", "adamw"):
+        c = toptim.make_optimizer(name, ts, clip_norm=1.5)
+        assert isinstance(c, toptim.ClipByGlobalNorm) and c.max_norm == 1.5
+        assert type(c.inner) is type(toptim.make_optimizer(name, ts))
+    for bad in (0.0, -1.0):
+        with pytest.raises(ValueError, match="clip_norm must be > 0"):
+            toptim.make_optimizer("sgd", ts, clip_norm=bad)
+        with pytest.raises(ValueError, match="clip_norm must be > 0"):
+            joptim.make_optimizer("sgd", ts, clip_norm=bad)
     with pytest.raises(ValueError, match="unknown optimizer"):
         toptim.make_optimizer("adam", ts)
     with pytest.raises(ValueError, match="unknown rounding"):

@@ -36,6 +36,7 @@ from cpd_tpu_torch.quant import prng
 from cpd_tpu_torch.quant import quant_function as tqf
 from cpd_tpu_torch.quant import quant_module as tqm
 from cpd_tpu_torch.quant.numerics import cast_body, max_finite
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 FORMATS = [(4, 3), (5, 2), (8, 23), (5, 10), (2, 1)]
 # (M, K, N): odd tails, K = 1, and a K past the kernel's 32-step chunk

@@ -60,6 +60,7 @@ from cpd_tpu_torch.models import resnet as tres
 from cpd_tpu_torch.parallel.mesh import LocalMesh
 from cpd_tpu_torch.train import (as_batch, create_train_state,
                                  make_train_step, sgd, warmup_step_decay)
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 FWD_RTOL = 1e-5
 FWD_TRAIN_ATOL = 5e-3
@@ -271,6 +272,8 @@ def _two_steps(block, dtype, mode, **reduce_kw):
                     params=variables["params"],
                     batch_stats=variables["batch_stats"],
                     opt_state=tx.init(variables["params"]))
+    # placed as the step returns it: the second step reuses the compile
+    jstate = jax.device_put(jstate, NamedSharding(mesh, P()))
     # one bucket: the faithful scan is elementwise, so its buckets change
     # no bit, and one scan compiles faster than one a leaf
     jstep = j_make_step(jmodel, tx, mesh, mode=mode, donate=False,

@@ -35,8 +35,9 @@ from cpd_tpu.parallel import dist as jdist
 from cpd_tpu.parallel.mesh import make_mesh
 from cpd_tpu.train import optim as joptim
 from cpd_tpu.train import schedules as jsched
-from cpd_tpu.train.state import create_train_state as j_create_state
+from cpd_tpu.train.state import TrainState as JTrainState
 from cpd_tpu.train.step import make_train_step as j_make_step
+import cpd_tpu_torch.data as tdata
 from cpd_tpu_torch.data import cifar as tcifar
 from cpd_tpu_torch.data import samplers as tsamp
 from cpd_tpu_torch.examples.resnet18_cifar import train as tcli
@@ -47,6 +48,7 @@ from cpd_tpu_torch.parallel.mesh import LocalMesh
 from cpd_tpu_torch.train import (create_train_state, make_eval_step,
                                  make_train_step, sgd, warmup_step_decay)
 from cpd_tpu_torch.train import step as tstep_mod
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(stage_sizes=(1, 1, 1, 1), stage_channels=(8, 16, 32, 64))
 FWD_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -96,6 +98,23 @@ def test_sampler_indices_match_jax(dataset_len, total_iter, bs, world, rank,
     assert len(jb) == len(tb) == total_iter - last - 1
     for a, b in zip(jb, tb):
         _bitwise(a, b)
+
+
+@pytest.mark.parametrize("world", [1, 3, 4])
+@pytest.mark.parametrize("shuffle", [True, False])
+def test_epoch_sampler_indices_match_jax(world, shuffle):
+    """Bitwise: the epoch-seeded permutation (or the identity), padded
+    with its head to a multiple of the world, every rank's strided slice,
+    over several epochs, at a length the world does not divide (1001)."""
+    for rank in range(world):
+        j = jsamp.DistributedEpochSampler(1001, world, rank, shuffle)
+        t = tsamp.DistributedEpochSampler(1001, world, rank, shuffle)
+        assert len(t) == len(j) == -(-1001 // world)
+        for epoch in (0, 1, 7):
+            j.set_epoch(epoch)
+            t.set_epoch(epoch)
+            _bitwise(np.fromiter(j, np.int64), np.fromiter(t, np.int64))
+    assert tdata.DistributedEpochSampler is tsamp.DistributedEpochSampler
 
 
 @pytest.mark.parametrize("augment,cutout", [(True, 0), (True, 8),
@@ -240,8 +259,15 @@ def _two_steps_match_jax(fmt, mode="ring", **reduce_kw):
     sched_t = warmup_step_decay(0.4, 5, [100], warmup_from=0.1)
     tx = joptim.sgd(sched_j, momentum=0.9, weight_decay=1e-4)
     mesh = make_mesh(dp=world, devices=jax.devices()[:world])
-    jstate = j_create_state(jmodel, tx, jnp.zeros((2, 32, 32, 3)),
-                            jax.random.PRNGKey(3))
+    # `create_train_state` of the carried variables (its init, jitted,
+    # without its eager second init), placed as the step returns it: the
+    # second step reuses the first step's compile
+    jstate = jax.device_put(
+        JTrainState(step=jnp.zeros([], jnp.int32),
+                    params=variables["params"],
+                    batch_stats=variables["batch_stats"],
+                    opt_state=tx.init(variables["params"])),
+        NamedSharding(mesh, P()))
     jstep = j_make_step(jmodel, tx, mesh, use_aps=True, grad_exp=fmt[0],
                         grad_man=fmt[1], mode=mode, donate=False,
                         **reduce_kw)
@@ -374,25 +400,42 @@ def test_cli_trains_in_fast_mode_and_with_resnet50_on_cpu(
 def test_cli_trains_with_sr_and_kahan_on_cpu(tiny_cifar_factory, tmp_path,
                                              capsys, monkeypatch):
     """The ported reduce flags parse with the JAX trainer's choices and
-    defaults, and two iterations train with them on the CPU (at the tiny
-    width: the plain threefry over full-width leaves is slow on a CPU)."""
-    from cpd_tpu_torch import models
+    defaults, and one epoch (``--max_epoch 1``: 8 images at batch 4, two
+    iterations) trains with them on the CPU (at the tiny width: the
+    plain threefry over full-width leaves is slow on a CPU), its SGD
+    behind ``--clip-grad``'s global-norm clip; ``--max_epoch`` overrides
+    the config's and ``--clip-grad`` keeps the JAX trainer's refusal with
+    shampoo-lite."""
+    from cpd_tpu_torch import models, train
 
     monkeypatch.setitem(models._REGISTRY, "res_cifar",
                         lambda device: ResNetCIFAR(device=device, **TINY))
     args = tcli.parse_args(["--max-iter", "1"])
     assert (args.grad_rounding, args.grad_seed, args.use_kahan) == \
         ("nearest", 0, False)
+    assert (args.clip_grad, args.max_epoch) == (None, int(tcli.read_config(
+        args.config)["max_epoch"]))
+    assert tcli.parse_args(["--max_epoch", "3"]).max_epoch == 3
+    assert not {"--clip-grad", "--max_epoch"} & set(tcli._NOT_PORTED)
     with pytest.raises(SystemExit):
         tcli.parse_args(["--grad-rounding", "up"])
-    root = tiny_cifar_factory(tmp_path, n_train=40, n_test=8)
+    with pytest.raises(SystemExit, match="ShampooLite updater bypasses"):
+        tcli.parse_args(["--optimizer", "shampoo-lite", "--clip-grad", "1"])
+    built = []
+    real = train.make_optimizer
+    monkeypatch.setattr(train, "make_optimizer", lambda *a, **kw: built.append(
+        real(*a, **kw)) or built[-1])
+    root = tiny_cifar_factory(tmp_path, n_train=8, n_test=8)
     argv = ["--mode", "faithful", "--use_APS", "--use_kahan",
             "--grad-rounding", "stochastic", "--grad-seed", "3",
-            "--max-iter", "2", "--batch_size", "4", "--data-root", root,
-            "--print_freq", "1", "--val_freq", "2", "--save_path",
-            str(tmp_path / "ckpt")]
+            "--max_epoch", "1", "--clip-grad", "0.5", "--batch_size", "4",
+            "--data-root", root, "--print_freq", "1", "--val_freq", "2",
+            "--save_path", str(tmp_path / "ckpt")]
     assert tcli.main(argv, device="cpu") == 0
-    assert "done: 2 iters" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "Iter: [2/2]" in out and "done: 2 iters" in out
+    (opt,) = built
+    assert isinstance(opt, train.ClipByGlobalNorm) and opt.max_norm == 0.5
 
 
 def test_entry_points_default_to_cuda():

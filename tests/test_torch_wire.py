@@ -43,6 +43,7 @@ from cpd_tpu_torch.parallel import integrity as tint
 from cpd_tpu_torch.parallel import ring as tring
 from cpd_tpu_torch.parallel.mesh import LocalMesh
 from cpd_tpu_torch.quant import numerics as tnum
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 # the ResNet-shaped leaf list of tests/test_torch_ring.py
 LEAF_SHAPES = [(8, 3, 3, 3), (8,), (8,), (16, 8, 3, 3), (16,), (16,),
