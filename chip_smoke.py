@@ -286,9 +286,47 @@ Phases; any failure exits non-zero:
    reduce without APS, from a scale at which the wire overflows (DRILL):
    each step's scale and verdict, GradScaler's policy replayed, the
    params after the first applied steps bitwise a static-scale run;
-17. print each phase's wall seconds (``phase seconds: {...}``), one JSON
+17. overlap and ZeRO-1/2 on full-width ResNet-18/CIFAR, APS e5m2: the
+   offset-array arm of ``sr_bits`` at ZeRO-2's shard shape (the scan's
+   offsets with the pad sentinel, scattered offsets past 2^32) bitwise
+   its plain version, two launches bitwise, timed beside its bound; (a)
+   on a `LocalMesh` of 4 x 128 at ``bucket_elems`` 2^22, 2 steps of each
+   arm (`ZERO_ARMS`): the faithful reduce and the verified blocked ring
+   (RTNE; SR with Kahan), each with overlap on and off, ZeRO-1 SGD and
+   LARS, ZeRO-2 SGD (RTNE, SR, Kahan, blocked SR) with overlap on and
+   off, and their replicated references: finite losses, launches per
+   step as designed (`zero_design`), the first step again through the
+   plain versions bitwise, each pair of `ZERO_PAIRS` bitwise (weights,
+   BN stats, momentum; LARS within ``LARS_TOL``), step ms and the
+   momentum bytes a rank holds; a profiled faithful step with overlap
+   on has a backward convolution or GEMM kernel after the first reduce
+   kernel, and with overlap off none; the blocked ZeRO-2 reduce-scatter
+   bitwise `zero2_oracle_flat`; (c) the ZeRO-2 overlap arm's W = 4
+   state saved padded and portable: ``restore(world=2)`` of each bitwise
+   `import_state` at W = 2; (b) one spawn: 2 gloo processes sharing the
+   card run the ResNet CLI under ``--dist --zero2 --overlap-reduce
+   --bucket-elems 2^20``, each rank's result and checkpoint bitwise a
+   `LocalMesh` W = 2 process's run of the same argv, which then runs 2
+   iterations of the LM CLI with ``--overlap-reduce --emulate_node 2``
+   at the serving width; then one nccl process a card (W = the card
+   count): 2 ZeRO-2 overlap steps, the bytes each rank hands to the
+   all-to-alls equal to `zero2_transport_bytes`, its weights and shard
+   bitwise a `LocalMesh` of the same W;
+18. print each phase's wall seconds (``phase seconds: {...}``), one JSON
    line ``{"kernels": [...]}`` and, last,
    ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --overlap-nccl
+
+times overlap on a `ProcessMesh` instead, and needs two cards or more:
+one nccl process a card runs each arm of 17b's nccl ranks
+(`ZERO_NCCL_ARMS`) for ``OVERLAP_NCCL["steps"]`` steps, then one
+profiled step (`overlap_trace`: the device's busy and idle time, the
+nccl kernels' time, the backward kernels after the first nccl kernel
+and those that ran beside one, the host's synchronising calls and its
+costliest CUDA runtime calls); each arm's losses bitwise its pair's
+with overlap off.  It prints one JSON line of each arm's step ms and
+every rank's trace.
 
 The script imports neither jax nor the JAX package.
 """
@@ -592,8 +630,10 @@ KERNEL_NAMES = {"quantize_cast": "cast_kernel<false, false>",
                 "hop_pack_blocked": "run_blocked_kernel<false, false,",
                 "hop_pack_blocked_sr": "run_blocked_kernel<false, true,",
                 "digest_rows": "run_rows_kernel",
-                # the offset-indexed bits and their flat-index arm
-                "sr_bits": ("sr_bits_kernel", "flat_bits_kernel"),
+                # the offset-indexed bits, their flat-index arm and their
+                # offset-array arm
+                "sr_bits": ("sr_bits_kernel", "flat_bits_kernel",
+                            "offset_bits_kernel"),
                 "qgemm_faithful": "::qgemm_tile_kernel<",
                 # fp32 on flash_f32_tc.cu, bf16 on flash_mha_tc.cu
                 "flash_gqa_fwd": ("::f32tc_fwd_kernel<", "::fwd_kernel<"),
@@ -1979,7 +2019,7 @@ def kernel_counters() -> dict:
             "hop_pack_blocked": tq.hop_pack_blocked,
             "hop_pack_blocked_sr": tq.hop_pack_blocked_sr,
             "digest_rows": tq.digest_rows,
-            "sr_bits": tq.sr_bits}
+            "sr_bits": tq.sr_bits, "sr_bits_offsets": tq.sr_bits_offsets}
 
 
 def reset_counts() -> None:
@@ -2114,19 +2154,27 @@ def no_wire_fold(prof: dict, label: str, per_step: dict) -> None:
           f"whole: {prof['wire_records_whole']}", flush=True)
 
 
+_SLICE_PIPE: list = []
+
+
 def slice_batches(steps: int) -> list:
     """The training slice's first ``steps`` global batches: synthetic
-    CIFAR-10, the port's sampler (seed 0) and augmentation."""
+    CIFAR-10, the port's sampler (seed 0) and augmentation.  The
+    augmenting pipeline (~3 s to normalise and pad the set) is built once
+    for every phase that asks: its batches depend on the indices and the
+    seed alone."""
     from cpd_tpu_torch.data import (CIFAR10Pipeline,
                                     DistributedGivenIterationSampler,
                                     synthetic_cifar10)
 
     global_batch = TRAIN["world"] * TRAIN["per_rank_batch"]
-    train_x, train_y, _, _ = synthetic_cifar10(TRAIN["n_train"],
-                                               TRAIN["n_test"])
-    pipe = CIFAR10Pipeline(train_x, train_y, global_batch, augment=True,
-                           cutout=0)
-    sampler = DistributedGivenIterationSampler(len(train_y), steps,
+    if not _SLICE_PIPE:
+        train_x, train_y, _, _ = synthetic_cifar10(TRAIN["n_train"],
+                                                   TRAIN["n_test"])
+        _SLICE_PIPE.append(CIFAR10Pipeline(train_x, train_y, global_batch,
+                                           augment=True, cutout=0))
+    pipe = _SLICE_PIPE[0]
+    sampler = DistributedGivenIterationSampler(len(pipe.labels), steps,
                                                global_batch, seed=0)
     return [pipe.batch(idx, seed=0) for idx in sampler.batches()]
 
@@ -4278,10 +4326,13 @@ def lm_operand_check(model, batch, world, device) -> dict:
             raise AssertionError(f"K8 on the LM's operand pair {i} "
                                  f"{tuple(a.shape)}x{tuple(b.shape)}: the "
                                  "kernel differs from the kept kernel")
-        t1, k1, k2, t2 = (time_ms(lambda f=f: f(a, b, *fmt), iters=2,
-                                  warmup=1)
-                          for f in (generic, qg.qgemm_faithful,
-                                    qg.qgemm_faithful, generic))
+        # the kept kernel one call a turn (the parity call warmed it),
+        # the tile kernel two
+        t1, k1, k2, t2 = (time_ms(lambda f=f: f(a, b, *fmt), iters=n,
+                                  warmup=n - 1)
+                          for f, n in ((generic, 1), (qg.qgemm_faithful, 2),
+                                       (qg.qgemm_faithful, 2),
+                                       (generic, 1)))
         rows.append(dict(kind="forward" if i < n_fwd else "backward",
                          shape=[*a.shape, b.shape[1]], ms=(k1 + k2) / 2,
                          generic_ms=(t1 + t2) / 2))
@@ -7002,6 +7053,950 @@ def switches_phase(device) -> dict:
     return out
 
 
+# -- phase 17: overlap and ZeRO-1/2 ---------------------------------------
+
+ZERO = dict(world=4, per_rank_batch=128, steps=2, fmt=(5, 2), seed=24,
+            bucket_elems=1 << 22, cli_bucket_elems=1 << 20, block=128,
+            grad_seed=0, dist_world=2, dist_batch=128, dist_iters=2,
+            nccl_steps=2, deadline=420.0, offs_seed=7)
+# the arms of 17a: name -> the step's keywords, the updater (None: the
+# replicated optimizer) and the arm it is held to bitwise (LARS: within
+# LARS_TOL); an arm named ``<x>+overlap`` runs <x> with overlap_reduce
+_ZERO_BASE = {
+    "faithful": dict(mode="faithful"),
+    "ring": dict(mode="ring"),
+    "ring-blocked": dict(mode="ring", block_scale=True, verify_reduce=True),
+    "ring-blocked-sr-kahan": dict(mode="ring", block_scale=True,
+                                  verify_reduce=True, use_kahan=True,
+                                  grad_rounding="stochastic"),
+    "faithful-sr": dict(mode="faithful", grad_rounding="stochastic"),
+    "faithful-kahan": dict(mode="faithful", use_kahan=True),
+    "faithful-lars": dict(mode="faithful", optimizer="lars"),
+    "zero1": dict(mode="faithful", zero="zero1"),
+    "zero1-lars": dict(mode="faithful", zero="zero1", optimizer="lars"),
+    "zero2": dict(mode="faithful", zero="zero2"),
+    "zero2-sr": dict(mode="faithful", zero="zero2",
+                     grad_rounding="stochastic"),
+    "zero2-kahan": dict(mode="faithful", zero="zero2", use_kahan=True),
+    "zero2-blocked-sr": dict(mode="faithful", zero="zero2",
+                             block_scale=True,
+                             grad_rounding="stochastic"),
+}
+# arm -> (the arm it equals, bitwise or "lars")
+ZERO_PAIRS = {
+    "faithful+overlap": ("faithful", "bitwise"),
+    "ring-blocked+overlap": ("ring-blocked", "bitwise"),
+    "ring-blocked-sr-kahan+overlap": ("ring-blocked-sr-kahan", "bitwise"),
+    "zero1": ("faithful", "bitwise"),
+    "zero1-lars": ("faithful-lars", "lars"),
+    "zero2": ("faithful", "bitwise"),
+    "zero2+overlap": ("faithful", "bitwise"),
+    "zero2-sr": ("faithful-sr", "bitwise"),
+    "zero2-sr+overlap": ("faithful-sr", "bitwise"),
+    "zero2-kahan": ("faithful-kahan", "bitwise"),
+    "zero2-kahan+overlap": ("faithful-kahan", "bitwise"),
+    "zero2-blocked-sr+overlap": ("zero2-blocked-sr", "bitwise"),
+}
+ZERO_ARMS = ("faithful", "ring-blocked", "ring-blocked-sr-kahan",
+             "faithful-sr", "faithful-kahan", "faithful-lars",
+             "zero2-blocked-sr") + tuple(ZERO_PAIRS)
+# 17b's nccl ranks: the checked ZeRO-2 overlap arm last, the others timed
+ZERO_NCCL_ARMS = ("faithful", "faithful+overlap", "ring", "ring+overlap",
+                  "zero2", "zero2+overlap")
+# the reference's ZeRO x LARS tolerance (tests/test_zero.py)
+LARS_TOL = dict(rtol=1e-6, atol=1e-7)
+# backward kernels (cuDNN convolutions and their GEMMs) by name
+COMPUTE_MARKS = ("conv", "gemm", "xmma", "cutlass", "wgrad", "dgrad",
+                 "implicit")
+
+
+def shared_setup() -> tuple:
+    """A trim of the whole run's shared setup: the synthetic CIFAR-10 set
+    that phases and CLI runs regenerate (~5 s a time on the card's host)
+    is made once per arguments, each caller handed its own copy; the LM
+    corpus's Markov table at 32000 tokens (~17 s a build), which phases
+    10f and 11c build, once; a library's SASS (`ops.build.sass`, one
+    `cuobjdump` of the whole library) once a library.  Returns (the
+    counts, a function that puts the Markov table back to one build a
+    corpus and frees it)."""
+    from cpd_tpu_torch import data as tdata
+    from cpd_tpu_torch.data import cifar, lm_data
+    from cpd_tpu_torch.ops import build
+
+    counts = dict(cifar_made=0, cifar_reused=0, text_made=0,
+                  text_reused=0, sass_made=0, sass_reused=0)
+    real_sass = build.sass
+    listings: dict = {}
+
+    def shared_sass(name: str) -> str:
+        if name in listings:
+            counts["sass_reused"] += 1
+        else:
+            listings[name] = real_sass(name)
+            counts["sass_made"] += 1
+        return listings[name]
+
+    build.sass = shared_sass
+    real_cifar, real_text = cifar.synthetic_cifar10, lm_data.SyntheticText
+    sets: dict = {}
+    tables: dict = {}
+
+    def shared_cifar(n_train: int = 50000, n_test: int = 10000,
+                     seed: int = 0):
+        key = (n_train, n_test, seed)
+        if key in sets:
+            counts["cifar_reused"] += 1
+        else:
+            sets[key] = real_cifar(n_train, n_test, seed)
+            counts["cifar_made"] += 1
+        return tuple(a.copy() for a in sets[key])
+
+    class SharedText(real_text):
+        """`SyntheticText` whose Markov table is built once a (vocabulary,
+        seed)."""
+
+        def __init__(self, n: int = 4096, seq_len: int = 128,
+                     vocab_size: int = 256, seed: int = 0):
+            key = (vocab_size, seed)
+            if key in tables:
+                counts["text_reused"] += 1
+                super().__init__(n, seq_len, 1, seed)     # a 1-token table
+                self.vocab_size, self._cum = vocab_size, tables[key]
+            else:
+                counts["text_made"] += 1
+                super().__init__(n, seq_len, vocab_size, seed)
+                tables[key] = self._cum
+
+    cifar.synthetic_cifar10 = tdata.synthetic_cifar10 = shared_cifar
+    lm_data.SyntheticText = SharedText
+
+    def text_done():
+        lm_data.SyntheticText = real_text
+        tables.clear()
+
+    return counts, text_done
+
+
+def zero_arm(name: str) -> dict:
+    """The keywords of one 17a arm (`_ZERO_BASE`, ``+overlap`` added)."""
+    base, _, extra = name.partition("+")
+    return dict(_ZERO_BASE[base], overlap_reduce=extra == "overlap")
+
+
+def zero_design(arm: dict, w: int, leaves: int, sizes: list) -> dict:
+    """The launches one 17a step makes on a LocalMesh of w ranks (the
+    same with overlap on: the taps run the same reduces).  The
+    replicated reduce and ZeRO-1's: `reduce_design` (faithful), or
+    `blocked_design` (the blocked verified ring; with Kahan its hops are
+    the plain blocked casts, their SR bits one `sr_bits` a site, 4 sites
+    a hop, and its digests torch ops).  ZeRO-2 per bucket and rank: the
+    APS pre-quantize per leaf (K1, or `sr_bits` + K2), then the scan of
+    the W received rows, each step K3 (or the offset-array `sr_bits` +
+    K4), four each with Kahan; blocked, the casts are torch ops and SR
+    draws one offset-array `sr_bits` for the pre-quantize's (W, c)
+    payload and one a scan step."""
+    from cpd_tpu_torch.parallel.overlap import bucket_layout
+
+    sr = arm.get("grad_rounding") == "stochastic"
+    kahan = arm.get("use_kahan", False)
+    buckets = len(bucket_layout(sizes, ZERO["bucket_elems"]))
+    if arm.get("zero") != "zero2":
+        if arm["mode"] == "ring":
+            if kahan:
+                want = dict.fromkeys(read_counts(), 0)
+                want["quantize_cast_sr"] = w * leaves
+                want["sr_bits"] = w * leaves + 4 * w * w * buckets
+                return want
+            return blocked_design(w, leaves, buckets, sr, buckets)
+        return reduce_design("faithful", sr, kahan, w, leaves, buckets)
+    want = dict.fromkeys(read_counts(), 0)
+    scan = w * w * buckets * (4 if kahan else 1)
+    if arm.get("block_scale"):
+        if sr:
+            want["sr_bits"] = want["sr_bits_offsets"] = w * buckets + scan
+        return want
+    sfx = "_sr" if sr else ""
+    want["quantize_cast" + sfx] = w * leaves
+    want["quantize_add" + sfx] = scan
+    if sr:
+        want["sr_bits"] = w * leaves + scan
+        want["sr_bits_offsets"] = scan
+    return want
+
+
+def zero_build(device, name: str, mesh, fused, model=None, world=None):
+    """The seed-24 ResNet-18/CIFAR (or ``model``), the arm's optimizer or
+    ZeRO updater (momentum 0.9, wd 1e-4, the CLI's warmup schedule at
+    W x 128 a step) and its step (APS e5m2 at ZERO["bucket_elems"]);
+    returns (model, state, step, updater or None)."""
+    import torch
+
+    from cpd_tpu_torch.models.resnet_cifar import resnet18_cifar
+    from cpd_tpu_torch.parallel import zero as zmod
+    from cpd_tpu_torch.train import (TrainState, create_train_state,
+                                     make_optimizer, make_train_step,
+                                     warmup_step_decay)
+
+    arm = zero_arm(name)
+    if model is None:
+        gen = torch.Generator(device=device).manual_seed(ZERO["seed"])
+        model = resnet18_cifar(device=device).init_weights(gen)
+    w = mesh.world
+    ipe = math.ceil(TRAIN["n_train"] / (w * ZERO["per_rank_batch"]))
+    peak = TRAIN["peak_lr"]
+    schedule = warmup_step_decay(peak, 5 * ipe, [40 * ipe, 80 * ipe],
+                                 warmup_from=peak / 16.0)
+    opt_name = arm.get("optimizer", "sgd")
+    kw = dict(mode=arm["mode"], use_aps=True, grad_exp=ZERO["fmt"][0],
+              grad_man=ZERO["fmt"][1], use_kahan=arm.get("use_kahan", False),
+              grad_rounding=arm.get("grad_rounding", "nearest"),
+              grad_seed=ZERO["grad_seed"],
+              verify_reduce=arm.get("verify_reduce", False),
+              block_scale=arm.get("block_scale", False),
+              block_size=ZERO["block"], bucket_elems=ZERO["bucket_elems"],
+              overlap_reduce=arm["overlap_reduce"], fused=fused)
+    if arm.get("zero"):
+        maker = getattr(zmod, f"{arm['zero']}_{opt_name}")
+        zkw = dict(momentum=0.9, weight_decay=1e-4)
+        if arm["zero"] == "zero2":
+            zkw["bucket_elems"] = ZERO["bucket_elems"]
+        z = maker(schedule, w, **zkw)
+        state = TrainState(0, model, z.init(list(model.parameters()), mesh))
+        step = make_train_step(model, None, mesh, **kw, **z.step_kwargs())
+        return model, state, step, z
+    opt = make_optimizer(opt_name, schedule, momentum=0.9,
+                         weight_decay=1e-4)
+    return (model, create_train_state(model, opt),
+            make_train_step(model, opt, mesh, **kw), None)
+
+
+def zero_momentum(state, mesh) -> tuple:
+    """(the momentum as one flat portable vector on the host, bytes a
+    rank holds)."""
+    import torch
+
+    from cpd_tpu_torch.parallel.zero import Zero1State, portable_momentum
+
+    opt = state.opt_state
+    if isinstance(opt, Zero1State):
+        return (portable_momentum(opt, mesh).cpu(),
+                4 * opt.momentum[0].numel())
+    flat = torch.cat([b.reshape(-1) for b in opt.momentum_buf])
+    return flat.cpu(), 4 * flat.numel()
+
+
+def zero_kernel_timeline(prof) -> list:
+    """(start us, name) of every device kernel of a profile, in order."""
+    from torch.autograd import DeviceType
+
+    return sorted((e.time_range.start, e.name) for e in prof.events()
+                  if e.device_type == DeviceType.CUDA)
+
+
+def zero_evidence(timeline: list) -> dict:
+    """The structural overlap gate on a profiled step: how many backward
+    convolution or GEMM kernels start after the first kernel of the
+    reduce (`KERNEL_NAMES`' quantize kernels, the `sr_bits` arms)."""
+    reduce_marks = tuple(
+        n for k, v in KERNEL_NAMES.items()
+        if k.startswith(("quantize", "hop_pack", "digest_rows", "sr_bits"))
+        for n in ((v,) if isinstance(v, str) else v))
+    first = next((i for i, (_, n) in enumerate(timeline)
+                  if any(m in n for m in reduce_marks)), None)
+    compute = [i for i, (_, n) in enumerate(timeline)
+               if any(m in n.lower() for m in COMPUTE_MARKS)]
+    after = (0 if first is None else sum(1 for i in compute if i > first))
+    return dict(kernels=len(timeline), compute=len(compute),
+                first_reduce=first, compute_after_first_reduce=after)
+
+
+def zero_offset_arm(device) -> dict:
+    """The offset-array arm of `sr_bits` (``offset_bits_kernel``) at
+    ZeRO-2's shard shape, ResNet-18's largest bucket at W = 4: the scan's
+    offsets (a run with the pad's sentinel) and a scattered array that
+    wraps past 2^32, bitwise its plain version (`prng.sr_bits_at`), two
+    launches bitwise; timed by `queued_ms` (the run arm beside it) beside
+    its bound (8 bytes an element; two threefry2x32 an element on the ALU
+    pipes, counted in the SASS) and the plain version."""
+    import torch
+
+    from cpd_tpu_torch.models.resnet_cifar import resnet18_cifar
+    from cpd_tpu_torch.ops import quantize as tq
+    from cpd_tpu_torch.parallel.zero import zero2_sgd
+
+    model = resnet18_cifar(device="cpu")
+    z = zero2_sgd(lambda s: 0.0, ZERO["world"],
+                  bucket_elems=ZERO["bucket_elems"])
+    lay = z._layout(list(model.parameters()))
+    b = max(range(len(lay.meta)), key=lambda i: lay.meta[i][2])
+    a, _, c = lay.meta[b]
+    gen = torch.Generator(device=device).manual_seed(ZERO["offs_seed"])
+    cases = [lay.bucket_offsets(b, r, device) for r in range(ZERO["world"])]
+    cases.append(torch.randint(0, 2**32, (c,), generator=gen,
+                               device=device, dtype=torch.int64))
+    like = torch.empty(c, device=device)
+    err = 0.0
+    for offs in cases:
+        for key in ((3, 17), (2**32 - 5, 9)):
+            got = tq.sr_bits(key, like, offsets=offs)
+            again = tq.sr_bits(key, like, offsets=offs)
+            want = tq.sr_bits_ref(key, like, offsets=offs)
+            if not (same_bits(got, want) and same_bits(got, again)):
+                raise AssertionError(f"offset-array sr_bits (n={c}): "
+                                     "differs from its plain version")
+            err = max(err, max_abs_diff(got, want))
+    offs = tq.to_int32_bits(cases[0])
+    per = sass_per_element("quantize", "offset_bits_kernel")
+    t_ops, pipe = pipe_bound_s(per, c)
+    t_bytes = 8 * c / PEAK_BYTES_PER_S
+    out = dict(n=c, bucket=b, max_abs_err=err,
+               ms=queued_ms(lambda: tq.sr_bits((3, 17), like, offsets=offs),
+                            iters=50),
+               plain_ms=device_ms(lambda: tq.sr_bits_ref(
+                   (3, 17), like, offsets=offs), iters=5),
+               run_arm_ms=queued_ms(lambda: tq.sr_bits(
+                   (3, 17), like, offset_start=a), iters=50),
+               bound_ms=max(t_ops, t_bytes) * 1e3,
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               bound_pipe=pipe, sass_per_element=per)
+    print("kernel sr_bits offset arm: bitwise its plain version at ZeRO-2's "
+          f"shard shape ({c} elements, bucket {b}, W = {ZERO['world']}) on "
+          "every rank's scan offsets with the pad sentinel and on scattered "
+          "offsets past 2^32, two launches bitwise; " + json.dumps(out),
+          flush=True)
+    return out
+
+
+def zero_local(device) -> dict:
+    """17a: every arm of ZERO_ARMS at W = 4 x 128: ZERO["steps"] steps
+    through the kernels (losses, launches per step against
+    `zero_design`, step ms, the momentum bytes a rank holds) and the
+    first step again from the same start through the plain versions
+    (bitwise the kernels' first step: weights, BN stats, momentum); each
+    pair of ZERO_PAIRS held (bitwise; LARS within LARS_TOL); a profiled
+    faithful step with overlap on and off (the overlap gate); the
+    forward and backward alone; the blocked ZeRO-2 reduce-scatter on one
+    step's gradients bitwise `zero2_oracle_flat`.  Returns the summary
+    and the ZeRO-2 overlap arm's final state and updater (17c)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cpd_tpu_torch.obs.timing import now
+    from cpd_tpu_torch.parallel.dist import grad_sr_key
+    from cpd_tpu_torch.parallel.mesh import data_parallel_mesh
+    from cpd_tpu_torch.parallel.zero import zero2_oracle_flat
+    from cpd_tpu_torch.train import as_batch, fp32_numerics, local_gradients
+
+    w = ZERO["world"]
+    mesh = data_parallel_mesh(w, device)
+    batches = slice_batches(ZERO["steps"])
+
+    def snapshot(model, state) -> list:
+        return [t.detach().cpu().clone() for t in list(model.parameters())
+                + list(model.buffers())] + [zero_momentum(state, mesh)[0]]
+
+    runs, kept = {}, None
+    for name in ZERO_ARMS:
+        model, state, step, z = zero_build(device, name, mesh, None)
+        params = list(model.parameters())
+        want = zero_design(zero_arm(name), w, len(params),
+                           [p.numel() for p in params])
+        losses, secs, first = [], [], None
+        for bx, by in batches:
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = now()
+            state, m = step(state, bx, by)
+            torch.cuda.synchronize()
+            secs.append(now() - t0)
+            got = read_counts()
+            losses.append(float(m["loss"]))
+            if got != want or not math.isfinite(losses[-1]) or float(
+                    m.get("reduce_ok", 1.0)) != 1.0:
+                raise AssertionError(f"17a {name}: loss {losses[-1]}, "
+                                     f"metrics {m}, launches {got} "
+                                     f"(design {want})")
+            if first is None:
+                first = snapshot(model, state)
+        # the first step again through the plain versions
+        pm, ps, pstep, _ = zero_build(device, name, mesh, False)
+        pstep(ps, *batches[0])
+        same_state(snapshot(pm, ps), first, f"17a {name} plain vs kernels")
+        del pm, ps, pstep, first
+        mom_bytes = zero_momentum(state, mesh)[1]
+        runs[name] = dict(
+            losses=losses, step_ms=[t * 1e3 for t in secs],
+            launches_per_step={k: v for k, v in want.items() if v},
+            momentum_bytes_per_rank=mom_bytes,
+            state=snapshot(model, state))
+        if name == "zero2+overlap":
+            kept = (model, state, z)
+        print(f"zero 17a {name}: losses {losses}, step_ms "
+              f"{runs[name]['step_ms']}, launches per step as designed "
+              f"{json.dumps(runs[name]['launches_per_step'])}, momentum "
+              f"{mom_bytes} bytes a rank; the first step through the plain "
+              "versions bitwise", flush=True)
+        del model, state, step
+    for name, (ref, kind) in ZERO_PAIRS.items():
+        a, b = runs[name]["state"], runs[ref]["state"]
+        if kind == "bitwise":
+            same_state(a, b, f"17a {name} vs {ref}")
+            continue
+        worst = max(float(((x - y).abs() - LARS_TOL["rtol"] * y.abs())
+                          .max()) for x, y in zip(a, b))
+        if worst > LARS_TOL["atol"]:
+            raise AssertionError(f"17a {name} vs {ref}: beyond {LARS_TOL} "
+                                 f"by {worst}")
+    # the overlap gate: a profiled faithful step with overlap on and off
+    evidence = {}
+    for name in ("faithful", "faithful+overlap"):
+        model, state, step, _ = zero_build(device, name, mesh, None)
+        step(state, *batches[0])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(state, *batches[1])
+            torch.cuda.synchronize()
+        evidence[name] = zero_evidence(zero_kernel_timeline(prof))
+    if (evidence["faithful"]["compute_after_first_reduce"] != 0
+            or evidence["faithful"]["first_reduce"] is None
+            or evidence["faithful+overlap"]["compute_after_first_reduce"]
+            < 1):
+        raise AssertionError(f"17a overlap evidence: {evidence}")
+    # the forward and backward alone, and the blocked reduce-scatter
+    model, state, step, z = zero_build(device, "zero2-blocked-sr", mesh,
+                                       None)
+    x, y = as_batch(*batches[0], device)
+    with fp32_numerics():
+        local_gradients(model, x, y, mesh)
+        torch.cuda.synchronize()
+        t0 = now()
+        grads = local_gradients(model, x, y, mesh)[0]
+        torch.cuda.synchronize()
+        fwd_bwd_ms = (now() - t0) * 1e3
+    key = grad_sr_key(ZERO["grad_seed"], 0, 1)
+    lay = z._layout(grads[0])
+    shards = z._grad_shard(grads, grads[0], mesh, lay, use_aps=True,
+                           grad_exp=ZERO["fmt"][0], grad_man=ZERO["fmt"][1],
+                           mode="faithful", rounding="stochastic", key=key,
+                           block_scale=True, block_size=ZERO["block"])
+    oracle = zero2_oracle_flat(
+        [torch.stack(g) for g in zip(*grads)], w, use_aps=True,
+        grad_exp=ZERO["fmt"][0], grad_man=ZERO["fmt"][1], key=key,
+        block_scale=True, block_size=ZERO["block"],
+        bucket_elems=ZERO["bucket_elems"])
+    if not same_bits(torch.cat(shards), oracle):
+        raise AssertionError("17a: the blocked ZeRO-2 reduce-scatter "
+                             "differs from zero2_oracle_flat")
+    del grads, shards, oracle, model, state, step
+    out = dict(arms={k: {f: v[f] for f in ("losses", "step_ms",
+                                           "launches_per_step",
+                                           "momentum_bytes_per_rank")}
+                     for k, v in runs.items()},
+               evidence=evidence, fwd_bwd_ms=fwd_bwd_ms,
+               buckets=len(lay.meta), shard_elems=lay.shard_size)
+    print("zero 17a: every pair bitwise (LARS within "
+          f"{LARS_TOL}), the blocked reduce-scatter bitwise its oracle; "
+          f"overlap evidence {json.dumps(evidence)}; fwd_bwd_ms "
+          f"{fwd_bwd_ms:.2f}; " + json.dumps(
+              {k: dict(step_ms=v["step_ms"],
+                       momentum_bytes_per_rank=v["momentum_bytes_per_rank"])
+               for k, v in runs.items()}), flush=True)
+    return out, kept
+
+
+class ZeroStitched:
+    """The global batches of a 17b ``--dist`` run over its processes:
+    each process's sampler slice, in rank order."""
+
+    def __init__(self, n, total_iter, batch, world_size=1, rank=0, seed=0,
+                 last_iter=-1):
+        from cpd_tpu_torch.data import samplers
+
+        w = ZERO["dist_world"]
+        self.parts = [samplers.DistributedGivenIterationSampler(
+            n, total_iter, batch // w, world_size=w, rank=r, seed=seed,
+            last_iter=last_iter) for r in range(w)]
+
+    def batches(self):
+        import numpy as np
+
+        for parts in zip(*(p.batches() for p in self.parts)):
+            yield np.concatenate(parts)
+
+
+def zero_cli_argv(root: str, save: str) -> list:
+    """17b's ResNet-18 CLI: ``--zero2 --overlap-reduce --bucket-elems
+    2^20``, faithful APS e5m2, 128 a rank, the phase-14 data."""
+    return ["--mode", "faithful", "--use_APS", "--grad_exp",
+            str(ZERO["fmt"][0]), "--grad_man", str(ZERO["fmt"][1]),
+            "--batch_size", str(ZERO["dist_batch"]), "--max-iter",
+            str(ZERO["dist_iters"]), "--val_freq", str(ZERO["dist_iters"]),
+            "--print_freq", "100", "--zero2", "--overlap-reduce",
+            "--bucket-elems", str(ZERO["cli_bucket_elems"]), "--data-root",
+            root, "--save_path", save]
+
+
+def zero_world_batches(world: int, steps: int) -> list:
+    """The first ``steps`` batches at ``world`` x 128 of phase 14's
+    synthetic set (DIST's size: the ranks make it in their own
+    processes)."""
+    from cpd_tpu_torch.data import (CIFAR10Pipeline,
+                                    DistributedGivenIterationSampler,
+                                    synthetic_cifar10)
+
+    gb = world * ZERO["per_rank_batch"]
+    train_x, train_y, _, _ = synthetic_cifar10(DIST["n_train"],
+                                               DIST["n_test"])
+    pipe = CIFAR10Pipeline(train_x, train_y, gb, augment=True, cutout=0)
+    sampler = DistributedGivenIterationSampler(len(train_y), steps, gb,
+                                               seed=0)
+    return [pipe.batch(idx, seed=0) for idx in sampler.batches()]
+
+
+def zero_saved(step_dir: str) -> list:
+    """Every array of a checkpoint step, in its order."""
+    import numpy as np
+
+    with np.load(os.path.join(step_dir, "state.npz")) as z:
+        return [z[k].copy() for k in sorted(z.files)]
+
+
+def zero_dist_rank(device, root: str, base: str, ports: tuple,
+                   cards: int) -> dict:
+    """One process of 17b (`parallel.launch.spawn` starts 3 + cards, all
+    at once): processes 0 and 1 join a gloo group on ``ports[0]`` and
+    run the ZeRO-2 overlap CLI under ``--dist`` sharing the card;
+    process 2 runs the same argv on a `LocalMesh` of 2 (the JAX
+    trainer's global batches: the two samplers' slices,
+    `ZeroStitched`), then the LM CLI at the serving width with
+    ``--overlap-reduce --emulate_node 2``; processes 3 .. 2 + cards join
+    an nccl group on ``ports[1]``, a card each, and run
+    ZERO["nccl_steps"] ZeRO-2 overlap steps, checking the bytes they
+    hand to each all-to-all against `zero2_transport_bytes`.  Arrays
+    come back as numpy."""
+    import torch
+    import torch.distributed as dist
+
+    import cpd_tpu_torch.data as tdata
+    from cpd_tpu_torch.obs.timing import now
+    from cpd_tpu_torch.parallel.dist import dist_init, local_rows
+    from cpd_tpu_torch.parallel.mesh import ProcessMesh
+    from cpd_tpu_torch.parallel.zero import zero2_transport_bytes
+
+    idx = int(os.environ["RANK"])
+    w = ZERO["dist_world"]
+    local = idx == w
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = dict(rank=idx, seconds={})
+    t0 = now()
+    if local:
+        tdata.DistributedGivenIterationSampler = ZeroStitched
+        where = os.path.join(base, "local")
+        res, _ = run_cli(zero_cli_argv(root, where), ZERO["dist_world"],
+                         device)
+        out["cli"] = {k: res[k] for k in ("step", "loss", "accuracy",
+                                          "diverged")}
+        out["saved"] = zero_saved(os.path.join(where,
+                                               str(ZERO["dist_iters"])))
+        out["seconds"]["cli"] = now() - t0
+        from cpd_tpu_torch.examples.lm import train as lcli
+
+        t0 = now()
+        argv = [a for a in lm_emu_cli_argv()
+                if a not in ("--dist", "--dist-backend", "nccl")]
+        with contextlib.redirect_stdout(io.StringIO()):
+            lres = lcli.run(lcli.parse_args(argv + [
+                "--overlap-reduce", "--dp", str(LM_EMU["world"])]),
+                device=device)
+        out["lm"] = {k: lres[k] for k in ("step", "loss", "diverged")}
+        out["seconds"]["lm"] = now() - t0
+        return out
+    if idx < w:
+        os.environ.update(WORLD_SIZE=str(w), LOCAL_WORLD_SIZE=str(w))
+        dist_init("gloo", rank=idx, world_size=w, local_rank=idx,
+                  init_method=f"tcp://localhost:{ports[0]}")
+        where = os.path.join(base, "dist")
+        res, _ = run_cli(zero_cli_argv(root, where) + [
+            "--dist", "--dist-backend", "gloo"], 1, device)
+        out["cli"] = {k: res[k] for k in ("step", "loss", "accuracy",
+                                          "diverged")}
+        out["saved"] = zero_saved(os.path.join(where,
+                                               str(ZERO["dist_iters"])))
+        dist.destroy_process_group()
+        out["seconds"]["gloo"] = now() - t0
+        return out
+    rank = idx - w - 1
+    if rank < cards:
+        t0 = now()
+        os.environ.update(WORLD_SIZE=str(cards),
+                          LOCAL_WORLD_SIZE=str(cards))
+        dist_init("nccl", rank=rank, world_size=cards, local_rank=rank,
+                  init_method=f"tcp://localhost:{ports[1]}")
+        mesh = ProcessMesh(device)
+        batches = zero_world_batches(cards, ZERO["nccl_steps"])
+        step_ms = {}
+        # timed beside the checked arm: the replicated reduce and the
+        # ring, each with overlap off and on
+        for name in ZERO_NCCL_ARMS:
+            model, state, step, z = zero_build(mesh.device, name, mesh,
+                                               None)
+            losses, handed, secs = [], [], []
+            for bx, by in batches:
+                mesh.log = []
+                torch.cuda.synchronize()
+                t1 = now()
+                state, m = step(state, local_rows(bx, mesh),
+                                local_rows(by, mesh))
+                torch.cuda.synchronize()
+                secs.append((now() - t1) * 1e3)
+                losses.append(float(m["loss"]))
+                handed.append([b for op, _, b in mesh.log
+                               if op == "all_to_all"])
+            step_ms[name] = secs
+            if name != "zero2+overlap":
+                del model, state, step, z
+        lay = z._layout(list(model.parameters()))
+        for logged in handed:
+            if len(logged) != len(lay.meta):
+                raise AssertionError(f"17b nccl rank {rank}: "
+                                     f"{len(logged)} all-to-alls a step, "
+                                     f"{len(lay.meta)} buckets")
+        handed = [sum(b * (cards - 1) // cards for b in lg)
+                  for lg in handed]
+        want = sum(zero2_transport_bytes(mb, cards, *ZERO["fmt"])
+                   for mb in lay.spans)
+        if any(h != want for h in handed):
+            raise AssertionError(f"17b nccl rank {rank}: all-to-all bytes "
+                                 f"{handed}, zero2_transport_bytes {want}")
+        out["nccl"] = dict(
+            rank=rank, world=cards, losses=losses, wire_bytes=want,
+            step_ms=step_ms,
+            shard=state.opt_state.momentum[0].cpu().numpy(),
+            params=[p.detach().cpu().numpy() for p in model.parameters()])
+        dist.destroy_process_group()
+        out["seconds"]["nccl"] = now() - t0
+    return out
+
+
+def zero_dist(device, root: str) -> dict:
+    """17b (and 17c's LM CLI): one spawn (`zero_dist_rank`); the gloo
+    pair's CLI results and checkpoints bitwise the `LocalMesh` W = 2
+    process's; each nccl rank's weights and shard bitwise a `LocalMesh`
+    of the same W, run here."""
+    import numpy as np
+    import torch
+
+    from cpd_tpu_torch.obs.timing import now
+    from cpd_tpu_torch.parallel.launch import _free_port, spawn
+    from cpd_tpu_torch.parallel.mesh import data_parallel_mesh
+
+    t0 = now()
+    base = save_path("zero_17b")
+    os.makedirs(base)
+    cards = min(torch.cuda.device_count(), DIST["max_cards"])
+    ports = {_free_port()}
+    while len(ports) < 2:
+        ports.add(_free_port())
+    w = ZERO["dist_world"]
+    procs = spawn(zero_dist_rank, w + 1 + cards,
+                  args=(device, root, base, tuple(sorted(ports)), cards),
+                  timeout=ZERO["deadline"], env={"NCCL_DEBUG": "WARN"})
+    spawn_s = now() - t0
+    local = procs[w]
+    for res in procs[:w]:
+        same = len(res["saved"]) == len(local["saved"]) and all(
+            a.dtype == b.dtype and np.array_equal(
+                a.reshape(-1).view(np.uint8), b.reshape(-1).view(np.uint8))
+            for a, b in zip(local["saved"], res["saved"]))
+        if res["cli"] != local["cli"] or not same:
+            raise AssertionError(f"17b gloo rank {res['rank']}: "
+                                 f"{res['cli']} or its checkpoint differs "
+                                 f"from the LocalMesh's {local['cli']}")
+    if local["cli"]["step"] != ZERO["dist_iters"] or local["cli"][
+            "diverged"] or not math.isfinite(local["cli"]["loss"]):
+        raise AssertionError(f"17b LocalMesh CLI: {local['cli']}")
+    if local["lm"]["step"] != 2 or local["lm"]["diverged"] or \
+            not math.isfinite(local["lm"]["loss"]):
+        raise AssertionError(f"17c LM CLI --overlap-reduce: {local['lm']}")
+    mesh = data_parallel_mesh(cards, device)
+    model, state, step, _ = zero_build(device, "zero2+overlap", mesh, None)
+    for bx, by in zero_world_batches(cards, ZERO["nccl_steps"]):
+        state, _ = step(state, bx, by)
+    for res in procs[w + 1:]:
+        got = res["nccl"]
+        r = got["rank"]
+        same_state([torch.from_numpy(a) for a in got["params"]],
+                   [p.detach().cpu() for p in model.parameters()],
+                   f"17b nccl rank {r} weights vs LocalMesh")
+        if not same_bits(torch.from_numpy(got["shard"]),
+                         state.opt_state.momentum[r].cpu()):
+            raise AssertionError(f"17b nccl rank {r}: its shard differs "
+                                 "from the LocalMesh's")
+    out = dict(spawn_seconds=spawn_s, seconds=now() - t0,
+               process_seconds=[p["seconds"] for p in procs],
+               cli=local["cli"], lm=local["lm"],
+               nccl=dict(world=cards, losses=procs[w + 1]["nccl"]["losses"],
+                         wire_bytes_per_rank=procs[w + 1]["nccl"][
+                             "wire_bytes"],
+                         step_ms=procs[w + 1]["nccl"]["step_ms"]))
+    print(f"zero 17b: 2 gloo processes on the card under --dist --zero2 "
+          f"--overlap-reduce --bucket-elems {ZERO['cli_bucket_elems']}: "
+          "both ranks' results and checkpoints bitwise the LocalMesh "
+          f"W=2's; {cards} nccl process(es), a card each: the ZeRO-2 "
+          f"overlap steps bitwise a LocalMesh W={cards}, all-to-all bytes "
+          "= zero2_transport_bytes; the LM CLI --overlap-reduce "
+          "--emulate_node 2 at the serving width; " + json.dumps(out),
+          flush=True)
+    return out
+
+
+def zero_restore(device, kept) -> dict:
+    """17c: 17a's ZeRO-2 overlap arm (W = 4, ``bucket_elems``) saved
+    padded and portable; ``restore(world=2)`` of each with a W = 2
+    template is bitwise an `import_state` at W = 2 of the portable
+    save."""
+    from cpd_tpu_torch.obs.timing import now
+    from cpd_tpu_torch.parallel.mesh import data_parallel_mesh
+    from cpd_tpu_torch.train.checkpoint import CheckpointManager
+
+    t0 = now()
+    model, state4, z4 = kept
+    padded = save_path("zero_17c_padded")
+    CheckpointManager(padded).save(ZERO["steps"], state4)
+    portable = save_path("zero_17c_portable")
+    CheckpointManager(portable).save(ZERO["steps"], z4.export_state(state4))
+    save_s = now() - t0
+    mesh2 = data_parallel_mesh(2, device)
+    _, tmpl, _, z2 = zero_build(device, "zero2", mesh2, None, model=model)
+    want = z2.import_state(CheckpointManager(portable).restore(
+        z2.portable_template(tmpl)), mesh2)
+    for src in (padded, portable):
+        got = CheckpointManager(src).restore(tmpl, world=2)
+        for a, b in zip(want.opt_state.momentum, got.opt_state.momentum):
+            if not same_bits(a, b):
+                raise AssertionError(f"17c restore(world=2) of {src} "
+                                     "differs from import_state at W = 2")
+    out = dict(save_s=save_s, seconds=now() - t0,
+               shard_elems_w2=want.opt_state.momentum[0].numel())
+    print("zero 17c: 17a's W=4 ZeRO-2 state saved padded and portable; "
+          "restore(world=2) of each bitwise import_state at W=2; "
+          + json.dumps(out), flush=True)
+    return out
+
+
+def zero_phase(device) -> dict:
+    """Phase 17: the offset arm, 17a-17c (module docstring)."""
+    import torch
+
+    from cpd_tpu_torch.obs.timing import now
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    marks = [now()]
+    out = {"offset_arm": zero_offset_arm(device)}
+    out["a"], kept = zero_local(device)
+    marks.append(now())
+    out["c"] = zero_restore(device, kept)
+    del kept
+    torch.cuda.empty_cache()
+    marks.append(now())
+    out["b"] = zero_dist(device, dist_cifar_root())
+    marks.append(now())
+    out["seconds"] = dict(zip("acb", (b - a for a, b in
+                                      zip(marks, marks[1:]))))
+    out["seconds"]["all"] = marks[-1] - marks[0]
+    print("zero seconds: " + json.dumps(out["seconds"]), flush=True)
+    return out
+
+# --overlap-nccl: steps timed an arm (the first WARMUP left out of the
+# summary), then one profiled step
+OVERLAP_NCCL = dict(steps=12, warmup=2, deadline=600.0)
+# host calls that wait for the device (or a copy to finish)
+HOST_SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpy", "aten::_local_scalar_dense")
+
+
+def _union_us(spans: list) -> float:
+    """Microseconds covered by the union of ``(start, end)`` spans."""
+    total, end = 0.0, None
+    for s, e in sorted(spans):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def overlap_trace(prof) -> dict:
+    """What one profiled step did: its device kernels' span, busy union
+    and idle share; the nccl kernels' count and busy union; how many
+    backward convolution or GEMM kernels (`COMPUTE_MARKS`) started after
+    the first nccl kernel and how many ran while one ran; the host's
+    calls that wait for the device (`HOST_SYNCS`), by name; and the
+    host's CUDA runtime calls with the most time (count, ms)."""
+    from torch.autograd import DeviceType
+
+    kern, syncs, runtime = [], {}, {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            kern.append((e.time_range.start, e.time_range.end, e.name))
+            continue
+        if e.name in HOST_SYNCS:
+            syncs[e.name] = syncs.get(e.name, 0) + 1
+        if e.name.startswith("cu"):
+            n, t = runtime.get(e.name, (0, 0.0))
+            runtime[e.name] = (n + 1, t + (e.time_range.end
+                                           - e.time_range.start) / 1e3)
+    kern.sort()
+    nccl = [(s, e) for s, e, n in kern if "nccl" in n.lower()]
+    compute = [(s, e) for s, e, n in kern
+               if any(m in n.lower() for m in COMPUTE_MARKS)]
+    first = min((s for s, _ in nccl), default=None)
+    span = (kern[-1][1] - kern[0][0]) if kern else 0.0
+    busy = _union_us([(s, e) for s, e, _ in kern])
+    return dict(
+        kernels=len(kern), span_ms=span / 1e3, busy_ms=busy / 1e3,
+        idle_share=(1.0 - busy / span) if span else None,
+        nccl_kernels=len(nccl), nccl_ms=_union_us(nccl) / 1e3,
+        compute_kernels=len(compute),
+        compute_after_first_nccl=(0 if first is None else
+                                  sum(1 for s, _ in compute if s > first)),
+        compute_beside_nccl=sum(1 for s, e in compute
+                                if any(s < ne and ns < e
+                                       for ns, ne in nccl)),
+        host_syncs=syncs,
+        host_runtime=dict(sorted(runtime.items(),
+                                 key=lambda kv: -kv[1][1])[:8]))
+
+
+def overlap_nccl_rank(device, port: int, cards: int,
+                      backend: str = "nccl") -> dict:
+    """One process of ``--overlap-nccl``: a card each (``backend``
+    gloo and a CPU ``device`` run it on the CPU), every arm of
+    `ZERO_NCCL_ARMS` for OVERLAP_NCCL["steps"] timed steps, then one
+    profiled step (`overlap_trace`)."""
+    import torch
+    import torch.distributed as dist
+
+    from cpd_tpu_torch.obs.timing import now
+    from cpd_tpu_torch.parallel.dist import dist_init, local_rows
+    from cpd_tpu_torch.parallel.mesh import ProcessMesh
+
+    rank = int(os.environ["RANK"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist_init(backend, rank=rank, world_size=cards, local_rank=rank,
+              init_method=f"tcp://localhost:{port}")
+    mesh = ProcessMesh(device)
+    cuda = mesh.device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    n = OVERLAP_NCCL["steps"]
+    batches = zero_world_batches(cards, n + 1)
+    acts = [torch.profiler.ProfilerActivity.CPU] + (
+        [torch.profiler.ProfilerActivity.CUDA] if cuda else [])
+    out = {}
+    for name in ZERO_NCCL_ARMS:
+        model, state, step, _ = zero_build(mesh.device, name, mesh, None)
+        secs, losses = [], []
+        for bx, by in batches:
+            sync()
+            t1 = now()
+            if len(secs) == n:
+                with torch.profiler.profile(activities=acts) as prof:
+                    state, m = step(state, local_rows(bx, mesh),
+                                    local_rows(by, mesh))
+                    sync()
+            else:
+                state, m = step(state, local_rows(bx, mesh),
+                                local_rows(by, mesh))
+                sync()
+            secs.append((now() - t1) * 1e3)
+            losses.append(float(m["loss"]))
+        out[name] = dict(step_ms=secs[:n], profiled_ms=secs[n],
+                         losses=losses, trace=overlap_trace(prof))
+        del model, state, step
+        if cuda:
+            torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    return out
+
+
+def overlap_summary(ranks: list) -> dict:
+    """Each arm's timed steps past the warmup (every rank's median, the
+    slowest rank's min and max) and every rank's trace; raises unless each
+    ``<x>+overlap`` arm's losses are bitwise ``<x>``'s on every rank."""
+    import statistics
+
+    k = OVERLAP_NCCL["warmup"]
+    out = {}
+    for name in ZERO_NCCL_ARMS:
+        base, _, extra = name.partition("+")
+        for r, res in enumerate(ranks):
+            if extra and res[name]["losses"] != res[base]["losses"]:
+                raise AssertionError(
+                    f"--overlap-nccl rank {r}: {name} losses "
+                    f"{res[name]['losses']} != {base}'s "
+                    f"{res[base]['losses']}")
+        timed = [res[name]["step_ms"][k:] for res in ranks]
+        out[name] = dict(
+            median_ms=[statistics.median(t) for t in timed],
+            min_ms=max(min(t) for t in timed),
+            max_ms=max(max(t) for t in timed),
+            steps=len(timed[0]), profiled_ms=ranks[0][name]["profiled_ms"],
+            traces=[res[name]["trace"] for res in ranks])
+    return out
+
+
+def overlap_nccl_main() -> int:
+    """``--overlap-nccl`` (module docstring)."""
+    try:
+        import torch
+    except ImportError as e:
+        return fail(f"torch is not importable: {e}")
+    if not torch.cuda.is_available():
+        return fail("torch.cuda.is_available() is False: this run needs "
+                    "NVIDIA cards")
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        return fail(f"--overlap-nccl needs 2 cards or more, found {cards}")
+    try:
+        from cpd_tpu_torch.ops.build import build_all
+    except ImportError as e:
+        return fail(f"cpd_tpu_torch is not importable (run from the root "
+                    f"of a checkout): {e}")
+    from cpd_tpu_torch.obs.timing import now
+    from cpd_tpu_torch.parallel.launch import _free_port, spawn
+
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    t0 = now()
+    build_all()
+    print(f"build: all kernels in {now() - t0:.1f} s", flush=True)
+    t0 = now()
+    ranks = spawn(overlap_nccl_rank, cards,
+                  args=(DEVICE, _free_port(), cards),
+                  timeout=OVERLAP_NCCL["deadline"],
+                  env={"NCCL_DEBUG": "WARN"})
+    out = dict(cards=cards, seconds=now() - t0, steps=OVERLAP_NCCL["steps"],
+               warmup=OVERLAP_NCCL["warmup"],
+               per_rank_batch=ZERO["per_rank_batch"],
+               bucket_elems=ZERO["bucket_elems"],
+               arms=overlap_summary(ranks))
+    print("overlap nccl: each +overlap arm's losses bitwise its pair's on "
+          "every rank", flush=True)
+    print(card, flush=True)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -7034,6 +8029,7 @@ def main() -> int:
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
 
     phase_seconds = {}
+    shared, text_done = shared_setup()
 
     def timed(name, fn, *args, **kwargs):
         # each phase's wall seconds, printed on one line after the last
@@ -7062,6 +8058,7 @@ def main() -> int:
                    GQA_BF16_KERNELS, **GQA_PATH)
     print("train bench gqa lm seconds: " + json.dumps(gqa_lm["seconds"]),
           flush=True)
+    text_done()       # the last LM CLI at 32000 tokens has run
     headline = timed("12", headline_phase, device)
     print("train headline seconds: " + json.dumps(headline["seconds"]),
           flush=True)
@@ -7072,7 +8069,9 @@ def main() -> int:
           flush=True)
     ladder = timed("15", ladder_phase, device)
     switches = timed("16", switches_phase, device)
+    zero = timed("17", zero_phase, device)
     print("phase seconds: " + json.dumps(phase_seconds), flush=True)
+    print("shared setup: " + json.dumps(shared), flush=True)
     if dist["b"]["world"] == 1:
         # at W = 1, 14b's headline is phase 12's: the same seed, batches
         # and steps on one rank, through the ProcessMesh in place of the
@@ -7219,6 +8218,18 @@ def main() -> int:
                switches["b"]["a"]["launches_per_rank"].items()}
         if any(per.values()):
             entry["launches_per_rank_lm_process_mesh"] = per
+    # phase 17a's launches per step of each arm (overlap and ZeRO), and
+    # the offset-array arm of sr_bits
+    for entry in kernels:
+        per = {arm: r["launches_per_step"].get(entry["name"], 0)
+               for arm, r in zero["a"]["arms"].items()}
+        if any(per.values()):
+            entry["launches_per_step_zero"] = per
+        if entry["name"] == "sr_bits":
+            entry["offset_arm"] = dict(
+                zero["offset_arm"], launches_per_step_zero={
+                    arm: r["launches_per_step"].get("sr_bits_offsets", 0)
+                    for arm, r in zero["a"]["arms"].items()})
     print(card, flush=True)      # exactly as nvidia-smi gives it
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -7229,7 +8240,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        rc = main()
+        rc = (overlap_nccl_main() if sys.argv[1:] == ["--overlap-nccl"]
+              else main())
     finally:
         for _root in _SAVE_ROOT:
             shutil.rmtree(_root, ignore_errors=True)

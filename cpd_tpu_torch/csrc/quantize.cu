@@ -32,7 +32,9 @@
 // 64-lane ALU pipe per threefry round), not by its 4 written bytes.
 // flat_bits_kernel is its one-threefry arm: jax.random.bits(key, shape)
 // by flat index (numerics.cast_to_format_sr), the bits of quant_sgd's
-// casts and of the emulate-node pre-quantize.
+// casts and of the emulate-node pre-quantize.  offset_bits_kernel is its
+// offset-array arm: sr_bits_at at offsets read from a uint32 array, the
+// bits of ZeRO-2's reduce-scatter, whose shard offsets are no run.
 //
 // What bounds them.  Each is a streaming pass of a few integer ops per
 // element: 8 bytes per element for the cast (read 4, write 4), 12 for the
@@ -1087,6 +1089,19 @@ __global__ void sr_bits_kernel(uint32_t* __restrict__ out, int64_t n,
     out[i] = exmy::sr_bits_at(k0, k1, start + uint32_t(i));
 }
 
+// out[i] = sr_bits_at((k0, k1), offsets[i]): the offset-array arm, for
+// bits indexed by a vector that is not a run (ZeRO-2's shard offsets with
+// their pad sentinel, a bucket of non-adjacent leaves); the same key
+// handling as sr_bits_kernel, 4 more bytes read an element
+__global__ void offset_bits_kernel(uint32_t* __restrict__ out,
+                                   const uint32_t* __restrict__ offsets,
+                                   int64_t n, uint32_t k0, uint32_t k1) {
+  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
+  for (int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+       i += stride)
+    out[i] = exmy::sr_bits_at(k0, k1, offsets[i]);
+}
+
 // out[i] = x0 ^ x1 of TF((k0, k1), (0, i)): jax.random.bits(key, shape)
 // at the flat index i (prng.random_bits), the bits quant_sgd's casts and
 // the emulate-node pre-quantize draw
@@ -1175,6 +1190,17 @@ extern "C" int quantize_sr_bits_launch(void* out, long long n,
   sr_bits_kernel<<<grid_for(n, 4096), kThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<uint32_t*>(out), n, start, k0, k1);
+  return int(cudaGetLastError());
+}
+
+// The SR bits of n elements at the offsets offsets[0 .. n - 1].
+extern "C" int quantize_offset_bits_launch(void* out, const void* offsets,
+                                           long long n, unsigned int k0,
+                                           unsigned int k1, void* stream) {
+  offset_bits_kernel<<<grid_for(n, 4096), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint32_t*>(out), static_cast<const uint32_t*>(offsets), n,
+      k0, k1);
   return int(cudaGetLastError());
 }
 

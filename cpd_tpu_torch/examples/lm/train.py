@@ -37,11 +37,14 @@ every ``--val-freq`` iterations and at the end (on every rank's rows).
 ``--bf16`` computes in bf16 over fp32 master weights (the JAX trainer's
 ``dtype=bfloat16``), ``--remat`` recomputes each block in the backward
 pass, and ``--attn-impl flash`` runs the GQA flash kernels with
-``--n-kv-heads`` and the MHA flash kernel (K11) without.  Flags of the
-JAX trainer whose subsystem is not ported yet — sequence, tensor and
-pipeline parallelism, MoE, scanned layers, dropout, sampling,
-checkpoints and ``--save-path``, the torch export, the resilience,
-observability and overlap flags — raise "not yet ported".
+``--n-kv-heads`` and the MHA flash kernel (K11) without.
+``--overlap-reduce`` reduces each gradient bucket (``--bucket-elems``
+elements at most) from inside the backward, bitwise the post-backward
+reduce at the same layout.  Flags of the JAX trainer whose subsystem is
+not ported yet — sequence, tensor and pipeline parallelism, MoE,
+scanned layers, dropout, sampling, checkpoints and ``--save-path``, the
+torch export, the resilience and observability flags — raise "not yet
+ported".
 """
 
 from __future__ import annotations
@@ -61,7 +64,7 @@ _NOT_PORTED = (
     "--scan-layers", "--save-path", "--ckpt-freq",
     "--tensorboard", "--sample-temperature", "--sample-top-k",
     "--sample-top-p", "--sample-seed", "--profile-dir", "--export-torch",
-    "--overlap-reduce", "--bucket-elems", "--obs-dir", "--obs-flight",
+    "--obs-dir", "--obs-flight",
     "--fault-plan", "--guard-grads", "--spike-factor", "--watchdog-timeout",
     "--divergence-window", "--divergence-factor", "--divergence-mode",
     "--max-rollbacks", "--rollback-backoff", "--no-ckpt-integrity",
@@ -126,6 +129,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="block-scaled ring wire (needs --mode ring and "
                         "man >= 2)")
     p.add_argument("--block-size", default=128, type=int)
+    p.add_argument("--overlap-reduce", action="store_true",
+                   help="reduce each gradient bucket from inside the "
+                        "backward, the moment its last gradient is ready "
+                        "(bitwise the post-backward reduce)")
+    p.add_argument("--bucket-elems", default=None, type=int,
+                   help="per-bucket element cap of the reduce (default "
+                        "4M)")
     p.add_argument("--ffn-exp", default=8, type=int,
                    help="MLP GEMM accumulator exponent bits; (--ffn-exp, "
                         "--ffn-man) != (8, 23) makes wi/wo_mlp run the "
@@ -257,7 +267,8 @@ def run(args: argparse.Namespace, device="cuda") -> dict:
         grad_man=args.grad_man, use_kahan=args.use_kahan, mode=args.mode,
         label_smoothing=args.label_smoothing,
         grad_rounding=args.grad_rounding, grad_seed=args.grad_seed,
-        block_scale=args.block_scale, block_size=args.block_size)
+        block_scale=args.block_scale, block_size=args.block_size,
+        overlap_reduce=args.overlap_reduce, bucket_elems=args.bucket_elems)
     eval_step = make_lm_eval_step(model, mesh)
 
     ds = SyntheticText(n=4096, seq_len=args.seq_len,

@@ -57,8 +57,17 @@ from its newest step there; ``--load-path DIR`` starts from the newest
 step of another directory (``--resume-opt``: its optimizer state and
 iteration too), ``--init-from-torch`` from a reference ResNet-18
 ``.pth``, ``-e`` only validates, and ``--export-torch`` writes the
-weights as a reference ``.pth`` at the end.  The JAX trainer's other
-flags are not ported yet: passing one raises.
+weights as a reference ``.pth`` at the end.
+
+``--overlap-reduce`` reduces each gradient bucket (``--bucket-elems``
+elements at most) from inside the backward, bitwise the post-backward
+reduce at the same layout.  ``--zero1`` shards the SGD (or, with
+``--use_lars``, LARS) momentum over the ranks, ``--zero2`` the faithful
+reduce too (an all-to-all reduce-scatter, in ``--bucket-elems``
+buckets, inside the backward with ``--overlap-reduce``;
+`parallel.zero`); their checkpoints are saved in the portable layout
+and restore at any rank count.  The JAX trainer's other flags are not
+ported yet: passing one raises.
 """
 
 from __future__ import annotations
@@ -79,9 +88,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _NOT_PORTED = {
     "--shampoo-stat-exp": "A12", "--shampoo-stat-man": "A12",
     "--shampoo-stat-mode": "A12",
-    "--profile-dir": "A11", "--tensorboard": "A11", "--zero1": "A6",
-    "--zero2": "A6", "--overlap-reduce": "A6", "--bucket-elems": "A6",
-    "--obs-dir": "A11", "--obs-flight": "A11",
+    "--profile-dir": "A11", "--tensorboard": "A11", "--obs-dir": "A11", "--obs-flight": "A11",
     "--guard-grads": "A10", "--spike-factor": "A10",
     "--watchdog-timeout": "A10", "--divergence-window": "A10",
     "--divergence-factor": "A10", "--divergence-mode": "A10",
@@ -134,6 +141,22 @@ def build_parser() -> argparse.ArgumentParser:
                         "cluster of ranks x N)")
     p.add_argument("--mode", default="faithful",
                    choices=["faithful", "fast", "ring"])
+    p.add_argument("--zero1", action="store_true",
+                   help="ZeRO-1: shard the optimizer state 1/W over the "
+                        "ranks (composes with --use_lars)")
+    p.add_argument("--zero2", action="store_true",
+                   help="ZeRO-2: momentum AND the faithful reduction "
+                        "sharded (all-to-all reduce-scatter; composes "
+                        "with --use_lars)")
+    p.add_argument("--overlap-reduce", action="store_true",
+                   help="reduce each gradient bucket from inside the "
+                        "backward, the moment its last gradient is ready "
+                        "(bitwise the post-backward reduce); composes "
+                        "with --emulate_node and --zero1/--zero2")
+    p.add_argument("--bucket-elems", default=None, type=int,
+                   help="per-bucket element cap of the reduce, the "
+                        "overlapped schedule and the --zero2 layout "
+                        "(default 4M)")
     p.add_argument("--arch", default=None, type=str,
                    help="model by the JAX registry's name (default: the "
                         "config's), built as the JAX trainer builds it: "
@@ -252,13 +275,35 @@ def parse_args(argv=None) -> argparse.Namespace:
         raise SystemExit(f"--emulate_node must be >= 1, got "
                          f"{args.emulate_node}")
     args.opt_name = _optimizer_name(args)
-    if args.block_scale and args.mode != "ring":
-        raise SystemExit("--block-scale needs --mode ring: the per-block "
-                         "scale sidecar rides a packed wire")
+    zero = args.zero1 or args.zero2
+    if args.verify_reduce and zero:
+        raise SystemExit("--verify-reduce needs the step's own reduction "
+                         "and a donate-free state for discard-and-retry; "
+                         "the ZeRO/ShampooLite updaters own the "
+                         "collective (reduce_in_update) — run without "
+                         "--zero1/--zero2/--optimizer shampoo-lite")
+    if args.block_scale and args.mode != "ring" and not args.zero2:
+        raise SystemExit("--block-scale needs --mode ring (or --zero2, "
+                         "whose all_to_all carries the blocked wire): "
+                         "the per-block scale sidecar rides a packed "
+                         "wire")
     if args.block_scale and args.grad_man < 2:
         raise SystemExit(f"--block-scale needs a packable gradient format "
                          f"(man_bits >= 2 for the codec's special codes), "
                          f"got e{args.grad_exp}m{args.grad_man}")
+    if args.zero1 and args.zero2:
+        raise SystemExit("--zero1/--zero2 are mutually exclusive")
+    if zero:
+        if (args.opt_exp, args.opt_man) != (8, 23) or args.opt_kahan:
+            raise SystemExit("--zero1/--zero2 do not compose with the "
+                             "quantized optimizer state (the ZeRO "
+                             "updaters carry fp32 flat momentum)")
+        if args.clip_grad is not None:
+            raise SystemExit("--clip-grad runs inside the optax chain, "
+                             "which the ZeRO updaters bypass")
+        if args.zero2 and args.mode != "faithful":
+            raise SystemExit("--zero2 shards the faithful reduction; "
+                             "--mode fast is not supported with it")
     if args.init_from_torch and args.load_path:
         raise SystemExit("--init-from-torch and --load-path are exclusive")
     if args.fault_plan and not args.fault_plan.startswith("random:"):
@@ -419,6 +464,29 @@ def run(args: argparse.Namespace, device="cuda", world: int = 1) -> dict:
                          opt_seed=args.opt_seed,
                          clip_norm=args.clip_grad)
     state = create_train_state(model, opt)
+    zero = None
+    if args.zero1 or args.zero2:
+        from ...parallel import zero as zero_mod
+        from ...train import TrainState
+
+        maker = getattr(zero_mod, ("zero1" if args.zero1 else "zero2")
+                        + ("_lars" if args.opt_name == "lars" else "_sgd"))
+        zkw = dict(momentum=args.momentum, weight_decay=args.weight_decay)
+        if args.zero2:
+            # the overlap taps and the update consume the same buckets
+            zkw["bucket_elems"] = args.bucket_elems
+        zero = maker(schedule, world=mesh.world, **zkw)
+        opt = None
+        state = TrainState(0, model, zero.init(list(model.parameters()),
+                                               mesh))
+
+    def portable(st):
+        """The restore template: a ZeRO state's portable layout."""
+        return zero.portable_template(st) if zero else st
+
+    def live(st):
+        """A restored state on this mesh: a ZeRO state sharded."""
+        return zero.import_state(st, mesh) if zero else st
 
     # where the run starts: a reference .pth, --load-path, or the newest
     # step under --save_path (every rank reads the same bytes)
@@ -431,20 +499,21 @@ def run(args: argparse.Namespace, device="cuda", world: int = 1) -> dict:
         if rank == 0:
             print(f"=> imported torch checkpoint {args.init_from_torch}")
     elif args.load_path:
-        loaded = restore_latest(os.path.abspath(args.load_path), state)
+        loaded = restore_latest(os.path.abspath(args.load_path),
+                                portable(state))
         if loaded is None:
             raise FileNotFoundError(
                 f"--load-path {args.load_path}: no checkpoint found")
         if args.resume_opt:
-            state = loaded
+            state = live(loaded)
             start_iter = int(loaded.step)
         if rank == 0:
             print(f"=> loaded {args.load_path} "
                   f"(opt {'restored' if args.resume_opt else 'fresh'})")
     elif manager.latest_step() is not None:
-        restored = manager.restore(state)
+        restored = manager.restore(portable(state))
         if restored is not None:
-            state = restored
+            state = live(restored)
             start_iter = int(restored.step)
             if rank == 0:
                 print(f"=> resumed from iter {start_iter}")
@@ -452,7 +521,10 @@ def run(args: argparse.Namespace, device="cuda", world: int = 1) -> dict:
     step_kw = dict(emulate_node=args.emulate_node, use_aps=args.use_APS,
                    use_kahan=args.use_kahan,
                    grad_rounding=args.grad_rounding,
-                   grad_seed=args.grad_seed, block_size=args.block_size)
+                   grad_seed=args.grad_seed, block_size=args.block_size,
+                   overlap_reduce=args.overlap_reduce,
+                   bucket_elems=args.bucket_elems,
+                   **(zero.step_kwargs() if zero else {}))
     if supervisor is not None:
         _, resync_fn = make_consensus_fns(mesh)
 
@@ -583,7 +655,9 @@ def run(args: argparse.Namespace, device="cuda", world: int = 1) -> dict:
             prec1 = 100 * validate()["top1"] if rank == 0 else None
             if rank == 0:
                 best = max(best, prec1)
-            manager.save(step_no, state, best_metric=prec1)
+            # every rank gathers a ZeRO state's shards; rank 0 writes
+            manager.save(step_no, zero.export_state(state, mesh) if zero
+                         else state, best_metric=prec1)
     report_unfired(plan, n_steps=total_iter, meter=meter, rank=rank,
                    wire_armed=(supervisor.home == "ring"
                                if supervisor is not None

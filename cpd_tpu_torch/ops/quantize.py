@@ -29,8 +29,11 @@ data-parallel training path runs (per-tensor, clean transport):
 
 and of one helper that is no TPU kernel (JAX computes it in XLA):
 `sr_bits`, the offset-indexed SR round bits ``prng.sr_bits_at(key, o)``
-that K2/K4/K5/K6 take as their operand.  The SR kernels take the bits as
-int32 tensors holding the uint32 patterns (`prng.to_int32_bits`).
+that K2/K4/K5/K6 take as their operand, at a run of offsets, by flat
+index (``flat``) or at offsets read from an array (``offsets``, the
+``offset_bits_kernel`` arm, counted in ``sr_bits_offsets.launches``
+too).  The SR kernels take the bits as int32 tensors holding the uint32
+patterns (`prng.to_int32_bits`).
 
 Each wrapper takes the plain PyTorch version (``*_ref``, the same
 function in torch ops) for CPU tensors and launches its hand-written
@@ -78,7 +81,8 @@ __all__ = ["quantize_cast", "quantize_cast_sr", "quantize_add",
            "hop_pack", "hop_pack_sr", "quantize_pack_blocked",
            "quantize_pack_blocked_sr", "hop_pack_blocked",
            "hop_pack_blocked_sr", "digest_rows", "sr_bits",
-           "fused_block_ok", "core_wire_launcher", "core_digest_launcher",
+           "sr_bits_offsets", "fused_block_ok", "core_wire_launcher",
+           "core_digest_launcher",
            "quantize_cast_ref",
            "quantize_cast_sr_ref", "quantize_add_ref", "quantize_add_sr_ref",
            "quantize_pack_ref", "hop_pack_ref", "digest_rows_ref",
@@ -168,17 +172,35 @@ def digest_rows_ref(rows: torch.Tensor) -> torch.Tensor:
 
 
 def sr_bits_ref(key: tuple, like: torch.Tensor, *, offset_start: int = 0,
-                flat: bool = False) -> torch.Tensor:
+                flat: bool = False, offsets=None) -> torch.Tensor:
     """Plain version of `sr_bits`: ``prng.sr_bits_at(key, o)`` for the
     offsets ``offset_start + i`` of ``like``'s elements (``flat``:
-    ``prng.random_bits(key, (n,))``, which has no offset), as a flat
-    int32 tensor of uint32 patterns."""
+    ``prng.random_bits(key, (n,))``, which has no offset; ``offsets``:
+    the offsets themselves, any integer tensor of uint32 values or their
+    int32 patterns), as a flat int32 tensor of uint32 patterns."""
+    if offsets is not None:
+        _check_offsets(offsets, like, offset_start, flat)
+        return to_int32_bits(sr_bits_at(
+            key, offsets.reshape(-1).to(like.device)))
     if flat:
         _flat_from_zero(offset_start)
         return to_int32_bits(random_bits(key, (like.numel(),), like.device))
     o = torch.arange(like.numel(), dtype=torch.int64,
                      device=like.device) + offset_start
     return to_int32_bits(sr_bits_at(key, o))
+
+
+def _check_offsets(offsets: torch.Tensor, like: torch.Tensor,
+                   offset_start: int, flat: bool) -> None:
+    if flat or offset_start:
+        raise ValueError("offsets= gives every element's offset: it takes "
+                         "neither flat=True nor an offset_start")
+    if offsets.is_floating_point() or offsets.is_complex():
+        raise TypeError(f"offsets must be an integer tensor, got "
+                        f"{offsets.dtype}")
+    if offsets.numel() != like.numel():
+        raise ValueError(f"offsets hold {offsets.numel()} values for "
+                         f"{like.numel()} elements")
 
 
 def _flat_from_zero(offset_start: int) -> None:
@@ -237,6 +259,10 @@ def _library():
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint, ctypes.c_uint,
             ctypes.c_uint, ctypes.c_void_p]
         lib.quantize_sr_bits_launch.restype = ctypes.c_int
+        lib.quantize_offset_bits_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p]
+        lib.quantize_offset_bits_launch.restype = ctypes.c_int
         lib.quantize_flat_bits_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint, ctypes.c_uint,
             ctypes.c_void_p]
@@ -389,18 +415,25 @@ def quantize_add_sr(x: torch.Tensor, y: torch.Tensor, exp_bits: int,
 
 
 def sr_bits(key: tuple, like: torch.Tensor, *, offset_start: int = 0,
-            flat: bool = False) -> torch.Tensor:
+            flat: bool = False, offsets=None) -> torch.Tensor:
     """The SR round bits of ``like``'s elements: ``prng.sr_bits_at(key,
     o)`` at the offsets ``offset_start + i`` (mod 2^32), as a flat int32
     tensor of uint32 patterns on ``like``'s device.  ``flat=True`` draws
     ``jax.random.bits(key, shape)``'s bits instead (one threefry an
     element at its flat index from 0, the stream of
     `numerics.cast_to_format_sr`; ``flat_bits_kernel``), and refuses an
-    ``offset_start``.  A CPU ``like`` takes `sr_bits_ref`; a CUDA one
-    launches the kernel, counted in ``sr_bits.launches`` either way."""
+    ``offset_start``.  ``offsets`` (an integer tensor of ``like``'s size,
+    uint32 values or their int32 patterns) gives each element's offset
+    (``offset_bits_kernel``, also counted in ``sr_bits_offsets.launches``).
+    A CPU ``like`` takes `sr_bits_ref`; a CUDA one launches the kernel,
+    counted in ``sr_bits.launches`` either way."""
     dev = _device(like)
     if dev.type == "cpu":
-        return sr_bits_ref(key, like, offset_start=offset_start, flat=flat)
+        return sr_bits_ref(key, like, offset_start=offset_start, flat=flat,
+                           offsets=offsets)
+    if offsets is not None:
+        _check_offsets(offsets, like, offset_start, flat)
+        offsets = to_int32_bits(offsets.reshape(-1).to(dev)).contiguous()
     if flat:
         _flat_from_zero(offset_start)
     n = like.numel()
@@ -410,7 +443,11 @@ def sr_bits(key: tuple, like: torch.Tensor, *, offset_start: int = 0,
     lib = _library()
     keys = (key[0] & 0xFFFFFFFF, key[1] & 0xFFFFFFFF)
     with torch.cuda.device(dev):
-        if flat:
+        if offsets is not None:
+            rc = lib.quantize_offset_bits_launch(
+                out.data_ptr(), offsets.data_ptr(), n, *keys, _stream(dev))
+            sr_bits_offsets.launches += 1
+        elif flat:
             rc = lib.quantize_flat_bits_launch(out.data_ptr(), n, *keys,
                                                _stream(dev))
         else:
@@ -739,3 +776,5 @@ quantize_pack_blocked = SimpleNamespace(launches=0)
 quantize_pack_blocked_sr = SimpleNamespace(launches=0)
 hop_pack_blocked = SimpleNamespace(launches=0)
 hop_pack_blocked_sr = SimpleNamespace(launches=0)
+# The offset-array arm of `sr_bits` counts its launches here too.
+sr_bits_offsets = SimpleNamespace(launches=0)

@@ -30,7 +30,11 @@ lossless, so the sum is the same.
 
 Stochastic rounding (``rounding="stochastic"`` with a `prng` key) draws
 every cast's bits by GLOBAL flat offset: leaf i's elements sit at
-``_leaf_starts(leaves)[i] + j``, so bucketing changes no bit.  The key
+``_leaf_starts(leaves)[i] + j``, so bucketing changes no bit.
+``offset_starts`` overrides the leaves' starts, for a caller reducing
+one bucket of a larger layout (the overlapped backward,
+`parallel.overlap`); a bucket whose starts are not one run draws its
+bits at an explicit offset array (`_leaf_offsets`).  The key
 splits three ways as in the JAX package: the APS pre-quantize takes
 ``k_pre`` with the rank folded in (each rank rounds its own gradients
 with its own bits), the reduction takes the shared ``k_sum``, and fast
@@ -251,6 +255,25 @@ def _leaf_starts(leaves: Sequence[torch.Tensor]) -> list:
     return starts
 
 
+def _leaf_offsets(start: int, leaf: torch.Tensor) -> torch.Tensor:
+    """Global flat offsets of one leaf's elements, shaped like the leaf
+    (int64 holding uint32 values)."""
+    return ((start + torch.arange(leaf.numel(), dtype=torch.int64,
+                                  device=leaf.device)) & 0xFFFFFFFF
+            ).reshape(leaf.shape)
+
+
+def _offset_kw(starts: Sequence[int], leaves: Sequence[torch.Tensor]) -> dict:
+    """The SR offsets of the leaves concatenated: ``offset_start`` when
+    the leaves' starts run on, else the explicit ``offsets`` array."""
+    run = all(a + leaf.numel() == b
+              for a, b, leaf in zip(starts, starts[1:], leaves))
+    if run:
+        return dict(offset_start=int(starts[0]) if starts else 0)
+    return dict(offsets=torch.cat([_leaf_offsets(st, leaf).reshape(-1)
+                                   for st, leaf in zip(starts, leaves)]))
+
+
 def quantize_tree_sr(leaves: Sequence[torch.Tensor], grad_exp: int,
                      grad_man: int, key, starts=None, *,
                      fused: Optional[bool] = None) -> list:
@@ -320,6 +343,7 @@ def sum_gradients(grads: Sequence[Sequence[torch.Tensor]], mesh,
                   rounding: str = "nearest", key=None, verify: bool = False,
                   wire_fault=None, stats: bool = False,
                   block_scale: bool = False, block_size: int = 128,
+                  offset_starts: Optional[Sequence[int]] = None,
                   fused: Optional[bool] = None):
     """Low-precision gradient all-reduce (SUM) over ``mesh``'s ranks.
 
@@ -333,7 +357,8 @@ def sum_gradients(grads: Sequence[Sequence[torch.Tensor]], mesh,
     (blocks of ``block_size``); ``verify`` returns ``(reduced, report)``
     and ``wire_fault`` corrupts bucket 0's ring; ``stats`` returns
     ``(reduced, report)`` with the wire's health counters (module
-    docstring)."""
+    docstring).  ``offset_starts`` overrides each leaf's global SR
+    offset (module docstring)."""
     if mode not in ("faithful", "ring", "fast"):
         raise ValueError(f"unknown mode {mode!r}")
     if rounding not in ("nearest", "stochastic"):
@@ -362,7 +387,11 @@ def sum_gradients(grads: Sequence[Sequence[torch.Tensor]], mesh,
                                 (), dtype=torch.int32), mesh)
     kernel = _use_kernel(template[0], fused)
     grads = [[g.to(torch.float32) for g in leaves] for leaves in grads]
-    starts = _leaf_starts(template)
+    starts = (_leaf_starts(template) if offset_starts is None
+              else [int(s) for s in offset_starts])
+    if len(starts) != len(template):
+        raise ValueError(f"offset_starts holds {len(starts)} starts for "
+                         f"{len(template)} leaves")
 
     k_sum = k_post = None
     k_pre = [None] * len(grads)
@@ -414,8 +443,9 @@ def sum_gradients(grads: Sequence[Sequence[torch.Tensor]], mesh,
     for b, idxs in enumerate(buckets):
         lo, hi = idxs[0], idxs[-1] + 1       # a bucket is a leaf range
         flats = [_concat([leaves[i] for i in idxs]) for leaves in grads]
-        kw = dict(use_kahan=use_kahan, key=k_sum, offset_start=starts[lo],
-                  fused=kernel)
+        kw = dict(use_kahan=use_kahan, key=k_sum, fused=kernel)
+        if k_sum is not None:
+            kw.update(_offset_kw(starts[lo:hi], template[lo:hi]))
         if mode == "ring":
             red = hierarchical_ring_sum(
                 flats, mesh, grad_exp, grad_man, block_scale=block_scale,
@@ -473,9 +503,10 @@ def _fast_sum(grads: list, mesh, template: list, shifts: list,
                  for leaves, k in zip(grads, k_pre)]
     total = mesh.sum([_concat(leaves) for leaves in grads])
     if not fp32:
+        off = {} if k_post is None else _offset_kw(starts, template)
         total = per_distinct(lambda t: cast_site(
             t, None, grad_exp, grad_man, kernel=kernel, key=k_post,
-            offset_start=0), total)
+            **off), total)
 
     def unscaled(flat, s):
         pieces = _split(flat, template)

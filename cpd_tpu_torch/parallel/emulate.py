@@ -1,6 +1,6 @@
 """Cluster-size emulation, ``--emulate_node N`` (port of
 `cpd_tpu/parallel/emulate.py`: `_reduce_leaf`, `reduce_stacked_leaf`,
-`emulate_node_reduce`).
+`make_overlap_emulate_fn`, `emulate_node_reduce`).
 
 Each rank runs N micro-batches and reduces their gradients locally
 before the cross-rank `sum_gradients`: per leaf, an APS shift from the
@@ -31,9 +31,10 @@ has its own bit streams, so the leaf is the unit: one flat `sr_bits` and
 one K2 for the cast, then N `sr_bits` + K4 for the sum.  ``fused=False``
 runs the plain versions on any device.
 
-The JAX module's `make_overlap_emulate_fn` (the emulate reduce inside
-the overlapped backward) is not ported: the port has no overlapped
-backward yet (ROADMAP Queue A, A6).
+`make_overlap_emulate_fn` is the emulate reduce inside the overlapped
+backward (`overlap.overlapped_grads`): one leaf at a time, as its bucket
+closes, with `reduce_stacked_leaf` (the leaf alone is the unit, RTNE as
+SR; bitwise the bucketed RTNE, whose cast and sum are elementwise).
 """
 
 from __future__ import annotations
@@ -47,7 +48,8 @@ from .aps import aps_max_exponents, aps_shift_factors, exp2_exact
 from .overlap import DEFAULT_BUCKET_ELEMS, bucket_layout
 from .reduction import _use_kernel, cast_site, ordered_quantized_sum
 
-__all__ = ["emulate_node_reduce", "reduce_stacked_leaf"]
+__all__ = ["emulate_node_reduce", "reduce_stacked_leaf",
+           "make_overlap_emulate_fn"]
 
 
 def _check_rounding(rounding: str, key) -> None:
@@ -104,6 +106,26 @@ def reduce_stacked_leaf(g: torch.Tensor, n: int, use_aps: bool = False,
     g = g.to(torch.float32)
     return _reduce_leaf(g, _scales([g], n, use_aps, grad_exp)[0], grad_exp,
                         grad_man, key, _use_kernel(g, fused))
+
+
+def make_overlap_emulate_fn(n: int, use_aps: bool, grad_exp: int,
+                            grad_man: int, sr: bool, *,
+                            fused: Optional[bool] = None):
+    """The `overlap.overlapped_grads` ``emulate_reduce`` hook, shared by
+    the image and the LM steps so the SR key contract,
+    ``fold_in(emu_key, GLOBAL leaf index)`` into `reduce_stacked_leaf`
+    (`emulate_node_reduce`'s per-leaf streams), cannot drift between
+    them.  Returns ``fn(g, extra, i, emu_key)``: the last micro-batch's
+    gradient ``g`` of leaf i stacked under the earlier ones' ``extra``
+    ``(N-1, *leaf)``, reduced locally."""
+
+    def emulate_fn(g, extra, i, ekey):
+        stacked = torch.cat([extra, g.unsqueeze(0)], 0)
+        return reduce_stacked_leaf(
+            stacked, n, use_aps, grad_exp, grad_man,
+            key=fold_in(ekey, i) if sr else None, fused=fused)
+
+    return emulate_fn
 
 
 def _reduce_bucket(leaves: Sequence[torch.Tensor], n: int,

@@ -14,7 +14,8 @@ Two meshes, one interface:
   process group of ``world`` processes (the JAX package's
   multi-controller mesh, `jax.distributed` with one device a process).
   Its ring hop is one `dist.batch_isend_irecv`, its gather one
-  all-gather into a ``(world, ...)`` stack.
+  all-gather into a ``(world, ...)`` stack, its all-to-all (ZeRO-2's
+  reduce-scatter) one `dist.all_to_all_single`.
 
 The collectives take and return one value per local rank, as a list
 indexed by position in ``mesh.ranks`` (global rank numbers): ``world``
@@ -90,6 +91,15 @@ class LocalMesh:
         stacked = torch.stack(list(xs))
         return [stacked for _ in self.ranks]
 
+    def all_to_all(self, xs: Sequence[torch.Tensor]) -> list:
+        """Each rank's value is a (world, ...) stack whose row j goes to
+        rank j; rank r receives the (world, ...) stack of every rank's
+        row r, in rank order (the JAX ``all_to_all`` with ``split_axis =
+        concat_axis = 0``).  Here a reindexing."""
+        self._check(xs)
+        stacked = torch.stack(list(xs))
+        return [stacked[:, r].contiguous() for r in self.ranks]
+
     def max(self, xs: Sequence[torch.Tensor]) -> list:
         """Elementwise MAX over the ranks (NaN propagates)."""
         self._check(xs)
@@ -131,8 +141,10 @@ class ProcessMesh:
 
     ``log``, when set to a list, receives ``(op, dtype, nbytes)`` for
     every tensor this rank hands to a collective (``ring_shift``,
-    ``all_gather``): what the wire carries out of the rank is nbytes
-    for a ring shift and ``(world - 1) * nbytes`` for an all-gather."""
+    ``all_gather``, ``all_to_all``): what the wire carries out of the
+    rank is nbytes for a ring shift, ``(world - 1) * nbytes`` for an
+    all-gather and ``(world - 1) / world * nbytes`` for an all-to-all
+    (the rank keeps its own row)."""
 
     def __init__(self, device="cuda"):
         if not dist.is_available() or not dist.is_initialized():
@@ -205,6 +217,22 @@ class ProcessMesh:
         out = torch.empty((self.world,) + tuple(src.shape), dtype=src.dtype,
                           device=src.device)
         dist.all_gather_into_tensor(out.reshape(-1), src.reshape(-1))
+        return [out.to(self.device) if self.staged else out]
+
+    def all_to_all(self, xs: Sequence[torch.Tensor]) -> list:
+        """This rank's (world, ...) stack, row j sent to rank j; returns
+        the (world, ...) stack of every rank's row for this one, in rank
+        order: one `dist.all_to_all_single` (at world 1 too).  Under
+        nccl the receive is ordered on the current stream, and the host
+        does not wait; gloo stages through host memory and waits."""
+        x = self._check(xs)
+        if x.shape[0] != self.world:
+            raise ValueError(f"all_to_all sends one row per rank: leading "
+                             f"axis {x.shape[0]}, world {self.world}")
+        self._record("all_to_all", x)
+        src = x.cpu() if self.staged else x
+        out = torch.empty_like(src)
+        dist.all_to_all_single(out, src)
         return [out.to(self.device) if self.staged else out]
 
     def max(self, xs: Sequence[torch.Tensor]) -> list:

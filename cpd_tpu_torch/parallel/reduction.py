@@ -14,7 +14,15 @@ to nearest even, or, with a key, stochastically with bits indexed by
 
 Every cast site is `cast_site`: on CUDA tensors one launch of K3 (RTNE)
 or of the `sr_bits` kernel and K4 (SR); ``fused=False`` runs the plain
-torch ops of the same functions on any device.  A Kahan subtraction runs
+torch ops of the same functions on any device.  The SR bits of element i
+are drawn at ``offset_start + i``, or at ``offsets[i]`` when an explicit
+offset array is given (the JAX ``offsets`` vector: a bucket of
+non-adjacent leaves, ZeRO-2's shard offsets with their pad sentinel;
+the `sr_bits` kernel's offset-array arm on the card).  ``block_size``
+makes every site the block-scaled cast (`numerics.cast_body_blocked`,
+blocks along the last axis), ZeRO-2's blocked scan; the JAX package
+casts it in XLA, and so do the plain torch ops here, the bits still
+coming from the `sr_bits` kernel.  A Kahan subtraction runs
 as an addition of the negated operand: ``x - y`` equals ``x + (-y)``
 exactly in IEEE round-to-nearest, signed zeros included, so each of the
 four Kahan sites is one fused add-and-cast.  (A NaN operand may keep
@@ -31,6 +39,7 @@ from ..ops.quantize import (quantize_add, quantize_add_ref, quantize_add_sr,
                             quantize_add_sr_ref, quantize_cast,
                             quantize_cast_ref, quantize_cast_sr,
                             quantize_cast_sr_ref, sr_bits, sr_bits_ref)
+from ..quant.numerics import cast_body_blocked
 from ..quant.prng import site_key
 
 __all__ = ["cast_site", "ordered_quantized_sum", "kahan_quantized_sum",
@@ -50,10 +59,11 @@ def _use_kernel(x: torch.Tensor, fused: Optional[bool]) -> bool:
 
 def cast_site(x: torch.Tensor, y: Optional[torch.Tensor], exp: int,
               man: int, *, kernel: bool, key=None, offset_start: int = 0,
-              flat: bool = False) -> torch.Tensor:
+              flat: bool = False, offsets=None) -> torch.Tensor:
     """``q(x [+ y])`` at one cast site: RTNE when ``key`` is None, else
     SR with the bits ``prng.sr_bits_at(key, offset_start + i)`` of each
-    element i (``flat``: ``jax.random.bits(key, x.shape)``'s, the bits of
+    element i (``offsets``: at ``offsets[i]``; ``flat``:
+    ``jax.random.bits(key, x.shape)``'s, the bits of
     `numerics.cast_to_format_sr`).  ``kernel``: K1/K3, or `sr_bits` +
     K2/K4; else their plain versions."""
     if key is None:
@@ -62,7 +72,7 @@ def cast_site(x: torch.Tensor, y: Optional[torch.Tensor], exp: int,
                 x, exp, man)
         return (quantize_add if kernel else quantize_add_ref)(x, y, exp, man)
     rbits = (sr_bits if kernel else sr_bits_ref)(
-        key, x, offset_start=offset_start, flat=flat)
+        key, x, offset_start=offset_start, flat=flat, offsets=offsets)
     if y is None:
         return (quantize_cast_sr if kernel else quantize_cast_sr_ref)(
             x, exp, man, rbits)
@@ -70,19 +80,23 @@ def cast_site(x: torch.Tensor, y: Optional[torch.Tensor], exp: int,
         x, y, exp, man, rbits)
 
 
-def _make_q(exp: int, man: int, key, kernel: bool, offset_start: int = 0):
+def _make_q(exp: int, man: int, key, kernel: bool, offset_start: int = 0,
+            offsets=None, block: Optional[int] = None):
     """``q(x, y, step, site) = cast(x + y)``: RTNE when ``key`` is None
     (step and site ignored), else SR keyed by ``site_key(key, step,
     site)`` with the elements' offsets ``offset_start + i`` (default:
-    the reference's leaf-local ``arange``).  The port's buckets are runs
-    of whole leaves, so their global offsets are such a run; the JAX
-    ``offsets`` vector, which only a bucket of non-adjacent leaves
-    needs, is not ported."""
+    the reference's leaf-local ``arange``) or ``offsets``.  ``block``:
+    the block-scaled cast of the sum (module docstring)."""
 
     def q(x, y, step, site):
         k = None if key is None else site_key(key, step, site)
-        return cast_site(x, y, exp, man, kernel=kernel, key=k,
-                         offset_start=offset_start)
+        if block is None:
+            return cast_site(x, y, exp, man, kernel=kernel, key=k,
+                             offset_start=offset_start, offsets=offsets)
+        s = x if y is None else x + y
+        rbits = None if k is None else (sr_bits if kernel else sr_bits_ref)(
+            k, s, offset_start=offset_start, offsets=offsets)
+        return cast_body_blocked(s, exp, man, block, rbits)
 
     return q
 
@@ -99,10 +113,12 @@ def kahan_step(q, res: torch.Tensor, comp: torch.Tensor, g: torch.Tensor,
 
 def ordered_quantized_sum(stacked: torch.Tensor, exp: int, man: int,
                           key=None, *, offset_start: int = 0,
+                          offsets=None, block_size: Optional[int] = None,
                           fused: Optional[bool] = None) -> torch.Tensor:
     """``res = 0; for g in stacked: res = q(res + g)`` — in order, over
     the leading axis of ``stacked`` (W, ...); scan step i draws site 0."""
-    q = _make_q(exp, man, key, _use_kernel(stacked, fused), offset_start)
+    q = _make_q(exp, man, key, _use_kernel(stacked, fused), offset_start,
+                offsets, block_size)
     res = torch.zeros_like(stacked[0])
     for i, g in enumerate(stacked):
         res = q(res, g, i, 0)
@@ -111,11 +127,13 @@ def ordered_quantized_sum(stacked: torch.Tensor, exp: int, man: int,
 
 def kahan_quantized_sum(stacked: torch.Tensor, exp: int, man: int,
                         key=None, *, offset_start: int = 0,
+                        offsets=None, block_size: Optional[int] = None,
                         fused: Optional[bool] = None) -> torch.Tensor:
     """The rank-ordered Kahan-compensated sum with every intermediate
     quantized, sites 0-3 per scan step:
     ``y = q(g - c); t = q(res + y); c = q(q(t - res) - y); res = t``."""
-    q = _make_q(exp, man, key, _use_kernel(stacked, fused), offset_start)
+    q = _make_q(exp, man, key, _use_kernel(stacked, fused), offset_start,
+                offsets, block_size)
     res = torch.zeros_like(stacked[0])
     comp = torch.zeros_like(stacked[0])
     for i, g in enumerate(stacked):
@@ -125,13 +143,20 @@ def kahan_quantized_sum(stacked: torch.Tensor, exp: int, man: int,
 
 def quantized_sum(stacked: torch.Tensor, exp: int, man: int,
                   use_kahan: bool = False, key=None, *,
-                  offset_start: int = 0,
+                  offset_start: int = 0, offsets=None,
+                  block_size: Optional[int] = None,
                   fused: Optional[bool] = None) -> torch.Tensor:
     """The ordered (or Kahan) quantized sum; at (8, 23) without Kahan a
     plain fp32 sum, the reference's identity-format shortcut (its cast
     would flush fp32 subnormal partials, which an fp32 sum never does;
-    the key is irrelevant there).  The Kahan sum has no shortcut."""
-    kw = dict(key=key, offset_start=offset_start, fused=fused)
+    the key is irrelevant there).  The Kahan sum has no shortcut.
+    ``offsets`` (one per element of a row) index the SR bits in place
+    of ``offset_start + i``; ``block_size`` casts block-scaled."""
+    if block_size is not None and exp == 8 and man == 23 and not use_kahan:
+        raise ValueError("block_size at (8, 23): the fp32 shortcut has no "
+                         "cast to block-scale")
+    kw = dict(key=key, offset_start=offset_start, offsets=offsets,
+              block_size=block_size, fused=fused)
     if use_kahan:
         return kahan_quantized_sum(stacked, exp, man, **kw)
     if exp == 8 and man == 23:

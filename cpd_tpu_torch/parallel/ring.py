@@ -17,8 +17,10 @@ each hop folding in the host rank's chunk:
 so rank r's partial after hop t belongs to chunk ``(r - 1 - t) mod W``
 and rank r ends owning chunk r.  With a key, every cast draws its SR
 bits by (key, hop t, site, GLOBAL flat offset), the offset of element i
-of chunk c being ``offset_start + c * chunk + i``, so the bits do not
-depend on which rank casts.  A Kahan hop ships
+of chunk c being ``offset_start + c * chunk + i`` (or, with an explicit
+``offsets`` array, its zero-padded entry ``c * chunk + i``, the JAX
+``offsets`` vector: on the card the `sr_bits` kernel's offset-array
+arm), so the bits do not depend on which rank casts.  A Kahan hop ships
 ``stack([res, comp])``; the all-gather ships the result only.
 `ring_oracle_sum` reproduces every arm bit for bit on one device.
 
@@ -50,8 +52,8 @@ Two arms have no kernel, in the JAX package as here, and run the plain
 torch blocked cast on CUDA tensors (their SR bits still come from the
 `sr_bits` kernel): the blocked Kahan hop (four blocked casts, a
 ``stack([res, comp])`` blocked wire) and a block size the kernel does
-not take (e.g. 33).  No blocked cast ever reaches `reduction._make_q`,
-whose kernels are per-tensor.
+not take (e.g. 33).  Both cast through `reduction._make_q`'s blocked
+arm, which is those plain ops.
 
 ``verify`` is the self-verifying transport.  Each hop's payload is
 tagged on both ends (`integrity.tag_from_digest`: digest ^ hop ^
@@ -101,8 +103,8 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.quantize import (digest_rows, fused_block_ok, hop_pack,
-                            quantize_pack, sr_bits, sr_bits_ref)
-from ..quant.numerics import (cast_body_blocked, pack_exmy,
+                            quantize_pack, sr_bits)
+from ..quant.numerics import (pack_exmy,
                               pack_exmy_blocked, unpack_exmy,
                               unpack_exmy_blocked, wire_bytes,
                               wire_bytes_blocked)
@@ -112,7 +114,8 @@ from .integrity import (digest_concat, row_digests, tag_from_digest,
 from .mesh import per_distinct
 from .reduction import _make_q, _use_kernel, kahan_step
 
-__all__ = ["ring_chunk_size", "pad_to_world", "ring_quantized_sum",
+__all__ = ["ring_chunk_size", "pad_to_world", "reflatten_to_world",
+           "ring_quantized_sum",
            "hierarchical_ring_sum", "ring_oracle_sum", "ring_transport_bytes",
            "gather_transport_bytes", "transport_table"]
 
@@ -132,23 +135,18 @@ def pad_to_world(flat: torch.Tensor, world: int) -> torch.Tensor:
     return F.pad(flat, (0, world * ring_chunk_size(n, world) - n))
 
 
-def _blocked_q(exp: int, man: int, block: int, key, kernel: bool,
-               offset_start: int):
-    """The block-scaled quantizer ``q(x, y, step, site) =
-    cast_body_blocked(x + y)`` with `reduction._make_q`'s contract (SR
-    bits by ``site_key(key, step, site)`` at the offsets
-    ``offset_start + i`` of x's elements, from the `sr_bits` kernel when
-    ``kernel``).  The cast itself is the plain torch one."""
-
-    def q(x, y, step, site):
-        s = x if y is None else x + y
-        rbits = None
-        if key is not None:
-            rbits = (sr_bits if kernel else sr_bits_ref)(
-                site_key(key, step, site), s, offset_start=offset_start)
-        return cast_body_blocked(s, exp, man, block, rbits)
-
-    return q
+def reflatten_to_world(flat: torch.Tensor, total: int,
+                       world: int) -> torch.Tensor:
+    """A flat vector padded for one world size re-padded for ``world``:
+    its first ``total`` elements (the data; the pad holds exact zeros)
+    through `pad_to_world` — the elastic restart's re-flatten of a ZeRO
+    momentum (`train.checkpoint`)."""
+    if total > flat.shape[0]:
+        raise ValueError(
+            f"reflatten_to_world: flat layout holds {flat.shape[0]} "
+            f"elements but total={total} are claimed as data — the "
+            f"caller's layout and parameter count disagree")
+    return pad_to_world(flat[:total], world)
 
 
 def _check_block_args(exp: int, man: int, block_size: int,
@@ -195,7 +193,7 @@ class _Ring:
 
     def __init__(self, world: int, n: int, exp: int, man: int, packed: bool,
                  fused: bool, use_kahan: bool, key, offset_start: int,
-                 block=None):
+                 block=None, offsets=None):
         self.world, self.exp, self.man = world, exp, man
         self.chunk = ring_chunk_size(n, world)
         self.kahan, self.key, self.block = use_kahan, key, block
@@ -208,6 +206,10 @@ class _Ring:
         self.fused_wire = (self.fused and self.packed and not use_kahan
                            and (block is None or fused_block_ok(block)))
         self.offset_start = offset_start
+        # the explicit offsets, zero-padded as the flat vector is
+        self.offsets = (None if offsets is None else
+                        pad_to_world(offsets.reshape(-1).to(torch.int64),
+                                     world))
 
     def chunk_at(self, rank: int, t: int) -> int:
         """Chunk the partial of ``rank`` holds after hop t."""
@@ -220,21 +222,27 @@ class _Ring:
         """The SR offset of chunk c's first element."""
         return (self.offset_start + c * self.chunk) & _U32
 
+    def offs(self, c: int):
+        """Chunk c's explicit offsets, or None."""
+        return (None if self.offsets is None
+                else self.local(self.offsets, c))
+
+    def start(self, c: int) -> int:
+        """Chunk c's ``offset_start`` (0 beside explicit offsets)."""
+        return 0 if self.offsets is not None else self.offset(c)
+
     def q(self, c: int):
         """Chunk c's quantizer ``q(x, y, t, site)`` (`reduction._make_q`,
-        or `_blocked_q` on the block-scaled wire)."""
-        if self.block is not None:
-            return _blocked_q(self.exp, self.man, self.block, self.key,
-                              self.fused, self.offset(c))
+        blocked on the block-scaled wire)."""
         return _make_q(self.exp, self.man, self.key, self.fused,
-                       self.offset(c))
+                       self.start(c), self.offs(c), self.block)
 
     def rbits(self, t: int, c: int, g: torch.Tensor):
         """Hop t's SR bits for chunk c (site 0), for the wire kernels."""
         if self.key is None:
             return None
         return sr_bits(site_key(self.key, t, 0), g,
-                       offset_start=self.offset(c))
+                       offset_start=self.start(c), offsets=self.offs(c))
 
     def to_wire(self, res: torch.Tensor, comp=None) -> torch.Tensor:
         payload = res if comp is None else torch.stack([res, comp])
@@ -316,7 +324,7 @@ def report_ok(report: dict) -> torch.Tensor:
 def ring_quantized_sum(flats: Sequence[torch.Tensor], mesh, exp: int,
                        man: int, *, packed: bool = True,
                        fused: Optional[bool] = None, use_kahan: bool = False,
-                       key=None, offset_start: int = 0,
+                       key=None, offset_start: int = 0, offsets=None,
                        block_scale: bool = False, block_size: int = 128,
                        verify: bool = False, fault=None):
     """Ordered quantized SUM over ``mesh``'s ranks via the ring.
@@ -330,10 +338,10 @@ def ring_quantized_sum(flats: Sequence[torch.Tensor], mesh, exp: int,
     where the hop without Kahan is a plain fp32 add).  ``use_kahan``
     compensates every hop; ``key`` (a `prng` key) rounds every cast
     stochastically, ``offset_start`` being the global offset of
-    ``flats[i][0]`` in the SR bit-index space.  ``block_scale`` /
-    ``block_size``, ``verify`` and ``fault``: the module docstring.
-    (The JAX ``offsets`` vector, for a bucket of non-adjacent leaves, is
-    not ported: the port's buckets are runs of whole leaves.)"""
+    ``flats[i][0]`` in the SR bit-index space; ``offsets`` (an (n,)
+    integer tensor of uint32 offsets) gives every element's own, for a
+    bucket whose leaves are not adjacent.  ``block_scale`` /
+    ``block_size``, ``verify`` and ``fault``: the module docstring."""
     if block_scale:
         _check_block_args(exp, man, block_size, packed)
     if len(flats) != len(mesh.ranks):
@@ -342,9 +350,14 @@ def ring_quantized_sum(flats: Sequence[torch.Tensor], mesh, exp: int,
     flats = [f.to(torch.float32) for f in flats]
     n = flats[0].shape[0]
     w = mesh.world
+    if offsets is not None and offsets.numel() != n:
+        raise ValueError(f"offsets must be shape ({n},), got "
+                         f"{tuple(offsets.shape)}")
     ring = _Ring(w, n, exp, man, packed, _use_kernel(flats[0], fused),
                  use_kahan, key, offset_start,
-                 block=block_size if block_scale else None)
+                 block=block_size if block_scale else None,
+                 offsets=None if offsets is None else offsets.to(
+                     flats[0].device))
     if n == 0:
         return (flats, clean_report(flats[0].device)) if verify else flats
     f_code, f_rank = (0, -1) if fault is None else (int(fault[0]),
@@ -439,15 +452,17 @@ def hierarchical_ring_sum(flats: Sequence[torch.Tensor], mesh, exp: int,
 
 def ring_oracle_sum(stacked: torch.Tensor, exp: int, man: int, *,
                     use_kahan: bool = False, key=None,
-                    offset_start: int = 0, block_scale: bool = False,
+                    offset_start: int = 0, offsets=None,
+                    block_scale: bool = False,
                     block_size: int = 128) -> torch.Tensor:
     """Single-device oracle of `ring_quantized_sum`: from the stacked
     per-rank contributions (W, *shape), the same per-chunk rank rotation
     and per-hop casts with their (hop, site, global offset) SR bits, in
     plain torch ops — everything except the wire.  The casts run on the
     (W, chunk) block of all chunks at once, whose element (c, i) draws
-    offset ``offset_start + c * chunk + i``, as on the ring; with
-    ``block_scale`` they are the blocked cast, blocks along each chunk."""
+    offset ``offset_start + c * chunk + i`` (or the zero-padded
+    ``offsets[c * chunk + i]``), as on the ring; with ``block_scale``
+    they are the blocked cast, blocks along each chunk."""
     w = stacked.shape[0]
     shape = stacked.shape[1:]
     n = stacked[0].numel()
@@ -457,8 +472,12 @@ def ring_oracle_sum(stacked: torch.Tensor, exp: int, man: int, *,
     flat = stacked.reshape(w, n).to(torch.float32)
     per_chunk = F.pad(flat, (0, w * chunk - n)).reshape(w, w, chunk)
     c_idx = torch.arange(w, device=stacked.device)
-    q = (_blocked_q(exp, man, block_size, key, False, offset_start)
-         if block_scale else _make_q(exp, man, key, False, offset_start))
+    offs = None
+    if offsets is not None:
+        offs = F.pad(offsets.reshape(-1).to(stacked.device, torch.int64),
+                     (0, w * chunk - n)).reshape(w, chunk)
+    q = _make_q(exp, man, key, False, offset_start, offs,
+                block_size if block_scale else None)
     shortcut = exp == 8 and man == 23 and not use_kahan
     res = comp = None
     for t in range(w):

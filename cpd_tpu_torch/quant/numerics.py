@@ -190,15 +190,14 @@ def cast_to_format_sr(x: torch.Tensor, exp_bits: int, man_bits: int,
 def cast_to_format_sr_at(x: torch.Tensor, exp_bits: int, man_bits: int,
                          key: tuple, offsets: torch.Tensor) -> torch.Tensor:
     """Stochastically rounded cast with offset-indexed bits
-    (`prng.sr_bits_at(key, offsets)`, ``offsets`` of x's size, torch ops
-    on ``x``'s device: the `sr_bits` kernel draws runs of contiguous
-    offsets only); the cast is K2 on a CUDA tensor, `cast_body_sr` on a
-    CPU one."""
-    from ..ops.quantize import quantize_cast_sr
-    from .prng import sr_bits_at, to_int32_bits
+    (`prng.sr_bits_at(key, offsets)`, ``offsets`` an integer tensor of
+    x's size): on a CUDA tensor the offset-array arm of the `sr_bits`
+    kernel and K2 (`ops.quantize.quantize_cast_sr`), on a CPU one their
+    plain versions."""
+    from ..ops.quantize import quantize_cast_sr, sr_bits
 
-    bits = sr_bits_at(key, offsets.to(x.device).reshape(x.shape))
-    return quantize_cast_sr(x, exp_bits, man_bits, to_int32_bits(bits))
+    return quantize_cast_sr(x, exp_bits, man_bits,
+                            sr_bits(key, x, offsets=offsets))
 
 
 # --------------------------------------------------------------------------

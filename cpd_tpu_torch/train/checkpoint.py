@@ -27,9 +27,15 @@ same bytes.  A restore copies the module's tensors into the template's
 module in place (the train step holds that module) and builds the
 optimizer state on the template's devices.
 
-Not ported yet: ``store=`` (the durable store, ROADMAP Queue A, A11),
-``restore(world=)`` with the ZeRO re-flatten (A6), and
-`PreemptionGuard`/`preempt_save` (A10).
+A ZeRO state (`parallel.zero.Zero1State`) is saved as it is: the
+portable layout (``export_state``, the CLI's way), or every rank's
+shard on a `LocalMesh`.  A process of a multi-process mesh holds its own
+shard only, and its save is refused: save ``export_state(state)``.
+``restore(world=)`` re-flattens a ZeRO momentum saved for one world
+size (or portable) for the template's (`restore`).
+
+Not ported yet: ``store=`` (the durable store, ROADMAP Queue A, A11)
+and `PreemptionGuard`/`preempt_save` (A10).
 """
 
 from __future__ import annotations
@@ -185,9 +191,93 @@ def _decode(tmpl, skel, tensors: list, name: str):
     return type(tmpl)(skel)
 
 
+def _zero_states(x) -> list:
+    """Every `parallel.zero.Zero1State` in an optimizer state."""
+    from ..parallel.zero import Zero1State
+
+    if isinstance(x, Zero1State):
+        return [x]
+    if isinstance(x, (list, tuple)):
+        return [z for v in x for z in _zero_states(v)]
+    return []
+
+
+def _saved_zero_shape(tmpl, skel, tensors: list):
+    """``tmpl`` with each `Zero1State` shaped as the one saved under
+    ``skel`` (its shards' sizes, world and buckets), so it decodes."""
+    from ..parallel.zero import Zero1State
+
+    if isinstance(tmpl, Zero1State):
+        try:
+            _, mom, world, spans = skel["fields"]
+            momentum = [torch.empty(tuple(tensors[m["t"]].shape),
+                                    dtype=torch.float32) for m in mom]
+        except (KeyError, TypeError, ValueError, IndexError):
+            return tmpl          # let _decode name the mismatch
+        return Zero1State(tmpl.step, momentum, int(world), tuple(spans))
+    if isinstance(tmpl, tuple) and hasattr(tmpl, "_fields") and \
+            isinstance(skel, dict) and len(skel.get("fields", ())) == \
+            len(tmpl):
+        return type(tmpl)(*(_saved_zero_shape(t, k, tensors)
+                            for t, k in zip(tmpl, skel["fields"])))
+    if isinstance(tmpl, (list, tuple)) and isinstance(skel, list) and \
+            len(skel) == len(tmpl):
+        return type(tmpl)(_saved_zero_shape(t, k, tensors)
+                          for t, k in zip(tmpl, skel))
+    return tmpl
+
+
+def _reflatten(saved, tmpl, world: int):
+    """``saved`` with each `Zero1State` re-flattened for ``world`` and
+    the template's local ranks (all ``world`` of them, or this process's
+    one): the saved momentum made portable (its pads trimmed), then
+    padded and sharded for the new world, bitwise an ``import_state`` of
+    the portable save."""
+    from ..parallel.zero import Zero1State, portable_momentum, shards_at
+
+    if isinstance(saved, Zero1State):
+        flat = portable_momentum(saved)
+        if tuple(saved.spans) != tuple(tmpl.spans):
+            raise ValueError(
+                f"elastic restore at world={world}: the checkpoint's ZeRO "
+                f"buckets {tuple(saved.spans)} do not match the "
+                f"template's {tuple(tmpl.spans)} (another model or "
+                f"bucket_elems)")
+        if tmpl.world == 0:
+            return Zero1State(saved.step, [flat.to(tmpl.momentum[0].device)],
+                              0, tuple(saved.spans))
+        ranks = (range(world) if len(tmpl.momentum) == world
+                 else (_group()[0],))
+        shards = shards_at(flat, saved.spans, world, ranks)
+        for got, want in zip(shards, tmpl.momentum):
+            if got.numel() != want.numel():
+                raise ValueError(
+                    f"elastic restore at world={world}: re-flattened "
+                    f"momentum has {got.numel()} elements but the "
+                    f"template expects {want.numel()} — template world "
+                    f"and `world=` disagree (build the template with the "
+                    f"updater for the NEW world size)")
+        return Zero1State(saved.step, [s.to(t.device) for s, t in
+                                       zip(shards, tmpl.momentum)],
+                          world, tuple(saved.spans))
+    if isinstance(saved, tuple) and hasattr(saved, "_fields"):
+        return type(saved)(*(_reflatten(a, b, world)
+                             for a, b in zip(saved, tmpl)))
+    if isinstance(saved, (list, tuple)):
+        return type(saved)(_reflatten(a, b, world)
+                           for a, b in zip(saved, tmpl))
+    return saved
+
+
 def _write_step(path: str, state: TrainState,
                 best_metric: Optional[float]) -> None:
     """The step's two files under ``path``."""
+    for z in _zero_states(state.opt_state):
+        if z.world and len(z.momentum) != z.world:
+            raise ValueError(
+                f"this process holds {len(z.momentum)} of the {z.world} "
+                f"shards of a ZeRO state: save the updater's "
+                f"export_state(state, mesh), the portable layout")
     arrays = [(f"model.{k}", v)
               for k, v in state.model.state_dict().items()]
     opt = _encode(state.opt_state, arrays, "opt")
@@ -385,9 +475,13 @@ class CheckpointManager:
         """Step ``step`` (default: the latest) shaped like
         ``state_template``, or None when there is none.  Every array is
         read and checked before anything is copied, so a step that
-        fails to restore leaves the template as it was."""
-        if world is not None:
-            _not_ported("restore(world=), the ZeRO re-flatten", "A6")
+        fails to restore leaves the template as it was.  ``world``: the
+        elastic ZeRO restart: a `parallel.zero.Zero1State` saved for
+        another world size, or portable, is re-flattened for ``world``
+        and the template's local ranks (the saved momentum's pads
+        trimmed, then padded for ``world``: the pads hold exact zeros,
+        so it is bitwise an ``import_state`` of the portable save); a
+        template whose layout disagrees raises."""
         if step is None:
             step = self.latest_step()
         if step is None or not os.path.isdir(self._step_dir(step)):
@@ -405,8 +499,13 @@ class CheckpointManager:
                 raise ValueError(f"checkpoint step {step}: {k} saved "
                                  f"{tuple(saved.shape)}/{saved.dtype} vs "
                                  f"{tuple(t.shape)}/{t.dtype}")
-        opt_state = _decode(state_template.opt_state, layout["opt"],
-                            tensors, "opt")
+        tmpl_opt = state_template.opt_state
+        if world is not None:
+            tmpl_opt = _saved_zero_shape(tmpl_opt, layout["opt"], tensors)
+        opt_state = _decode(tmpl_opt, layout["opt"], tensors, "opt")
+        if world is not None:
+            opt_state = _reflatten(opt_state, state_template.opt_state,
+                                   int(world))
         with torch.no_grad():
             for t, saved in zip(own.values(), tensors):
                 t.copy_(saved)
@@ -420,10 +519,8 @@ class CheckpointManager:
         """The newest step that passes its digest and restores; steps
         that fail either are skipped with a rank-0 line on stderr and
         listed in ``skipped``.  A step with no recorded digest restores
-        with ``verified`` None.  None when no step survives."""
-        if world is not None:
-            _not_ported("restore_latest_valid(world=), the ZeRO "
-                         "re-flatten", "A6")
+        with ``verified`` None.  None when no step survives.  ``world``:
+        the elastic ZeRO re-flatten of `restore`."""
         skipped = []
         for step in sorted(self.all_steps(), reverse=True):
             verdict = self.verify_step(step)
@@ -434,7 +531,8 @@ class CheckpointManager:
                 skipped.append(step)
                 continue
             try:
-                state = self.restore(state_template, step=step)
+                state = self.restore(state_template, step=step,
+                                     world=world)
             except Exception as e:
                 if rank == 0:
                     print(f"=> checkpoint {step}: restore failed "

@@ -34,8 +34,10 @@ in fp32 (`fp32_numerics`).  A model with a bf16 compute dtype returns
 fp32 logits and holds fp32 parameters, so the loss, the gradients and
 the reduce stay fp32.  Each micro-batch's logits and their gradient are
 freed before the next runs, so one (B, T, vocab) fp32 tensor pair is
-live at a time.  The overlapped reduce (``overlap_reduce``) is not
-ported yet (ROADMAP Queue A, A6).
+live at a time.  ``overlap_reduce`` runs steps 2-3 from inside the
+last local rank's last backward, each bucket of ``bucket_elems`` as
+soon as its gradients are whole (`train.step.overlap_backward`),
+bitwise the post-backward reduce at the same layout.
 """
 
 from __future__ import annotations
@@ -47,9 +49,10 @@ import torch.nn.functional as F
 
 from ..parallel.dist import grad_sr_key, sum_gradients
 from ..parallel.emulate import emulate_node_reduce
+from ..parallel.overlap import BucketPlan
 from ..quant.prng import fold_in
 from .state import TrainState
-from .step import _wire_fault, fp32_numerics
+from .step import _wire_fault, fp32_numerics, overlap_backward
 
 __all__ = ["make_lm_train_step", "make_lm_eval_step", "lm_local_gradients",
            "as_tokens"]
@@ -80,7 +83,7 @@ def _ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 
 def lm_local_gradients(model, toks: torch.Tensor, tgts: torch.Tensor, mesh,
                        label_smoothing: float = 0.0,
-                       emulate_node: int = 1) -> tuple:
+                       emulate_node: int = 1, backward=None) -> tuple:
     """Step 1 for every local rank of ``mesh``: the i-th local rank's
     forward and backward on rows ``[i*B*N, (i+1)*B*N)`` of ``toks``/
     ``tgts`` (the global batch on a `LocalMesh`, this process's rows on a
@@ -89,7 +92,8 @@ def lm_local_gradients(model, toks: torch.Tensor, tgts: torch.Tensor, mesh,
     rank: the gradients of each micro-batch's CE sum / (W*B*T) / N in
     ``parameters()`` order (at N > 1 each leaf stacks the N micro-batch
     gradients, ``(N, *shape)``), the CE sum and the count of argmax hits
-    over its micro-batches."""
+    over its micro-batches.  ``backward``: the last backward's hook, as
+    `train.step.local_gradients` takes it."""
     per_rank, n = _rank_rows(toks.shape[0], mesh), emulate_node
     if per_rank < n or per_rank % n:
         raise ValueError(
@@ -115,8 +119,15 @@ def lm_local_gradients(model, toks: torch.Tensor, tgts: torch.Tensor, mesh,
                            - logits.mean(dim=-1))
                 ce = (1.0 - label_smoothing) * ce + label_smoothing * uniform
             local_sum = ce.sum()
-            micro.append(list(torch.autograd.grad(local_sum / global_n / n,
-                                                  params)))
+            objective = local_sum / global_n / n
+            if backward is not None and i == len(mesh.ranks) - 1 \
+                    and j == n - 1:
+                micro.append(list(backward(objective, params, grads,
+                                           micro)))
+            else:
+                micro.append(list(torch.autograd.grad(
+                    objective, params, allow_unused=True,
+                    materialize_grads=True)))
             hit = (logits.detach().argmax(-1) == tg).sum()
             local_sum = local_sum.detach()
             rank_sum = local_sum if rank_sum is None else rank_sum + local_sum
@@ -138,6 +149,8 @@ def make_lm_train_step(model, opt, mesh, *, emulate_node: int = 1,
                        verify_reduce: bool = False, wire_fault_plan=None,
                        quant_stats: bool = False,
                        block_scale: bool = False, block_size: int = 128,
+                       overlap_reduce: bool = False,
+                       bucket_elems: Optional[int] = None,
                        fused: Optional[bool] = None):
     """``step(state, tokens, targets) -> (state, metrics)`` over
     ``mesh``: tokens/targets (W * B * N, T) int with N =
@@ -146,9 +159,11 @@ def make_lm_train_step(model, opt, mesh, *, emulate_node: int = 1,
     (module docstring).  ``metrics`` are 0-d tensors on the device;
     ``quant_stats`` adds the reduce wire's health counters as float32
     ``prec_wire_sat``, ``prec_wire_underflow``, ``prec_wire_nan``,
-    ``prec_wire_total`` and ``prec_aps_bad``.  ``fused`` goes to the
-    emulate-node reduce, `sum_gradients` and the optimizer (None: the
-    kernels on CUDA)."""
+    ``prec_wire_total`` and ``prec_aps_bad``.  ``bucket_elems`` caps the
+    reduce's buckets; ``overlap_reduce`` reduces them from inside the
+    backward (module docstring).  ``fused`` goes to the emulate-node
+    reduce, `sum_gradients` and the optimizer (None: the kernels on
+    CUDA)."""
     if emulate_node < 1:
         raise ValueError(f"emulate_node must be >= 1, got {emulate_node}")
     if not 0.0 <= label_smoothing < 1.0:
@@ -161,6 +176,11 @@ def make_lm_train_step(model, opt, mesh, *, emulate_node: int = 1,
             f"block_scale=True needs mode='ring' (got {mode!r}): the "
             f"per-block scale sidecar rides the ring's packed wire")
     sr = grad_rounding == "stochastic"
+    prec_kw = dict(use_aps=use_aps, grad_exp=grad_exp, grad_man=grad_man,
+                   use_kahan=use_kahan, mode=mode, rounding=grad_rounding,
+                   block_scale=block_scale, block_size=block_size)
+    plan = (BucketPlan.for_tree(list(model.parameters()), bucket_elems)
+            if overlap_reduce else None)
 
     def step(state: TrainState, tokens, targets):
         toks, tgts = as_tokens(tokens, targets, mesh.device)
@@ -169,26 +189,37 @@ def make_lm_train_step(model, opt, mesh, *, emulate_node: int = 1,
         sum_key = grad_sr_key(grad_seed, state.step, 1) if sr else None
         fault = (_wire_fault(wire_fault_plan, state.step)
                  if wire_fault_plan is not None and mode == "ring" else None)
+        emu_key = grad_sr_key(grad_seed, state.step, 0) if sr else None
         with fp32_numerics():
-            grads, sums, hits = lm_local_gradients(
-                model, toks, tgts, mesh, label_smoothing, emulate_node)
-            if emulate_node > 1:
-                emu_key = grad_sr_key(grad_seed, state.step, 0)
-                grads = [emulate_node_reduce(
-                    g, emulate_node, use_aps, grad_exp, grad_man,
-                    key=fold_in(emu_key, r) if sr else None,
-                    rounding=grad_rounding, fused=fused)
-                    for g, r in zip(grads, mesh.ranks)]
-            out = sum_gradients(grads, mesh, use_aps=use_aps,
-                                grad_exp=grad_exp, grad_man=grad_man,
-                                use_kahan=use_kahan, mode=mode,
-                                rounding=grad_rounding, key=sum_key,
-                                verify=verify_reduce, wire_fault=fault,
-                                stats=quant_stats, block_scale=block_scale,
-                                block_size=block_size, fused=fused)
-            del grads
-            reduced, report = (out if verify_reduce or quant_stats
-                               else (out, None))
+            if overlap_reduce:
+                backward, res = overlap_backward(
+                    mesh, plan, dict(prec_kw, bucket_elems=bucket_elems,
+                                     fused=fused),
+                    emulate_node=emulate_node, use_aps=use_aps,
+                    grad_exp=grad_exp, grad_man=grad_man, key=sum_key,
+                    emu_key=emu_key, wire_fault=fault, verify=verify_reduce,
+                    stats=quant_stats, fused=fused)
+                _, sums, hits = lm_local_gradients(
+                    model, toks, tgts, mesh, label_smoothing, emulate_node,
+                    backward)
+                reduced, report = res["reduced"], res["report"]
+            else:
+                grads, sums, hits = lm_local_gradients(
+                    model, toks, tgts, mesh, label_smoothing, emulate_node)
+                if emulate_node > 1:
+                    grads = [emulate_node_reduce(
+                        g, emulate_node, use_aps, grad_exp, grad_man,
+                        key=fold_in(emu_key, r) if sr else None,
+                        rounding=grad_rounding, fused=fused)
+                        for g, r in zip(grads, mesh.ranks)]
+                out = sum_gradients(grads, mesh, key=sum_key,
+                                    verify=verify_reduce, wire_fault=fault,
+                                    stats=quant_stats,
+                                    bucket_elems=bucket_elems, fused=fused,
+                                    **prec_kw)
+                del grads
+                reduced, report = (out if verify_reduce or quant_stats
+                                   else (out, None))
             state.opt_state = opt.apply(reduced[0], state.opt_state,
                                         list(model.parameters()),
                                         fused=fused)

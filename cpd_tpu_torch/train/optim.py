@@ -172,8 +172,13 @@ def sgd(schedule: Callable, momentum: float = 0.9, weight_decay: float = 0.0,
 
 def _norms(xs: list) -> torch.Tensor:
     """The L2 norm of every leaf of ``xs``, an fp32 (n_leaves,) vector
-    (one multi-tensor pass)."""
-    return torch.stack(torch._foreach_norm(xs))
+    (one multi-tensor pass): the squares summed in float64 and the norm
+    rounded to fp32 once, so it is the correctly rounded norm but for a
+    tie, whatever order the sum takes.  A norm assembled from partial
+    sums (ZeRO's shards, `parallel.zero`) then rounds to the same fp32
+    value; an fp32 sum of a 2.4 M-element leaf misses by ~1e-5."""
+    return torch.stack(torch._foreach_norm(
+        xs, 2, dtype=torch.float64)).to(torch.float32)
 
 
 class LARS:

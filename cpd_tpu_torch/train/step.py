@@ -28,6 +28,17 @@ One train step over a mesh of W ranks, as the JAX step runs it under
    loss and the top-1 hits are summed over the ranks, each through the
    mesh (in rank order, so a `ProcessMesh` gives the `LocalMesh`'s bits).
 
+``overlap_reduce`` runs steps 2-3 from inside the backward of the last
+local rank's last micro-batch (`parallel.overlap.overlapped_grads`):
+each bucket of ``bucket_elems`` reduces as soon as its last gradient
+is ready, bitwise the post-backward reduce at the same layout.  A custom
+updater (``update_fn``, `parallel.zero`'s ZeRO-1/2) takes the place of
+step 4 and owns its collective: with ``reduce_in_update`` it is handed
+the local gradients and reduce-scatters them itself (ZeRO-2), and with
+overlap its ``tap_reduce`` hook runs that reduce-scatter in the
+backward, the update consuming each rank's shards concatenated in
+bucket order.
+
 The step runs with TF32 off and cuDNN deterministic (restored after), as
 the reference computes in fp32 and the reduce is bitwise; on a
 `ProcessMesh` each process sets them for itself, as each runs its own
@@ -53,7 +64,8 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel.dist import grad_sr_key, sum_gradients
-from ..parallel.emulate import emulate_node_reduce
+from ..parallel.emulate import emulate_node_reduce, make_overlap_emulate_fn
+from ..parallel.overlap import BucketPlan, overlapped_grads
 from ..quant.prng import fold_in
 from .scaling import current_scale, find_dynamic_scale
 from .state import TrainState
@@ -92,7 +104,8 @@ def as_batch(images, labels, device) -> tuple:
 
 
 def local_gradients(model, x: torch.Tensor, y: torch.Tensor, mesh,
-                    emulate_node: int = 1, loss_scale: float = 1.0) -> tuple:
+                    emulate_node: int = 1, loss_scale: float = 1.0,
+                    backward=None) -> tuple:
     """Step 1 for every local rank of ``mesh``: the i-th local rank's
     forward and backward on rows ``[i*B*N, (i+1)*B*N)`` of ``x``/``y``
     (NCHW on the mesh's device: the global batch on a `LocalMesh`, this
@@ -104,7 +117,12 @@ def local_gradients(model, x: torch.Tensor, y: torch.Tensor, mesh,
     gradients, ``(N, *shape)``), the BN running stats the rank's last
     micro-batch left, its summed micro losses / (W*N) (unscaled) and its
     count of top-1 hits.  The module's BN stats are left at the last
-    rank's."""
+    rank's.  A parameter the loss does not reach gets a zero gradient.
+    ``backward(objective, params, done, micro)``, when given, takes the
+    last local rank's last backward (``done``: the earlier ranks'
+    gradients, ``micro``: this rank's earlier micro-batches') and
+    returns its gradients: the overlapped reduce's hook.
+    """
     world, n, local = mesh.world, emulate_node, len(mesh.ranks)
     if x.shape[0] % local:
         raise ValueError(f"batch {x.shape[0]} is not a multiple of the "
@@ -132,7 +150,13 @@ def local_gradients(model, x: torch.Tensor, y: torch.Tensor, mesh,
             logits = model(xr)
             loss = F.cross_entropy(logits, yr) / (world * n)
             objective = loss if loss_scale == 1.0 else loss * loss_scale
-            micro.append(list(torch.autograd.grad(objective, params)))
+            if backward is not None and i == local - 1 and j == n - 1:
+                micro.append(list(backward(objective, params, grads,
+                                           micro)))
+            else:
+                micro.append(list(torch.autograd.grad(
+                    objective, params, allow_unused=True,
+                    materialize_grads=True)))
             hit = (logits.detach().argmax(-1) == yr).sum()
             loss = loss.detach()
             rank_loss = loss if rank_loss is None else rank_loss + loss
@@ -178,6 +202,81 @@ def _wire_fault(plan, step: int):
     return (int(codes[i]) if step < len(codes) else 0, int(ranks[i]))
 
 
+def overlap_backward(mesh, plan: BucketPlan, reduce_kw: dict, *,
+                     emulate_node: int, use_aps: bool, grad_exp: int,
+                     grad_man: int, key=None, emu_key=None, wire_fault=None,
+                     verify: bool = False, stats: bool = False,
+                     collective=None, fused: Optional[bool] = None) -> tuple:
+    """``(backward, out)``: the ``backward`` hook of `local_gradients`
+    that runs the last local rank's last backward through
+    `overlapped_grads` (the emulate-node reduce of each leaf inside its
+    bucket at N > 1, rank r keyed ``fold_in(emu_key, r)``), and the dict
+    it leaves ``reduced`` and ``report`` in.  The image and the LM steps
+    share it."""
+    n = emulate_node
+    emulate_fn = emu_keys = None
+    if n > 1:
+        emulate_fn = make_overlap_emulate_fn(n, use_aps, grad_exp, grad_man,
+                                             emu_key is not None,
+                                             fused=fused)
+        emu_keys = [None if emu_key is None else fold_in(emu_key, r)
+                    for r in mesh.ranks]
+    out: dict = {}
+
+    def backward(objective, params, done, micro):
+        extras = ([torch.stack([m[i] for m in micro])
+                   for i in range(len(params))] if n > 1 else None)
+        grads, out["reduced"], out["report"] = overlapped_grads(
+            objective, params, mesh, plan=plan, reduce_kw=reduce_kw,
+            prior=done, extras=extras, key=key, wire_fault=wire_fault,
+            verify=verify, stats=stats, collective=collective,
+            emulate_reduce=emulate_fn, emulate_keys=emu_keys)
+        return grads
+
+    return backward, out
+
+
+def check_updater_args(*, loss_scale, update_fn, reduce_in_update: bool,
+                       verify_reduce: bool, quant_stats: bool, tap_reduce,
+                       overlap_reduce: bool, block_scale: bool,
+                       mode: str) -> None:
+    """The JAX step's refusals of the custom-updater switches, word for
+    word (`cpd_tpu/train/step.py:214-256`)."""
+    if loss_scale == "dynamic" and update_fn is not None:
+        raise ValueError("loss_scale='dynamic' requires the default optax "
+                         "update path (the wrapper owns unscale+skip); "
+                         "custom update_fn steppers must manage scaling "
+                         "themselves")
+    if reduce_in_update and update_fn is None:
+        raise ValueError("reduce_in_update=True requires update_fn")
+    if verify_reduce and reduce_in_update:
+        raise ValueError("verify_reduce=True needs the step's own "
+                         "sum_gradients call; reduce_in_update hands the "
+                         "collective to the updater (ZeRO-2/3), which "
+                         "does not thread a verification report")
+    if quant_stats and reduce_in_update:
+        raise ValueError("quant_stats=True needs the step's own "
+                         "sum_gradients call; reduce_in_update hands the "
+                         "collective to the updater (ZeRO-2/3), which "
+                         "does not thread a telemetry report")
+    if tap_reduce is not None and not reduce_in_update:
+        raise ValueError("tap_reduce is the ZeRO-2 overlap hook — it "
+                         "only makes sense with reduce_in_update=True")
+    if overlap_reduce and reduce_in_update and tap_reduce is None:
+        raise ValueError(
+            "overlap_reduce=True with reduce_in_update needs the "
+            "updater's tap_reduce hook (zero2_sgd's mesh_layout wires "
+            "it); ZeRO-3 and other custom updaters without one own the "
+            "whole post-backward collective — run without "
+            "overlap_reduce")
+    if block_scale and mode != "ring" and not reduce_in_update:
+        raise ValueError(
+            f"block_scale=True needs mode='ring' (got {mode!r}): the "
+            f"per-block scale sidecar rides the ring's packed wire "
+            f"(with reduce_in_update the ZeRO-2 updater's all_to_all "
+            f"carries it instead — parallel/zero.py)")
+
+
 def make_train_step(model, opt, mesh, *, emulate_node: int = 1,
                     mode: str = "faithful",
                     use_aps: bool = False, grad_exp: int = 8,
@@ -188,6 +287,9 @@ def make_train_step(model, opt, mesh, *, emulate_node: int = 1,
                     wire_fault_plan=None,
                     quant_stats: bool = False,
                     block_scale: bool = False, block_size: int = 128,
+                    bucket_elems: Optional[int] = None,
+                    overlap_reduce: bool = False, update_fn=None,
+                    reduce_in_update: bool = False, tap_reduce=None,
                     fused: Optional[bool] = None):
     """``step(state, images, labels) -> (state, metrics)`` over ``mesh``.
 
@@ -220,22 +322,51 @@ def make_train_step(model, opt, mesh, *, emulate_node: int = 1,
     as the JAX trainer's fast mode keeps it).  ``wire_fault_plan =
     (codes, ranks)``: in ring mode, step s injects the wire fault
     ``(codes[s], ranks[s])`` (none past the plan's end).  The update
-    applies rank 0's reduced gradients.  ``fused`` goes to the
-    emulate-node reduce, `sum_gradients` and the optimizer (None: the
-    kernels on CUDA)."""
+    applies rank 0's reduced gradients.  ``bucket_elems`` caps the
+    reduce's buckets (`parallel.overlap.DEFAULT_BUCKET_ELEMS` by
+    default), and ``overlap_reduce`` reduces each bucket from inside the
+    backward (module docstring), bitwise the same step.  ``update_fn(
+    grads, state, mesh, *, pre_sharded, fused, **quant_kw) -> opt_state``
+    replaces ``opt.apply`` (a ZeRO updater's, `parallel.zero`: its
+    ``step_kwargs()`` give it, ``reduce_in_update`` and ``tap_reduce``);
+    it is handed one entry per local rank: the reduced gradients, or
+    with ``reduce_in_update`` the local ones and the step's precision
+    keywords (and ``key``), or with overlap and ``tap_reduce`` the
+    rank's reduce-scattered shard (``pre_sharded=True``).  ``fused``
+    goes to the emulate-node reduce, `sum_gradients` and the optimizer
+    (None: the kernels on CUDA)."""
     if grad_rounding not in ("nearest", "stochastic"):
         raise ValueError(f"unknown grad_rounding {grad_rounding!r}")
     if emulate_node < 1:
         raise ValueError(f"emulate_node must be >= 1, got {emulate_node}")
+    check_updater_args(
+        loss_scale=loss_scale, update_fn=update_fn,
+        reduce_in_update=reduce_in_update, verify_reduce=verify_reduce,
+        quant_stats=quant_stats, tap_reduce=tap_reduce,
+        overlap_reduce=overlap_reduce, block_scale=block_scale, mode=mode)
     dynamic_scale = loss_scale == "dynamic"
     if not dynamic_scale:
         loss_scale = float(loss_scale)
-    if block_scale and mode != "ring":
-        raise ValueError(
-            f"block_scale=True needs mode='ring' (got {mode!r}): the "
-            f"per-block scale sidecar rides the ring's packed wire")
 
     sr = grad_rounding == "stochastic"
+    prec_kw = dict(use_aps=use_aps, grad_exp=grad_exp, grad_man=grad_man,
+                   use_kahan=use_kahan, mode=mode, rounding=grad_rounding,
+                   block_scale=block_scale, block_size=block_size)
+    plan = tap_collective = None
+    if overlap_reduce:
+        params = list(model.parameters())
+        if tap_reduce is not None:
+            plan, tap_collective = tap_reduce(
+                params, mesh, dict(prec_kw, fused=fused))
+            if bucket_elems is not None and plan.bucket_elems != bucket_elems:
+                raise ValueError(
+                    f"bucket_elems={bucket_elems} does not match "
+                    f"the ZeRO updater's bucket layout (cap "
+                    f"{plan.bucket_elems}): with reduce_in_update "
+                    f"the tap plan comes from the updater — pass "
+                    f"the same value to zero2_sgd(bucket_elems=)")
+        else:
+            plan = BucketPlan.for_tree(params, bucket_elems)
 
     def step(state: TrainState, images, labels):
         if dynamic_scale:
@@ -253,35 +384,60 @@ def make_train_step(model, opt, mesh, *, emulate_node: int = 1,
         sum_key = grad_sr_key(grad_seed, state.step, 1) if sr else None
         fault = (_wire_fault(wire_fault_plan, state.step)
                  if wire_fault_plan is not None and mode == "ring" else None)
+        emu_key = grad_sr_key(grad_seed, state.step, 0) if sr else None
+        pre_sharded = None
         with fp32_numerics():
             # the BN stats the forwards move, kept for a discarded step
             start = ([b.clone() for b in state.batch_stats]
                      if verify_reduce else None)
-            grads, new_stats, losses, hits = local_gradients(
-                model, x, y, mesh, emulate_node, scale)
-            if emulate_node > 1:
-                emu_key = grad_sr_key(grad_seed, state.step, 0)
-                grads = [emulate_node_reduce(
-                    g, emulate_node, use_aps, grad_exp, grad_man,
-                    key=fold_in(emu_key, r) if sr else None,
-                    rounding=grad_rounding, fused=fused)
-                    for g, r in zip(grads, mesh.ranks)]
-            out = sum_gradients(grads, mesh, use_aps=use_aps,
-                                grad_exp=grad_exp, grad_man=grad_man,
-                                use_kahan=use_kahan, mode=mode,
-                                rounding=grad_rounding, key=sum_key,
-                                verify=verify_reduce, wire_fault=fault,
-                                stats=quant_stats, block_scale=block_scale,
-                                block_size=block_size, fused=fused)
-            del grads
-            reduced, report = (out if verify_reduce or quant_stats
-                               else (out, None))
-            reduced = reduced[0]
+            if overlap_reduce:
+                backward, res = overlap_backward(
+                    mesh, plan, dict(prec_kw, bucket_elems=bucket_elems,
+                                     fused=fused),
+                    emulate_node=emulate_node, use_aps=use_aps,
+                    grad_exp=grad_exp, grad_man=grad_man, key=sum_key,
+                    emu_key=emu_key, wire_fault=fault, verify=verify_reduce,
+                    stats=quant_stats, collective=tap_collective,
+                    fused=fused)
+                _, new_stats, losses, hits = local_gradients(
+                    model, x, y, mesh, emulate_node, scale, backward)
+                reduced, report = res["reduced"], res["report"]
+                if tap_collective is not None:
+                    pre_sharded = [torch.cat(r) for r in reduced]
+            else:
+                grads, new_stats, losses, hits = local_gradients(
+                    model, x, y, mesh, emulate_node, scale)
+                if emulate_node > 1:
+                    grads = [emulate_node_reduce(
+                        g, emulate_node, use_aps, grad_exp, grad_man,
+                        key=fold_in(emu_key, r) if sr else None,
+                        rounding=grad_rounding, fused=fused)
+                        for g, r in zip(grads, mesh.ranks)]
+                if reduce_in_update:
+                    reduced, report = grads, None   # the updater reduces
+                else:
+                    out = sum_gradients(
+                        grads, mesh, key=sum_key, verify=verify_reduce,
+                        wire_fault=fault, stats=quant_stats,
+                        bucket_elems=bucket_elems, fused=fused, **prec_kw)
+                    reduced, report = (out if verify_reduce or quant_stats
+                                       else (out, None))
+                del grads
             # the merged report is the same on every rank (its counts
             # are all-gathered), so every rank takes the same branch
             ok = not verify_reduce or keep_failed or bool(report["ok"])
-            if ok:
-                state.opt_state = opt.apply(reduced, state.opt_state,
+            if ok and update_fn is not None:
+                if pre_sharded is not None:
+                    state.opt_state = update_fn(pre_sharded, state, mesh,
+                                                pre_sharded=True,
+                                                fused=fused)
+                else:
+                    quant_kw = (dict(prec_kw, key=sum_key)
+                                if reduce_in_update else {})
+                    state.opt_state = update_fn(reduced, state, mesh,
+                                                fused=fused, **quant_kw)
+            elif ok:
+                state.opt_state = opt.apply(reduced[0], state.opt_state,
                                             state.params, fused=fused)
             with torch.no_grad():
                 for s, m in zip(state.batch_stats,

@@ -23,6 +23,11 @@ gloo processes, one rank each) vs the `LocalMesh` W = 2, BITWISE.
   (``--emulate_node 2 --optimizer adamw --mode ring``): the last loss,
   accuracy and validation equal ``--dp 2`` on one process, and rank 1
   prints nothing;
+* two ZeRO-2 steps of the tiny CNN with the overlapped reduce-scatter
+  (``--bucket-elems`` buckets, `mesh.all_to_all` over gloo) and two
+  overlapped ring steps with the verified wire: each rank's metrics,
+  weights, BN stats and momentum (its shard, and the gathered portable
+  vector) equal the `LocalMesh` W = 2 run's;
 * an ``nccl`` mesh asked for where there is no card raises.
 
 One spawn runs all of it: the two ranks, and beside them a third
@@ -49,6 +54,9 @@ ARMS = {
                                  grad_rounding="stochastic", grad_seed=5),
     "emulate-sgd-stats": dict(emulate_node=2, mode="faithful", opt="sgd",
                               quant_stats=True),
+    "overlap-ring-verify": dict(emulate_node=1, mode="ring", opt="sgd",
+                                overlap_reduce=True, bucket_elems=700,
+                                verify_reduce=True),
 }
 # the LM arms: make_lm_train_step keywords and the optimizer
 LM_ARMS = {
@@ -103,6 +111,42 @@ def _two_steps(variables, arm: dict, mesh) -> dict:
                        for k, v in model.state_dict().items()},
                 momentum=[b.numpy().copy()
                           for b in state.opt_state.momentum_buf])
+
+
+def _zero_two_steps(variables, mesh) -> dict:
+    """Two ZeRO-2 steps with the overlapped reduce-scatter from flax's
+    weights: metrics, the state dict, this process's momentum shards and
+    the portable momentum (gathered over the mesh)."""
+    from cpd_tpu_torch.data import CIFAR10Pipeline, synthetic_cifar10
+    from cpd_tpu_torch.interop import load_jax_tiny
+    from cpd_tpu_torch.models.tiny import TinyCNN
+    from cpd_tpu_torch.parallel.dist import local_rows
+    from cpd_tpu_torch.parallel.zero import zero2_sgd
+    from cpd_tpu_torch.train import (TrainState, make_train_step,
+                                     warmup_step_decay)
+
+    model = load_jax_tiny(TinyCNN(device="cpu"), variables)
+    z = zero2_sgd(warmup_step_decay(0.4, 5, [100], warmup_from=0.1), WORLD,
+                  weight_decay=1e-4, bucket_elems=700)
+    step = make_train_step(model, None, mesh, use_aps=True, grad_exp=5,
+                           grad_man=2, grad_rounding="stochastic",
+                           grad_seed=3, overlap_reduce=True,
+                           bucket_elems=700, **z.step_kwargs())
+    state = TrainState(0, model, z.init(list(model.parameters()), mesh))
+    rows = WORLD * PER_RANK
+    x, y, _, _ = synthetic_cifar10(2 * rows, 8, seed=4)
+    pipe = CIFAR10Pipeline(x, y, rows, augment=False)
+    metrics = []
+    for it in range(2):
+        bx, by = pipe.batch(np.arange(it * rows, (it + 1) * rows))
+        state, m = step(state, local_rows(bx, mesh), local_rows(by, mesh))
+        metrics.append({k: v.numpy().copy() for k, v in m.items()})
+    portable = z.export_state(state, mesh).opt_state.momentum[0]
+    return dict(metrics=metrics,
+                state={k: v.detach().numpy().copy()
+                       for k, v in model.state_dict().items()},
+                shards=[b.numpy().copy() for b in state.opt_state.momentum],
+                portable=portable.numpy().copy())
 
 
 def _lm_two_steps(arm: dict, mesh) -> dict:
@@ -182,6 +226,7 @@ def _process(variables, root: str) -> dict:
                               device="cpu")
         mesh = LocalMesh(WORLD, "cpu")
         return {"cli": cli, "lm_cli": lm_cli,
+                "zero": _zero_two_steps(variables, mesh),
                 "steps": {n: _two_steps(variables, a, mesh)
                           for n, a in ARMS.items()},
                 "lm_steps": {n: _lm_two_steps(a, mesh)
@@ -196,6 +241,7 @@ def _process(variables, root: str) -> dict:
             "--dist", "--dist-backend", "gloo"]), device="cpu")
     return {"cli": cli, "printed": text.getvalue(), "lm_cli": lm_cli,
             "lm_printed": lm_text.getvalue(),
+            "zero": _zero_two_steps(variables, mesh),
             "steps": {n: _two_steps(variables, a, mesh)
                       for n, a in ARMS.items()},
             "lm_steps": {n: _lm_two_steps(a, mesh)
@@ -248,6 +294,28 @@ def test_two_process_steps_are_bitwise_the_local_mesh(arm, processes):
         n_params = sum(v.size for k, v in want["state"].items()
                        if "running" not in k and "num_batches" not in k)
         assert float(m["prec_wire_total"]) == WORLD * n_params
+
+
+def test_two_process_zero2_overlap_is_bitwise_the_local_mesh(processes):
+    """ZeRO-2 with the overlapped reduce-scatter over gloo: each rank's
+    metrics, weights and BN stats equal the `LocalMesh`'s, its one
+    momentum shard equals the `LocalMesh`'s shard of its rank, and the
+    gathered portable momentum is the `LocalMesh`'s."""
+    ranks, local = processes
+    want = local["zero"]
+    assert len(want["shards"]) == WORLD
+    for r, res in enumerate(ranks):
+        got = res["zero"]
+        for s, (wm, gm) in enumerate(zip(want["metrics"], got["metrics"])):
+            assert set(wm) == set(gm)
+            for k in wm:
+                _bitwise(wm[k], gm[k], f"rank {r} step {s} {k}")
+        for k, v in want["state"].items():
+            _bitwise(v, got["state"][k], f"rank {r} {k}")
+        assert len(got["shards"]) == 1
+        _bitwise(want["shards"][r], got["shards"][0], f"rank {r} shard")
+        _bitwise(want["portable"], got["portable"], f"rank {r} portable")
+    assert np.isfinite(want["metrics"][-1]["loss"])
 
 
 @pytest.mark.parametrize("arm", list(LM_ARMS))

@@ -303,5 +303,5 @@ def test_cli_new_flags_are_ported():
         "quant_sgd", 3, 8)
     for name in ("sgd", "nesterov", "lars", "quant_sgd"):
         assert tcli.parse_args(["--optimizer", name]).opt_name == name
-    with pytest.raises(SystemExit, match=r"ROADMAP Queue A, A6"):
-        tcli.parse_args(["--zero1"])
+    with pytest.raises(SystemExit, match=r"ROADMAP Queue A, A10"):
+        tcli.parse_args(["--guard-grads"])

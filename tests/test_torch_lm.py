@@ -557,7 +557,7 @@ def test_cli_trains_bf16_mha_flash_remat(capsys):
     ["--scan-layers"], ["--dropout", "0.1"], ["--sample", "4"],
     ["--save-path", "x"],
     ["--export-torch", "x.pth"], ["--verify-reduce"], ["--obs-dir", "d"],
-    ["--overlap-reduce"]])
+    ["--guard-grads"]])
 def test_cli_unported_flags_raise(extra):
     with pytest.raises(SystemExit, match="not yet ported"):
         tcli.parse_args(TINY_ARGV + extra)
