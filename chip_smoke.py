@@ -100,7 +100,9 @@ Phases; any failure exits non-zero:
    formats (4,3), (5,2), (5,10), (8,23) and (2,1) at odd shapes, shapes
    past its 32 x 32 output tile and a K past two 32-step chunks, and at
    e4m3 at the slice's four FFN GEMM shapes whole, with rows that
-   saturate, land on the format's subnormals and carry past the max; the
+   saturate, land on the format's subnormals and carry past the max (the
+   plain scan's step captured once as a CUDA graph and replayed,
+   `graphed_scan`, itself held bitwise to the eager scan); the
    cast probe: K8 at K = 1 on all 2^32 fp32 bit patterns against the
    plain scan for each of those formats, and on boundary patterns
    (`qgemm.cast_probe_patterns`) for all 192 formats against the plain
@@ -312,8 +314,26 @@ Phases; any failure exits non-zero:
    count): 2 ZeRO-2 overlap steps, the bytes each rank hands to the
    all-to-alls equal to `zero2_transport_bytes`, its weights and shard
    bitwise a `LocalMesh` of the same W;
-18. print each phase's wall seconds (``phase seconds: {...}``), one JSON
-   line ``{"kernels": [...]}`` and, last,
+18. the rest of the quant package at ResNet-18/CIFAR's layer widths,
+   batch 8, e5m2: K8's SR arm and its stats arm (RTNE and SR) against
+   their plain scans, BITWISE with equal counts, over (4,3), (5,2),
+   (8,23) and (2,1) at odd shapes with rows that saturate and underflow,
+   the stats arm's products bitwise the arms without counting; the main
+   path: the stem conv 3 -> 64, a stage-1 conv 64 -> 64, a stage-4 conv
+   512 -> 512 (`QuantConv`, 3 x 3, padding 1) and the FC 512 -> 10
+   (`QuantLinear`) forward and backward, round to nearest and SR, the
+   `Quantizer` SR on the stage-1 activations and `qgemm_stats` on each
+   layer's forward operands: finite values, launches as designed
+   (``QUANT_LAYERS_DESIGN``), each stats product the layer's forward
+   GEMM bitwise; the arms on the stem, stage-1 and FC forward operands
+   against their plain scans, the stage-4 GEMMs (K = 4608) bitwise run to
+   run; each arm timed by `queued_ms` beside the RTNE arm at the stage-1
+   and stage-4 shapes against its bound; the SR and stats kernels'
+   registers and spills; phase 6's CLI and the slice's pipeline made
+   their batches through the native fused augment;
+19. print each phase's wall seconds (``phase seconds: {...}``, phase 10a
+   split into its plain checks, cast probe, timed turns and census), one
+   JSON line ``{"kernels": [...]}`` and, last,
    ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --overlap-nccl
@@ -436,6 +456,8 @@ QGEMM_SPEEDUP_FLOOR = 1.5
 # format), for all 192 formats
 QGEMM_PROBE_CHUNK = 1 << 27
 QGEMM_PROBE_PER_EXPONENT = 2048
+# the shape at which phases 10a and 18 time K8's plain scans (eager)
+QGEMM_PLAIN_SHAPE = (256, 64, 256)
 # the SASS names of K8's tile kernel on the main path (eb <= 7, mb <= 21:
 # exmy::cast_fadd) and of the kept generic kernel
 QGEMM_TILE_KERNEL = "qgemm_tile_kernelINS_8FaddCast"
@@ -2003,6 +2025,8 @@ def kernel_counters() -> dict:
 
     return {"serve_attn": serve_attn.fused_gather_attention,
             "qgemm_faithful": qg.qgemm_faithful,
+            "qgemm_faithful_sr": qg.qgemm_faithful_sr,
+            "qgemm_faithful_stats": qg.qgemm_faithful_stats,
             "flash_gqa_fwd": fl.flash_gqa_fwd,
             "flash_gqa_bwd": fl.flash_gqa_bwd,
             "flash_mha_fwd": fm.flash_mha_fwd,
@@ -2316,17 +2340,24 @@ def train_phase(device) -> dict:
 
     reset_counts()
     t0 = now()
-    rc = cli.main(["--mode", "faithful", "--use_APS", "--grad_exp",
-                   str(fmt[0]), "--grad_man", str(fmt[1]), "--max-iter",
-                   str(TRAIN["cli_iters"]), "--save_path",
-                   save_path("train_cli")])
+    res = cli.run(cli.parse_args([
+        "--mode", "faithful", "--use_APS", "--grad_exp", str(fmt[0]),
+        "--grad_man", str(fmt[1]), "--max-iter", str(TRAIN["cli_iters"]),
+        "--save_path", save_path("train_cli")]), device=device)
+    rc = 3 if res.get("diverged") else 0
     cli_counts = read_counts()
     if rc != 0 or cli_counts["quantize_add"] == 0:
         raise AssertionError(f"trainer CLI returned {rc}, launches "
                              f"{cli_counts}")
+    # its batches came through the native fused augment (data.augment)
+    if res["augment_fused_calls"] < TRAIN["cli_iters"]:
+        raise AssertionError(f"trainer CLI: {res['augment_fused_calls']} "
+                             f"batches through the native fused augment "
+                             f"for {TRAIN['cli_iters']} iterations")
     out["cli"] = dict(rc=rc, seconds=now() - t0, launches=cli_counts,
                       quantize_add_per_iter=cli_counts["quantize_add"]
-                      // TRAIN["cli_iters"])
+                      // TRAIN["cli_iters"],
+                      augment_fused_calls=res["augment_fused_calls"])
     print("train cli: " + json.dumps(out["cli"]), flush=True)
     return out
 
@@ -3523,6 +3554,132 @@ def plain_kernels():
          fm.flash_mha_fwd, fm.flash_mha_bwd) = saved
 
 
+def replay_steps(feed, step, n: int, device) -> None:
+    """``feed(k); step()`` for k < ``n``: a scan whose state lives in
+    tensors that ``step`` updates in place and whose step-k inputs
+    ``feed(k)`` copies into fixed tensors.  On a card step 0 runs as it
+    is and the step is then captured once as a CUDA graph and replayed:
+    the same kernels on the same data, without the host launching each
+    of a step's hundreds of small ops again.  Elsewhere every step runs
+    as it is."""
+    import torch
+
+    feed(0)
+    step()
+    if n <= 1:
+        return
+    if torch.device(device).type != "cuda":
+        for k in range(1, n):
+            feed(k)
+            step()
+        return
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        step()
+    for k in range(1, n):
+        feed(k)
+        graph.replay()
+    torch.cuda.synchronize()
+    del graph
+
+
+def graphed_scan(a, b, exp_bits: int, man_bits: int, key=None,
+                 stats: bool = False):
+    """`qgemm_faithful_ref` (RTNE, with ``key`` SR, with ``stats`` its
+    counts) with its Kahan step replayed (`replay_steps`): the plain
+    scan's torch ops, op for op; the SR bits of a step drawn for its
+    five sites at once (the plain scan draws them for several steps at
+    once; the bits are the same integers).  Held bitwise to
+    `qgemm_faithful_ref` by `graphed_scan_check`."""
+    import torch
+
+    from cpd_tpu_torch.ops import qgemm as qg
+    from cpd_tpu_torch.quant import prng
+    from cpd_tpu_torch.quant.numerics import cast_body, cast_body_sr
+
+    a = a.to(torch.float32)
+    b = b.to(torch.float32)
+    m, kdim, n = a.shape[0], a.shape[1], b.shape[1]
+    dev = a.device
+    s = torch.zeros((m, n), dtype=torch.float32, device=dev)
+    c = torch.zeros_like(s)
+    counts = torch.zeros(3, dtype=torch.int64, device=dev)
+    a_cols = a.t().contiguous()
+    ak = torch.empty((m, 1), dtype=torch.float32, device=dev)
+    bk = torch.empty((1, n), dtype=torch.float32, device=dev)
+    table = None if key is None else qg.site_keys(key, kdim, dev)
+    kk = torch.empty((qg.SITES, 2), dtype=torch.int64, device=dev)
+    flat = torch.arange(m * n, dtype=torch.int64, device=dev)
+
+    def feed(k):
+        ak.copy_(a_cols[k, :, None])
+        bk.copy_(b[k:k + 1])
+        if table is not None:
+            kk.copy_(table[k])
+
+    def step():
+        bits = None
+        if table is not None:
+            x0, x1 = prng.threefry2x32(kk[:, 0, None], kk[:, 1, None], 0,
+                                       flat)
+            bits = x0 ^ x1
+
+        def q(t, i):
+            out = (cast_body(t, exp_bits, man_bits) if bits is None
+                   else cast_body_sr(t, exp_bits, man_bits, bits[i]))
+            if stats:
+                counts.add_(qg._tally(t, out))
+            return out
+
+        tmp = q(ak * bk, 0)
+        y = q(tmp - c, 1)
+        t = q(s + y, 2)
+        c_new = q(q(t - s, 3) - y, 4)
+        c.copy_(c_new)
+        s.copy_(t)
+
+    if kdim:
+        replay_steps(feed, step, kdim, dev)
+    if not stats:
+        return s
+    total = torch.full((1,), qg.SITES * kdim * m * n, dtype=torch.int64,
+                       device=dev)
+    return s, torch.cat([counts, total])
+
+
+def graphed_scan_check(device) -> int:
+    """`graphed_scan` bitwise `qgemm_faithful_ref` (products and counts)
+    for RTNE, SR and both with stats, at formats and shapes past the
+    kernel's tile and chunk; the number of cases."""
+    import torch
+
+    from cpd_tpu_torch.ops import qgemm as qg
+
+    gen = torch.Generator(device=device).manual_seed(7)
+    cases = 0
+    for fmt in ((4, 3), (5, 2), (8, 23)):
+        for m, k, n in ((37, 29, 23), (70, 65, 33)):
+            a = torch.randn((m, k), generator=gen, device=device) * 8
+            b = torch.randn((k, n), generator=gen, device=device)
+            a[0] *= 1e4
+            for kw in (dict(), dict(key=(5, 9)), dict(stats=True),
+                       dict(key=(5, 9), stats=True)):
+                got = graphed_scan(a, b, *fmt, **kw)
+                want = qg.qgemm_faithful_ref(a, b, *fmt, **kw)
+                if kw.get("stats"):
+                    ok = same_bits(got[0], want[0]) and torch.equal(got[1],
+                                                                    want[1])
+                else:
+                    ok = same_bits(got, want)
+                if not ok:
+                    raise AssertionError(f"graphed_scan {fmt} {m}x{k}x{n} "
+                                         f"{kw}: differs from "
+                                         "qgemm_faithful_ref")
+                cases += 1
+    return cases
+
+
 def qgemm_cases(fmt, shapes, generator, device) -> list:
     """K8's check inputs at one format and each (M, K, N) of ``shapes``,
     each with rows that saturate (x 2^10 the format's max), land on or
@@ -3612,22 +3769,43 @@ def step_census(pairs, exp_bits: int, man_bits: int) -> list:
     casts = torch.zeros(n_p, dtype=torch.int64, device=dev)
     falls = torch.zeros_like(casts)
     kinds = torch.zeros((n_p, 4), dtype=torch.int64, device=dev)
-    for k in range(kmax):
-        if k % 32 == 0:
-            zeros = warps(((s.view(torch.int32) | c.view(torch.int32))
-                           & 0x7FFFFFFF) == 0).all(-1)
-        casting = ~(zeros & bound[:, :, k])
-        zeros &= ~casting
-        flags = torch.zeros((n_p, 32), dtype=torch.bool, device=dev)
-        on = live[k]
-        tmp = q(a_all[:, :, k, None] * b_all[:, None, k, :], flags, on,
-                product=True)
+    # the scan's state and step-k inputs in fixed tensors (`replay_steps`)
+    zeros = torch.zeros((n_p, 32), dtype=torch.bool, device=dev)
+    flags = torch.zeros_like(zeros)
+    bnd = torch.zeros_like(zeros)
+    on = torch.zeros(n_p, dtype=torch.bool, device=dev)
+    restart = torch.zeros((), dtype=torch.bool, device=dev)
+    ak = torch.empty((n_p, 64, 1), device=dev)
+    bk = torch.empty((n_p, 1, 64), device=dev)
+    a_k = a_all.permute(2, 0, 1).contiguous()
+    b_k = b_all.permute(1, 0, 2).contiguous()
+    starts = torch.arange(kmax, device=dev) % 32 == 0
+    bounds = bound.permute(2, 0, 1).contiguous()
+
+    def feed(k):
+        ak.copy_(a_k[k, :, :, None])
+        bk.copy_(b_k[k, :, None, :])
+        bnd.copy_(bounds[k])
+        on.copy_(live[k])
+        restart.copy_(starts[k])
+
+    def step():
+        # at a chunk's first step: is every s and c of the warp ±0
+        zeros.copy_(torch.where(restart, warps((
+            (s.view(torch.int32) | c.view(torch.int32)) & 0x7FFFFFFF)
+            == 0).all(-1), zeros))
+        casting = ~(zeros & bnd)
+        zeros.logical_and_(~casting)
+        flags.zero_()
+        tmp = q(ak * bk, flags, on, product=True)
         y = q(tmp - c, flags, on)
         t = q(s + y, flags, on)
-        c = q(q(t - s, flags, on) - y, flags, on)
-        s = t
+        c.copy_(q(q(t - s, flags, on) - y, flags, on))
+        s.copy_(t)
         casts.add_(casting.sum(-1) * on)
         falls.add_((flags & casting).sum(-1) * on)
+
+    replay_steps(feed, step, kmax, dev)
     return [(n / (32 * ki), m / (32 * ki),
              dict(zip(("zero", "normal_target", "subnormal_target",
                        "special"), (v / (5 * 64 * 64 * ki) for v in kd))))
@@ -3688,6 +3866,24 @@ def cast_probe(device) -> dict:
     return out
 
 
+def qgemm_build() -> dict:
+    """Each kernel of ``qgemm.cu``'s build by its mangled name: registers
+    and spill bytes, as ptxas printed them."""
+    from cpd_tpu_torch.ops.build import build_log
+
+    build = {}
+    for line in build_log("qgemm").splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "registers" in line:
+            build.setdefault(name, {})["registers"] = int(
+                line.split("Used ")[1].split()[0])
+        elif "spill" in line:
+            spills = [int(w) for w in line.split() if w.isdigit()]
+            build.setdefault(name, {})["spill_bytes"] = spills[1] + spills[2]
+    return build
+
+
 def qgemm_phase(device) -> dict:
     """Phase 10a: K8 against its plain version, bitwise, over the formats
     at odd shapes, and at e4m3 at the slice's four FFN GEMM shapes whole;
@@ -3708,41 +3904,41 @@ def qgemm_phase(device) -> dict:
     import torch
 
     from cpd_tpu_torch.ops import qgemm as qg
-    from cpd_tpu_torch.ops.build import build_log
 
     gen = torch.Generator(device=device).manual_seed(96)
     fmt = LM_PATH["ffn_exp"], LM_PATH["ffn_man"]
     checks = [(f, [(37, 29, 23), (300, 129, 200), (70, 65, 33)])
               for f in QGEMM_FORMATS]
     checks.append((fmt, lm_gemm_shapes()))
-    cases, t0 = 0, time.perf_counter()
+    t0 = time.perf_counter()
+    graphed = graphed_scan_check(device)
+    cases = 0
     for f, shapes in checks:
         for name, a, b in qgemm_cases(f, shapes, gen, device):
             got = qg.qgemm_faithful(a, b, *f)
             torch.cuda.synchronize()
-            want = qg.qgemm_faithful_ref(a, b, *f)
+            want = graphed_scan(a, b, *f)
             if not same_bits(got, want):
                 raise AssertionError(f"qgemm {f} {name}: the kernel "
                                      "differs from its plain version")
             cases += 1
+    split = {"plain checks": time.perf_counter() - t0}
     print(f"kernel qgemm: {cases} products bitwise equal to the plain "
           f"scan (formats {list(QGEMM_FORMATS)} at odd shapes; {fmt} at "
           f"the slice's GEMMs {lm_gemm_shapes()}; saturating, subnormal "
-          f"and carrying rows) in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+          f"and carrying rows), the plain scan's step replayed as a CUDA "
+          f"graph (bitwise the eager scan in {graphed} cases) in "
+          f"{split['plain checks']:.1f} s", flush=True)
+    t0 = time.perf_counter()
     probe = cast_probe(device)
+    split["cast probe"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
 
-    build = {}
-    for line in build_log("qgemm").splitlines():
-        if "Compiling entry function" in line:
-            name = line.split("'")[1]
-        elif "registers" in line:
-            build.setdefault(name, {})["registers"] = int(
-                line.split("Used ")[1].split()[0])
-        elif "spill" in line:
-            spills = [int(w) for w in line.split() if w.isdigit()]
-            build.setdefault(name, {})["spill_bytes"] = spills[1] + spills[2]
-    tile = {k: v for k, v in build.items() if "qgemm_tile_kernel" in k}
+    build = qgemm_build()
+    # the round-to-nearest arm's two instantiations (phase 18 reads the
+    # SR and stats arms')
+    tile = {k: v for k, v in build.items() if "qgemm_tile_kernel" in k
+            and "SrCast" not in k and "Counted" not in k}
     if len(tile) != 2 or any(v.get("spill_bytes", 1) for v in tile.values()):
         raise AssertionError(f"qgemm build: tile kernels {tile} (both "
                              "instantiations, no spills expected)")
@@ -3786,9 +3982,10 @@ def qgemm_phase(device) -> dict:
             loop_body_ms=pipe_bound_s(whole, m * n * k)[0] * 1e3,
             matmul_ms=time_ms(lambda: a @ b, iters=20))
         del sets
+    split["timed turns"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     census = step_census(samples, *fmt)
-    census_s = time.perf_counter() - t0
+    census_s = split["census"] = time.perf_counter() - t0
     for (m, k, n), (share, fall, kinds) in zip(lm_gemm_shapes(), census):
         alu, fp32 = (z + share * (w - z) for w, z in zip(
             QGEMM_STEP_WORK, QGEMM_ZERO_STEP_WORK))
@@ -3809,11 +4006,11 @@ def qgemm_phase(device) -> dict:
             bound_pipe=pipe,
             sass_bound_ms=pipe_bound_s(per, m * n * k)[0] * 1e3)
         r["issue_efficiency"] = r["sass_bound_ms"] / r["ms"]
-    small = (256, 64, 256)
+    small = QGEMM_PLAIN_SHAPE
     a = torch.randn(small[:2], generator=gen, device=device)
     b = torch.randn(small[1:], generator=gen, device=device)
     out = dict(cases=cases, probe=probe, build=tile, shapes=shapes,
-               sass_loop_body=whole, sass_paths=paths,
+               split_s=split, sass_loop_body=whole, sass_paths=paths,
                generic_sass=old, census_s=census_s, plain_shape=small,
                plain_ms=time_ms(lambda: qg.qgemm_faithful_ref(a, b, *fmt),
                                 iters=2, warmup=1),
@@ -7810,6 +8007,318 @@ def zero_phase(device) -> dict:
     print("zero seconds: " + json.dumps(out["seconds"]), flush=True)
     return out
 
+# phase 18: the rest of the quant package at ResNet-18/CIFAR's layer
+# widths, batch 8, e5m2 (the APS wire's format): the stem conv 3 -> 64
+# and a stage-1 conv 64 -> 64 at 32 x 32, a stage-4 conv 512 -> 512 at
+# 4 x 4 (3 x 3, padding 1, no bias, as the model's) and the FC 512 -> 10
+QUANT_LAYERS = dict(batch=8, fmt=(5, 2), seed=18, key=(18, 2026))
+QUANT_CONVS = {"stem": (3, 64, 32), "stage1": (64, 64, 32),
+               "stage4": (512, 512, 4)}
+QUANT_FC = (512, 10)
+# K8's SR and stats arms against their plain versions at odd shapes (a
+# row that saturates the small formats, a row that underflows)
+QGEMM_ARM_FORMATS = ((4, 3), (5, 2), (8, 23), (2, 1))
+QGEMM_ARM_SHAPES = ((37, 29, 23), (70, 65, 33), (1, 1, 1))
+# the SR arm's work per Kahan step, (ALU-pipe, fp32) instructions: five
+# threefry2x32 evaluations of 45 ALU-pipe instructions (the flat sr_bits
+# arm's SASS count, PERF.md) and five SR casts of ~24 ALU instructions
+# (the reference cast's count, qgemm.cu) with their two power-of-two
+# products, and the step's five fp32 ops
+QGEMM_SR_STEP_WORK = (5 * (45 + 24), 5 + 5 * 2)
+# the stats arm's work on top of its arm's, per cast: two masks, three
+# compares and the three tally adds
+QGEMM_STATS_CAST_ALU = 8
+QGEMM_SR_KERNEL = "qgemm_tile_kernelINS_6SrCastEE"
+# the launches of phase 18's main path (the layers' forward and backward,
+# RTNE and SR, the Quantizer, the stats twins on the layers' forward
+# operands): 4 layers x 3 GEMMs an arm; the FC bias gradient's cast (K1,
+# or sr_bits and K2); the Quantizer's SR casts forward and backward
+QUANT_LAYERS_DESIGN = {"qgemm_faithful": 12, "qgemm_faithful_sr": 12,
+                       "qgemm_faithful_stats": 8, "quantize_cast": 1,
+                       "quantize_cast_sr": 3, "sr_bits": 3}
+
+
+def arm_check(a, b, fmt, key, label: str) -> dict:
+    """K8's SR arm, its stats arm (RTNE and SR) and the RTNE arm on
+    ``a @ b`` against the plain scan, bitwise, counts equal; the stats
+    arm's products bitwise the arms without counting.  Returns the plain
+    scans' wall seconds by arm."""
+    import torch
+
+    from cpd_tpu_torch.ops import qgemm as qg
+
+    got = dict(sr=qg.qgemm_faithful_sr(a, b, *fmt, key),
+               rtne=qg.qgemm_faithful(a, b, *fmt),
+               stats=qg.qgemm_faithful_stats(a, b, *fmt),
+               stats_sr=qg.qgemm_faithful_stats(a, b, *fmt, key=key))
+    torch.cuda.synchronize()
+    secs, want = {}, {}
+    for arm, kw in (("sr", dict(key=key)), ("stats", dict(stats=True)),
+                    ("stats_sr", dict(key=key, stats=True))):
+        t0 = time.perf_counter()
+        want[arm] = graphed_scan(a, b, *fmt, **kw)
+        torch.cuda.synchronize()
+        secs[arm] = time.perf_counter() - t0
+    pairs = [("sr", got["sr"], want["sr"]),
+             ("stats", got["stats"][0], want["stats"][0]),
+             ("stats_sr", got["stats_sr"][0], want["stats_sr"][0]),
+             ("stats == rtne", got["stats"][0], got["rtne"]),
+             ("stats_sr == sr", got["stats_sr"][0], got["sr"])]
+    for arm, x, y in pairs:
+        if not same_bits(x, y):
+            raise AssertionError(f"K8 {arm} {label}: differs from its "
+                                 "plain version")
+    for arm in ("stats", "stats_sr"):
+        if not torch.equal(got[arm][1], want[arm][1]):
+            raise AssertionError(f"K8 {arm} {label}: counts "
+                                 f"{got[arm][1].tolist()} != plain "
+                                 f"{want[arm][1].tolist()}")
+    return secs
+
+
+def quant_layer_set(rounding: str, device) -> dict:
+    """Phase 18's layers (seeded, the same weights for either rounding)
+    and their inputs: a normalised image batch, post-ReLU activations,
+    pooled features."""
+    import torch
+
+    from cpd_tpu_torch import quant
+
+    L = QUANT_LAYERS
+    gen = torch.Generator(device=device).manual_seed(L["seed"])
+    kw = dict(exp=L["fmt"][0], man=L["fmt"][1], rounding=rounding,
+              device=device, generator=gen)
+    out = {}
+    for name, (ci, co, hw) in QUANT_CONVS.items():
+        layer = quant.QuantConv(ci, co, 3, padding=1, use_bias=False, **kw)
+        x = torch.randn((L["batch"], ci, hw, hw), generator=gen,
+                        device=device)
+        out[name] = (layer, x if name == "stem" else x.relu())
+    layer = quant.QuantLinear(*QUANT_FC, **kw)
+    out["fc"] = (layer, torch.randn((L["batch"], QUANT_FC[0]),
+                                    generator=gen, device=device).relu())
+    return out
+
+
+def layer_operands(layer, x) -> tuple:
+    """The forward GEMM's operands of a QuantConv (im2col patches,
+    weightᵀ) or QuantLinear (x, weightᵀ)."""
+    import torch.nn.functional as F
+
+    if x.dim() == 2:
+        return x, layer.weight.detach().t()
+    patches = F.unfold(x, layer.kernel_size, padding=layer.padding)
+    return (patches.transpose(1, 2).reshape(-1, patches.shape[1]),
+            layer.weight.detach().reshape(layer.out_channels, -1).t())
+
+
+def quant_layers_phase(device, train: dict) -> dict:
+    """Phase 18: K8's SR and stats arms bitwise their plain versions at
+    odd shapes, the layers' main path with its launches as designed, the
+    arms on the stem, stage-1 and FC forward GEMMs' own operands bitwise
+    their plain versions, the stage-4 GEMMs run to run, each arm timed
+    (`queued_ms`) beside the RTNE arm at the stage-1 and stage-4 shapes,
+    and the native fused augment on the CLI's and the slice's batches."""
+    import torch
+
+    from cpd_tpu_torch import quant
+    from cpd_tpu_torch.ops import qgemm as qg
+    from cpd_tpu_torch.quant import numerics, prng
+
+    L = QUANT_LAYERS
+    fmt, key = L["fmt"], L["key"]
+    gen = torch.Generator(device=device).manual_seed(L["seed"] + 1)
+    t0 = time.perf_counter()
+    for f in QGEMM_ARM_FORMATS:
+        for m, k, n in QGEMM_ARM_SHAPES:
+            a = torch.randn((m, k), generator=gen, device=device) * 8
+            b = torch.randn((k, n), generator=gen, device=device)
+            a[0] *= 1e4
+            a[-1] *= 2.0 ** -30
+            arm_check(a, b, f, key, f"{f} {m}x{k}x{n}")
+    odd_s = time.perf_counter() - t0
+
+    # the main path: the layers forward and backward, RTNE then SR (a key
+    # a layer), the Quantizer SR on the stage-1 activations, and the
+    # stats twins on each layer's forward operands
+    sets = {r: quant_layer_set(r, device) for r in ("nearest",
+                                                    "stochastic")}
+    keys = {name: prng.fold_in(key, i) for i, name in
+            enumerate(sets["nearest"])}
+    quantizer = quant.Quantizer(*fmt, *fmt, rounding="stochastic")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    outs, health = {}, {}
+    for rounding, layers in sets.items():
+        for name, (layer, x) in layers.items():
+            xin = x.clone().requires_grad_()
+            y = layer(xin, key=keys[name] if rounding == "stochastic"
+                      else None)
+            y.backward(torch.full_like(y, 2.0 ** -6))
+            grads = [xin.grad] + [p.grad for p in layer.parameters()]
+            outs[rounding, name] = (y.detach(), grads)
+    act = sets["nearest"]["stage1"][1].clone().requires_grad_()
+    qa = quantizer(act, key=key)
+    qa.backward(act.detach())
+    for rounding, layers in sets.items():
+        for name, (layer, x) in layers.items():
+            # the forward GEMM's key: a conv folds its group (0), then
+            # every layer its GEMM site (0)
+            sr_key = None
+            if rounding == "stochastic":
+                sr_key = keys[name] if name == "fc" else prng.fold_in(
+                    keys[name], 0)
+                sr_key = prng.fold_in(sr_key, 0)
+            health[rounding, name] = quant.qgemm_stats(
+                *layer_operands(layer, x), *fmt, rounding=rounding,
+                key=sr_key)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = read_counts()
+    got = {k: launches.get(k, 0) for k in QUANT_LAYERS_DESIGN}
+    if got != QUANT_LAYERS_DESIGN:
+        raise AssertionError(f"phase 18 launches {got} != the design "
+                             f"{QUANT_LAYERS_DESIGN}")
+    for (rounding, name), (y, grads) in outs.items():
+        if not all(bool(t.isfinite().all()) for t in [y] + grads):
+            raise AssertionError(f"phase 18 {rounding} {name}: a value "
+                                 "that is not finite")
+        # the stats twin's product is the layer's forward GEMM
+        prod, _ = health[rounding, name]
+        layer = sets[rounding][name][0]
+        if name == "fc":
+            prod = prod + layer.bias.detach()
+        else:
+            b_, c_, hw, _ = y.shape
+            prod = prod.reshape(b_, hw * hw, c_).transpose(1, 2).reshape(
+                y.shape)
+        if not same_bits(prod, y):
+            raise AssertionError(f"phase 18 {rounding} {name}: the stats "
+                                 "twin's product differs from the layer's "
+                                 "forward")
+    if not same_bits(numerics.cast_body(qa.detach(), *fmt), qa.detach()):
+        raise AssertionError("phase 18 Quantizer: an output off the format")
+    sr, rt = outs["stochastic", "stage1"][0], outs["nearest", "stage1"][0]
+    if same_bits(sr, rt):
+        raise AssertionError("phase 18: the SR stage-1 conv equals the "
+                             "RTNE one")
+
+    # the arms on the stem, stage-1 and FC forward operands against their
+    # plain versions; the stage-4 GEMMs run to run
+    t0 = time.perf_counter()
+    plain_s = {}
+    for name in ("stem", "stage1", "fc"):
+        layer, x = sets["nearest"][name]
+        plain_s[name] = arm_check(*layer_operands(layer, x), fmt, key,
+                                  f"{name} forward")
+    main_checks_s = time.perf_counter() - t0
+    a4, b4 = layer_operands(*sets["nearest"]["stage4"])
+    runs = [(qg.qgemm_faithful_sr(a4, b4, *fmt, key),
+             qg.qgemm_faithful_stats(a4, b4, *fmt),
+             qg.qgemm_faithful_stats(a4, b4, *fmt, key=key))
+            for _ in range(2)]
+    first, second = runs
+    if not (same_bits(first[0], second[0])
+            and all(same_bits(p[0], q[0]) and torch.equal(p[1], q[1])
+                    for p, q in zip(first[1:], second[1:]))
+            and same_bits(first[2][0], first[0])):
+        raise AssertionError("phase 18 stage-4: the SR or stats arm differs "
+                             "run to run, or from the SR arm")
+
+    # each arm by queued_ms beside the RTNE arm, at stage 1 and stage 4
+    arms = {"rtne": lambda a, b: qg.qgemm_faithful(a, b, *fmt),
+            "sr": lambda a, b: qg.qgemm_faithful_sr(a, b, *fmt, key),
+            "stats": lambda a, b: qg.qgemm_faithful_stats(a, b, *fmt),
+            "stats_sr": lambda a, b: qg.qgemm_faithful_stats(a, b, *fmt,
+                                                             key=key)}
+    work = {"rtne": QGEMM_STEP_WORK, "sr": QGEMM_SR_STEP_WORK}
+    work["stats"] = (work["rtne"][0] + 5 * QGEMM_STATS_CAST_ALU,
+                     work["rtne"][1])
+    work["stats_sr"] = (work["sr"][0] + 5 * QGEMM_STATS_CAST_ALU,
+                        work["sr"][1])
+    shapes = {}
+    for name in ("stage1", "stage4"):
+        a, b = layer_operands(*sets["nearest"][name])
+        m, k = a.shape
+        n = b.shape[1]
+        row = {"shape": [m, k, n]}
+        for arm, fn in arms.items():
+            alu, fp32 = work[arm]
+            t_ops, pipe = pipe_bound_s({"alu": alu, "imad": 0.0,
+                                        "alu+imad": alu, "fp32": fp32,
+                                        "cvt": 0.0, "issue": alu + fp32},
+                                       m * n * k)
+            t_bytes = (4 * (m * k + k * n + m * n)
+                       + (40 * k if "sr" in arm else 0)) / PEAK_BYTES_PER_S
+            row[arm] = dict(ms=queued_ms(lambda: fn(a, b), iters=5,
+                                         warmup=1),
+                            bound_ms=max(t_ops, t_bytes) * 1e3,
+                            bound_by=("operations" if t_ops >= t_bytes
+                                      else "bytes"), bound_pipe=pipe)
+        shapes[name] = row
+    # the plain scans as a caller runs them (eager), at phase 10a's small
+    # shape
+    a = torch.randn(QGEMM_PLAIN_SHAPE[:2], generator=gen, device=device)
+    b = torch.randn(QGEMM_PLAIN_SHAPE[1:], generator=gen, device=device)
+    plain_ms = {
+        "sr": time_ms(lambda: qg.qgemm_faithful_ref(a, b, *fmt, key=key),
+                      iters=1, warmup=1),
+        "stats": time_ms(lambda: qg.qgemm_faithful_ref(a, b, *fmt,
+                                                       stats=True),
+                         iters=1, warmup=1)}
+    build = {k: v for k, v in qgemm_build().items()
+             if "SrCast" in k or "Counted" in k}
+    insns, loops, _ = _sass_loops("qgemm", QGEMM_SR_KERNEL)
+    lo, hi = _inner_loop(loops)
+    sr_sass = {p: v for p, v in _by_pipe(insns[lo:hi + 1], 4).items()
+               if p != "opcodes"}
+
+    fused = {"cli": train["cli"]["augment_fused_calls"],
+             "slice": _SLICE_PIPE[0].pipeline.fused_calls}
+    if min(fused.values()) <= 0:
+        raise AssertionError(f"phase 18: batches through the native fused "
+                             f"augment {fused}: the numpy path ran")
+    out = dict(odd_s=odd_s, main_s=main_s, main_checks_s=main_checks_s,
+               launches=got, graphed_plain_s=plain_s, plain_ms=plain_ms,
+               plain_shape=list(QGEMM_PLAIN_SHAPE), shapes=shapes,
+               build=build,
+               sr_sass_per_step=sr_sass, fused_augment_calls=fused,
+               health={f"{r} {n}": {f: float(v) for f, v in h[1].items()}
+                       for (r, n), h in health.items()})
+    print("quant layers: " + json.dumps(out), flush=True)
+    return out
+
+
+def quant_kernel_entries(ql: dict) -> list:
+    """The ``kernels`` line's entries of K8's SR and stats arms, from
+    phase 18: launches from its main path, times at the stage-1 shape
+    (stage 4 beside), the plain scans' ms at the stage-1 forward."""
+    out = []
+    for name, arm in (("qgemm_faithful_sr", "sr"),
+                      ("qgemm_faithful_stats", "stats")):
+        main = ql["shapes"]["stage1"]
+        plain_ms = ql["plain_ms"][arm]
+        out.append(dict(
+            name=name, route="cuda", source="cpd_tpu_torch/csrc/qgemm.cu",
+            replaces="cpd_tpu/ops/qgemm.py:64",
+            replaces_note="K8's arms: the JAX package runs its SR and stats "
+                          "scans as XLA (cpd_tpu/quant/quant_function.py:"
+                          "257-285)",
+            launches=ql["launches"][name], max_abs_err=0.0,
+            ms=main[arm]["ms"], plain_ms=plain_ms,
+            bound_ms=main[arm]["bound_ms"], bound_by=main[arm]["bound_by"],
+            library_ms=None, library_note=NO_LIBRARY_QGEMM,
+            shape=main["shape"], plain_shape=ql["plain_shape"],
+            rtne_ms=main["rtne"]["ms"],
+            shapes={s: {a: r[a] for a in ("rtne", arm, "stats_sr")}
+                    for s, r in ql["shapes"].items()},
+            parity="bitwise the plain scan (counts equal) over "
+                   f"{list(QGEMM_ARM_FORMATS)} at odd shapes and on the "
+                   "stem, stage-1 and FC forward operands; the stage-4 "
+                   "GEMMs bitwise run to run"))
+    return out
+
 # --overlap-nccl: steps timed an arm (the first WARMUP left out of the
 # summary), then one profiled step
 OVERLAP_NCCL = dict(steps=12, warmup=2, deadline=600.0)
@@ -8048,6 +8557,7 @@ def main() -> int:
     blocked = timed("9a", blocked_quantize_phase, device)
     blocked_train = timed("9b", blocked_train_phase, device)
     qgemm = timed("10a", qgemm_phase, device)
+    phase_seconds.update({f"10a {k}": v for k, v in qgemm["split_s"].items()})
     flash = timed("10b", flash_phase, device)
     lm = timed("10c-f", lm_phase, device)
     mha = timed("11a", mha_phase, device)
@@ -8070,6 +8580,7 @@ def main() -> int:
     ladder = timed("15", ladder_phase, device)
     switches = timed("16", switches_phase, device)
     zero = timed("17", zero_phase, device)
+    quant_layers = timed("18", quant_layers_phase, device, train)
     print("phase seconds: " + json.dumps(phase_seconds), flush=True)
     print("shared setup: " + json.dumps(shared), flush=True)
     if dist["b"]["world"] == 1:
@@ -8230,6 +8741,7 @@ def main() -> int:
                 zero["offset_arm"], launches_per_step_zero={
                     arm: r["launches_per_step"].get("sr_bits_offsets", 0)
                     for arm, r in zero["a"]["arms"].items()})
+    kernels += quant_kernel_entries(quant_layers)
     print(card, flush=True)      # exactly as nvidia-smi gives it
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

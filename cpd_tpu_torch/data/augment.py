@@ -5,9 +5,12 @@ same order, so one seed gives the same choices and the same pixels).
 `normalise` (mean/std in 0-255 units), reflect `pad_reflect`, and the
 `Crop` / `FlipLR` / `Cutout` transforms, whose random choices are drawn
 once per epoch for the whole dataset (`TransformPipeline.resample`).
-The JAX package also has a native C++ executor for the Crop/FlipLR
-chain, documented bitwise equal to this numpy path; the port keeps the
-numpy path only.
+`TransformPipeline.apply` runs the canonical chains, ``[Crop, FlipLR]``
+and ``[Crop, FlipLR, Cutout]`` on float32 data, as one threaded C++ pass
+(`native.fused_augment_np`, bitwise this numpy chain: pure copies and
+zeros) wherever the port's native library builds, as the JAX package
+does; other chains, and hosts without a C++ compiler, take the numpy
+path.  ``fused_calls`` counts the batches the native pass made.
 """
 
 from __future__ import annotations
@@ -112,6 +115,7 @@ class TransformPipeline:
         self.transforms = list(transforms)
         self.dataset_shape = tuple(dataset_shape)  # (N, H, W, C)
         self.choices: Optional[list] = None
+        self.fused_calls = 0   # batches made by the native fused pass
 
     def resample(self, seed: int):
         rng = np.random.RandomState(seed)
@@ -125,7 +129,34 @@ class TransformPipeline:
     def apply(self, x: np.ndarray, indices: np.ndarray) -> np.ndarray:
         if self.choices is None:
             raise RuntimeError("call resample(seed) before apply()")
+        fused = self._apply_fused(x, indices)
+        if fused is not None:
+            self.fused_calls += 1
+            return fused
         out = x[indices]
         for t, ch in zip(self.transforms, self.choices):
             out = t(out, {k: v[indices] for k, v in ch.items()})
         return out
+
+    def _apply_fused(self, x: np.ndarray, indices: np.ndarray
+                     ) -> Optional[np.ndarray]:
+        """The native Crop -> FlipLR [-> Cutout] pass for the canonical
+        chains on float32 data; None for any other chain or where the
+        native library is unavailable."""
+        kinds = [type(t).__name__ for t in self.transforms]
+        if (kinds not in (["Crop", "FlipLR"], ["Crop", "FlipLR", "Cutout"])
+                or x.dtype != np.float32):
+            return None
+        from .. import native
+        if not native.available():
+            return None
+        crop = self.transforms[0]
+        crop_ch, flip_ch = self.choices[0], self.choices[1]
+        cut = {}
+        if len(self.transforms) == 3:
+            cut = dict(cut_y=self.choices[2]["y0"],
+                       cut_x=self.choices[2]["x0"],
+                       cut_h=self.transforms[2].h, cut_w=self.transforms[2].w)
+        return native.fused_augment_np(
+            x, np.asarray(indices), crop_ch["y0"], crop_ch["x0"], crop.h,
+            crop.w, flip_ch["choice"].astype(np.uint8), **cut)

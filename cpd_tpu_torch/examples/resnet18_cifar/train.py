@@ -668,7 +668,9 @@ def run(args: argparse.Namespace, device="cuda", world: int = 1) -> dict:
     manager.close()
     if not diverged:
         export_torch()
-    out = {"step": step_no, "best_prec1": best, "diverged": diverged}
+    # the batches the native fused augment made (0 on the numpy path)
+    out = {"step": step_no, "best_prec1": best, "diverged": diverged,
+           "augment_fused_calls": pipeline.pipeline.fused_calls}
     if plan is not None or verify:
         out["resilience"] = meter.as_dict()
     if supervisor is not None:

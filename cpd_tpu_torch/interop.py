@@ -76,7 +76,11 @@ def load_jax_params(model: torch.nn.Module,
     """Copy a flax param tree (``{"params": ...}`` or the inner dict,
     numpy leaves) into ``model`` in place, on the model's own device.
     Every parameter must be covered and every leaf used, with equal
-    shapes — a partial load raises."""
+    shapes — a partial load raises.  The quantized layers keep the flax
+    modules' names and layouts, so a `QuantConv` (``weight`` (out,
+    in/groups, k, k), ``bias``), `QuantLinear` (``weight`` (out, in),
+    ``bias``) or `QuantDense` (``kernel`` (in, out), ``bias``) tree loads
+    as it is.  Returns ``model``."""
     params = params.get("params", params)
     flat = {_state_key(k): v for k, v in _flatten(params).items()}
     own = dict(model.named_parameters())

@@ -21,13 +21,26 @@ q being the RTNE cast `cast_body`.  This is the faithful mode of
   (built at first use, `ops.build`) or raise.  Launches are counted in
   ``qgemm_faithful.launches``.  The kernel takes the format as the
   constants of its cast, `cast_constants`.
+* `qgemm_faithful_sr` — the stochastically rounded scan (the JAX
+  package's SR faithful scan, `cpd_tpu/quant/quant_function.py:257-285`):
+  the cast at site s of step k takes the bits of
+  ``random_bits(fold_in(fold_in(key, k), s), (M, N))``.  On a CUDA
+  tensor the tile kernel's SR arm, which draws them in the kernel from
+  a (K, 5) table of site keys that a small kernel computes first
+  (`site_keys` is its plain version), counted in
+  ``qgemm_faithful_sr.launches``.
+* `qgemm_faithful_stats` — either scan with `quant_health`'s counters
+  over every cast (sat, underflow, nan, total = 5·K·M·N) as exact int64
+  counts; the product is bitwise the scan's.  On a CUDA tensor the tile
+  kernel's stats arm, counted in ``qgemm_faithful_stats.launches``.
 * `generic_launcher` — the kernel the tile kernel replaced (one output
   per thread, the generic cast), kept as the yardstick that
   ``chip_smoke.py`` times the tile kernel against.  No path calls it.
 
-Both are bitwise the same function: every float op of the kernel is
-round-to-nearest without FMA contraction, as torch's elementwise ops
-are.
+Kernel and plain version are bitwise the same function: every float op
+of the kernel is round-to-nearest without FMA contraction, as torch's
+elementwise ops are.  A CUDA tensor never takes the plain scan: a
+failed build or launch raises.
 """
 
 from __future__ import annotations
@@ -36,10 +49,18 @@ import ctypes
 
 import torch
 
-from ..quant.numerics import _validate, cast_body
+from ..quant import prng
+from ..quant.numerics import _validate, cast_body, cast_body_sr
 
-__all__ = ["qgemm_faithful", "qgemm_faithful_ref", "cast_constants",
+__all__ = ["qgemm_faithful", "qgemm_faithful_sr", "qgemm_faithful_stats",
+           "qgemm_faithful_ref", "site_keys", "cast_constants",
            "cast_probe_patterns", "generic_launcher"]
+
+SITES = 5                 # cast sites of a Kahan step
+_INF_BITS = 0x7F800000
+# the plain SR scan draws its bits for several steps at once, up to this
+# many elements of one int64 threefry stream
+_BITS_ELEMS = 1 << 24
 
 
 def _shapes(a: torch.Tensor, b: torch.Tensor) -> None:
@@ -48,27 +69,86 @@ def _shapes(a: torch.Tensor, b: torch.Tensor) -> None:
                          f"x {tuple(b.shape)}")
 
 
+def site_keys(key: tuple, k: int, device="cpu") -> torch.Tensor:
+    """The SR scan's key table: ``fold_in(fold_in(key, j), site)`` for
+    step j < k and site < 5, as a (k, 5, 2) int64 tensor of uint32
+    words, one vectorised threefry2x32 per fold on ``device`` (the plain
+    version of the SR arm's ``site_keys_kernel``)."""
+    j = torch.arange(k, dtype=torch.int64, device=device)
+    a0, a1 = prng.threefry2x32(int(key[0]), int(key[1]), 0, j)
+    site = torch.arange(SITES, dtype=torch.int64, device=device)
+    b0, b1 = prng.threefry2x32(a0[:, None], a1[:, None], 0, site[None, :])
+    return torch.stack([b0, b1], -1)
+
+
+def _sr_outputs(m: int, n: int) -> None:
+    if m * n >= 1 << 32:
+        raise ValueError(f"{m * n} outputs: the SR bits' 32-bit counter "
+                         "would wrap")
+
+
+def _tally(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """[sat, underflow, nan] of one cast, int64, by bit pattern
+    (`numerics.quant_health`)."""
+    xb = x.reshape(-1).view(torch.int32) & 0x7FFFFFFF
+    qb = q.reshape(-1).view(torch.int32) & 0x7FFFFFFF
+    return torch.stack([(qb == _INF_BITS).sum(),
+                        ((qb == 0) & (xb != 0) & (xb < _INF_BITS)).sum(),
+                        (xb > _INF_BITS).sum()])
+
+
 def qgemm_faithful_ref(a: torch.Tensor, b: torch.Tensor, exp_bits: int,
-                       man_bits: int) -> torch.Tensor:
-    """Plain version of K8: the ordered quantized Kahan scan over k."""
+                       man_bits: int, key=None, stats: bool = False):
+    """Plain version of K8 and of its arms: the ordered quantized Kahan
+    scan over k, RTNE, or with ``key`` stochastically rounded (site s of
+    step k on the bits of ``random_bits(fold_in(fold_in(key, k), s), (M,
+    N))``).  With ``stats`` it returns ``(out, counts)``, counts the int64
+    (4,) [sat, underflow, nan, total] over every cast."""
     _validate(exp_bits, man_bits)
     _shapes(a, b)
     a = a.to(torch.float32)
     b = b.to(torch.float32)
-    m, n = a.shape[0], b.shape[1]
+    m, kdim, n = a.shape[0], a.shape[1], b.shape[1]
     s = torch.zeros((m, n), dtype=torch.float32, device=a.device)
     c = torch.zeros_like(s)
+    counts = torch.zeros(3, dtype=torch.int64, device=a.device)
+    keys = None
+    if key is not None:
+        _sr_outputs(m, n)
+        keys = site_keys(key, kdim, a.device)
+        flat = torch.arange(m * n, dtype=torch.int64, device=a.device)
+    chunk = max(1, _BITS_ELEMS // max(SITES * m * n, 1))
 
-    def q(t):
-        return cast_body(t, exp_bits, man_bits)
+    def q(t, bits):
+        out = (cast_body(t, exp_bits, man_bits) if bits is None
+               else cast_body_sr(t, exp_bits, man_bits, bits))
+        if stats:
+            counts.add_(_tally(t, out))
+        return out
 
-    for k in range(a.shape[1]):
-        tmp = q(a[:, k, None] * b[None, k, :])
-        y = q(tmp - c)
-        t = q(s + y)
-        c = q(q(t - s) - y)
-        s = t
-    return s
+    for k0 in range(0, kdim, chunk):
+        bits = None
+        if keys is not None:
+            kk = keys[k0:k0 + chunk]
+            x0, x1 = prng.threefry2x32(kk[..., 0, None], kk[..., 1, None],
+                                       0, flat)
+            bits = x0 ^ x1                     # (steps, sites, m * n)
+        for j in range(min(chunk, kdim - k0)):
+            k = k0 + j
+
+            def site(i):
+                return None if bits is None else bits[j, i]
+
+            tmp = q(a[:, k, None] * b[None, k, :], site(0))
+            y = q(tmp - c, site(1))
+            t = q(s + y, site(2))
+            c = q(q(t - s, site(3)) - y, site(4))
+            s = t
+    if not stats:
+        return s
+    total = torch.full((1,), SITES * kdim * m * n, dtype=torch.int64,
+                       device=a.device)
+    return s, torch.cat([counts, total])
 
 
 class CastBits(ctypes.Structure):
@@ -153,6 +233,10 @@ def _library():
         lib.qgemm_launch.argtypes = [ctypes.c_void_p] * 3 \
             + [ctypes.c_int] * 3 + [CastBits, ctypes.c_void_p]
         lib.qgemm_launch.restype = ctypes.c_int
+        lib.qgemm_arm_launch.argtypes = [ctypes.c_void_p] * 3 \
+            + [ctypes.c_int] * 3 + [CastBits] + [ctypes.c_uint32] * 2 \
+            + [ctypes.c_void_p] * 3
+        lib.qgemm_arm_launch.restype = ctypes.c_int
         lib.qgemm_generic_launch.argtypes = [ctypes.c_void_p] * 3 \
             + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.qgemm_generic_launch.restype = ctypes.c_int
@@ -221,6 +305,74 @@ def qgemm_faithful(a: torch.Tensor, b: torch.Tensor, exp_bits: int,
 
 
 qgemm_faithful.launches = 0
+
+
+def _key(key) -> tuple:
+    if key is None or len(key) != 2:
+        raise ValueError(f"an SR key is a pair of uint32 words, got {key!r}")
+    return int(key[0]) & 0xFFFFFFFF, int(key[1]) & 0xFFFFFFFF
+
+
+def _arm(a, b, exp_bits, man_bits, key, counts) -> torch.Tensor:
+    """One launch of the tile kernel's SR and/or stats arm on CUDA
+    tensors: ``key`` (or None for RTNE) and ``counts`` (a zeroed int64
+    (4,) tensor on the card, or None)."""
+    m, n, k = a.shape[0], b.shape[1], a.shape[1]
+    if key is not None:
+        _sr_outputs(m, n)
+    if counts is not None and k >= 1 << 27:
+        raise ValueError(f"K = {k}: a thread's 32-bit counts could wrap")
+    # the kernel fills the (k, 5) table of site keys first
+    keys = (None if key is None else
+            torch.empty((k, SITES, 2), dtype=torch.int32, device=a.device))
+    key = (0, 0) if key is None else key
+    f = cast_constants(exp_bits, man_bits)
+    return _launch(a, b, 32, lambda lib, args, stream: lib.qgemm_arm_launch(
+        *args, f, key[0], key[1], None if keys is None else keys.data_ptr(),
+        None if counts is None else counts.data_ptr(), stream))
+
+
+def qgemm_faithful_sr(a: torch.Tensor, b: torch.Tensor, exp_bits: int,
+                      man_bits: int, key: tuple) -> torch.Tensor:
+    """The stochastically rounded quantized Kahan GEMM (K8's SR arm) with
+    the JAX package's key schedule: CPU tensors take
+    `qgemm_faithful_ref`; CUDA tensors one launch of the SR arm, counted
+    in ``qgemm_faithful_sr.launches``.  M·N < 2^32."""
+    _checked(a, b, exp_bits, man_bits)
+    key = _key(key)
+    if a.device.type == "cpu":
+        return qgemm_faithful_ref(a, b, exp_bits, man_bits, key=key)
+    if a.device.type != "cuda":
+        raise ValueError(f"unsupported device {a.device}")
+    out = _arm(a, b, exp_bits, man_bits, key, None)
+    qgemm_faithful_sr.launches += 1
+    return out
+
+
+qgemm_faithful_sr.launches = 0
+
+
+def qgemm_faithful_stats(a: torch.Tensor, b: torch.Tensor, exp_bits: int,
+                         man_bits: int, key=None) -> tuple:
+    """``(out, counts)``: the RTNE scan (or with ``key`` the SR one) and
+    the int64 (4,) [sat, underflow, nan, total] of its 5·K·M·N casts,
+    exact (K8's stats arm; the product bitwise the arm without
+    counting).  CPU tensors take `qgemm_faithful_ref`; CUDA tensors one
+    launch, counted in ``qgemm_faithful_stats.launches``."""
+    _checked(a, b, exp_bits, man_bits)
+    key = None if key is None else _key(key)
+    if a.device.type == "cpu":
+        return qgemm_faithful_ref(a, b, exp_bits, man_bits, key=key,
+                                  stats=True)
+    if a.device.type != "cuda":
+        raise ValueError(f"unsupported device {a.device}")
+    counts = torch.zeros(4, dtype=torch.int64, device=a.device)
+    out = _arm(a, b, exp_bits, man_bits, key, counts)
+    qgemm_faithful_stats.launches += 1
+    return out, counts
+
+
+qgemm_faithful_stats.launches = 0
 
 
 def generic_launcher():

@@ -32,7 +32,8 @@ __all__ = ["cast_body", "cast_body_sr", "cast_to_format",
            "cast_to_format_sr", "cast_to_format_sr_at", "HEALTH_FIELDS",
            "quant_health", "cast_to_format_stats", "max_finite",
            "wire_bytes",
-           "kv_page_bytes", "pack_code", "pack_exmy", "unpack_code",
+           "kv_page_bytes", "kv_pool_bytes", "cast_oracle",
+           "cast_oracle_sr", "pack_code", "pack_exmy", "unpack_code",
            "unpack_exmy", "format_max_exponent", "sidecar_bytes",
            "block_shifts", "cast_body_blocked", "pack_exmy_blocked",
            "unpack_exmy_blocked", "wire_bytes_blocked"]
@@ -260,22 +261,59 @@ def wire_bytes(exp_bits: int, man_bits: int) -> int:
 
 def kv_page_bytes(exp_bits: int, man_bits: int, page_size: int,
                   n_kv_heads: int, head_dim: int,
-                  block_size=None) -> int:
+                  block_size=None, tp: int = 1) -> int:
     """Bytes of ONE layer's K+V page in the packed codec (the blocked
-    row's shift sidecar included when ``block_size`` is given)."""
+    row's shift sidecar included when ``block_size`` is given).  ``tp``
+    prices a head-group-sharded page: ``tp`` shard-local rows of
+    ``n_kv_heads // tp`` heads, each with its own sidecar, summed."""
     if page_size < 1 or n_kv_heads < 1 or head_dim < 1:
         raise ValueError(
             f"page_size/n_kv_heads/head_dim must be >= 1, got "
             f"({page_size}, {n_kv_heads}, {head_dim})")
+    if tp < 1 or n_kv_heads % tp != 0:
+        raise ValueError(
+            f"tp={tp} must be >= 1 and divide n_kv_heads={n_kv_heads}: "
+            "pages shard by whole KV head groups")
     _validate_wire(exp_bits, man_bits)
-    n = n_kv_heads * head_dim
+    n = (n_kv_heads // tp) * head_dim
     row = n * wire_bytes(exp_bits, man_bits)
     if block_size is not None:
         if exp_bits == 8 and man_bits == 23:
             raise ValueError("block_size at (8, 23): the fp32 byte split "
                              "has nothing to scale")
         row += sidecar_bytes(n, block_size)
-    return 2 * page_size * row
+    return tp * 2 * page_size * row
+
+
+def kv_pool_bytes(exp_bits: int, man_bits: int, page_size: int,
+                  n_kv_heads: int, head_dim: int, *, n_layers: int,
+                  logical_pages: int, shared_pages: int = 0,
+                  block_size=None, tp: int = 1) -> dict:
+    """Whole-pool KV bytes with prefix-cache dedup: ``logical_pages``
+    page ids as the requests see them, ``shared_pages`` of them
+    copy-on-write references that cost no resident bytes; a page id
+    spans ``n_layers`` layers.  ``{page_bytes, logical_bytes,
+    resident_bytes, saved_bytes}``, and at ``tp > 1`` also ``tp`` and
+    ``shard_page_bytes`` (one shard's whole-model page)."""
+    if n_layers < 1:
+        raise ValueError(f"n_layers must be >= 1, got {n_layers}")
+    if logical_pages < 0 or not 0 <= shared_pages <= logical_pages:
+        raise ValueError(
+            f"need 0 <= shared_pages <= logical_pages, got "
+            f"({shared_pages}, {logical_pages})")
+    page = n_layers * kv_page_bytes(exp_bits, man_bits, page_size,
+                                    n_kv_heads, head_dim,
+                                    block_size=block_size, tp=tp)
+    out = {"page_bytes": page,
+           "logical_bytes": logical_pages * page,
+           "resident_bytes": (logical_pages - shared_pages) * page,
+           "saved_bytes": shared_pages * page}
+    if tp > 1:
+        out["tp"] = tp
+        out["shard_page_bytes"] = n_layers * kv_page_bytes(
+            exp_bits, man_bits, page_size, n_kv_heads // tp, head_dim,
+            block_size=block_size)
+    return out
 
 
 def _split_bytes(code: torch.Tensor, n_bytes: int) -> torch.Tensor:
@@ -512,3 +550,100 @@ def unpack_exmy_blocked(packed: torch.Tensor, exp_bits: int, man_bits: int,
     q = unpack_exmy(codes, exp_bits, man_bits)
     k = _per_element_shifts(shifts, n, block_size)
     return _unscale_flush(q, k)
+
+
+# --------------------------------------------------------------------------
+# Scalar oracles: the reference CUDA cast (float_kernel.cu:10-92) followed
+# line by line in numpy scalars, independent of the tensor bodies above;
+# the tests hold `cast_body`/`cast_body_sr` to them.
+# --------------------------------------------------------------------------
+
+
+def _oracle_value(man: int, new_e: int, negative: bool) -> float:
+    """man / 2^23 scaled by 2^new_e one fp32 doubling or halving at a
+    time, as the reference kernel does, then the sign."""
+    import numpy as np
+
+    res = np.float32(man) / np.float32(1 << 23)
+    step = np.float32(2.0)
+    for _ in range(abs(new_e)):
+        res = np.float32(res * step) if new_e >= 0 else np.float32(
+            res / step)
+    return float(-res if negative else res)
+
+
+def _oracle_fields(x: float) -> tuple:
+    import numpy as np
+
+    f = np.float32(x)
+    old = int(np.array(f, np.float32).view(np.uint32))
+    return f, old, (old & 0x7F800000) >> 23, old & 0x007FFFFF
+
+
+def cast_oracle_sr(x: float, exp_bits: int, man_bits: int, r: int) -> float:
+    """Scalar oracle of the stochastic cast: `cast_oracle`'s control flow
+    with the RTNE step replaced by add-``r``-then-truncate, ``r`` in
+    [0, 2^(23 - man_bits))."""
+    _validate(exp_bits, man_bits)
+    s = 23 - man_bits
+    if not (0 <= r < (1 << s if s > 0 else 1)):
+        raise ValueError(f"r must be in [0, 2^{max(s, 0)}), got {r}")
+    f, old, exp, man = _oracle_fields(x)
+    if exp == 0xFF or (exp == 0 and man == 0):
+        return float(f)
+    if exp == 0:
+        return 0.0
+    man |= 1 << 23
+    bias = (1 << (exp_bits - 1)) - 1
+    new_e = exp - 127 + bias
+    if new_e >= (1 << exp_bits) - 1:
+        return float("inf") if f > 0 else float("-inf")
+    if new_e > 0:
+        new_e -= bias
+    else:
+        shift = 1 - new_e
+        man = man >> shift if shift < 32 else 0
+        new_e = 1 - bias
+    if man_bits != 23:
+        man = (man + r) & ~((1 << s) - 1)
+    return _oracle_value(man, new_e, bool(old >> 31))
+
+
+def _oracle_rtne(man: int, s: int) -> int:
+    """The reference kernel's round-to-nearest-even at bit s (s >= 1)."""
+    half = 1 << (s - 1)
+    if man & half == 0:
+        return man & ~((1 << s) - 1)
+    if man & (half - 1):
+        return (man + half) & ~((1 << s) - 1)
+    if man & (1 << s):
+        man += half
+    return man & ~((1 << s) - 1)
+
+
+def cast_oracle(x: float, exp_bits: int, man_bits: int) -> float:
+    """Scalar numpy transliteration of the reference CUDA cast
+    (float_kernel.cu:10-92), the correctness oracle of the tests: its
+    control flow literally, with (8, 23) defined as no rounding on a
+    subnormal target."""
+    _validate(exp_bits, man_bits)
+    f, old, exp, man = _oracle_fields(x)
+    if exp == 0xFF or (exp == 0 and man == 0):
+        return float(f)
+    if exp == 0:
+        return 0.0
+    man |= 1 << 23
+    bias = (1 << (exp_bits - 1)) - 1
+    new_e = exp - 127 + bias
+    if new_e >= (1 << exp_bits) - 1:
+        return float("inf") if f > 0 else float("-inf")
+    s = 23 - man_bits
+    if new_e > 0:
+        new_e -= bias
+    else:
+        shift = 1 - new_e
+        man = man >> shift if shift < 32 else 0
+        new_e = 1 - bias
+    if man_bits != 23:
+        man = _oracle_rtne(man, s)
+    return _oracle_value(man, new_e, bool(old >> 31))

@@ -12,12 +12,17 @@ without JAX too, where the JAX-importing conftest is skipped:
   at another alignment); the verified ring's gathered wire; launches back
   to back and on two streams at once, each stream with its own scratch;
 * the APS e5m2 reduce of one ResNet-50 bf16 step's gradients at W = 2,
-  faithful and fast: the kernels BITWISE the plain versions.
+  faithful and fast: the kernels BITWISE the plain versions;
+* K8's SR and stats arms (`qgemm_faithful_sr`, `qgemm_faithful_stats`)
+  BITWISE their plain scan over formats, odd and tile-cutting shapes and
+  inputs that saturate and underflow, the counts equal, one launch each;
+  the stats arm's product bitwise the arm without counting.
 """
 
 import pytest
 import torch
 
+from cpd_tpu_torch.ops import qgemm as tqg
 from cpd_tpu_torch.ops import quantize as tq
 
 ROW_SIZES = (1, 15, 16, 17, 16 * 40 + 3, 16 * 40 + 9, 100_001)
@@ -111,3 +116,38 @@ def test_resnet50_reduce_kernels_match_plain_on_card(mode):
     for r in range(2):
         for i, (a, b) in enumerate(zip(got[r], want[r])):
             assert torch.equal(a.view(torch.int32), b.view(torch.int32)), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", [(4, 3), (5, 2), (8, 23), (2, 1)])
+def test_qgemm_sr_and_stats_arms_match_plain_on_card(fmt):
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(sum(fmt))
+    key = (12345, 678)
+    for m, k, n in [(37, 29, 23), (5, 33, 40), (1, 1, 1), (70, 65, 33)]:
+        a = torch.randn((m, k), generator=gen, device="cuda") * 8
+        b = torch.randn((k, n), generator=gen, device="cuda")
+        a[0] *= 1e4                           # saturates the small formats
+        a[-1] *= 2.0 ** -30                   # underflows
+        what = f"{fmt} {(m, k, n)}"
+        before = (tqg.qgemm_faithful_sr.launches,
+                  tqg.qgemm_faithful_stats.launches)
+        sr = tqg.qgemm_faithful_sr(a, b, *fmt, key)
+        out, counts = tqg.qgemm_faithful_stats(a, b, *fmt)
+        sr_out, sr_counts = tqg.qgemm_faithful_stats(a, b, *fmt, key=key)
+        torch.cuda.synchronize()
+        assert (tqg.qgemm_faithful_sr.launches,
+                tqg.qgemm_faithful_stats.launches) == (before[0] + 1,
+                                                       before[1] + 2)
+        want_sr = tqg.qgemm_faithful_ref(a, b, *fmt, key=key)
+        want, want_counts = tqg.qgemm_faithful_ref(a, b, *fmt, stats=True)
+        want_sr2, want_sr_counts = tqg.qgemm_faithful_ref(a, b, *fmt,
+                                                          key=key,
+                                                          stats=True)
+        for got, ref in ((sr, want_sr), (sr_out, want_sr2), (out, want),
+                         (out, tqg.qgemm_faithful(a, b, *fmt))):
+            assert torch.equal(got.view(torch.int32),
+                               ref.view(torch.int32)), what
+        assert torch.equal(counts, want_counts), (what, counts, want_counts)
+        assert torch.equal(sr_counts, want_sr_counts), what
+        assert int(counts[3]) == 5 * m * k * n

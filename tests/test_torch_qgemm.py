@@ -161,8 +161,6 @@ def test_fast_qgemm_within_one_ulp(fmt):
 def test_unported_qgemm_options_raise():
     a = torch.ones((2, 3))
     b = torch.ones((3, 2))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tqf.qgemm(a, b, 5, 2, rounding="stochastic", key=prng.PRNGKey(0))
     with pytest.raises(ValueError, match="mode"):
         tqf.qgemm(a, b, 5, 2, mode="exact")
     with pytest.raises(ValueError, match=r"\(M,K\)x\(K,N\)"):
