@@ -39,9 +39,11 @@ Phases; any failure exits non-zero:
    once per layer per decode step, then serve the same trace with the
    plain read path and require the same tokens and logits within
    ``LOGIT_ATOL``;
-5. profile 30 engine steps of a fresh fused engine (device busy share,
-   kernel launches, K12's device ms and launches and the heaviest
-   kernels per step);
+5. profile 15 engine steps of a fresh fused engine after 10 untraced
+   ones (device busy share, kernel launches, K12's device ms and
+   launches and the heaviest kernels per step; 30 steps until phase 19
+   came: the profile's records of ~3000 launches a step cost most of
+   the phase's ~46 s);
 6. train full-width ResNet-18/CIFAR (11.2 M parameters, weights from
    seed 24) on a `LocalMesh` of 4 data-parallel ranks on the card, batch
    128 per rank on the synthetic CIFAR-10 with the port's sampler and
@@ -142,9 +144,11 @@ Phases; any failure exits non-zero:
    with the fast FFN; (d) one full-width step at ffn
    (8,23) through K9/K10 and through their plain versions: loss and
    weights within ``LM_LOSS_RTOL`` / ``LM_WEIGHT_ATOL``; (e) a small
-   faithful LM, 2 steps through every kernel and through every plain
-   version: losses within ``LM_SMALL_LOSS_RTOL``, and its FFN GEMMs on
-   the run's own inputs bitwise; (f) 2 iterations of the LM trainer CLI
+   faithful LM, 1 step through every kernel and through every plain
+   version: losses within ``LM_SMALL_LOSS_RTOL``, each leaf's update
+   within ``LM_SMALL_UPDATE_SHARE`` of the plain update's norm, and
+   its FFN GEMMs on the run's own inputs bitwise; (f) 2 iterations of the
+   LM trainer CLI
    at the slice's flags;
 11. bench.py's bf16 MHA transformer LM: (a) hold K11 (`flash_mha_fwd`,
    `flash_mha_bwd`: the MHA flash kernel, forward with its LSE and its own
@@ -331,7 +335,25 @@ Phases; any failure exits non-zero:
    and stage-4 shapes against its bound; the SR and stats kernels'
    registers and spills; phase 6's CLI and the slice's pipeline made
    their batches through the native fused augment;
-19. print each phase's wall seconds (``phase seconds: {...}``, phase 10a
+19. sequence parallelism on the serving-width GQA LM (vocab 32000,
+   d_model 512, 4 layers, 8 q / 2 kv heads, d_ff 2048, fp32): (a) a
+   `LocalMesh` of dp 2 x sp 2, 4 sequences a dp rank of T = 2048
+   (T_local 1024), 2 steps of each `SP_ARMS` arm — ring attention with
+   the APS e5m2 RTNE ring reduce, and Ulysses with the flash kernels
+   (K9/K10 on the gathered sequence), dropout 0.1 and the SR ring
+   reduce: step 0's loss within ``LM_LOSS_BAND`` of ln V, the first
+   step's sp-summed gradients within ``SP["grad_rtol"]`` of the same
+   model at sp = 1 (dropout off for that gate), the dp reduce bitwise its
+   plain version on them, one layer's K9/K10 calls against their plain
+   versions, one layer's dropout mask bitwise the CPU bits, launches as
+   ``sp_design`` says; step ms, ``fwd_bwd_ms``, ``reduce_ms``, tokens/s;
+   (b) one spawn of 2 gloo processes sharing the card runs the LM CLI
+   under ``--dist --sp 2`` in each mode: losses and weights bitwise the
+   `LocalMesh` dp 1 x sp 2 run of the same argv, and the bytes each rank
+   hands to the sp collectives equal the counts from the shapes; (c) with
+   two cards or more, one nccl process a card at sp = the card count,
+   bitwise the `LocalMesh` (extra evidence: the gates hold on one card);
+20. print each phase's wall seconds (``phase seconds: {...}``, phase 10a
    split into its plain checks, cast probe, timed turns and census), one
    JSON line ``{"kernels": [...]}`` and, last,
    ``{"ok": true, "device": {...}}``.
@@ -443,7 +465,9 @@ LM_TRAIN = dict(world=2, per_rank_batch=4, seq=1024, steps=3, fmt=(5, 2),
 # launches ~150 kernels per k step
 LM_SMALL = dict(vocab_size=1024, d_model=128, n_layers=1, n_heads=4,
                 n_kv_heads=2, d_ff=512)
-LM_SMALL_TRAIN = dict(world=2, per_rank_batch=2, seq=128, steps=2)
+# one step (two until phase 19 came: the plain qgemm's second step cost
+# ~26 s on the card); the update of that step is held leaf by leaf
+LM_SMALL_TRAIN = dict(world=2, per_rank_batch=2, seq=128, steps=1)
 QGEMM_FORMATS = ((4, 3), (5, 2), (5, 10), (8, 23), (2, 1))
 # phase 10a: K8's tile kernel against the generic kernel it replaced
 # (qgemm.generic_launcher), timed in turns at the slice's four FFN GEMM
@@ -489,6 +513,14 @@ LM_WEIGHT_ATOL = 1e-6
 # boundary casts to the neighbouring code (1/16) on one side, which moves
 # a step's loss by up to ~2e-3 relative (tests/test_torch_lm.py)
 LM_SMALL_LOSS_RTOL = 5e-3
+# ... and moves a few elements' updates by up to one e4m3 step, which
+# shows in norm as a small share of the leaf's update: each leaf's
+# difference is held within this share of the plain update's norm, 4x
+# the largest share a sound run gave on an H100 (0.00727, the same in
+# every run: the data and the kernels are deterministic); planted on the
+# kernel side alone, a dp reduce output scaled by 1.1 reads 0.100 and
+# K9's forward output scaled by 1 + 2^-10 reads 0.152 (PERF.md)
+LM_SMALL_UPDATE_SHARE = 0.03
 # the TPU kernels K8-K10 replace (K9/K10 in fp32, the LM's dtype)
 LM_KERNELS = {"qgemm_faithful": ("cpd_tpu/ops/qgemm.py:64",
                                  "cpd_tpu_torch/csrc/qgemm.cu"),
@@ -1966,7 +1998,7 @@ def serve_phase(device) -> dict:
     return out
 
 
-def profile_phase(device, steps: int = 30, warmup: int = 10) -> dict:
+def profile_phase(device, steps: int = 15, warmup: int = 10) -> dict:
     """Where an engine step's time goes: a fresh fused engine on the same
     trace, ``steps`` engine steps under torch.profiler after ``warmup``
     untraced ones.  Device busy share = summed kernel time over the
@@ -4556,6 +4588,74 @@ def lm_operand_check(model, batch, world, device) -> dict:
     return out
 
 
+def lm_small_vs_plain(device) -> dict:
+    """10e: a small faithful LM, ``LM_SMALL_TRAIN["steps"]`` steps through
+    every kernel and through every plain version: the losses within
+    ``LM_SMALL_LOSS_RTOL``, each leaf's update within
+    ``LM_SMALL_UPDATE_SHARE`` of the plain update's norm, and the FFN's
+    GEMMs on the run's own inputs bitwise."""
+    import torch
+
+    from cpd_tpu_torch.ops import qgemm as qg
+    from cpd_tpu_torch.train import sgd
+
+    sw = LM_SMALL_TRAIN["world"]
+    s_batches = lm_batches(LM_SMALL["vocab_size"], LM_SMALL_TRAIN["steps"],
+                           sw * LM_SMALL_TRAIN["per_rank_batch"],
+                           LM_SMALL_TRAIN["seq"], 1)
+    small, moved = [], []
+    for plain in (False, True):
+        m = lm_model(device, 2, LM_SMALL, **LM_PATH)
+        start = [p.detach().clone() for p in m.parameters()]
+        with contextlib.ExitStack() as stack:
+            if plain:
+                stack.enter_context(plain_kernels())
+            _, _, met = lm_train(device, m, s_batches, sw,
+                                 opt=sgd(lambda s: 0.01, momentum=0.9),
+                                 fused=False if plain else None)
+        small.append([x["loss"] for x in met])
+        moved.append([p.detach() - p0 for p, p0 in zip(m.parameters(),
+                                                       start)])
+    for a, b in zip(*small):
+        if abs(a - b) > LM_SMALL_LOSS_RTOL * abs(b):
+            raise AssertionError(f"small faithful LM: losses {small[0]} "
+                                 f"(kernels) vs {small[1]} (plain)")
+    update_share = max(
+        float((a - b).norm() / b.norm().clamp_min(1e-30))
+        for a, b in zip(*moved))
+    if not update_share <= LM_SMALL_UPDATE_SHARE:
+        raise AssertionError(f"small faithful LM: an update through the "
+                             f"kernels is {update_share} of the plain one's "
+                             f"norm away from it")
+    del moved
+    # the FFN's own GEMMs on the inputs the kernel run gave them: bitwise
+    fmt = LM_PATH["ffn_exp"], LM_PATH["ffn_man"]
+    seen = []
+    hook = m.blocks[0].wi.register_forward_hook(
+        lambda mod, args, res: seen.append(args[0].detach()))
+    with torch.no_grad():
+        m(torch.as_tensor(s_batches[0][0], device=device))
+    hook.remove()
+    x2 = seen[0].reshape(-1, seen[0].shape[-1])
+    g = torch.randn((x2.shape[0], LM_SMALL["d_ff"]), device=device)
+    kern = m.blocks[0].wi.kernel.detach()
+    for name, a, b in (("forward", x2, kern), ("grad_x", g, kern.t()),
+                       ("grad_W", g.t(), x2)):
+        if not same_bits(qg.qgemm_faithful(a, b, *fmt),
+                         qg.qgemm_faithful_ref(a, b, *fmt)):
+            raise AssertionError(f"small LM FFN {name} GEMM: K8 differs "
+                                 "from its plain version")
+    print(f"train lm small: {LM_SMALL_TRAIN['steps']} faithful e4m3 steps "
+          f"at W={sw} through K8/K9/K10 and the kernels of the reduce vs all "
+          f"plain versions: losses {small[0]} vs {small[1]} (rtol "
+          f"{LM_SMALL_LOSS_RTOL}), updates within {update_share:.3g} of "
+          f"their norm (gate {LM_SMALL_UPDATE_SHARE:.3g}); the FFN's "
+          "forward, grad_x and grad_W "
+          "GEMMs on the run's own inputs bitwise", flush=True)
+    return dict(losses_kernels=small[0], losses_plain=small[1],
+                update_share=update_share)
+
+
 def lm_phase(device) -> dict:
     """Phase 10c-f: the LM slice end to end at full width through K8, K9
     and K10 (and a fast-FFN step), kernels vs plain versions at full
@@ -4565,7 +4665,6 @@ def lm_phase(device) -> dict:
 
     from cpd_tpu_torch.examples.lm import train as cli
     from cpd_tpu_torch.obs.timing import now
-    from cpd_tpu_torch.ops import qgemm as qg
     from cpd_tpu_torch.parallel.overlap import (DEFAULT_BUCKET_ELEMS,
                                                 bucket_layout)
     from cpd_tpu_torch.train import sgd
@@ -4659,48 +4758,7 @@ def lm_phase(device) -> dict:
 
     # (e) the whole faithful path, small: all kernels vs all plain versions
     marks.append(now())
-    sw = LM_SMALL_TRAIN["world"]
-    s_batches = lm_batches(LM_SMALL["vocab_size"], LM_SMALL_TRAIN["steps"],
-                           sw * LM_SMALL_TRAIN["per_rank_batch"],
-                           LM_SMALL_TRAIN["seq"], 1)
-    small = []
-    for plain in (False, True):
-        m = lm_model(device, 2, LM_SMALL, **LM_PATH)
-        with contextlib.ExitStack() as stack:
-            if plain:
-                stack.enter_context(plain_kernels())
-            _, _, met = lm_train(device, m, s_batches, sw,
-                                 opt=sgd(lambda s: 0.01, momentum=0.9),
-                                 fused=False if plain else None)
-        small.append([x["loss"] for x in met])
-    for a, b in zip(*small):
-        if abs(a - b) > LM_SMALL_LOSS_RTOL * abs(b):
-            raise AssertionError(f"small faithful LM: losses {small[0]} "
-                                 f"(kernels) vs {small[1]} (plain)")
-    # the FFN's own GEMMs on the inputs the kernel run gave them: bitwise
-    fmt = LM_PATH["ffn_exp"], LM_PATH["ffn_man"]
-    seen = []
-    hook = m.blocks[0].wi.register_forward_hook(
-        lambda mod, args, res: seen.append(args[0].detach()))
-    with torch.no_grad():
-        m(torch.as_tensor(s_batches[0][0], device=device))
-    hook.remove()
-    x2 = seen[0].reshape(-1, seen[0].shape[-1])
-    g = torch.randn((x2.shape[0], LM_SMALL["d_ff"]), device=device)
-    kern = m.blocks[0].wi.kernel.detach()
-    for name, a, b in (("forward", x2, kern), ("grad_x", g, kern.t()),
-                       ("grad_W", g.t(), x2)):
-        if not same_bits(qg.qgemm_faithful(a, b, *fmt),
-                         qg.qgemm_faithful_ref(a, b, *fmt)):
-            raise AssertionError(f"small LM FFN {name} GEMM: K8 differs "
-                                 "from its plain version")
-    out["small_vs_plain"] = dict(losses_kernels=small[0],
-                                 losses_plain=small[1])
-    print(f"train lm small: {LM_SMALL_TRAIN['steps']} faithful e4m3 steps "
-          f"at W={sw} through K8/K9/K10 and the kernels of the reduce vs all "
-          f"plain versions: losses {small[0]} vs {small[1]} (rtol "
-          f"{LM_SMALL_LOSS_RTOL}); the FFN's forward, grad_x and grad_W "
-          "GEMMs on the run's own inputs bitwise", flush=True)
+    out["small_vs_plain"] = lm_small_vs_plain(device)
 
     # (f) the trainer CLI
     marks.append(now())
@@ -4711,7 +4769,8 @@ def lm_phase(device) -> dict:
             str(LM_MODEL["n_kv_heads"]), "--seq-len", str(seq),
             "--batch-size", str(LM_TRAIN["per_rank_batch"]), "--dp", str(w),
             "--attn-impl", "flash", "--flash-bwd", "pallas", "--ffn-exp",
-            str(fmt[0]), "--ffn-man", str(fmt[1]), "--ffn-mode", "faithful",
+            str(LM_PATH["ffn_exp"]), "--ffn-man", str(LM_PATH["ffn_man"]),
+            "--ffn-mode", "faithful",
             "--use_APS", "--grad_exp", str(LM_TRAIN["fmt"][0]),
             "--grad_man", str(LM_TRAIN["fmt"][1]), "--max-iter", str(iters),
             "--print-freq", "1"]
@@ -8321,6 +8380,435 @@ def quant_kernel_entries(ql: dict) -> list:
 
 # --overlap-nccl: steps timed an arm (the first WARMUP left out of the
 # summary), then one profiled step
+# -- phase 19: sequence parallelism ----------------------------------------
+
+# 19a: dp x sp ranks on the LocalMesh, rows a dp rank, the global sequence;
+# the gradient gate's relative tolerance against the same model at sp = 1
+SP = dict(dp=2, sp=2, rows=4, seq=2048, steps=2, fmt=(5, 2), seed=19,
+          lr=0.01, grad_rtol=1e-5, dropout=0.1, deadline=300.0)
+# name -> the model's sp options and the step's reduce options
+SP_ARMS = {
+    "ring": dict(model=dict(attn_impl="xla", sp_mode="ring"),
+                 step=dict(mode="ring")),
+    "ulysses": dict(model=dict(attn_impl="flash", flash_bwd="pallas",
+                               sp_mode="ulysses",
+                               dropout_rate=SP["dropout"]),
+                    step=dict(mode="ring", grad_rounding="stochastic",
+                              grad_seed=0)),
+}
+
+
+def sp_design(name: str, leaves: int, buckets: int) -> dict:
+    """The launches of one 19a step of arm ``name``: the dp reduce over
+    the sp-index-0 ranks (`reduce_design` at W = dp: the ring mode's APS
+    casts, K6 a bucket and K5 (W - 1) a bucket a rank, their SR arms and
+    ``sr_bits`` at every cast site under SR); under Ulysses flash one K9
+    and one K10 a layer and rank; with dropout two flat ``sr_bits`` draws
+    a layer and rank."""
+    arm = SP_ARMS[name]
+    n, ranks = LM_MODEL["n_layers"], SP["dp"] * SP["sp"]
+    sr = arm["step"].get("grad_rounding") == "stochastic"
+    want = reduce_design("ring", sr, False, SP["dp"], leaves, buckets)
+    if arm["model"]["attn_impl"] == "flash":
+        want.update(flash_gqa_fwd=n * ranks, flash_gqa_bwd=n * ranks)
+    if arm["model"].get("dropout_rate"):
+        want["sr_bits"] += 2 * n * ranks
+    return want
+
+
+def sp_step_kw(name: str) -> dict:
+    """The step keywords of arm ``name``: the APS e5m2 reduce."""
+    return dict(use_aps=True, grad_exp=SP["fmt"][0], grad_man=SP["fmt"][1],
+                **SP_ARMS[name]["step"])
+
+
+def sp_reduce_kw(name: str) -> dict:
+    """`sum_gradients` keywords of arm ``name``'s first step."""
+    from cpd_tpu_torch.parallel.dist import grad_sr_key
+
+    kw = sp_step_kw(name)
+    sr = kw.pop("grad_rounding", "nearest") == "stochastic"
+    seed = kw.pop("grad_seed", 0)
+    return dict(kw, rounding="stochastic" if sr else "nearest",
+                key=grad_sr_key(seed, 0, 1) if sr else None)
+
+
+def sp_kernel_check(model, toks, mesh) -> dict:
+    """One layer's K9 and K10 calls on the card against their plain
+    versions: K9's inputs recorded from layer 0's Ulysses middle step (a
+    forward of dp group 0), the backward fed a seeded cotangent."""
+    import torch
+
+    from cpd_tpu_torch.ops import flash_gqa as fl
+
+    real, seen = fl.flash_gqa_fwd, []
+
+    def record(q, k, v, causal, *a, **kw):
+        if not seen:
+            seen.append((q.clone(), k.clone(), v.clone(), causal))
+        return real(q, k, v, causal, *a, **kw)
+
+    # the wrapper counts in its module's name while it stands there
+    record.launches = real.launches
+    rows, t_local = toks.shape[0] // SP["dp"], toks.shape[1] // SP["sp"]
+    fl.flash_gqa_fwd = record
+    try:
+        with torch.no_grad():
+            model.eval()
+            model.forward_sp([toks[:rows, j * t_local:(j + 1) * t_local]
+                              for j in range(SP["sp"])],
+                             mesh.axis("sp", list(range(SP["sp"]))))
+    finally:
+        fl.flash_gqa_fwd = real
+        real.launches = record.launches
+        model.train()
+    q, k, v, causal = seen[0]
+    gen = torch.Generator(device=q.device).manual_seed(SP["seed"])
+    g = torch.randn(q.shape, generator=gen, device=q.device)
+    out, lse = fl.flash_gqa_fwd(q, k, v, causal)
+    grads = fl.flash_gqa_bwd(q, k, v, out, lse, g, causal)
+    r_out, r_lse = fl.flash_gqa_fwd_ref(q, k, v, causal)
+    r_grads = fl.flash_gqa_bwd_ref(q, k, v, r_out, r_lse, g, causal)
+    fwd = max(max_abs_diff(out, r_out), max_abs_diff(lse, r_lse))
+    bwd = max(max_abs_diff(a, b) for a, b in zip(grads, r_grads))
+    if not (fwd <= FLASH_ATOL and bwd <= FLASH_GRAD_ATOL):
+        raise AssertionError(f"19a Ulysses K9/K10 at {tuple(q.shape)}: "
+                             f"{fwd} / {bwd} past {FLASH_ATOL} / "
+                             f"{FLASH_GRAD_ATOL}")
+    return dict(shape=list(q.shape), kv_heads=k.shape[2],
+                contiguous=q.is_contiguous(), fwd_err=fwd, bwd_err=bwd)
+
+
+def sp_mask_check(device) -> dict:
+    """One layer's dropout mask at 19a's activation shape, drawn on the
+    card (`sr_bits`' flat arm), bitwise the CPU bits of `quant.prng`."""
+    import torch
+
+    from cpd_tpu_torch.models.transformer import dropout_key, dropout_mask
+    from cpd_tpu_torch.train.lm import step_dropout_key
+
+    key = dropout_key(step_dropout_key(0, 0, 1, 0, 1, 1), 0, 1)
+    shape = (SP["rows"], SP["seq"] // SP["sp"], LM_MODEL["d_model"])
+    card = dropout_mask(key, torch.empty(shape, device=device),
+                        SP["dropout"])
+    cpu = dropout_mask(key, torch.empty(shape), SP["dropout"])
+    if not torch.equal(card.cpu(), cpu):
+        raise AssertionError("19a: the card's dropout mask differs from "
+                             "the CPU bits of quant/prng.py")
+    return dict(shape=list(shape), kept=float(cpu.float().mean()))
+
+
+def sp_arm(device, name: str) -> dict:
+    """19a, one arm: the gates on the first batch, then ``SP["steps"]``
+    counted steps, then the step's split (module docstring)."""
+    import torch
+
+    from cpd_tpu_torch.obs.timing import now
+    from cpd_tpu_torch.parallel.dist import sum_gradients
+    from cpd_tpu_torch.parallel.mesh import make_mesh
+    from cpd_tpu_torch.parallel.overlap import (DEFAULT_BUCKET_ELEMS,
+                                                bucket_layout)
+    from cpd_tpu_torch.train import create_train_state, sgd
+    from cpd_tpu_torch.train.lm import (as_tokens, lm_local_gradients,
+                                        lm_sp_gradients, make_lm_train_step,
+                                        step_dropout_key)
+    from cpd_tpu_torch.train.step import fp32_numerics
+
+    dp, sp = SP["dp"], SP["sp"]
+    mesh = make_mesh(dp, sp, device)
+    dp_view = mesh.axis("dp", [d * sp for d in range(dp)])
+    model = lm_model(device, SP["seed"], LM_MODEL, sp_axis="sp",
+                     **SP_ARMS[name]["model"])
+    params = list(model.parameters())
+    batches = lm_batches(LM_MODEL["vocab_size"], SP["steps"],
+                         dp * SP["rows"], SP["seq"], SP["seed"])
+    toks, tgts = as_tokens(*batches[0], device)
+    out = dict(arm=name)
+    # the gradient gate, dropout off on both sides
+    for blk in model.blocks:
+        blk.dropout_rate = 0.0
+    with fp32_numerics():
+        g_sp, _, _ = lm_sp_gradients(model, toks, tgts, mesh)
+        g_one, _, _ = lm_local_gradients(model, toks, tgts,
+                                         make_mesh(dp, 1, device))
+    for blk in model.blocks:
+        blk.dropout_rate = SP_ARMS[name]["model"].get("dropout_rate", 0.0)
+    rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+              for d in range(dp) for a, b in zip(g_sp[d * sp], g_one[d]))
+    del g_one
+    if not rel <= SP["grad_rtol"]:
+        raise AssertionError(f"19a {name}: the sp-summed gradients are "
+                             f"{rel} relative from sp = 1's")
+    out["grad_rel_err"] = rel
+    grads = [g_sp[d * sp] for d in range(dp)]
+    del g_sp
+    red = [sum_gradients(grads, dp_view, fused=f, **sp_reduce_kw(name))
+           for f in (None, False)]
+    if not all(same_bits(a, b) for a, b in zip(red[0][0], red[1][0])):
+        raise AssertionError(f"19a {name}: the dp reduce's kernels differ "
+                             "from its plain version")
+    del red, grads
+    if SP_ARMS[name]["model"]["attn_impl"] == "flash":
+        out["k9_k10"] = sp_kernel_check(model, toks, mesh)
+    opt = sgd(lambda s: SP["lr"], momentum=0.9)
+    state = create_train_state(model, opt)
+    step = make_lm_train_step(model, opt, mesh, **sp_step_kw(name))
+    torch.cuda.synchronize()
+    reset_counts()
+    secs, losses = [], []
+    for tk, tg in batches:
+        t0 = now()
+        state, m = step(state, tk, tg)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        secs.append(now() - t0)
+    launches = read_counts()
+    buckets = len(bucket_layout([p.numel() for p in params],
+                                DEFAULT_BUCKET_ELEMS))
+    want = sp_design(name, len(params), buckets)
+    per_step = {k: v // SP["steps"] for k, v in launches.items() if v}
+    if per_step != {k: v for k, v in want.items() if v} or any(
+            v % SP["steps"] for v in launches.values()):
+        raise AssertionError(f"19a {name}: launches {launches} over "
+                             f"{SP['steps']} steps, the design {want}")
+    if not all(math.isfinite(x) for x in losses) or abs(
+            losses[0] - math.log(LM_MODEL["vocab_size"])) > LM_LOSS_BAND:
+        raise AssertionError(f"19a {name}: losses {losses}")
+    # the split: one more first-batch step's forward/backward (its
+    # dropout keys those of a step numbered SP["steps"]) and reduce
+
+    def key_fn(d, j, micro):
+        return step_dropout_key(0, SP["steps"], 1, micro, d, j)
+
+    with fp32_numerics():
+        torch.cuda.synchronize()
+        t0 = now()
+        g_sp, _, _ = lm_sp_gradients(model, toks, tgts, mesh, key_fn=key_fn)
+        torch.cuda.synchronize()
+        t1 = now()
+        sum_gradients([g_sp[d * sp] for d in range(dp)], dp_view,
+                      **sp_reduce_kw(name))
+        torch.cuda.synchronize()
+        t2 = now()
+    del g_sp
+    tokens = dp * SP["rows"] * SP["seq"]
+    out.update(losses=losses, step_ms=[x * 1e3 for x in secs],
+               fwd_bwd_ms=(t1 - t0) * 1e3, reduce_ms=(t2 - t1) * 1e3,
+               tokens_per_s=tokens * (len(secs) - 1) / sum(secs[1:]),
+               launches_per_step=per_step,
+               leaves=len(params), buckets=buckets)
+    del model, state, step, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_cli_argv(mode: str, sp: int = 2) -> list:
+    """19b's LM CLI: the serving width at ``LM_EMU_CLI_VOCAB`` tokens,
+    ``--sp`` ``sp`` in ``mode``, 19a's arm (ring: xla attention and the
+    RTNE ring reduce; Ulysses: the flash kernels, dropout and the SR ring
+    reduce), batch 4 of 2048 tokens, 2 iterations."""
+    L = LM_MODEL
+    argv = ["--vocab-size", str(LM_EMU_CLI_VOCAB), "--d-model",
+            str(L["d_model"]), "--n-layers", str(L["n_layers"]),
+            "--n-heads", str(L["n_heads"]), "--n-kv-heads",
+            str(L["n_kv_heads"]), "--seq-len", str(SP["seq"]),
+            "--batch-size", str(SP["rows"]), "--sp", str(sp), "--sp-mode",
+            mode, "--use_APS", "--grad_exp", str(SP["fmt"][0]),
+            "--grad_man", str(SP["fmt"][1]), "--mode", "ring",
+            "--max-iter", "2", "--print-freq", "1"]
+    if mode == "ulysses":
+        return argv + ["--attn-impl", "flash", "--flash-bwd", "pallas",
+                       "--dropout", str(SP["dropout"]), "--grad-rounding",
+                       "stochastic"]
+    return argv + ["--attn-impl", "xla"]
+
+
+def sp_cli_run(argv: list, device, log: bool = False) -> dict:
+    """The LM CLI at ``argv`` on ``device``: its last loss, validation,
+    printed loss lines (without the host clock's tokens/s), the digest of
+    the trained weights and, with ``log``, the bytes this rank handed to
+    each sp collective in each step (``ProcessMesh.log``)."""
+    from cpd_tpu_torch.examples.lm import train as cli
+    from cpd_tpu_torch.train import lm as tlm
+
+    real, seen = tlm.make_lm_train_step, {"logs": []}
+
+    def recorded(model, opt, mesh, **kw):
+        seen["model"] = model
+        step = real(model, opt, mesh, **kw)
+
+        def logged(state, toks, tgts):
+            if log:
+                mesh.log = []
+            res = step(state, toks, tgts)
+            if log:
+                by_op: dict = {}
+                for op, _, nbytes in mesh.log:
+                    if op.startswith("sp."):
+                        by_op[op] = by_op.get(op, 0) + nbytes
+                seen["logs"].append(by_op)
+                mesh.log = None
+            return res
+
+        return logged
+
+    tlm.make_lm_train_step = recorded
+    text = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(text):
+            res = cli.run(cli.parse_args(argv), device=device)
+    finally:
+        tlm.make_lm_train_step = real
+    return dict(loss=res["loss"], val=res["val"], seconds=res["seconds"],
+                lines=[ln.split(" TokPerSec")[0]
+                       for ln in text.getvalue().splitlines()
+                       if ln.startswith(("Iter", "Val"))],
+                digest=state_digest(seen["model"]), logs=seen["logs"],
+                numel=sum(p.numel() for p in seen["model"].parameters()))
+
+
+def sp_wire_bytes(mode: str, sp: int, leaves_numel: int) -> dict:
+    """The bytes one rank hands to the sp collectives in one 19b step,
+    from the shapes: the ring's stacked K/V block a hop (W - 1 hops a
+    layer, forward and backward), Ulysses' four all-to-alls of q, k, v
+    and the output a layer (forward and backward), and the sp sum's
+    all-gather of the flat gradients."""
+    L = LM_MODEL
+    d = L["d_model"] // L["n_heads"]
+    tok = SP["rows"] * SP["seq"] // sp * d * 4          # fp32, one head
+    n = L["n_layers"]
+    out = {"sp.all_gather": leaves_numel * 4}
+    if mode == "ring":
+        out["sp.ring_shift"] = n * 2 * (sp - 1) * 2 * L["n_kv_heads"] * tok
+    else:
+        hkv = L["n_kv_heads"]
+        if hkv % sp:
+            hkv = next(e * hkv for e in range(1, L["n_heads"] + 1)
+                       if (L["n_heads"] // hkv) % e == 0
+                       and (hkv * e) % sp == 0)
+        out["sp.all_to_all"] = n * 2 * (2 * L["n_heads"] + 2 * hkv) * tok
+    return out
+
+
+def sp_dist_rank(device, ports: tuple, cards: int) -> dict:
+    """One process of 19b/19c (`parallel.launch.spawn` starts max(2,
+    cards)): processes 0 and 1 join a gloo group on ``ports[0]`` sharing
+    the card and run the CLI under ``--dist --sp 2`` in each mode; then,
+    with two cards or more, processes 0..cards-1 join an nccl group on
+    ``ports[1]``, one card each, and run it at ``--sp cards``."""
+    import torch
+    import torch.distributed as dist
+
+    from cpd_tpu_torch.parallel.dist import dist_init
+
+    rank = int(os.environ["RANK"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = dict(rank=rank, parts={})
+    parts = [("b", "gloo", 2, ports[0])]
+    if cards > 1:
+        parts.append(("c", "nccl", cards, ports[1]))
+    for part, backend, w, port in parts:
+        if rank >= w:
+            continue
+        os.environ.update(WORLD_SIZE=str(w), LOCAL_WORLD_SIZE=str(w))
+        dist_init(backend, rank=rank, world_size=w, local_rank=rank,
+                  init_method=f"tcp://localhost:{port}")
+        dev = f"cuda:{rank}" if backend == "nccl" else device
+        out["parts"][part] = {
+            mode: sp_cli_run(sp_cli_argv(mode, w) + [
+                "--dist", "--dist-backend", backend], dev, log=True)
+            for mode in SP_ARMS}
+        dist.destroy_process_group()
+    return out
+
+
+def sp_dist(device) -> dict:
+    """19b and 19c: the `LocalMesh` dp 1 x sp references of each mode's
+    CLI here, one spawn of the ranks (`sp_dist_rank`), every rank's loss
+    lines and weights bitwise its reference and its sp bytes the
+    shapes'."""
+    import torch
+
+    from cpd_tpu_torch.obs.timing import now
+    from cpd_tpu_torch.parallel.launch import _free_port, spawn
+
+    cards = min(torch.cuda.device_count(), DIST["max_cards"])
+    worlds = [2] + ([cards] if cards > 1 else [])
+    marks = [now()]
+    refs = {(mode, w): sp_cli_run(sp_cli_argv(mode, w), device)
+            for w in worlds for mode in SP_ARMS}
+    marks.append(now())
+    ports = {_free_port()}
+    while len(ports) < 2:
+        ports.add(_free_port())
+    ranks = spawn(sp_dist_rank, max(2, cards),
+                  args=(device, tuple(sorted(ports)), cards),
+                  timeout=SP["deadline"], env={"NCCL_DEBUG": "WARN"})
+    marks.append(now())
+    out = dict(seconds=dict(references=marks[1] - marks[0],
+                            spawn=marks[2] - marks[1]))
+    for part, w in zip("bc", worlds):
+        for mode in SP_ARMS:
+            want = refs[(mode, w)]
+            wire = sp_wire_bytes(mode, w, want["numel"])
+            for rk in ranks[:w]:
+                got = rk["parts"][part][mode]
+                if (got["loss"], got["val"], got["digest"]) != (
+                        want["loss"], want["val"], want["digest"]):
+                    raise AssertionError(
+                        f"19{part} {mode} rank {rk['rank']}: loss "
+                        f"{got['loss']} val {got['val']} weights "
+                        f"{got['digest']} differ from the LocalMesh "
+                        f"sp={w}'s {want['loss']} {want['val']} "
+                        f"{want['digest']}")
+                if rk["rank"] == 0 and got["lines"] != want["lines"]:
+                    raise AssertionError(f"19{part} {mode}: rank 0's loss "
+                                         f"lines {got['lines']} != "
+                                         f"{want['lines']}")
+                if any(log != wire for log in got["logs"]):
+                    raise AssertionError(f"19{part} {mode} rank "
+                                         f"{rk['rank']}: sp bytes "
+                                         f"{got['logs']} != {wire}")
+            out[f"{part}-{mode}"] = dict(
+                world=w, backend="gloo" if part == "b" else "nccl",
+                loss=want["loss"], val=want["val"],
+                sp_bytes_per_step=wire,
+                cli_seconds=[rk["parts"][part][mode]["seconds"]
+                             for rk in ranks[:w]],
+                local_seconds=want["seconds"])
+            print(f"sp dist 19{part} {mode}: {w} "
+                  f"{'gloo processes sharing the card' if part == 'b' else 'nccl processes, one a card'}"
+                  f", the CLI's losses and weights bitwise the LocalMesh "
+                  f"sp={w}'s, sp bytes a rank and step as the shapes say; "
+                  + json.dumps(out[f"{part}-{mode}"]), flush=True)
+    return out
+
+
+def sp_phase(device) -> dict:
+    """Phase 19: 19a's arms, the mask and reduce checks, 19b/19c."""
+    import torch
+
+    from cpd_tpu_torch.obs.timing import now
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    marks = [now()]
+    out = dict(mask=sp_mask_check(device), arms={})
+    for name in SP_ARMS:
+        out["arms"][name] = sp_arm(device, name)
+        print(f"train sp 19a {name}: dp {SP['dp']} x sp {SP['sp']} "
+              f"LocalMesh, {SP['rows']} x {SP['seq']} tokens a dp rank; "
+              + json.dumps(out["arms"][name]), flush=True)
+    marks.append(now())
+    out["dist"] = sp_dist(device)
+    marks.append(now())
+    out["seconds"] = dict(a=marks[1] - marks[0], bc=marks[2] - marks[1])
+    print("sp mask 19a: " + json.dumps(out["mask"]), flush=True)
+    print("sp seconds: " + json.dumps(out["seconds"]), flush=True)
+    return out
+
+
 OVERLAP_NCCL = dict(steps=12, warmup=2, deadline=600.0)
 # host calls that wait for the device (or a copy to finish)
 HOST_SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
@@ -8581,6 +9069,7 @@ def main() -> int:
     switches = timed("16", switches_phase, device)
     zero = timed("17", zero_phase, device)
     quant_layers = timed("18", quant_layers_phase, device, train)
+    seq_par = timed("19", sp_phase, device)
     print("phase seconds: " + json.dumps(phase_seconds), flush=True)
     print("shared setup: " + json.dumps(shared), flush=True)
     if dist["b"]["world"] == 1:
@@ -8742,6 +9231,12 @@ def main() -> int:
                     arm: r["launches_per_step"].get("sr_bits_offsets", 0)
                     for arm, r in zero["a"]["arms"].items()})
     kernels += quant_kernel_entries(quant_layers)
+    # phase 19a's launches per step of each arm on the dp x sp LocalMesh
+    for entry in kernels:
+        per = {arm: r["launches_per_step"].get(entry["name"], 0)
+               for arm, r in seq_par["arms"].items()}
+        if any(per.values()):
+            entry["launches_per_step_sp"] = per
     print(card, flush=True)      # exactly as nvidia-smi gives it
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

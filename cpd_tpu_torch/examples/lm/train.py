@@ -40,11 +40,24 @@ pass, and ``--attn-impl flash`` runs the GQA flash kernels with
 ``--n-kv-heads`` and the MHA flash kernel (K11) without.
 ``--overlap-reduce`` reduces each gradient bucket (``--bucket-elems``
 elements at most) from inside the backward, bitwise the post-backward
-reduce at the same layout.  Flags of the JAX trainer whose subsystem is
-not ported yet — sequence, tensor and pipeline parallelism, MoE,
-scanned layers, dropout, sampling, checkpoints and ``--save-path``, the
-torch export, the resilience and observability flags — raise "not yet
-ported".
+reduce at the same layout (at ``--sp 1``).
+
+``--sp N`` adds the sequence-parallel axis: ``--dp`` x ``--sp`` ranks on
+the card's `LocalMesh`, or under ``--dist`` the group's processes as
+world / N dp ranks x N (start dp x sp processes); each rank takes the
+rows of its dp index and the columns of its sp index (``--seq-len`` a
+multiple of N) and every attention layer runs ``--sp-mode ring`` (K/V
+rotate around the sp ranks) or ``ulysses`` (all-to-all between sequence
+and heads; ``--n-heads`` a multiple of N, and with ``--attn-impl flash``
+the flash kernels on the gathered sequence).  ``--dropout`` drops the
+residual branches in training with flax's masks (seed 0, as the JAX
+trainer).  Flags of the JAX trainer whose subsystem is not ported yet
+raise "not yet ported" with their ROADMAP row: ``--tp``, ``--scan-layers``
+and ``--overlap-reduce`` at ``--sp`` > 1 (Queue A row 1), ``--pp``,
+``--vocab-pp``, ``--n-microbatches``, ``--moe``/``--n-experts``/``--ep``
+and ``--sample*`` (row 1: pipeline, MoE, `generate`), checkpoints and
+``--save-path``/``--export-torch`` (A8), the resilience flags (A10) and
+the observability flags (A11).
 """
 
 from __future__ import annotations
@@ -60,7 +73,7 @@ from ...obs.timing import now
 # flags of the JAX trainer that the port does not have yet (presence
 # alone selects their subsystem)
 _NOT_PORTED = (
-    "--sp-mode", "--vocab-pp", "--moe", "--n-experts", "--n-microbatches",
+    "--vocab-pp", "--moe", "--n-experts", "--n-microbatches",
     "--scan-layers", "--save-path", "--ckpt-freq",
     "--tensorboard", "--sample-temperature", "--sample-top-k",
     "--sample-top-p", "--sample-seed", "--profile-dir", "--export-torch",
@@ -81,10 +94,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dp", default=1, type=int,
                    help="data-parallel ranks on the card's LocalMesh "
                         "(1 under --dist)")
-    p.add_argument("--sp", default=1, type=int, help="not yet ported > 1")
-    p.add_argument("--tp", default=1, type=int, help="not yet ported > 1")
-    p.add_argument("--pp", default=1, type=int, help="not yet ported > 1")
-    p.add_argument("--ep", default=1, type=int, help="not yet ported > 1")
+    p.add_argument("--sp", default=1, type=int,
+                   help="sequence-parallel ranks: x --dp on the card's "
+                        "LocalMesh, or under --dist the group's processes "
+                        "as world/sp dp ranks x sp")
+    p.add_argument("--sp-mode", default="ring", choices=["ring", "ulysses"],
+                   help="sequence-parallel attention: ring (K/V rotate "
+                        "around the sp ranks) or ulysses (all-to-all "
+                        "heads<->sequence; needs --n-heads divisible by "
+                        "--sp)")
+    p.add_argument("--tp", default=1, type=int,
+                   help="not yet ported > 1 (ROADMAP Queue A row 1)")
+    p.add_argument("--pp", default=1, type=int,
+                   help="not yet ported > 1 (ROADMAP Queue A row 1)")
+    p.add_argument("--ep", default=1, type=int,
+                   help="not yet ported > 1 (ROADMAP Queue A row 1)")
     p.add_argument("--vocab-size", default=256, type=int)
     p.add_argument("--d-model", default=256, type=int)
     p.add_argument("--n-layers", default=4, type=int)
@@ -159,15 +183,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "pass (activation memory for compute)")
     p.add_argument("--label-smoothing", default=0.0, type=float)
     p.add_argument("--dropout", default=0.0, type=float,
-                   help="not yet ported > 0")
+                   help="residual-branch dropout rate in [0, 1) (training "
+                        "only; flax's masks)")
     p.add_argument("--sample", default=0, type=int,
-                   help="not yet ported > 0")
+                   help="not yet ported > 0 (ROADMAP Queue A row 1: "
+                        "generate)")
     return p
 
 
-def _not_ported(what: str) -> SystemExit:
+def _not_ported(what: str, row: str = "Queue A") -> SystemExit:
     return SystemExit(f"{what}: not yet ported to cpd_tpu_torch (ROADMAP "
-                      "Queue A)")
+                      f"{row})")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -177,14 +203,29 @@ def parse_args(argv=None) -> argparse.Namespace:
         if flag in _NOT_PORTED:
             raise _not_ported(flag)
         build_parser().error(f"unrecognized arguments: {' '.join(rest)}")
-    for flag, value, default in (("--sp", args.sp, 1), ("--tp", args.tp, 1),
+    for flag, value, default in (("--tp", args.tp, 1),
                                  ("--pp", args.pp, 1), ("--ep", args.ep, 1),
-                                 ("--dropout", args.dropout, 0.0),
                                  ("--sample", args.sample, 0)):
         if value != default:
-            raise _not_ported(f"{flag} {value}")
+            raise _not_ported(f"{flag} {value}", "Queue A row 1")
     if args.dp < 1:
         raise SystemExit(f"--dp must be >= 1, got {args.dp}")
+    if args.sp < 1:
+        raise SystemExit(f"--sp must be >= 1, got {args.sp}")
+    if args.seq_len % args.sp:
+        raise SystemExit(f"seq-len {args.seq_len} not divisible by "
+                         f"sp={args.sp}")
+    if args.sp > 1 and args.sp_mode == "ulysses" and args.n_heads % args.sp:
+        raise SystemExit(f"--sp-mode ulysses needs --n-heads {args.n_heads} "
+                         f"divisible by --sp {args.sp}")
+    if args.sp > 1 and args.sp_mode == "ring" and args.attn_impl == "flash":
+        raise SystemExit("--attn-impl flash does not compose with --sp-mode "
+                         "ring (the ring's online softmax is its own "
+                         "schedule); use --sp-mode ulysses")
+    if args.sp > 1 and args.overlap_reduce:
+        raise _not_ported("--overlap-reduce at --sp > 1", "Queue A row 1")
+    if not 0.0 <= args.dropout < 1.0:
+        raise SystemExit(f"--dropout must be in [0, 1), got {args.dropout}")
     if args.dist and args.dp != 1:
         raise SystemExit(f"--dist runs one rank per process; --dp "
                          f"{args.dp} asks for {args.dp} in each")
@@ -221,8 +262,8 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def run(args: argparse.Namespace, device="cuda") -> dict:
-    """Train as the flags say on ``--dp`` `LocalMesh` ranks on
-    ``device``, or with ``--dist`` on this process's one rank of the
+    """Train as the flags say on ``--dp`` x ``--sp`` `LocalMesh` ranks
+    on ``device``, or with ``--dist`` on this process's one rank of the
     group (under nccl ``device`` is the rank's card); returns the last
     metrics with ``step``, ``diverged``, ``seconds`` and ``val`` (the
     last validation's metrics)."""
@@ -233,7 +274,7 @@ def run(args: argparse.Namespace, device="cuda") -> dict:
     from ...device import resolve_device
     from ...models.transformer import transformer_lm
     from ...parallel.dist import dist_init, local_rows, replicate
-    from ...parallel.mesh import data_parallel_mesh
+    from ...parallel.mesh import make_mesh
     from ...train import (create_train_state, make_optimizer,
                           warmup_cosine, warmup_step_decay)
     from ...train.lm import make_lm_eval_step, make_lm_train_step
@@ -241,12 +282,14 @@ def run(args: argparse.Namespace, device="cuda") -> dict:
     rank, _ = dist_init(args.dist_backend) if args.dist else (0, 1)
     grouped = args.dist and torch.distributed.is_initialized()
     dev = resolve_device(device)
-    mesh = data_parallel_mesh(None if grouped else args.dp, dev)
+    mesh = make_mesh(None if grouped else args.dp, args.sp, dev)
     model_kw = dict(vocab_size=args.vocab_size, d_model=args.d_model,
                     n_layers=args.n_layers, n_heads=args.n_heads,
                     n_kv_heads=args.n_kv_heads, attn_impl=args.attn_impl,
                     flash_bwd=args.flash_bwd, remat=args.remat,
-                    dtype=torch.bfloat16 if args.bf16 else torch.float32)
+                    dtype=torch.bfloat16 if args.bf16 else torch.float32,
+                    sp_axis="sp" if args.sp > 1 else None,
+                    sp_mode=args.sp_mode, dropout_rate=args.dropout)
     if (args.ffn_exp, args.ffn_man) != (8, 23):
         model_kw.update(ffn_exp=args.ffn_exp, ffn_man=args.ffn_man,
                         ffn_mode=args.ffn_mode)
@@ -273,7 +316,9 @@ def run(args: argparse.Namespace, device="cuda") -> dict:
 
     ds = SyntheticText(n=4096, seq_len=args.seq_len,
                        vocab_size=args.vocab_size)
-    global_batch = args.batch_size * mesh.world * args.emulate_node
+    # the dp ranks' rows; the sp ranks split their columns
+    global_batch = (args.batch_size * (mesh.world // args.sp)
+                    * args.emulate_node)
     val_bs = global_batch // args.emulate_node
     val_toks, val_tgts = ds.batch(np.arange(len(ds) - val_bs, len(ds)),
                                   seed=-1)

@@ -184,18 +184,21 @@ def dist_init(backend: Optional[str] = None, *, rank: Optional[int] = None,
 
 
 def _broadcast_(t: torch.Tensor, mesh, src: int) -> None:
-    """``t`` overwritten in place with rank ``src``'s bytes."""
-    if mesh.world == 1 or len(mesh.ranks) == mesh.world:
+    """``t`` overwritten in place with rank ``src``'s bytes (``src`` a
+    rank of ``mesh``, an axis index on an axis view)."""
+    if (mesh.world == 1 or len(mesh.ranks) == mesh.world
+            or getattr(mesh, "is_local", False)):
         return
     import torch.distributed as dist
 
+    src, group = mesh.global_rank(src), mesh.group
     if mesh.staged:
         host = t.detach().cpu()
-        dist.broadcast(host, src)
+        dist.broadcast(host, src, group=group)
         with torch.no_grad():
             t.copy_(host)
     else:
-        dist.broadcast(t.detach(), src)
+        dist.broadcast(t.detach(), src, group=group)
 
 
 def replicate(module, mesh, src: int = 0):
@@ -229,20 +232,33 @@ def all_reduce_mean(xs: Sequence[torch.Tensor], mesh) -> list:
 
 
 def local_rows(x, mesh):
-    """This process's rows of a global batch ``x`` (numpy or a tensor):
-    the contiguous ``1/P`` slice of process ``p`` out of ``P``, which
-    holds the rows of its local ranks (the per-process contract of the
-    JAX ``host_batch_to_global``: the global batch is the processes'
-    slices in rank order).  A `LocalMesh` holds every rank: all rows."""
+    """This process's block of a global batch ``x`` (numpy or a tensor):
+    on a data-parallel mesh the contiguous ``1/P`` slice of rows of
+    process ``p`` out of ``P`` (the per-process contract of the JAX
+    ``host_batch_to_global``: the global batch is the processes' slices
+    in rank order); on a dp x sp mesh the rows of its dp index and the
+    columns of its sp index, the block ``P(dp, sp)`` gives it.  A
+    `LocalMesh` holds every rank: all of ``x``."""
     if len(mesh.ranks) == mesh.world:
         return x
+    sp = getattr(mesh, "axes", {}).get("sp", 1)
+    dp = mesh.world // sp
     n = x.shape[0]
-    if n % mesh.world:
+    if n % dp:
         raise ValueError(f"global batch {n} is not a multiple of the "
-                         f"{mesh.world} processes")
-    per = n // mesh.world * len(mesh.ranks)
-    lo = mesh.ranks[0] * (n // mesh.world)
-    return x[lo:lo + per]
+                         f"{dp} data-parallel ranks")
+    if sp == 1:
+        per = n // mesh.world * len(mesh.ranks)
+        lo = mesh.ranks[0] * (n // mesh.world)
+        return x[lo:lo + per]
+    c = mesh.coords(mesh.rank)
+    per = n // dp
+    x = x[c["dp"] * per:(c["dp"] + 1) * per]
+    t = x.shape[1]
+    if t % sp:
+        raise ValueError(f"sequence length {t} is not a multiple of "
+                         f"sp={sp}")
+    return x[:, c["sp"] * (t // sp):(c["sp"] + 1) * (t // sp)]
 
 
 def _leaf_starts(leaves: Sequence[torch.Tensor]) -> list:

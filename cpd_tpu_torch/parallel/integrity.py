@@ -141,27 +141,30 @@ def tensor_leaves(tree) -> list:
     return []
 
 
-def make_consensus_fns(mesh) -> tuple:
-    """``(check_fn, resync_fn)`` over a replicated tree (a `TrainState`,
-    a module, tensors; `tensor_leaves`).
+def make_consensus_fns(mesh, axis_name: str = "dp") -> tuple:
+    """``(check_fn, resync_fn)`` over a tree replicated along the axis
+    ``axis_name`` of ``mesh`` (a `TrainState`, a module, tensors;
+    `tensor_leaves`), as the JAX function's signature has it.
 
-    ``check_fn(tree)``: int32 1/0, do all ranks hold the same
-    `tree_digest` of their copy (`digest_agree`)?  ``resync_fn(tree)``:
-    rank 0's bytes on every rank, copied in place from
-    `parallel.dist.broadcast_from` of each tensor, returning ``tree``.  A
-    `LocalMesh` keeps one copy for all its ranks, so it always agrees
-    and the resync is the identity."""
+    ``check_fn(tree)``: int32 1/0, do all ranks of this rank's group
+    along the axis hold the same `tree_digest` of their copy
+    (`digest_agree` over ``mesh.axis(axis_name)``)?  ``resync_fn(tree)``:
+    the axis' index-0 rank's bytes on every rank of the group, copied in
+    place from `parallel.dist.broadcast_from` of each tensor, returning
+    ``tree``.  A `LocalMesh` keeps one copy for all its ranks, so it
+    always agrees and the resync is the identity."""
+    view = mesh.axis(axis_name)
 
     def check_fn(tree) -> torch.Tensor:
         d = tree_digest(tensor_leaves(tree))
-        return digest_agree([d] * len(mesh.ranks), mesh)[0]
+        return digest_agree([d] * len(view.ranks), view)[0]
 
     def resync_fn(tree):
         from .dist import broadcast_from
 
         with torch.no_grad():
             for t in tensor_leaves(tree):
-                t.copy_(broadcast_from(t, mesh, 0))
+                t.copy_(broadcast_from(t, view, 0))
         return tree
 
     return check_fn, resync_fn
