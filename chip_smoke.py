@@ -347,13 +347,34 @@ Phases; any failure exits non-zero:
    plain version on them, one layer's K9/K10 calls against their plain
    versions, one layer's dropout mask bitwise the CPU bits, launches as
    ``sp_design`` says; step ms, ``fwd_bwd_ms``, ``reduce_ms``, tokens/s;
-   (b) one spawn of 2 gloo processes sharing the card runs the LM CLI
-   under ``--dist --sp 2`` in each mode: losses and weights bitwise the
+   (b, run in phase 20's spawn) 2 gloo processes sharing the card run
+   the LM CLI under ``--dist --sp 2`` in each mode: losses and weights bitwise the
    `LocalMesh` dp 1 x sp 2 run of the same argv, and the bytes each rank
    hands to the sp collectives equal the counts from the shapes; (c) with
    two cards or more, one nccl process a card at sp = the card count,
    bitwise the `LocalMesh` (extra evidence: the gates hold on one card);
-20. print each phase's wall seconds (``phase seconds: {...}``, phase 10a
+20. tensor parallelism and scanned layers on 19's model, weights and
+   batches: (a) a `LocalMesh` of dp 2 x sp 2 x tp 2 (Megatron-sharded
+   blocks, each rank on its slices of the full weights), 2 steps of each
+   `TP_ARMS` arm — ring attention with the APS e5m2 RTNE ring reduce, and
+   Ulysses with the flash kernels on the local heads, the e4m3 faithful
+   FFN (K8 at tp-local shapes), dropout 0.1 and the SR ring reduce:
+   step 0's loss within ``LM_LOSS_BAND`` of ln V; the ring arm's sp- and
+   tp-summed gradients, put back whole, within ``SP["grad_rtol"]`` of
+   19a's tp = 1 gradients (dropout off), and the same arm on scanned
+   layers with remat bitwise the unrolled arm (losses, weights
+   restacked); each tp index's dp reduce bitwise its plain version; one
+   recorded K8 call of each tp-local shape bitwise its plain scan, one
+   layer's K9/K10 calls against their plain versions, one dropout mask
+   bitwise the CPU bits; launches as ``tp_design`` says; step ms,
+   ``fwd_bwd_ms``, ``reduce_ms``, tokens/s; (b) one spawn of 2 gloo
+   processes sharing the card runs 19b, then the LM CLI under ``--dist
+   --tp 2`` (dp 1 x tp 2): losses, weights and momentum bitwise the `LocalMesh`
+   run's tp shards, the bytes a process holds and hands to the tp
+   collectives equal to the counts from the shapes; (c) with two cards or
+   more, one nccl process a card at dp = cards / 2 x tp 2, bitwise the
+   `LocalMesh` (extra evidence);
+21. print each phase's wall seconds (``phase seconds: {...}``, phase 10a
    split into its plain checks, cast probe, timed turns and census), one
    JSON line ``{"kernels": [...]}`` and, last,
    ``{"ok": true, "device": {...}}``.
@@ -788,6 +809,136 @@ def save_path(label: str) -> str:
     path = os.path.join(_SAVE_ROOT[0], label)
     shutil.rmtree(path, ignore_errors=True)
     return path
+
+
+def _pool_main(rank: int, jobs, results) -> None:
+    """One process of `RankPool`: runs jobs until it reads None.  A job
+    is `parallel.launch.spawn`'s rank work: torchrun's variables and the
+    job's own set, the card reset to the first (an nccl job leaves its
+    rank's card current), ``fn(*args)``, the group destroyed, the card's
+    cache freed and every name a job rebound in a module of the port
+    bound back (rank functions patch samplers and hooks as a fresh
+    process may); its result, or its traceback, goes back."""
+    import importlib
+    import pkgutil
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    import cpd_tpu_torch
+
+    # every module loaded first, so that the bindings saved before a job
+    # are the modules' own
+    for info in pkgutil.walk_packages(cpd_tpu_torch.__path__,
+                                      "cpd_tpu_torch."):
+        importlib.import_module(info.name)
+    while True:
+        saved = {name: dict(vars(mod)) for name, mod in
+                 list(sys.modules.items())
+                 if name.split(".")[0] in ("cpd_tpu_torch", "__mp_main__")}
+        job = jobs.get()
+        if job is None:
+            return
+        fn, world, port, args, env = job
+        os.environ.update({"RANK": str(rank), "WORLD_SIZE": str(world),
+                           "LOCAL_RANK": str(rank),
+                           "LOCAL_WORLD_SIZE": str(world),
+                           "MASTER_ADDR": "localhost",
+                           "MASTER_PORT": str(port)})
+        os.environ.update(env or {})
+        if torch.cuda.is_available():
+            torch.cuda.set_device(0)
+        try:
+            results.put((rank, True, fn(*args)))
+        except BaseException:
+            results.put((rank, False, traceback.format_exc()))
+        finally:
+            if dist.is_available() and dist.is_initialized():
+                dist.destroy_process_group()
+            if torch.cuda.is_available():
+                torch.cuda.empty_cache()
+            for name, before in saved.items():
+                names = vars(sys.modules[name])
+                for k, v in before.items():
+                    if names.get(k) is not v:
+                        names[k] = v
+
+
+class RankPool:
+    """`parallel.launch.spawn`'s contract (``fn(*args)`` in ``world``
+    rank processes with torchrun's variables, results in rank order, any
+    rank's failure or the deadline raises) on rank processes started
+    once and kept for every phase that spawns: each fresh process takes
+    seconds to import torch and reach the card, and phases 14-17 and 20
+    spawn six times.  `main` starts them before the build.  Rank r of
+    every job runs in process r; `close` stops them all."""
+
+    def __init__(self):
+        self.procs: list = []
+        self.jobs: list = []
+        self.results = None
+
+    def start(self, n: int) -> None:
+        """At least ``n`` processes, the new ones started now (they
+        import while the caller goes on)."""
+        import multiprocessing as mp
+
+        ctx = mp.get_context("spawn")
+        if self.results is None:
+            self.results = ctx.SimpleQueue()
+        while len(self.procs) < n:
+            q = ctx.SimpleQueue()
+            proc = ctx.Process(target=_pool_main,
+                               args=(len(self.procs), q, self.results))
+            proc.start()
+            self.procs.append(proc)
+            self.jobs.append(q)
+
+    def spawn(self, fn, world: int, *, args=(), timeout: float = 600.0,
+              env=None) -> list:
+        from cpd_tpu_torch.obs.timing import now
+        from cpd_tpu_torch.parallel.launch import _free_port
+
+        self.start(world)
+        port = _free_port()
+        for r in range(world):
+            self.jobs[r].put((fn, world, port, tuple(args), env))
+        done: dict = {}
+        deadline = now() + timeout
+        while len(done) < world:
+            if not self.results.empty():
+                rank, ok, out = self.results.get()
+                if not ok:
+                    self.close()
+                    raise RuntimeError(f"1 of {world} ranks failed:\nrank "
+                                       f"{rank}: {out}")
+                done[rank] = out
+                continue
+            dead = [r for r, p in enumerate(self.procs) if not p.is_alive()]
+            if dead or now() > deadline:
+                self.close()
+                raise RuntimeError(
+                    f"ranks {sorted(set(range(world)) - set(done))} of "
+                    f"{world} gave no answer "
+                    + (f"(processes {dead} died)" if dead else
+                       f"within {timeout:.0f} s"))
+            time.sleep(0.05)
+        return [done[r] for r in range(world)]
+
+    def close(self) -> None:
+        for q, proc in zip(self.jobs, self.procs):
+            if proc.is_alive():
+                q.put(None)
+        for proc in self.procs:
+            proc.join(timeout=10)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        self.procs, self.jobs, self.results = [], [], None
+
+
+POOL = RankPool()
 
 
 def card_line() -> str:
@@ -5971,7 +6122,6 @@ def dist_phase(device, parts=("a", "b")) -> dict:
     import torch
 
     from cpd_tpu_torch.obs.timing import now
-    from cpd_tpu_torch.parallel.launch import spawn
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -5979,7 +6129,7 @@ def dist_phase(device, parts=("a", "b")) -> dict:
     if "a" in parts:
         t0 = now()
         root = dist_cifar_root()
-        ranks = spawn(dist_rank, DIST["world_a"],
+        ranks = POOL.spawn(dist_rank, DIST["world_a"],
                       args=("a", "gloo", device, root,
                             save_path("dist_cli")),
                       timeout=DIST["deadline_a"])
@@ -5987,7 +6137,7 @@ def dist_phase(device, parts=("a", "b")) -> dict:
     if "b" in parts:
         cards = min(torch.cuda.device_count(), DIST["max_cards"])
         t0 = now()
-        ranks = spawn(dist_rank, cards, args=("b", "nccl", device),
+        ranks = POOL.spawn(dist_rank, cards, args=("b", "nccl", device),
                       timeout=DIST["deadline_b"],
                       env={"NCCL_DEBUG": "WARN"})
         out["b"] = dist_summary("14b", ranks, now() - t0)
@@ -6523,14 +6673,13 @@ def ladder_dist(device, root: str) -> dict:
     import numpy as np
 
     from cpd_tpu_torch.obs.timing import now
-    from cpd_tpu_torch.parallel.launch import spawn
 
     L = LADDER
     w = L["dist_world"]
     t0 = now()
     base = save_path("ladder_15d")
     os.makedirs(base)
-    out = spawn(ladder_dist_rank, w + 1, args=(root, base, device),
+    out = POOL.spawn(ladder_dist_rank, w + 1, args=(root, base, device),
                 timeout=L["dist_deadline"],
                 env={"WORLD_SIZE": str(w), "LOCAL_WORLD_SIZE": str(w)})
     ranks, local = out[:w], out[w]
@@ -6954,7 +7103,7 @@ def lm_dist(device, library: dict) -> dict:
     import torch
 
     from cpd_tpu_torch.obs.timing import now
-    from cpd_tpu_torch.parallel.launch import _free_port, spawn
+    from cpd_tpu_torch.parallel.launch import _free_port
     from cpd_tpu_torch.parallel.mesh import data_parallel_mesh
 
     E = LM_EMU
@@ -6983,7 +7132,7 @@ def lm_dist(device, library: dict) -> dict:
     while len(ports) < 2:
         # one rendezvous a group: the gloo pair's, then the nccl ranks'
         ports.add(_free_port())
-    ranks = spawn(lm_dist_rank, max(E["world"], cards),
+    ranks = POOL.spawn(lm_dist_rank, max(E["world"], cards),
                   args=(device, tuple(sorted(ports)), cards,
                         lm_emu_cli_argv()),
                   timeout=E["deadline"], env={"NCCL_DEBUG": "WARN"})
@@ -7945,7 +8094,7 @@ def zero_dist(device, root: str) -> dict:
     import torch
 
     from cpd_tpu_torch.obs.timing import now
-    from cpd_tpu_torch.parallel.launch import _free_port, spawn
+    from cpd_tpu_torch.parallel.launch import _free_port
     from cpd_tpu_torch.parallel.mesh import data_parallel_mesh
 
     t0 = now()
@@ -7956,7 +8105,7 @@ def zero_dist(device, root: str) -> dict:
     while len(ports) < 2:
         ports.add(_free_port())
     w = ZERO["dist_world"]
-    procs = spawn(zero_dist_rank, w + 1 + cards,
+    procs = POOL.spawn(zero_dist_rank, w + 1 + cards,
                   args=(device, root, base, tuple(sorted(ports)), cards),
                   timeout=ZERO["deadline"], env={"NCCL_DEBUG": "WARN"})
     spawn_s = now() - t0
@@ -8416,27 +8565,29 @@ def sp_design(name: str, leaves: int, buckets: int) -> dict:
     return want
 
 
-def sp_step_kw(name: str) -> dict:
-    """The step keywords of arm ``name``: the APS e5m2 reduce."""
+def sp_step_kw(name: str, arms=None) -> dict:
+    """The step keywords of arm ``name`` of ``arms`` (default
+    `SP_ARMS`): the APS e5m2 reduce."""
     return dict(use_aps=True, grad_exp=SP["fmt"][0], grad_man=SP["fmt"][1],
-                **SP_ARMS[name]["step"])
+                **(arms or SP_ARMS)[name]["step"])
 
 
-def sp_reduce_kw(name: str) -> dict:
+def sp_reduce_kw(name: str, arms=None) -> dict:
     """`sum_gradients` keywords of arm ``name``'s first step."""
     from cpd_tpu_torch.parallel.dist import grad_sr_key
 
-    kw = sp_step_kw(name)
+    kw = sp_step_kw(name, arms)
     sr = kw.pop("grad_rounding", "nearest") == "stochastic"
     seed = kw.pop("grad_seed", 0)
     return dict(kw, rounding="stochastic" if sr else "nearest",
                 key=grad_sr_key(seed, 0, 1) if sr else None)
 
 
-def sp_kernel_check(model, toks, mesh) -> dict:
+def sp_kernel_check(model, toks, mesh, label: str = "19a") -> dict:
     """One layer's K9 and K10 calls on the card against their plain
     versions: K9's inputs recorded from layer 0's Ulysses middle step (a
-    forward of dp group 0), the backward fed a seeded cotangent."""
+    forward of dp group 0, its sp x tp ranks), the backward fed a seeded
+    cotangent."""
     import torch
 
     from cpd_tpu_torch.ops import flash_gqa as fl
@@ -8450,14 +8601,17 @@ def sp_kernel_check(model, toks, mesh) -> dict:
 
     # the wrapper counts in its module's name while it stands there
     record.launches = real.launches
-    rows, t_local = toks.shape[0] // SP["dp"], toks.shape[1] // SP["sp"]
+    dp, sp, tp = (mesh.axes[a] for a in ("dp", "sp", "tp"))
+    rows, t_local = toks.shape[0] // dp, toks.shape[1] // sp
+    group = list(range(sp * tp))
+    cols = [mesh.coords(p)["sp"] * t_local for p in group]
     fl.flash_gqa_fwd = record
     try:
         with torch.no_grad():
             model.eval()
-            model.forward_sp([toks[:rows, j * t_local:(j + 1) * t_local]
-                              for j in range(SP["sp"])],
-                             mesh.axis("sp", list(range(SP["sp"]))))
+            model.forward_sp([toks[:rows, c:c + t_local] for c in cols],
+                             mesh.axis("sp", group), None, None,
+                             mesh.axis("tp", group))
     finally:
         fl.flash_gqa_fwd = real
         real.launches = record.launches
@@ -8472,35 +8626,41 @@ def sp_kernel_check(model, toks, mesh) -> dict:
     fwd = max(max_abs_diff(out, r_out), max_abs_diff(lse, r_lse))
     bwd = max(max_abs_diff(a, b) for a, b in zip(grads, r_grads))
     if not (fwd <= FLASH_ATOL and bwd <= FLASH_GRAD_ATOL):
-        raise AssertionError(f"19a Ulysses K9/K10 at {tuple(q.shape)}: "
+        raise AssertionError(f"{label} Ulysses K9/K10 at {tuple(q.shape)}: "
                              f"{fwd} / {bwd} past {FLASH_ATOL} / "
                              f"{FLASH_GRAD_ATOL}")
     return dict(shape=list(q.shape), kv_heads=k.shape[2],
                 contiguous=q.is_contiguous(), fwd_err=fwd, bwd_err=bwd)
 
 
-def sp_mask_check(device) -> dict:
-    """One layer's dropout mask at 19a's activation shape, drawn on the
-    card (`sr_bits`' flat arm), bitwise the CPU bits of `quant.prng`."""
+def sp_mask_check(device, step: int = 0, dp_index: int = 1,
+                  layer: int = 0, label: str = "19a") -> dict:
+    """One layer's dropout mask at 19a's activation shape (20a's too:
+    the mask falls on the tp-summed value), drawn on the card
+    (`sr_bits`' flat arm) for rank (``dp_index``, sp index 1) at
+    ``step``, bitwise the CPU bits of `quant.prng`."""
     import torch
 
     from cpd_tpu_torch.models.transformer import dropout_key, dropout_mask
     from cpd_tpu_torch.train.lm import step_dropout_key
 
-    key = dropout_key(step_dropout_key(0, 0, 1, 0, 1, 1), 0, 1)
+    key = dropout_key(step_dropout_key(0, step, 1, 0, dp_index, 1), layer,
+                      1)
     shape = (SP["rows"], SP["seq"] // SP["sp"], LM_MODEL["d_model"])
     card = dropout_mask(key, torch.empty(shape, device=device),
                         SP["dropout"])
     cpu = dropout_mask(key, torch.empty(shape), SP["dropout"])
     if not torch.equal(card.cpu(), cpu):
-        raise AssertionError("19a: the card's dropout mask differs from "
-                             "the CPU bits of quant/prng.py")
+        raise AssertionError(f"{label}: the card's dropout mask differs "
+                             "from the CPU bits of quant/prng.py")
     return dict(shape=list(shape), kept=float(cpu.float().mean()))
 
 
-def sp_arm(device, name: str) -> dict:
+def sp_arm(device, name: str, keep=None) -> dict:
     """19a, one arm: the gates on the first batch, then ``SP["steps"]``
-    counted steps, then the step's split (module docstring)."""
+    counted steps, then the step's split (module docstring).  With a
+    ``keep`` dict, its ``"grads"`` gets the first batch's sp-summed
+    gradients of each dp index (phase 20's tp = 1 reference)."""
     import torch
 
     from cpd_tpu_torch.obs.timing import now
@@ -8547,6 +8707,8 @@ def sp_arm(device, name: str) -> dict:
     if not all(same_bits(a, b) for a, b in zip(red[0][0], red[1][0])):
         raise AssertionError(f"19a {name}: the dp reduce's kernels differ "
                              "from its plain version")
+    if keep is not None:
+        keep["grads"] = grads
     del red, grads
     if SP_ARMS[name]["model"]["attn_impl"] == "flash":
         out["k9_k10"] = sp_kernel_check(model, toks, mesh)
@@ -8623,11 +8785,14 @@ def sp_cli_argv(mode: str, sp: int = 2) -> list:
     return argv + ["--attn-impl", "xla"]
 
 
-def sp_cli_run(argv: list, device, log: bool = False) -> dict:
+def sp_cli_run(argv: list, device, log: bool = False,
+               axis: str = "sp") -> dict:
     """The LM CLI at ``argv`` on ``device``: its last loss, validation,
     printed loss lines (without the host clock's tokens/s), the digest of
     the trained weights and, with ``log``, the bytes this rank handed to
-    each sp collective in each step (``ProcessMesh.log``)."""
+    each collective of the ``axis`` view in each step
+    (``ProcessMesh.log``); for ``axis`` "tp" also `tp_held`'s digests
+    and bytes of the weights and momentum."""
     from cpd_tpu_torch.examples.lm import train as cli
     from cpd_tpu_torch.train import lm as tlm
 
@@ -8641,10 +8806,11 @@ def sp_cli_run(argv: list, device, log: bool = False) -> dict:
             if log:
                 mesh.log = []
             res = step(state, toks, tgts)
+            seen["state"] = res[0]
             if log:
                 by_op: dict = {}
                 for op, _, nbytes in mesh.log:
-                    if op.startswith("sp."):
+                    if op.startswith(axis + "."):
                         by_op[op] = by_op.get(op, 0) + nbytes
                 seen["logs"].append(by_op)
                 mesh.log = None
@@ -8664,7 +8830,9 @@ def sp_cli_run(argv: list, device, log: bool = False) -> dict:
                        for ln in text.getvalue().splitlines()
                        if ln.startswith(("Iter", "Val"))],
                 digest=state_digest(seen["model"]), logs=seen["logs"],
-                numel=sum(p.numel() for p in seen["model"].parameters()))
+                numel=sum(p.numel() for p in seen["model"].parameters()),
+                **(tp_held(seen["model"], seen["state"]) if axis == "tp"
+                   else {}))
 
 
 def sp_wire_bytes(mode: str, sp: int, leaves_numel: int) -> dict:
@@ -8691,11 +8859,13 @@ def sp_wire_bytes(mode: str, sp: int, leaves_numel: int) -> dict:
 
 
 def sp_dist_rank(device, ports: tuple, cards: int) -> dict:
-    """One process of 19b/19c (`parallel.launch.spawn` starts max(2,
-    cards)): processes 0 and 1 join a gloo group on ``ports[0]`` sharing
-    the card and run the CLI under ``--dist --sp 2`` in each mode; then,
-    with two cards or more, processes 0..cards-1 join an nccl group on
-    ``ports[1]``, one card each, and run it at ``--sp cards``."""
+    """One process of 19b/19c and 20b/20c (`parallel.launch.spawn`
+    starts max(2, cards)): processes 0 and 1 join a gloo group on
+    ``ports[0]`` sharing the card and run the CLI under ``--dist --sp 2``
+    in each mode, then under ``--dist --tp 2`` (dp 1 x tp 2); then, with
+    two cards or more, processes 0..cards-1 join an nccl group on
+    ``ports[1]``, one card each, and run it at ``--sp cards`` and, where
+    tp divides the cards, at ``--tp 2`` (dp = cards / 2)."""
     import torch
     import torch.distributed as dist
 
@@ -8715,39 +8885,54 @@ def sp_dist_rank(device, ports: tuple, cards: int) -> dict:
         dist_init(backend, rank=rank, world_size=w, local_rank=rank,
                   init_method=f"tcp://localhost:{port}")
         dev = f"cuda:{rank}" if backend == "nccl" else device
+        flags = ["--dist", "--dist-backend", backend]
         out["parts"][part] = {
-            mode: sp_cli_run(sp_cli_argv(mode, w) + [
-                "--dist", "--dist-backend", backend], dev, log=True)
+            mode: sp_cli_run(sp_cli_argv(mode, w) + flags, dev, log=True)
             for mode in SP_ARMS}
+        if w % TP["tp"] == 0:
+            out["parts"][part]["tp"] = sp_cli_run(tp_cli_argv() + flags, dev,
+                                                  log=True, axis="tp")
         dist.destroy_process_group()
     return out
 
 
 def sp_dist(device) -> dict:
-    """19b and 19c: the `LocalMesh` dp 1 x sp references of each mode's
-    CLI here, one spawn of the ranks (`sp_dist_rank`), every rank's loss
-    lines and weights bitwise its reference and its sp bytes the
-    shapes'."""
+    """19b/19c and 20b/20c: the `LocalMesh` references of the CLI here
+    (dp 1 x sp in each mode; dp x tp 2), one spawn of the ranks
+    (`sp_dist_rank`), then the checks: every rank's loss lines and
+    weights bitwise its sp reference and its sp bytes the shapes'
+    (`sp_dist_check`), its tp shard bitwise its tp reference's
+    (`tp_dist_check`)."""
     import torch
 
     from cpd_tpu_torch.obs.timing import now
-    from cpd_tpu_torch.parallel.launch import _free_port, spawn
+    from cpd_tpu_torch.parallel.launch import _free_port
 
     cards = min(torch.cuda.device_count(), DIST["max_cards"])
     worlds = [2] + ([cards] if cards > 1 else [])
     marks = [now()]
     refs = {(mode, w): sp_cli_run(sp_cli_argv(mode, w), device)
             for w in worlds for mode in SP_ARMS}
+    refs.update({("tp", w): sp_cli_run(tp_cli_argv(w // TP["tp"]), device,
+                                       axis="tp")
+                 for w in worlds if w % TP["tp"] == 0})
     marks.append(now())
     ports = {_free_port()}
     while len(ports) < 2:
         ports.add(_free_port())
-    ranks = spawn(sp_dist_rank, max(2, cards),
+    ranks = POOL.spawn(sp_dist_rank, max(2, cards),
                   args=(device, tuple(sorted(ports)), cards),
                   timeout=SP["deadline"], env={"NCCL_DEBUG": "WARN"})
     marks.append(now())
-    out = dict(seconds=dict(references=marks[1] - marks[0],
-                            spawn=marks[2] - marks[1]))
+    seconds = dict(references=marks[1] - marks[0],
+                   spawn=marks[2] - marks[1])
+    return dict(sp=sp_dist_check(ranks, refs, worlds), seconds=seconds,
+                tp=tp_dist_check(ranks, refs, worlds))
+
+
+def sp_dist_check(ranks: list, refs: dict, worlds: list) -> dict:
+    """19b/19c's gates on the spawn's ranks (`sp_dist`)."""
+    out = {}
     for part, w in zip("bc", worlds):
         for mode in SP_ARMS:
             want = refs[(mode, w)]
@@ -8785,8 +8970,10 @@ def sp_dist(device) -> dict:
     return out
 
 
-def sp_phase(device) -> dict:
-    """Phase 19: 19a's arms, the mask and reduce checks, 19b/19c."""
+def sp_phase(device, keep=None) -> dict:
+    """Phase 19a: its arms, the mask and reduce checks; the ring arm's
+    sp-summed gradients into ``keep`` (`sp_arm`).  19b/19c run in phase
+    20's spawn (`sp_dist`)."""
     import torch
 
     from cpd_tpu_torch.obs.timing import now
@@ -8796,16 +8983,438 @@ def sp_phase(device) -> dict:
     marks = [now()]
     out = dict(mask=sp_mask_check(device), arms={})
     for name in SP_ARMS:
-        out["arms"][name] = sp_arm(device, name)
+        out["arms"][name] = sp_arm(device, name,
+                                   keep if name == "ring" else None)
         print(f"train sp 19a {name}: dp {SP['dp']} x sp {SP['sp']} "
               f"LocalMesh, {SP['rows']} x {SP['seq']} tokens a dp rank; "
               + json.dumps(out["arms"][name]), flush=True)
     marks.append(now())
-    out["dist"] = sp_dist(device)
-    marks.append(now())
-    out["seconds"] = dict(a=marks[1] - marks[0], bc=marks[2] - marks[1])
+    out["seconds"] = dict(a=marks[1] - marks[0])
     print("sp mask 19a: " + json.dumps(out["mask"]), flush=True)
     print("sp seconds: " + json.dumps(out["seconds"]), flush=True)
+    return out
+
+
+# -- phase 20: tensor parallelism and scanned layers ------------------------
+
+# 20a: dp x sp x tp ranks on the LocalMesh; phase 19's model, weights,
+# batches (SP's rows, sequence, steps, seed), APS format and learning rate
+TP = dict(dp=2, sp=2, tp=2, deadline=300.0)
+# name -> the model's options and the step's reduce options
+TP_ARMS = {
+    "tp-ring": dict(model=dict(attn_impl="xla", sp_mode="ring"),
+                    step=dict(mode="ring")),
+    "tp-ulysses": dict(model=dict(attn_impl="flash", flash_bwd="pallas",
+                                  sp_mode="ulysses",
+                                  dropout_rate=SP["dropout"], ffn_exp=4,
+                                  ffn_man=3, ffn_mode="faithful"),
+                       step=dict(mode="ring", grad_rounding="stochastic",
+                                 grad_seed=0)),
+}
+
+
+def tp_design(name: str, leaves: int, buckets: int) -> dict:
+    """The launches of one 20a step of arm ``name``: one dp reduce a tp
+    index over its local tree (`reduce_design` at W = dp, ``leaves``
+    local leaves in ``buckets`` buckets); under Ulysses flash one K9 and
+    one K10 a layer and rank; with the e4m3 FFN six K8 calls a layer and
+    rank (wi and wo_mlp: forward, grad_x, grad_W); with dropout two flat
+    ``sr_bits`` draws a layer and rank (every tp rank draws its mask)."""
+    arm = TP_ARMS[name]
+    n, ranks = LM_MODEL["n_layers"], TP["dp"] * TP["sp"] * TP["tp"]
+    sr = arm["step"].get("grad_rounding") == "stochastic"
+    one = reduce_design("ring", sr, False, TP["dp"], leaves, buckets)
+    want = {k: TP["tp"] * v for k, v in one.items()}
+    if arm["model"]["attn_impl"] == "flash":
+        want.update(flash_gqa_fwd=n * ranks, flash_gqa_bwd=n * ranks)
+    if "ffn_exp" in arm["model"]:
+        want["qgemm_faithful"] = 6 * n * ranks
+    if arm["model"].get("dropout_rate"):
+        want["sr_bits"] += 2 * n * ranks
+    return want
+
+
+@contextlib.contextmanager
+def k8_recorded(seen: dict):
+    """The first `qgemm_faithful` call of each operand shape in the block,
+    its operands copied into ``seen[(a.shape, b.shape)]``."""
+    from cpd_tpu_torch.ops import qgemm as qg
+
+    kernel = qg.qgemm_faithful
+
+    def record(a, b, exp_bits, man_bits):
+        key = (tuple(a.shape), tuple(b.shape))
+        if key not in seen:
+            seen[key] = (a.detach().contiguous().clone(),
+                         b.detach().contiguous().clone(), exp_bits, man_bits)
+        return kernel(a, b, exp_bits, man_bits)
+
+    # the kernel counts its launches on the module's name, the recorder
+    record.launches = kernel.launches
+    qg.qgemm_faithful = record
+    try:
+        yield seen
+    finally:
+        qg.qgemm_faithful = kernel
+        kernel.launches = record.launches
+
+
+def tp_k8_check(seen: dict, rows: int = 256) -> list:
+    """Each recorded K8 call (one a tp-local shape) on the card again,
+    its first ``rows`` output rows bitwise the plain scan on those rows
+    of ``a`` (`graphed_scan`: every output element is its own scan over
+    K, so a row slice is the same function on fewer rows)."""
+    from cpd_tpu_torch.ops import qgemm as qg
+
+    out = []
+    for (ash, bsh), (a, b, e, m) in seen.items():
+        got = qg.qgemm_faithful(a, b, e, m)[:rows]
+        want = graphed_scan(a[:rows], b, e, m)
+        if not same_bits(got, want):
+            raise AssertionError(f"20a K8 at {ash} x {bsh}: the kernel "
+                                 "differs from its plain version")
+        out.append([*ash, bsh[1]])
+    return out
+
+
+def tp_whole(grads: list, pos: list, i: int, dim) -> "torch.Tensor":
+    """Leaf ``i`` of the local trees at flat ranks ``pos`` (one a tp
+    index) put back whole: the shards' concatenation along ``dim``, or
+    the first rank's replicated leaf."""
+    import torch
+
+    if dim is None:
+        return grads[pos[0]][i]
+    return torch.cat([grads[p][i] for p in pos], dim=dim)
+
+
+def tp_scan_check(device, name: str, init: dict, mesh, batches, losses,
+                  model) -> dict:
+    """The arm again on scanned layers with remat: a ``scan_layers=True``
+    model on ``init`` stacked over the layers, ``SP["steps"]`` steps;
+    its losses and its weights restacked bitwise the unrolled ``model``'s
+    (``losses``, its weights after the same steps)."""
+    import torch
+
+    from cpd_tpu_torch.models import transformer_lm
+    from cpd_tpu_torch.obs.timing import now
+    from cpd_tpu_torch.train import create_train_state, sgd
+    from cpd_tpu_torch.train.lm import make_lm_train_step
+
+    n = LM_MODEL["n_layers"]
+    scanned = transformer_lm(**LM_MODEL, sp_axis="sp", tp_axis="tp",
+                             scan_layers=True, remat=True, device=device,
+                             **TP_ARMS[name]["model"])
+
+    def stacked(src: dict, name_: str):
+        if not name_.startswith("blocks."):
+            return src[name_]
+        rest = name_[len("blocks."):]
+        return torch.stack([src[f"blocks.{i}.{rest}"] for i in range(n)])
+
+    with torch.no_grad():
+        for k, p in scanned.named_parameters():
+            p.copy_(stacked(init, k))
+    opt = sgd(lambda s: SP["lr"], momentum=0.9)
+    state = create_train_state(scanned, opt)
+    step = make_lm_train_step(scanned, opt, mesh,
+                              **sp_step_kw(name, TP_ARMS))
+    got, secs = [], []
+    for tk, tg in batches:
+        torch.cuda.synchronize()
+        t0 = now()
+        state, m = step(state, tk, tg)
+        got.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        secs.append(now() - t0)
+    if got != losses:
+        raise AssertionError(f"20a {name} scanned: losses {got} != the "
+                             f"unrolled arm's {losses}")
+    final = dict(model.named_parameters())
+    for k, p in scanned.named_parameters():
+        if not same_bits(p.detach(), stacked(final, k).detach()):
+            raise AssertionError(f"20a {name} scanned: {k} differs from "
+                                 "the unrolled arm's weights restacked")
+    del scanned, state, step, opt
+    return dict(losses=got, step_ms=[x * 1e3 for x in secs],
+                parity="losses and weights (restacked) bitwise the "
+                       "unrolled arm's")
+
+
+def tp_arm(device, name: str, ref) -> dict:
+    """20a, one arm: the gates on the first batch (the tp-summed
+    gradients against ``ref``, phase 19a's tp = 1 gradients, where given;
+    each tp index's dp reduce against its plain version; the K8, K9/K10
+    calls against theirs), ``SP["steps"]`` counted steps, the step's
+    split and, with ``ref``, the scanned-layer check."""
+    import torch
+
+    from cpd_tpu_torch.models.transformer import lm_param_specs, shard_param
+    from cpd_tpu_torch.obs.timing import now
+    from cpd_tpu_torch.parallel.dist import sum_gradients
+    from cpd_tpu_torch.parallel.mesh import make_mesh
+    from cpd_tpu_torch.parallel.overlap import (DEFAULT_BUCKET_ELEMS,
+                                                bucket_layout)
+    from cpd_tpu_torch.train import create_train_state, sgd
+    from cpd_tpu_torch.train.lm import (as_tokens, lm_sp_gradients,
+                                        make_lm_train_step,
+                                        step_dropout_key)
+    from cpd_tpu_torch.train.step import fp32_numerics
+
+    dp, sp, tp = TP["dp"], TP["sp"], TP["tp"]
+    arm = TP_ARMS[name]
+    mesh = make_mesh(dp, sp, device, tp=tp)
+    # the flat ranks of each tp index's dp reduce
+    dp_pos = [[d * sp * tp + k for d in range(dp)] for k in range(tp)]
+    dp_views = [mesh.axis("dp", pos) for pos in dp_pos]
+    model = lm_model(device, SP["seed"], LM_MODEL, sp_axis="sp",
+                     tp_axis="tp", **arm["model"])
+    named = list(model.named_parameters())
+    specs = lm_param_specs(named)
+    dims = [specs[n][1] for n, _ in named]
+    batches = lm_batches(LM_MODEL["vocab_size"], SP["steps"],
+                         dp * SP["rows"], SP["seq"], SP["seed"])
+    toks, tgts = as_tokens(*batches[0], device)
+    out = dict(arm=name)
+    init = ({n: p.detach().clone() for n, p in named} if ref is not None
+            else None)
+    # the gradient gate, dropout off
+    rate = arm["model"].get("dropout_rate", 0.0)
+    for blk in model.blocks:
+        blk.dropout_rate = 0.0
+    k8 = {}
+    with fp32_numerics(), k8_recorded(k8):
+        g, _, _ = lm_sp_gradients(model, toks, tgts, mesh)
+    for blk in model.blocks:
+        blk.dropout_rate = rate
+    if ref is not None:
+        rel = max(float((tp_whole(g, [d * sp * tp + k for k in range(tp)],
+                                  i, dim) - b).abs().max()
+                        / b.abs().max().clamp_min(1e-30))
+                  for d in range(dp) for i, (dim, b) in
+                  enumerate(zip(dims, ref[d])))
+        if not rel <= SP["grad_rtol"]:
+            raise AssertionError(f"20a {name}: the sp- and tp-summed "
+                                 f"gradients are {rel} relative from tp = "
+                                 "1's")
+        out["grad_rel_err"] = rel
+    for k, (pos, view) in enumerate(zip(dp_pos, dp_views)):
+        local = [g[p] for p in pos]
+        red = [sum_gradients(local, view, fused=f,
+                             **sp_reduce_kw(name, TP_ARMS))
+               for f in (None, False)]
+        if not all(same_bits(a, b) for a, b in zip(red[0][0], red[1][0])):
+            raise AssertionError(f"20a {name}: tp index {k}'s dp reduce's "
+                                 "kernels differ from its plain version")
+    del g, local, red
+    if k8:
+        out["k8_shapes"] = tp_k8_check(k8)
+    del k8
+    if arm["model"]["attn_impl"] == "flash":
+        out["k9_k10"] = sp_kernel_check(model, toks, mesh, "20a")
+    opt = sgd(lambda s: SP["lr"], momentum=0.9)
+    state = create_train_state(model, opt)
+    step = make_lm_train_step(model, opt, mesh, **sp_step_kw(name, TP_ARMS))
+    torch.cuda.synchronize()
+    reset_counts()
+    secs, losses = [], []
+    for tk, tg in batches:
+        t0 = now()
+        state, m = step(state, tk, tg)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        secs.append(now() - t0)
+    launches = read_counts()
+    local_numel = [shard_param(p.detach(), specs[n][0], 0, tp).numel()
+                   for n, p in named]
+    buckets = len(bucket_layout(local_numel, DEFAULT_BUCKET_ELEMS))
+    want = tp_design(name, len(named), buckets)
+    per_step = {k: v // SP["steps"] for k, v in launches.items() if v}
+    if per_step != {k: v for k, v in want.items() if v} or any(
+            v % SP["steps"] for v in launches.values()):
+        raise AssertionError(f"20a {name}: launches {launches} over "
+                             f"{SP['steps']} steps, the design {want}")
+    if not all(math.isfinite(x) for x in losses) or abs(
+            losses[0] - math.log(LM_MODEL["vocab_size"])) > LM_LOSS_BAND:
+        raise AssertionError(f"20a {name}: losses {losses}")
+    # the split: one more first-batch step's forward/backward (its dropout
+    # keys those of a step numbered SP["steps"]) and its dp reduces
+
+    def key_fn(d, j, micro):
+        return step_dropout_key(0, SP["steps"], 1, micro, d, j)
+
+    with fp32_numerics():
+        torch.cuda.synchronize()
+        t0 = now()
+        g, _, _ = lm_sp_gradients(model, toks, tgts, mesh, key_fn=key_fn)
+        torch.cuda.synchronize()
+        t1 = now()
+        for pos, view in zip(dp_pos, dp_views):
+            sum_gradients([g[p] for p in pos], view,
+                          **sp_reduce_kw(name, TP_ARMS))
+        torch.cuda.synchronize()
+        t2 = now()
+    del g
+    tokens = dp * SP["rows"] * SP["seq"]
+    out.update(losses=losses, step_ms=[x * 1e3 for x in secs],
+               fwd_bwd_ms=(t1 - t0) * 1e3, reduce_ms=(t2 - t1) * 1e3,
+               tokens_per_s=tokens * (len(secs) - 1) / sum(secs[1:]),
+               launches_per_step=per_step, leaves=len(named),
+               local_elements=sum(local_numel), buckets=buckets)
+    del state, step, opt
+    torch.cuda.empty_cache()
+    if init is not None:
+        out["scan"] = tp_scan_check(device, name, init, mesh, batches,
+                                    losses, model)
+    del model, init
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_cli_argv(dp: int = 1) -> list:
+    """20b's LM CLI: the serving width at ``LM_EMU_CLI_VOCAB`` tokens,
+    ``--tp`` 2 (x ``--dp`` ``dp`` on a `LocalMesh`), 20a's ring arm
+    without sp (xla attention, the APS e5m2 RTNE ring reduce), batch 4 of
+    2048 tokens, 2 iterations."""
+    L = LM_MODEL
+    argv = ["--vocab-size", str(LM_EMU_CLI_VOCAB), "--d-model",
+            str(L["d_model"]), "--n-layers", str(L["n_layers"]),
+            "--n-heads", str(L["n_heads"]), "--n-kv-heads",
+            str(L["n_kv_heads"]), "--seq-len", str(SP["seq"]),
+            "--batch-size", str(SP["rows"]), "--tp", str(TP["tp"]),
+            "--use_APS", "--grad_exp", str(SP["fmt"][0]), "--grad_man",
+            str(SP["fmt"][1]), "--mode", "ring", "--attn-impl", "xla",
+            "--max-iter", "2", "--print-freq", "1"]
+    return argv + (["--dp", str(dp)] if dp > 1 else [])
+
+
+def tp_held(model, state) -> dict:
+    """The digest of each tp index's weights and momentum (a `LocalMesh`
+    model at ``tp_size`` 1 cut into the mesh's tp shards, a process's
+    shard model as it is) and the bytes one tp rank holds of them."""
+    import hashlib
+
+    import torch
+
+    from cpd_tpu_torch.models.transformer import lm_param_specs, shard_param
+
+    named = list(model.named_parameters())
+    specs = lm_param_specs(named)
+    pairs = ([(specs[n][0], p.detach()) for n, p in named]
+             + [(specs[n][0], m) for (n, _), m in
+                zip(named, state.opt_state.momentum_buf)])
+    tp = TP["tp"] if model.tp_size == 1 else 1
+    digests, held = [], 0
+    for k in range(tp):
+        h, held = hashlib.sha256(), 0
+        for kind, t in pairs:
+            t = shard_param(t, kind, k, tp).contiguous()
+            held += t.numel() * t.element_size()
+            h.update(t.view(-1).view(torch.uint8).cpu().numpy().tobytes())
+        digests.append(h.hexdigest())
+    return dict(shard_digests=digests, held_bytes=held)
+
+
+def tp_shapes(vocab: int) -> dict:
+    """From the shapes alone: the fp32 bytes of weights and momentum one
+    tp rank holds (the wq/wkv/wi columns and the wo/wo_mlp rows cut into
+    tp shards, the embedding and the LayerNorms whole) and the bytes it
+    hands to the tp all-gathers in one 20b step: two tp sums a layer of
+    the (rows, T, d_model) fp32 activations forward and two backward,
+    then the replicated leaves' gradients once."""
+    L, tp = LM_MODEL, TP["tp"]
+    d, n = L["d_model"], L["n_layers"]
+    hd = d // L["n_heads"]
+    sharded = (d * d + d * 2 * L["n_kv_heads"] * hd + d * d
+               + 2 * d * L["d_ff"]) // tp
+    replicated = vocab * d + n * 4 * d + 2 * d
+    act = SP["rows"] * SP["seq"] * d * 4
+    return dict(held_bytes=(n * sharded + replicated) * 4 * 2,
+                tp_bytes={"tp.all_gather": n * 4 * act + replicated * 4})
+
+
+def tp_dist_check(ranks: list, refs: dict, worlds: list) -> dict:
+    """20b/20c's gates on `sp_dist`'s ranks: every rank's loss,
+    validation and weights and momentum bitwise its tp index's shard of
+    its `LocalMesh` reference, rank 0's loss lines its reference's, and
+    its held bytes and tp bytes a step the shapes' (`tp_shapes`)."""
+    shapes = tp_shapes(LM_EMU_CLI_VOCAB)
+    out = {}
+    for part, w in zip("bc", worlds):
+        if w % TP["tp"]:
+            continue
+        want = refs[("tp", w)]
+        for rk in ranks[:w]:
+            got = rk["parts"][part]["tp"]
+            k = rk["rank"] % TP["tp"]
+            if (got["loss"], got["val"], got["shard_digests"][0]) != (
+                    want["loss"], want["val"], want["shard_digests"][k]):
+                raise AssertionError(
+                    f"20{part} rank {rk['rank']}: loss {got['loss']} val "
+                    f"{got['val']} shard {got['shard_digests'][0]} differ "
+                    f"from the LocalMesh's {want['loss']} {want['val']} "
+                    f"tp shard {k} {want['shard_digests'][k]}")
+            if rk["rank"] == 0 and got["lines"] != want["lines"]:
+                raise AssertionError(f"20{part}: rank 0's loss lines "
+                                     f"{got['lines']} != {want['lines']}")
+            if got["held_bytes"] != shapes["held_bytes"]:
+                raise AssertionError(f"20{part} rank {rk['rank']}: holds "
+                                     f"{got['held_bytes']} bytes of "
+                                     "weights and momentum, the shapes "
+                                     f"say {shapes['held_bytes']}")
+            if any(log != shapes["tp_bytes"] for log in got["logs"]):
+                raise AssertionError(f"20{part} rank {rk['rank']}: tp "
+                                     f"bytes {got['logs']} != "
+                                     f"{shapes['tp_bytes']}")
+        out[part] = dict(
+            world=w, backend="gloo" if part == "b" else "nccl",
+            dp=w // TP["tp"], tp=TP["tp"], loss=want["loss"],
+            val=want["val"], held_bytes=shapes["held_bytes"],
+            tp_bytes_per_step=shapes["tp_bytes"],
+            cli_seconds=[rk["parts"][part]["tp"]["seconds"]
+                         for rk in ranks[:w]],
+            local_seconds=want["seconds"])
+        where = ("gloo processes sharing the card" if part == "b"
+                 else "nccl processes, one a card")
+        print(f"tp dist 20{part}: {w} {where} at dp {w // TP['tp']} x tp "
+              f"{TP['tp']}, the CLI's losses, "
+              "weights and momentum bitwise the LocalMesh's tp shards, "
+              "bytes held and tp bytes a rank and step as the shapes say; "
+              + json.dumps(out[part]), flush=True)
+    return out
+
+
+def tp_phase(device, ref: dict, card: str) -> dict:
+    """Phase 20: 20a's arms (the ring arm's gradients against phase 19a's
+    ``ref["grads"]``, its scanned twin), the mask check, then one spawn
+    for 19b/19c and 20b/20c (`sp_dist`)."""
+    import torch
+
+    from cpd_tpu_torch.obs.timing import now
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    marks = [now()]
+    out = dict(mask=sp_mask_check(device, step=1, dp_index=0, layer=3,
+                                  label="20a"), arms={})
+    for name in TP_ARMS:
+        r = out["arms"][name] = tp_arm(
+            device, name, ref.pop("grads") if name == "tp-ring" else None)
+        dims = f"dp {TP['dp']} x sp {TP['sp']} x tp {TP['tp']} LocalMesh"
+        for key, label in (("step_ms", "step ms"), ("fwd_bwd_ms",
+                                                     "fwd_bwd_ms"),
+                           ("reduce_ms", "reduce_ms"),
+                           ("tokens_per_s", "tokens/s")):
+            print(f"train tp 20a {name} {label}: {json.dumps(r[key])} "
+                  f"({dims}; {card})", flush=True)
+        print(f"train tp 20a {name}: " + json.dumps(r), flush=True)
+    marks.append(now())
+    out["dist"] = sp_dist(device)
+    marks.append(now())
+    out["seconds"] = dict(a=marks[1] - marks[0], bc=marks[2] - marks[1],
+                          **out["dist"]["seconds"])
+    print("tp mask 20a: " + json.dumps(out["mask"]), flush=True)
+    print("tp seconds: " + json.dumps(out["seconds"]), flush=True)
     return out
 
 
@@ -9016,6 +9625,10 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
+    # the rank processes of phases 14-17 and 20 (17b's are the most)
+    # import while the kernels build
+    POOL.start(ZERO["dist_world"] + 1
+               + min(torch.cuda.device_count(), DIST["max_cards"]))
     t0 = now()
     build_all()
     print(f"build: all kernels in {now() - t0:.1f} s", flush=True)
@@ -9069,7 +9682,9 @@ def main() -> int:
     switches = timed("16", switches_phase, device)
     zero = timed("17", zero_phase, device)
     quant_layers = timed("18", quant_layers_phase, device, train)
-    seq_par = timed("19", sp_phase, device)
+    tp_ref = {}        # phase 19a's sp-summed gradients: 20a's tp = 1
+    seq_par = timed("19", sp_phase, device, tp_ref)
+    tensor_par = timed("20", tp_phase, device, tp_ref, card)
     print("phase seconds: " + json.dumps(phase_seconds), flush=True)
     print("shared setup: " + json.dumps(shared), flush=True)
     if dist["b"]["world"] == 1:
@@ -9237,6 +9852,13 @@ def main() -> int:
                for arm, r in seq_par["arms"].items()}
         if any(per.values()):
             entry["launches_per_step_sp"] = per
+    # phase 20a's launches per step of each arm on the dp x sp x tp
+    # LocalMesh
+    for entry in kernels:
+        per = {arm: r["launches_per_step"].get(entry["name"], 0)
+               for arm, r in tensor_par["arms"].items()}
+        if any(per.values()):
+            entry["launches_per_step_tp"] = per
     print(card, flush=True)      # exactly as nvidia-smi gives it
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -9250,6 +9872,7 @@ if __name__ == "__main__":
         rc = (overlap_nccl_main() if sys.argv[1:] == ["--overlap-nccl"]
               else main())
     finally:
+        POOL.close()
         for _root in _SAVE_ROOT:
             shutil.rmtree(_root, ignore_errors=True)
     sys.exit(rc)

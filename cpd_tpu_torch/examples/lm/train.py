@@ -51,13 +51,24 @@ rotate around the sp ranks) or ``ulysses`` (all-to-all between sequence
 and heads; ``--n-heads`` a multiple of N, and with ``--attn-impl flash``
 the flash kernels on the gathered sequence).  ``--dropout`` drops the
 residual branches in training with flax's masks (seed 0, as the JAX
-trainer).  Flags of the JAX trainer whose subsystem is not ported yet
-raise "not yet ported" with their ROADMAP row: ``--tp``, ``--scan-layers``
-and ``--overlap-reduce`` at ``--sp`` > 1 (Queue A row 1), ``--pp``,
-``--vocab-pp``, ``--n-microbatches``, ``--moe``/``--n-experts``/``--ep``
-and ``--sample*`` (row 1: pipeline, MoE, `generate`), checkpoints and
-``--save-path``/``--export-torch`` (A8), the resilience flags (A10) and
-the observability flags (A11).
+trainer).
+
+``--tp N`` adds Megatron tensor parallelism (``--n-heads`` and
+``--n-kv-heads`` multiples of N): ``--dp`` x ``--sp`` x ``--tp`` ranks
+on the card's `LocalMesh` (one full-width model, each tp rank on its
+slices), or under ``--dist`` the group's processes as world / (sp x tp)
+dp ranks x sp x tp, each process holding its shard of rank 0's
+full-width weights (`TransformerLM.load_shard`); the tp ranks of a block
+take the same tokens.  ``--scan-layers`` keeps the blocks in the scanned
+layout (leaves stacked over the layers, flax's ``nn.scan`` with its
+dropout keys); not with ``--sample``.  Flags of the JAX trainer whose
+subsystem is not ported yet raise "not yet ported" with their ROADMAP
+row: ``--overlap-reduce`` at ``--sp`` or ``--tp`` > 1 (Queue A row 2),
+``--sample*`` (row 3: `generate`), ``--pp``, ``--vocab-pp`` and
+``--n-microbatches`` (row 4: pipeline), ``--moe``/``--n-experts``/
+``--ep`` (row 5: MoE), checkpoints and ``--save-path``/
+``--export-torch`` (A8), the resilience flags (A10) and the
+observability flags (A11).
 """
 
 from __future__ import annotations
@@ -74,7 +85,7 @@ from ...obs.timing import now
 # alone selects their subsystem)
 _NOT_PORTED = (
     "--vocab-pp", "--moe", "--n-experts", "--n-microbatches",
-    "--scan-layers", "--save-path", "--ckpt-freq",
+    "--save-path", "--ckpt-freq",
     "--tensorboard", "--sample-temperature", "--sample-top-k",
     "--sample-top-p", "--sample-seed", "--profile-dir", "--export-torch",
     "--obs-dir", "--obs-flight",
@@ -104,11 +115,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "heads<->sequence; needs --n-heads divisible by "
                         "--sp)")
     p.add_argument("--tp", default=1, type=int,
-                   help="not yet ported > 1 (ROADMAP Queue A row 1)")
+                   help="tensor-parallel (Megatron) ranks: x --dp x --sp "
+                        "on the card's LocalMesh, or under --dist the "
+                        "group's processes as world/(sp*tp) dp ranks x sp "
+                        "x tp")
     p.add_argument("--pp", default=1, type=int,
-                   help="not yet ported > 1 (ROADMAP Queue A row 1)")
+                   help="not yet ported > 1 (ROADMAP Queue A row 4)")
     p.add_argument("--ep", default=1, type=int,
-                   help="not yet ported > 1 (ROADMAP Queue A row 1)")
+                   help="not yet ported > 1 (ROADMAP Queue A row 5)")
     p.add_argument("--vocab-size", default=256, type=int)
     p.add_argument("--d-model", default=256, type=int)
     p.add_argument("--n-layers", default=4, type=int)
@@ -181,12 +195,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--remat", action="store_true",
                    help="recompute each block's forward in the backward "
                         "pass (activation memory for compute)")
+    p.add_argument("--scan-layers", action="store_true",
+                   help="the scanned block stack: leaves stacked over the "
+                        "layers (flax's nn.scan layout and dropout keys)")
     p.add_argument("--label-smoothing", default=0.0, type=float)
     p.add_argument("--dropout", default=0.0, type=float,
                    help="residual-branch dropout rate in [0, 1) (training "
                         "only; flax's masks)")
     p.add_argument("--sample", default=0, type=int,
-                   help="not yet ported > 0 (ROADMAP Queue A row 1: "
+                   help="not yet ported > 0 (ROADMAP Queue A row 3: "
                         "generate)")
     return p
 
@@ -203,27 +220,39 @@ def parse_args(argv=None) -> argparse.Namespace:
         if flag in _NOT_PORTED:
             raise _not_ported(flag)
         build_parser().error(f"unrecognized arguments: {' '.join(rest)}")
-    for flag, value, default in (("--tp", args.tp, 1),
-                                 ("--pp", args.pp, 1), ("--ep", args.ep, 1),
-                                 ("--sample", args.sample, 0)):
+    if args.scan_layers and args.sample > 0:
+        raise SystemExit("--sample (KV-cache decode) does not compose with "
+                         "--scan-layers")
+    for flag, value, default, row in (("--sample", args.sample, 0, 3),
+                                      ("--pp", args.pp, 1, 4),
+                                      ("--ep", args.ep, 1, 5)):
         if value != default:
-            raise _not_ported(f"{flag} {value}", "Queue A row 1")
-    if args.dp < 1:
-        raise SystemExit(f"--dp must be >= 1, got {args.dp}")
-    if args.sp < 1:
-        raise SystemExit(f"--sp must be >= 1, got {args.sp}")
+            raise _not_ported(f"{flag} {value}", f"Queue A row {row}")
+    for flag, value in (("--dp", args.dp), ("--sp", args.sp),
+                        ("--tp", args.tp)):
+        if value < 1:
+            raise SystemExit(f"{flag} must be >= 1, got {value}")
     if args.seq_len % args.sp:
         raise SystemExit(f"seq-len {args.seq_len} not divisible by "
                          f"sp={args.sp}")
-    if args.sp > 1 and args.sp_mode == "ulysses" and args.n_heads % args.sp:
-        raise SystemExit(f"--sp-mode ulysses needs --n-heads {args.n_heads} "
+    if args.n_heads % args.tp:
+        raise SystemExit(f"n-heads {args.n_heads} not divisible by "
+                         f"tp={args.tp}")
+    if args.n_kv_heads is not None and args.n_kv_heads % args.tp:
+        raise SystemExit(f"n-kv-heads {args.n_kv_heads} not divisible by "
+                         f"tp={args.tp}")
+    if args.sp > 1 and args.sp_mode == "ulysses" and (
+            args.n_heads // args.tp) % args.sp:
+        raise SystemExit(f"--sp-mode ulysses needs the local heads "
+                         f"{args.n_heads // args.tp} (--n-heads / --tp) "
                          f"divisible by --sp {args.sp}")
     if args.sp > 1 and args.sp_mode == "ring" and args.attn_impl == "flash":
         raise SystemExit("--attn-impl flash does not compose with --sp-mode "
                          "ring (the ring's online softmax is its own "
                          "schedule); use --sp-mode ulysses")
-    if args.sp > 1 and args.overlap_reduce:
-        raise _not_ported("--overlap-reduce at --sp > 1", "Queue A row 1")
+    if (args.sp > 1 or args.tp > 1) and args.overlap_reduce:
+        raise _not_ported("--overlap-reduce at --sp or --tp > 1",
+                          "Queue A row 2")
     if not 0.0 <= args.dropout < 1.0:
         raise SystemExit(f"--dropout must be in [0, 1), got {args.dropout}")
     if args.dist and args.dp != 1:
@@ -262,9 +291,10 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def run(args: argparse.Namespace, device="cuda") -> dict:
-    """Train as the flags say on ``--dp`` x ``--sp`` `LocalMesh` ranks
-    on ``device``, or with ``--dist`` on this process's one rank of the
-    group (under nccl ``device`` is the rank's card); returns the last
+    """Train as the flags say on ``--dp`` x ``--sp`` x ``--tp``
+    `LocalMesh` ranks on ``device``, or with ``--dist`` on this process's
+    one rank of the group (under nccl ``device`` is the rank's card);
+    returns the last
     metrics with ``step``, ``diverged``, ``seconds`` and ``val`` (the
     last validation's metrics)."""
     import torch
@@ -282,20 +312,27 @@ def run(args: argparse.Namespace, device="cuda") -> dict:
     rank, _ = dist_init(args.dist_backend) if args.dist else (0, 1)
     grouped = args.dist and torch.distributed.is_initialized()
     dev = resolve_device(device)
-    mesh = make_mesh(None if grouped else args.dp, args.sp, dev)
+    mesh = make_mesh(None if grouped else args.dp, args.sp, dev, tp=args.tp)
     model_kw = dict(vocab_size=args.vocab_size, d_model=args.d_model,
                     n_layers=args.n_layers, n_heads=args.n_heads,
                     n_kv_heads=args.n_kv_heads, attn_impl=args.attn_impl,
                     flash_bwd=args.flash_bwd, remat=args.remat,
+                    scan_layers=args.scan_layers,
                     dtype=torch.bfloat16 if args.bf16 else torch.float32,
                     sp_axis="sp" if args.sp > 1 else None,
-                    sp_mode=args.sp_mode, dropout_rate=args.dropout)
+                    sp_mode=args.sp_mode, dropout_rate=args.dropout,
+                    tp_axis="tp" if args.tp > 1 else None)
     if (args.ffn_exp, args.ffn_man) != (8, 23):
         model_kw.update(ffn_exp=args.ffn_exp, ffn_man=args.ffn_man,
                         ffn_mode=args.ffn_mode)
     gen = torch.Generator(device=mesh.device).manual_seed(0)
     model = transformer_lm(**model_kw, device=mesh.device).init_weights(gen)
     replicate(model, mesh)
+    if grouped and args.tp > 1:
+        # this process holds its shard of rank 0's full-width weights
+        model = transformer_lm(**model_kw, tp_size=args.tp,
+                               device=mesh.device).load_shard(
+            model, mesh.coords(mesh.rank)["tp"])
     if args.lr_schedule == "cosine":
         schedule = warmup_cosine(args.base_lr, args.warmup_iters,
                                  args.max_iter)
@@ -316,8 +353,9 @@ def run(args: argparse.Namespace, device="cuda") -> dict:
 
     ds = SyntheticText(n=4096, seq_len=args.seq_len,
                        vocab_size=args.vocab_size)
-    # the dp ranks' rows; the sp ranks split their columns
-    global_batch = (args.batch_size * (mesh.world // args.sp)
+    # the dp ranks' rows; the sp ranks split their columns, the tp ranks
+    # share their block
+    global_batch = (args.batch_size * (mesh.world // (args.sp * args.tp))
                     * args.emulate_node)
     val_bs = global_batch // args.emulate_node
     val_toks, val_tgts = ds.batch(np.arange(len(ds) - val_bs, len(ds)),

@@ -5,7 +5,12 @@ flax's layout and names (`models/transformer.py`), so the
 mapping is one to one: ``params["block{i}"]["wq"]["kernel"]`` lands in
 ``model.blocks[i].wq.kernel``, ``params["embed"]["embedding"]`` in
 ``model.embed.embedding``, LayerNorm ``scale``/``bias`` as they are.
-Both projection layouts load: MHA (``wqkv``) and GQA (``wq``/``wkv``).
+Both projection layouts load: MHA (``wqkv``) and GQA (``wq``/``wkv``),
+and both block layouts: unrolled (``block{i}``) and scanned (flax's
+``nn.scan``: ``params["blocks"]`` with every leaf stacked over the
+layers, into a ``scan_layers=True`` model's ``blocks``).
+`tp_shard_params` gives a tp rank's shard of such a tree, to load into a
+``tp_size`` model.
 
 `load_jax_resnet_cifar` — a flax `ResNetCIFAR`'s ``params`` and
 ``batch_stats``: conv kernels HWIO -> OIHW, the Dense kernel (I, O) ->
@@ -46,7 +51,10 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-__all__ = ["load_jax_params", "load_jax_resnet_cifar", "load_jax_resnet",
+from .models.transformer import megatron_shard_kind, shard_param
+
+__all__ = ["load_jax_params", "tp_shard_params", "load_jax_resnet_cifar",
+           "load_jax_resnet",
            "load_jax_tiny", "reference_key", "load_reference_checkpoint",
            "import_reference_resnet18_cifar",
            "export_reference_resnet18_cifar", "save_torch_checkpoint"]
@@ -97,6 +105,29 @@ def load_jax_params(model: torch.nn.Module,
                                  f"{tuple(p.shape)}")
             p.copy_(torch.from_numpy(arr.copy()))
     return model
+
+
+def tp_shard_params(params: Mapping[str, Any], tp_index: int,
+                    tp: int) -> dict:
+    """tp rank ``tp_index``'s shard of a flax `TransformerLM` param tree
+    (``{"params": ...}`` or the inner dict, numpy leaves), by the port's
+    Megatron rules (`models.transformer.lm_param_specs`, rank-aware for
+    the scanned layout): the local block that JAX's shard_map hands a
+    device at tp index ``tp_index`` under ``lm_param_specs``.  Returns a
+    tree of the same structure, numpy leaves."""
+    def walk(tree, path):
+        out = {}
+        for k, v in tree.items():
+            names = path + (str(k),)
+            if isinstance(v, Mapping):
+                out[k] = walk(v, names)
+            else:
+                out[k] = np.ascontiguousarray(shard_param(
+                    np.asarray(v), megatron_shard_kind(names), tp_index,
+                    tp))
+        return out
+
+    return walk(params.get("params", params), ())
 
 
 def _resnet_leaf(flax_key: str, arr: np.ndarray) -> tuple:

@@ -236,18 +236,20 @@ def local_rows(x, mesh):
     on a data-parallel mesh the contiguous ``1/P`` slice of rows of
     process ``p`` out of ``P`` (the per-process contract of the JAX
     ``host_batch_to_global``: the global batch is the processes' slices
-    in rank order); on a dp x sp mesh the rows of its dp index and the
-    columns of its sp index, the block ``P(dp, sp)`` gives it.  A
-    `LocalMesh` holds every rank: all of ``x``."""
+    in rank order); on a dp x sp x tp mesh the rows of its dp index and
+    the columns of its sp index, the block ``P(dp, sp)`` gives it (its
+    tp peers take the same block).  A `LocalMesh` holds every rank: all
+    of ``x``."""
     if len(mesh.ranks) == mesh.world:
         return x
-    sp = getattr(mesh, "axes", {}).get("sp", 1)
-    dp = mesh.world // sp
+    axes = getattr(mesh, "axes", {})
+    sp, tp = axes.get("sp", 1), axes.get("tp", 1)
+    dp = mesh.world // (sp * tp)
     n = x.shape[0]
     if n % dp:
         raise ValueError(f"global batch {n} is not a multiple of the "
                          f"{dp} data-parallel ranks")
-    if sp == 1:
+    if sp == 1 and tp == 1:
         per = n // mesh.world * len(mesh.ranks)
         lo = mesh.ranks[0] * (n // mesh.world)
         return x[lo:lo + per]

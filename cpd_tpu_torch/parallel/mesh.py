@@ -1,5 +1,5 @@
 """The meshes of the port (port of `cpd_tpu/parallel/mesh.py` at its
-dp and sp axes).
+dp, sp and tp axes).
 
 Two meshes, one interface:
 
@@ -18,23 +18,25 @@ Two meshes, one interface:
   reduce-scatter, Ulysses' head exchange) one `dist.all_to_all_single`.
 
 Both are meshes of named axes in the JAX package's canonical order
-``(dp, pp, sp, ep, tp)``; the port has the dp and sp axes (``sp=1``
-keeps the pure data-parallel mesh of earlier slices).  Flat rank ``f``
-sits at ``dp_index = f // sp`` and ``sp_index = f % sp``, so data block
-(i, j) — the rows of dp rank i and the columns of sp rank j, as JAX's
-``P(dp, sp)`` shards a (batch, sequence) array — is flat rank
-``i * sp + j``.  ``mesh.axis(name)`` is the 1-D view over one axis, with
-the interface the reduce code is written against (``ring_shift``,
+``(dp, pp, sp, ep, tp)``; the port has the dp, sp and tp axes (``sp=1,
+tp=1`` keeps the pure data-parallel mesh of earlier slices).  tp is the
+innermost: flat rank ``f = (i * sp + j) * tp + k`` sits at dp index i,
+sp index j and tp index k (the order of JAX's ``make_mesh(dp, tp, sp)
+.devices`` once pp = ep = 1), so data block (i, j) — the rows of dp rank
+i and the columns of sp rank j, as JAX's ``P(dp, sp)`` shards a (batch,
+sequence) array — is held by the tp ranks ``(i * sp + j) * tp + k``,
+every one of them.  ``mesh.axis(name)`` is the 1-D view over one axis,
+with the interface the reduce code is written against (``ring_shift``,
 ``all_gather``, ``all_to_all``, ``max``, ``min``, ``sum``, ``mean``,
 ``ranks``, ``world``): its ``world`` is the axis size and its ``ranks``
 are the axis indices of the local ranks, so an SR key folded with
-``r for r in view.ranks`` is JAX's ``fold_in(k, axis_index(axis))``.
-On a `LocalMesh` the view applies each collective within every group of
-local ranks that share their other coordinates; on a `ProcessMesh` it
-runs over a `torch.distributed` subgroup (every process creates every
-subgroup of the mesh, in one order, when the mesh is built; its ops
-are logged under the axis' name).  A data-parallel mesh (sp = 1) is its
-own dp view.
+``r for r in view.ranks`` is JAX's ``fold_in(k, axis_index(axis))``.  On a
+`LocalMesh` the view applies each collective within every group of local
+ranks that share their other coordinates; on a `ProcessMesh` it runs
+over a `torch.distributed` subgroup (every process creates every
+subgroup of the mesh, in one order, when the mesh is built; its ops are
+logged under the axis' name).  A data-parallel mesh (sp = tp = 1) is
+its own dp view.
 
 The collectives take and return one value per local rank, as a list
 indexed by position in ``mesh.ranks``: ``world`` entries on a
@@ -47,12 +49,16 @@ backend's own all-reduce is never used: NCCL's SUM adds in an order of
 its own, and no backend's MAX promises to carry a NaN, which the APS
 exponent MAX must (``aps_bad`` counts it).
 
-``ring_shift`` and ``all_to_all`` carry gradients, as JAX transposes
-``ppermute`` and ``all_to_all``: on a `LocalMesh` they are copies and
-reindexings that autograd sees through; on a `ProcessMesh` each is a
-`torch.autograd.Function` whose backward is the reverse shift or the
-inverse all-to-all of the incoming gradient (sequence-parallel
-attention's backward, `ops.attention`).  Every rank reaches a backward
+``ring_shift``, ``all_to_all`` and ``psum`` carry gradients, as JAX's
+shard_map transposes ``ppermute``, ``all_to_all`` and ``psum``: on a
+`LocalMesh` the first two are copies and reindexings that autograd sees
+through; on a `ProcessMesh` each is a `torch.autograd.Function` whose
+backward is the reverse shift or the inverse all-to-all of the incoming
+gradient (sequence-parallel attention's backward, `ops.attention`).
+``psum`` (the tensor-parallel sum of the Megatron blocks) is the
+rank-order ``sum`` forward and the rank-order sum of the incoming
+gradients backward on both meshes, as shard_map (with its replication
+check off) transposes ``psum``.  Every rank reaches a backward
 collective where its forward one stood in the graph, so the ranks meet
 in the same order.
 """
@@ -67,12 +73,13 @@ import torch.distributed as dist
 from ..device import resolve_device
 
 __all__ = ["LocalMesh", "ProcessMesh", "data_parallel_mesh", "make_mesh",
-           "per_distinct", "AXIS_DATA", "AXIS_SEQ"]
+           "per_distinct", "AXIS_DATA", "AXIS_SEQ", "AXIS_TENSOR"]
 
 AXIS_DATA = "dp"
 AXIS_SEQ = "sp"
-# the JAX package's order; the port holds its dp and sp axes
-_CANONICAL_ORDER = (AXIS_DATA, "pp", AXIS_SEQ, "ep", "tp")
+AXIS_TENSOR = "tp"
+# the JAX package's order; the port holds its dp, sp and tp axes
+_CANONICAL_ORDER = (AXIS_DATA, "pp", AXIS_SEQ, "ep", AXIS_TENSOR)
 
 
 def _max(stack: torch.Tensor) -> torch.Tensor:
@@ -93,25 +100,26 @@ def _sum(xs: Sequence[torch.Tensor]) -> torch.Tensor:
     return s
 
 
-def _axes(world: int, sp: int) -> dict:
-    """The axis sizes of a dp x sp mesh of ``world`` ranks."""
-    if sp < 1 or world % sp:
-        raise ValueError(f"sp={sp} must be >= 1 and divide the mesh's "
-                         f"{world} ranks")
-    return {AXIS_DATA: world // sp, AXIS_SEQ: sp}
+def _axes(world: int, sp: int, tp: int = 1) -> dict:
+    """The axis sizes of a dp x sp x tp mesh of ``world`` ranks."""
+    if sp < 1 or tp < 1 or world % (sp * tp):
+        raise ValueError(f"sp={sp} x tp={tp} must be >= 1 and divide the "
+                         f"mesh's {world} ranks")
+    return {AXIS_DATA: world // (sp * tp), AXIS_SEQ: sp, AXIS_TENSOR: tp}
 
 
 def _coords(flat: int, axes: dict) -> dict:
-    """A flat rank's index on each axis (dp outermost)."""
-    return {AXIS_DATA: flat // axes[AXIS_SEQ],
-            AXIS_SEQ: flat % axes[AXIS_SEQ]}
+    """A flat rank's index on each axis (dp outermost, tp innermost)."""
+    sp, tp = axes[AXIS_SEQ], axes[AXIS_TENSOR]
+    return {AXIS_DATA: flat // (sp * tp), AXIS_SEQ: flat // tp % sp,
+            AXIS_TENSOR: flat % tp}
 
 
 def _axis_groups(name: str, axes: dict) -> list:
     """The flat ranks of each group along axis ``name`` (ranks that share
     their other coordinates), each in axis-index order, groups in the
     order of their first rank."""
-    world = axes[AXIS_DATA] * axes[AXIS_SEQ]
+    world = axes[AXIS_DATA] * axes[AXIS_SEQ] * axes[AXIS_TENSOR]
     groups: dict = {}
     for f in range(world):
         c = _coords(f, axes)
@@ -190,25 +198,49 @@ class _LocalCollectives:
         """Elementwise mean over the ranks: the rank-order sum / world."""
         return [s / self.world for s in self.sum(xs)]
 
+    def psum(self, xs: Sequence[torch.Tensor]) -> list:
+        """The SUM that carries gradients (module docstring): the
+        rank-order sum forward, the rank-order sum of the incoming
+        gradients backward; a one-rank group passes its value through."""
+        return self._each(xs, lambda v: list(_RankSum.apply(*v))
+                          if len(v) > 1 else list(v))
+
+
+class _RankSum(torch.autograd.Function):
+    """The rank-order sum of a `LocalMesh` group's values, one output a
+    rank; the backward is the rank-order sum of the outputs' gradients,
+    handed to every rank (JAX's transpose of ``psum``)."""
+
+    @staticmethod
+    def forward(ctx, *xs):
+        s = _sum(xs)
+        return (s,) + tuple(s.clone() for _ in xs[1:])
+
+    @staticmethod
+    def backward(ctx, *gs):
+        s = _sum(gs)
+        return (s,) + tuple(s.clone() for _ in gs[1:])
+
 
 class LocalMesh(_LocalCollectives):
-    """``world`` ranks in one process on ``device``: ``world // sp`` dp
-    ranks x ``sp`` sequence-parallel ranks (flat rank ``dp * sp + j``)."""
+    """``world`` ranks in one process on ``device``: ``world // (sp *
+    tp)`` dp ranks x ``sp`` sequence-parallel ranks x ``tp``
+    tensor-parallel ranks (flat rank ``(i * sp + j) * tp + k``)."""
 
     is_local = True
 
-    def __init__(self, world: int, device, *, sp: int = 1):
+    def __init__(self, world: int, device, *, sp: int = 1, tp: int = 1):
         if world < 1:
             raise ValueError(f"world must be >= 1, got {world}")
         self.world = int(world)
-        self.axes = _axes(self.world, int(sp))
+        self.axes = _axes(self.world, int(sp), int(tp))
         self.device = resolve_device(device)
         self.ranks = tuple(range(self.world))
         self._groups = [list(self.ranks)]
 
     def __repr__(self) -> str:
         return (f"LocalMesh(world={self.world}, sp={self.axes[AXIS_SEQ]}, "
-                f"device={self.device})")
+                f"tp={self.axes[AXIS_TENSOR]}, device={self.device})")
 
     def coords(self, rank: int) -> dict:
         """Flat rank ``rank``'s index on each axis."""
@@ -273,10 +305,24 @@ class _AllToAll(torch.autograd.Function):
         return None, ctx.mesh._exchange(g.contiguous())
 
 
+class _Psum(torch.autograd.Function):
+    """A `ProcessMesh` view's ``psum``: the all-gather and the rank-order
+    sum of the stack, forward and backward."""
+
+    @staticmethod
+    def forward(ctx, mesh, x):
+        ctx.mesh = mesh
+        return _sum(list(mesh._gather(x)))
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, _sum(list(ctx.mesh._gather(g.contiguous())))
+
+
 class ProcessMesh:
     """This process's one rank of a `torch.distributed` process group
-    (`parallel.dist.dist_init` starts it), a dp x ``sp`` mesh of the
-    group's processes.
+    (`parallel.dist.dist_init` starts it), a dp x ``sp`` x ``tp`` mesh of
+    the group's processes.
 
     ``world`` is the group's size and ``ranks`` is ``(rank,)``, the
     GLOBAL rank: the SR keys and ``wire_fault=(code, rank)`` fold it in
@@ -301,7 +347,7 @@ class ProcessMesh:
 
     is_local = False
 
-    def __init__(self, device="cuda", *, sp: int = 1):
+    def __init__(self, device="cuda", *, sp: int = 1, tp: int = 1):
         if not dist.is_available() or not dist.is_initialized():
             raise RuntimeError("ProcessMesh needs a torch.distributed "
                                "process group: call parallel.dist."
@@ -309,7 +355,7 @@ class ProcessMesh:
         self.world = dist.get_world_size()
         self.rank = dist.get_rank()
         self.ranks = (self.rank,)
-        self.axes = _axes(self.world, int(sp))
+        self.axes = _axes(self.world, int(sp), int(tp))
         self.backend = str(dist.get_backend())
         self.device = resolve_device(device)
         if self.backend == "nccl":
@@ -328,7 +374,7 @@ class ProcessMesh:
         self._peers = tuple(range(self.world))
         self._root, self._name = self, None
         self._views: dict = {}
-        if self.axes[AXIS_SEQ] > 1:
+        if self.axes[AXIS_DATA] < self.world:
             # every process creates every subgroup, in one order; an axis
             # over all the processes runs on the group itself
             for name in _CANONICAL_ORDER:
@@ -349,8 +395,8 @@ class ProcessMesh:
             return (f"ProcessMesh.axis({self._name!r}, rank={self.rank}, "
                     f"world={self.world})")
         return (f"ProcessMesh(rank={self.rank}, world={self.world}, "
-                f"sp={self.axes[AXIS_SEQ]}, backend={self.backend}, "
-                f"device={self.device})")
+                f"sp={self.axes[AXIS_SEQ]}, tp={self.axes[AXIS_TENSOR]}, "
+                f"backend={self.backend}, device={self.device})")
 
     def _view(self, name: str, group, members: Sequence[int]):
         v = object.__new__(ProcessMesh)
@@ -375,7 +421,7 @@ class ProcessMesh:
             raise ValueError(f"no axis {name!r}; the mesh has "
                              f"{tuple(self.axes)}")
         if name not in self._views:
-            if name == AXIS_DATA and self.axes[AXIS_SEQ] == 1:
+            if name == AXIS_DATA and self.axes[AXIS_DATA] == self.world:
                 return self
             self._views[name] = self._view(name, None, (self.rank,))
         return self._views[name]
@@ -441,20 +487,25 @@ class ProcessMesh:
         the current stream after the transfer."""
         return [_Shift.apply(self, self._check(xs))]
 
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        self._record("all_gather", x)
+        if self._solo:
+            return x[None].clone()
+        src = x.cpu() if self.staged else x
+        # 2-byte floats travel as their bits (gloo has no bf16 type)
+        bits = src.view(torch.int16) if src.element_size() == 2 else src
+        out = torch.empty((self.world,) + tuple(src.shape), dtype=bits.dtype,
+                          device=src.device)
+        dist.all_gather_into_tensor(out.reshape(-1), bits.reshape(-1),
+                                    group=self.group)
+        out = out.view(src.dtype)
+        return out.to(self.device) if self.staged else out
+
     def all_gather(self, xs: Sequence[torch.Tensor]) -> list:
         """The (world, ...) stack of every rank's value, in rank order:
         one all-gather into a single tensor (at world 1 too, so the
         backend's collective runs on a one-card machine)."""
-        x = self._check(xs)
-        self._record("all_gather", x)
-        if self._solo:
-            return [x[None].clone()]
-        src = x.cpu() if self.staged else x
-        out = torch.empty((self.world,) + tuple(src.shape), dtype=src.dtype,
-                          device=src.device)
-        dist.all_gather_into_tensor(out.reshape(-1), src.reshape(-1),
-                                    group=self.group)
-        return [out.to(self.device) if self.staged else out]
+        return [self._gather(self._check(xs))]
 
     def all_to_all(self, xs: Sequence[torch.Tensor]) -> list:
         """This rank's (world, ...) stack, row j sent to rank j; returns
@@ -487,6 +538,15 @@ class ProcessMesh:
         """Elementwise mean over the ranks: the rank-order sum / world."""
         return [s / self.world for s in self.sum(xs)]
 
+    def psum(self, xs: Sequence[torch.Tensor]) -> list:
+        """The SUM that carries gradients (module docstring): `sum`
+        forward, the same all-gather and rank-order sum of the incoming
+        gradient backward, bitwise the `LocalMesh`'s ``psum``."""
+        x = self._check(xs)
+        if self._solo:
+            return [x]
+        return [_Psum.apply(self, x)]
+
 
 def per_distinct(fn, *columns: Sequence) -> list:
     """``[fn(*row) for row in zip(*columns)]``, with ``fn`` run once per
@@ -514,11 +574,13 @@ def data_parallel_mesh(world: Optional[int] = None, device="cuda"):
     return LocalMesh(world, device)
 
 
-def make_mesh(dp: Optional[int] = 1, sp: int = 1, device="cuda"):
-    """A dp x sp mesh (the JAX ``make_mesh(dp=, sp=)``): ``dp * sp``
-    `LocalMesh` ranks on ``device``, or, with ``dp=None``, this process's
-    rank of the `torch.distributed` group as a `ProcessMesh` whose
-    processes form ``world // sp`` dp ranks x ``sp``."""
+def make_mesh(dp: Optional[int] = 1, sp: int = 1, device="cuda", *,
+              tp: int = 1):
+    """A dp x sp x tp mesh (the JAX ``make_mesh(dp=, tp=, sp=)``):
+    ``dp * sp * tp`` `LocalMesh` ranks on ``device``, or, with
+    ``dp=None``, this process's rank of the `torch.distributed` group as
+    a `ProcessMesh` whose processes form ``world // (sp * tp)`` dp ranks
+    x ``sp`` x ``tp``."""
     if dp is None:
-        return ProcessMesh(device, sp=sp)
-    return LocalMesh(dp * sp, device, sp=sp)
+        return ProcessMesh(device, sp=sp, tp=tp)
+    return LocalMesh(dp * sp * tp, device, sp=sp, tp=tp)

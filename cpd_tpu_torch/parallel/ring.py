@@ -444,9 +444,10 @@ def ring_quantized_sum(flats: Sequence[torch.Tensor], mesh, exp: int,
 def hierarchical_ring_sum(flats: Sequence[torch.Tensor], mesh, exp: int,
                           man: int, **kw):
     """The ring over the mesh's axes.  The reduce runs over one axis (a
-    data-parallel mesh, or the dp view of a dp x sp mesh), where this is
-    exactly `ring_quantized_sum`; the multi-axis composition (innermost
-    axis first) is not ported yet (ROADMAP Queue A row 1, A5)."""
+    data-parallel mesh, or the dp view of a dp x sp x tp mesh), where
+    this is exactly `ring_quantized_sum`; the multi-axis composition
+    (innermost axis first) is not ported yet (ROADMAP Queue A row 2,
+    A5)."""
     return ring_quantized_sum(flats, mesh, exp, man, **kw)
 
 

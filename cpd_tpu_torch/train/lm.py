@@ -1,6 +1,6 @@
 """The LM train and eval steps (port of `make_lm_train_step` /
-`make_lm_eval_step` from `cpd_tpu/train/lm.py`: the dp and sp axes,
-tp = 1).
+`make_lm_eval_step` from `cpd_tpu/train/lm.py`: the dp, sp and tp
+axes).
 
 One train step over a mesh of W ranks, as the JAX step runs it under
 `shard_map` on a ("dp",) mesh:
@@ -57,7 +57,34 @@ after the sp sum the sp ranks hold one gradient and must draw the same
 bits), and the metrics sum over dp x sp.  On a `LocalMesh` the dp
 reduce runs once, over the sp-index-0 ranks, and every sp rank takes its
 result; on a `ProcessMesh` each sp slice runs its own, as JAX does.
-``overlap_reduce`` at sp > 1 is not ported yet (ROADMAP Queue A row 1).
+``overlap_reduce`` at sp or tp > 1 is not ported yet (ROADMAP Queue A
+row 2).
+
+On a dp x sp x tp mesh (``make_mesh(dp, sp, tp=)``) the tp ranks of a
+block take the same tokens and run Megatron-sharded blocks
+(`models.transformer`): each rank's forward uses its shards of the
+col/row-sharded kernels and the replicated rest, and the blocks' tp sums
+carry gradients (their backward sums the tp ranks' cotangents, JAX's
+transpose of ``psum``).  As in JAX, the normaliser counts dp x sp x tp
+tokens (the loss is computed redundantly on every tp rank, and the
+transpose of the forward tp sums adds the tp ranks' cotangents), every
+leaf is summed over sp and then each replicated leaf over tp, both in
+rank order, and a sharded leaf is already whole on its shard.  The dp
+reduce runs per tp index over that index's LOCAL tree — its shards and
+the replicated leaves, so the bucket layout, APS's exponents and the SR
+offsets are the local leaves' (a tp = 2 step's quantized gradients
+differ from tp = 1's by design).  On a `LocalMesh` one full-width model
+holds every shard: each tp rank computes with its own contiguous slices
+(`models.transformer.rank_params`), and the optimizer updates the full
+weights from the reduced shards put back together along their sharded
+dim (the replicated leaves from tp index 0's reduce), which for SGD,
+Nesterov and AdamW is elementwise and so bitwise the shard-local
+update; LARS and global-norm clipping need global norms and are
+refused at tp > 1.  On a `ProcessMesh` each process holds its shard
+model (``tp_size`` = tp).  The dropout keys fold dp and sp, not tp
+(every tp rank draws the same mask on the summed value), the SR keys
+fold the dp index, and the metrics and the eval step count dp x sp
+tokens (tp index 0's sums).
 
 With a ``dropout_rate`` the model draws each micro-batch's masks from
 ``fold_in(fold_in(fold_in(PRNGKey(rng_seed), step*N + micro), dp),
@@ -72,11 +99,12 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..models.transformer import lm_param_specs, rank_params
 from ..parallel.dist import grad_sr_key, sum_gradients
 from ..parallel.emulate import emulate_node_reduce
 from ..parallel.overlap import BucketPlan
 from ..quant.prng import PRNGKey, fold_in
-from .state import TrainState
+from .state import TrainState, reject_norm_based
 from .step import _wire_fault, fp32_numerics, overlap_backward
 
 __all__ = ["make_lm_train_step", "make_lm_eval_step", "lm_local_gradients",
@@ -198,14 +226,14 @@ def lm_local_gradients(model, toks: torch.Tensor, tgts: torch.Tensor, mesh,
     return grads, sums, hits
 
 
-def _sp_layout(toks: torch.Tensor, mesh) -> tuple:
-    """``(groups, block, rows, t_local)`` of a dp x sp mesh: the local
-    positions of each dp index's sp ranks, ``block(x, p)`` local
-    position p's (rows, T_local) block of a handed batch, and its size."""
-    sp = mesh.axes["sp"]
+def _group_layout(toks: torch.Tensor, mesh) -> tuple:
+    """``(groups, block, rows, t_local)`` of a dp x sp x tp mesh: the
+    local positions of each dp index's sp x tp ranks (flat order),
+    ``block(x, p)`` local position p's (rows, T_local) block of a handed
+    batch (a tp rank's is its block's), and its size."""
     if not mesh.is_local:
         return [[0]], (lambda x, p: x), toks.shape[0], toks.shape[1]
-    dp = mesh.world // sp
+    dp, sp, tp = (mesh.axes[a] for a in ("dp", "sp", "tp"))
     if toks.shape[0] % dp or toks.shape[1] % sp:
         raise ValueError(f"batch {tuple(toks.shape)} does not split into "
                          f"dp={dp} x sp={sp} blocks")
@@ -216,34 +244,90 @@ def _sp_layout(toks: torch.Tensor, mesh) -> tuple:
         return x[c["dp"] * rows:(c["dp"] + 1) * rows,
                  c["sp"] * t_local:(c["sp"] + 1) * t_local]
 
-    return ([[d * sp + j for j in range(sp)] for d in range(dp)], block,
+    per = sp * tp
+    return ([list(range(d * per, (d + 1) * per)) for d in range(dp)], block,
             rows, t_local)
 
 
-def _sp_view(mesh, group: list):
-    """The sp view over one dp index's local ranks."""
-    return mesh.axis("sp", group) if mesh.is_local else mesh.axis("sp")
+def _group_views(mesh, group: list) -> tuple:
+    """The sp and tp views over one dp index's local ranks."""
+    if mesh.is_local:
+        return mesh.axis("sp", group), mesh.axis("tp", group)
+    return mesh.axis("sp"), mesh.axis("tp")
 
 
 def _coords(mesh, p: int) -> dict:
     return mesh.coords(p if mesh.is_local else mesh.rank)
 
 
+def _check_tp_model(model, mesh) -> None:
+    """A tp mesh's model: built with ``tp_axis``, at ``tp_size`` 1 (all
+    the shards) on a `LocalMesh` and at the mesh's tp (its own shard) on
+    a `ProcessMesh`."""
+    tp = mesh.axes["tp"]
+    want = 1 if mesh.is_local else tp
+    if getattr(model, "tp_axis", None) is None or model.tp_size != want:
+        raise ValueError(
+            f"a mesh with tp={tp} needs a model built with tp_axis='tp' "
+            f"and tp_size={want} (a LocalMesh's model holds the full "
+            f"weights, a ProcessMesh rank's its own shard); got "
+            f"tp_size={getattr(model, 'tp_size', None)}")
+
+
+def _tokens_counted(toks: torch.Tensor, mesh) -> float:
+    """The global token count of a handed batch: each dp x sp block once
+    (its tp ranks share it)."""
+    tp = mesh.axes["tp"]
+    blocks = mesh.world // tp
+    handed = len(mesh.ranks) // tp if mesh.is_local else 1
+    return float(toks.numel() // handed * blocks)
+
+
+def _block_sum(mesh, xs: list) -> torch.Tensor:
+    """The rank-order sum of the tp-index-0 ranks' values over the whole
+    mesh (JAX's psum over (dp, sp)); at tp 1 ``mesh.sum``."""
+    tp = mesh.axes["tp"]
+    if tp == 1:
+        return mesh.sum(xs)[0]
+    stack = mesh.all_gather(xs)[0]
+    s = stack[0]
+    for f in range(tp, mesh.world, tp):
+        s = s + stack[f]
+    return s
+
+
+def _whole(shards: list, dims: list) -> list:
+    """Each leaf of the tp indices' reduced local trees put back whole:
+    a sharded leaf the concatenation of its shards along its dim, a
+    replicated leaf tp index 0's."""
+    if len(shards) == 1:
+        return shards[0]
+    out = []
+    for i, dim in enumerate(dims):
+        if dim is None:
+            out.append(shards[0][i])
+        else:
+            out.append(torch.cat([s[i] for s in shards], dim=dim))
+    return out
+
+
 def lm_sp_gradients(model, toks: torch.Tensor, tgts: torch.Tensor, mesh,
                     label_smoothing: float = 0.0, emulate_node: int = 1,
                     key_fn=None) -> tuple:
-    """Step 1 on a dp x sp mesh (module docstring): for every local rank,
-    its block's N = ``emulate_node`` micro-batches of B rows, each run
-    with the other sp ranks of its dp index by `forward_sp` and one
-    backward of their objectives' sum (each rank's CE sum / (dp*sp*B*
-    T_local) / N), and the per-rank gradients summed over the sp view in
-    rank order.  Returns ``(grads, sums, hits)``, one entry per local
-    rank: the sp-summed gradients in ``parameters()`` order (at N > 1
-    each leaf stacks the N micro-batch sums, ``(N, *shape)``; the sp
-    ranks of one dp index share one list on a `LocalMesh`), the CE sum
-    and the argmax hits of its micro-batches.  ``key_fn(dp_index,
-    sp_index, micro)``: each rank's dropout key."""
-    groups, block, rows, t_local = _sp_layout(toks, mesh)
+    """Step 1 on a dp x sp x tp mesh (module docstring): for every local
+    rank, its block's N = ``emulate_node`` micro-batches of B rows, each
+    run with the other sp and tp ranks of its dp index by `forward_sp`
+    and one backward of their objectives' sum (each rank's CE sum /
+    (dp*sp*tp*B*T_local) / N), and the per-rank gradients summed over
+    the sp view, then the replicated leaves over the tp view, in rank
+    order.  Returns ``(grads, sums, hits)``, one entry per local rank:
+    the summed gradients of its local tree in ``parameters()`` order (a
+    sharded leaf at its shard's shape; at N > 1 each leaf stacks the N
+    micro-batch sums, ``(N, *shape)``; on a `LocalMesh` the ranks that
+    hold the same sums hold views of one buffer), the CE sum and the
+    argmax hits of its micro-batches.  ``key_fn(dp_index, sp_index,
+    micro)``: each rank's dropout key."""
+    groups, block, rows, t_local = _group_layout(toks, mesh)
     n = emulate_node
     if rows < n or rows % n:
         raise ValueError(
@@ -251,27 +335,30 @@ def lm_sp_gradients(model, toks: torch.Tensor, tgts: torch.Tensor, mesh,
             f"emulate_node={n}")
     b = rows // n
     global_n = float(b * t_local * mesh.world)
+    tp = mesh.axes["tp"]
     names = [k for k, _ in model.named_parameters()]
+    specs = lm_param_specs(model.named_parameters())
+    replicated = [specs[k][0] is None for k in names]
     model.train()
     local = len(mesh.ranks)
     grads, sums, hits = [None] * local, [None] * local, [None] * local
     for group in groups:
-        view = _sp_view(mesh, group)
+        sp_view, tp_view = _group_views(mesh, group)
         coords = [_coords(mesh, p) for p in group]
         micro = [[] for _ in group]
         for j in range(n):
             tk = [block(toks, p)[j * b:(j + 1) * b] for p in group]
             tg = [block(tgts, p)[j * b:(j + 1) * b] for p in group]
             if mesh.is_local:
-                # each rank's own aliases of the weights
-                params = [{k: p.detach().requires_grad_(True) for k, p in
-                           model.named_parameters()} for _ in group]
+                # each rank's own aliases of the weights (its shards)
+                params = [rank_params(model, c["tp"], tp, grad=True)
+                          for c in coords]
                 leaves = [[d[k] for k in names] for d in params]
             else:
                 params, leaves = None, [list(model.parameters())]
             keys = (None if key_fn is None else
                     [key_fn(c["dp"], c["sp"], j) for c in coords])
-            logits = model.forward_sp(tk, view, params, keys)
+            logits = model.forward_sp(tk, sp_view, params, keys, tp_view)
             objective = None
             for i, (lg, t) in enumerate(zip(logits, tg)):
                 obj, local_sum, hit = _objective(lg, t, label_smoothing,
@@ -291,11 +378,20 @@ def lm_sp_gradients(model, toks: torch.Tensor, tgts: torch.Tensor, mesh,
         per_rank = [m[0] if n == 1 else [torch.stack(g) for g in zip(*m)]
                     for m in micro]
         del micro
-        # every rank of the group holds the same sum: one list for all
-        shared = _unflat(view.sum([_flat(g) for g in per_rank])[0],
-                         per_rank[0])
-        for p in group:
-            grads[p] = shared
+        summed = [_unflat(f, per_rank[0])
+                  for f in sp_view.sum([_flat(g) for g in per_rank])]
+        del per_rank
+        if tp > 1:
+            # the replicated leaves' tp sum; a shard is whole already
+            rep = tp_view.sum([_flat([g for g, r in zip(gs, replicated)
+                                      if r]) for gs in summed])
+            like = [g for g, r in zip(summed[0], replicated) if r]
+            for i, f in enumerate(rep):
+                whole = iter(_unflat(f, like))
+                summed[i] = [next(whole) if r else g
+                             for g, r in zip(summed[i], replicated)]
+        for p, gs in zip(group, summed):
+            grads[p] = gs
     return grads, sums, hits
 
 
@@ -337,30 +433,39 @@ def make_lm_train_step(model, opt, mesh, *, emulate_node: int = 1,
             f"block_scale=True needs mode='ring' (got {mode!r}): the "
             f"per-block scale sidecar rides the ring's packed wire")
     sr = grad_rounding == "stochastic"
-    sp = mesh.axes["sp"]
-    if sp > 1 and overlap_reduce:
+    sp, tp = mesh.axes["sp"], mesh.axes["tp"]
+    if (sp > 1 or tp > 1) and overlap_reduce:
         raise NotImplementedError(
-            "overlap_reduce at sp > 1 (the sp sum moved into each bucket's "
-            "tap): not yet ported to cpd_tpu_torch (ROADMAP Queue A, row 1)")
+            "overlap_reduce at sp or tp > 1 (the sp and tp sums moved into "
+            "each bucket's tap): not yet ported to cpd_tpu_torch (ROADMAP "
+            "Queue A, row 2)")
     if sp > 1 and getattr(model, "sp_axis", None) is None:
         raise ValueError(f"a mesh with sp={sp} needs a model built with "
                          "sp_axis='sp'")
+    if tp > 1:
+        reject_norm_based(opt, "tp-sharded LM step")
+        _check_tp_model(model, mesh)
     prec_kw = dict(use_aps=use_aps, grad_exp=grad_exp, grad_man=grad_man,
                    use_kahan=use_kahan, mode=mode, rounding=grad_rounding,
                    block_scale=block_scale, block_size=block_size)
     plan = (BucketPlan.for_tree(list(model.parameters()), bucket_elems)
             if overlap_reduce else None)
-    # the dp reduce's ranks: on a LocalMesh the sp-index-0 ones, whose
-    # sp-summed gradients every sp rank of their dp index shares
-    dp_pos = (list(range(0, mesh.world, sp)) if mesh.is_local
-              else [0])
-    dp_view = (mesh.axis("dp", dp_pos) if sp > 1 and mesh.is_local
-               else mesh.axis("dp"))
+    # the dp reduce's ranks, one list a tp index: on a LocalMesh the
+    # sp-index-0 ones, whose sp-summed gradients every sp rank of their dp
+    # index shares
+    if mesh.is_local:
+        dp_pos = [list(range(k, mesh.world, sp * tp)) for k in range(tp)]
+        dp_views = [mesh.axis("dp", pos) if sp * tp > 1 else mesh.axis("dp")
+                    for pos in dp_pos]
+    else:
+        dp_pos, dp_views = [[0]], [mesh.axis("dp")]
+    specs = lm_param_specs(model.named_parameters())
+    dims = [specs[n][1] for n, _ in model.named_parameters()]
     dropout = getattr(model, "dropout_rate", 0.0) > 0.0
 
     def step(state: TrainState, tokens, targets):
         toks, tgts = as_tokens(tokens, targets, mesh.device)
-        total_n = float(toks.numel() // len(mesh.ranks) * mesh.world)
+        total_n = _tokens_counted(toks, mesh)
         sum_key = grad_sr_key(grad_seed, state.step, 1) if sr else None
         fault = (_wire_fault(wire_fault_plan, state.step)
                  if wire_fault_plan is not None and mode == "ring" else None)
@@ -385,30 +490,37 @@ def make_lm_train_step(model, opt, mesh, *, emulate_node: int = 1,
                 reduced, report = res["reduced"], res["report"]
             else:
                 grads, sums, hits = (
-                    lm_sp_gradients if sp > 1 else lm_local_gradients)(
+                    lm_sp_gradients if sp * tp > 1 else lm_local_gradients)(
                     model, toks, tgts, mesh, label_smoothing, emulate_node,
                     key_fn=key_fn)
-                grads = [grads[p] for p in dp_pos]
-                if emulate_node > 1:
-                    grads = [emulate_node_reduce(
-                        g, emulate_node, use_aps, grad_exp, grad_man,
-                        key=fold_in(emu_key, r) if sr else None,
-                        rounding=grad_rounding, fused=fused)
-                        for g, r in zip(grads, dp_view.ranks)]
-                out = sum_gradients(grads, dp_view, key=sum_key,
-                                    verify=verify_reduce, wire_fault=fault,
-                                    stats=quant_stats,
-                                    bucket_elems=bucket_elems, fused=fused,
-                                    **prec_kw)
+                shards, report = [], None
+                # the dp reduce of each tp index, over its local tree
+                for pos, view in zip(dp_pos, dp_views):
+                    local = [grads[p] for p in pos]
+                    if emulate_node > 1:
+                        local = [emulate_node_reduce(
+                            g, emulate_node, use_aps, grad_exp, grad_man,
+                            key=fold_in(emu_key, r) if sr else None,
+                            rounding=grad_rounding, fused=fused)
+                            for g, r in zip(local, view.ranks)]
+                    out = sum_gradients(local, view, key=sum_key,
+                                        verify=verify_reduce,
+                                        wire_fault=fault, stats=quant_stats,
+                                        bucket_elems=bucket_elems,
+                                        fused=fused, **prec_kw)
+                    del local
+                    out, rep = (out if verify_reduce or quant_stats
+                                else (out, None))
+                    shards.append(out[0])
+                    report = rep if report is None else report
                 del grads
-                reduced, report = (out if verify_reduce or quant_stats
-                                   else (out, None))
+                reduced = [_whole(shards, dims)]
             state.opt_state = opt.apply(reduced[0], state.opt_state,
                                         list(model.parameters()),
                                         fused=fused)
         state.step += 1
-        metrics = {"loss": mesh.sum(sums)[0] / total_n,
-                   "accuracy": mesh.sum(hits)[0].to(torch.float32)
+        metrics = {"loss": _block_sum(mesh, sums) / total_n,
+                   "accuracy": _block_sum(mesh, hits).to(torch.float32)
                    / total_n}
         if verify_reduce:
             metrics.update({f"reduce_{k}": report[k].to(torch.float32)
@@ -426,9 +538,9 @@ def make_lm_train_step(model, opt, mesh, *, emulate_node: int = 1,
 def make_lm_eval_step(model, mesh):
     """``eval_step(state, tokens, targets) -> {'loss', 'accuracy'}``:
     plain next-token CE and argmax accuracy over the global token count,
-    each local rank on its contiguous rows (on a dp x sp mesh its block;
-    on a `ProcessMesh` this process's, and every rank calls it), no
-    gradients, no dropout."""
+    each local rank on its contiguous rows (on a dp x sp x tp mesh its
+    block, the dp x sp tokens counted; on a `ProcessMesh` this
+    process's, and every rank calls it), no gradients, no dropout."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, tokens, targets):
@@ -436,12 +548,13 @@ def make_lm_eval_step(model, mesh):
         model.eval()
         sums, hits = [None] * len(mesh.ranks), [None] * len(mesh.ranks)
         with fp32_numerics():
-            if mesh.axes["sp"] > 1:
-                groups, block, _, _ = _sp_layout(toks, mesh)
+            if mesh.axes["sp"] * mesh.axes["tp"] > 1:
+                groups, block, _, _ = _group_layout(toks, mesh)
                 for group in groups:
+                    sp_view, tp_view = _group_views(mesh, group)
                     logits = model.forward_sp(
-                        [block(toks, p) for p in group],
-                        _sp_view(mesh, group))
+                        [block(toks, p) for p in group], sp_view, None,
+                        None, tp_view)
                     for p, lg in zip(group, logits):
                         tg = block(tgts, p)
                         sums[p] = _ce(lg, tg).sum()
@@ -453,8 +566,8 @@ def make_lm_eval_step(model, mesh):
                     logits = model(toks[i * b:(i + 1) * b])
                     sums[i] = _ce(logits, tg).sum()
                     hits[i] = (logits.argmax(-1) == tg).sum()
-        n = float(toks.numel() // len(mesh.ranks) * mesh.world)
-        return {"loss": mesh.sum(sums)[0] / n,
-                "accuracy": mesh.sum(hits)[0].to(torch.float32) / n}
+        n = _tokens_counted(toks, mesh)
+        return {"loss": _block_sum(mesh, sums) / n,
+                "accuracy": _block_sum(mesh, hits).to(torch.float32) / n}
 
     return eval_step

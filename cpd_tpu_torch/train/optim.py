@@ -183,7 +183,11 @@ def _norms(xs: list) -> torch.Tensor:
 
 class LARS:
     """The reference's LARS (module docstring); the state is
-    `TorchSGDState`."""
+    `TorchSGDState`.  Its trust ratios need global norms
+    (``norm_based``: a shard-local step refuses it, `train.state.
+    reject_norm_based`)."""
+
+    norm_based = True
 
     def __init__(self, schedule: Callable, momentum: float = 0.9,
                  weight_decay: float = 0.0, coefficient: float = 0.001):
@@ -387,7 +391,10 @@ def clip_by_global_norm(grads: Sequence[torch.Tensor],
 
 class ClipByGlobalNorm:
     """``inner`` fed globally clipped gradients; its state is the inner
-    optimizer's (the clip keeps none)."""
+    optimizer's (the clip keeps none).  The global norm makes it
+    ``norm_based``."""
+
+    norm_based = True
 
     def __init__(self, inner, max_norm: float):
         if max_norm <= 0:

@@ -553,8 +553,8 @@ def test_cli_trains_bf16_mha_flash_remat(capsys):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--sp", "2", "--sp-mode", "ulysses", "--overlap-reduce"], ["--tp", "2"],
-    ["--pp", "2"], ["--moe"], ["--scan-layers"], ["--n-microbatches", "2"],
+    ["--sp", "2", "--sp-mode", "ulysses", "--overlap-reduce"], ["--vocab-pp"],
+    ["--pp", "2"], ["--moe"], ["--ckpt-freq", "2"], ["--n-microbatches", "2"],
     ["--sample", "4"],
     ["--save-path", "x"],
     ["--export-torch", "x.pth"], ["--verify-reduce"], ["--obs-dir", "d"],

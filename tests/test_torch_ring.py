@@ -36,6 +36,7 @@ from cpd_tpu_torch.parallel import reduction as tred
 from cpd_tpu_torch.parallel import ring as tring
 from cpd_tpu_torch.parallel.mesh import LocalMesh
 from cpd_tpu_torch.quant import prng
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 # a ResNet-shaped leaf list (tiny widths): conv kernels, BN scale/bias
 # pairs, the head; odd sizes so buckets and ring chunks have ragged ends

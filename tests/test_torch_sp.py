@@ -209,15 +209,15 @@ def test_ring_chunked_and_degenerate_split():
 
 
 def test_mesh_layout_and_axis_views():
-    """Flat rank dp * sp + j; the views' ranks are axis indices, their
-    collectives stay within the groups, and the rotation/reindexing carry
-    gradients to the sender."""
+    """Flat rank dp * sp + j (tp 1); the views' ranks are axis indices,
+    their collectives stay within the groups, and the rotation/reindexing
+    carry gradients to the sender."""
     from cpd_tpu_torch.parallel.mesh import LocalMesh, make_mesh
 
     mesh = make_mesh(2, 2, "cpu")
-    assert mesh.world == 4 and mesh.axes == {"dp": 2, "sp": 2}
+    assert mesh.world == 4 and mesh.axes == {"dp": 2, "sp": 2, "tp": 1}
     assert [tuple(mesh.coords(r).values()) for r in mesh.ranks] == [
-        (0, 0), (0, 1), (1, 0), (1, 1)]
+        (0, 0, 0), (0, 1, 0), (1, 0, 0), (1, 1, 0)]
     dp, sp = mesh.axis("dp"), mesh.axis("sp")
     assert dp.ranks == (0, 0, 1, 1) and dp.world == 2
     assert sp.ranks == (0, 1, 0, 1) and sp.world == 2
@@ -534,9 +534,9 @@ def test_remat_sp_gradients_bitwise():
 
 
 def test_step_refuses_what_is_not_ported():
-    """``overlap_reduce`` at sp > 1 and ``scan_layers`` raise "not yet
-    ported" with their ROADMAP row; an sp mesh needs an sp model; the
-    model refuses ring + flash and an unknown sp_mode, as JAX's."""
+    """``overlap_reduce`` at sp > 1 and at tp > 1 raises "not yet ported"
+    with its ROADMAP row; an sp mesh needs an sp model; the model refuses
+    ring + flash and an unknown sp_mode, as JAX's."""
     from cpd_tpu_torch.models import transformer_lm as torch_lm
     from cpd_tpu_torch.parallel.mesh import make_mesh
     from cpd_tpu_torch.train import sgd
@@ -545,12 +545,14 @@ def test_step_refuses_what_is_not_ported():
     mesh = make_mesh(1, 2, "cpu")
     m = torch_lm(**SP_TINY, device="cpu", sp_axis="sp")
     opt = sgd(lambda s: 0.1)
-    with pytest.raises(NotImplementedError, match="Queue A, row 1"):
+    with pytest.raises(NotImplementedError, match="Queue A, row 2"):
         make_lm_train_step(m, opt, mesh, overlap_reduce=True)
     with pytest.raises(ValueError, match="sp_axis"):
         make_lm_train_step(torch_lm(**SP_TINY, device="cpu"), opt, mesh)
-    with pytest.raises(NotImplementedError, match="row 1"):
-        torch_lm(**SP_TINY, device="cpu", scan_layers=True)
+    with pytest.raises(NotImplementedError, match="row 2"):
+        make_lm_train_step(torch_lm(**SP_TINY, device="cpu", tp_axis="tp"),
+                           opt, make_mesh(1, 1, "cpu", tp=2),
+                           overlap_reduce=True)
     with pytest.raises(ValueError, match="ulysses"):
         torch_lm(**SP_TINY, device="cpu", sp_axis="sp", attn_impl="flash")
     with pytest.raises(ValueError, match="sp_mode"):
@@ -571,7 +573,7 @@ def _cli(argv, device="cpu"):
 
 def test_cli_sp_flags_and_refusals():
     """``--sp`` and ``--sp-mode`` parse with JAX's checks (seq-len % sp,
-    Ulysses' heads rule, ring + flash), and ``--tp`` still raises "not
+    Ulysses' heads rule, ring + flash), and ``--pp`` still raises "not
     yet ported" naming its row."""
     from cpd_tpu_torch.examples.lm import train as cli
 
@@ -581,7 +583,7 @@ def test_cli_sp_flags_and_refusals():
                          (["--sp", "3", "--seq-len", "18", "--sp-mode",
                            "ulysses"], "divisible by --sp"),
                          (["--attn-impl", "flash"], "does not compose"),
-                         (["--tp", "2"], "Queue A row 1"),
+                         (["--pp", "2"], "Queue A row 4"),
                          (["--dropout", "1.0"], r"\[0, 1\)")):
         with pytest.raises(SystemExit, match=match):
             cli.parse_args(SP_ARGV + extra)
